@@ -1,0 +1,280 @@
+"""Felsenstein pruning: the plain PyTorch version and the public dispatch.
+
+Port of the level path of `paml_tpu/core/pruning.py` (reference:
+`ConditionalPNode`, src/codeml.c:3526, with `NodeScale`,
+src/treesub.c:7200).  The tree is grouped into depth levels; each node's
+upward contribution c_v = P_v s_v is one batched einsum per level, a
+parent's partial is the product of its children's contributions followed
+by a per-(class, pattern) max-rescale accumulated in log space.  The
+gradient is the analytic inside/outside adjoint (`_lnf_lvl_bwd`), the
+backward of a `torch.autograd.Function`.
+
+`class_site_lnf` is the entry point.  A CUDA tensor goes to the hand
+written kernels in `cuda_pruning` (launched, or an error raised); a CPU
+tensor goes to the plain version here.  `class_site_lnf_plain` and
+`class_site_lnf_bwd_plain` run on any device, so the kernels can be held
+against them on the card; each call with a CUDA tensor adds one to
+`PLAIN_CALLS["cuda"]`, so a run can show that its main path never took
+them there.
+
+Shapes (the JAX package's layout):
+  tips:  [ns, H] integer state codes, or [ns, H, n] (multi-)hot partials
+  P:     [nnode, C, n, n]  row j = parent state: c[j, h] = sum_i P[j, i] s[i, h]
+  pi:    [C, n]            per-class root frequencies
+  out:   per-(class, pattern) log site likelihood [C, H]
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_pruning
+from .topology import Topology
+
+_GRAD_CAP = 1e12       # adjoint clip at absurd line-search trial points
+_BIG = 1e30            # nan_to_num bound on dP and dpi
+
+PLAIN_CALLS = {"cuda": 0}
+
+# ---------------------------------------------------------------------------
+# static schedules
+# ---------------------------------------------------------------------------
+
+
+def _levels(topo: Topology):
+    """Group internal nodes into depth levels (children strictly below).
+
+    Returns a list of levels; each level is a list of (node, kids-tuple)."""
+    cached = getattr(topo, "_levels_cache", None)
+    if cached is not None:
+        return cached
+    depth = np.zeros(topo.nnode, dtype=np.int64)
+    kids_of = {}
+    for v in topo.postorder:
+        kids = tuple(int(c) for c in topo.children[v] if c >= 0)
+        kids_of[int(v)] = kids
+        depth[v] = 1 + max(depth[k] for k in kids)
+    out = []
+    for d in range(1, int(depth[topo.postorder].max()) + 1):
+        lv = [(int(v), kids_of[int(v)]) for v in topo.postorder
+              if depth[v] == d]
+        if lv:
+            out.append(lv)
+    topo._levels_cache = out
+    return out
+
+
+def _arity_groups(level):
+    """Split a level's [(node, kids)] by arity -> {K: [(node, kids)]}."""
+    groups: dict[int, list] = {}
+    for node, kids in level:
+        groups.setdefault(len(kids), []).append((node, kids))
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# level path
+# ---------------------------------------------------------------------------
+
+
+def _is_state_tips(tips: torch.Tensor) -> bool:
+    """Integer [ns, H] state codes (clean data) instead of [ns, H, n]
+    partials?  State codes turn the tip product into a gather."""
+    return tips.dim() == 2
+
+
+def _tipsT_of(tips: torch.Tensor, dtype) -> torch.Tensor:
+    if _is_state_tips(tips):
+        return tips.long()
+    return tips.to(dtype).transpose(-1, -2)
+
+
+def _tip_contribs(P, tipsT, topo: Topology):
+    """Every tip's upward contribution [ns, C, n, H] at once."""
+    ns = topo.ns
+    C, n = P.shape[1], P.shape[3]
+    if _is_state_tips(tipsT):
+        # ctip[t, c, j, h] = P[t, c, j, states[t, h]]
+        H = tipsT.shape[1]
+        idx = tipsT[:, None, None, :].expand(ns, C, n, H)
+        return torch.gather(P[:ns], 3, idx)
+    return torch.einsum("tih,tcji->tcjh", tipsT, P[:ns])
+
+
+def _forward_levels(P, tipsT, topo: Topology):
+    """Upward level sweep.  Returns (s, m, c): node -> scaled partial
+    [C, n, H] (internal nodes), node -> scale factor [C, H], node ->
+    contribution [C, n, H] (every node but the root)."""
+    ctip = _tip_contribs(P, tipsT, topo)
+    c = {t: ctip[t] for t in range(topo.ns)}
+    s: dict[int, torch.Tensor] = {}
+    m: dict[int, torch.Tensor] = {}
+    for level in _levels(topo):
+        emit_nodes, emit_vals = [], []
+        for K, grp in _arity_groups(level).items():
+            W = len(grp)
+            kid_c = torch.stack([c[k] for _, kids in grp for k in kids])
+            kid_c = kid_c.reshape((W, K) + kid_c.shape[1:])   # [W,K,C,n,H]
+            prod = kid_c[:, 0]
+            for k in range(1, K):
+                prod = prod * kid_c[:, k]                     # [W,C,n,H]
+            mm = prod.amax(dim=-2)                            # [W,C,H]
+            msafe = torch.where(mm > 0, mm, torch.ones_like(mm))
+            sv = prod / msafe[..., None, :]
+            for w, (node, _) in enumerate(grp):
+                s[node] = sv[w]
+                m[node] = msafe[w]
+                if node != topo.root:
+                    emit_nodes.append(node)
+                    emit_vals.append(sv[w])
+        if emit_nodes:
+            S = torch.stack(emit_vals)                        # [W,C,n,H]
+            Pn = P[torch.as_tensor(emit_nodes, device=P.device)]
+            cv = torch.einsum("wcih,wcji->wcjh", S, Pn)
+            for w, node in enumerate(emit_nodes):
+                c[node] = cv[w]
+    return s, m, c
+
+
+def _root_F(s_root, pi):
+    F = torch.einsum("cnh,cn->ch", s_root, pi)
+    return torch.clamp_min(F, torch.finfo(F.dtype).tiny)
+
+
+def _lnf_from(m, F):
+    return torch.log(F) + torch.log(torch.stack(list(m.values()))).sum(0)
+
+
+def _lnf_lvl_bwd(topo: Topology, P, tipsT, s, m, c, F, pi, gbar):
+    """Analytic inside/outside adjoint: one downward sweep -> (dP, dpi)."""
+    ns = topo.ns
+    dtype = P.dtype
+    C, n = P.shape[1], P.shape[3]
+    state_tips = _is_state_tips(tipsT)
+    H = gbar.shape[1]
+
+    def tip_onehotT(k):
+        if state_tips:
+            return torch.nn.functional.one_hot(tipsT[k], n).to(dtype).T
+        return tipsT[k]
+
+    A = {topo.root: gbar[:, None, :] * pi[:, :, None] / F[:, None, :]}
+    dP: dict[int, torch.Tensor] = {}
+    for level in reversed(_levels(topo)):
+        for K, grp in _arity_groups(level).items():
+            W = len(grp)
+            kid_c = torch.stack([c[k] for _, kids in grp for k in kids])
+            kid_c = kid_c.reshape(W, K, C, n, H)
+            # leave-one-out products over the child axis
+            pre = [torch.ones_like(kid_c[:, 0])]
+            for k in range(1, K):
+                pre.append(pre[-1] * kid_c[:, k - 1])
+            suf = [torch.ones_like(kid_c[:, 0])]
+            for k in range(K - 2, -1, -1):
+                suf.insert(0, suf[0] * kid_c[:, k + 1])
+            loo = torch.stack([pre[k] * suf[k] for k in range(K)], dim=1)
+            Av = torch.stack([A[node] for node, _ in grp])      # [W,C,n,H]
+            mv = torch.stack([m[node] for node, _ in grp])      # [W,C,H]
+            G = Av[:, None] * loo / mv[:, None, :, None, :]     # [W,K,C,n,H]
+            # keep the adjoint finite at absurd line-search trial points
+            G = torch.clamp(torch.nan_to_num(G, nan=0.0, posinf=_GRAD_CAP,
+                                             neginf=-_GRAD_CAP),
+                            -_GRAD_CAP, _GRAD_CAP)
+            kidflat = [k for _, kids in grp for k in kids]
+            U = torch.stack([
+                (tip_onehotT(k)[None].expand(C, n, H) if k < ns else s[k])
+                for k in kidflat]).reshape(W, K, C, n, H)
+            dPk = torch.einsum("wkcjh,wkcih->wkcji", G, U)
+            Pk = P[torch.as_tensor(kidflat, device=P.device)]
+            Ak = torch.einsum("wkcjh,wkcji->wkcih", G,
+                              Pk.reshape(W, K, C, n, n))
+            for w, (_, kids) in enumerate(grp):
+                for k, kid in enumerate(kids):
+                    dP[kid] = dPk[w, k]
+                    if kid >= ns:
+                        A[kid] = Ak[w, k]
+    zero = torch.zeros((C, n, n), dtype=dtype, device=P.device)
+    dP_all = torch.stack([dP.get(v, zero) for v in range(topo.nnode)])
+    dpi = torch.einsum("ch,cnh->cn", gbar / F, s[topo.root])
+    dP_all = torch.nan_to_num(dP_all, nan=0.0, posinf=_BIG, neginf=-_BIG)
+    dpi = torch.nan_to_num(dpi, nan=0.0, posinf=_BIG, neginf=-_BIG)
+    return dP_all, dpi
+
+
+class _ClassSiteLnfLvl(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, P, tips, topo, pi):
+        tipsT = _tipsT_of(tips, P.dtype)
+        s, m, c = _forward_levels(P, tipsT, topo)
+        F = _root_F(s[topo.root], pi)
+        ctx.topo = topo
+        ctx.res = (P, tipsT, s, m, c, F, pi)
+        return _lnf_from(m, F)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        dP, dpi = _lnf_lvl_bwd(ctx.topo, *ctx.res, gbar.contiguous())
+        del ctx.res
+        return dP, None, None, dpi
+
+
+def _count_plain(P):
+    if P.is_cuda:
+        PLAIN_CALLS["cuda"] += 1
+
+
+def class_site_lnf_plain(P, tips, topo: Topology, pi):
+    """The plain version: per-(class, pattern) log site likelihood [C, H],
+    differentiable in P and pi through the analytic adjoint."""
+    _count_plain(P)
+    return _ClassSiteLnfLvl.apply(P, tips, topo, pi)
+
+
+def class_site_lnf_bwd_plain(P, tips, topo: Topology, pi, gbar):
+    """The plain adjoint as a function: (dP [nnode, C, n, n], dpi [C, n])
+    for the cotangent gbar [C, H] of lnf (forward recomputed)."""
+    _count_plain(P)
+    with torch.no_grad():
+        tipsT = _tipsT_of(tips, P.dtype)
+        s, m, c = _forward_levels(P, tipsT, topo)
+        F = _root_F(s[topo.root], pi)
+        return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+
+def class_site_lnf(P, tips, topo: Topology, pi):
+    """Per-(class, pattern) log site likelihood [C, H].
+
+    A CUDA tensor runs the hand-written kernels (`cuda_pruning`), which
+    launch or raise; a CPU tensor runs the plain version.  Gradients
+    w.r.t. P and pi through the analytic adjoint; tips are data."""
+    if P.device.type == "cuda":
+        return cuda_pruning.ClassSiteLnfKernel.apply(P, tips, topo, pi)
+    if P.device.type != "cpu":
+        raise ValueError(f"class_site_lnf: no path for device {P.device}")
+    return class_site_lnf_plain(P, tips, topo, pi)
+
+
+def site_loglik(P, tips, topo: Topology, pi, class_w) -> torch.Tensor:
+    """Per-pattern log-likelihood [H], mixing site classes with weights
+    class_w [C] (reference: `lfundG`, src/treesub.c:7608)."""
+    lnf_c = class_site_lnf(P, tips, topo, pi) + torch.log(class_w)[:, None]
+    return torch.logsumexp(lnf_c, dim=0)
+
+
+def lnL(P, tips, topo: Topology, pi, class_w, fpatt) -> torch.Tensor:
+    """Total log-likelihood sum_h fpatt[h] ln f_h (reference: `lfun`,
+    src/treesub.c:7764)."""
+    return torch.sum(fpatt * site_loglik(P, tips, topo, pi, class_w))
+
+
+def site_class_posterior(P, tips, topo: Topology, pi, class_w):
+    """Posterior P(class | pattern) [C, H] (NEB; reference: lfunNSsites_rate,
+    src/codeml.c:5241)."""
+    lnf_c = class_site_lnf(P, tips, topo, pi) + torch.log(class_w)[:, None]
+    return torch.softmax(lnf_c, dim=0)

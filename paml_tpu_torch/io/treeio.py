@@ -1,0 +1,203 @@
+"""Newick tree reading with the reference's annotation grammar.
+
+Port of `paml_tpu/io/treeio.py` (pure Python): `TreeNode`, `parse_newick`
+and `read_trees`.  Branch lengths (``:x``), branch labels (``#i``), clade
+labels (``$i``), node ages (``@x``) and quoted annotations are parsed as
+there; taxa may be given by name or by 1-based index into the alignment.
+"""
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+
+
+@dataclass
+class TreeNode:
+    name: str = ""
+    children: list["TreeNode"] = field(default_factory=list)
+    blen: float | None = None
+    label: int | None = None        # '#i' branch label (omega/rate class)
+    flabel: float | None = None     # raw '#x' value (evolver branch omegas)
+    clade_label: int | None = None  # '$i' clade label (applies to whole subtree)
+    age: float | None = None        # '@x' node age
+    annotation: str | None = None   # raw "'...'" or '[...]' annotation text
+    index: int = -1                 # assigned by index_tree
+
+    @property
+    def is_tip(self) -> bool:
+        return not self.children
+
+    def walk_post(self):
+        for c in self.children:
+            yield from c.walk_post()
+        yield self
+
+    def walk_pre(self):
+        yield self
+        for c in self.children:
+            yield from c.walk_pre()
+
+
+def _parse_suffix(node: TreeNode, s: str, i: int) -> int:
+    """Parse the trailing annotations after a node: labels, age, blen."""
+    n = len(s)
+    while i < n:
+        c = s[i]
+        if c.isspace():
+            i += 1
+        elif c == "'" or c == '"':
+            j = s.index(c, i + 1)
+            node.annotation = s[i + 1:j]
+            m = re.fullmatch(r"@\s*([0-9.eE+-]+)", node.annotation.strip())
+            if m:    # quoted fossil age, e.g. ')  '@0.45'' (reference: @)
+                node.age = float(m.group(1))
+            i = j + 1
+        elif c == "[":
+            j = s.index("]", i + 1)
+            ann = s[i + 1:j]
+            # '[&label]' style or calibration text
+            if node.annotation is None:
+                node.annotation = ann
+            i = j + 1
+        elif c == "#":
+            # integer labels are branch classes; float labels carry values
+            # directly (evolver's per-branch omegas, src/evolver.c:949)
+            m = re.match(r"#\s*([0-9.eE+-]+)", s[i:])
+            v = float(m.group(1))
+            node.flabel = v
+            if v == int(v):
+                node.label = int(v)
+            i += m.end()
+        elif c == "$":
+            m = re.match(r"\$\s*(\d+)", s[i:])
+            node.clade_label = int(m.group(1))
+            i += m.end()
+        elif c == "@":
+            m = re.match(r"@\s*([0-9.eE+-]+)", s[i:])
+            node.age = float(m.group(1))
+            i += m.end()
+        elif c == ":":
+            m = re.match(r":\s*([0-9.eE+-]+)", s[i:])
+            node.blen = float(m.group(1))
+            i += m.end()
+        elif c in (">", "<", "="):
+            # bare calibration like '>0.06<0.08' attached without quotes
+            m = re.match(r"[><=]\s*[0-9.eE+-]+", s[i:])
+            node.annotation = (node.annotation or "") + m.group(0)
+            i += m.end()
+        else:
+            break
+    return i
+
+
+def parse_newick(s: str) -> TreeNode:
+    s = s.strip().rstrip(";")
+    pos = 0
+
+    def parse_node() -> TreeNode:
+        nonlocal pos
+        node = TreeNode()
+        while pos < len(s) and s[pos].isspace():
+            pos += 1
+        # labels may precede the taxon name (e.g. '#2 2' in the reference's
+        # abglobin.trees); consume leading annotations
+        while pos < len(s) and s[pos] in "#$@":
+            pos = _parse_suffix(node, s, pos)
+            while pos < len(s) and s[pos].isspace():
+                pos += 1
+        if s[pos] == "(":
+            pos += 1
+            while True:
+                node.children.append(parse_node())
+                while pos < len(s) and s[pos].isspace():
+                    pos += 1
+                if s[pos] == ",":
+                    pos += 1
+                elif s[pos] == ")":
+                    pos += 1
+                    break
+                else:
+                    raise ValueError(f"newick parse error at {pos}: {s[pos:pos + 30]!r}")
+            # optional internal node name
+            m = re.match(r"\s*([A-Za-z0-9_.|/-]+)", s[pos:])
+            if m and not re.match(r"\s*[:#$@'\[]", s[pos:]):
+                node.name = m.group(1)
+                pos += m.end()
+        else:
+            if s[pos] == "'" or s[pos] == '"':
+                q = s[pos]
+                j = s.index(q, pos + 1)
+                node.name = s[pos + 1:j]
+                pos = j + 1
+            else:
+                m = re.match(r"[^\s,():;#$@\[\]]+", s[pos:])
+                if not m:
+                    raise ValueError(f"newick parse error at {pos}")
+                node.name = m.group(0)
+                pos += m.end()
+        pos = _parse_suffix(node, s, pos)
+        return node
+
+    root = parse_node()
+    return root
+
+
+def read_trees(path: str, names: list[str] | None = None) -> list[TreeNode]:
+    """Read a PAML tree file: optional 'ns ntree' header, then ';'-terminated
+    trees.  Numeric taxon labels are resolved to names via `names`."""
+    with open(path) as f:
+        text = f.read()
+    # strip C/C++-style comments (the reference's example tree files carry
+    # '/* ... */', '/ * ... */' and '// ...' annotations that its scanner
+    # skips by searching for '(')
+    text = re.sub(r"/\s*\*.*?\*\s*/", " ", text, flags=re.S)
+    text = re.sub(r"//[^\n]*", " ", text)
+    # lone '/ ' comments (reference example files, e.g. brown.rooted.trees);
+    # a '/' inside a taxon name has no following whitespace and is kept
+    text = re.sub(r"/\s[^\n]*", " ", text)
+
+    # optional header: 'ns ntree' or just 'ntree'
+    ntree = None
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        t = line.strip()
+        if not t:
+            continue
+        m = re.fullmatch(r"(\d+)(?:\s+(\d+))?", t)
+        if m:
+            ntree = int(m.group(2)) if m.group(2) else int(m.group(1))
+            text = "\n".join(lines[i + 1:])
+        break
+
+    trees: list[TreeNode] = []
+    for chunk in text.split(";"):
+        if ntree is not None and len(trees) >= ntree:
+            break
+        c = chunk.strip()
+        if "(" not in c:
+            continue
+        c = c[c.index("("):]
+        tree = parse_newick(c)
+        if names is not None:
+            _resolve_names(tree, names)
+        trees.append(tree)
+    return trees
+
+
+def _resolve_names(tree: TreeNode, names: list[str]) -> None:
+    for node in tree.walk_post():
+        if node.is_tip:
+            if node.name in names:
+                continue
+            if re.fullmatch(r"\d+", node.name):
+                idx = int(node.name) - 1
+                if 0 <= idx < len(names):
+                    node.name = names[idx]
+                    continue
+            # tolerate truncated names
+            matches = [n for n in names if n.startswith(node.name)]
+            if len(matches) == 1:
+                node.name = matches[0]
+            else:
+                raise ValueError(f"taxon {node.name!r} not in alignment")
+

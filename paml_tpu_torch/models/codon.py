@@ -1,0 +1,305 @@
+"""Codon substitution models (the codeml codon family).
+
+Port of `paml_tpu/models/codon.py`.  The numpy half is copied as it is:
+the codon graph (`codon_graph`), data-derived codon frequencies
+(`count_codon_freqs`, `codon_pi`, `mg_pf3x4`) and the dense [n, n] pair
+tables (`_dense_tables`).  The per-evaluation half is PyTorch: the dense,
+scatter-free Q build (`mutation_dense`, `build_Q_dense`, `flux_dense`).
+NSsites class matrices are Q_k = Qsyn + omega_k * Qnonsyn; all class
+normalizations come from the two flux scalars (rs, ra).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..constants import geneticcode_table, sense_codons
+
+CODON_FREQ_MODELS = ["Fequal", "F1x4", "F3x4", "Fcodon",
+                     "F1x4MG", "F3x4MG", "FMutSel0", "FMutSel"]
+
+
+@dataclass(frozen=True)
+class CodonGraph:
+    icode: int
+    n: int                     # number of sense codons
+    sense: np.ndarray          # [n] codon index 0..63
+    aa: np.ndarray             # [n] amino-acid index
+    pos_nt: np.ndarray         # [n, 3] nucleotide (TCAG idx) at each position
+    # single-difference pairs, i < j (indices into the sense list):
+    pi_idx: np.ndarray         # [m]
+    pj_idx: np.ndarray         # [m]
+    pos: np.ndarray            # [m] changed codon position 0..2
+    nt_i: np.ndarray           # [m] nucleotide in codon i at pos
+    nt_j: np.ndarray           # [m]
+    is_ts: np.ndarray          # [m] transition?
+    gtr_class: np.ndarray      # [m] 0..5 = TC TA TG CA CG AG
+    is_syn: np.ndarray         # [m]
+    # unchanged positions (for Muse-Gaut multipliers): values and which row
+    unch_pos: np.ndarray       # [m, 2] codon-position index of unchanged
+    unch_nt: np.ndarray        # [m, 2] nucleotide at those positions
+
+
+@lru_cache(maxsize=None)
+def codon_graph(icode: int = 0) -> CodonGraph:
+    sense = sense_codons(icode)
+    tab = geneticcode_table(icode)
+    n = len(sense)
+    pos_nt = np.stack([sense // 16, (sense // 4) % 4, sense % 4], axis=1)
+    aa = tab[sense]
+
+    pi_l, pj_l, pos_l, nti_l, ntj_l = [], [], [], [], []
+    for i in range(n):
+        for j in range(i + 1, n):
+            diff = np.nonzero(pos_nt[i] != pos_nt[j])[0]
+            if len(diff) != 1:
+                continue
+            p = int(diff[0])
+            pi_l.append(i)
+            pj_l.append(j)
+            pos_l.append(p)
+            nti_l.append(int(pos_nt[i, p]))
+            ntj_l.append(int(pos_nt[j, p]))
+    pi_idx = np.array(pi_l, dtype=np.int32)
+    pj_idx = np.array(pj_l, dtype=np.int32)
+    pos = np.array(pos_l, dtype=np.int32)
+    nt_i = np.array(nti_l, dtype=np.int32)
+    nt_j = np.array(ntj_l, dtype=np.int32)
+    # transitions: T<->C (0,1) or A<->G (2,3)
+    s = nt_i + nt_j
+    is_ts = (s == 1) | (s == 5)
+    # GTR class by sorted changed pair: TC TA TG CA CG AG
+    lo = np.minimum(nt_i, nt_j)
+    hi = np.maximum(nt_i, nt_j)
+    gtr_map = {(0, 1): 0, (0, 2): 1, (0, 3): 2, (1, 2): 3, (1, 3): 4, (2, 3): 5}
+    gtr_class = np.array([gtr_map[(int(a), int(b))] for a, b in zip(lo, hi)],
+                         dtype=np.int32)
+    is_syn = aa[pi_idx] == aa[pj_idx]
+    other = np.array([[1, 2], [2, 0], [0, 1]], dtype=np.int32)
+    unch_pos = other[pos]                                   # [m, 2]
+    unch_nt = pos_nt[pi_idx[:, None], unch_pos]             # [m, 2]
+    return CodonGraph(icode=icode, n=n, sense=sense, aa=aa, pos_nt=pos_nt,
+                      pi_idx=pi_idx, pj_idx=pj_idx, pos=pos,
+                      nt_i=nt_i, nt_j=nt_j, is_ts=np.asarray(is_ts),
+                      gtr_class=gtr_class, is_syn=np.asarray(is_syn),
+                      unch_pos=unch_pos, unch_nt=unch_nt)
+
+
+# ---------------------------------------------------------------------------
+# codon frequencies from data (reference: InitializeCodon, src/codeml.c:3772)
+# ---------------------------------------------------------------------------
+
+def count_codon_freqs(tip_partials: np.ndarray, fpatt: np.ndarray,
+                      graph: CodonGraph, pos_masks: np.ndarray | None = None):
+    """Pooled codon counts over all species/sites -> (fcodon [n],
+    f3x4 [3, 4], f1x4 [4]).
+
+    With ambiguity characters present and `pos_masks` given ([ns, H, 3, 4]
+    raw per-position nucleotide sets), ambiguous sites are resolved by the
+    reference's 20-round iteration (InitializeCodon + AddCodonFreqSeqGene,
+    src/codeml.c:3798-3768): each ambiguous codon's count is distributed
+    over its compatible sense codons (resp. bases) in proportion to the
+    current frequency estimates.
+
+    tip_partials may also be integer state codes [ns, H] (clean data)."""
+    tip_partials = np.asarray(tip_partials)
+    if tip_partials.ndim == 2:
+        ns = tip_partials.shape[0]
+        fcodon = np.bincount(tip_partials.reshape(-1),
+                             weights=np.tile(np.asarray(fpatt, float), ns),
+                             minlength=graph.n)
+        fcodon = fcodon / max(fcodon.sum(), 1e-300)
+        f3 = np.zeros((3, 4))
+        for p in range(3):
+            for b in range(4):
+                f3[p, b] = fcodon[graph.pos_nt[:, p] == b].sum()
+        f1 = f3.mean(0)
+        return (fcodon, f3 / f3.sum(1, keepdims=True), f1 / f1.sum())
+    resolved = tip_partials.sum(-1) == 1
+    w = tip_partials * (resolved[..., None] * fpatt[None, :, None])
+    fcodon = w.sum((0, 1))
+    fcodon = fcodon / max(fcodon.sum(), 1e-300)
+
+    def marginals(fc):
+        f3 = np.zeros((3, 4))
+        for p in range(3):
+            for b in range(4):
+                f3[p, b] = fc[graph.pos_nt[:, p] == b].sum()
+        f1 = f3.mean(0)
+        return f3 / f3.sum(1, keepdims=True), f1 / f1.sum()
+
+    f3x4, f1x4 = marginals(fcodon)
+
+    has_ambig = not bool(resolved.all())
+    if has_ambig and pos_masks is not None:
+        # initial per-position counts from resolved positions of ALL sites
+        fb3 = (pos_masks * (pos_masks.sum(-1, keepdims=True) == 1)
+               * fpatt[None, :, None, None]).sum((0, 1)).astype(float)
+        fb3 = fb3 / np.maximum(fb3.sum(1, keepdims=True), 1e-300)
+        fb4 = fb3.mean(0)
+        fb4 = fb4 / fb4.sum()
+        fc0, f30, f40 = fcodon.copy(), fb3.copy(), fb4.copy()
+        flat_sets = tip_partials > 0                       # [ns, H, n]
+        for _ in range(20):
+            # codon counts: distribute over compatible sense codons
+            denom = flat_sets @ fc0                        # [ns, H]
+            denom = np.maximum(denom, 1e-300)
+            contrib = (flat_sets * fc0[None, None, :]
+                       * (fpatt[None, :] / denom)[..., None])
+            fc = contrib.sum((0, 1))
+            fc = fc / max(fc.sum(), 1e-300)
+            # per-position counts: distribute over compatible bases
+            f3 = np.zeros((3, 4))
+            f4 = np.zeros(4)
+            for p in range(3):
+                sel = pos_masks[:, :, p, :]                # [ns, H, 4]
+                d3 = np.maximum(sel @ f30[p], 1e-300)
+                f3[p] = (sel * f30[p][None, None, :]
+                         * (fpatt[None, :] / d3)[..., None]).sum((0, 1))
+                d4 = np.maximum(sel @ f40, 1e-300)
+                f4 += (sel * f40[None, None, :]
+                       * (fpatt[None, :] / d4)[..., None]).sum((0, 1))
+            f3 = f3 / np.maximum(f3.sum(1, keepdims=True), 1e-300)
+            f4 = f4 / max(f4.sum(), 1e-300)
+            d = max(np.abs(fc - fc0).max(), np.abs(f3 - f30).max(),
+                    np.abs(f4 - f40).max())
+            fc0, f30, f40 = fc, f3, f4
+            if d < 1e-8:
+                break
+        fcodon, f3x4, f1x4 = fc0, f30, f40
+    return fcodon, f3x4, f1x4
+
+
+def codon_pi(codonf: str, fcodon, f3x4, f1x4, graph: CodonGraph) -> np.ndarray:
+    """Equilibrium codon frequencies under the frequency model."""
+    n = graph.n
+    if codonf == "Fequal":
+        pi = np.full(n, 1.0 / n)
+    elif codonf in ("Fcodon", "FMutSel0", "FMutSel"):
+        pi = np.asarray(fcodon, dtype=np.float64).copy()
+    elif codonf in ("F3x4", "F3x4MG"):
+        pi = (f3x4[0][graph.pos_nt[:, 0]] * f3x4[1][graph.pos_nt[:, 1]]
+              * f3x4[2][graph.pos_nt[:, 2]])
+    elif codonf in ("F1x4", "F1x4MG"):
+        pi = (f1x4[graph.pos_nt[:, 0]] * f1x4[graph.pos_nt[:, 1]]
+              * f1x4[graph.pos_nt[:, 2]])
+    else:
+        raise ValueError(f"unknown codonf {codonf}")
+    return pi / pi.sum()
+
+
+def mg_pf3x4(codonf: str, f3x4, f1x4) -> np.ndarray | None:
+    """Position-specific frequency table used by the Muse-Gaut multiplier.
+    F1x4MG/FMutSel use the position-averaged table (reference writes the
+    1x4 table into all three rows, src/codeml.c:3884-3893)."""
+    if codonf in ("F3x4MG",):
+        return np.asarray(f3x4)
+    if codonf in ("F1x4MG", "FMutSel0", "FMutSel"):
+        return np.tile(np.asarray(f1x4)[None, :], (3, 1))
+    return None
+
+
+
+@lru_cache(maxsize=None)
+def _dense_tables(icode: int):
+    """Dense [n, n] constant tables for scatter-free Q construction.
+
+    TPU scatters serialize; with these masks the per-evaluation Q build
+    is pure elementwise/gather work (reference semantics identical to
+    eigenQcodon's pair loop, src/codeml.c:3229-3301)."""
+    g = codon_graph(icode)
+    n = g.n
+
+    def dense(vals, fill=0.0, dt=np.float64):
+        D = np.full((n, n), fill, dt)
+        D[g.pi_idx, g.pj_idx] = vals
+        D[g.pj_idx, g.pi_idx] = vals
+        return D
+
+    ts = dense(g.is_ts.astype(np.float64))
+    tv = dense((~g.is_ts).astype(np.float64))
+    syn = dense(g.is_syn.astype(np.float64))
+    nonsyn = dense((~g.is_syn).astype(np.float64))
+    gtr = dense(g.gtr_class, fill=6, dt=np.int32)   # 6 = not a pair -> 0
+    pairm = dense(np.ones(len(g.pi_idx)))
+    # Muse-Gaut divisor index tables: the two unchanged positions of the
+    # pair (both orientations share them); 0s off-pairs (divisor -> 1)
+    up0 = dense(g.unch_pos[:, 0], dt=np.int32)
+    up1 = dense(g.unch_pos[:, 1], dt=np.int32)
+    un0 = dense(g.unch_nt[:, 0], dt=np.int32)
+    un1 = dense(g.unch_nt[:, 1], dt=np.int32)
+    return dict(ts=ts, tv=tv, syn=syn, nonsyn=nonsyn, gtr=gtr,
+                pair=pairm, up0=up0, up1=up1, un0=un0, un1=un1)
+
+
+
+@dataclass(frozen=True)
+class DenseTables:
+    """`_dense_tables` as tensors on one device (built once per objective,
+    so an evaluation copies nothing from the host)."""
+    ts: torch.Tensor
+    tv: torch.Tensor
+    syn: torch.Tensor
+    nonsyn: torch.Tensor
+    gtr: torch.Tensor
+    up0: torch.Tensor
+    up1: torch.Tensor
+    un0: torch.Tensor
+    un1: torch.Tensor
+
+
+def dense_tables(icode: int, device, dtype=torch.float64) -> DenseTables:
+    T = _dense_tables(icode)
+
+    def f(name):
+        return torch.as_tensor(T[name], dtype=dtype, device=device)
+
+    def i(name):
+        return torch.as_tensor(T[name], dtype=torch.int64, device=device)
+
+    return DenseTables(ts=f("ts"), tv=f("tv"), syn=f("syn"),
+                       nonsyn=f("nonsyn"), gtr=i("gtr"), up0=i("up0"),
+                       up1=i("up1"), un0=i("un0"), un1=i("un1"))
+
+
+def mutation_dense(T: DenseTables, kappa: torch.Tensor, pf3x4=None,
+                   hkyrev: bool = False) -> torch.Tensor:
+    """Dense symmetric mutation exchangeabilities [n, n] (zero off the
+    1-difference pairs).  kappa: [1] HKY kappa or [5] GTR rates (TC TA TG
+    CA CG, AG = 1); pf3x4: [3, 4] Muse-Gaut table or None."""
+    dtype = T.ts.dtype
+    if hkyrev:
+        rates7 = torch.cat([kappa.reshape(-1).to(dtype),
+                            torch.ones(1, dtype=dtype, device=kappa.device),
+                            torch.zeros(1, dtype=dtype, device=kappa.device)])
+        s = rates7[T.gtr]
+    else:
+        s = kappa.reshape(()).to(dtype) * T.ts + T.tv
+    if pf3x4 is not None:
+        pf = torch.as_tensor(pf3x4, dtype=dtype, device=T.ts.device)
+        f1 = pf[T.up0, T.un0]
+        f2 = pf[T.up1, T.un1]
+        # off-pair cells have s == 0 but would divide 0/0 when a position
+        # frequency is exactly zero; clamp the denominator
+        s = s / torch.clamp_min(f1 * f2, torch.finfo(dtype).tiny)
+    return s
+
+
+def build_Q_dense(T: DenseTables, s_dense: torch.Tensor, omega,
+                  pi: torch.Tensor) -> torch.Tensor:
+    """Unnormalized Q [..., n, n] from a dense mutation matrix; omega may
+    carry a batch shape [...] (one Q per site class)."""
+    omega = torch.as_tensor(omega, dtype=s_dense.dtype,
+                            device=s_dense.device)[..., None, None]
+    Q = s_dense * (T.syn + omega * T.nonsyn) * pi[None, :]
+    return Q - torch.diag_embed(Q.sum(-1))
+
+
+def flux_dense(T: DenseTables, s_dense: torch.Tensor, pi: torch.Tensor):
+    """(rs, ra): synonymous and nonsynonymous flux at omega = 1, so the
+    mean rate of Q(omega) is rs + omega * ra."""
+    base = pi[:, None] * s_dense * pi[None, :]
+    return (base * T.syn).sum(), (base * T.nonsyn).sum()
