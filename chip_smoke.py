@@ -4,17 +4,30 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit; TF32 off.
-2. Build: the CUDA kernels from paml_tpu_torch/csrc/ (nvcc, timed).
-3. Kernels against their plain PyTorch versions on the card: the pruning
+2. Build: the CUDA kernels from paml_tpu_torch/csrc/ (one nvcc per source,
+   side by side, timed).
+3. B1/B2 against their plain PyTorch versions on the card: the pruning
    forward (lnf) and adjoint (dP, dpi) at the bench shape (32 taxa on a
    ladder tree x 4096 patterns x 61 states x 3 classes) and at an 11-taxon
    tree with a trifurcating root (193 patterns, 4 classes), for state-code
    and multi-hot tips, in float32 and float64, with one value + gradient
    timed for each.
-4. The slice: a codon alignment simulated under M0 (kappa 2, omega 0.3;
+3b. B3/B4 (the large-tree pair) against their plain versions (lnf, the
+   residual S, dP, dpi) and against the level path, in float32 and
+   float64, at the bench shape, the uneven shape and one 1024-pattern
+   chunk of the 1024-taxon balanced tree (4 classes); B3+B4, B1+B2 and the
+   plain version timed at each.
+4. The M0 path: a codon alignment simulated under M0 (kappa 2, omega 0.3;
    32 taxa x 4096 codons) is fitted with `codeml.fit_packed` on the card
-   under M0 and M2a; the kernels must carry the whole run, and the fitted
-   lnL must match the plain version's on the card.
+   under M0 and M2a; B1/B2 must carry the whole run, and the fitted lnL
+   must match the plain version's on the card.
+5. The branch-site path: an alignment simulated under branch-site model A
+   (kappa 2, p0 0.5, p1 0.3, w0 0.1, w2 4; 1024 taxa on a balanced tree
+   with #1 on the root's left child, 10240 codons, Fequal) with the
+   port's own P(t).  One value + gradient with every branch length free
+   in 10 pattern chunks is held against the chunked plain version on the
+   card, and timed beside one unchunked; then `codeml.fit_packed` fits
+   model A with the branch lengths fixed; B3/B4 must carry the whole fit.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -22,6 +35,7 @@ CUDA device, or without the paml_tpu_torch package beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,6 +46,10 @@ import numpy as np
 SEED = 20240601
 BENCH = dict(ns=32, H=4096, C=3, shape="ladder")
 UNEVEN = dict(ns=11, H=193, C=4, shape="trifurcating")
+CHUNK = dict(ns=1024, H=1024, C=4, shape="balanced")
+# the JAX package's north-star shape (bench.py:46-48)
+BIG_TAXA, BIG_NPATT, BIG_CHUNKS = 1024, 10240, 10
+BS_TRUTH = dict(kappa=2.0, p0=0.5, p1=0.3, w0=0.1, w2=4.0)
 # f32: the Pallas kernel's own test tolerances; f64: relative
 TOL = {"float32": dict(val=2e-6, grad=3e-5),
        "float64": dict(val=1e-10, grad=1e-8)}
@@ -48,15 +66,17 @@ def newick(names, shape, blens=None):
 
     def bal(lo, hi):
         if hi - lo == 1:
-            return names[lo]
+            return lab(lo, names[lo])
         m = (lo + hi) // 2
         return f"({bal(lo, m)},{bal(m, hi)})"
     ns = len(names)
+    if shape == "balanced":
+        return bal(0, ns) + ";"
     a, b = ns // 3, 2 * ns // 3
     return f"({bal(0, a)},{bal(a, b)},{bal(b, ns)});"
 
 
-def kernel_problem(rng, ns, H, C, shape, n=61):
+def kernel_problem(rng, ns, H, C, shape, n=61, multihot=True):
     """Random P rows (positive, diagonally dominant), pi and tips, as the
     JAX package's kernel tests build them."""
     from paml_tpu_torch.core.topology import from_treenode
@@ -68,11 +88,13 @@ def kernel_problem(rng, ns, H, C, shape, n=61):
     P = 0.7 * np.eye(n)[None, None] + 0.3 * P / P.sum(-1, keepdims=True)
     pi = rng.dirichlet(np.ones(n), size=C)
     states = rng.integers(0, n, size=(ns, H)).astype(np.int32)
-    hot = np.zeros((ns, H, n))
-    hot[np.arange(ns)[:, None], np.arange(H)[None, :], states] = 1.0
-    amb = rng.integers(0, H, size=max(10, H // 20))
-    hot[0, amb] = 0.0
-    hot[0, amb, :5] = 1.0
+    hot = None
+    if multihot:
+        hot = np.zeros((ns, H, n))
+        hot[np.arange(ns)[:, None], np.arange(H)[None, :], states] = 1.0
+        amb = rng.integers(0, H, size=max(10, H // 20))
+        hot[0, amb] = 0.0
+        hot[0, amb, :5] = 1.0
     gbar = rng.uniform(0.5, 2.0, size=(C, H))
     return topo, P, pi, states, hot, gbar
 
@@ -94,17 +116,20 @@ def cuda_ms(fn, reps=10, warmup=2):
 
 def max_err(got, ref, rtol, what):
     """max |got - ref|; raises unless |got - ref| <= rtol (|ref| + max|ref|)
-    elementwise (atol scaled to the array, for sums over many patterns)."""
-    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
-    if got.shape != ref.shape or not np.isfinite(got).all():
-        raise AssertionError(f"{what}: shape {got.shape} vs {ref.shape} or "
-                             "non-finite values")
-    err = np.abs(got - ref)
-    bound = rtol * (np.abs(ref) + np.abs(ref).max())
-    if not (err <= bound).all():
-        i = np.unravel_index(np.argmax(err - bound), err.shape)
-        raise AssertionError(f"{what}: |diff| {err[i]:.3e} > {bound[i]:.3e} "
-                             f"at {i} (kernel {got[i]!r}, plain {ref[i]!r})")
+    elementwise (atol scaled to the array, for sums over many patterns).
+    Computed where the tensors lie."""
+    import torch
+    got, ref = got.double(), ref.double()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)} or non-finite values")
+    err = (got - ref).abs()
+    bound = rtol * (ref.abs() + ref.abs().max())
+    if bool((err > bound).any()):
+        i = np.unravel_index(int(torch.argmax(err - bound)), err.shape)
+        raise AssertionError(f"{what}: |diff| {float(err[i]):.3e} > "
+                             f"{float(bound[i]):.3e} at {i} (kernel "
+                             f"{float(got[i])!r}, plain {float(ref[i])!r})")
     return float(err.max())
 
 
@@ -185,6 +210,89 @@ def phase_kernels(torch, rng, report, card):
                           f"[{tag}]: dP/dpi max|diff| {e5:.3e}", flush=True)
 
 
+def phase_big_kernels(torch, rng, report, card):
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    props = torch.cuda.get_device_properties(0)
+    for cfg in (BENCH, UNEVEN, CHUNK):
+        topo, P_np, pi_np, st_np, _, gb_np = kernel_problem(
+            rng, **cfg, multihot=False)
+        bp = cuda_pruning.big_plan(topo)
+        ntiles = -(-cfg["H"] // cuda_pruning.HT)
+        for dtype in (torch.float64, torch.float32):
+            dn = str(dtype).split(".")[1]
+            tol = TOL[dn]
+            P = torch.tensor(P_np, dtype=dtype, device="cuda")
+            pi = torch.tensor(pi_np, dtype=dtype, device="cuda")
+            gbar = torch.tensor(gb_np, dtype=dtype, device="cuda")
+            tips = torch.tensor(st_np, device="cuda")
+            tag = f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']} {dn}"
+            lnf, S = cuda_pruning.pruning_big_fwd(P, tips, topo, pi)
+            dP, dpi = cuda_pruning.pruning_big_bwd(P, tips, topo, pi, gbar, S)
+            torch.cuda.synchronize()
+            lnf_r, S_r = pruning.class_site_lnf_big_plain(P, tips, topo, pi)
+            e_f = max(max_err(lnf, lnf_r, tol["val"], f"B3 lnf {tag}"),
+                      max_err(S, S_r, tol["val"], f"B3 S {tag}"))
+            del S_r
+            dP_r, dpi_r = pruning.class_site_lnf_big_bwd_plain(
+                P, tips, topo, pi, gbar, S)
+            e_b = max(max_err(dP, dP_r, tol["grad"], f"B4 dP {tag}"),
+                      max_err(dpi, dpi_r, tol["grad"], f"B4 dpi {tag}"))
+            del dP_r, dpi_r
+            # and against the level path (B1/B2's plain version)
+            with torch.no_grad():
+                lnf_l = pruning.class_site_lnf_plain(P, tips, topo, pi)
+            dP_l, dpi_l = pruning.class_site_lnf_bwd_plain(P, tips, topo, pi,
+                                                           gbar)
+            e_l = max(max_err(lnf, lnf_l, tol["val"], f"B3 lnf/level {tag}"),
+                      max_err(dP, dP_l, tol["grad"], f"B4 dP/level {tag}"),
+                      max_err(dpi, dpi_l, tol["grad"], f"B4 dpi/level {tag}"))
+            del dP_l, dpi_l
+            G = cuda_pruning.big_bwd_grid(
+                topo.nnode, cfg["C"], ntiles, P.element_size(),
+                props.multi_processor_count, props.total_memory,
+                bp.work_per_block)
+            print(f"B3/B4 vs plain [{tag}]: lnf/S max|diff| {e_f:.3e}, "
+                  f"dP/dpi max|diff| {e_b:.3e}; vs level path {e_l:.3e}; "
+                  f"blocks B3 {ntiles * cfg['C']}, B4 G = {G} x C = "
+                  f"{G * cfg['C']}, B2 G = "
+                  f"{cuda_pruning.bwd_grid(topo.nnode, topo.ns, cfg['C'], ntiles, P.element_size())}"
+                  f" x C; S {S.numel() * S.element_size() / 1e9:.3f} GB",
+                  flush=True)
+            for name, e in (("big_fwd", max(e_f, e_l)),
+                            ("big_bwd", max(e_b, e_l))):
+                key = f"max_abs_err_{dn}"
+                report[name][key] = max(report[name].get(key, 0.0), e)
+            reps = dict(reps=3, warmup=1) if cfg is CHUNK else {}
+            t = {
+                "big_fwd": cuda_ms(lambda: cuda_pruning.pruning_big_fwd(
+                    P, tips, topo, pi), **reps),
+                "big_bwd": cuda_ms(lambda: cuda_pruning.pruning_big_bwd(
+                    P, tips, topo, pi, gbar, S), **reps),
+                "fused": cuda_ms(lambda: (
+                    cuda_pruning.pruning_fwd(P, tips, topo, pi),
+                    cuda_pruning.pruning_bwd(P, tips, topo, pi, gbar)),
+                    **reps),
+                "plain_fwd": cuda_ms(lambda: pruning.class_site_lnf_big_plain(
+                    P, tips, topo, pi), **reps),
+                "plain_bwd": cuda_ms(
+                    lambda: pruning.class_site_lnf_big_bwd_plain(
+                        P, tips, topo, pi, gbar, S), **reps),
+            }
+            if cfg is CHUNK:
+                for name in ("big_fwd", "big_bwd"):
+                    report[name][f"ms_{dn}"] = t[name]
+                    report[name][f"plain_ms_{dn}"] = t[f"plain_{name[4:]}"]
+            print(f"  time [{tag}, {card}]: B3 {t['big_fwd']:.3f} ms + B4 "
+                  f"{t['big_bwd']:.3f} ms = "
+                  f"{t['big_fwd'] + t['big_bwd']:.3f} ms; B1+B2 "
+                  f"{t['fused']:.3f} ms; plain {t['plain_fwd']:.3f} + "
+                  f"{t['plain_bwd']:.3f} = "
+                  f"{t['plain_fwd'] + t['plain_bwd']:.3f} ms", flush=True)
+            del S, dP, dpi
+            torch.cuda.empty_cache()
+
+
 def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
     """Codon alignment simulated under M0 on a ladder tree with the port's
     own float64 P(t) (F3x4 frequencies from random nucleotide tables)."""
@@ -234,15 +342,31 @@ def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
     return data, topo
 
 
-def plain_lnl(torch, neg, x):
-    """lnL at x with the plain pruning version on the card."""
+def plain_value_grad(torch, neg, x, n_chunks, grad=True):
+    """lnL at x (and its gradient in x) with the plain pruning version on
+    the objective's device, the patterns in n_chunks chunks, each chunk's
+    graph freed before the next: (lnL, d lnL / dx or None)."""
     from paml_tpu_torch.core import pruning
-    with torch.no_grad():
-        P, piC, freqs = neg.model_at(x)
-        lnf = pruning.class_site_lnf_plain(P, neg.tips, neg.topo,
-                                           piC.contiguous())
-        site = torch.logsumexp(lnf + torch.log(freqs)[:, None], dim=0)
-        return float(torch.sum(neg.fpatt * site))
+    xt = torch.tensor(x, dtype=torch.float64, device=neg.tips.device,
+                      requires_grad=grad)
+    with torch.set_grad_enabled(grad):
+        outs = neg.model_at(xt)
+    ins = [o.detach().requires_grad_(o.requires_grad) for o in outs]
+    total = 0.0
+    for tc, fc in zip(*pruning.split_patterns(neg.tips, neg.fpatt,
+                                              n_chunks)):
+        with torch.set_grad_enabled(grad):
+            lnf = pruning.class_site_lnf_plain(ins[0], tc, neg.topo, ins[1])
+            v = torch.sum(fc * torch.logsumexp(
+                lnf + torch.log(ins[2])[:, None], dim=0))
+        if grad:
+            v.backward()
+        total += float(v.detach())
+    if not grad:
+        return total, None
+    torch.autograd.backward([o for o in outs if o.requires_grad],
+                            [i.grad for i in ins if i.requires_grad])
+    return total, xt.grad.cpu().numpy()
 
 
 def proj_grad_max(torch, neg, x, bounds):
@@ -304,7 +428,7 @@ def phase_slice(torch, rng, report, card):
             lnl_kernel = -float(neg(x))
             lnl_x0 = -float(neg(torch.tensor(x0, dtype=torch.float64,
                                              device="cuda")))
-        lnl_plain = plain_lnl(torch, neg, x)
+        lnl_plain = plain_value_grad(torch, neg, res.x, 1, grad=False)[0]
         pg = proj_grad_max(torch, neg, res.x, bounds)
         rel = abs(lnl_kernel - lnl_plain) / abs(lnl_plain)
         print(f"check {name}: lnL kernel {lnl_kernel:.9f}, plain "
@@ -328,6 +452,234 @@ def phase_slice(torch, rng, report, card):
                              "omega 0.3")
 
 
+def branch_site_tree(rng, ns):
+    """bench.py's tree: balanced, #1 on the root's left child, branch
+    lengths uniform on [0.02, 0.3]."""
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+
+    names = [f"t{i}" for i in range(ns)]
+
+    def bal(lo, hi):
+        if hi - lo == 1:
+            return names[lo]
+        m = (lo + hi) // 2
+        return f"({bal(lo, m)},{bal(m, hi)})"
+    tree = treeio.parse_newick(f"({bal(0, ns // 2)} #1,{bal(ns // 2, ns)});")
+    for node in tree.walk_post():
+        node.blen = float(rng.uniform(0.02, 0.3))
+    return from_treenode(tree, names), names
+
+
+def simulate_branch_site(torch, rng, ns, ncod, device):
+    """Integer-coded codon data simulated under branch-site model A at
+    BS_TRUTH, with P and the class weights from the port's own
+    `make_codon_objective(...).model_at` (branch lengths fixed at the
+    tree's): (data, topo, spec with fix_blength = 2, the true x)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.io import seqio
+
+    topo, names = branch_site_tree(rng, ns)
+    spec = codeml.CodemlSpec(model=2, NSsites=2, codonf="Fequal",
+                             fix_blength=2)
+    # Fequal: the model does not depend on the data it is built with
+    stub = seqio.PackedData(names=names, seqtype=1, nstates=61,
+                            tip_partials=np.zeros((ns, 1), np.int32),
+                            fpatt=np.ones(1))
+    neg = codeml.make_codon_objective(stub, topo, spec, device=device)[0]
+    t = BS_TRUTH
+    p2 = 1.0 - t["p0"] - t["p1"]
+    x_true = np.array([t["kappa"], np.log(t["p0"] / p2), np.log(t["p1"] / p2),
+                       t["w0"], t["w2"]])
+    with torch.no_grad():
+        P, piC, freqs = neg.model_at(torch.tensor(x_true, device=device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    n = P.shape[-1]
+    cls = torch.multinomial(freqs, ncod, replacement=True, generator=gen)
+    cum = P.cumsum(-1)
+    st = torch.empty((topo.nnode, ncod), dtype=torch.int64, device=device)
+    st[topo.root] = torch.multinomial(piC[0], ncod, replacement=True,
+                                      generator=gen)
+    stack = [topo.root]
+    while stack:
+        v = stack.pop()
+        for c in topo.children[v]:
+            if c < 0:
+                continue
+            u = torch.rand((ncod, 1), dtype=torch.float64, device=device,
+                           generator=gen)
+            st[c] = (u > cum[c, cls, st[v]]).sum(-1).clamp_max(n - 1)
+            stack.append(int(c))
+    data = seqio.PackedData(
+        names=names, seqtype=1, nstates=n,
+        tip_partials=st[:ns].to(torch.int32).cpu().numpy(),
+        fpatt=np.ones(ncod), ls=ncod, posG=np.array([0, ncod]))
+    return data, topo, spec, x_true
+
+
+def value_grad(torch, neg, x):
+    xt = torch.tensor(x, dtype=torch.float64, device="cuda",
+                      requires_grad=True)
+    v = neg(xt)
+    (g,) = torch.autograd.grad(v, xt)
+    return float(v.detach()), g.cpu().numpy()
+
+
+def branch_site_value_grad(torch, data, topo, spec, report, card):
+    """One value + gradient at x0 with every branch length free, in
+    BIG_CHUNKS chunks against the chunked plain version on the card, and
+    unchunked; both timed, with their peak device memory.  Then B3/B4 at
+    the unchunked shape the fit runs, timed, and held against their plain
+    versions chunk by chunk (lnf and S per chunk, dP and dpi summed)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    free = dataclasses.replace(spec, fix_blength=0)
+    vg = {}
+    for nc in (BIG_CHUNKS, 1):
+        neg, _, _, x0f, _, _ = codeml.make_codon_objective(
+            data, topo, free, device="cuda", n_chunks=nc)
+        value_grad(torch, neg, x0f)              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            v, g = value_grad(torch, neg, x0f)
+            walls.append(time.perf_counter() - t0)
+        vg[nc] = (v, g, neg)
+        print(f"value + gradient at x0, {len(x0f)} parameters, n_chunks "
+              f"{nc} [{card}]: lnL {-v:.9f}, "
+              f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+    v, g, neg10 = vg[BIG_CHUNKS]
+    lnl_p, g_p = plain_value_grad(torch, neg10, x0f, BIG_CHUNKS)
+    rel = abs(-v - lnl_p) / abs(lnl_p)
+    gerr = np.abs(g + g_p).max() / np.abs(g_p).max()
+    rel1 = abs(vg[1][0] - v) / abs(v)
+    gerr1 = np.abs(vg[1][1] - g).max() / np.abs(g).max()
+    print(f"check value + gradient at x0: lnL kernel {-v:.9f}, plain "
+          f"{lnl_p:.9f} (rel {rel:.2e}); max|grad diff| / max|grad| "
+          f"{gerr:.2e}; n_chunks 1 vs {BIG_CHUNKS}: rel {rel1:.2e}, grad "
+          f"{gerr1:.2e}", flush=True)
+    if rel > 1e-9 or gerr > 1e-8 or rel1 > 1e-9 or gerr1 > 1e-8:
+        raise AssertionError("branch-site value + gradient disagrees with "
+                             "the plain version or across chunkings")
+    # the kernels alone at the unchunked shape, at x0
+    neg1 = vg[1][2]
+    with torch.no_grad():
+        P, piC, _ = neg1.model_at(torch.tensor(x0f, device="cuda"))
+    piC = piC.contiguous()
+    gbar = torch.ones((P.shape[1], neg1.tips.shape[1]), dtype=P.dtype,
+                      device="cuda")
+    lnf, S = cuda_pruning.pruning_big_fwd(P, neg1.tips, topo, piC)
+    dP, dpi = cuda_pruning.pruning_big_bwd(P, neg1.tips, topo, piC, gbar, S)
+    t_f = cuda_ms(lambda: cuda_pruning.pruning_big_fwd(P, neg1.tips, topo,
+                                                       piC), reps=3)
+    t_b = cuda_ms(lambda: cuda_pruning.pruning_big_bwd(P, neg1.tips, topo,
+                                                       piC, gbar, S), reps=3)
+    print(f"  unchunked [{card}]: B3 (with S) {t_f:.1f} ms + B4 {t_b:.1f} "
+          f"ms = {t_f + t_b:.1f} ms of the value + gradient", flush=True)
+    tol = TOL["float64"]
+    w = neg1.tips.shape[1] // BIG_CHUNKS
+    dP_r, dpi_r = torch.zeros_like(dP), torch.zeros_like(dpi)
+    e_f = 0.0
+    for k in range(BIG_CHUNKS):
+        sl = slice(k * w, (k + 1) * w)
+        tc = neg1.tips[:, sl].contiguous()
+        lnf_r, S_r = pruning.class_site_lnf_big_plain(P, tc, topo, piC)
+        e_f = max(e_f, max_err(lnf[:, sl], lnf_r, tol["val"],
+                               f"B3 lnf, patterns {sl}"),
+                  max_err(S[..., sl], S_r, tol["val"], f"B3 S, patterns {sl}"))
+        del S_r
+        d_P, d_pi = pruning.class_site_lnf_big_bwd_plain(
+            P, tc, topo, piC, gbar[:, sl].contiguous(),
+            S[..., sl].contiguous())
+        dP_r += d_P
+        dpi_r += d_pi
+    e_b = max(max_err(dP, dP_r, tol["grad"], "B4 dP, all patterns"),
+              max_err(dpi, dpi_r, tol["grad"], "B4 dpi, all patterns"))
+    for name, e in (("big_fwd", e_f), ("big_bwd", e_b)):
+        report[name]["max_abs_err_float64"] = max(
+            report[name]["max_abs_err_float64"], e)
+    print(f"  B3/B4 vs plain at {topo.ns} taxa x {neg1.tips.shape[1]} "
+          f"patterns x {P.shape[1]} classes, float64, chunk by chunk: "
+          f"lnf/S max|diff| {e_f:.3e}, dP/dpi max|diff| {e_b:.3e}",
+          flush=True)
+
+
+def branch_site_fit(torch, data, topo, spec, x_true, report, card):
+    """Branch-site model A fitted through `fit_packed` with the branch
+    lengths fixed at the simulated ones; B3/B4 must carry the fit."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    neg, _, _, x0, bounds, _ = codeml.make_codon_objective(
+        data, topo, spec, device="cuda")
+    cuda_pruning.reset_launch_counts()
+    pruning.PLAIN_CALLS["cuda"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = codeml.fit_packed(data, topo, spec, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_pruning.LAUNCHES)
+    plain_cuda = pruning.PLAIN_CALLS["cuda"]
+    print(f"fit branch-site A, fix_blength 2 [{card}]: lnL {res.lnL:.6f}, "
+          f"x {np.round(res.x, 4)} (truth {np.round(x_true, 4)}), omegas "
+          f"{res.class_omegas.tolist()}, freqs {res.class_freqs}, "
+          f"{res.fit.n_eval} evals, {wall:.2f} s wall, "
+          f"{1e3 * wall / res.fit.n_eval:.1f} ms/eval ({res.fit.message})",
+          flush=True)
+    print(f"branch-site path: kernel launches {launches}, plain-version "
+          f"calls on CUDA {plain_cuda}", flush=True)
+    for name in ("big_fwd", "big_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the "
+                                 "branch-site fit")
+        report[name]["launches"] = launches[name]
+    if plain_cuda:
+        raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
+                             "inside the branch-site fit")
+    with torch.no_grad():
+        lnl_kernel = -float(neg(torch.tensor(res.x, device="cuda")))
+        lnl_x0 = -float(neg(torch.tensor(x0, device="cuda")))
+    lnl_plain = plain_value_grad(torch, neg, res.x, BIG_CHUNKS, grad=False)[0]
+    pg = proj_grad_max(torch, neg, res.x, bounds)
+    rel = abs(lnl_kernel - lnl_plain) / abs(lnl_plain)
+    print(f"check branch-site A: lnL kernel {lnl_kernel:.9f}, plain "
+          f"{lnl_plain:.9f} (rel {rel:.2e}), at x0 {lnl_x0:.4f}, max "
+          f"projected |grad| {pg:.2e}, converged {res.fit.converged}",
+          flush=True)
+    if not np.isfinite(res.lnL) or res.lnL < lnl_x0:
+        raise AssertionError("branch-site A: fit did not improve on its "
+                             "start")
+    if not (res.fit.converged or pg < 1e-2):
+        raise AssertionError(f"branch-site A: not converged "
+                             f"({res.fit.message}, projected gradient "
+                             f"{pg:.2e})")
+    if rel > 1e-9:
+        raise AssertionError("branch-site A: lnL disagrees with the plain "
+                             "version on the card")
+    if abs(float(res.kappa[0]) - BS_TRUTH["kappa"]) > 0.2:
+        raise AssertionError(f"branch-site A: kappa {res.kappa} far from "
+                             f"the simulated {BS_TRUTH['kappa']}")
+
+
+def phase_branch_site(torch, rng, report, card):
+    t0 = time.perf_counter()
+    data, topo, spec, x_true = simulate_branch_site(torch, rng, BIG_TAXA,
+                                                    BIG_NPATT, "cuda")
+    print(f"simulated branch-site A alignment: {data.ns} taxa x {data.ls} "
+          f"codons, {data.npatt} patterns, {topo.nnode} nodes "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    branch_site_value_grad(torch, data, topo, spec, report, card)
+    torch.cuda.empty_cache()
+    branch_site_fit(torch, data, topo, spec, x_true, report, card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -347,9 +699,10 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     # 2. build
     t0 = time.perf_counter()
-    path = _build.build()
-    print(f"built {path.name} from paml_tpu_torch/csrc in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    paths = _build.build()
+    print(f"built {', '.join(p.name for p in paths)} from "
+          f"paml_tpu_torch/csrc in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
@@ -357,14 +710,20 @@ def main() -> int:
     # 3. kernels against the plain version
     rng = np.random.default_rng(SEED)
     report = {name: {"name": name, "route": "cuda",
-                     "source": "paml_tpu_torch/csrc/pruning.cu",
-                     "replaces": src}
-              for name, src in (
-                  ("pruning_fwd", "paml_tpu/core/pallas_pruning.py:389"),
-                  ("pruning_bwd", "paml_tpu/core/pallas_pruning.py:406"))}
+                     "source": f"paml_tpu_torch/csrc/{src}",
+                     "replaces": f"paml_tpu/core/{tpu}"}
+              for name, src, tpu in (
+                  ("pruning_fwd", "pruning.cu", "pallas_pruning.py:389"),
+                  ("pruning_bwd", "pruning.cu", "pallas_pruning.py:406"),
+                  ("big_fwd", "pruning_big.cu", "pallas_pruning_big.py:170"),
+                  ("big_bwd", "pruning_big.cu", "pallas_pruning_big.py:270"))}
     phase_kernels(torch, rng, report, smi[0])
-    # 4. the slice
+    # 3b. the large-tree kernels against their plain versions
+    phase_big_kernels(torch, rng, report, smi[0])
+    # 4. the M0 / M2a path (B1/B2)
     phase_slice(torch, rng, report, smi[0])
+    # 5. the branch-site path at 1024 taxa (B3/B4)
+    phase_branch_site(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
         r["max_abs_err"] = r["max_abs_err_float64"]

@@ -1,12 +1,14 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-`nvcc` compiles `csrc/*.cu` into a shared library with a plain C interface,
-at the first call, into `build/paml_tpu_torch/` beside the package; the
-file name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  The library is loaded
-with `ctypes`: every pointer and the stream are passed as `c_void_p`, every
-int as `c_int`, and each entry returns `cudaGetLastError()` after its
-launches, which the caller turns into an exception.
+`nvcc` compiles each `csrc/*.cu` into its own shared library with a plain C
+interface, at the first call, into `build/paml_tpu_torch/` beside the
+package; the compilers for all sources run side by side.  A library's file
+name carries a hash of its source, the shared headers (`csrc/*.cuh`) and
+the flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is.  The libraries are loaded with `ctypes`: every pointer and the
+stream are passed as `c_void_p`, every int as `c_int`, and each entry
+returns `cudaGetLastError()` after its launches, which the caller turns
+into an exception.
 
 Nothing here runs at import: a CPU-only installation imports the package
 and never reaches `nvcc`.
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -29,12 +32,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of each entry point, per dtype suffix (f32 / f64)
+# argtypes of each entry point (per dtype suffix f32 / f64), by source
 _SIGNATURES = {
-    "paml_pruning_fwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _P],
-    "paml_pruning_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pruning": {
+        "paml_pruning_fwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P],
+        "paml_pruning_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    },
+    "pruning_big": {
+        "paml_big_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _P],
+        "paml_big_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _lib = None
@@ -42,7 +54,7 @@ build_log = ""          # nvcc's output (ptxas register/spill report)
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -58,46 +70,57 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libpaml_kernels_{h.hexdigest()[:16]}.so"
+    for f in [src] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libpaml_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+def build() -> list[Path]:
+    """Compile every source whose library does not exist yet, one `nvcc`
+    per source, all started together."""
     global build_log
-    out = library_path()
+    srcs = _sources()
+    outs = [library_path(s) for s in srcs]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists():
-            return out
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, out)
-    return out
+        todo = [(s, o, o.with_suffix(f".{os.getpid()}.tmp"))
+                for s, o in zip(srcs, outs) if not o.exists()]
+        if todo:
+            nvcc = _nvcc()
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                       str(src)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, _, tmp in todo]
+            logs = [p.communicate()[0] for p in procs]
+            build_log = "".join(logs)
+            for (src, _, _), p, log in zip(todo, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src.name} "
+                                       f"({p.returncode}):\n{log}")
+            for _, out, tmp in todo:
+                os.replace(tmp, out)
+    return outs
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at the first call)."""
+def lib() -> types.SimpleNamespace:
+    """Every entry point of the kernel libraries (built at the first call),
+    as attributes `<entry>_<f32|f64>`."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            for suffix in ("f32", "f64"):
-                fn = getattr(handle, f"{name}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        _lib = handle
+        fns = {}
+        for src, path in zip(_sources(), build()):
+            handle = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES[src.stem].items():
+                for suffix in ("f32", "f64"):
+                    fn = getattr(handle, f"{name}_{suffix}")
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[f"{name}_{suffix}"] = fn
+        _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

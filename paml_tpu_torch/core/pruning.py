@@ -10,12 +10,18 @@ gradient is the analytic inside/outside adjoint (`_lnf_lvl_bwd`), the
 backward of a `torch.autograd.Function`.
 
 `class_site_lnf` is the entry point.  A CUDA tensor goes to the hand
-written kernels in `cuda_pruning` (launched, or an error raised); a CPU
-tensor goes to the plain version here.  `class_site_lnf_plain` and
-`class_site_lnf_bwd_plain` run on any device, so the kernels can be held
-against them on the card; each call with a CUDA tensor adds one to
-`PLAIN_CALLS["cuda"]`, so a run can show that its main path never took
-them there.
+written kernels in `cuda_pruning` (launched, or an error raised): the
+large-tree pair B3/B4 where `cuda_pruning.use_big_kernels` says so, the
+fused pair B1/B2 otherwise; a CPU tensor goes to the plain version here.
+The plain versions run on any device, so the kernels can be held against
+them on the card: `class_site_lnf_plain` and `class_site_lnf_bwd_plain`
+(B1/B2), `class_site_lnf_big_plain` and `class_site_lnf_big_bwd_plain`
+(B3/B4, the same inputs and outputs as the kernels, residual S included).
+Each call with a CUDA tensor adds one to `PLAIN_CALLS["cuda"]`, so a run
+can show that its main path never took them there.
+
+`lnL_chunked` evaluates the pattern axis in chunks, each checkpointed, so
+that memory holds one chunk's buffers (the JAX package's `lnL_chunked`).
 
 Shapes (the JAX package's layout):
   tips:  [ns, H] integer state codes, or [ns, H, n] (multi-)hot partials
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import cuda_pruning
 from .topology import Topology
@@ -101,10 +108,14 @@ def _tip_contribs(P, tipsT, topo: Topology):
     return torch.einsum("tih,tcji->tcjh", tipsT, P[:ns])
 
 
-def _forward_levels(P, tipsT, topo: Topology):
-    """Upward level sweep.  Returns (s, m, c): node -> scaled partial
-    [C, n, H] (internal nodes), node -> scale factor [C, H], node ->
-    contribution [C, n, H] (every node but the root)."""
+def _forward_levels(P, tipsT, topo: Topology, stored=None):
+    """Upward level sweep, every internal node rescaled.  Returns (s, m,
+    c): node -> scaled partial [C, n, H] (internal nodes), node -> scale
+    factor [C, H], node -> contribution [C, n, H] (every node but the
+    root).  `stored` maps nodes to scaled partials taken as given (the
+    residual rows of the large-tree adjoint); the scale factors are still
+    recomputed from the children."""
+    stored = stored or {}
     ctip = _tip_contribs(P, tipsT, topo)
     c = {t: ctip[t] for t in range(topo.ns)}
     s: dict[int, torch.Tensor] = {}
@@ -122,11 +133,11 @@ def _forward_levels(P, tipsT, topo: Topology):
             msafe = torch.where(mm > 0, mm, torch.ones_like(mm))
             sv = prod / msafe[..., None, :]
             for w, (node, _) in enumerate(grp):
-                s[node] = sv[w]
+                s[node] = stored[node] if node in stored else sv[w]
                 m[node] = msafe[w]
                 if node != topo.root:
                     emit_nodes.append(node)
-                    emit_vals.append(sv[w])
+                    emit_vals.append(s[node])
         if emit_nodes:
             S = torch.stack(emit_vals)                        # [W,C,n,H]
             Pn = P[torch.as_tensor(emit_nodes, device=P.device)]
@@ -242,6 +253,41 @@ def class_site_lnf_bwd_plain(P, tips, topo: Topology, pi, gbar):
         return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
 
 
+def _need_states(tips):
+    if not _is_state_tips(tips):
+        raise ValueError("the large-tree pruning takes state-code tips "
+                         "[ns, H] only")
+
+
+def class_site_lnf_big_plain(P, tips, topo: Topology, pi):
+    """The plain version of the large-tree forward (B3): (lnf [C, H],
+    S [n_srows, C, n, H]), S the scaled partials of the non-cherry
+    internal nodes in residual-row order, every internal node rescaled."""
+    _count_plain(P)
+    _need_states(tips)
+    with torch.no_grad():
+        s, m, _ = _forward_levels(P, tips.long(), topo)
+        F = _root_F(s[topo.root], pi)
+        S = torch.stack([s[v] for v in cuda_pruning.big_plan(topo).srow_nodes])
+        return _lnf_from(m, F), S
+
+
+def class_site_lnf_big_bwd_plain(P, tips, topo: Topology, pi, gbar, S):
+    """The plain version of the large-tree adjoint (B4): (dP [nnode, C, n,
+    n], dpi [C, n]) for the cotangent gbar [C, H] of lnf.  The scaled
+    partials come from the residual rows S, the cherries' are rebuilt from
+    their tips, and the contributions and scale factors are recomputed
+    from them, as in the kernel."""
+    _count_plain(P)
+    _need_states(tips)
+    with torch.no_grad():
+        rows = cuda_pruning.big_plan(topo).srow_nodes
+        tipsT = tips.long()
+        s, m, c = _forward_levels(P, tipsT, topo, dict(zip(rows, S)))
+        F = _root_F(s[topo.root], pi)
+        return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
+
+
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
@@ -251,9 +297,15 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     """Per-(class, pattern) log site likelihood [C, H].
 
     A CUDA tensor runs the hand-written kernels (`cuda_pruning`), which
-    launch or raise; a CPU tensor runs the plain version.  Gradients
-    w.r.t. P and pi through the analytic adjoint; tips are data."""
+    launch or raise; their state codes must lie in [0, n)
+    (`cuda_pruning.check_state_codes`, which the codeml objective runs
+    once).  A CPU tensor runs the plain version.  Gradients w.r.t. P and
+    pi through the analytic adjoint; tips are data."""
     if P.device.type == "cuda":
+        if cuda_pruning.use_big_kernels(topo, P.shape[1], tips.shape[1],
+                                        _is_state_tips(tips),
+                                        P.element_size()):
+            return cuda_pruning.ClassSiteLnfBig.apply(P, tips, topo, pi)
         return cuda_pruning.ClassSiteLnfKernel.apply(P, tips, topo, pi)
     if P.device.type != "cpu":
         raise ValueError(f"class_site_lnf: no path for device {P.device}")
@@ -271,6 +323,33 @@ def lnL(P, tips, topo: Topology, pi, class_w, fpatt) -> torch.Tensor:
     """Total log-likelihood sum_h fpatt[h] ln f_h (reference: `lfun`,
     src/treesub.c:7764)."""
     return torch.sum(fpatt * site_loglik(P, tips, topo, pi, class_w))
+
+
+def split_patterns(tips, fpatt, n_chunks: int):
+    """The pattern axis of tips [ns, H(, n)] and fpatt [H] in n_chunks
+    equal chunks, each a contiguous tensor: (tips chunks, fpatt chunks).
+    Pad the patterns (fpatt 0) to a multiple of n_chunks first."""
+    H = tips.shape[1]
+    if H % n_chunks:
+        raise ValueError(f"{H} patterns do not split into {n_chunks} equal "
+                         "chunks: pad them to a multiple of n_chunks")
+    w = H // n_chunks
+    return ([t.contiguous() for t in tips.split(w, dim=1)],
+            [f.contiguous() for f in fpatt.split(w)])
+
+
+def lnL_chunked(P, tips_chunks, topo: Topology, pi, class_w,
+                fpatt_chunks) -> torch.Tensor:
+    """Total log-likelihood with the pattern axis in chunks (from
+    `split_patterns`).  Each chunk is checkpointed: its forward keeps no
+    buffers and is recomputed in the backward, so memory holds one
+    chunk's buffers (reference: `lnL_chunked`,
+    paml_tpu/core/pruning.py:670)."""
+    total = None
+    for tp, fp in zip(tips_chunks, fpatt_chunks):
+        v = checkpoint(lnL, P, tp, topo, pi, class_w, fp, use_reentrant=False)
+        total = v if total is None else total + v
+    return total
 
 
 def site_class_posterior(P, tips, topo: Topology, pi, class_w):

@@ -6,10 +6,8 @@
 //   pruning_fwd  <- _fwd_kernel_body (:389) over _upward (:347)
 //   pruning_bwd  <- _bwd_kernel_body (:406)
 //
-// Layout (the JAX package's): P [nnode, C, N, N], row j = parent state,
-// c[j, h] = sum_i P[j, i] s[i, h]; partials are [N, pattern]; states are
-// padded to N = 64 by the wrapper (zero rows and columns), patterns are
-// masked at the ragged edge here.
+// Layout and the shared product, gather and reduction helpers:
+// pruning_common.cuh.
 //
 // Design
 // * One block per (pattern tile of HT = 64, site class): every class walks
@@ -20,10 +18,7 @@
 // * Partials live in a device-memory workspace the wrapper allocates (the
 //   forward reuses O(depth) slots through the host's liveness scan; the
 //   adjoint keeps every node's contribution, scaled partial, adjoint and
-//   scale factor).  Each [64 x 64] x [64 x 64] product stages its operands
-//   in shared memory; 256 threads each hold a 4 x 4 tile of the result in
-//   registers and accumulate with FMA in the working type (no tensor
-//   cores, no TF32).
+//   scale factor).
 // * A state-code tip's contribution is the gather c[j, h] = P[j, state[h]],
 //   not a product.
 // * Scaling: the forward max-rescales only the nodes flagged F_SCALE (every
@@ -51,36 +46,11 @@
 // f32), operands resident in shared memory, fewer synchronisations, and
 // an adjoint workspace sized to L2.
 
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cstddef>
+#include "pruning_common.cuh"
 
 namespace {
 
-constexpr int N = 64;        // padded states
-constexpr int HT = 64;       // patterns per tile
-constexpr int LD = HT + 1;   // shared row stride (N == HT, one stride)
-constexpr int NT = 256;      // threads per block
 constexpr int F_TIP = 1, F_ROOT = 2, F_SCALE = 4;
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  static __device__ __forceinline__ float tiny() { return FLT_MIN; }
-  static __device__ __forceinline__ float maxv() { return FLT_MAX; }
-  static __device__ __forceinline__ float lg(float x) { return logf(x); }
-  static __device__ __forceinline__ float fma(float a, float b, float c) {
-    return fmaf(a, b, c);
-  }
-};
-template <> struct Num<double> {
-  static __device__ __forceinline__ double tiny() { return DBL_MIN; }
-  static __device__ __forceinline__ double maxv() { return DBL_MAX; }
-  static __device__ __forceinline__ double lg(double x) { return log(x); }
-  static __device__ __forceinline__ double fma(double a, double b, double c) {
-    return ::fma(a, b, c);
-  }
-};
 
 struct Step {
   int v, flags, slot, K;
@@ -101,53 +71,6 @@ __device__ __forceinline__ Step load_step(const int* sched, int width,
   return s;
 }
 
-// acc[p][q] = sum_k opA[ty + 16p][k] * opB[k][tx + 16q] over k < 64, with
-// opA[r][k] = TA ? A[k][r] : A[r][k] and opB[k][c] = TB ? B[c][k] : B[k][c];
-// A and B are [64][LD] in shared memory.
-template <typename T, bool TA, bool TB>
-__device__ __forceinline__ void mm64(const T* A, const T* B, T acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
-#pragma unroll 4
-  for (int k = 0; k < 64; ++k) {
-    T a[4], b[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      a[p] = TA ? A[k * LD + ty + 16 * p] : A[(ty + 16 * p) * LD + k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      b[q] = TB ? B[(tx + 16 * q) * LD + k] : B[k * LD + tx + 16 * q];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[p][q] = Num<T>::fma(a[p], b[q], acc[p][q]);
-  }
-}
-
-// store a [64 x 64] register-tiled result to a row-major buffer (row
-// stride ld), overwriting or adding
-template <typename T>
-__device__ __forceinline__ void store64(T* dst, int ld, T acc[4][4],
-                                        bool add) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      T* d = dst + (size_t)(ty + 16 * p) * ld + tx + 16 * q;
-      *d = add ? *d + acc[p][q] : acc[p][q];
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_P(T* Ps, const T* Pv) {
-  for (int e = threadIdx.x; e < N * N; e += NT)
-    Ps[(e / N) * LD + e % N] = Pv[e];
-}
-
 // tip partial [N, H] (multi-hot data), masked past H
 template <typename T>
 __device__ __forceinline__ void load_tip_part(T* Ss, const T* tv, int h0,
@@ -155,17 +78,6 @@ __device__ __forceinline__ void load_tip_part(T* Ss, const T* tv, int h0,
   for (int e = threadIdx.x; e < N * HT; e += NT) {
     const int j = e / HT, h = e % HT, hg = h0 + h;
     Ss[j * LD + h] = hg < H ? tv[(size_t)j * H + hg] : T(0);
-  }
-}
-
-// contribution of a state-code tip: c[j, h] = P[j, state[h]]
-template <typename T>
-__device__ __forceinline__ void tip_gather(T* out, const T* Pv,
-                                           const int* sv, int h0, int H) {
-  for (int e = threadIdx.x; e < N * HT; e += NT) {
-    const int j = e / HT, h = e % HT, hg = h0 + h;
-    const int s = hg < H ? sv[hg] : 0;
-    out[e] = Pv[j * N + s];
   }
 }
 
@@ -179,24 +91,6 @@ __device__ __forceinline__ void child_product(T* Ss, const T* base,
     for (int k = 1; k < K; ++k) prod *= base[(size_t)idx[k] * stride + e];
     Ss[(e / HT) * LD + e % HT] = prod;
   }
-}
-
-// per-pattern max over states, msafe = m > 0 ? m : 1 (threads h < HT)
-template <typename T>
-__device__ __forceinline__ T column_msafe(const T* Ss, int h) {
-  T m = Ss[h];
-  for (int j = 1; j < N; ++j) {
-    const T x = Ss[j * LD + h];
-    m = x > m ? x : m;
-  }
-  return m > T(0) ? m : T(1);
-}
-
-template <typename T>
-__device__ __forceinline__ T root_F(const T* Ss, const T* pic, int h) {
-  T F = T(0);
-  for (int j = 0; j < N; ++j) F += pic[j] * Ss[j * LD + h];
-  return F > Num<T>::tiny() ? F : Num<T>::tiny();
 }
 
 template <typename T>
@@ -280,7 +174,6 @@ __global__ void __launch_bounds__(NT) bwd_kernel(
   T* dps = dP_slab + (size_t)g * nnode * C * N * N;
   T* dpis = dpi_slab + (size_t)(g * C + c) * N;
   const T* pic = pi + (size_t)c * N;
-  const T cap = T(1e12);
   int root = -1;
   for (int tile = g; tile < ntiles; tile += G) {
     const bool add = tile != g;
@@ -351,9 +244,7 @@ __global__ void __launch_bounds__(NT) bwd_kernel(
           T loo = T(1);
           for (int k2 = 0; k2 < st.K; ++k2)
             if (k2 != kk) loo *= cbuf[(size_t)st.kid[k2] * NH + e];
-          T Gv = Av[e] / mv[h] * loo;
-          Gv = Gv != Gv ? T(0) : (Gv > cap ? cap : (Gv < -cap ? -cap : Gv));
-          Gs[j * LD + h] = Gv;
+          Gs[j * LD + h] = clip_adjoint(Av[e] / mv[h] * loo);
         }
         // s_k: tip one-hot / multi-hot, or the stored scaled partial
         if (k >= ns) {
@@ -382,50 +273,6 @@ __global__ void __launch_bounds__(NT) bwd_kernel(
         }
         __syncthreads();
       }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T guard(T x) {
-  const T big = T(1e30);
-  if (x != x) return T(0);
-  if (x > Num<T>::maxv()) return big;
-  if (x < -Num<T>::maxv()) return -big;
-  return x;
-}
-
-// dP[k, c, i, j] = sum_g slab[g, k, c, i, j] (root row 0), dpi likewise,
-// sliced from N back to n, with nan_to_num
-template <typename T>
-__global__ void reduce_kernel(const T* __restrict__ dP_slab,
-                              const T* __restrict__ dpi_slab,
-                              T* __restrict__ dP, T* __restrict__ dpi, int G,
-                              int nnode, int C, int n, int root) {
-  const size_t nP = (size_t)nnode * C * n * n;
-  const size_t total = nP + (size_t)C * n;
-  const size_t slab = (size_t)nnode * C * N * N;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
-    T s = T(0);
-    if (idx < nP) {
-      size_t r = idx;
-      const int j = r % n;
-      r /= n;
-      const int i = r % n;
-      r /= n;
-      const int c = r % C;
-      const int k = (int)(r / C);
-      if (k != root) {
-        const size_t off = (((size_t)k * C + c) * N + i) * N + j;
-        for (int g = 0; g < G; ++g) s += dP_slab[g * slab + off];
-      }
-      dP[idx] = guard(s);
-    } else {
-      const size_t r = idx - nP;
-      const int j = r % n, c = (int)(r / n);
-      for (int g = 0; g < G; ++g) s += dpi_slab[((size_t)g * C + c) * N + j];
-      dpi[r] = guard(s);
     }
   }
 }
@@ -460,12 +307,8 @@ int launch_bwd(const int* sched, int nsteps, int width, int kmax, const T* P,
       dpi_slab, work, C, H, ns, nnode, ntiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)nnode * C * n * n + (size_t)C * n;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
-                                                      : 4096);
-  reduce_kernel<T><<<blocks, 256, 0, stream>>>(dP_slab, dpi_slab, dP, dpi,
-                                               G, nnode, C, n, root);
-  return (int)cudaGetLastError();
+  return launch_reduce(dP_slab, dpi_slab, dP, dpi, G, nnode, C, n, root,
+                       stream);
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
-"""The paml_tpu_torch slice end to end on CPU: `fit_packed` M0 and M2a on
-tests/data/clock56.codon reach paml_tpu's fitted lnL to 1e-5, and the
-port's lnL at paml_tpu's optimum matches to 1e-8 relative; `fit` reads
-the same files itself."""
+"""The paml_tpu_torch slice end to end on CPU: `fit_packed` M0, M2a and
+branch-site model A (one labelled clade) on tests/data/clock56.codon reach
+paml_tpu's fitted lnL to 1e-5, and the port's lnL at paml_tpu's optimum
+matches to 1e-8 relative; `fit` reads the same files itself."""
 import os
 
 import numpy as np
@@ -51,6 +51,24 @@ def test_fit_matches_jax(NSsites):
         at_ref = -neg(interop.params_from(ref.x, device="cpu")).item()
     assert abs(at_ref - ref.lnL) <= 1e-8 * abs(ref.lnL)
     assert res.class_omegas.shape == np.asarray(ref.class_omegas).shape
+    np.testing.assert_allclose(res.class_freqs.sum(), 1.0, rtol=1e-12)
+
+
+def test_branch_site_fit_matches_jax():
+    data_j = jax_seqio.pack(jax_seqio.read_alignment(SEQ,
+                                                     jax_seqio.CODON_SEQ))
+    topo_j = jax_from_treenode(jax_treeio.read_trees(TREE, data_j.names)[0],
+                               data_j.names)
+    topo_j.labels[[9, 0, 1]] = 1        # the clade (t0, t1) and its stem
+    kw = dict(model=2, NSsites=2)
+    ref = jax_codeml.fit_packed(data_j, topo_j, jax_codeml.CodemlSpec(**kw),
+                                dtype=jnp.float64)
+    data, topo = interop.packed_from(data_j), interop.topology_from(topo_j)
+    res = codeml.fit_packed(data, topo, codeml.CodemlSpec(**kw),
+                            device="cpu")
+    assert np.isfinite(res.lnL) and res.x.shape == ref.x.shape
+    assert res.lnL >= ref.lnL - 1e-5
+    assert res.class_omegas.shape == (2, 4)
     np.testing.assert_allclose(res.class_freqs.sum(), 1.0, rtol=1e-12)
 
 

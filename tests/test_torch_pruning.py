@@ -123,7 +123,7 @@ def test_cpu_dispatch_counts_nothing():
     post = pruning.site_class_posterior(Pt.detach(), tipst, ttopo, pit, w)
     np.testing.assert_allclose(post.sum(0).numpy(), 1.0, rtol=1e-12)
     assert torch.isfinite(Pg.grad).all()
-    assert cuda_pruning.LAUNCHES == {"pruning_fwd": 0, "pruning_bwd": 0}
+    assert not any(cuda_pruning.LAUNCHES.values())
     assert pruning.PLAIN_CALLS["cuda"] == before
 
 
@@ -136,7 +136,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_pruning.pruning_bwd(Pt, tipst, ttopo, pit,
                                  torch.ones(1, tipst.shape[1]))
-    assert cuda_pruning.LAUNCHES == {"pruning_fwd": 0, "pruning_bwd": 0}
+    assert not any(cuda_pruning.LAUNCHES.values())
 
 
 def test_state_codes_are_range_checked():
