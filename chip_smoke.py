@@ -10,24 +10,30 @@
    forward (lnf) and adjoint (dP, dpi) at the bench shape (32 taxa on a
    ladder tree x 4096 patterns x 61 states x 3 classes) and at an 11-taxon
    tree with a trifurcating root (193 patterns, 4 classes), for state-code
-   and multi-hot tips, in float32 and float64, with one value + gradient
-   timed for each.
+   and multi-hot tips, in float32 and float64; each kernel timed with
+   multi-hot tips at the bench shape, beside its bound.
 3b. B3/B4 (the large-tree pair) against their plain versions (lnf, the
    residual S, dP, dpi) and against the level path, in float32 and
    float64, at the bench shape, the uneven shape and one 1024-pattern
    chunk of the 1024-taxon balanced tree (4 classes); B3+B4, B1+B2 and the
-   plain version timed at each.
+   plain version timed at each (the dispatch rule's evidence), and B3's and
+   B4's share of their bounds.
 4. The M0 path: a codon alignment simulated under M0 (kappa 2, omega 0.3;
-   32 taxa x 4096 codons) is fitted with `codeml.fit_packed` on the card
-   under M0 and M2a; B1/B2 must carry the whole run, and the fitted lnL
-   must match the plain version's on the card.
+   32 taxa x 4096 codons, 2 % of the codons of 4 taxa ambiguous at their
+   third position, so that the tips are multi-hot partials) is fitted with
+   `codeml.fit_packed` on the card under M0 and M2a; B1/B2 (the pair for
+   multi-hot tips) must carry the whole run, and the fitted lnL must match
+   the plain version's on the card.
 5. The branch-site path: an alignment simulated under branch-site model A
    (kappa 2, p0 0.5, p1 0.3, w0 0.1, w2 4; 1024 taxa on a balanced tree
    with #1 on the root's left child, 10240 codons, Fequal) with the
    port's own P(t).  One value + gradient with every branch length free
    in 10 pattern chunks is held against the chunked plain version on the
-   card, and timed beside one unchunked; then `codeml.fit_packed` fits
-   model A with the branch lengths fixed; B3/B4 must carry the whole fit.
+   card, and timed beside one unchunked; B3/B4 at the unchunked shape
+   timed, with their share of the bound, and held against their plain
+   versions chunk by chunk; then `codeml.fit_packed` fits model A with the
+   branch lengths fixed, twice: B3/B4 must carry the whole fit, and the
+   two fits must give the same lnL bit for bit.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -133,6 +139,23 @@ def max_err(got, ref, rtol, what):
     return float(err.max())
 
 
+def bound(name, topo, C, H, n, esize, state_tips=True):
+    """(bound_ms, bound_by) of kernel `name` on these shapes: the larger
+    of its operations over the card's peak rate and its bytes over the
+    memory rate (cuda_pruning.kernel_work, PEAK_FLOPS, PEAK_BYTES)."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+    flop, nbytes = cp.kernel_work(name, topo, C, H, n, esize, state_tips)
+    by = "operations" if flop / cp.PEAK_FLOPS >= nbytes / cp.PEAK_BYTES \
+        else "bytes"
+    return cp.bound_ms(flop, nbytes), by
+
+
+def record(report, name, dn, ms, plain_ms, bnd):
+    report[name][f"ms_{dn}"] = ms
+    report[name][f"plain_ms_{dn}"] = plain_ms
+    report[name][f"bound_ms_{dn}"], report[name][f"bound_by_{dn}"] = bnd
+
+
 def phase_kernels(torch, rng, report, card):
     from paml_tpu_torch.core import cuda_pruning, pruning
 
@@ -163,7 +186,8 @@ def phase_kernels(torch, rng, report, card):
                 for name, e in (("pruning_fwd", e_f), ("pruning_bwd", e_b)):
                     key = f"max_abs_err_{dn}"
                     report[name][key] = max(report[name].get(key, 0.0), e)
-                if cfg is BENCH and enc == "states":
+                if cfg is BENCH and enc == "multihot":
+                    # the tips B1/B2 serve on the main path
                     times = {
                         "pruning_fwd": cuda_ms(lambda: cuda_pruning.pruning_fwd(
                             P, tips, topo, pi)),
@@ -179,8 +203,12 @@ def phase_kernels(torch, rng, report, card):
                         lambda: pruning.class_site_lnf_bwd_plain(
                             P, tips, topo, pi, gbar))
                     for name in times:
-                        report[name][f"ms_{dn}"] = times[name]
-                        report[name][f"plain_ms_{dn}"] = plain[name]
+                        bnd = bound(name, topo, cfg["C"], cfg["H"],
+                                    P.shape[-1], P.element_size(), False)
+                        record(report, name, dn, times[name], plain[name], bnd)
+                        print(f"  {name} [{tag}]: bound {bnd[0]:.4f} ms "
+                              f"({bnd[1]}), {100 * bnd[0] / times[name]:.1f}"
+                              " % of it", flush=True)
                     print(f"  time [{tag}, {card}]: fwd kernel "
                           f"{times['pruning_fwd']:.3f} "
                           f"ms, plain {plain['pruning_fwd']:.3f} ms; adjoint "
@@ -218,7 +246,7 @@ def phase_big_kernels(torch, rng, report, card):
         topo, P_np, pi_np, st_np, _, gb_np = kernel_problem(
             rng, **cfg, multihot=False)
         bp = cuda_pruning.big_plan(topo)
-        ntiles = -(-cfg["H"] // cuda_pruning.HT)
+        ntiles = cuda_pruning.big_tiles(cfg["H"])
         for dtype in (torch.float64, torch.float32):
             dn = str(dtype).split(".")[1]
             tol = TOL[dn]
@@ -256,7 +284,7 @@ def phase_big_kernels(torch, rng, report, card):
                   f"dP/dpi max|diff| {e_b:.3e}; vs level path {e_l:.3e}; "
                   f"blocks B3 {ntiles * cfg['C']}, B4 G = {G} x C = "
                   f"{G * cfg['C']}, B2 G = "
-                  f"{cuda_pruning.bwd_grid(topo.nnode, topo.ns, cfg['C'], ntiles, P.element_size())}"
+                  f"{cuda_pruning.bwd_grid(topo.nnode, topo.ns, cfg['C'], -(-cfg['H'] // cuda_pruning.HT), P.element_size())}"
                   f" x C; S {S.numel() * S.element_size() / 1e9:.3f} GB",
                   flush=True)
             for name, e in (("big_fwd", max(e_f, e_l)),
@@ -279,10 +307,15 @@ def phase_big_kernels(torch, rng, report, card):
                     lambda: pruning.class_site_lnf_big_bwd_plain(
                         P, tips, topo, pi, gbar, S), **reps),
             }
-            if cfg is CHUNK:
-                for name in ("big_fwd", "big_bwd"):
-                    report[name][f"ms_{dn}"] = t[name]
-                    report[name][f"plain_ms_{dn}"] = t[f"plain_{name[4:]}"]
+            for name in ("big_fwd", "big_bwd"):
+                bnd = bound(name, topo, cfg["C"], cfg["H"], P.shape[-1],
+                            P.element_size())
+                print(f"  {name} [{tag}]: {t[name]:.3f} ms, bound "
+                      f"{bnd[0]:.4f} ms ({bnd[1]}), "
+                      f"{100 * bnd[0] / t[name]:.1f} % of it", flush=True)
+                if cfg is CHUNK:
+                    record(report, name, dn, t[name], t[f"plain_{name[4:]}"],
+                           bnd)
             print(f"  time [{tag}, {card}]: B3 {t['big_fwd']:.3f} ms + B4 "
                   f"{t['big_bwd']:.3f} ms = "
                   f"{t['big_fwd'] + t['big_bwd']:.3f} ms; B1+B2 "
@@ -295,7 +328,9 @@ def phase_big_kernels(torch, rng, report, card):
 
 def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
     """Codon alignment simulated under M0 on a ladder tree with the port's
-    own float64 P(t) (F3x4 frequencies from random nucleotide tables)."""
+    own float64 P(t) (F3x4 frequencies from random nucleotide tables).  In
+    each of the first 4 taxa, every 50th codon has its third position read
+    as N, so that the tips are multi-hot partials, as in sequencing data."""
     from paml_tpu_torch.constants import codon_string
     from paml_tpu_torch.core.pmat import pmat_rev_multi
     from paml_tpu_torch.core.topology import from_treenode
@@ -338,6 +373,11 @@ def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
             stack.append(int(c))
     rows = ["".join(codon_string(int(graph.sense[k])) for k in st[i])
             for i in range(ns)]
+    for i in range(4):
+        row = list(rows[i])
+        for j in range(i, ncod, 50):
+            row[3 * j + 2] = "N"
+        rows[i] = "".join(row)
     data = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ))
     return data, topo
 
@@ -582,6 +622,22 @@ def branch_site_value_grad(torch, data, topo, spec, report, card):
                                                        piC, gbar, S), reps=3)
     print(f"  unchunked [{card}]: B3 (with S) {t_f:.1f} ms + B4 {t_b:.1f} "
           f"ms = {t_f + t_b:.1f} ms of the value + gradient", flush=True)
+    for name, ms in (("big_fwd", t_f), ("big_bwd", t_b)):
+        bnd = bound(name, topo, P.shape[1], neg1.tips.shape[1], P.shape[-1],
+                    P.element_size())
+        print(f"  {name} unchunked: bound {bnd[0]:.3f} ms ({bnd[1]}), "
+              f"{100 * bnd[0] / ms:.1f} % of it", flush=True)
+    # the float32 instantiation at the same shape, timed only
+    P32, pi32, gb32 = P.float(), piC.float(), gbar.float()
+    _, S32 = cuda_pruning.pruning_big_fwd(P32, neg1.tips, topo, pi32)
+    t_f32 = cuda_ms(lambda: cuda_pruning.pruning_big_fwd(
+        P32, neg1.tips, topo, pi32), reps=3)
+    t_b32 = cuda_ms(lambda: cuda_pruning.pruning_big_bwd(
+        P32, neg1.tips, topo, pi32, gb32, S32), reps=3)
+    print(f"  unchunked float32 [{card}]: B3 (with S) {t_f32:.1f} ms + B4 "
+          f"{t_b32:.1f} ms", flush=True)
+    del P32, S32
+    torch.cuda.empty_cache()
     tol = TOL["float64"]
     w = neg1.tips.shape[1] // BIG_CHUNKS
     dP_r, dpi_r = torch.zeros_like(dP), torch.zeros_like(dpi)
@@ -612,7 +668,8 @@ def branch_site_value_grad(torch, data, topo, spec, report, card):
 
 def branch_site_fit(torch, data, topo, spec, x_true, report, card):
     """Branch-site model A fitted through `fit_packed` with the branch
-    lengths fixed at the simulated ones; B3/B4 must carry the fit."""
+    lengths fixed at the simulated ones; B3/B4 must carry the fit, and a
+    second fit must repeat it bit for bit."""
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning, pruning
 
@@ -640,9 +697,18 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
             raise AssertionError(f"{name} was not launched by the "
                                  "branch-site fit")
         report[name]["launches"] = launches[name]
-    if plain_cuda:
+    if plain_cuda or launches["pruning_fwd"] or launches["pruning_bwd"]:
         raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
-                             "inside the branch-site fit")
+                             "inside the branch-site fit, or B1/B2 did")
+    # the same fit again: the slab sums have a fixed order, so the bits
+    # repeat
+    t0 = time.perf_counter()
+    res2 = codeml.fit_packed(data, topo, spec, device="cuda")
+    print(f"fit branch-site A again: lnL {res2.lnL!r} against {res.lnL!r}, "
+          f"{res2.fit.n_eval} evals, {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    if res2.lnL != res.lnL or not np.array_equal(res2.x, res.x):
+        raise AssertionError("branch-site A: a second fit gave other bits")
     with torch.no_grad():
         lnl_kernel = -float(neg(torch.tensor(res.x, device="cuda")))
         lnl_x0 = -float(neg(torch.tensor(x0, device="cuda")))
@@ -729,6 +795,10 @@ def main() -> int:
         r["max_abs_err"] = r["max_abs_err_float64"]
         r["ms"] = r["ms_float64"]
         r["plain_ms"] = r["plain_ms_float64"]
+        r["bound_ms"] = r["bound_ms_float64"]
+        r["bound_by"] = r["bound_by_float64"]
+        # no single PyTorch call computes a pruning pass
+        r["library_ms"] = None
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -43,9 +43,10 @@ _SIGNATURES = {
     },
     "pruning_big": {
         "paml_big_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _P],
+                         _I, _I, _I, _I, _P],
         "paml_big_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     },
 }
 

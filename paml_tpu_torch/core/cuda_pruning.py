@@ -26,13 +26,24 @@ import torch
 
 from .topology import Topology
 
-N = 64                   # padded states (csrc/pruning.cu: N)
-HT = 64                  # patterns per tile (csrc/pruning.cu: HT)
+N = 64                   # padded states (csrc/pruning_common.cuh: N)
+HT = 64                  # patterns per tile of B1/B2 (HT)
 SCALE_EVERY = 4          # forward rescale interval in internal levels
 F_TIP, F_ROOT, F_SCALE = 1, 2, 4
 WORK_BUDGET = 2 << 30    # bytes of adjoint workspace + slabs per call
 
+BIG_HT = 32              # patterns per tile of B3/B4 (BHT)
+BIG_LDN, BIG_LDH = N + 4, BIG_HT + 4   # their shared row strides
+BIG_KMAX = 3             # children per node B3/B4 take (pruning_big.cu: KMAX)
+BIG_RED = 2 * 8 * BIG_HT  # their column-reduction scratch (RED)
+BIG_TMAX = 16            # tiles per visit of a B4 block
 BIG_WORK_SHARE = 8       # B4's slabs take at most 1/8 of the card's memory
+SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
+
+# H100 SXM data sheet: FP64 on the tensor cores and FP32 outside them, both
+# 67 TFLOP/s; HBM3 3.35 TB/s
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 LAUNCHES = {"pruning_fwd": 0, "pruning_bwd": 0, "big_fwd": 0, "big_bwd": 0}
 
@@ -142,6 +153,11 @@ class BigPlan:
 
       fs row (DFS postorder, root last):
         [v, out_slot, srow | -1, kid_slot x Kmax (-1 pad)]
+      fsi, B3's table: fs's rows of the internal nodes, each followed by
+        its kid nodes x Kmax (-1 pad), so that B3 gathers a tip child's
+        contribution where its parent needs it, then `keep` (1 when the
+        next row is the node's parent: its contribution stays in shared
+        memory) and the index of the kid that the row above kept (-1)
       bs row (internal nodes, reverse DFS, root first):
         [v, aslot, srow_v, (kid, kid_srow | -1, kid_aslot | -1,
                             grandkid_tip x Kmax) x Kmax]
@@ -183,21 +199,35 @@ class BigPlan:
                 assert kid < ns or k == len(kids) - 1 or \
                     p.slot[kid] != aslot
         self.fs, self.bs, self.kmax = fs, bs, kmax
+        kid_nodes = np.full((topo.nnode, kmax), -1, dtype=np.int32)
+        for i, v in enumerate(p.order):
+            kid_nodes[i, :len(p.kids_of[v])] = p.kids_of[v]
+        inner = fs[:, 0] >= ns
+        fsi = np.concatenate([fs[inner], kid_nodes[inner],
+                              np.full((int(inner.sum()), 2), -1, np.int32)],
+                             axis=1)
+        fsi[:, -2] = 0
+        for i in range(1, len(fsi)):
+            last = p.kids_of[int(fsi[i, 0])][-1]
+            if last == fsi[i - 1, 0]:
+                fsi[i - 1, -2] = 1
+                fsi[i, -1] = len(p.kids_of[int(fsi[i, 0])]) - 1
+        self.fsi = np.ascontiguousarray(fsi)
         self.srow_nodes = list(srow)          # node of each residual row
         self.n_srows = len(srow)
         self.all_full = all(len(p.kids_of[v]) == kmax
                             for v in p.order if v >= ns)
         self.nslots, self.root = p.nslots, root
-        # B4's workspace per block: nslots + 1 adjoint slots, and s_k and
-        # c_k of each child
-        self.work_per_block = (p.nslots + 1 + 2 * kmax) * N * HT
+        # B4's workspace per block: nslots + 1 adjoint slots for each of the
+        # (at most BIG_TMAX) tiles of a visit
+        self.work_per_block = (p.nslots + 1) * BIG_TMAX * N * BIG_HT
         self._dev: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def device_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         device = torch.device(device)
         t = self._dev.get(device)
         if t is None:
-            t = (torch.as_tensor(self.fs, device=device),
+            t = (torch.as_tensor(self.fsi, device=device),
                  torch.as_tensor(self.bs, device=device))
             self._dev[device] = t
         return t
@@ -393,14 +423,68 @@ class ClassSiteLnfKernel(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def use_big_kernels(topo: Topology, C: int, H: int, state_tips: bool,
-                    esize: int) -> bool:
-    """B3/B4 for state-code tips when B2's workspace budget cannot give
-    every pattern tile its own block; B1/B2 otherwise (multi-hot tips, and
-    trees that B2 serves at full width)."""
-    ntiles = -(-H // HT)
-    return state_tips and bwd_grid(topo.nnode, topo.ns, C, ntiles,
-                                   esize) < ntiles
+def use_big_kernels(topo: Topology, state_tips: bool) -> bool:
+    """B3/B4 for state-code tips on trees whose nodes have at most
+    BIG_KMAX children; B1/B2 otherwise (multi-hot tips, wider polytomies).
+    Since their redesign B3+B4 beat B1+B2 at every shape measured, the
+    32-taxon bench shape included (PERF.md)."""
+    return state_tips and big_plan(topo).kmax <= BIG_KMAX
+
+
+def big_fwd_smem(esize: int) -> int:
+    """Dynamic shared memory of a B3 block: P_v [N][LDN]; s_v and the
+    kept contribution [N][LDH]; the column-reduction scratch."""
+    return (N * BIG_LDN + 2 * N * BIG_LDH + BIG_RED) * esize
+
+
+def big_bwd_smem(esize: int, kmax: int) -> int:
+    """Dynamic shared memory of a B4 block (pruning_big.cu's carve): per
+    child P_k or its tip dP_k [N][LDN] and c_k [N][LDH]; s_k and G_k (one
+    buffer each per child at kmax 2, one in all at kmax 3) and A_v
+    [N][LDH]; the column-reduction scratch; dpi [N]."""
+    nsb = 2 if kmax <= 2 else 1
+    return (kmax * N * BIG_LDN + (kmax + 2 * nsb + 1) * N * BIG_LDH + BIG_RED
+            + N) * esize
+
+
+def big_tiles(H: int) -> int:
+    return -(-H // BIG_HT)
+
+
+def visit_tiles(ntiles: int, G: int) -> int:
+    """Tiles a B4 block takes per walk of the tree: its whole range of
+    tiles, at most BIG_TMAX."""
+    return min(BIG_TMAX, -(-ntiles // G))
+
+
+def kernel_work(name: str, topo: Topology, C: int, H: int, n: int,
+                esize: int, state_tips: bool = True) -> tuple[float, float]:
+    """(operations, bytes) that kernel `name` needs on these shapes: the
+    products of the n real states (2 n^2 per pattern, class and product;
+    a state-code tip's contribution is a gather and its dP a scatter, no
+    product), each input read once and each output written once.  The
+    forward does one product per non-root internal node (plus one per tip
+    for multi-hot tips); the adjoint three (c_k again, dP_k, A_k), plus one
+    dP_k per multi-hot tip."""
+    nint = topo.nnode - topo.ns - 1
+    prod = 2.0 * n * n * H * C
+    P_b = topo.nnode * C * n * n * esize
+    tips_b = topo.ns * H * (4 if state_tips else n * esize)
+    S_b = big_plan(topo).n_srows * C * n * H * esize
+    pi_b, lnf_b = C * n * esize, C * H * esize
+    if name in ("pruning_fwd", "big_fwd"):
+        flop = (nint + (0 if state_tips else topo.ns)) * prod
+        nbytes = P_b + tips_b + pi_b + lnf_b
+        return flop, nbytes + (S_b if name == "big_fwd" else 0)
+    flop = (3 * nint + (0 if state_tips else topo.ns)) * prod
+    nbytes = P_b + tips_b + pi_b + lnf_b + P_b + pi_b   # in: gbar; out: dP, dpi
+    return flop, nbytes + (S_b if name == "big_bwd" else 0)
+
+
+def bound_ms(flop: float, nbytes: float) -> float:
+    """The least time the card could take: the larger of the operations
+    over the peak rate and the bytes over the memory rate."""
+    return 1e3 * max(flop / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
 def _big_inputs(P, tips, topo, pi) -> _Inputs:
@@ -408,6 +492,10 @@ def _big_inputs(P, tips, topo, pi) -> _Inputs:
     if x.states is None:
         raise ValueError("the large-tree kernels take state-code tips "
                          "[ns, H] only")
+    if big_plan(topo).kmax > BIG_KMAX:
+        raise ValueError(f"the large-tree kernels take nodes of at most "
+                         f"{BIG_KMAX} children, got "
+                         f"{big_plan(topo).kmax}")
     return x
 
 
@@ -418,14 +506,15 @@ def _launch_big_fwd(x: _Inputs, want_S: bool):
     fs, _ = bp.device_tables(x.P.device)
     lnf = x.P.new_empty((x.C, x.H))
     S = x.P.new_empty((bp.n_srows, x.C, x.n, x.H)) if want_S else None
-    work = x.P.new_empty((x.ntiles * x.C * bp.nslots * N * HT,))
+    ntiles = big_tiles(x.H)
+    work = x.P.new_empty((ntiles * x.C * bp.nslots * N * BIG_HT,))
     fn = getattr(_build.lib(), f"paml_big_fwd_{_suffix(x.P.dtype)}")
     with torch.cuda.device(x.P.device):
         err = fn(fs.data_ptr(), fs.shape[0], bp.kmax, x.P.data_ptr(),
                  x.states.data_ptr(), x.pi.data_ptr(), lnf.data_ptr(),
                  None if S is None else S.data_ptr(), work.data_ptr(),
-                 x.ntiles, x.C, x.H, x.ns, x.n, bp.nslots,
-                 _stream(x.P.device))
+                 ntiles, x.C, x.H, x.ns, x.n, bp.nslots,
+                 big_fwd_smem(x.P.element_size()), _stream(x.P.device))
     LAUNCHES["big_fwd"] += 1
     _build.check(err, "big_fwd launch")
     return lnf, S
@@ -458,11 +547,13 @@ def _launch_big_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
                          f"{S.device}")
     gbar = gbar.to(x.P.dtype).contiguous()
     _, bs = bp.device_tables(x.P.device)
-    wpb = bp.work_per_block
     props = torch.cuda.get_device_properties(x.P.device)
-    G = big_bwd_grid(x.nnode, x.C, x.ntiles, x.P.element_size(),
-                     props.multi_processor_count, props.total_memory, wpb)
-    work = x.P.new_empty((G * x.C * wpb,))
+    ntiles = big_tiles(x.H)
+    G = big_bwd_grid(x.nnode, x.C, ntiles, x.P.element_size(),
+                     props.multi_processor_count, props.total_memory,
+                     bp.work_per_block)
+    tv = visit_tiles(ntiles, G)
+    work = x.P.new_empty((G * x.C * (bp.nslots + 1) * tv * N * BIG_HT,))
     dP_slab = x.P.new_empty((G * x.nnode * x.C * N * N,))
     dpi_slab = x.P.new_empty((G * x.C * N,))
     dP = x.P.new_empty((x.nnode, x.C, x.n, x.n))
@@ -473,7 +564,8 @@ def _launch_big_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
                  x.states.data_ptr(), x.pi.data_ptr(), gbar.data_ptr(),
                  S.data_ptr(), dP_slab.data_ptr(), dpi_slab.data_ptr(),
                  work.data_ptr(), dP.data_ptr(), dpi.data_ptr(), G,
-                 x.ntiles, x.C, x.H, x.ns, x.n, x.nnode, bp.nslots, bp.root,
+                 ntiles, tv, x.C, x.H, x.ns, x.n, x.nnode, bp.nslots,
+                 bp.root, big_bwd_smem(x.P.element_size(), bp.kmax),
                  _stream(x.P.device))
     LAUNCHES["big_bwd"] += 1
     _build.check(err, "big_bwd launch")

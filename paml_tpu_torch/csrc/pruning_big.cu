@@ -19,55 +19,122 @@
 // scaled partial from the grandchild tips.
 //
 // Design
-// * One block per (pattern tile of HT = 64, site class) in the forward; the
-//   adjoint's block (g, c) walks tiles g, g + G, ... and adds into its own
-//   dP [nnode, C, N, N] and dpi [C, N] slab, which reduce_kernel sums (root
-//   row zeroed, nan_to_num), as the JAX wrapper does outside its kernel
-//   (:614-617).  Slabs rather than atomics: the sum order is fixed, so fits
-//   repeat bit for bit.
+// * Tiles of BHT = 32 patterns.  The forward runs one block per (tile,
+//   class); the adjoint's block (g, c) takes a contiguous range of tiles and
+//   walks the tree once per visit of up to TV of them (TV from the wrapper).
+// * Elementwise phases (the children's product, rescale, the adjoint G_k)
+//   give thread (w = warp, lane) rows 8 w .. 8 w + 7 of pattern `lane`: a
+//   warp's gathers P[j, state[h]] and its loads and stores of partials touch
+//   one row at a time, a few cache lines; a column max or sum over the
+//   states is 8 values in registers and one pass through shared memory
+//   (col_reduce).
+// * Products on the FP64 tensor cores in float64, FMA in float32, through
+//   pruning_common.cuh's prod_* (the same routine in B3 and B4).
+// * The forward gathers a tip child's contribution where its parent needs
+//   it (no tip step, no tip slot) and keeps a node's contribution in shared
+//   memory when the next row is its parent (`keep`).
+// * Rescaling multiplies by 1 / max (an f64 division per value costs more
+//   than the rest of the phase), in B3 and in B4's cherry rebuild alike.
+// * The adjoint keeps the node at hand in shared memory: each child's P_k
+//   (internal children) for the whole visit; for the tile at hand each
+//   child's c_k = P_k s_k, s_k and G_k (one buffer each per child when no
+//   node has 3 children, else one, reloaded) and A_v.  A_v and the
+//   residual rows arrive by cp.async, the tips' and cherries' gathers with
+//   them.  The children's dP_k are summed over the visit's tiles before one
+//   store to the block's slab: internal children's in the product's
+//   registers, tip children's in shared memory by a scatter, dP_k[j,
+//   state[h]] += G_k[j, h] (warp w owns the states = w mod 4 of 32 rows and
+//   takes, in order, the patterns whose state it owns, so the sum order is
+//   fixed and the warp does not diverge); a tip's one-hot product is gone.
+// * The slabs (dP [G, nnode, C, N, N], dpi [G, C, N]) are summed by
+//   reduce_kernel (root row zeroed, nan_to_num), as the JAX wrapper does
+//   outside its kernel (:614-617).  Slabs rather than atomics: the sum order
+//   is fixed, so fits repeat bit for bit.
 // * Every internal node is rescaled (the JAX kernel's int_s, :206-214), so
 //   the residual holds s_v = prod / max and the adjoint's recomputed
 //   contributions and scale factors are bit for bit the forward's.
-// * The forward writes each non-cherry internal node's scaled partial to S
-//   from the shared-memory tile with plain coalesced stores (rows j < n,
-//   patterns h < H); the TPU's 2-deep DMA ring has no counterpart.
-// * The adjoint keeps O(depth) state per block: nslots + 1 adjoint slots
-//   (A_v reuses c_v's forward slot, the root takes slot nslots) and, for the
-//   node at hand, each child's s_k and c_k = P_k s_k; B2 keeps every node.
-//   A node's slot is its last child's (the slot scan hands v the slot its
-//   last child freed), so the children are processed in order and the last
-//   one's A_k overwrites A_v only after A_v was last read.
-// * State-code tips only, as in the JAX kernel: a tip's contribution is the
-//   gather c[j, h] = P[j, state[h]]; its s is the one-hot of its state.
+// * The adjoint slots (nslots + 1 per visit tile; A_v reuses c_v's forward
+//   slot, the root takes slot nslots) and the forward's contribution slots
+//   stay in device memory, where L2 serves most of them.  A node's slot is
+//   its last child's; A_v is copied to shared memory at the start of a
+//   tile, so A_k may overwrite it later in the same tile.
+// * State-code tips only, as in the JAX kernel; at most KMAX = 3 children
+//   per node (the wrapper refuses more, and the dispatch sends such trees
+//   to B1/B2).
 //
-// What bounds it on the H100 (f64, one 1024-pattern chunk of the
-// 1024-taxon balanced tree, C = 4; computed from the shapes).  The forward
-// does 1022 products of 2 * 64^3 per (tile, class): 34 GFLOP over 64 blocks,
-// which fill half of the 132 SMs; it writes S, 511 rows x 4 x 61 x 1024 x
-// 8 B = 1.02 GB.  The adjoint does about 5 products per internal node and
-// class (c_k and dP_k for two children, A_k for the internal ones): ~170
-// GFLOP, reads S once, and writes G dP slabs of 268 MB, which the reduction
-// reads back.  The products use FMA in the working type from shared memory,
-// as in pruning.cu, so both kernels are bound by the shared-memory loads
-// of the product loop and, at one chunk, by the 64 blocks per launch.
+// What bounds it on the H100 (f64, the 1024-taxon balanced tree, C = 4,
+// 10240 patterns; cuda_pruning.kernel_work).  The forward does 1022
+// products of 2 * 61^2 per pattern and class, 312 GFLOP, 4.65 ms at 67
+// TFLOP/s; it writes S, 10.2 GB, 3.1 ms at 3.35 TB/s.  The adjoint does
+// 3066 such products, 935 GFLOP, 13.9 ms, and reads S once.  Measured, both
+// run at about a sixth of that bound (PERF.md): each block walks the tree
+// node by node, and its loads, gathers and barriers at each node leave the
+// tensor cores idle most of the time.  At a 1024-pattern chunk the adjoint
+// also writes G x C = 128 dP slabs of 268 MB, which the reduction reads
+// back.
 
 #include "pruning_common.cuh"
 
 namespace {
 
-// Ss[j][h] (and sk[j*HT + h] when asked) = S[srow, c, j, h0 + h], zero
-// past n and H
+constexpr int KMAX = 3;      // children per node the adjoint takes
+constexpr int TLD = N + 1;   // row stride of a tip's dP_k in shared memory
+constexpr int RED = 2 * 8 * BHT;   // values of col_reduce's scratch
+
+// [N][LDN] <- P_v [N][N] by asynchronous 16-byte copies (cp.async), which
+// overlap whatever the block does until cp_async_wait
 template <typename T>
-__device__ __forceinline__ void load_S_row(T* Ss, T* sk, const T* S,
-                                           int srow, int c, int C, int n,
-                                           int H, int h0) {
-  const T* src = S + ((size_t)srow * C + c) * n * H;
-  for (int e = threadIdx.x; e < N * HT; e += NT) {
-    const int j = e / HT, h = e % HT, hg = h0 + h;
-    const T x = (j < n && hg < H) ? src[(size_t)j * H + hg] : T(0);
-    Ss[j * LD + h] = x;
-    if (sk != nullptr) sk[e] = x;
+__device__ __forceinline__ void load_Pn_async(T* Ps, const T* Pv) {
+  constexpr int V = 16 / sizeof(T);          // values per copy
+  constexpr int PER = N * N / V / NT;        // copies per thread
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int e = (threadIdx.x + q * NT) * V;
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(Ps + (e / N) * LDN + e % N));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(Pv + e));
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// one value by an asynchronous copy, zero-filled where !ok (src must still
+// be a valid address)
+template <typename T>
+__device__ __forceinline__ void cp_async_val(T* dst, const T* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = ok ? (int)sizeof(T) : 0;
+  if constexpr (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+}
+
+// The max (MAX) or sum over the 64 rows of pattern column `lane`, from
+// each thread's value over its 8 rows, through red [2][8][BHT]: the halves
+// alternate, so a half is written again only after the barrier of the
+// call between, and one barrier a call does.  Every thread gets the result;
+// a sum runs in row order.
+template <typename T, bool MAX>
+__device__ __forceinline__ T col_reduce(T x, T* red, int& half) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* rb = red + half * 8 * BHT;
+  half ^= 1;
+  rb[w * BHT + lane] = x;
+  __syncthreads();
+  T r = rb[lane];
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    const T y = rb[i * BHT + lane];
+    r = MAX ? (y > r ? y : r) : r + y;
+  }
+  return r;
 }
 
 template <typename T>
@@ -77,211 +144,444 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
     const T* __restrict__ pi, T* __restrict__ lnf, T* __restrict__ S,
     T* __restrict__ work, int C, int H, int ns, int n, int nslots) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ps = reinterpret_cast<T*>(smem_raw);
-  T* Ss = Ps + N * LD;
-  T* logm = Ss + N * LD;
-  T* msc = logm + HT;
+  T* Ps = reinterpret_cast<T*>(smem_raw);   // [N][LDN]
+  T* Ss = Ps + N * LDN;                      // [N][LDH]
+  T* Cs = Ss + N * LDH;                      // [N][LDH]: the kept c_v
+  T* red = Cs + N * LDH;                     // [RED]: col_reduce
   const int tile = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
-  const int h0 = tile * HT, width = 3 + kmax;
-  const size_t NH = (size_t)N * HT;
+  const int w = tid >> 5, lane = tid & 31, hg = tile * BHT + lane;
+  const int width = 5 + 2 * kmax;
+  const size_t NH = (size_t)N * BHT;
   T* wb = work + (size_t)(tile * C + c) * nslots * NH;
-  if (tid < HT) logm[tid] = T(0);
+  T logm = T(0);
+  int half = 0;
   for (int i = 0; i < nsteps; ++i) {
-    const int* r = fs + (size_t)i * width;
-    const int v = r[0], out_slot = r[1], srow = r[2];
-    const T* Pv = P + ((size_t)v * C + c) * N * N;
-    if (v < ns) {
-      tip_gather(wb + (size_t)out_slot * NH, Pv, states + (size_t)v * H, h0,
-                 H);
-      __syncthreads();
-      continue;
-    }
-    // product of the children's contributions, rescaled by its column max
-    for (int e = tid; e < N * HT; e += NT) {
-      T prod = T(1);
-      for (int k = 0; k < kmax; ++k) {
-        const int sl = r[3 + k];
-        if (sl >= 0) prod *= wb[(size_t)sl * NH + e];
+    const int* r = fs + (size_t)i * width;   // internal nodes only
+    const int srow = r[2], keep = r[3 + 2 * kmax], kept = r[4 + 2 * kmax];
+    const bool root = i == nsteps - 1;
+    __syncthreads();   // the children's slots are written; Ps, Ss are free
+    if (!root) load_Pn_async(Ps, P + ((size_t)r[0] * C + c) * N * N);
+    // the children's contributions (a gather for a tip, its slot or the
+    // kept c for an internal node), their product rescaled by its column
+    // max; each child's source and row stride first, then every load
+    // unconditional, so that all of them are in flight together
+    const T* src[KMAX];
+    int rs[KMAX];
+    bool has[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const int kid = k < kmax ? r[3 + kmax + k] : -1;
+      has[k] = kid >= 0;
+      if (kid >= 0 && kid < ns) {
+        const int st = hg < H ? states[(size_t)kid * H + hg] : 0;
+        src[k] = P + ((size_t)kid * C + c) * N * N + st;
+        rs[k] = N;
+      } else if (k == kept) {
+        src[k] = Cs + lane;
+        rs[k] = LDH;
+      } else {
+        src[k] = wb + (size_t)(kid >= 0 ? r[3 + k] : 0) * NH + lane;
+        rs[k] = BHT;
       }
-      Ss[(e / HT) * LD + e % HT] = prod;
     }
-    __syncthreads();
-    if (tid < HT) {
-      const T ms = column_msafe(Ss, tid);
-      msc[tid] = ms;
-      logm[tid] += Num<T>::lg(ms);
+    T y[KMAX][8];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        y[k][q] = has[k] ? src[k][(8 * w + q) * rs[k]] : T(1);
+    T x[8], m = T(0);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      T p = y[0][q];
+#pragma unroll
+      for (int k = 1; k < KMAX; ++k)
+        if (has[k]) p *= y[k][q];
+      x[q] = p;
+      m = (q == 0 || p > m) ? p : m;
     }
-    __syncthreads();
-    T* Sv = (S != nullptr && srow >= 0)
-                ? S + ((size_t)srow * C + c) * n * H : nullptr;
-    for (int e = tid; e < N * HT; e += NT) {
-      const int j = e / HT, h = e % HT, hg = h0 + h;
-      const T x = Ss[j * LD + h] / msc[h];
-      Ss[j * LD + h] = x;
-      if (Sv != nullptr && j < n && hg < H) Sv[(size_t)j * H + hg] = x;
+    m = col_reduce<T, true>(m, red, half);
+    // times 1 / max: an f64 division per value would cost more than the
+    // rest of the phase; B4 rebuilds a cherry the same way
+    const T ms = m > T(0) ? m : T(1), rms = T(1) / ms;
+    logm += Num<T>::lg(ms);
+    T* Sv = (S != nullptr && srow >= 0) ? S + ((size_t)srow * C + c) * n * H
+                                        : nullptr;
+    T F = T(0);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = 8 * w + q;
+      x[q] = x[q] * rms;
+      Ss[j * LDH + lane] = x[q];
+      if (Sv != nullptr && j < n && hg < H) Sv[(size_t)j * H + hg] = x[q];
+      F += pi[(size_t)c * N + j] * x[q];
     }
-    __syncthreads();
-    if (i == nsteps - 1) {   // the root
-      if (tid < HT && h0 + tid < H) {
-        const T F = root_F(Ss, pi + (size_t)c * N, tid);
-        lnf[(size_t)c * H + h0 + tid] = Num<T>::lg(F) + logm[tid];
-      }
+    if (root) {
+      F = col_reduce<T, false>(F, red, half);
+      if (w == 0 && hg < H)
+        lnf[(size_t)c * H + hg] =
+            Num<T>::lg(F > Num<T>::tiny() ? F : Num<T>::tiny()) + logm;
       return;
     }
-    load_P(Ps, Pv);
+    cp_async_wait();
     __syncthreads();
-    T acc[4][4];
-    mm64<T, false, false>(Ps, Ss, acc);
-    store64(wb + (size_t)out_slot * NH, HT, acc, false);
-    __syncthreads();
+    T acc[8];
+    prod_ps(Ps, Ss, acc);
+    // c_v into shared memory when the next row is v's parent, else its slot
+    T* out = keep ? Cs : wb + (size_t)r[1] * NH;
+    const int ld = keep ? LDH : BHT;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      int row, col;
+      acc_rc<2>(e, row, col);
+      out[row * ld + col] = acc[e];
+    }
   }
 }
 
+// a residual row of S into Sb [N][LDH] by asynchronous copies (zero past
+// n and H; the caller waits)
 template <typename T>
+__device__ __forceinline__ void load_S_async(T* Sb, const T* S, int srow,
+                                             int c, int C, int n, int H,
+                                             int h0) {
+  const T* src = S + ((size_t)srow * C + c) * n * H;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int e = threadIdx.x + q * NT, j = e / BHT, h = e % BHT;
+    const bool ok = j < n && h0 + h < H;
+    cp_async_val(Sb + j * LDH + h, ok ? src + (size_t)j * H + h0 + h : src,
+                 ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// the state codes that child kr needs at pattern hg: a tip's own (st[0]),
+// or a cherry's grandchildren's; -1 where there is none
+__device__ __forceinline__ void child_codes(int st[KMAX], const int* kr,
+                                            int kmax, int ns,
+                                            const int* states, int H,
+                                            int hg) {
+#pragma unroll
+  for (int a = 0; a < KMAX; ++a) {
+    const int v = kr[0] < ns ? (a == 0 ? kr[0] : -1)
+                             : (a < kmax ? kr[3 + a] : -1);
+    st[a] = v < 0 ? -1 : (hg < H ? states[(size_t)v * H + hg] : 0);
+  }
+}
+
+// this thread's rows of a tip's contribution P_k[j, st] (kr a tip), or of
+// a cherry's scaled partial rebuilt from its grandchildren's gathers as the
+// forward built it (kr a cherry), into dst [N][LDH]
+template <typename T>
+__device__ __forceinline__ void gather_child(T* dst, const int* kr,
+                                             const int st[KMAX], int ns,
+                                             const T* P, int c, int C,
+                                             T* red, int& half) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* src[KMAX];
+#pragma unroll
+  for (int a = 0; a < KMAX; ++a) {
+    const int v = st[a] < 0 ? 0 : (kr[0] < ns ? kr[0] : kr[3 + a]);
+    src[a] = P + ((size_t)v * C + c) * N * N + (st[a] < 0 ? 0 : st[a]);
+  }
+  T y[KMAX][8];
+#pragma unroll
+  for (int a = 0; a < KMAX; ++a)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      y[a][q] = st[a] >= 0 ? src[a][(8 * w + q) * N] : T(1);
+  if (kr[0] < ns) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = y[0][q];
+    return;
+  }
+  T x[8], m = T(0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    x[q] = y[0][q];
+#pragma unroll
+    for (int a = 1; a < KMAX; ++a)
+      if (st[a] >= 0) x[q] *= y[a][q];
+    m = (q == 0 || x[q] > m) ? x[q] : m;
+  }
+  m = col_reduce<T, true>(m, red, half);
+  const T rms = T(1) / (m > T(0) ? m : T(1));
+#pragma unroll
+  for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = x[q] * rms;
+}
+
+// s_k of an internal child into Sb: its residual row (asynchronous) or a
+// cherry rebuilt
+template <typename T>
+__device__ __forceinline__ void load_child_s(T* Sb, const int* kr, int kmax,
+                                             int ns, const T* P,
+                                             const int* states, const T* S,
+                                             int c, int C, int n, int H,
+                                             int h0, T* red, int& half) {
+  if (kr[1] >= 0) {
+    load_S_async(Sb, S, kr[1], c, C, n, H, h0);
+    return;
+  }
+  int st[KMAX];
+  child_codes(st, kr, kmax, ns, states, H, h0 + (threadIdx.x & 31));
+  gather_child(Sb, kr, st, ns, P, c, C, red, half);
+}
+
+// KM: the accumulators of dP_k kept in registers, 2 or 3 (>= kmax)
+template <typename T, int KM>
 __global__ void __launch_bounds__(NT) big_bwd_kernel(
     const int* __restrict__ bs, int nint, int kmax,
     const T* __restrict__ P, const int* __restrict__ states,
     const T* __restrict__ pi, const T* __restrict__ gbar,
     const T* __restrict__ S, T* __restrict__ dP_slab,
     T* __restrict__ dpi_slab, T* __restrict__ work, int C, int H, int ns,
-    int n, int nnode, int nslots, int ntiles) {
+    int n, int nnode, int nslots, int ntiles, int TV) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ps = reinterpret_cast<T*>(smem_raw);
-  T* Ss = Ps + N * LD;
-  T* Gs = Ss + N * LD;
-  T* red = Gs + N * LD;    // [HT] scale factor of the node, or gbar / F
-  T* red2 = red + HT;      // [HT] scale factor of a rebuilt cherry
+  // [kmax][N][LDN]: P_k, or a tip's dP_k ([N][TLD] in the same room)
+  T* kb = reinterpret_cast<T*>(smem_raw);
+  T* cb = kb + kmax * N * LDN;               // [kmax][N][LDH]: c_k
+  // s_k and G_k: one buffer each per child when KM = 2, else one reloaded
+  constexpr int NSB = KM == 2 ? 2 : 1;
+  T* sb = cb + kmax * N * LDH;               // [NSB][N][LDH]: s_k
+  T* Gb = sb + NSB * N * LDH;                // [NSB][N][LDH]: G_k
+  T* Ab = Gb + NSB * N * LDH;                // [N][LDH]: A_v
+  T* red = Ab + N * LDH;                     // [RED]: col_reduce
+  T* dpa = red + RED;                        // [N]: dpi of the block
   const int g = blockIdx.x, c = blockIdx.y, G = gridDim.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int stride = 3 + kmax, width = 3 + stride * kmax;
-  const size_t NH = (size_t)N * HT;
-  T* abuf = work + (size_t)(g * C + c) * (nslots + 1 + 2 * kmax) * NH;
-  T* sbuf = abuf + (size_t)(nslots + 1) * NH;   // s_k of the node's children
-  T* cbuf = sbuf + (size_t)kmax * NH;           // c_k = P_k s_k
+  const size_t NH = (size_t)N * BHT;
+  T* abuf = work + (size_t)(g * C + c) * (nslots + 1) * TV * NH;
   T* dps = dP_slab + (size_t)g * nnode * C * N * N;
-  T* dpis = dpi_slab + (size_t)(g * C + c) * N;
   const T* pic = pi + (size_t)c * N;
-  for (int tile = g; tile < ntiles; tile += G) {
-    const bool add = tile != g;
-    const int h0 = tile * HT;
+  const int lo = (int)((long long)g * ntiles / G);
+  const int hi = (int)((long long)(g + 1) * ntiles / G);
+  int half = 0;
+  if (tid < N) dpa[tid] = T(0);
+  for (int t0 = lo; t0 < hi; t0 += TV) {
+    const int nt = min(TV, hi - t0);
+    const bool add = t0 != lo;
     // root (bsched row 0): gF = gbar / F, A_root = gF pi, dpi += gF s_root
-    load_S_row<T>(Ss, nullptr, S, bs[2], c, C, n, H, h0);
-    __syncthreads();
-    if (tid < HT) {
-      const int hg = h0 + tid;
-      red[tid] = hg < H ? gbar[(size_t)c * H + hg] / root_F(Ss, pic, tid)
-                        : T(0);
+    for (int t = 0; t < nt; ++t) {
+      const int hg = (t0 + t) * BHT + lane;
+      const T* Sr = S + ((size_t)bs[2] * C + c) * n * H;
+      T* Ar = abuf + ((size_t)bs[1] * TV + t) * NH;
+      T x[8], F = T(0);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = 8 * w + q;
+        x[q] = (j < n && hg < H) ? Sr[(size_t)j * H + hg] : T(0);
+        F += pic[j] * x[q];
+      }
+      F = col_reduce<T, false>(F, red, half);
+      F = F > Num<T>::tiny() ? F : Num<T>::tiny();
+      const T gf = hg < H ? gbar[(size_t)c * H + hg] / F : T(0);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = 8 * w + q;
+        Ar[j * BHT + lane] = gf * pic[j];
+        // dpi[j] += sum over the tile's patterns (the warp's lanes)
+        T s = gf * x[q];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) dpa[j] += s;
+      }
     }
-    __syncthreads();
-    T* Ar = abuf + (size_t)bs[1] * NH;
-    for (int e = tid; e < N * HT; e += NT) Ar[e] = red[e % HT] * pic[e / HT];
-    if (tid < N) {
-      T s = T(0);
-      for (int h = 0; h < HT; ++h) s += red[h] * Ss[tid * LD + h];
-      dpis[tid] = add ? dpis[tid] + s : s;
-    }
-    __syncthreads();
     for (int i = 0; i < nint; ++i) {
       const int* r = bs + (size_t)i * width;
-      const T* Av = abuf + (size_t)r[1] * NH;
-      // 1) each child's s_k and c_k = P_k s_k
       int K = 0;
-      for (; K < kmax && r[3 + stride * K] >= 0; ++K) {
-        const int* kr = r + 3 + stride * K;
-        const int kid = kr[0], ksrow = kr[1];
-        const T* Pk = P + ((size_t)kid * C + c) * N * N;
-        T* ck = cbuf + (size_t)K * NH;
-        if (kid < ns) {
-          tip_gather(ck, Pk, states + (size_t)kid * H, h0, H);
-          continue;
-        }
-        T* sk = sbuf + (size_t)K * NH;
-        if (ksrow >= 0) {
-          load_S_row(Ss, sk, S, ksrow, c, C, n, H, h0);
-        } else {
-          // cherry: product of the grandchild tips' gathers, rescaled
-          for (int e = tid; e < N * HT; e += NT) {
-            const int j = e / HT, h = e % HT, hg = h0 + h;
-            T prod = T(1);
-            for (int q = 0; q < kmax && kr[3 + q] >= 0; ++q) {
-              const int gk = kr[3 + q];
-              const int st = hg < H ? states[(size_t)gk * H + hg] : 0;
-              prod *= P[(((size_t)gk * C + c) * N + j) * N + st];
-            }
-            Ss[j * LD + h] = prod;
-          }
-          __syncthreads();
-          if (tid < HT) red2[tid] = column_msafe(Ss, tid);
-          __syncthreads();
-          for (int e = tid; e < N * HT; e += NT) {
-            const int j = e / HT, h = e % HT;
-            const T x = Ss[j * LD + h] / red2[h];
-            Ss[j * LD + h] = x;
-            sk[e] = x;
-          }
-        }
-        load_P(Ps, Pk);
-        __syncthreads();
-        T acc[4][4];
-        mm64<T, false, false>(Ps, Ss, acc);
-        store64(ck, HT, acc, false);
-        __syncthreads();
-      }
-      __syncthreads();
-      // 2) the node's scale factor, from the product of the c_k
-      if (tid < HT) {
-        T m = T(0);
-        for (int j = 0; j < N; ++j) {
-          T p = cbuf[(size_t)j * HT + tid];
-          for (int k = 1; k < K; ++k) p *= cbuf[k * NH + (size_t)j * HT + tid];
-          m = (j == 0 || p > m) ? p : m;
-        }
-        red[tid] = m > T(0) ? m : T(1);
-      }
-      __syncthreads();
-      // 3) per child: G_k, dP_k += G_k s_k^T, A_k = P_k^T G_k
+      while (K < kmax && r[3 + stride * K] >= 0) ++K;
+      __syncthreads();   // the previous node's stores have read kb
       for (int k = 0; k < K; ++k) {
-        const int* kr = r + 3 + stride * k;
-        const int kid = kr[0], kaslot = kr[2];
-        for (int e = tid; e < N * HT; e += NT) {
-          const int j = e / HT, h = e % HT;
-          T loo = T(1);
-          for (int k2 = 0; k2 < K; ++k2)
-            if (k2 != k) loo *= cbuf[k2 * NH + e];
-          Gs[j * LD + h] = clip_adjoint(Av[e] / red[h] * loo);
-        }
+        const int kid = r[3 + stride * k];
+        T* kk = kb + k * N * LDN;
         if (kid < ns) {
-          const int* sv = states + (size_t)kid * H;
-          for (int e = tid; e < N * HT; e += NT) {
-            const int j = e / HT, h = e % HT, hg = h0 + h;
-            Ss[j * LD + h] = (hg < H && sv[hg] == j) ? T(1) : T(0);
+          for (int e = tid; e < N * TLD; e += NT) kk[e] = T(0);
+        } else {
+          load_Pn_async(kk, P + ((size_t)kid * C + c) * N * N);
+        }
+      }
+      T acc[KM][16];
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[k][e] = T(0);
+      for (int t = 0; t < nt; ++t) {
+        const int ht = (t0 + t) * BHT;
+        __syncthreads();   // kb's zeros are written; cb, sb, Gb, Ab are free
+        // 1) each child's c_k = P_k s_k.  A_v and the residual rows by
+        //    asynchronous copies, every state code the tips and cherries
+        //    need, then their gathers: all in flight together; then the
+        //    products.  With one s buffer (KM = 3) only the first internal
+        //    child's s_k comes now.
+        {
+          const T* Av = abuf + ((size_t)r[1] * TV + t) * NH;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int e = tid + q * NT;
+            cp_async_val(Ab + (e / BHT) * LDH + e % BHT, Av + e, true);
+          }
+          asm volatile("cp.async.commit_group;\n" ::);
+        }
+        int first = -1;   // the first internal child
+        int s_in = -1;    // with one buffer: the child whose s_k it holds
+        bool now[KM];     // a child whose s_k or gather is made here
+        int st[KM][KMAX];
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          const int* kr = r + 3 + stride * k;
+          const bool inner = k < K && kr[0] >= ns;
+          now[k] = k < K && (!inner || NSB == 2 || first < 0);
+          if (inner && now[k]) {
+            if (first < 0) first = k;
+            s_in = k;
+            if (kr[1] >= 0)
+              load_S_async(sb + (NSB == 1 ? 0 : k) * N * LDH, S, kr[1], c, C,
+                           n, H, ht);
+          }
+          if (now[k] && (!inner || kr[1] < 0))
+            child_codes(st[k], kr, kmax, ns, states, H, ht + lane);
+        }
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          const int* kr = r + 3 + stride * k;
+          if (!now[k] || (kr[0] >= ns && kr[1] >= 0)) continue;
+          gather_child(kr[0] < ns ? cb + k * N * LDH
+                                  : sb + (NSB == 1 ? 0 : k) * N * LDH,
+                       kr, st[k], ns, P, c, C, red, half);
+        }
+        for (int k = first; first >= 0 && k < K; ++k) {
+          const int* kr = r + 3 + stride * k;
+          if (kr[0] < ns) continue;
+          T* ck = cb + k * N * LDH;
+          if (NSB == 1 && s_in != k) {
+            __syncthreads();   // the last product has read sb
+            load_child_s(sb, kr, kmax, ns, P, states, S, c, C, n, H, ht, red,
+                         half);
+            s_in = k;
+          }
+          if (NSB == 1 || k == first) {
+            cp_async_wait();   // the node's P_k, the s_k
+            __syncthreads();
+          }
+          T a8[8];
+          prod_ps(kb + k * N * LDN, sb + (NSB == 1 ? 0 : k) * N * LDH, a8);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            int row, col;
+            acc_rc<2>(e, row, col);
+            ck[row * LDH + col] = a8[e];
+          }
+        }
+        cp_async_wait();   // A_v (and P_k of a node without products)
+        __syncthreads();
+        // 2) the node's scale factor, from the product of the c_k
+        T m = T(0);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int e = (8 * w + q) * LDH + lane;
+          T p = cb[e];
+          for (int k = 1; k < K; ++k) p *= cb[k * N * LDH + e];
+          m = (q == 0 || p > m) ? p : m;
+        }
+        m = col_reduce<T, true>(m, red, half);
+        const T ms = m > T(0) ? m : T(1), rms = T(1) / ms;
+        // 3) per child, last first: G_k (every child's at once when each
+        //    has its buffer), dP_k += G_k s_k^T, A_k = P_k^T G_k
+        // (a tip's codes of the tile are st[k][0]: lane h holds pattern h's)
+        const int hn = min(BHT, H - ht);
+#pragma unroll
+        for (int k = KM - 1; k >= 0; --k) {
+          if (k >= K) continue;
+          const int* kr = r + 3 + stride * k;
+          const int kid = kr[0];
+          if (NSB == 1 || k == K - 1) {
+#pragma unroll
+            for (int k1 = KM - 1; k1 >= 0; --k1) {
+              if (k1 >= K || (NSB == 1 && k1 != k)) continue;
+              T* G1 = Gb + (NSB == 1 ? 0 : k1) * N * LDH;
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                const int e = (8 * w + q) * LDH + lane;
+                T loo = T(1);
+                for (int k2 = 0; k2 < K; ++k2)
+                  if (k2 != k1) loo *= cb[k2 * N * LDH + e];
+                G1[e] = clip_adjoint(Ab[e] * rms * loo);
+              }
+            }
+            if (NSB == 1 && kid >= ns && s_in != k) {
+              load_child_s(sb, kr, kmax, ns, P, states, S, c, C, n, H, ht,
+                           red, half);
+              s_in = k;
+            }
+            cp_async_wait();
+            __syncthreads();
+          }
+          const T* Gk = Gb + (NSB == 1 ? 0 : k) * N * LDH;
+          T* kk = kb + k * N * LDN;
+          if (kid < ns) {
+            // dP_k[j, state[h]] += G_k[j, h], h in order; warp w takes
+            // the states = w mod 4 of rows 32 (w / 4) + lane, and walks only
+            // the patterns whose state it owns (a ballot over the tile)
+            const int j = 32 * (w >> 2) + lane;
+            unsigned own = __ballot_sync(
+                0xffffffffu, lane < hn && (st[k][0] & 3) == (w & 3));
+            while (own != 0u) {
+              const int h = __ffs(own) - 1;
+              own &= own - 1u;
+              const int sv = __shfl_sync(0xffffffffu, st[k][0], h);
+              kk[j * TLD + sv] += Gk[j * LDH + h];
+            }
+          } else {
+            prod_gst(Gk, sb + (NSB == 1 ? 0 : k) * N * LDH, acc[k]);
+            T a8[8];
+            prod_pts(kk, Gk, a8);
+            T* Ak = abuf + ((size_t)kr[2] * TV + t) * NH;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              int row, col;
+              acc_rc<2>(e, row, col);
+              Ak[row * BHT + col] = a8[e];
+            }
+          }
+          if (NSB == 1 || k == 0) __syncthreads();
+        }
+      }
+      // the visit's dP_k into the block's slab
+#pragma unroll
+      for (int k = 0; k < KM; ++k) {
+        if (k >= K) continue;
+        const int kid = r[3 + stride * k];
+        T* d = dps + ((size_t)kid * C + c) * N * N;
+        if (kid < ns) {
+          const T* kk = kb + k * N * LDN;
+          for (int e = tid; e < N * N; e += NT) {
+            const T x = kk[(e / N) * TLD + e % N];
+            d[e] = add ? d[e] + x : x;
           }
         } else {
-          const T* sk = sbuf + k * NH;
-          for (int e = tid; e < N * HT; e += NT)
-            Ss[(e / HT) * LD + e % HT] = sk[e];
-          load_P(Ps, P + ((size_t)kid * C + c) * N * N);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            int row, col;
+            acc_rc<4>(e, row, col);
+            T* p = d + row * N + col;
+            *p = add ? *p + acc[k][e] : acc[k][e];
+          }
         }
-        __syncthreads();
-        T acc[4][4];
-        mm64<T, false, true>(Gs, Ss, acc);
-        store64(dps + ((size_t)kid * C + c) * N * N, N, acc, add);
-        if (kid >= ns) {
-          mm64<T, true, false>(Ps, Gs, acc);
-          store64(abuf + (size_t)kaslot * NH, HT, acc, false);
-        }
-        __syncthreads();
       }
     }
   }
+  __syncthreads();
+  if (tid < N) dpi_slab[(size_t)(g * C + c) * N + tid] = dpa[tid];
 }
 
 template <typename T>
 int launch_big_fwd(const int* fs, int nsteps, int kmax, const T* P,
                    const int* states, const T* pi, T* lnf, T* S, T* work,
                    int ntiles, int C, int H, int ns, int n, int nslots,
-                   cudaStream_t stream) {
-  const int smem = (int)((2 * N * LD + 2 * HT) * sizeof(T));
+                   int smem, cudaStream_t stream) {
+  if (kmax > KMAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       big_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -294,15 +594,16 @@ template <typename T>
 int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
                    const int* states, const T* pi, const T* gbar, const T* S,
                    T* dP_slab, T* dpi_slab, T* work, T* dP, T* dpi, int G,
-                   int ntiles, int C, int H, int ns, int n, int nnode,
-                   int nslots, int root, cudaStream_t stream) {
-  const int smem = (int)((3 * N * LD + 2 * HT) * sizeof(T));
+                   int ntiles, int TV, int C, int H, int ns, int n, int nnode,
+                   int nslots, int root, int smem, cudaStream_t stream) {
+  if (kmax > KMAX) return (int)cudaErrorInvalidValue;
+  auto kernel = kmax <= 2 ? big_bwd_kernel<T, 2> : big_bwd_kernel<T, KMAX>;
   cudaError_t err = cudaFuncSetAttribute(
-      big_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  big_bwd_kernel<T><<<dim3(G, C), NT, smem, stream>>>(
+  kernel<<<dim3(G, C), NT, smem, stream>>>(
       bs, nint, kmax, P, states, pi, gbar, S, dP_slab, dpi_slab, work, C, H,
-      ns, n, nnode, nslots, ntiles);
+      ns, n, nnode, nslots, ntiles, TV);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(dP_slab, dpi_slab, dP, dpi, G, nnode, C, n, root,
@@ -315,19 +616,20 @@ int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
   extern "C" int paml_big_fwd_##SUFFIX(                                       \
       const int* fs, int nsteps, int kmax, const T* P, const int* states,     \
       const T* pi, T* lnf, T* S, T* work, int ntiles, int C, int H, int ns,   \
-      int n, int nslots, void* stream) {                                      \
+      int n, int nslots, int smem, void* stream) {                            \
     return launch_big_fwd<T>(fs, nsteps, kmax, P, states, pi, lnf, S, work,   \
-                             ntiles, C, H, ns, n, nslots,                     \
+                             ntiles, C, H, ns, n, nslots, smem,               \
                              static_cast<cudaStream_t>(stream));              \
   }                                                                           \
   extern "C" int paml_big_bwd_##SUFFIX(                                       \
       const int* bs, int nint, int kmax, const T* P, const int* states,       \
       const T* pi, const T* gbar, const T* S, T* dP_slab, T* dpi_slab,        \
-      T* work, T* dP, T* dpi, int G, int ntiles, int C, int H, int ns, int n, \
-      int nnode, int nslots, int root, void* stream) {                        \
+      T* work, T* dP, T* dpi, int G, int ntiles, int TV, int C, int H,        \
+      int ns, int n, int nnode, int nslots, int root, int smem,               \
+      void* stream) {                                                         \
     return launch_big_bwd<T>(bs, nint, kmax, P, states, pi, gbar, S,          \
-                             dP_slab, dpi_slab, work, dP, dpi, G, ntiles, C,  \
-                             H, ns, n, nnode, nslots, root,                   \
+                             dP_slab, dpi_slab, work, dP, dpi, G, ntiles, TV, \
+                             C, H, ns, n, nnode, nslots, root, smem,          \
                              static_cast<cudaStream_t>(stream));              \
   }
 

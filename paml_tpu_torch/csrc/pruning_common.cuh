@@ -4,23 +4,40 @@
 // Layout (the JAX package's): P [nnode, C, N, N], row j = parent state,
 // c[j, h] = sum_i P[j, i] s[i, h]; partials are [N, pattern]; states are
 // padded to N = 64 by the wrapper (zero rows and columns), patterns are
-// masked at the ragged edge by the kernels.  Each [64 x 64] x [64 x 64]
-// product stages its operands in shared memory; 256 threads each hold a
-// 4 x 4 tile of the result in registers and accumulate with FMA in the
-// working type (no tensor cores, no TF32).
+// masked at the ragged edge by the kernels.
+//
+// Two families of products stage their operands in shared memory:
+// * B1/B2 (mm64): [64 x 64] x [64 x 64], 256 threads each holding a 4 x 4
+//   tile of the result and accumulating with FMA in the working type.
+// * B3/B4 (prod_ps, prod_pts, prod_gst): the three forms the large-tree
+//   pair needs on a tile of BHT = 32 patterns, P s and P^T G ([64 x 64] x
+//   [64 x 32]) and G s^T ([64 x 32] x [32 x 64], added into registers).  In
+//   float64 each warp issues Hopper's FP64 tensor-core product
+//   (mma.sync m16n8k8 .f64: 67 TFLOP/s on the H100 SXM's data sheet, twice
+//   its FP64 FMA rate); the operand strides LDN = 68 and LDH = 36 (both 4
+//   mod 16 doubles) make the 8-byte fragment loads free of bank conflicts.  In
+//   float32 the same threads compute the same result elements with FMA
+//   (TF32 would break the f32 tolerances).  B3 and B4 call the same
+//   routine, so B4's recomputed contributions, and the scale factors taken
+//   from them, are bit for bit B3's.  What bounds B3 and B4 is the tree
+//   walk around the products (pruning_big.cu).
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
 constexpr int N = 64;        // padded states
-constexpr int HT = 64;       // patterns per tile
-constexpr int LD = HT + 1;   // shared row stride (N == HT, one stride)
+constexpr int HT = 64;       // patterns per tile (B1/B2)
+constexpr int LD = HT + 1;   // shared row stride of B1/B2 (N == HT)
 constexpr int NT = 256;      // threads per block
+constexpr int BHT = 32;      // patterns per tile (B3/B4)
+constexpr int LDN = N + 4;   // shared row stride of a [64 x 64] operand
+constexpr int LDH = BHT + 4; // shared row stride of a [64 x BHT] operand
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -39,6 +56,10 @@ template <> struct Num<double> {
     return ::fma(a, b, c);
   }
 };
+
+// ---------------------------------------------------------------------------
+// B1/B2 helpers (pruning.cu)
+// ---------------------------------------------------------------------------
 
 // acc[p][q] = sum_k opA[ty + 16p][k] * opB[k][tx + 16q] over k < 64, with
 // opA[r][k] = TA ? A[k][r] : A[r][k] and opB[k][c] = TB ? B[c][k] : B[k][c];
@@ -116,6 +137,10 @@ __device__ __forceinline__ T root_F(const T* Ss, const T* pic, int h) {
   return F > Num<T>::tiny() ? F : Num<T>::tiny();
 }
 
+// ---------------------------------------------------------------------------
+// both pairs
+// ---------------------------------------------------------------------------
+
 // the adjoint's G = A / m * (product of the siblings), clipped at +-1e12
 // with NaN -> 0 (keeps absurd line-search trial points finite)
 template <typename T>
@@ -131,6 +156,99 @@ __device__ __forceinline__ T guard(T x) {
   if (x > Num<T>::maxv()) return big;
   if (x < -Num<T>::maxv()) return -big;
   return x;
+}
+
+// ---------------------------------------------------------------------------
+// B3/B4 products.  Warp w owns rows 16 (w & 3) + [0, 16) of the result;
+// lane (gq = lane / 4, tq = lane % 4) holds, in each 16 x 8 tile, rows
+// gq and gq + 8 and columns 2 tq and 2 tq + 1 (the m16n8k8 accumulator
+// layout, used for float32 too).  acc8 (a [64 x BHT] result): tiles at
+// columns 16 (w >> 2) + 8 q, q < 2; acc16 (a [64 x 64] result): columns
+// 32 (w >> 2) + 8 q, q < 4.  Element e of the accumulator is tile q =
+// e / 4, register r = e % 4.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void dmma(double d[4], const double a[4],
+                                     const double b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// (row, column) of accumulator element e; NQ = 2 (acc8) or 4 (acc16)
+template <int NQ>
+__device__ __forceinline__ void acc_rc(int e, int& row, int& col) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = e >> 2, r = e & 3;
+  row = 16 * (w & 3) + (lane >> 2) + 8 * (r >> 1);
+  col = 8 * (NQ * (w >> 2) + q) + 2 * (lane & 3) + (r & 1);
+}
+
+// acc (NQ tiles of 16 x 8) += opA [64 x KD] . opB [KD x 8 NQ (this warp's
+// columns)], with opA(m, k) = A[m * sam + k * sak] and opB(k, n) =
+// B[k * sbk + n * sbn] in shared memory, k ascending (a fixed order)
+template <typename T, int NQ, int KD>
+__device__ __forceinline__ void prod_acc(const T* A, int sam, int sak,
+                                         const T* B, int sbk, int sbn,
+                                         T* acc) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * (w & 3) + gq, n0 = 8 * NQ * (w >> 2);
+  if constexpr (std::is_same<T, double>::value) {
+#pragma unroll
+    for (int k0 = 0; k0 < KD; k0 += 8) {
+      const int ka = k0 + tq;
+      const double a[4] = {A[r0 * sam + ka * sak], A[(r0 + 8) * sam + ka * sak],
+                           A[r0 * sam + (ka + 4) * sak],
+                           A[(r0 + 8) * sam + (ka + 4) * sak]};
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int nc = n0 + 8 * q + gq;
+        const double b[2] = {B[ka * sbk + nc * sbn],
+                             B[(ka + 4) * sbk + nc * sbn]};
+        dmma(acc + 4 * q, a, b);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < KD; ++k) {
+      const T a0 = A[r0 * sam + k * sak], a1 = A[(r0 + 8) * sam + k * sak];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int nc = n0 + 8 * q + 2 * tq;
+        const T b0 = B[k * sbk + nc * sbn], b1 = B[k * sbk + (nc + 1) * sbn];
+        acc[4 * q + 0] = Num<T>::fma(a0, b0, acc[4 * q + 0]);
+        acc[4 * q + 1] = Num<T>::fma(a0, b1, acc[4 * q + 1]);
+        acc[4 * q + 2] = Num<T>::fma(a1, b0, acc[4 * q + 2]);
+        acc[4 * q + 3] = Num<T>::fma(a1, b1, acc[4 * q + 3]);
+      }
+    }
+  }
+}
+
+// acc8 = P s: P [N][LDN], s [N][LDH]
+template <typename T>
+__device__ __forceinline__ void prod_ps(const T* Ps, const T* Ss, T acc[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = T(0);
+  prod_acc<T, 2, N>(Ps, LDN, 1, Ss, LDH, 1, acc);
+}
+
+// acc8 = P^T G: P [N][LDN], G [N][LDH]
+template <typename T>
+__device__ __forceinline__ void prod_pts(const T* Ps, const T* Gs,
+                                         T acc[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = T(0);
+  prod_acc<T, 2, N>(Ps, 1, LDN, Gs, LDH, 1, acc);
+}
+
+// acc16 += G s^T: G [N][LDH], s [N][LDH] (a sum over the tile's patterns)
+template <typename T>
+__device__ __forceinline__ void prod_gst(const T* Gs, const T* Ss,
+                                         T acc[16]) {
+  prod_acc<T, 4, BHT>(Gs, LDH, 1, Ss, 1, LDH, acc);
 }
 
 // dP[k, c, i, j] = sum_g slab[g, k, c, i, j] (root row 0), dpi likewise,

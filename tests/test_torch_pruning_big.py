@@ -123,28 +123,104 @@ def test_dispatch_picks_big_kernels_for_large_trees():
     # workspace budget gives 2 blocks per class for 16 tiles
     big = _balanced_topo(1024)
     assert cuda_pruning.bwd_grid(big.nnode, big.ns, 4, 16, 8) == 2
-    assert cuda_pruning.use_big_kernels(big, 4, 1024, True, 8)
-    assert cuda_pruning.use_big_kernels(big, 4, 10240, True, 4)
+    assert cuda_pruning.use_big_kernels(big, True)
     # multi-hot tips stay on B1/B2 (B3/B4 take state codes only)
-    assert not cuda_pruning.use_big_kernels(big, 4, 1024, False, 8)
-    # the bench shape: B2 gives every tile its own block
+    assert not cuda_pruning.use_big_kernels(big, False)
+    # the bench shape: B3+B4 beat B1+B2 there too since their redesign
     _, _, bench, _ = _random_problem(ns=32, H=8, ladder=True)
-    assert not cuda_pruning.use_big_kernels(interop.topology_from(bench), 3,
-                                            4096, True, 8)
+    assert cuda_pruning.use_big_kernels(interop.topology_from(bench), True)
+    # a node of 4 children: past B4's register accumulators
+    names = [f"t{i}" for i in range(6)]
+    wide = from_treenode(treeio.parse_newick("(t0,t1,t2,(t3,t4,t5));"),
+                         names)
+    assert cuda_pruning.big_plan(wide).kmax == 4
+    assert not cuda_pruning.use_big_kernels(wide, True)
 
 
 def test_big_adjoint_grid_fills_the_card():
     # H100: 132 SMs, 80 GB; f64 slabs of the 1024-taxon tree are 268 MB
     # per g, so G x C reaches the SM count, capped by the tile count
     big = _balanced_topo(1024)
-    wpb = (11 + 1 + 4) * 64 * 64
-    assert cuda_pruning.big_bwd_grid(big.nnode, 4, 160, 8, 132, 80 << 30,
+    wpb = cuda_pruning.big_plan(big).work_per_block
+    assert wpb == (11 + 1) * cuda_pruning.BIG_TMAX * 64 * 32
+    ntiles = cuda_pruning.big_tiles(10240)
+    assert cuda_pruning.big_bwd_grid(big.nnode, 4, ntiles, 8, 132, 80 << 30,
                                      wpb) == 33
     assert cuda_pruning.big_bwd_grid(big.nnode, 4, 16, 8, 132, 80 << 30,
                                      wpb) == 16
     # a small card caps G by memory
-    assert cuda_pruning.big_bwd_grid(big.nnode, 4, 160, 8, 132, 8 << 30,
+    assert cuda_pruning.big_bwd_grid(big.nnode, 4, ntiles, 8, 132, 8 << 30,
                                      wpb) == 3
+    # each block walks its tiles in visits of at most BIG_TMAX
+    assert cuda_pruning.visit_tiles(ntiles, 33) == 10
+    assert cuda_pruning.visit_tiles(ntiles, 3) == cuda_pruning.BIG_TMAX
+
+
+@pytest.mark.parametrize("esize", [4, 8])
+def test_big_grids_fill_the_card_at_a_chunk(esize):
+    # one 1024-pattern chunk of the 1024-taxon tree, C = 4: at least 128
+    # blocks for both kernels on the H100's 132 SMs
+    big = _balanced_topo(1024)
+    ntiles = cuda_pruning.big_tiles(1024)
+    assert ntiles * 4 >= 128
+    G = cuda_pruning.big_bwd_grid(big.nnode, 4, ntiles, esize, 132, 80 << 30,
+                                  cuda_pruning.big_plan(big).work_per_block)
+    assert G * 4 >= 128
+    assert cuda_pruning.visit_tiles(ntiles, G) == 1
+
+
+@pytest.mark.parametrize("kmax", [2, 3])
+@pytest.mark.parametrize("esize", [4, 8])
+def test_big_shared_memory_fits_a_block(esize, kmax):
+    fwd = cuda_pruning.big_fwd_smem(esize)
+    bwd = cuda_pruning.big_bwd_smem(esize, kmax)
+    assert 0 < fwd <= cuda_pruning.SMEM_MAX == 232448
+    assert 0 < bwd <= cuda_pruning.SMEM_MAX
+    # B4 holds, per child, P_k (or a tip's dP_k) and c_k
+    assert bwd >= kmax * (64 * 64 + 64 * 32) * esize
+
+
+def test_kernel_work_at_1024_taxa():
+    # the 1024-taxon balanced tree x 10240 patterns x 4 classes, f64, n 61:
+    # B4 needs 3066 products of 2 * 61^2 per pattern and class, B3 1022
+    big = _balanced_topo(1024)
+    prod = 2 * 61 * 61 * 10240 * 4
+    f4, b4 = cuda_pruning.kernel_work("big_bwd", big, 4, 10240, 61, 8)
+    f3, b3 = cuda_pruning.kernel_work("big_fwd", big, 4, 10240, 61, 8)
+    assert f4 == 3066 * prod and round(f4 / 1e9) == 935
+    assert f3 == 1022 * prod and round(f3 / 1e9) == 312
+    S = 511 * 4 * 61 * 10240 * 8
+    assert round(S / 1e8) == 102            # the residual, 10.2 GB
+    assert S < b3 < S + 0.4e9 and S < b4 < S + 0.8e9   # + P, dP, tips
+    assert round(cuda_pruning.bound_ms(f4, b4), 2) == 13.95
+    assert round(cuda_pruning.bound_ms(f3, b3), 2) == 4.65
+    # B1/B2 at the bench shape (32 taxa, ladder, 4096 patterns, 3 classes)
+    _, _, bench, _ = _random_problem(ns=32, H=8, ladder=True)
+    bench = interop.topology_from(bench)
+    f1, _ = cuda_pruning.kernel_work("pruning_fwd", bench, 3, 4096, 61, 8)
+    f2, _ = cuda_pruning.kernel_work("pruning_bwd", bench, 3, 4096, 61, 8)
+    assert f1 == 30 * 2 * 61 * 61 * 4096 * 3 and f2 == 3 * f1
+
+
+@pytest.mark.parametrize("tree", list(TREES))
+def test_forward_table_keeps_last_children(tree):
+    # B3's table: a row keeps its contribution in shared memory exactly
+    # when the next row is its parent, and that row reads it there
+    _, _, topo, _ = _random_problem(H=8, **TREES[tree])
+    topo = interop.topology_from(topo)
+    bp = cuda_pruning.big_plan(topo)
+    p = cuda_pruning.plan(topo)
+    fsi, kmax = bp.fsi, bp.kmax
+    assert fsi.dtype == np.int32 and fsi.shape[1] == 5 + 2 * kmax
+    assert list(fsi[:, 0]) == [v for v in p.order if v >= topo.ns]
+    for i, row in enumerate(fsi):
+        kids = p.kids_of[int(row[0])]
+        assert list(row[3 + kmax:3 + kmax + len(kids)]) == list(kids)
+        nxt = fsi[i + 1] if i + 1 < len(fsi) else None
+        keep = nxt is not None and p.kids_of[int(nxt[0])][-1] == row[0]
+        assert row[-2] == int(keep)
+        if row[-1] >= 0:
+            assert kids[row[-1]] == fsi[i - 1, 0] and fsi[i - 1, -2] == 1
 
 
 @pytest.mark.parametrize("n_chunks", [1, 3])
