@@ -13,17 +13,19 @@
    and multi-hot tips, in float32 and float64; each kernel timed with
    multi-hot tips at the bench shape, beside its bound.
 3b. B3/B4 (the large-tree pair) against their plain versions (lnf, the
-   residual S, dP, dpi) and against the level path, in float32 and
-   float64, at the bench shape, the uneven shape and one 1024-pattern
-   chunk of the 1024-taxon balanced tree (4 classes); B3+B4, B1+B2 and the
-   plain version timed at each (the dispatch rule's evidence), and B3's and
-   B4's share of their bounds.
+   residual S, dP, dpi, on the tree the kernels walk) and against the
+   level path, in float32 and float64, at the bench shape with 3 classes
+   and with 1 (M0's), the uneven shape, a 128-taxon balanced tree x 1024
+   patterns x 3 classes and one 1024-pattern chunk of the 1024-taxon
+   balanced tree (4 classes); B3+B4, B1+B2 and the plain version timed at
+   each (the dispatch rule's evidence), and B3's and B4's share of their
+   bounds.
 4. The M0 path: a codon alignment simulated under M0 (kappa 2, omega 0.3;
-   32 taxa x 4096 codons, 2 % of the codons of 4 taxa ambiguous at their
-   third position, so that the tips are multi-hot partials) is fitted with
-   `codeml.fit_packed` on the card under M0 and M2a; B1/B2 (the pair for
-   multi-hot tips) must carry the whole run, and the fitted lnL must match
-   the plain version's on the card.
+   32 taxa x 4096 codons) is fitted with `codeml.fit_packed` on the card
+   under M0 and M2a, B3/B4 carrying the fits (state-code tips); then the
+   same alignment with the last taxon's second half gaps (multi-hot tips),
+   B1/B2 carrying the fits.  Each fitted lnL must match the plain
+   version's on the card.
 5. The branch-site path: an alignment simulated under branch-site model A
    (kappa 2, p0 0.5, p1 0.3, w0 0.1, w2 4; 1024 taxa on a balanced tree
    with #1 on the root's left child, 10240 codons, Fequal) with the
@@ -51,7 +53,9 @@ import numpy as np
 
 SEED = 20240601
 BENCH = dict(ns=32, H=4096, C=3, shape="ladder")
+BENCH1 = dict(ns=32, H=4096, C=1, shape="ladder")     # M0's one class
 UNEVEN = dict(ns=11, H=193, C=4, shape="trifurcating")
+MID = dict(ns=128, H=1024, C=3, shape="balanced")
 CHUNK = dict(ns=1024, H=1024, C=4, shape="balanced")
 # the JAX package's north-star shape (bench.py:46-48)
 BIG_TAXA, BIG_NPATT, BIG_CHUNKS = 1024, 10240, 10
@@ -242,10 +246,13 @@ def phase_big_kernels(torch, rng, report, card):
     from paml_tpu_torch.core import cuda_pruning, pruning
 
     props = torch.cuda.get_device_properties(0)
-    for cfg in (BENCH, UNEVEN, CHUNK):
+    for cfg in (BENCH, BENCH1, UNEVEN, MID, CHUNK):
         topo, P_np, pi_np, st_np, _, gb_np = kernel_problem(
             rng, **cfg, multihot=False)
-        bp = cuda_pruning.big_plan(topo)
+        # the tree B3/B4 walk (nodes of more than BIG_KMAX children
+        # resolved); their plain versions run on it too
+        tb = cuda_pruning.big_tree(topo)
+        bp = cuda_pruning.big_plan(tb)
         ntiles = cuda_pruning.big_tiles(cfg["H"])
         for dtype in (torch.float64, torch.float32):
             dn = str(dtype).split(".")[1]
@@ -258,12 +265,14 @@ def phase_big_kernels(torch, rng, report, card):
             lnf, S = cuda_pruning.pruning_big_fwd(P, tips, topo, pi)
             dP, dpi = cuda_pruning.pruning_big_bwd(P, tips, topo, pi, gbar, S)
             torch.cuda.synchronize()
-            lnf_r, S_r = pruning.class_site_lnf_big_plain(P, tips, topo, pi)
+            Pb = cuda_pruning.with_identity(P, tb)
+            lnf_r, S_r = pruning.class_site_lnf_big_plain(Pb, tips, tb, pi)
             e_f = max(max_err(lnf, lnf_r, tol["val"], f"B3 lnf {tag}"),
                       max_err(S, S_r, tol["val"], f"B3 S {tag}"))
             del S_r
             dP_r, dpi_r = pruning.class_site_lnf_big_bwd_plain(
-                P, tips, topo, pi, gbar, S)
+                Pb, tips, tb, pi, gbar, S)
+            dP_r = dP_r[:topo.nnode]
             e_b = max(max_err(dP, dP_r, tol["grad"], f"B4 dP {tag}"),
                       max_err(dpi, dpi_r, tol["grad"], f"B4 dpi {tag}"))
             del dP_r, dpi_r
@@ -277,7 +286,7 @@ def phase_big_kernels(torch, rng, report, card):
                       max_err(dpi, dpi_l, tol["grad"], f"B4 dpi/level {tag}"))
             del dP_l, dpi_l
             G = cuda_pruning.big_bwd_grid(
-                topo.nnode, cfg["C"], ntiles, P.element_size(),
+                tb.nnode, cfg["C"], ntiles, P.element_size(),
                 props.multi_processor_count, props.total_memory,
                 bp.work_per_block)
             print(f"B3/B4 vs plain [{tag}]: lnf/S max|diff| {e_f:.3e}, "
@@ -302,10 +311,10 @@ def phase_big_kernels(torch, rng, report, card):
                     cuda_pruning.pruning_bwd(P, tips, topo, pi, gbar)),
                     **reps),
                 "plain_fwd": cuda_ms(lambda: pruning.class_site_lnf_big_plain(
-                    P, tips, topo, pi), **reps),
+                    Pb, tips, tb, pi), **reps),
                 "plain_bwd": cuda_ms(
                     lambda: pruning.class_site_lnf_big_bwd_plain(
-                        P, tips, topo, pi, gbar, S), **reps),
+                        Pb, tips, tb, pi, gbar, S), **reps),
             }
             for name in ("big_fwd", "big_bwd"):
                 bnd = bound(name, topo, cfg["C"], cfg["H"], P.shape[-1],
@@ -322,15 +331,16 @@ def phase_big_kernels(torch, rng, report, card):
                   f"{t['fused']:.3f} ms; plain {t['plain_fwd']:.3f} + "
                   f"{t['plain_bwd']:.3f} = "
                   f"{t['plain_fwd'] + t['plain_bwd']:.3f} ms", flush=True)
-            del S, dP, dpi
+            del S, dP, dpi, Pb
             torch.cuda.empty_cache()
 
 
 def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
     """Codon alignment simulated under M0 on a ladder tree with the port's
-    own float64 P(t) (F3x4 frequencies from random nucleotide tables).  In
-    each of the first 4 taxa, every 50th codon has its third position read
-    as N, so that the tips are multi-hot partials, as in sequencing data."""
+    own float64 P(t) (F3x4 frequencies from random nucleotide tables):
+    (packed data, topology, the same data with the last taxon's second
+    half gaps).  Gaps make that taxon's tips multi-hot partials (every
+    sense codon, cleandata = 0), the tips B1/B2 serve."""
     from paml_tpu_torch.constants import codon_string
     from paml_tpu_torch.core.pmat import pmat_rev_multi
     from paml_tpu_torch.core.topology import from_treenode
@@ -373,13 +383,11 @@ def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
             stack.append(int(c))
     rows = ["".join(codon_string(int(graph.sense[k])) for k in st[i])
             for i in range(ns)]
-    for i in range(4):
-        row = list(rows[i])
-        for j in range(i, ncod, 50):
-            row[3 * j + 2] = "N"
-        rows[i] = "".join(row)
     data = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ))
-    return data, topo
+    half = 3 * (ncod // 2)
+    rows[-1] = rows[-1][:half] + "-" * (3 * ncod - half)
+    gapped = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ))
+    return data, topo, gapped
 
 
 def plain_value_grad(torch, neg, x, n_chunks, grad=True):
@@ -426,41 +434,63 @@ def phase_slice(torch, rng, report, card):
     from paml_tpu_torch.core import cuda_pruning, pruning
 
     t0 = time.perf_counter()
-    data, topo = simulate_m0(torch, rng, ns=32, ncod=4096)
-    print(f"simulated M0 alignment: {data.ns} taxa x {data.ls} codons, "
-          f"{data.npatt} patterns ({time.perf_counter() - t0:.1f} s)",
+    clean, topo, gapped = simulate_m0(torch, rng, ns=32, ncod=4096)
+    print(f"simulated M0 alignment: {clean.ns} taxa x {clean.ls} codons, "
+          f"{clean.npatt} patterns; with the last taxon's second half gaps "
+          f"{gapped.npatt} patterns ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     specs = {"M0": codeml.CodemlSpec(NSsites=0, codonf="F3x4"),
              "M2a": codeml.CodemlSpec(NSsites=2, codonf="F3x4")}
-    cuda_pruning.reset_launch_counts()
-    pruning.PLAIN_CALLS["cuda"] = 0
-    fits = {}
+    # state-code tips: B3/B4; multi-hot tips: B1/B2
+    routes = (("clean", clean, ("big_fwd", "big_bwd")),
+              ("gapped", gapped, ("pruning_fwd", "pruning_bwd")))
+    fitted = {}
+    for route, data, pair in routes:
+        cuda_pruning.reset_launch_counts()
+        pruning.PLAIN_CALLS["cuda"] = 0
+        fits = {}
+        for name, spec in specs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = codeml.fit_packed(data, topo, spec, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fits[name] = res
+            print(f"fit {name}, {route} [{card}]: lnL {res.lnL:.6f}, kappa "
+                  f"{res.kappa}, omegas {res.class_omegas.ravel()}, freqs "
+                  f"{res.class_freqs}, {res.fit.n_eval} evals, {wall:.2f} s "
+                  f"wall, {1e3 * wall / res.fit.n_eval:.2f} ms/eval "
+                  f"({res.fit.message})", flush=True)
+        launches = dict(cuda_pruning.LAUNCHES)
+        plain_cuda = pruning.PLAIN_CALLS["cuda"]
+        print(f"M0 path, {route}: kernel launches {launches}, plain-version "
+              f"calls on CUDA {plain_cuda}", flush=True)
+        for name, count in launches.items():
+            if (count > 0) != (name in pair):
+                raise AssertionError(f"M0 path, {route}: {name} launched "
+                                     f"{count} times; only {pair} should "
+                                     "carry it")
+            if count:
+                report[name][f"launches_m0_{route}"] = count
+        if plain_cuda:
+            raise AssertionError(f"plain pruning ran {plain_cuda} times on "
+                                 f"CUDA inside the M0 path ({route})")
+        check_m0_fits(torch, data, topo, specs, fits, route)
+        fitted[route] = fits
+    print(f"M0 estimates, clean / gapped: kappa {fitted['clean']['M0'].kappa}"
+          f" / {fitted['gapped']['M0'].kappa}, omega "
+          f"{fitted['clean']['M0'].class_omegas.ravel()} / "
+          f"{fitted['gapped']['M0'].class_omegas.ravel()}", flush=True)
+
+
+def check_m0_fits(torch, data, topo, specs, fits, route):
+    """Each fit's lnL against the plain version on the card at its
+    optimum, its convergence, M2a >= M0, and the M0 estimates near the
+    simulated kappa 2, omega 0.3."""
+    from paml_tpu_torch.apps import codeml
+
     for name, spec in specs.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = codeml.fit_packed(data, topo, spec, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        fits[name] = (res, wall)
-        print(f"fit {name} [{card}]: lnL {res.lnL:.6f}, kappa {res.kappa}, omegas "
-              f"{res.class_omegas.ravel()}, freqs {res.class_freqs}, "
-              f"{res.fit.n_eval} evals, {wall:.2f} s wall, "
-              f"{1e3 * wall / res.fit.n_eval:.2f} ms/eval ({res.fit.message})",
-              flush=True)
-    launches = dict(cuda_pruning.LAUNCHES)
-    plain_cuda = pruning.PLAIN_CALLS["cuda"]
-    print(f"main path: kernel launches {launches}, plain-version calls on "
-          f"CUDA {plain_cuda}", flush=True)
-    for name in ("pruning_fwd", "pruning_bwd"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
-        report[name]["launches"] = launches[name]
-    if plain_cuda:
-        raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
-                             "inside the main path")
-    # correctness of the fits
-    for name, spec in specs.items():
-        res, _ = fits[name]
+        res = fits[name]
         neg, _, _, x0, bounds, _ = codeml.make_codon_objective(
             data, topo, spec, device="cuda")
         x = torch.tensor(res.x, dtype=torch.float64, device="cuda")
@@ -471,25 +501,27 @@ def phase_slice(torch, rng, report, card):
         lnl_plain = plain_value_grad(torch, neg, res.x, 1, grad=False)[0]
         pg = proj_grad_max(torch, neg, res.x, bounds)
         rel = abs(lnl_kernel - lnl_plain) / abs(lnl_plain)
-        print(f"check {name}: lnL kernel {lnl_kernel:.9f}, plain "
+        print(f"check {name}, {route}: lnL kernel {lnl_kernel:.9f}, plain "
               f"{lnl_plain:.9f} (rel {rel:.2e}), at x0 {lnl_x0:.4f}, max "
               f"projected |grad| {pg:.2e}, converged {res.fit.converged}",
               flush=True)
         if not np.isfinite(res.lnL) or res.lnL < lnl_x0:
-            raise AssertionError(f"{name}: fit did not improve on its start")
+            raise AssertionError(f"{name}, {route}: fit did not improve on "
+                                 "its start")
         if not (res.fit.converged or pg < 1e-2):
-            raise AssertionError(f"{name}: not converged ({res.fit.message},"
-                                 f" projected gradient {pg:.2e})")
+            raise AssertionError(f"{name}, {route}: not converged "
+                                 f"({res.fit.message}, projected gradient "
+                                 f"{pg:.2e})")
         if rel > 1e-9 or abs(lnl_kernel - res.lnL) > 1e-9 * abs(res.lnL):
-            raise AssertionError(f"{name}: lnL disagrees with the plain "
-                                 "version on the card")
-    m0, m2a = fits["M0"][0], fits["M2a"][0]
+            raise AssertionError(f"{name}, {route}: lnL disagrees with the "
+                                 "plain version on the card")
+    m0, m2a = fits["M0"], fits["M2a"]
     if m2a.lnL < m0.lnL - 1e-6 * abs(m0.lnL):
-        raise AssertionError("M2a (which nests M0) fitted below M0")
+        raise AssertionError(f"{route}: M2a (which nests M0) fitted below M0")
     if abs(float(m0.class_omegas.ravel()[0]) - 0.3) > 0.1 or \
             abs(float(m0.kappa[0]) - 2.0) > 0.5:
-        raise AssertionError("M0 estimates far from the simulated kappa 2, "
-                             "omega 0.3")
+        raise AssertionError(f"{route}: M0 estimates far from the simulated "
+                             "kappa 2, omega 0.3")
 
 
 def branch_site_tree(rng, ns):
@@ -696,7 +728,7 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the "
                                  "branch-site fit")
-        report[name]["launches"] = launches[name]
+        report[name]["launches_branch_site"] = launches[name]
     if plain_cuda or launches["pruning_fwd"] or launches["pruning_bwd"]:
         raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
                              "inside the branch-site fit, or B1/B2 did")
@@ -786,12 +818,16 @@ def main() -> int:
     phase_kernels(torch, rng, report, smi[0])
     # 3b. the large-tree kernels against their plain versions
     phase_big_kernels(torch, rng, report, smi[0])
-    # 4. the M0 / M2a path (B1/B2)
+    # 4. the M0 / M2a path (B3/B4 on clean data, B1/B2 on gapped data)
     phase_slice(torch, rng, report, smi[0])
     # 5. the branch-site path at 1024 taxa (B3/B4)
     phase_branch_site(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
+        # the main paths' launches, each path counted from 0 (M0/M2a fits
+        # on clean and gapped data, the branch-site fit)
+        r["launches"] = sum(v for k, v in r.items()
+                            if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]
         r["ms"] = r["ms_float64"]
         r["plain_ms"] = r["plain_ms_float64"]

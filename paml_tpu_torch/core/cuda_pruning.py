@@ -241,15 +241,93 @@ def big_plan(topo: Topology) -> BigPlan:
     return p
 
 
+def resolve_tree(topo: Topology, kmax: int) -> Topology:
+    """`topo` with every node of more than `kmax` children resolved: its
+    children are split into `kmax` groups of near-equal size (np.array_split
+    order), each group of more than one child under a new internal node,
+    recursively, so that depth grows by log_kmax of the arity.  The new
+    nodes are numbered from topo.nnode on; their branches have length 0
+    and take an identity P (`with_identity`), so lnf and the original
+    nodes' dP are unchanged.  `topo` itself when no node is wider."""
+    ns, nnode = topo.ns, topo.nnode
+    kids = {v: [int(c) for c in topo.children[v] if c >= 0]
+            for v in range(ns, nnode)}
+    if max(len(k) for k in kids.values()) <= kmax:
+        return topo
+    nxt = nnode
+
+    def group(ks):
+        nonlocal nxt
+        if len(ks) <= kmax:
+            return ks
+        out = []
+        for part in np.array_split(np.asarray(ks), kmax):
+            if len(part) == 1:
+                out.append(int(part[0]))
+            else:
+                u, nxt = nxt, nxt + 1
+                kids[u] = group([int(p) for p in part])
+                out.append(u)
+        return out
+    for v in range(ns, nnode):
+        kids[v] = group(kids[v])
+    parent = np.full(nxt, -1, dtype=np.int32)
+    children = np.full((nxt, kmax), -1, dtype=np.int32)
+    for v, ks in kids.items():
+        children[v, :len(ks)] = ks
+        parent[ks] = v
+    post: list[int] = []
+    stack = [(int(topo.root), False)]
+    while stack:
+        v, done = stack.pop()
+        if done:
+            post.append(v)
+        elif v >= ns:
+            stack.append((v, True))
+            stack.extend((k, False) for k in reversed(kids[v]))
+    extra = nxt - nnode
+    ages0 = None if topo.ages0 is None else \
+        np.concatenate([topo.ages0, np.full(extra, np.nan)])
+    return Topology(
+        ns=ns, nnode=nxt, root=topo.root, parent=parent, children=children,
+        postorder=np.array(post, dtype=np.int32),
+        blen0=np.concatenate([topo.blen0, np.zeros(extra)]),
+        labels=np.concatenate([topo.labels, np.zeros(extra, np.int32)]),
+        node_names=list(topo.node_names) + [""] * extra, ages0=ages0)
+
+
+def big_tree(topo: Topology) -> Topology:
+    """The tree B3/B4 walk for `topo`: `resolve_tree(topo, BIG_KMAX)`, a
+    binary tree, cached on topo."""
+    t = getattr(topo, "_cuda_big_tree", None)
+    if t is None:
+        t = resolve_tree(topo, BIG_KMAX)
+        topo._cuda_big_tree = t
+    return t
+
+
+def with_identity(P: torch.Tensor, tree: Topology) -> torch.Tensor:
+    """P [nnode, C, n, n] extended to the nodes of `tree` (from
+    `resolve_tree`): an identity P for each node it added."""
+    extra = tree.nnode - P.shape[0]
+    if extra == 0:
+        return P
+    C, n = P.shape[1], P.shape[-1]
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
+    return torch.cat([P, eye.expand(extra, C, n, n)])
+
+
 # ---------------------------------------------------------------------------
 # argument checks and padding
 # ---------------------------------------------------------------------------
 
 
 class _Inputs:
-    """Kernel-ready inputs: states padded to N, tips in kernel layout."""
+    """Kernel-ready inputs: states padded to N, tips in kernel layout.  The
+    kernels walk `run` (default topo), a `resolve_tree` of topo whose added
+    nodes get an identity P."""
 
-    def __init__(self, P, tips, topo: Topology, pi):
+    def __init__(self, P, tips, topo: Topology, pi, run: Topology = None):
         if not P.is_cuda:
             raise ValueError(f"CUDA pruning kernels take CUDA tensors, got "
                              f"P on {P.device}")
@@ -293,17 +371,20 @@ class _Inputs:
         else:
             raise ValueError(f"tips must be [ns, H] or [ns, H, n], got "
                              f"{tuple(tips.shape)}")
-        if n == N and P.is_contiguous():
+        run = topo if run is None else run
+        if n == N and P.is_contiguous() and run.nnode == nnode:
             self.P = P
         else:
-            self.P = P.new_zeros((nnode, C, N, N))
-            self.P[..., :n, :n] = P
+            self.P = P.new_zeros((run.nnode, C, N, N))
+            self.P[:nnode, :, :n, :n] = P
+            self.P[nnode:, :, range(n), range(n)] = 1.0
         self.pi = pi.new_zeros((C, N))
         self.pi[:, :n] = pi
-        self.topo = topo
-        self.plan = plan(topo)
+        self.topo = run
+        self.plan = plan(run)
         self.sched = self.plan.device_table(P.device)
-        self.nnode, self.C, self.n = nnode, C, n
+        self.nnode, self.C, self.n = run.nnode, C, n
+        self.nnode_in = nnode
         self.H = tips.shape[1]
         self.ntiles = -(-self.H // HT)
         self.ns = topo.ns
@@ -424,11 +505,11 @@ class ClassSiteLnfKernel(torch.autograd.Function):
 
 
 def use_big_kernels(topo: Topology, state_tips: bool) -> bool:
-    """B3/B4 for state-code tips on trees whose nodes have at most
-    BIG_KMAX children; B1/B2 otherwise (multi-hot tips, wider polytomies).
-    Since their redesign B3+B4 beat B1+B2 at every shape measured, the
-    32-taxon bench shape included (PERF.md)."""
-    return state_tips and big_plan(topo).kmax <= BIG_KMAX
+    """B3/B4 for state-code tips, on any tree (they walk `big_tree(topo)`,
+    binary); B1/B2 for multi-hot tips.  Since their redesign B3+B4 beat
+    B1+B2 at every shape measured on both sides, from 11 to 1024 taxa and
+    1 to 4 classes, polytomies included (PERF.md)."""
+    return state_tips
 
 
 def big_fwd_smem(esize: int) -> int:
@@ -488,14 +569,10 @@ def bound_ms(flop: float, nbytes: float) -> float:
 
 
 def _big_inputs(P, tips, topo, pi) -> _Inputs:
-    x = _Inputs(P, tips, topo, pi)
+    x = _Inputs(P, tips, topo, pi, big_tree(topo))
     if x.states is None:
         raise ValueError("the large-tree kernels take state-code tips "
                          "[ns, H] only")
-    if big_plan(topo).kmax > BIG_KMAX:
-        raise ValueError(f"the large-tree kernels take nodes of at most "
-                         f"{BIG_KMAX} children, got "
-                         f"{big_plan(topo).kmax}")
     return x
 
 
@@ -569,13 +646,13 @@ def _launch_big_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
                  _stream(x.P.device))
     LAUNCHES["big_bwd"] += 1
     _build.check(err, "big_bwd launch")
-    return dP, dpi
+    return dP[:x.nnode_in], dpi
 
 
 def pruning_big_fwd(P, tips, topo: Topology, pi, want_S: bool = True):
     """Large-tree forward kernel: (lnf [C, H], S [n_srows, C, n, H] or
     None), S holding the scaled partials of the non-cherry internal
-    nodes (no autograd)."""
+    nodes of `big_tree(topo)` (no autograd)."""
     return _launch_big_fwd(_big_inputs(P, _checked(tips, P), topo, pi),
                            want_S)
 

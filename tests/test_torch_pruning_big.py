@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 from paml_tpu.core import pallas_pruning_big
 from paml_tpu.core import pruning as jax_pruning
+from paml_tpu.core import topology as jax_topology
+from paml_tpu.io import treeio as jax_treeio
 from paml_tpu_torch import interop
 from paml_tpu_torch.core import cuda_pruning, pruning
 from paml_tpu_torch.core.topology import from_treenode
@@ -129,12 +131,78 @@ def test_dispatch_picks_big_kernels_for_large_trees():
     # the bench shape: B3+B4 beat B1+B2 there too since their redesign
     _, _, bench, _ = _random_problem(ns=32, H=8, ladder=True)
     assert cuda_pruning.use_big_kernels(interop.topology_from(bench), True)
-    # a node of 4 children: past B4's register accumulators
+    # a node of 4 children: B3/B4 walk its resolution
     names = [f"t{i}" for i in range(6)]
     wide = from_treenode(treeio.parse_newick("(t0,t1,t2,(t3,t4,t5));"),
                          names)
     assert cuda_pruning.big_plan(wide).kmax == 4
-    assert not cuda_pruning.use_big_kernels(wide, True)
+    assert cuda_pruning.use_big_kernels(wide, True)
+    assert cuda_pruning.big_plan(cuda_pruning.big_tree(wide)).kmax <= \
+        cuda_pruning.BIG_KMAX
+
+
+WIDE = {"root4": "((t0,t1),(t2,t3),(t4,t5),(t6,t7));",
+        "star9": "(t0,t1,t2,t3,t4,t5,t6,t7,t8);",
+        "nested5": "((t0,t1),t2,(t3,t4,t5,t6,t7));"}
+
+
+@pytest.mark.parametrize("kmax", [2, 3])
+@pytest.mark.parametrize("tree", list(WIDE))
+def test_resolved_tree_keeps_lnf_and_gradient(tree, kmax):
+    # B3/B4's plain versions on the resolved tree (identity P on the added
+    # nodes) against jax.grad of the JAX level path on the tree as given
+    nwk = WIDE[tree]
+    ns = nwk.count("t")
+    names = [f"t{i}" for i in range(ns)]
+    topo = from_treenode(treeio.parse_newick(nwk), names)
+    tb = cuda_pruning.resolve_tree(topo, kmax)
+    assert tb.nnode > topo.nnode and cuda_pruning.big_plan(tb).kmax == kmax
+    assert tb.root == topo.root and list(tb.postorder)[-1] == tb.root
+    rng = np.random.default_rng(11)
+    n, C, H = 61, 2, 37
+    P = rng.gamma(1.0, 1.0, size=(topo.nnode, C, n, n))
+    P = 0.7 * np.eye(n) + 0.3 * P / P.sum(-1, keepdims=True)
+    pi = rng.dirichlet(np.ones(n), size=C)
+    tips = rng.integers(0, n, size=(ns, H)).astype(np.int32)
+    gbar = rng.uniform(0.5, 2.0, size=(C, H))
+    jtopo = jax_topology.from_treenode(jax_treeio.parse_newick(nwk), names)
+
+    def obj(P_, pi_):
+        lnf = jax_pruning._class_site_lnf_lvl(P_, jnp.asarray(tips), jtopo,
+                                              pi_)
+        return jnp.sum(jnp.asarray(gbar) * lnf), lnf
+    (_, ref), (gP, gpi) = jax.jit(jax.value_and_grad(
+        obj, argnums=(0, 1), has_aux=True))(jnp.asarray(P), jnp.asarray(pi))
+    Pb = cuda_pruning.with_identity(torch.tensor(P), tb)
+    assert Pb.shape[0] == tb.nnode
+    assert torch.equal(Pb[topo.nnode:, 1], torch.eye(n).expand(
+        tb.nnode - topo.nnode, n, n))
+    tt, pit = torch.tensor(tips), torch.tensor(pi)
+    lnf, S = pruning.class_site_lnf_big_plain(Pb, tt, tb, pit)
+    dP, dpi = pruning.class_site_lnf_big_bwd_plain(Pb, tt, tb, pit,
+                                                   torch.tensor(gbar), S)
+    np.testing.assert_allclose(lnf.numpy(), np.asarray(ref), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(dP[:topo.nnode].numpy(), np.asarray(gP),
+                               rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(dpi.numpy(), np.asarray(gpi), rtol=1e-10,
+                               atol=1e-10)
+
+
+def test_resolving_a_star_tree_stays_shallow():
+    # 1024 tips under one root: log-depth resolution, so B4's adjoint
+    # slots (about one per level) stay few
+    names = [f"t{i}" for i in range(1024)]
+    star = from_treenode(treeio.parse_newick(
+        "(" + ",".join(names) + ");"), names)
+    for kmax, nnode, nslots in ((2, 2047, 11), (3, 1683, 13)):
+        tb = cuda_pruning.resolve_tree(star, kmax)
+        assert tb.nnode == nnode
+        assert cuda_pruning.big_plan(tb).nslots <= nslots
+    # a tree within the arity is its own resolution
+    bal = _balanced_topo(64)
+    assert cuda_pruning.resolve_tree(bal, 2) is bal
+    assert cuda_pruning.big_tree(bal) is bal
 
 
 def test_big_adjoint_grid_fills_the_card():
