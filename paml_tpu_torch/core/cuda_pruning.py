@@ -16,8 +16,10 @@ raise if the launch failed; each adds one to its count in `LAUNCHES` where
 it launches.  `ClassSiteLnfKernel` (B1/B2) and `ClassSiteLnfBig` (B3/B4)
 tie them together as `torch.autograd.Function`s, which leave the state
 codes to their caller (the codeml objective checks its tips once);
-`use_big_kernels` chooses between the two pairs.  There is no fallback: a
-tensor the kernels do not take raises.
+`use_big_kernels` chooses between the two pairs.  B3/B4 walk binary trees:
+their wrappers run `big_tree(topo)`, whose added nodes take an identity P,
+and return dP of topo's own nodes.  There is no fallback: a tensor the
+kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ WORK_BUDGET = 2 << 30    # bytes of adjoint workspace + slabs per call
 
 BIG_HT = 32              # patterns per tile of B3/B4 (BHT)
 BIG_LDN, BIG_LDH = N + 4, BIG_HT + 4   # their shared row strides
-BIG_KMAX = 3             # children per node B3/B4 take (pruning_big.cu: KMAX)
+BIG_KMAX = 2             # children per node B3/B4 take (pruning_big.cu: KMAX)
 BIG_RED = 2 * 8 * BIG_HT  # their column-reduction scratch (RED)
 BIG_TMAX = 16            # tiles per visit of a B4 block
 BIG_WORK_SHARE = 8       # B4's slabs take at most 1/8 of the card's memory
@@ -241,18 +243,23 @@ def big_plan(topo: Topology) -> BigPlan:
     return p
 
 
-def resolve_tree(topo: Topology, kmax: int) -> Topology:
-    """`topo` with every node of more than `kmax` children resolved: its
-    children are split into `kmax` groups of near-equal size (np.array_split
-    order), each group of more than one child under a new internal node,
-    recursively, so that depth grows by log_kmax of the arity.  The new
-    nodes are numbered from topo.nnode on; their branches have length 0
-    and take an identity P (`with_identity`), so lnf and the original
-    nodes' dP are unchanged.  `topo` itself when no node is wider."""
-    ns, nnode = topo.ns, topo.nnode
+def big_tree(topo: Topology) -> Topology:
+    """The tree B3/B4 walk for `topo`, cached on it: every node of more
+    than BIG_KMAX children resolved, its children split into BIG_KMAX
+    groups of near-equal size (np.array_split order), each group of more
+    than one child under a new internal node, recursively, so that depth
+    grows by the log of the arity.  The new nodes are numbered from
+    topo.nnode on; their branches have length 0 and take an identity P
+    (`with_identity`), so lnf and the original nodes' dP are unchanged.
+    `topo` itself when no node is wider."""
+    t = getattr(topo, "_cuda_big_tree", None)
+    if t is not None:
+        return t
+    ns, nnode, kmax = topo.ns, topo.nnode, BIG_KMAX
     kids = {v: [int(c) for c in topo.children[v] if c >= 0]
             for v in range(ns, nnode)}
     if max(len(k) for k in kids.values()) <= kmax:
+        topo._cuda_big_tree = topo
         return topo
     nxt = nnode
 
@@ -288,27 +295,19 @@ def resolve_tree(topo: Topology, kmax: int) -> Topology:
     extra = nxt - nnode
     ages0 = None if topo.ages0 is None else \
         np.concatenate([topo.ages0, np.full(extra, np.nan)])
-    return Topology(
+    t = Topology(
         ns=ns, nnode=nxt, root=topo.root, parent=parent, children=children,
         postorder=np.array(post, dtype=np.int32),
         blen0=np.concatenate([topo.blen0, np.zeros(extra)]),
         labels=np.concatenate([topo.labels, np.zeros(extra, np.int32)]),
         node_names=list(topo.node_names) + [""] * extra, ages0=ages0)
-
-
-def big_tree(topo: Topology) -> Topology:
-    """The tree B3/B4 walk for `topo`: `resolve_tree(topo, BIG_KMAX)`, a
-    binary tree, cached on topo."""
-    t = getattr(topo, "_cuda_big_tree", None)
-    if t is None:
-        t = resolve_tree(topo, BIG_KMAX)
-        topo._cuda_big_tree = t
+    topo._cuda_big_tree = t
     return t
 
 
 def with_identity(P: torch.Tensor, tree: Topology) -> torch.Tensor:
     """P [nnode, C, n, n] extended to the nodes of `tree` (from
-    `resolve_tree`): an identity P for each node it added."""
+    `big_tree`): an identity P for each node it added."""
     extra = tree.nnode - P.shape[0]
     if extra == 0:
         return P
@@ -324,7 +323,7 @@ def with_identity(P: torch.Tensor, tree: Topology) -> torch.Tensor:
 
 class _Inputs:
     """Kernel-ready inputs: states padded to N, tips in kernel layout.  The
-    kernels walk `run` (default topo), a `resolve_tree` of topo whose added
+    kernels walk `run` (default topo), the `big_tree` of topo, whose added
     nodes get an identity P."""
 
     def __init__(self, P, tips, topo: Topology, pi, run: Topology = None):
@@ -504,8 +503,8 @@ class ClassSiteLnfKernel(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def use_big_kernels(topo: Topology, state_tips: bool) -> bool:
-    """B3/B4 for state-code tips, on any tree (they walk `big_tree(topo)`,
+def use_big_kernels(state_tips: bool) -> bool:
+    """B3/B4 for state-code tips, on any tree (they walk its `big_tree`,
     binary); B1/B2 for multi-hot tips.  Since their redesign B3+B4 beat
     B1+B2 at every shape measured on both sides, from 11 to 1024 taxa and
     1 to 4 classes, polytomies included (PERF.md)."""
@@ -520,12 +519,11 @@ def big_fwd_smem(esize: int) -> int:
 
 def big_bwd_smem(esize: int, kmax: int) -> int:
     """Dynamic shared memory of a B4 block (pruning_big.cu's carve): per
-    child P_k or its tip dP_k [N][LDN] and c_k [N][LDH]; s_k and G_k (one
-    buffer each per child at kmax 2, one in all at kmax 3) and A_v
-    [N][LDH]; the column-reduction scratch; dpi [N]."""
-    nsb = 2 if kmax <= 2 else 1
-    return (kmax * N * BIG_LDN + (kmax + 2 * nsb + 1) * N * BIG_LDH + BIG_RED
-            + N) * esize
+    child of the tree's kmax P_k or its tip dP_k [N][LDN] and c_k
+    [N][LDH]; s_k and G_k for BIG_KMAX children and A_v [N][LDH]; the
+    column-reduction scratch; dpi [N]."""
+    return (kmax * N * BIG_LDN + (kmax + 2 * BIG_KMAX + 1) * N * BIG_LDH
+            + BIG_RED + N) * esize
 
 
 def big_tiles(H: int) -> int:

@@ -302,7 +302,7 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     once).  A CPU tensor runs the plain version.  Gradients w.r.t. P and
     pi through the analytic adjoint; tips are data."""
     if P.device.type == "cuda":
-        if cuda_pruning.use_big_kernels(topo, _is_state_tips(tips)):
+        if cuda_pruning.use_big_kernels(_is_state_tips(tips)):
             return cuda_pruning.ClassSiteLnfBig.apply(P, tips, topo, pi)
         return cuda_pruning.ClassSiteLnfKernel.apply(P, tips, topo, pi)
     if P.device.type != "cpu":

@@ -37,11 +37,10 @@
 //   than the rest of the phase), in B3 and in B4's cherry rebuild alike.
 // * The adjoint keeps the node at hand in shared memory: each child's P_k
 //   (internal children) for the whole visit; for the tile at hand each
-//   child's c_k = P_k s_k, s_k and G_k (one buffer each per child when no
-//   node has 3 children, else one, reloaded) and A_v.  A_v and the
-//   residual rows arrive by cp.async, the tips' and cherries' gathers with
-//   them.  The children's dP_k are summed over the visit's tiles before one
-//   store to the block's slab: internal children's in the product's
+//   child's c_k = P_k s_k, s_k and G_k, and A_v.  A_v and the residual rows
+//   arrive by cp.async, the tips' and cherries' gathers with them.  The
+//   children's dP_k are summed over the visit's tiles before one store to
+//   the block's slab: internal children's in the product's
 //   registers, tip children's in shared memory by a scatter, dP_k[j,
 //   state[h]] += G_k[j, h] (warp w owns the states = w mod 4 of 32 rows and
 //   takes, in order, the patterns whose state it owns, so the sum order is
@@ -58,9 +57,14 @@
 //   stay in device memory, where L2 serves most of them.  A node's slot is
 //   its last child's; A_v is copied to shared memory at the start of a
 //   tile, so A_k may overwrite it later in the same tile.
-// * State-code tips only, as in the JAX kernel; at most KMAX = 3 children
-//   per node (the wrapper refuses more, and the dispatch sends such trees
-//   to B1/B2).
+// * State-code tips only, as in the JAX kernel.  Binary trees only
+//   (KMAX = 2): the wrapper walks cuda_pruning.big_tree, which resolves a
+//   node of more children (a trifurcating root, a polytomy) into binary
+//   ones joined by branches with an identity P.  Three children's buffers
+//   do not fit beside each other; at 1024 taxa a trifurcating root walked
+//   with one s_k / G_k buffer, reloaded per child, took B4 19 ms at a
+//   chunk and 108 ms unchunked, its binary resolution with a buffer per
+//   child 16 and 85 ms (tools/torch_big_probe.py, PERF.md).
 //
 // What bounds it on the H100 (f64, the 1024-taxon balanced tree, C = 4,
 // 10240 patterns; cuda_pruning.kernel_work).  The forward does 1022
@@ -70,14 +74,15 @@
 // run at about a sixth of that bound (PERF.md): each block walks the tree
 // node by node, and its loads, gathers and barriers at each node leave the
 // tensor cores idle most of the time.  At a 1024-pattern chunk the adjoint
-// also writes G x C = 128 dP slabs of 268 MB, which the reduction reads
-// back.
+// also writes G = 32 dP slabs of 268 MB (8.6 GB), which the reduction reads
+// back: 3.3 of B4's 16 ms.  A smaller G writes less but walks longer, and
+// costs more than it saves (G 16: 21 ms; PERF.md).
 
 #include "pruning_common.cuh"
 
 namespace {
 
-constexpr int KMAX = 3;      // children per node the adjoint takes
+constexpr int KMAX = 2;      // children per node (cuda_pruning.big_tree)
 constexpr int TLD = N + 1;   // row stride of a tip's dP_k in shared memory
 constexpr int RED = 2 * 8 * BHT;   // values of col_reduce's scratch
 
@@ -311,25 +316,7 @@ __device__ __forceinline__ void gather_child(T* dst, const int* kr,
   for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = x[q] * rms;
 }
 
-// s_k of an internal child into Sb: its residual row (asynchronous) or a
-// cherry rebuilt
 template <typename T>
-__device__ __forceinline__ void load_child_s(T* Sb, const int* kr, int kmax,
-                                             int ns, const T* P,
-                                             const int* states, const T* S,
-                                             int c, int C, int n, int H,
-                                             int h0, T* red, int& half) {
-  if (kr[1] >= 0) {
-    load_S_async(Sb, S, kr[1], c, C, n, H, h0);
-    return;
-  }
-  int st[KMAX];
-  child_codes(st, kr, kmax, ns, states, H, h0 + (threadIdx.x & 31));
-  gather_child(Sb, kr, st, ns, P, c, C, red, half);
-}
-
-// KM: the accumulators of dP_k kept in registers, 2 or 3 (>= kmax)
-template <typename T, int KM>
 __global__ void __launch_bounds__(NT) big_bwd_kernel(
     const int* __restrict__ bs, int nint, int kmax,
     const T* __restrict__ P, const int* __restrict__ states,
@@ -341,11 +328,9 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
   // [kmax][N][LDN]: P_k, or a tip's dP_k ([N][TLD] in the same room)
   T* kb = reinterpret_cast<T*>(smem_raw);
   T* cb = kb + kmax * N * LDN;               // [kmax][N][LDH]: c_k
-  // s_k and G_k: one buffer each per child when KM = 2, else one reloaded
-  constexpr int NSB = KM == 2 ? 2 : 1;
-  T* sb = cb + kmax * N * LDH;               // [NSB][N][LDH]: s_k
-  T* Gb = sb + NSB * N * LDH;                // [NSB][N][LDH]: G_k
-  T* Ab = Gb + NSB * N * LDH;                // [N][LDH]: A_v
+  T* sb = cb + kmax * N * LDH;               // [KMAX][N][LDH]: s_k
+  T* Gb = sb + KMAX * N * LDH;               // [KMAX][N][LDH]: G_k
+  T* Ab = Gb + KMAX * N * LDH;               // [N][LDH]: A_v
   T* red = Ab + N * LDH;                     // [RED]: col_reduce
   T* dpa = red + RED;                        // [N]: dpi of the block
   const int g = blockIdx.x, c = blockIdx.y, G = gridDim.x;
@@ -402,9 +387,9 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
           load_Pn_async(kk, P + ((size_t)kid * C + c) * N * N);
         }
       }
-      T acc[KM][16];
+      T acc[KMAX][16];
 #pragma unroll
-      for (int k = 0; k < KM; ++k)
+      for (int k = 0; k < KMAX; ++k)
 #pragma unroll
         for (int e = 0; e < 16; ++e) acc[k][e] = T(0);
       for (int t = 0; t < nt; ++t) {
@@ -413,8 +398,7 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
         // 1) each child's c_k = P_k s_k.  A_v and the residual rows by
         //    asynchronous copies, every state code the tips and cherries
         //    need, then their gathers: all in flight together; then the
-        //    products.  With one s buffer (KM = 3) only the first internal
-        //    child's s_k comes now.
+        //    products.
         {
           const T* Av = abuf + ((size_t)r[1] * TV + t) * NH;
 #pragma unroll
@@ -425,48 +409,36 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
           asm volatile("cp.async.commit_group;\n" ::);
         }
         int first = -1;   // the first internal child
-        int s_in = -1;    // with one buffer: the child whose s_k it holds
-        bool now[KM];     // a child whose s_k or gather is made here
-        int st[KM][KMAX];
+        int st[KMAX][KMAX];
 #pragma unroll
-        for (int k = 0; k < KM; ++k) {
+        for (int k = 0; k < KMAX; ++k) {
           const int* kr = r + 3 + stride * k;
           const bool inner = k < K && kr[0] >= ns;
-          now[k] = k < K && (!inner || NSB == 2 || first < 0);
-          if (inner && now[k]) {
+          if (inner) {
             if (first < 0) first = k;
-            s_in = k;
             if (kr[1] >= 0)
-              load_S_async(sb + (NSB == 1 ? 0 : k) * N * LDH, S, kr[1], c, C,
-                           n, H, ht);
+              load_S_async(sb + k * N * LDH, S, kr[1], c, C, n, H, ht);
           }
-          if (now[k] && (!inner || kr[1] < 0))
+          if (k < K && (!inner || kr[1] < 0))
             child_codes(st[k], kr, kmax, ns, states, H, ht + lane);
         }
 #pragma unroll
-        for (int k = 0; k < KM; ++k) {
+        for (int k = 0; k < KMAX; ++k) {
           const int* kr = r + 3 + stride * k;
-          if (!now[k] || (kr[0] >= ns && kr[1] >= 0)) continue;
-          gather_child(kr[0] < ns ? cb + k * N * LDH
-                                  : sb + (NSB == 1 ? 0 : k) * N * LDH,
-                       kr, st[k], ns, P, c, C, red, half);
+          if (k >= K || (kr[0] >= ns && kr[1] >= 0)) continue;
+          gather_child((kr[0] < ns ? cb : sb) + k * N * LDH, kr, st[k], ns,
+                       P, c, C, red, half);
         }
         for (int k = first; first >= 0 && k < K; ++k) {
           const int* kr = r + 3 + stride * k;
           if (kr[0] < ns) continue;
           T* ck = cb + k * N * LDH;
-          if (NSB == 1 && s_in != k) {
-            __syncthreads();   // the last product has read sb
-            load_child_s(sb, kr, kmax, ns, P, states, S, c, C, n, H, ht, red,
-                         half);
-            s_in = k;
-          }
-          if (NSB == 1 || k == first) {
+          if (k == first) {
             cp_async_wait();   // the node's P_k, the s_k
             __syncthreads();
           }
           T a8[8];
-          prod_ps(kb + k * N * LDN, sb + (NSB == 1 ? 0 : k) * N * LDH, a8);
+          prod_ps(kb + k * N * LDN, sb + k * N * LDH, a8);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             int row, col;
@@ -487,20 +459,20 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
         }
         m = col_reduce<T, true>(m, red, half);
         const T ms = m > T(0) ? m : T(1), rms = T(1) / ms;
-        // 3) per child, last first: G_k (every child's at once when each
-        //    has its buffer), dP_k += G_k s_k^T, A_k = P_k^T G_k
+        // 3) per child, last first: G_k (every child's at once, on the
+        //    first turn), dP_k += G_k s_k^T, A_k = P_k^T G_k
         // (a tip's codes of the tile are st[k][0]: lane h holds pattern h's)
         const int hn = min(BHT, H - ht);
 #pragma unroll
-        for (int k = KM - 1; k >= 0; --k) {
+        for (int k = KMAX - 1; k >= 0; --k) {
           if (k >= K) continue;
           const int* kr = r + 3 + stride * k;
           const int kid = kr[0];
-          if (NSB == 1 || k == K - 1) {
+          if (k == K - 1) {
 #pragma unroll
-            for (int k1 = KM - 1; k1 >= 0; --k1) {
-              if (k1 >= K || (NSB == 1 && k1 != k)) continue;
-              T* G1 = Gb + (NSB == 1 ? 0 : k1) * N * LDH;
+            for (int k1 = KMAX - 1; k1 >= 0; --k1) {
+              if (k1 >= K) continue;
+              T* G1 = Gb + k1 * N * LDH;
 #pragma unroll
               for (int q = 0; q < 8; ++q) {
                 const int e = (8 * w + q) * LDH + lane;
@@ -510,15 +482,10 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
                 G1[e] = clip_adjoint(Ab[e] * rms * loo);
               }
             }
-            if (NSB == 1 && kid >= ns && s_in != k) {
-              load_child_s(sb, kr, kmax, ns, P, states, S, c, C, n, H, ht,
-                           red, half);
-              s_in = k;
-            }
             cp_async_wait();
             __syncthreads();
           }
-          const T* Gk = Gb + (NSB == 1 ? 0 : k) * N * LDH;
+          const T* Gk = Gb + k * N * LDH;
           T* kk = kb + k * N * LDN;
           if (kid < ns) {
             // dP_k[j, state[h]] += G_k[j, h], h in order; warp w takes
@@ -534,7 +501,7 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
               kk[j * TLD + sv] += Gk[j * LDH + h];
             }
           } else {
-            prod_gst(Gk, sb + (NSB == 1 ? 0 : k) * N * LDH, acc[k]);
+            prod_gst(Gk, sb + k * N * LDH, acc[k]);
             T a8[8];
             prod_pts(kk, Gk, a8);
             T* Ak = abuf + ((size_t)kr[2] * TV + t) * NH;
@@ -545,12 +512,12 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
               Ak[row * BHT + col] = a8[e];
             }
           }
-          if (NSB == 1 || k == 0) __syncthreads();
+          if (k == 0) __syncthreads();
         }
       }
       // the visit's dP_k into the block's slab
 #pragma unroll
-      for (int k = 0; k < KM; ++k) {
+      for (int k = 0; k < KMAX; ++k) {
         if (k >= K) continue;
         const int kid = r[3 + stride * k];
         T* d = dps + ((size_t)kid * C + c) * N * N;
@@ -597,11 +564,10 @@ int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
                    int ntiles, int TV, int C, int H, int ns, int n, int nnode,
                    int nslots, int root, int smem, cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
-  auto kernel = kmax <= 2 ? big_bwd_kernel<T, 2> : big_bwd_kernel<T, KMAX>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      big_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(G, C), NT, smem, stream>>>(
+  big_bwd_kernel<T><<<dim3(G, C), NT, smem, stream>>>(
       bs, nint, kmax, P, states, pi, gbar, S, dP_slab, dpi_slab, work, C, H,
       ns, n, nnode, nslots, ntiles, TV);
   err = cudaGetLastError();

@@ -2,9 +2,10 @@
 schedules against `pallas_pruning_big._sched_arrays`; the plain B3 (lnf and
 the residual S) against the Pallas kernel in interpret mode in float32 to
 2e-6; the plain B4 against the Pallas kernel's gradient in float32 to 3e-5
-and against `jax.grad` of the level path in float64 to 1e-10; the rule
-that picks B3/B4 over B1/B2; `lnL_chunked` against the JAX package's; and
-the state-code check of the public kernel wrappers."""
+and against `jax.grad` of the level path in float64 to 1e-10; the binary
+resolution B3/B4 walk, against `jax.grad` of the level path on the tree as
+given; the rule that picks B3/B4 over B1/B2; `lnL_chunked` against the JAX
+package's; and the state-code check of the public kernel wrappers."""
 import numpy as np
 import pytest
 import torch
@@ -125,38 +126,44 @@ def test_dispatch_picks_big_kernels_for_large_trees():
     # workspace budget gives 2 blocks per class for 16 tiles
     big = _balanced_topo(1024)
     assert cuda_pruning.bwd_grid(big.nnode, big.ns, 4, 16, 8) == 2
-    assert cuda_pruning.use_big_kernels(big, True)
+    assert cuda_pruning.use_big_kernels(True)
     # multi-hot tips stay on B1/B2 (B3/B4 take state codes only)
-    assert not cuda_pruning.use_big_kernels(big, False)
-    # the bench shape: B3+B4 beat B1+B2 there too since their redesign
+    assert not cuda_pruning.use_big_kernels(False)
+    # the bench shape (B3+B4 beat B1+B2 there too since their redesign)
+    # and a node of 4 children: B3/B4 walk the tree as given or its binary
+    # resolution
     _, _, bench, _ = _random_problem(ns=32, H=8, ladder=True)
-    assert cuda_pruning.use_big_kernels(interop.topology_from(bench), True)
-    # a node of 4 children: B3/B4 walk its resolution
+    bench = interop.topology_from(bench)
+    assert cuda_pruning.big_tree(bench) is bench
     names = [f"t{i}" for i in range(6)]
     wide = from_treenode(treeio.parse_newick("(t0,t1,t2,(t3,t4,t5));"),
                          names)
     assert cuda_pruning.big_plan(wide).kmax == 4
-    assert cuda_pruning.use_big_kernels(wide, True)
-    assert cuda_pruning.big_plan(cuda_pruning.big_tree(wide)).kmax <= \
-        cuda_pruning.BIG_KMAX
+    assert cuda_pruning.big_plan(cuda_pruning.big_tree(wide)).kmax == \
+        cuda_pruning.BIG_KMAX == 2
 
 
-WIDE = {"root4": "((t0,t1),(t2,t3),(t4,t5),(t6,t7));",
+WIDE = {"root3": "((t0,t1),t2,(t3,t4));",
+        "root4": "((t0,t1),(t2,t3),(t4,t5),(t6,t7));",
         "star9": "(t0,t1,t2,t3,t4,t5,t6,t7,t8);",
-        "nested5": "((t0,t1),t2,(t3,t4,t5,t6,t7));"}
+        "nested5": "((t0,t1),t2,(t3,t4,t5,t6,t7));",
+        "inner3": "((t0,t1,t2),(t3,t4));",
+        "two_wide": "((t0,t1,t2,t3),(t4,t5,t6),t7);"}
 
 
-@pytest.mark.parametrize("kmax", [2, 3])
 @pytest.mark.parametrize("tree", list(WIDE))
-def test_resolved_tree_keeps_lnf_and_gradient(tree, kmax):
-    # B3/B4's plain versions on the resolved tree (identity P on the added
-    # nodes) against jax.grad of the JAX level path on the tree as given
+def test_resolved_tree_keeps_lnf_and_gradient(tree):
+    # B3/B4's plain versions on the binary resolution (identity P on the
+    # added nodes) against jax.grad of the JAX level path on the tree as
+    # given
     nwk = WIDE[tree]
     ns = nwk.count("t")
     names = [f"t{i}" for i in range(ns)]
     topo = from_treenode(treeio.parse_newick(nwk), names)
-    tb = cuda_pruning.resolve_tree(topo, kmax)
-    assert tb.nnode > topo.nnode and cuda_pruning.big_plan(tb).kmax == kmax
+    tb = cuda_pruning.big_tree(topo)
+    assert tb.nnode > topo.nnode and cuda_pruning.big_plan(tb).kmax == 2
+    # a binary tree keeps one internal node per tip but one
+    assert tb.nnode == 2 * ns - 1
     assert tb.root == topo.root and list(tb.postorder)[-1] == tb.root
     rng = np.random.default_rng(11)
     n, C, H = 61, 2, 37
@@ -195,13 +202,11 @@ def test_resolving_a_star_tree_stays_shallow():
     names = [f"t{i}" for i in range(1024)]
     star = from_treenode(treeio.parse_newick(
         "(" + ",".join(names) + ");"), names)
-    for kmax, nnode, nslots in ((2, 2047, 11), (3, 1683, 13)):
-        tb = cuda_pruning.resolve_tree(star, kmax)
-        assert tb.nnode == nnode
-        assert cuda_pruning.big_plan(tb).nslots <= nslots
-    # a tree within the arity is its own resolution
+    tb = cuda_pruning.big_tree(star)
+    assert tb.nnode == 2047 and cuda_pruning.big_tree(star) is tb
+    assert cuda_pruning.big_plan(tb).nslots <= 11
+    # a binary tree is its own resolution
     bal = _balanced_topo(64)
-    assert cuda_pruning.resolve_tree(bal, 2) is bal
     assert cuda_pruning.big_tree(bal) is bal
 
 
@@ -240,12 +245,20 @@ def test_big_grids_fill_the_card_at_a_chunk(esize):
 @pytest.mark.parametrize("kmax", [2, 3])
 @pytest.mark.parametrize("esize", [4, 8])
 def test_big_shared_memory_fits_a_block(esize, kmax):
+    # a root of kmax children: the wrapper passes the shared memory of the
+    # tree B3/B4 walk, its binary resolution
+    names = [f"t{i}" for i in range(2 * kmax)]
+    kids = ",".join(f"({names[2 * i]},{names[2 * i + 1]})"
+                    for i in range(kmax))
+    topo = from_treenode(treeio.parse_newick(f"({kids});"), names)
+    walked = cuda_pruning.big_plan(cuda_pruning.big_tree(topo)).kmax
+    assert walked == cuda_pruning.BIG_KMAX == 2
     fwd = cuda_pruning.big_fwd_smem(esize)
-    bwd = cuda_pruning.big_bwd_smem(esize, kmax)
+    bwd = cuda_pruning.big_bwd_smem(esize, walked)
     assert 0 < fwd <= cuda_pruning.SMEM_MAX == 232448
     assert 0 < bwd <= cuda_pruning.SMEM_MAX
-    # B4 holds, per child, P_k (or a tip's dP_k) and c_k
-    assert bwd >= kmax * (64 * 64 + 64 * 32) * esize
+    # B4 holds, per child, P_k (or a tip's dP_k), c_k, s_k and G_k
+    assert bwd >= walked * (64 * 64 + 3 * 64 * 32) * esize
 
 
 def test_kernel_work_at_1024_taxa():

@@ -4,12 +4,10 @@ one CUDA card, beside chip_smoke.py (run from the repo root):
 
     python3 tools/torch_big_probe.py
 
-1. B4's two shared-memory layouts on the 1024-taxon tree with a
-   trifurcating root (the root of an unrooted codeml tree), one
-   1024-pattern chunk and all 10240 patterns, 4 classes: the kernel as
-   given (kmax 3: one s_k / G_k buffer, reloaded per child) against the
-   same tree resolved to a binary one (`cuda_pruning.resolve_tree(topo,
-   2)`, one identity node more: a buffer per child).
+1. The 1024-taxon tree with a trifurcating root (the root of an unrooted
+   codeml tree), one 1024-pattern chunk and all 10240 patterns, 4
+   classes: B3 and B4 on its binary resolution (`cuda_pruning.big_tree`,
+   one identity node more) against the binary 1024-taxon tree.
 2. A 1024-taxon tree whose root has 4 children: B1+B2 against B3+B4 on
    `cuda_pruning.big_tree` of it, one chunk.
 3. B4's grid at one chunk of the binary 1024-taxon tree: G blocks per
@@ -18,8 +16,8 @@ one CUDA card, beside chip_smoke.py (run from the repo root):
    the dP slabs.
 
 Every result is held against the level path (the plain version of B1/B2)
-with chip_smoke.py's tolerances.  Prints one line per measurement, the
-card's name and power limit first; writes chiprun_out/probe_big.json.
+with chip_smoke.py's tolerances.  Prints the card's name and power
+limit, one line per measurement, and last all of them as one JSON line.
 """
 from __future__ import annotations
 
@@ -97,42 +95,34 @@ def time_pair(torch, P, tips, topo, pi, gbar, reps):
     return t3, t4
 
 
-def layouts(torch, rng, out, card):
-    """1: the trifurcating root through B4's kmax-3 layout and through its
-    binary resolution."""
+def roots(torch, rng, out, card):
+    """1: a trifurcating root, walked as its binary resolution, against
+    the binary tree of as many taxa."""
     from paml_tpu_torch.core import cuda_pruning as cp
-    topo = root_k_topo(TAXA, 3)
-    tb = cp.resolve_tree(topo, 2)
-    assert cp.big_plan(topo).kmax == 3 and cp.big_plan(tb).kmax == 2
+    tri, bal = root_k_topo(TAXA, 3), root_k_topo(TAXA, 2)
+    assert cp.big_tree(tri).nnode == tri.nnode + 1 and cp.big_tree(bal) is bal
     for H, dtype in ((CHUNK_H, torch.float64), (CHUNK_H, torch.float32),
                      (FULL_H, torch.float64)):
         dn = str(dtype).split(".")[1]
-        P, tips, pi, gbar = problem(torch, rng, topo, H, dtype)
-        Pb = cp.with_identity(P, tb)
-        tag = f"{TAXA} taxa, trifurcating root, {H} patterns, C {C}, {dn}"
-        a, _ = big_pair(P, tips, topo, pi, gbar)
-        b, _ = big_pair(Pb, tips, tb, pi, gbar)
-        b = (b[0], b[1][:topo.nnode], b[2])
-        if H == CHUNK_H:
-            ref = level(torch, P, tips, topo, pi, gbar)
-            e = max(check(a, ref, dn, f"kmax 3 [{tag}]"),
-                    check(b, ref, dn, f"binary [{tag}]"))
-        else:
-            e = check(a, b, dn, f"kmax 3 vs binary [{tag}]")
-        del a, b
-        reps = dict(reps=5, warmup=1)
-        t = {"kmax3": time_pair(torch, P, tips, topo, pi, gbar, reps),
-             "binary": time_pair(torch, Pb, tips, tb, pi, gbar, reps),
-             "kmax3_again": time_pair(torch, P, tips, topo, pi, gbar, reps),
-             "binary_again": time_pair(torch, Pb, tips, tb, pi, gbar, reps)}
-        out.append({"probe": "layouts", "shape": tag, "max_abs_err": e,
+        tag = f"{TAXA} taxa, {H} patterns, C {C}, {dn}"
+        t, e = {}, 0.0
+        for name, topo in (("trifurcating", tri), ("binary", bal)):
+            P, tips, pi, gbar = problem(torch, rng, topo, H, dtype)
+            if H == CHUNK_H:
+                got, _ = big_pair(P, tips, topo, pi, gbar)
+                e = max(e, check(got, level(torch, P, tips, topo, pi, gbar),
+                                 dn, f"{name} [{tag}]"))
+                del got
+            t[name] = time_pair(torch, P, tips, topo, pi, gbar,
+                                dict(reps=5, warmup=1))
+            del P, tips, pi, gbar
+            torch.cuda.empty_cache()
+        out.append({"probe": "root", "shape": tag, "max_abs_err": e,
                     "card": card, **{k: {"B3_ms": v[0], "B4_ms": v[1]}
                                      for k, v in t.items()}})
-        print(f"layouts [{tag}, {card}]: " + "; ".join(
+        print(f"root [{tag}, {card}]: " + "; ".join(
             f"{k} B3 {v[0]:.3f} ms B4 {v[1]:.3f} ms" for k, v in t.items())
-            + f"; max|diff| {e:.3e}", flush=True)
-        del P, Pb, tips, pi, gbar
-        torch.cuda.empty_cache()
+            + (f"; max|diff| {e:.3e}" if H == CHUNK_H else ""), flush=True)
 
 
 def polytomy(torch, rng, out, card):
@@ -161,8 +151,8 @@ def polytomy(torch, rng, out, card):
                     "card": card, "B3_ms": t3, "B4_ms": t4, "B1_B2_ms": t12,
                     "added_nodes": tb.nnode - topo.nnode})
         print(f"polytomy [{tag}, {card}]: B3 {t3:.3f} + B4 {t4:.3f} = "
-              f"{t3 + t4:.3f} ms on its resolution ({tb.nnode - topo.nnode} "
-              f"node added); B1+B2 {t12:.3f} ms; max|diff| {e:.3e}",
+              f"{t3 + t4:.3f} ms on its resolution (nodes added: "
+              f"{tb.nnode - topo.nnode}); B1+B2 {t12:.3f} ms; max|diff| {e:.3e}",
               flush=True)
         del P, tips, pi, gbar
         torch.cuda.empty_cache()
@@ -244,12 +234,10 @@ def main() -> int:
     _build.build()
     rng = np.random.default_rng(SEED)
     out: list = []
-    layouts(torch, rng, out, card)
+    roots(torch, rng, out, card)
     polytomy(torch, rng, out, card)
     grid(torch, rng, out, card)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "probe_big.json"), "w") as f:
-        json.dump(out, f, indent=1)
+    print(json.dumps(out), flush=True)
     return 0
 
 
