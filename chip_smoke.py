@@ -6,26 +6,32 @@
 1. Device: the card's name and power limit; TF32 off.
 2. Build: the CUDA kernels from paml_tpu_torch/csrc/ (one nvcc per source,
    side by side, timed).
-3. B1/B2 against their plain PyTorch versions on the card: the pruning
-   forward (lnf) and adjoint (dP, dpi) at the bench shape (32 taxa on a
-   ladder tree x 4096 patterns x 61 states x 3 classes) and at an 11-taxon
-   tree with a trifurcating root (193 patterns, 4 classes), for state-code
-   and multi-hot tips, in float32 and float64; each kernel timed with
-   multi-hot tips at the bench shape, beside its bound.
+3. B1/B2 (coded tips with an ambiguity table) against their plain
+   PyTorch versions on the card: the pruning forward (lnf, and the
+   residual S on the binary tree the kernels walk) and adjoint (dP, dpi)
+   at the bench shape (32 taxa on a ladder tree x 4096 patterns x 61
+   states x 3 classes) and at an 11-taxon tree with a trifurcating root
+   (193 patterns, 4 classes), in float32 and float64, for state codes,
+   multi-hot partials (one table row) and partials whose table passes 64
+   rows (also with 5 adjoint blocks per class: multi-tile visits); each
+   kernel timed with multi-hot tips at the bench shape, beside its bound.
 3b. B3/B4 (the large-tree pair) against their plain versions (lnf, the
    residual S, dP, dpi, on the tree the kernels walk) and against the
    level path, in float32 and float64, at the bench shape with 3 classes
    and with 1 (M0's), the uneven shape, a 128-taxon balanced tree x 1024
    patterns x 3 classes and one 1024-pattern chunk of the 1024-taxon
-   balanced tree (4 classes); B3+B4, B1+B2 and the plain version timed at
-   each (the dispatch rule's evidence), and B3's and B4's share of their
-   bounds.
+   balanced tree (4 classes); B1/B2 on the same states with gaps (runs of
+   mean 10 codons over about 5 % of the cells) and Ns (0.2 % of the
+   codons), against their plain versions; B3+B4 on the state codes, B1+B2
+   on the gapped tips and on the same state codes, and the plain version
+   timed at each (the dispatch rule's evidence), each kernel beside its
+   bound.
 4. The M0 path: a codon alignment simulated under M0 (kappa 2, omega 0.3;
    32 taxa x 4096 codons) is fitted with `codeml.fit_packed` on the card
    under M0 and M2a, B3/B4 carrying the fits (state-code tips); then the
-   same alignment with the last taxon's second half gaps (multi-hot tips),
-   B1/B2 carrying the fits.  Each fitted lnL must match the plain
-   version's on the card.
+   same alignment with the last taxon's second half gaps (coded tips with
+   a table), B1/B2 carrying the fits.  Each fitted lnL must match the
+   plain version's on the card; each fit reports ms per evaluation.
 5. The branch-site path: an alignment simulated under branch-site model A
    (kappa 2, p0 0.5, p1 0.3, w0 0.1, w2 4; 1024 taxa on a balanced tree
    with #1 on the root's left child, 10240 codons, Fequal) with the
@@ -35,7 +41,11 @@
    timed, with their share of the bound, and held against their plain
    versions chunk by chunk; then `codeml.fit_packed` fits model A with the
    branch lengths fixed, twice: B3/B4 must carry the whole fit, and the
-   two fits must give the same lnL bit for bit.
+   two fits must give the same lnL bit for bit.  Then the same alignment
+   with the gaps and Ns of 3b: value + gradient in 10 chunks against the
+   plain version, twice unchunked (the same bits), B1/B2 timed unchunked,
+   and the model A fit, carried by B1/B2 alone.  Each fit reports ms per
+   evaluation gross and net of its own objective's set-up, timed apart.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -88,7 +98,11 @@ def newick(names, shape, blens=None):
 
 def kernel_problem(rng, ns, H, C, shape, n=61, multihot=True):
     """Random P rows (positive, diagonally dominant), pi and tips, as the
-    JAX package's kernel tests build them."""
+    JAX package's kernel tests build them; with `multihot` also two sets of
+    [ns, H, n] partials: `hot` (tip 0 takes the first 5 states at 1 in 20
+    patterns, the JAX tests' ambiguity) and `wide` (1 in 10 cells of every
+    taxon a gap or one of 150 random sets of 2-6 states: an ambiguity table
+    of more than 64 rows)."""
     from paml_tpu_torch.core.topology import from_treenode
     from paml_tpu_torch.io import treeio
 
@@ -98,15 +112,60 @@ def kernel_problem(rng, ns, H, C, shape, n=61, multihot=True):
     P = 0.7 * np.eye(n)[None, None] + 0.3 * P / P.sum(-1, keepdims=True)
     pi = rng.dirichlet(np.ones(n), size=C)
     states = rng.integers(0, n, size=(ns, H)).astype(np.int32)
-    hot = None
+    hot = wide = None
     if multihot:
         hot = np.zeros((ns, H, n))
         hot[np.arange(ns)[:, None], np.arange(H)[None, :], states] = 1.0
+        wide = hot.copy()
         amb = rng.integers(0, H, size=max(10, H // 20))
         hot[0, amb] = 0.0
         hot[0, amb, :5] = 1.0
+        pool = np.zeros((151, n))
+        pool[0] = 1.0                                   # a gap
+        for row in pool[1:]:
+            row[rng.choice(n, size=int(rng.integers(2, 7)),
+                           replace=False)] = 1.0
+        cell = rng.random((ns, H)) < 0.1
+        wide[cell] = pool[rng.integers(0, 151, size=int(cell.sum()))]
     gbar = rng.uniform(0.5, 2.0, size=(C, H))
-    return topo, P, pi, states, hot, gbar
+    return topo, P, pi, states, (hot, wide), gbar
+
+
+def gapped_codes(rng, states, n=61):
+    """Gapped codon tips from sense-codon state codes [ns, H]: gaps in runs
+    of geometric length (mean 10 codons) over about 5 % of each taxon's
+    cells, and one N at a random position in 0.2 % of the codons, as
+    TipCodes arrays (codes [ns, H] int32, amb [A, n] float64): a code n + a
+    names amb row a, row 0 the gap (all ones), the others the sets of
+    codons that an N allows (the sense codons agreeing at the two other
+    positions)."""
+    from paml_tpu_torch.models import codon
+
+    pos = codon.codon_graph(0).pos_nt                   # [n, 3]
+    ns, H = states.shape
+    codes = np.array(states, dtype=np.int32)
+    runs = rng.poisson(0.05 * H / 10, size=ns)
+    for t in range(ns):
+        for s0, ln in zip(rng.integers(0, H, size=runs[t]),
+                          rng.geometric(0.1, size=runs[t])):
+            codes[t, s0:s0 + ln] = n
+    ti, hi = np.nonzero((rng.random((ns, H)) < 0.002) & (codes < n))
+    rows, index = [np.ones(n)], {}
+    for t, h, p in zip(ti, hi, rng.integers(0, 3, size=len(ti))):
+        others = [q for q in range(3) if q != p]
+        key = (int(p),) + tuple(int(x) for x in pos[codes[t, h], others])
+        if key not in index:
+            index[key] = len(rows)
+            rows.append(np.all(pos[:, others] == pos[codes[t, h], others],
+                               axis=1).astype(np.float64))
+        codes[t, h] = n + index[key]
+    return codes, np.stack(rows)
+
+
+def coded_tips(torch, codes, amb, dtype):
+    from paml_tpu_torch.core.tipcodes import TipCodes
+    return TipCodes(torch.tensor(codes, device="cuda"),
+                    torch.tensor(amb, dtype=dtype, device="cuda"))
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -143,12 +202,12 @@ def max_err(got, ref, rtol, what):
     return float(err.max())
 
 
-def bound(name, topo, C, H, n, esize, state_tips=True):
+def bound(name, topo, C, H, n, esize, n_amb=0):
     """(bound_ms, bound_by) of kernel `name` on these shapes: the larger
     of its operations over the card's peak rate and its bytes over the
     memory rate (cuda_pruning.kernel_work, PEAK_FLOPS, PEAK_BYTES)."""
     from paml_tpu_torch.core import cuda_pruning as cp
-    flop, nbytes = cp.kernel_work(name, topo, C, H, n, esize, state_tips)
+    flop, nbytes = cp.kernel_work(name, topo, C, H, n, esize, n_amb)
     by = "operations" if flop / cp.PEAK_FLOPS >= nbytes / cp.PEAK_BYTES \
         else "bytes"
     return cp.bound_ms(flop, nbytes), by
@@ -160,43 +219,95 @@ def record(report, name, dn, ms, plain_ms, bnd):
     report[name][f"bound_ms_{dn}"], report[name][f"bound_by_{dn}"] = bnd
 
 
+def n_amb_of(tips):
+    from paml_tpu_torch.core import cuda_pruning
+    t = cuda_pruning.kernel_tips(tips)
+    return getattr(t, "n_amb", 0)
+
+
+def check_fused(torch, P, tips, topo, pi, gbar, tol, tag):
+    """B1 (lnf, S) and B2 (dP, dpi) against the plain versions on the
+    card: lnf, dP and dpi against the level path on `topo`, S against the
+    residual form on the binary tree the kernels walk.  Returns (max
+    |diff| of B1, of B2, S)."""
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    lnf, S = cuda_pruning.pruning_fwd(P, tips, topo, pi)
+    dP, dpi = cuda_pruning.pruning_bwd(P, tips, topo, pi, gbar, S)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        lnf_r = pruning.class_site_lnf_plain(P, tips, topo, pi)
+    e_f = max_err(lnf, lnf_r, tol["val"], f"B1 lnf {tag}")
+    del lnf_r
+    tb = cuda_pruning.big_tree(topo)
+    S_r = pruning.class_site_lnf_big_plain(
+        cuda_pruning.with_identity(P, tb), tips, tb, pi)[1]
+    e_f = max(e_f, max_err(S, S_r, tol["val"], f"B1 S {tag}"))
+    del S_r
+    dP_r, dpi_r = pruning.class_site_lnf_bwd_plain(P, tips, topo, pi, gbar)
+    e_b = max(max_err(dP, dP_r, tol["grad"], f"B2 dP {tag}"),
+              max_err(dpi, dpi_r, tol["grad"], f"B2 dpi {tag}"))
+    return e_f, e_b, S
+
+
 def phase_kernels(torch, rng, report, card):
     from paml_tpu_torch.core import cuda_pruning, pruning
 
     for cfg in (BENCH, UNEVEN):
-        topo, P_np, pi_np, st_np, hot_np, gb_np = kernel_problem(rng, **cfg)
+        topo, P_np, pi_np, st_np, (hot_np, wide_np), gb_np = kernel_problem(
+            rng, **cfg)
         for dtype in (torch.float64, torch.float32):
             dn = str(dtype).split(".")[1]
             tol = TOL[dn]
             P = torch.tensor(P_np, dtype=dtype, device="cuda")
             pi = torch.tensor(pi_np, dtype=dtype, device="cuda")
             gbar = torch.tensor(gb_np, dtype=dtype, device="cuda")
-            for enc, tips in (("states", torch.tensor(st_np, device="cuda")),
-                              ("multihot", torch.tensor(hot_np, dtype=dtype,
-                                                        device="cuda"))):
-                tag = f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']} {dn} {enc}"
-                lnf = cuda_pruning.pruning_fwd(P, tips, topo, pi)
-                dP, dpi = cuda_pruning.pruning_bwd(P, tips, topo, pi, gbar)
-                torch.cuda.synchronize()
-                with torch.no_grad():
-                    lnf_r = pruning.class_site_lnf_plain(P, tips, topo, pi)
-                dP_r, dpi_r = pruning.class_site_lnf_bwd_plain(
-                    P, tips, topo, pi, gbar)
-                e_f = max_err(lnf, lnf_r, tol["val"], f"lnf {tag}")
-                e_b = max(max_err(dP, dP_r, tol["grad"], f"dP {tag}"),
-                          max_err(dpi, dpi_r, tol["grad"], f"dpi {tag}"))
-                print(f"kernel vs plain [{tag}]: lnf max|diff| {e_f:.3e}, "
+            for enc, tips in (
+                    ("states", torch.tensor(st_np, device="cuda")),
+                    ("multihot", torch.tensor(hot_np, dtype=dtype,
+                                              device="cuda")),
+                    ("wide", torch.tensor(wide_np, dtype=dtype,
+                                          device="cuda"))):
+                A = n_amb_of(tips)
+                tag = (f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']} "
+                       f"{dn} {enc}, A {A}")
+                e_f, e_b, S = check_fused(torch, P, tips, topo, pi, gbar,
+                                          tol, tag)
+                print(f"B1/B2 vs plain [{tag}]: lnf/S max|diff| {e_f:.3e}, "
                       f"dP/dpi max|diff| {e_b:.3e}", flush=True)
                 for name, e in (("pruning_fwd", e_f), ("pruning_bwd", e_b)):
                     key = f"max_abs_err_{dn}"
                     report[name][key] = max(report[name].get(key, 0.0), e)
+                if enc == "wide" and cfg is BENCH and dtype == torch.float64:
+                    if A <= 64:
+                        raise AssertionError(f"{tag}: the wide tips' table "
+                                             "should pass 64 rows")
+                    # 5 blocks per class: visits of 16 and 10 of the 128
+                    # tiles, the tips' dP summed across the visits
+                    full = cuda_pruning.big_bwd_grid
+                    cuda_pruning.big_bwd_grid = lambda *args: 5
+                    try:
+                        dP5, dpi5 = cuda_pruning.pruning_bwd(P, tips, topo,
+                                                             pi, gbar, S)
+                    finally:
+                        cuda_pruning.big_bwd_grid = full
+                    dP_r, dpi_r = pruning.class_site_lnf_bwd_plain(
+                        P, tips, topo, pi, gbar)
+                    e5 = max(max_err(dP5, dP_r, tol["grad"], f"dP G=5 {tag}"),
+                             max_err(dpi5, dpi_r, tol["grad"],
+                                     f"dpi G=5 {tag}"))
+                    report["pruning_bwd"]["max_abs_err_float64"] = max(
+                        report["pruning_bwd"]["max_abs_err_float64"], e5)
+                    print(f"  adjoint with 5 blocks per class over "
+                          f"{cuda_pruning.big_tiles(cfg['H'])} tiles "
+                          f"[{tag}]: dP/dpi max|diff| {e5:.3e}", flush=True)
                 if cfg is BENCH and enc == "multihot":
-                    # the tips B1/B2 serve on the main path
+                    # the tips B1/B2 serve on the M0 path's gapped fits
                     times = {
                         "pruning_fwd": cuda_ms(lambda: cuda_pruning.pruning_fwd(
                             P, tips, topo, pi)),
                         "pruning_bwd": cuda_ms(lambda: cuda_pruning.pruning_bwd(
-                            P, tips, topo, pi, gbar)),
+                            P, tips, topo, pi, gbar, S)),
                     }
                     plain = {}
                     with torch.no_grad():
@@ -208,38 +319,21 @@ def phase_kernels(torch, rng, report, card):
                             P, tips, topo, pi, gbar))
                     for name in times:
                         bnd = bound(name, topo, cfg["C"], cfg["H"],
-                                    P.shape[-1], P.element_size(), False)
+                                    P.shape[-1], P.element_size(), A)
                         record(report, name, dn, times[name], plain[name], bnd)
                         print(f"  {name} [{tag}]: bound {bnd[0]:.4f} ms "
                               f"({bnd[1]}), {100 * bnd[0] / times[name]:.1f}"
                               " % of it", flush=True)
-                    print(f"  time [{tag}, {card}]: fwd kernel "
+                    print(f"  time [{tag}, {card}]: B1 (with S) "
                           f"{times['pruning_fwd']:.3f} "
-                          f"ms, plain {plain['pruning_fwd']:.3f} ms; adjoint "
-                          f"kernel {times['pruning_bwd']:.3f} ms, plain "
+                          f"ms, plain {plain['pruning_fwd']:.3f} ms; B2 "
+                          f"{times['pruning_bwd']:.3f} ms, plain "
                           f"{plain['pruning_bwd']:.3f} ms; value+grad kernel "
                           f"{times['pruning_fwd'] + times['pruning_bwd']:.3f}"
                           f" ms, plain {plain['pruning_fwd'] + plain['pruning_bwd']:.3f} ms",
                           flush=True)
-                if cfg is BENCH and enc == "states" and dtype == torch.float64:
-                    # a workspace budget too small for one block per tile:
-                    # 5 blocks per class walk the 64 tiles and add into
-                    # their slabs
-                    full = cuda_pruning.bwd_grid
-                    cuda_pruning.bwd_grid = lambda *args: 5
-                    try:
-                        dP5, dpi5 = cuda_pruning.pruning_bwd(P, tips, topo,
-                                                             pi, gbar)
-                    finally:
-                        cuda_pruning.bwd_grid = full
-                    e5 = max(max_err(dP5, dP_r, tol["grad"], f"dP G=5 {tag}"),
-                             max_err(dpi5, dpi_r, tol["grad"],
-                                     f"dpi G=5 {tag}"))
-                    report["pruning_bwd"]["max_abs_err_float64"] = max(
-                        report["pruning_bwd"]["max_abs_err_float64"], e5)
-                    print(f"  adjoint with 5 blocks per class over "
-                          f"{-(-cfg['H'] // cuda_pruning.HT)} tiles "
-                          f"[{tag}]: dP/dpi max|diff| {e5:.3e}", flush=True)
+                del S
+            torch.cuda.empty_cache()
 
 
 def phase_big_kernels(torch, rng, report, card):
@@ -249,8 +343,10 @@ def phase_big_kernels(torch, rng, report, card):
     for cfg in (BENCH, BENCH1, UNEVEN, MID, CHUNK):
         topo, P_np, pi_np, st_np, _, gb_np = kernel_problem(
             rng, **cfg, multihot=False)
-        # the tree B3/B4 walk (nodes of more than BIG_KMAX children
-        # resolved); their plain versions run on it too
+        # the same states with gaps and Ns: B1/B2's tips
+        g_codes, g_amb = gapped_codes(rng, st_np)
+        # the tree the kernels walk (nodes of more than BIG_KMAX children
+        # resolved); the plain residual versions run on it too
         tb = cuda_pruning.big_tree(topo)
         bp = cuda_pruning.big_plan(tb)
         ntiles = cuda_pruning.big_tiles(cfg["H"])
@@ -261,6 +357,7 @@ def phase_big_kernels(torch, rng, report, card):
             pi = torch.tensor(pi_np, dtype=dtype, device="cuda")
             gbar = torch.tensor(gb_np, dtype=dtype, device="cuda")
             tips = torch.tensor(st_np, device="cuda")
+            gap = coded_tips(torch, g_codes, g_amb, dtype)
             tag = f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']} {dn}"
             lnf, S = cuda_pruning.pruning_big_fwd(P, tips, topo, pi)
             dP, dpi = cuda_pruning.pruning_big_bwd(P, tips, topo, pi, gbar, S)
@@ -276,7 +373,7 @@ def phase_big_kernels(torch, rng, report, card):
             e_b = max(max_err(dP, dP_r, tol["grad"], f"B4 dP {tag}"),
                       max_err(dpi, dpi_r, tol["grad"], f"B4 dpi {tag}"))
             del dP_r, dpi_r
-            # and against the level path (B1/B2's plain version)
+            # and against the level path
             with torch.no_grad():
                 lnf_l = pruning.class_site_lnf_plain(P, tips, topo, pi)
             dP_l, dpi_l = pruning.class_site_lnf_bwd_plain(P, tips, topo, pi,
@@ -284,54 +381,81 @@ def phase_big_kernels(torch, rng, report, card):
             e_l = max(max_err(lnf, lnf_l, tol["val"], f"B3 lnf/level {tag}"),
                       max_err(dP, dP_l, tol["grad"], f"B4 dP/level {tag}"),
                       max_err(dpi, dpi_l, tol["grad"], f"B4 dpi/level {tag}"))
-            del dP_l, dpi_l
+            del dP_l, dpi_l, dP, dpi
             G = cuda_pruning.big_bwd_grid(
                 tb.nnode, cfg["C"], ntiles, P.element_size(),
                 props.multi_processor_count, props.total_memory,
                 bp.work_per_block)
             print(f"B3/B4 vs plain [{tag}]: lnf/S max|diff| {e_f:.3e}, "
                   f"dP/dpi max|diff| {e_b:.3e}; vs level path {e_l:.3e}; "
-                  f"blocks B3 {ntiles * cfg['C']}, B4 G = {G} x C = "
-                  f"{G * cfg['C']}, B2 G = "
-                  f"{cuda_pruning.bwd_grid(topo.nnode, topo.ns, cfg['C'], -(-cfg['H'] // cuda_pruning.HT), P.element_size())}"
-                  f" x C; S {S.numel() * S.element_size() / 1e9:.3f} GB",
-                  flush=True)
+                  f"blocks B1/B3 {ntiles * cfg['C']}, B2/B4 G = {G} x C = "
+                  f"{G * cfg['C']}; S {S.numel() * S.element_size() / 1e9:.3f}"
+                  " GB", flush=True)
             for name, e in (("big_fwd", max(e_f, e_l)),
                             ("big_bwd", max(e_b, e_l))):
                 key = f"max_abs_err_{dn}"
                 report[name][key] = max(report[name].get(key, 0.0), e)
+            # B1/B2 on the gapped tips
+            A = gap.n_amb
+            gtag = f"{tag}, gapped, A {A}"
+            g_f, g_b, gS = check_fused(torch, P, gap, topo, pi, gbar, tol,
+                                       gtag)
+            print(f"B1/B2 vs plain [{gtag}]: lnf/S max|diff| {g_f:.3e}, "
+                  f"dP/dpi max|diff| {g_b:.3e}", flush=True)
+            for name, e in (("pruning_fwd", g_f), ("pruning_bwd", g_b)):
+                key = f"max_abs_err_{dn}"
+                report[name][key] = max(report[name].get(key, 0.0), e)
             reps = dict(reps=3, warmup=1) if cfg is CHUNK else {}
+            # B1/B2 on the clean state codes too (A = 0): the dispatch
+            # sends them to B3/B4, and this says whether that pays
+            sS = cuda_pruning.pruning_fwd(P, tips, topo, pi)[1]
             t = {
+                "states_fwd": cuda_ms(lambda: cuda_pruning.pruning_fwd(
+                    P, tips, topo, pi), **reps),
+                "states_bwd": cuda_ms(lambda: cuda_pruning.pruning_bwd(
+                    P, tips, topo, pi, gbar, sS), **reps),
                 "big_fwd": cuda_ms(lambda: cuda_pruning.pruning_big_fwd(
                     P, tips, topo, pi), **reps),
                 "big_bwd": cuda_ms(lambda: cuda_pruning.pruning_big_bwd(
                     P, tips, topo, pi, gbar, S), **reps),
-                "fused": cuda_ms(lambda: (
-                    cuda_pruning.pruning_fwd(P, tips, topo, pi),
-                    cuda_pruning.pruning_bwd(P, tips, topo, pi, gbar)),
-                    **reps),
+                "pruning_fwd": cuda_ms(lambda: cuda_pruning.pruning_fwd(
+                    P, gap, topo, pi), **reps),
+                "pruning_bwd": cuda_ms(lambda: cuda_pruning.pruning_bwd(
+                    P, gap, topo, pi, gbar, gS), **reps),
                 "plain_fwd": cuda_ms(lambda: pruning.class_site_lnf_big_plain(
                     Pb, tips, tb, pi), **reps),
                 "plain_bwd": cuda_ms(
                     lambda: pruning.class_site_lnf_big_bwd_plain(
                         Pb, tips, tb, pi, gbar, S), **reps),
             }
-            for name in ("big_fwd", "big_bwd"):
+            for name in ("big_fwd", "big_bwd", "pruning_fwd", "pruning_bwd"):
+                fused = name.startswith("pruning")
                 bnd = bound(name, topo, cfg["C"], cfg["H"], P.shape[-1],
-                            P.element_size())
-                print(f"  {name} [{tag}]: {t[name]:.3f} ms, bound "
-                      f"{bnd[0]:.4f} ms ({bnd[1]}), "
+                            P.element_size(), A if fused else 0)
+                print(f"  {name} [{gtag if fused else tag}]: {t[name]:.3f} "
+                      f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
                       f"{100 * bnd[0] / t[name]:.1f} % of it", flush=True)
-                if cfg is CHUNK:
+                if cfg is CHUNK and not fused:
                     record(report, name, dn, t[name], t[f"plain_{name[4:]}"],
                            bnd)
+                if cfg is CHUNK and fused:
+                    report[name][f"ms_chunk_gapped_{dn}"] = t[name]
+                    report[name][f"bound_ms_chunk_gapped_{dn}"] = bnd[0]
             print(f"  time [{tag}, {card}]: B3 {t['big_fwd']:.3f} ms + B4 "
                   f"{t['big_bwd']:.3f} ms = "
-                  f"{t['big_fwd'] + t['big_bwd']:.3f} ms; B1+B2 "
-                  f"{t['fused']:.3f} ms; plain {t['plain_fwd']:.3f} + "
-                  f"{t['plain_bwd']:.3f} = "
+                  f"{t['big_fwd'] + t['big_bwd']:.3f} ms on state codes; "
+                  f"B1 {t['pruning_fwd']:.3f} + B2 {t['pruning_bwd']:.3f} = "
+                  f"{t['pruning_fwd'] + t['pruning_bwd']:.3f} ms gapped "
+                  f"({(t['pruning_fwd'] + t['pruning_bwd']) / (t['big_fwd'] + t['big_bwd']):.2f}"
+                  f"x); plain {t['plain_fwd']:.3f} + {t['plain_bwd']:.3f} = "
                   f"{t['plain_fwd'] + t['plain_bwd']:.3f} ms", flush=True)
-            del S, dP, dpi, Pb
+            print(f"  time [{tag}, {card}]: B1 {t['states_fwd']:.3f} + B2 "
+                  f"{t['states_bwd']:.3f} = "
+                  f"{t['states_fwd'] + t['states_bwd']:.3f} ms on the same "
+                  f"state codes (A 0), "
+                  f"{(t['states_fwd'] + t['states_bwd']) / (t['big_fwd'] + t['big_bwd']):.3f}"
+                  " x B3+B4", flush=True)
+            del S, sS, gS, Pb, gap
             torch.cuda.empty_cache()
 
 
@@ -395,7 +519,7 @@ def plain_value_grad(torch, neg, x, n_chunks, grad=True):
     the objective's device, the patterns in n_chunks chunks, each chunk's
     graph freed before the next: (lnL, d lnL / dx or None)."""
     from paml_tpu_torch.core import pruning
-    xt = torch.tensor(x, dtype=torch.float64, device=neg.tips.device,
+    xt = torch.tensor(x, dtype=torch.float64, device=neg.fpatt.device,
                       requires_grad=grad)
     with torch.set_grad_enabled(grad):
         outs = neg.model_at(xt)
@@ -446,6 +570,12 @@ def phase_slice(torch, rng, report, card):
               ("gapped", gapped, ("pruning_fwd", "pruning_bwd")))
     fitted = {}
     for route, data, pair in routes:
+        # the objective's set-up (frequency counts, with their EM over
+        # ambiguous codons, and the tips' coding), which each fit repeats
+        t0 = time.perf_counter()
+        codeml.make_codon_objective(data, topo, specs["M2a"], device="cuda")
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
         cuda_pruning.reset_launch_counts()
         pruning.PLAIN_CALLS["cuda"] = 0
         fits = {}
@@ -459,8 +589,10 @@ def phase_slice(torch, rng, report, card):
             print(f"fit {name}, {route} [{card}]: lnL {res.lnL:.6f}, kappa "
                   f"{res.kappa}, omegas {res.class_omegas.ravel()}, freqs "
                   f"{res.class_freqs}, {res.fit.n_eval} evals, {wall:.2f} s "
-                  f"wall, {1e3 * wall / res.fit.n_eval:.2f} ms/eval "
-                  f"({res.fit.message})", flush=True)
+                  f"wall, {1e3 * wall / res.fit.n_eval:.2f} ms/eval, "
+                  f"{1e3 * (wall - setup) / res.fit.n_eval:.2f} without the "
+                  f"objective's set-up of {setup:.2f} s ({res.fit.message})",
+                  flush=True)
         launches = dict(cuda_pruning.LAUNCHES)
         plain_cuda = pruning.PLAIN_CALLS["cuda"]
         print(f"M0 path, {route}: kernel launches {launches}, plain-version "
@@ -705,8 +837,14 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning, pruning
 
+    # the objective the fit builds for itself (the fit's own spec), timed:
+    # its set-up is reported apart from the evaluations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     neg, _, _, x0, bounds, _ = codeml.make_codon_objective(
         data, topo, spec, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
     cuda_pruning.reset_launch_counts()
     pruning.PLAIN_CALLS["cuda"] = 0
     torch.cuda.synchronize()
@@ -720,7 +858,9 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
           f"x {np.round(res.x, 4)} (truth {np.round(x_true, 4)}), omegas "
           f"{res.class_omegas.tolist()}, freqs {res.class_freqs}, "
           f"{res.fit.n_eval} evals, {wall:.2f} s wall, "
-          f"{1e3 * wall / res.fit.n_eval:.1f} ms/eval ({res.fit.message})",
+          f"{1e3 * wall / res.fit.n_eval:.1f} ms/eval, "
+          f"{1e3 * (wall - setup) / res.fit.n_eval:.1f} without the "
+          f"objective's set-up of {setup:.2f} s ({res.fit.message})",
           flush=True)
     print(f"branch-site path: kernel launches {launches}, plain-version "
           f"calls on CUDA {plain_cuda}", flush=True)
@@ -766,6 +906,148 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
                              f"the simulated {BS_TRUTH['kappa']}")
 
 
+def branch_site_gapped(torch, rng, data, topo, spec, report, card):
+    """The branch-site alignment with gaps and Ns (`gapped_codes`): B1/B2
+    carry it.  One value + gradient at x0 with every branch length free in
+    BIG_CHUNKS chunks, against the chunked plain version on the card; two
+    unchunked, timed, which must give the same bits; B1/B2 timed at the
+    unchunked shape, with their share of the bound; then the model A fit
+    with the branch lengths fixed, carried by B1/B2 alone, its lnL against
+    the plain version's at the optimum."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    t0 = time.perf_counter()
+    codes, amb = gapped_codes(rng, np.asarray(data.tip_partials))
+    n = amb.shape[1]
+    share = float((codes == n).mean()), float((codes > n).mean())
+    gapped = dataclasses.replace(
+        data, tip_partials=np.concatenate([np.eye(n), amb])[codes],
+        cleandata=False)
+    del codes
+    print(f"gapped branch-site alignment: {100 * share[0]:.2f} % gap cells, "
+          f"{100 * share[1]:.3f} % with an N, {len(amb)} ambiguity vectors "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    free = dataclasses.replace(spec, fix_blength=0)
+    t0 = time.perf_counter()
+    neg10, _, _, x0f, _, _ = codeml.make_codon_objective(
+        gapped, topo, free, device="cuda", n_chunks=BIG_CHUNKS)
+    setup = time.perf_counter() - t0
+    print(f"  objective built ({setup:.1f} s: frequency counts and the tips' "
+          f"coding on the host; A {neg10.tips.n_amb})", flush=True)
+    v10, g10 = value_grad(torch, neg10, x0f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value_grad(torch, neg10, x0f)
+    wall10 = time.perf_counter() - t0
+    lnl_p, g_p = plain_value_grad(torch, neg10, x0f, BIG_CHUNKS)
+    rel = abs(-v10 - lnl_p) / abs(lnl_p)
+    gerr = np.abs(g10 + g_p).max() / np.abs(g_p).max()
+    del neg10
+    torch.cuda.empty_cache()
+    neg1 = codeml.make_codon_objective(gapped, topo, free, device="cuda")[0]
+    value_grad(torch, neg1, x0f)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(value_grad(torch, neg1, x0f))
+        walls.append(time.perf_counter() - t0)
+    (v1, g1), (v1b, g1b) = runs
+    rel1 = abs(v1 - v10) / abs(v10)
+    gerr1 = np.abs(g1 - g10).max() / np.abs(g10).max()
+    same = v1 == v1b and np.array_equal(g1, g1b)
+    print(f"gapped value + gradient at x0, {len(x0f)} parameters [{card}]: "
+          f"lnL {-v10:.9f} at n_chunks {BIG_CHUNKS} ({1e3 * wall10:.1f} ms), "
+          f"plain {lnl_p:.9f} (rel {rel:.2e}), max|grad diff| / max|grad| "
+          f"{gerr:.2e}; n_chunks 1: "
+          f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, rel "
+          f"{rel1:.2e}, grad {gerr1:.2e} against {BIG_CHUNKS} chunks; the "
+          f"two unchunked runs bit for bit the same: {same}", flush=True)
+    if rel > 1e-9 or gerr > 1e-8 or rel1 > 1e-9 or gerr1 > 1e-8:
+        raise AssertionError("gapped branch-site value + gradient disagrees "
+                             "with the plain version or across chunkings")
+    if not same:
+        raise AssertionError("gapped branch-site value + gradient: a second "
+                             "run gave other bits")
+    # B1/B2 alone at the unchunked shape, at x0
+    with torch.no_grad():
+        P, piC, _ = neg1.model_at(torch.tensor(x0f, device="cuda"))
+    piC = piC.contiguous()
+    tips = neg1.tips
+    gbar = torch.ones((P.shape[1], tips.codes.shape[1]), dtype=P.dtype,
+                      device="cuda")
+    _, S = cuda_pruning.pruning_fwd(P, tips, topo, piC)
+    t = {"pruning_fwd": cuda_ms(lambda: cuda_pruning.pruning_fwd(
+             P, tips, topo, piC), reps=3),
+         "pruning_bwd": cuda_ms(lambda: cuda_pruning.pruning_bwd(
+             P, tips, topo, piC, gbar, S), reps=3)}
+    for name, ms in t.items():
+        bnd = bound(name, topo, P.shape[1], tips.codes.shape[1], P.shape[-1],
+                    P.element_size(), tips.n_amb)
+        report[name]["ms_unchunked_gapped_float64"] = ms
+        report[name]["bound_ms_unchunked_gapped_float64"] = bnd[0]
+        print(f"  {name} unchunked, gapped [{card}]: {ms:.1f} ms, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f} % of it",
+              flush=True)
+    del P, S, gbar, neg1
+    torch.cuda.empty_cache()
+    # the model A fit, branch lengths fixed, through B1/B2 alone; first the
+    # objective the fit builds for itself (the fit's own spec), timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    neg, _, _, x0, bounds, _ = codeml.make_codon_objective(
+        gapped, topo, spec, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    cuda_pruning.reset_launch_counts()
+    pruning.PLAIN_CALLS["cuda"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = codeml.fit_packed(gapped, topo, spec, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_pruning.LAUNCHES)
+    plain_cuda = pruning.PLAIN_CALLS["cuda"]
+    print(f"fit branch-site A, gapped, fix_blength 2 [{card}]: lnL "
+          f"{res.lnL:.6f}, x {np.round(res.x, 4)}, {res.fit.n_eval} evals, "
+          f"{wall:.2f} s wall, {1e3 * wall / res.fit.n_eval:.1f} ms/eval, "
+          f"{1e3 * (wall - setup) / res.fit.n_eval:.1f} without the "
+          f"objective's set-up of {setup:.2f} s ({res.fit.message}); kernel "
+          f"launches {launches}, plain-version calls on CUDA {plain_cuda}",
+          flush=True)
+    for name in ("pruning_fwd", "pruning_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the gapped "
+                                 "branch-site fit")
+        report[name]["launches_branch_site_gapped"] = launches[name]
+    if plain_cuda or launches["big_fwd"] or launches["big_bwd"]:
+        raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
+                             "inside the gapped branch-site fit, or B3/B4 did")
+    with torch.no_grad():
+        lnl_kernel = -float(neg(torch.tensor(res.x, device="cuda")))
+        lnl_x0 = -float(neg(torch.tensor(x0, device="cuda")))
+    lnl_plain = plain_value_grad(torch, neg, res.x, BIG_CHUNKS, grad=False)[0]
+    pg = proj_grad_max(torch, neg, res.x, bounds)
+    rel = abs(lnl_kernel - lnl_plain) / abs(lnl_plain)
+    print(f"check branch-site A, gapped: lnL kernel {lnl_kernel:.9f}, plain "
+          f"{lnl_plain:.9f} (rel {rel:.2e}), at x0 {lnl_x0:.4f}, max "
+          f"projected |grad| {pg:.2e}, converged {res.fit.converged}",
+          flush=True)
+    if not np.isfinite(res.lnL) or res.lnL < lnl_x0:
+        raise AssertionError("gapped branch-site A: fit did not improve on "
+                             "its start")
+    if not (res.fit.converged or pg < 1e-2):
+        raise AssertionError(f"gapped branch-site A: not converged "
+                             f"({res.fit.message}, projected gradient "
+                             f"{pg:.2e})")
+    if rel > 1e-9 or abs(lnl_kernel - res.lnL) > 1e-9 * abs(res.lnL):
+        raise AssertionError("gapped branch-site A: lnL disagrees with the "
+                             "plain version on the card")
+
+
 def phase_branch_site(torch, rng, report, card):
     t0 = time.perf_counter()
     data, topo, spec, x_true = simulate_branch_site(torch, rng, BIG_TAXA,
@@ -776,6 +1058,8 @@ def phase_branch_site(torch, rng, report, card):
     branch_site_value_grad(torch, data, topo, spec, report, card)
     torch.cuda.empty_cache()
     branch_site_fit(torch, data, topo, spec, x_true, report, card)
+    torch.cuda.empty_cache()
+    branch_site_gapped(torch, rng, data, topo, spec, report, card)
 
 
 def main() -> int:

@@ -35,11 +35,11 @@ _I = ctypes.c_int
 # argtypes of each entry point (per dtype suffix f32 / f64), by source
 _SIGNATURES = {
     "pruning": {
-        "paml_pruning_fwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _P],
-        "paml_pruning_bwd": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P],
+        "paml_pruning_fwd": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "paml_pruning_bwd": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _P],
     },
     "pruning_big": {
         "paml_big_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,

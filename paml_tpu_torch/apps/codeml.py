@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core import cuda_pruning, pruning
+from ..core import cuda_pruning, pruning, tipcodes
 from ..core.optim import FitResult, maximize, simplex_decode
 from ..core.pmat import pmat_rev_multi
 from ..core.topology import Topology, from_treenode
@@ -198,17 +198,18 @@ def nssites_extra_starts(NSsites: int, ncatG: int, fix_omega: bool):
 
 # --- objective -------------------------------------------------------------
 
-def _codon_tips(tip_partials: np.ndarray, device, dtype) -> torch.Tensor:
+def _codon_tips(tip_partials: np.ndarray, device, dtype):
     """Tip data on the device: int32 state codes [ns, H] when the data are
-    codes already or every tip is resolved (the tip product becomes a
-    gather), else [ns, H, n] partials."""
+    codes already or every tip cell is resolved (the tip product becomes a
+    gather), else `TipCodes`: the codes and the table of the distinct
+    ambiguous cells (gaps, codons with an N), built once here."""
     tips_np = np.asarray(tip_partials)
-    if tips_np.ndim == 3 and tips_np.shape[0] and \
-            (tips_np.sum(-1) == 1).all() and tips_np.max() == 1:
-        tips_np = tips_np.argmax(-1)
     if tips_np.ndim == 2:
         return torch.as_tensor(tips_np.astype(np.int32), device=device)
-    return torch.as_tensor(tips_np, dtype=dtype, device=device)
+    tc = tipcodes.encode(tips_np)
+    if tc.n_amb == 0:
+        return tc.codes.to(device)
+    return tc.to(device, dtype)
 
 
 def make_codon_objective(data: seqio.PackedData, topo: Topology,
@@ -229,9 +230,8 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     pi = torch.as_tensor(pi_np, dtype=dtype, device=device)
     tips = _codon_tips(data.tip_partials, device, dtype)
     fpatt = torch.as_tensor(data.fpatt, dtype=dtype, device=device)
-    if tips.dim() == 2:
-        # once here, not at every kernel launch (two host syncs)
-        cuda_pruning.check_state_codes(tips, graph.n)
+    # once here, not at every kernel launch (two host syncs)
+    cuda_pruning.check_tips(tips, graph.n)
     if n_chunks > 1:
         tips_c, fpatt_c = pruning.split_patterns(tips, fpatt, n_chunks)
     T = codonmod.dense_tables(spec.icode, device, dtype)

@@ -1,45 +1,47 @@
 """Wrappers of the hand-written CUDA pruning kernels (`csrc/`).
 
 Counterpart of `paml_tpu/core/pallas_pruning.py` (B1/B2, `pruning.cu`) and
-`paml_tpu/core/pallas_pruning_big.py` (B3/B4, `pruning_big.cu`).  The host
-side of the Pallas kernels carries over: the DFS-postorder schedule with
-slot liveness and the sparse scale set (`Plan`, from `_Plan`), the
-large-tree schedules with their residual rows (`BigPlan`, from
-`_sched_arrays`), and padding of the states to N = 64.  The schedules
-become int32 tables on the device instead of code unrolled per topology,
-so one binary serves every tree.
+`paml_tpu/core/pallas_pruning_big.py` (B3/B4, `pruning_big.cu`).  Both
+pairs are one tree walk (`csrc/pruning_tree.cuh`): a forward kernel that
+writes lnf and, when a gradient is wanted, the residual S of scaled
+partials, and an adjoint kernel that reads S.  B3/B4 take state-code tips;
+B1/B2 take coded tips with an ambiguity table (`tipcodes.TipCodes`), so
+that an alignment with gaps runs the same walk.  The host side of the
+Pallas kernels carries over: the DFS-postorder schedule with slot liveness
+(`Plan`, from `_Plan`), the schedules with their residual rows (`BigPlan`,
+from `_sched_arrays`), and padding of the states to N = 64.  The schedules
+are int32 tables on the device instead of code unrolled per topology, so
+one binary serves every tree.
 
 `pruning_fwd`, `pruning_bwd`, `pruning_big_fwd` and `pruning_big_bwd` check
-the state codes, device, dtype, shape and contiguity, allocate the outputs
-and the workspace with `torch.empty`, launch on the current stream and
-raise if the launch failed; each adds one to its count in `LAUNCHES` where
-it launches.  `ClassSiteLnfKernel` (B1/B2) and `ClassSiteLnfBig` (B3/B4)
-tie them together as `torch.autograd.Function`s, which leave the state
-codes to their caller (the codeml objective checks its tips once);
-`use_big_kernels` chooses between the two pairs.  B3/B4 walk binary trees:
-their wrappers run `big_tree(topo)`, whose added nodes take an identity P,
-and return dP of topo's own nodes.  There is no fallback: a tensor the
-kernels do not take raises.
+the codes, device, dtype, shape and contiguity, allocate the outputs and
+the workspace with `torch.empty`, launch on the current stream and raise
+if the launch failed; each adds one to its count in `LAUNCHES` where it
+launches.  B1/B2's wrappers also take dense [ns, H, n] partials, coded
+once per tensor (`kernel_tips`).  `ClassSiteLnfKernel` ties a pair
+together as a `torch.autograd.Function`, which leaves the codes to its
+caller (the codeml objective checks its tips once); `use_big_kernels`
+chooses between the two pairs.  The kernels walk binary trees: the
+wrappers run `big_tree(topo)`, whose added nodes take an identity P, and
+return dP of topo's own nodes.  There is no fallback: a tensor the kernels
+do not take raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .tipcodes import TipCodes, encode
 from .topology import Topology
 
 N = 64                   # padded states (csrc/pruning_common.cuh: N)
-HT = 64                  # patterns per tile of B1/B2 (HT)
-SCALE_EVERY = 4          # forward rescale interval in internal levels
-F_TIP, F_ROOT, F_SCALE = 1, 2, 4
-WORK_BUDGET = 2 << 30    # bytes of adjoint workspace + slabs per call
 
-BIG_HT = 32              # patterns per tile of B3/B4 (BHT)
-BIG_LDN, BIG_LDH = N + 4, BIG_HT + 4   # their shared row strides
-BIG_KMAX = 2             # children per node B3/B4 take (pruning_big.cu: KMAX)
-BIG_RED = 2 * 8 * BIG_HT  # their column-reduction scratch (RED)
-BIG_TMAX = 16            # tiles per visit of a B4 block
-BIG_WORK_SHARE = 8       # B4's slabs take at most 1/8 of the card's memory
+BIG_HT = 32              # patterns per tile (BHT)
+BIG_LDN, BIG_LDH = N + 4, BIG_HT + 4   # the shared row strides
+BIG_KMAX = 2             # children per node the walk takes (KMAX)
+BIG_RED = 2 * 8 * BIG_HT  # the column-reduction scratch (RED)
+BIG_TMAX = 16            # tiles per visit of an adjoint block
+BIG_WORK_SHARE = 8       # the adjoint's slabs take at most 1/8 of the card
 SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
 
 # H100 SXM data sheet: FP64 on the tensor cores and FP32 outside them, both
@@ -61,7 +63,8 @@ def reset_launch_counts() -> None:
 
 
 class Plan:
-    """Kernel schedule for one topology (port of `_Plan`)."""
+    """DFS postorder and contribution slots for one topology (port of
+    `_Plan`)."""
 
     def __init__(self, topo: Topology):
         ns, root = topo.ns, int(topo.root)
@@ -94,48 +97,11 @@ class Plan:
                 else:
                     slot[v] = nslots
                     nslots += 1
-        # sparse forward scaling: every path rescales at least every
-        # SCALE_EVERY internal nodes, and the root always
-        scale_set: set[int] = set()
-        ud: dict[int, int] = {}
-        for v in order:
-            if v < ns:
-                ud[v] = 0
-                continue
-            d = 1 + max(ud[k] for k in kids_of[v])
-            if d >= SCALE_EVERY or v == root:
-                scale_set.add(v)
-                ud[v] = 0
-            else:
-                ud[v] = d
         self.order = order
         self.kids_of = kids_of
         self.slot = slot
         self.nslots = max(nslots, 1)
         self.root = root
-        self.scale_set = scale_set
-        self.kmax = max(1, topo.maxk)
-        # one row per step: node, flags, slot, arity, child nodes, child
-        # slots (-1 padded)
-        kmax = self.kmax
-        table = np.full((len(order), 4 + 2 * kmax), -1, dtype=np.int32)
-        for i, v in enumerate(order):
-            kids = kids_of[v]
-            flags = ((F_TIP if v < ns else 0) | (F_ROOT if v == root else 0)
-                     | (F_SCALE if v in scale_set else 0))
-            table[i, :4] = (v, flags, slot.get(v, -1), len(kids))
-            table[i, 4:4 + len(kids)] = kids
-            table[i, 4 + kmax:4 + kmax + len(kids)] = [slot[k] for k in kids]
-        self.table = table
-        self._dev: dict[torch.device, torch.Tensor] = {}
-
-    def device_table(self, device) -> torch.Tensor:
-        device = torch.device(device)
-        t = self._dev.get(device)
-        if t is None:
-            t = torch.as_tensor(self.table, device=device)
-            self._dev[device] = t
-        return t
 
 
 def plan(topo: Topology) -> Plan:
@@ -147,7 +113,7 @@ def plan(topo: Topology) -> Plan:
 
 
 class BigPlan:
-    """Schedules of the large-tree kernels (port of `_sched_arrays`).
+    """Schedules of the tree walk (port of `_sched_arrays`).
 
     A cherry (a non-root internal node whose children are all tips) gets no
     residual row: the adjoint rebuilds its scaled partial from the
@@ -155,11 +121,12 @@ class BigPlan:
 
       fs row (DFS postorder, root last):
         [v, out_slot, srow | -1, kid_slot x Kmax (-1 pad)]
-      fsi, B3's table: fs's rows of the internal nodes, each followed by
-        its kid nodes x Kmax (-1 pad), so that B3 gathers a tip child's
-        contribution where its parent needs it, then `keep` (1 when the
-        next row is the node's parent: its contribution stays in shared
-        memory) and the index of the kid that the row above kept (-1)
+      fsi, the forward's table: fs's rows of the internal nodes, each
+        followed by its kid nodes x Kmax (-1 pad), so that the forward
+        gathers a tip child's contribution where its parent needs it, then
+        `keep` (1 when the next row is the node's parent: its contribution
+        stays in shared memory) and the index of the kid that the row above
+        kept (-1)
       bs row (internal nodes, reverse DFS, root first):
         [v, aslot, srow_v, (kid, kid_srow | -1, kid_aslot | -1,
                             grandkid_tip x Kmax) x Kmax]
@@ -220,8 +187,8 @@ class BigPlan:
         self.all_full = all(len(p.kids_of[v]) == kmax
                             for v in p.order if v >= ns)
         self.nslots, self.root = p.nslots, root
-        # B4's workspace per block: nslots + 1 adjoint slots for each of the
-        # (at most BIG_TMAX) tiles of a visit
+        # the adjoint's workspace per block: nslots + 1 adjoint slots for
+        # each of the (at most BIG_TMAX) tiles of a visit
         self.work_per_block = (p.nslots + 1) * BIG_TMAX * N * BIG_HT
         self._dev: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -244,8 +211,8 @@ def big_plan(topo: Topology) -> BigPlan:
 
 
 def big_tree(topo: Topology) -> Topology:
-    """The tree B3/B4 walk for `topo`, cached on it: every node of more
-    than BIG_KMAX children resolved, its children split into BIG_KMAX
+    """The tree the kernels walk for `topo`, cached on it: every node of
+    more than BIG_KMAX children resolved, its children split into BIG_KMAX
     groups of near-equal size (np.array_split order), each group of more
     than one child under a new internal node, recursively, so that depth
     grows by the log of the arity.  The new nodes are numbered from
@@ -317,16 +284,53 @@ def with_identity(P: torch.Tensor, tree: Topology) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# argument checks and padding
+# tips, argument checks and padding
 # ---------------------------------------------------------------------------
 
 
-class _Inputs:
-    """Kernel-ready inputs: states padded to N, tips in kernel layout.  The
-    kernels walk `run` (default topo), the `big_tree` of topo, whose added
-    nodes get an identity P."""
+def kernel_tips(tips):
+    """The tips as the kernels take them: int32 state codes [ns, H] as they
+    are (B3/B4); TipCodes as they are (B1/B2), or their codes when no cell
+    is ambiguous; dense [ns, H, n] partials coded first (`encode`), once
+    per tensor: the coding is cached on the tensor until it is changed in
+    place."""
+    if isinstance(tips, TipCodes):
+        return tips if tips.n_amb else tips.codes
+    if tips.dim() != 3:
+        return tips
+    hit = getattr(tips, "_tip_codes", None)
+    if hit is None or hit[0] != tips._version:
+        hit = (tips._version, encode(tips))
+        tips._tip_codes = hit
+    return kernel_tips(hit[1])
 
-    def __init__(self, P, tips, topo: Topology, pi, run: Topology = None):
+
+def check_state_codes(states: torch.Tensor, n: int, n_amb: int = 0) -> None:
+    """The kernels index P (or the ambiguity table, from code n on) with
+    the codes: refuse any outside [0, n + n_amb).  Two host syncs: callers
+    check a tips tensor once, not per launch."""
+    lo, hi = torch.aminmax(states)
+    if int(lo) < 0 or int(hi) >= n + n_amb:
+        raise ValueError(f"state codes must lie in [0, {n + n_amb}), got "
+                         f"[{int(lo)}, {int(hi)}]")
+
+
+def check_tips(tips, n: int) -> None:
+    """`check_state_codes` on int32 state codes or on TipCodes' codes;
+    dense partials need none."""
+    if isinstance(tips, TipCodes):
+        check_state_codes(tips.codes, n, tips.n_amb)
+    elif tips.dim() == 2:
+        check_state_codes(tips, n)
+
+
+class _Inputs:
+    """Kernel-ready inputs: P padded to N states and extended to the tree
+    the kernels walk (`big_tree(topo)`, identity P on the added nodes), pi
+    padded, the codes, and for TipCodes the ambiguity table padded to N
+    states (amb None, A 0 for state codes)."""
+
+    def __init__(self, P, tips, topo: Topology, pi):
         if not P.is_cuda:
             raise ValueError(f"CUDA pruning kernels take CUDA tensors, got "
                              f"P on {P.device}")
@@ -338,9 +342,11 @@ class _Inputs:
             raise ValueError(f"P must be [nnode={topo.nnode}, C, n, n], got "
                              f"{tuple(P.shape)}")
         nnode, C, n, _ = P.shape
-        if C == 0 or tips.dim() < 2 or tips.shape[1] == 0:
-            raise ValueError("CUDA pruning kernels need C > 0 classes and "
-                             "H > 0 patterns")
+        codes, amb = (tips.codes, tips.amb) if isinstance(tips, TipCodes) \
+            else (tips, None)
+        if C == 0 or codes.dim() != 2 or codes.shape[1] == 0:
+            raise ValueError("CUDA pruning kernels need C > 0 classes, H > 0 "
+                             "patterns and tips [ns, H] (codes)")
         if n > N:
             raise ValueError(f"CUDA pruning kernels take n <= {N} states, "
                              f"got {n}")
@@ -349,28 +355,25 @@ class _Inputs:
             raise ValueError(f"pi must be [{C}, {n}] {P.dtype} on "
                              f"{P.device}, got {tuple(pi.shape)} {pi.dtype} "
                              f"on {pi.device}")
-        if tips.device != P.device:
-            raise ValueError(f"tips on {tips.device}, P on {P.device}")
-        if tips.dim() == 2:
-            if tips.dtype != torch.int32 or not tips.is_contiguous():
-                raise TypeError("state-code tips must be contiguous int32, "
-                                f"got {tips.dtype}")
-            if tips.shape[0] != topo.ns:
-                raise ValueError(f"tips must be [ns={topo.ns}, H], got "
-                                 f"{tuple(tips.shape)}")
-            self.states, self.part = tips, None
-        elif tips.dim() == 3:
-            if tips.dtype != P.dtype or tuple(tips.shape[::2]) != (topo.ns, n):
-                raise ValueError(f"tip partials must be [ns={topo.ns}, H, "
-                                 f"{n}] {P.dtype}, got {tuple(tips.shape)} "
-                                 f"{tips.dtype}")
-            part = tips.new_zeros((topo.ns, N, tips.shape[1]))
-            part[:, :n, :] = tips.transpose(1, 2)
-            self.states, self.part = None, part
-        else:
-            raise ValueError(f"tips must be [ns, H] or [ns, H, n], got "
-                             f"{tuple(tips.shape)}")
-        run = topo if run is None else run
+        if codes.device != P.device:
+            raise ValueError(f"tips on {codes.device}, P on {P.device}")
+        if codes.dtype != torch.int32 or not codes.is_contiguous():
+            raise TypeError("state-code tips must be contiguous int32, "
+                            f"got {codes.dtype}")
+        if codes.shape[0] != topo.ns:
+            raise ValueError(f"tips must be [ns={topo.ns}, H], got "
+                             f"{tuple(codes.shape)}")
+        self.states, self.amb, self.A = codes, None, 0
+        if amb is not None:
+            if amb.device != P.device or amb.dim() != 2 or \
+                    amb.shape[1] != n:
+                raise ValueError(f"the ambiguity table must be [A, {n}] on "
+                                 f"{P.device}, got {tuple(amb.shape)} on "
+                                 f"{amb.device}")
+            self.A = amb.shape[0]
+            self.amb = P.new_zeros((self.A, N))
+            self.amb[:, :n] = amb
+        run = big_tree(topo)
         if n == N and P.is_contiguous() and run.nnode == nnode:
             self.P = P
         else:
@@ -380,30 +383,49 @@ class _Inputs:
         self.pi = pi.new_zeros((C, N))
         self.pi[:, :n] = pi
         self.topo = run
-        self.plan = plan(run)
-        self.sched = self.plan.device_table(P.device)
         self.nnode, self.C, self.n = run.nnode, C, n
         self.nnode_in = nnode
-        self.H = tips.shape[1]
-        self.ntiles = -(-self.H // HT)
+        self.H = codes.shape[1]
         self.ns = topo.ns
 
-    def common(self):
-        p = self.plan
-        return (self.sched.data_ptr(), len(p.order), p.table.shape[1],
-                p.kmax, self.P.data_ptr(),
-                None if self.states is None else self.states.data_ptr(),
-                None if self.part is None else self.part.data_ptr(),
-                self.pi.data_ptr())
+    @property
+    def fused(self) -> bool:
+        """B1/B2 (coded tips with a table) rather than B3/B4."""
+        return self.amb is not None
+
+    def table_args(self):
+        """(amb, A, tip table TA, its row stride LA) of B1/B2's entries:
+        TA [ns, C, N, LA], LA = A rounded up to whole tiles."""
+        if self.A == 0:
+            return None, 0, None, 0
+        LA = -(-self.A // BIG_HT) * BIG_HT
+        check_tip_table(self.ns, self.C, self.A, self.P.element_size(),
+                        torch.cuda.get_device_properties(
+                            self.P.device).total_memory)
+        TA = self.P.new_empty((self.ns * self.C * N * LA,))
+        return self.amb.data_ptr(), self.A, TA, LA
 
 
-def check_state_codes(states: torch.Tensor, n: int) -> None:
-    """The kernels index P with the codes: refuse any outside [0, n).
-    Two host syncs: callers check a tips tensor once, not per launch."""
-    lo, hi = torch.aminmax(states)
-    if int(lo) < 0 or int(hi) >= n:
-        raise ValueError(f"state codes must lie in [0, {n}), got "
-                         f"[{int(lo)}, {int(hi)}]")
+def tip_table_bytes(ns: int, C: int, n_amb: int, esize: int) -> int:
+    """Bytes of B1/B2's tip table TA [ns, C, N, LA], LA = n_amb rounded up
+    to whole tiles."""
+    return ns * C * N * (-(-n_amb // BIG_HT) * BIG_HT) * esize
+
+
+def check_tip_table(ns: int, C: int, n_amb: int, esize: int,
+                    mem_bytes: int) -> None:
+    """Refuse a tip table of more than 1/BIG_WORK_SHARE of the card's
+    memory: it grows with the number of distinct non-one-hot tip vectors,
+    a few hundred for gapped codon data but up to ns x H for soft
+    partials."""
+    need = tip_table_bytes(ns, C, n_amb, esize)
+    if need > mem_bytes // BIG_WORK_SHARE:
+        raise ValueError(
+            f"the tip table of {n_amb} ambiguity vectors ({ns} tips x {C} "
+            f"classes) needs {need / 1e9:.2f} GB, more than 1/"
+            f"{BIG_WORK_SHARE} of the card's {mem_bytes / 1e9:.1f} GB: the "
+            "CUDA pruning kernels take tips with few distinct non-one-hot "
+            "vectors; use the plain version (tensors on the CPU) for these")
 
 
 def _suffix(dtype) -> str:
@@ -414,114 +436,28 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(x: _Inputs) -> torch.Tensor:
-    from .. import _build
-
-    lnf = x.P.new_empty((x.C, x.H))
-    work = x.P.new_empty((x.ntiles * x.C * x.plan.nslots * N * HT,))
-    fn = getattr(_build.lib(), f"paml_pruning_fwd_{_suffix(x.P.dtype)}")
-    with torch.cuda.device(x.P.device):
-        err = fn(*x.common(), lnf.data_ptr(), work.data_ptr(), x.ntiles,
-                 x.C, x.H, x.plan.nslots, _stream(x.P.device))
-    LAUNCHES["pruning_fwd"] += 1
-    _build.check(err, "pruning_fwd launch")
-    return lnf
-
-
-def bwd_grid(nnode: int, ns: int, C: int, ntiles: int, esize: int) -> int:
-    """Blocks along the tile axis of the adjoint: as many as the tiles,
-    fewer when the per-block workspace and dP slab exceed WORK_BUDGET."""
-    nint = nnode - ns
-    per_block = ((nnode + 2 * nint) * N * HT + nint * HT + nnode * N * N
-                 + N) * esize
-    return max(1, min(ntiles, WORK_BUDGET // (C * per_block)))
-
-
-def _launch_bwd(x: _Inputs, gbar: torch.Tensor):
-    from .. import _build
-
-    if gbar.device != x.P.device or tuple(gbar.shape) != (x.C, x.H):
-        raise ValueError(f"gbar must be [{x.C}, {x.H}] on {x.P.device}, got "
-                         f"{tuple(gbar.shape)} on {gbar.device}")
-    gbar = gbar.to(x.P.dtype).contiguous()
-    nint = x.nnode - x.ns
-    G = bwd_grid(x.nnode, x.ns, x.C, x.ntiles, x.P.element_size())
-    work = x.P.new_empty((G * x.C * ((x.nnode + 2 * nint) * N * HT
-                                     + nint * HT),))
-    dP_slab = x.P.new_empty((G * x.nnode * x.C * N * N,))
-    dpi_slab = x.P.new_empty((G * x.C * N,))
-    dP = x.P.new_empty((x.nnode, x.C, x.n, x.n))
-    dpi = x.P.new_empty((x.C, x.n))
-    fn = getattr(_build.lib(), f"paml_pruning_bwd_{_suffix(x.P.dtype)}")
-    with torch.cuda.device(x.P.device):
-        err = fn(*x.common(), gbar.data_ptr(), dP_slab.data_ptr(),
-                 dpi_slab.data_ptr(), work.data_ptr(), dP.data_ptr(),
-                 dpi.data_ptr(), G, x.ntiles, x.C, x.H, x.ns, x.nnode, x.n,
-                 x.plan.root, _stream(x.P.device))
-    LAUNCHES["pruning_bwd"] += 1
-    _build.check(err, "pruning_bwd launch")
-    return dP, dpi
-
-
-def _checked(tips, P):
-    if tips.dim() == 2:
-        check_state_codes(tips, P.shape[-1])
-    return tips
-
-
-def pruning_fwd(P, tips, topo: Topology, pi) -> torch.Tensor:
-    """Forward kernel: lnf [C, H] (no autograd)."""
-    return _launch_fwd(_Inputs(P, _checked(tips, P), topo, pi))
-
-
-def pruning_bwd(P, tips, topo: Topology, pi, gbar):
-    """Adjoint kernel: (dP [nnode, C, n, n], dpi [C, n]) for the
-    cotangent gbar [C, H] of lnf."""
-    return _launch_bwd(_Inputs(P, _checked(tips, P), topo, pi), gbar)
-
-
-class ClassSiteLnfKernel(torch.autograd.Function):
-    """lnf [C, H] from the forward kernel; its backward is the adjoint
-    kernel.  Tips are data (no gradient).  The inputs are saved with
-    `save_for_backward`, so a checkpointed caller frees them."""
-
-    @staticmethod
-    def forward(ctx, P, tips, topo, pi):
-        ctx.topo = topo
-        ctx.save_for_backward(P, tips, pi)
-        return _launch_fwd(_Inputs(P, tips, topo, pi))
-
-    @staticmethod
-    def backward(ctx, gbar):
-        P, tips, pi = ctx.saved_tensors
-        dP, dpi = _launch_bwd(_Inputs(P, tips, ctx.topo, pi), gbar)
-        return dP, None, None, dpi
-
-
-# ---------------------------------------------------------------------------
-# large-tree kernels (B3/B4)
-# ---------------------------------------------------------------------------
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def use_big_kernels(state_tips: bool) -> bool:
-    """B3/B4 for state-code tips, on any tree (they walk its `big_tree`,
-    binary); B1/B2 for multi-hot tips.  Since their redesign B3+B4 beat
-    B1+B2 at every shape measured on both sides, from 11 to 1024 taxa and
-    1 to 4 classes, polytomies included (PERF.md)."""
+    """B3/B4 for state-code tips, B1/B2 for coded tips with ambiguity
+    (`kernel_tips`), on any tree (both walk its `big_tree`)."""
     return state_tips
 
 
 def big_fwd_smem(esize: int) -> int:
-    """Dynamic shared memory of a B3 block: P_v [N][LDN]; s_v and the
-    kept contribution [N][LDH]; the column-reduction scratch."""
+    """Dynamic shared memory of a forward block (B1, B3): P_v [N][LDN];
+    s_v and the kept contribution [N][LDH]; the column-reduction
+    scratch."""
     return (N * BIG_LDN + 2 * N * BIG_LDH + BIG_RED) * esize
 
 
 def big_bwd_smem(esize: int, kmax: int) -> int:
-    """Dynamic shared memory of a B4 block (pruning_big.cu's carve): per
-    child of the tree's kmax P_k or its tip dP_k [N][LDN] and c_k
-    [N][LDH]; s_k and G_k for BIG_KMAX children and A_v [N][LDH]; the
-    column-reduction scratch; dpi [N]."""
+    """Dynamic shared memory of an adjoint block (B2, B4;
+    pruning_tree.cuh's carve): per child of the tree's kmax P_k or its tip
+    dP_k [N][LDN] and c_k [N][LDH]; s_k and G_k for BIG_KMAX children and
+    A_v [N][LDH]; the column-reduction scratch; dpi [N]."""
     return (kmax * N * BIG_LDN + (kmax + 2 * BIG_KMAX + 1) * N * BIG_LDH
             + BIG_RED + N) * esize
 
@@ -531,33 +467,39 @@ def big_tiles(H: int) -> int:
 
 
 def visit_tiles(ntiles: int, G: int) -> int:
-    """Tiles a B4 block takes per walk of the tree: its whole range of
-    tiles, at most BIG_TMAX."""
+    """Tiles an adjoint block takes per walk of the tree: its whole range
+    of tiles, at most BIG_TMAX."""
     return min(BIG_TMAX, -(-ntiles // G))
 
 
 def kernel_work(name: str, topo: Topology, C: int, H: int, n: int,
-                esize: int, state_tips: bool = True) -> tuple[float, float]:
+                esize: int, n_amb: int = 0) -> tuple[float, float]:
     """(operations, bytes) that kernel `name` needs on these shapes: the
     products of the n real states (2 n^2 per pattern, class and product;
-    a state-code tip's contribution is a gather and its dP a scatter, no
-    product), each input read once and each output written once.  The
-    forward does one product per non-root internal node (plus one per tip
-    for multi-hot tips); the adjoint three (c_k again, dP_k, A_k), plus one
-    dP_k per multi-hot tip."""
+    a tip's contribution is a gather and its dP a scatter, no product),
+    each input read once and each output written once.  The forward does
+    one product per non-root internal node; the adjoint three (c_k again,
+    dP_k, A_k) and reads the residual S.  S counts among B3's outputs, as
+    its TPU counterpart writes it, and not among B1's: the TPU kernel B1
+    replaces computes lnf alone, S being only this design's hand-off to
+    B2.  B1/B2's coded tips
+    with n_amb ambiguity vectors: each tip's table P amb^T needs 2 n^2 A
+    per class in the forward, and folding G_k's ambiguous columns into dP_k
+    as much again in the adjoint; the codes are 4 bytes a cell."""
     nint = topo.nnode - topo.ns - 1
     prod = 2.0 * n * n * H * C
+    table = 2.0 * n * n * n_amb * C * topo.ns
     P_b = topo.nnode * C * n * n * esize
-    tips_b = topo.ns * H * (4 if state_tips else n * esize)
+    tips_b = topo.ns * H * 4 + n_amb * n * esize
     S_b = big_plan(topo).n_srows * C * n * H * esize
     pi_b, lnf_b = C * n * esize, C * H * esize
-    if name in ("pruning_fwd", "big_fwd"):
-        flop = (nint + (0 if state_tips else topo.ns)) * prod
-        nbytes = P_b + tips_b + pi_b + lnf_b
-        return flop, nbytes + (S_b if name == "big_fwd" else 0)
-    flop = (3 * nint + (0 if state_tips else topo.ns)) * prod
-    nbytes = P_b + tips_b + pi_b + lnf_b + P_b + pi_b   # in: gbar; out: dP, dpi
-    return flop, nbytes + (S_b if name == "big_bwd" else 0)
+    if name == "pruning_fwd":
+        return nint * prod + table, P_b + tips_b + pi_b + lnf_b
+    if name == "big_fwd":
+        return nint * prod + table, P_b + tips_b + pi_b + lnf_b + S_b
+    # in: gbar; out: dP, dpi
+    return (3 * nint * prod + table,
+            2 * (P_b + pi_b) + tips_b + lnf_b + S_b)
 
 
 def bound_ms(flop: float, nbytes: float) -> float:
@@ -566,15 +508,25 @@ def bound_ms(flop: float, nbytes: float) -> float:
     return 1e3 * max(flop / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
-def _big_inputs(P, tips, topo, pi) -> _Inputs:
-    x = _Inputs(P, tips, topo, pi, big_tree(topo))
-    if x.states is None:
-        raise ValueError("the large-tree kernels take state-code tips "
-                         "[ns, H] only")
-    return x
+def big_bwd_grid(nnode: int, C: int, ntiles: int, esize: int, sms: int,
+                 mem_bytes: int, work_per_block: int) -> int:
+    """Blocks along the tile axis of the adjoint (B2, B4): enough for G x C
+    >= the card's SM count, at most one per tile, and fewer when the dP
+    slabs (nnode x C x 64 x 64 values per g) and workspace would pass
+    1/BIG_WORK_SHARE of the card's memory.  The card's size, not its free
+    memory at the call, sets the cap: the grid fixes the slab sum order,
+    and so the bits of dP."""
+    per_g = (nnode * C * N * N + C * N + C * work_per_block) * esize
+    cap = mem_bytes // BIG_WORK_SHARE // per_g
+    return max(1, min(ntiles, -(-sms // C), cap))
 
 
-def _launch_big_fwd(x: _Inputs, want_S: bool):
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+
+def _launch_fwd(x: _Inputs, want_S: bool):
     from .. import _build
 
     bp = big_plan(x.topo)
@@ -583,31 +535,28 @@ def _launch_big_fwd(x: _Inputs, want_S: bool):
     S = x.P.new_empty((bp.n_srows, x.C, x.n, x.H)) if want_S else None
     ntiles = big_tiles(x.H)
     work = x.P.new_empty((ntiles * x.C * bp.nslots * N * BIG_HT,))
-    fn = getattr(_build.lib(), f"paml_big_fwd_{_suffix(x.P.dtype)}")
+    head = (fs.data_ptr(), fs.shape[0], bp.kmax, x.P.data_ptr(),
+            x.states.data_ptr())
+    tail = (ntiles, x.C, x.H, x.ns, x.n, bp.nslots)
+    smem, stream = big_fwd_smem(x.P.element_size()), _stream(x.P.device)
+    lib, sfx = _build.lib(), _suffix(x.P.dtype)
+    key = "pruning_fwd" if x.fused else "big_fwd"
     with torch.cuda.device(x.P.device):
-        err = fn(fs.data_ptr(), fs.shape[0], bp.kmax, x.P.data_ptr(),
-                 x.states.data_ptr(), x.pi.data_ptr(), lnf.data_ptr(),
-                 None if S is None else S.data_ptr(), work.data_ptr(),
-                 ntiles, x.C, x.H, x.ns, x.n, bp.nslots,
-                 big_fwd_smem(x.P.element_size()), _stream(x.P.device))
-    LAUNCHES["big_fwd"] += 1
-    _build.check(err, "big_fwd launch")
+        if x.fused:
+            amb, A, TA, LA = x.table_args()
+            err = getattr(lib, f"paml_pruning_fwd_{sfx}")(
+                *head, amb, A, x.pi.data_ptr(), lnf.data_ptr(), _ptr(S),
+                work.data_ptr(), _ptr(TA), *tail, LA, smem, stream)
+        else:
+            err = getattr(lib, f"paml_big_fwd_{sfx}")(
+                *head, x.pi.data_ptr(), lnf.data_ptr(), _ptr(S),
+                work.data_ptr(), *tail, smem, stream)
+    LAUNCHES[key] += 1
+    _build.check(err, f"{key} launch")
     return lnf, S
 
 
-def big_bwd_grid(nnode: int, C: int, ntiles: int, esize: int, sms: int,
-                 mem_bytes: int, work_per_block: int) -> int:
-    """Blocks along the tile axis of B4: enough for G x C >= the card's SM
-    count, at most one per tile, and fewer when the dP slabs (nnode x C x
-    64 x 64 values per g) and workspace would pass 1/BIG_WORK_SHARE of the
-    card's memory.  The card's size, not its free memory at the call, sets
-    the cap: the grid fixes the slab sum order, and so the bits of dP."""
-    per_g = (nnode * C * N * N + C * N + C * work_per_block) * esize
-    cap = mem_bytes // BIG_WORK_SHARE // per_g
-    return max(1, min(ntiles, -(-sms // C), cap))
-
-
-def _launch_big_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
+def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
     from .. import _build
 
     bp = big_plan(x.topo)
@@ -615,11 +564,11 @@ def _launch_big_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
         raise ValueError(f"gbar must be [{x.C}, {x.H}] on {x.P.device}, got "
                          f"{tuple(gbar.shape)} on {gbar.device}")
     want = (bp.n_srows, x.C, x.n, x.H)
-    if S.device != x.P.device or S.dtype != x.P.dtype or \
+    if S is None or S.device != x.P.device or S.dtype != x.P.dtype or \
             tuple(S.shape) != want or not S.is_contiguous():
+        got = None if S is None else (S.dtype, tuple(S.shape), S.device)
         raise ValueError(f"S must be a contiguous {x.P.dtype} {want} on "
-                         f"{x.P.device}, got {S.dtype} {tuple(S.shape)} on "
-                         f"{S.device}")
+                         f"{x.P.device}, got {got}")
     gbar = gbar.to(x.P.dtype).contiguous()
     _, bs = bp.device_tables(x.P.device)
     props = torch.cuda.get_device_properties(x.P.device)
@@ -633,52 +582,95 @@ def _launch_big_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
     dpi_slab = x.P.new_empty((G * x.C * N,))
     dP = x.P.new_empty((x.nnode, x.C, x.n, x.n))
     dpi = x.P.new_empty((x.C, x.n))
-    fn = getattr(_build.lib(), f"paml_big_bwd_{_suffix(x.P.dtype)}")
+    head = (bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
+            x.states.data_ptr())
+    slabs = (gbar.data_ptr(), S.data_ptr(), dP_slab.data_ptr(),
+             dpi_slab.data_ptr(), work.data_ptr())
+    tail = (G, ntiles, tv, x.C, x.H, x.ns, x.n, x.nnode, bp.nslots, bp.root)
+    smem = big_bwd_smem(x.P.element_size(), bp.kmax)
+    stream = _stream(x.P.device)
+    lib, sfx = _build.lib(), _suffix(x.P.dtype)
+    key = "pruning_bwd" if x.fused else "big_bwd"
     with torch.cuda.device(x.P.device):
-        err = fn(bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
-                 x.states.data_ptr(), x.pi.data_ptr(), gbar.data_ptr(),
-                 S.data_ptr(), dP_slab.data_ptr(), dpi_slab.data_ptr(),
-                 work.data_ptr(), dP.data_ptr(), dpi.data_ptr(), G,
-                 ntiles, tv, x.C, x.H, x.ns, x.n, x.nnode, bp.nslots,
-                 bp.root, big_bwd_smem(x.P.element_size(), bp.kmax),
-                 _stream(x.P.device))
-    LAUNCHES["big_bwd"] += 1
-    _build.check(err, "big_bwd launch")
+        if x.fused:
+            amb, A, TA, LA = x.table_args()
+            err = getattr(lib, f"paml_pruning_bwd_{sfx}")(
+                *head, amb, A, x.pi.data_ptr(), *slabs, _ptr(TA),
+                dP.data_ptr(), dpi.data_ptr(), *tail, LA, smem, stream)
+        else:
+            err = getattr(lib, f"paml_big_bwd_{sfx}")(
+                *head, x.pi.data_ptr(), *slabs, dP.data_ptr(),
+                dpi.data_ptr(), *tail, smem, stream)
+    LAUNCHES[key] += 1
+    _build.check(err, f"{key} launch")
     return dP[:x.nnode_in], dpi
 
 
+def _fused_inputs(P, tips, topo, pi) -> _Inputs:
+    """B1/B2's inputs: state codes, TipCodes or dense partials, any of them
+    as coded tips with a table (empty for state codes)."""
+    tips = kernel_tips(tips)
+    check_tips(tips, P.shape[-1])
+    if not isinstance(tips, TipCodes):
+        tips = TipCodes(tips, P.new_zeros((0, P.shape[-1])))
+    return _Inputs(P, tips, topo, pi)
+
+
+def _big_inputs(P, tips, topo, pi) -> _Inputs:
+    if isinstance(tips, TipCodes) or tips.dim() != 2:
+        raise ValueError("the large-tree kernels take state-code tips "
+                         "[ns, H] only")
+    check_state_codes(tips, P.shape[-1])
+    return _Inputs(P, tips, topo, pi)
+
+
+def pruning_fwd(P, tips, topo: Topology, pi, want_S: bool = True):
+    """Fused forward kernel (B1): (lnf [C, H], S [n_srows, C, n, H] or
+    None), S the scaled partials of the non-cherry internal nodes of
+    `big_tree(topo)` (no autograd).  tips: int32 state codes [ns, H],
+    TipCodes, or dense partials [ns, H, n]."""
+    return _launch_fwd(_fused_inputs(P, tips, topo, pi), want_S)
+
+
+def pruning_bwd(P, tips, topo: Topology, pi, gbar, S):
+    """Fused adjoint kernel (B2): (dP [nnode, C, n, n], dpi [C, n]) for
+    the cotangent gbar [C, H] of lnf, from the forward's residual S."""
+    return _launch_bwd(_fused_inputs(P, tips, topo, pi), gbar, S)
+
+
 def pruning_big_fwd(P, tips, topo: Topology, pi, want_S: bool = True):
-    """Large-tree forward kernel: (lnf [C, H], S [n_srows, C, n, H] or
-    None), S holding the scaled partials of the non-cherry internal
-    nodes of `big_tree(topo)` (no autograd)."""
-    return _launch_big_fwd(_big_inputs(P, _checked(tips, P), topo, pi),
-                           want_S)
+    """Large-tree forward kernel (B3) on state-code tips: (lnf [C, H], S or
+    None) as `pruning_fwd`."""
+    return _launch_fwd(_big_inputs(P, tips, topo, pi), want_S)
 
 
 def pruning_big_bwd(P, tips, topo: Topology, pi, gbar, S):
-    """Large-tree adjoint kernel: (dP [nnode, C, n, n], dpi [C, n]) for the
-    cotangent gbar [C, H] of lnf, from the forward's residual S."""
-    return _launch_big_bwd(_big_inputs(P, _checked(tips, P), topo, pi),
-                           gbar, S)
+    """Large-tree adjoint kernel (B4) on state-code tips, as
+    `pruning_bwd`."""
+    return _launch_bwd(_big_inputs(P, tips, topo, pi), gbar, S)
 
 
-class ClassSiteLnfBig(torch.autograd.Function):
-    """lnf [C, H] from B3, which also writes the residual S when a
-    gradient is wanted; the backward is B4 reading S.  S is saved with
-    `save_for_backward`, so a checkpointed chunk frees it and B3 writes it
-    again when the backward recomputes the chunk."""
+class ClassSiteLnfKernel(torch.autograd.Function):
+    """lnf [C, H] from a forward kernel, which also writes the residual S
+    when a gradient is wanted; the backward is the pair's adjoint reading
+    S.  B3/B4 for state codes (amb None), B1/B2 for coded tips and their
+    ambiguity table.  Tips are data (no gradient), their codes checked by
+    the caller.  S is saved with `save_for_backward`, so a checkpointed
+    chunk frees it and the forward writes it again when the backward
+    recomputes the chunk."""
 
     @staticmethod
-    def forward(ctx, P, tips, topo, pi):
-        want_S = ctx.needs_input_grad[0] or ctx.needs_input_grad[3]
-        lnf, S = _launch_big_fwd(_big_inputs(P, tips, topo, pi), want_S)
+    def forward(ctx, P, codes, amb, topo, pi):
+        want_S = ctx.needs_input_grad[0] or ctx.needs_input_grad[4]
+        tips = codes if amb is None else TipCodes(codes, amb)
+        lnf, S = _launch_fwd(_Inputs(P, tips, topo, pi), want_S)
         ctx.topo = topo
-        ctx.save_for_backward(P, tips, pi, S)
+        ctx.save_for_backward(P, codes, amb, pi, S)
         return lnf
 
     @staticmethod
     def backward(ctx, gbar):
-        P, tips, pi, S = ctx.saved_tensors
-        dP, dpi = _launch_big_bwd(_big_inputs(P, tips, ctx.topo, pi), gbar,
-                                  S)
-        return dP, None, None, dpi
+        P, codes, amb, pi, S = ctx.saved_tensors
+        tips = codes if amb is None else TipCodes(codes, amb)
+        dP, dpi = _launch_bwd(_Inputs(P, tips, ctx.topo, pi), gbar, S)
+        return dP, None, None, None, dpi

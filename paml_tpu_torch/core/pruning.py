@@ -11,12 +11,13 @@ backward of a `torch.autograd.Function`.
 
 `class_site_lnf` is the entry point.  A CUDA tensor goes to the hand
 written kernels in `cuda_pruning` (launched, or an error raised): the
-large-tree pair B3/B4 where `cuda_pruning.use_big_kernels` says so, the
-fused pair B1/B2 otherwise; a CPU tensor goes to the plain version here.
-The plain versions run on any device, so the kernels can be held against
-them on the card: `class_site_lnf_plain` and `class_site_lnf_bwd_plain`
-(B1/B2), `class_site_lnf_big_plain` and `class_site_lnf_big_bwd_plain`
-(B3/B4, the same inputs and outputs as the kernels, residual S included).
+large-tree pair B3/B4 for state-code tips, the fused pair B1/B2 for tips
+with any ambiguity (`cuda_pruning.use_big_kernels`); a CPU tensor goes to
+the plain version here.  The plain versions run on any device, so the
+kernels can be held against them on the card: `class_site_lnf_plain` and
+`class_site_lnf_bwd_plain` (the level path), `class_site_lnf_big_plain`
+and `class_site_lnf_big_bwd_plain` (the kernels' inputs and outputs,
+residual S included).
 Each call with a CUDA tensor adds one to `PLAIN_CALLS["cuda"]`, so a run
 can show that its main path never took them there.
 
@@ -24,7 +25,9 @@ can show that its main path never took them there.
 that memory holds one chunk's buffers (the JAX package's `lnL_chunked`).
 
 Shapes (the JAX package's layout):
-  tips:  [ns, H] integer state codes, or [ns, H, n] (multi-)hot partials
+  tips:  [ns, H] integer state codes, [ns, H, n] (multi-)hot partials, or
+         `TipCodes` (codes and an ambiguity table; expanded to the
+         partials by the plain versions)
   P:     [nnode, C, n, n]  row j = parent state: c[j, h] = sum_i P[j, i] s[i, h]
   pi:    [C, n]            per-class root frequencies
   out:   per-(class, pattern) log site likelihood [C, H]
@@ -36,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import cuda_pruning
+from .tipcodes import TipCodes
 from .topology import Topology
 
 _GRAD_CAP = 1e12       # adjoint clip at absurd line-search trial points
@@ -90,7 +94,9 @@ def _is_state_tips(tips: torch.Tensor) -> bool:
     return tips.dim() == 2
 
 
-def _tipsT_of(tips: torch.Tensor, dtype) -> torch.Tensor:
+def _tipsT_of(tips, dtype) -> torch.Tensor:
+    if isinstance(tips, TipCodes):
+        tips = tips.dense(dtype)
     if _is_state_tips(tips):
         return tips.long()
     return tips.to(dtype).transpose(-1, -2)
@@ -253,36 +259,28 @@ def class_site_lnf_bwd_plain(P, tips, topo: Topology, pi, gbar):
         return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
 
 
-def _need_states(tips):
-    if not _is_state_tips(tips):
-        raise ValueError("the large-tree pruning takes state-code tips "
-                         "[ns, H] only")
-
-
 def class_site_lnf_big_plain(P, tips, topo: Topology, pi):
-    """The plain version of the large-tree forward (B3): (lnf [C, H],
+    """The plain version of the forward kernels (B3, B1): (lnf [C, H],
     S [n_srows, C, n, H]), S the scaled partials of the non-cherry
     internal nodes in residual-row order, every internal node rescaled."""
     _count_plain(P)
-    _need_states(tips)
     with torch.no_grad():
-        s, m, _ = _forward_levels(P, tips.long(), topo)
+        s, m, _ = _forward_levels(P, _tipsT_of(tips, P.dtype), topo)
         F = _root_F(s[topo.root], pi)
         S = torch.stack([s[v] for v in cuda_pruning.big_plan(topo).srow_nodes])
         return _lnf_from(m, F), S
 
 
 def class_site_lnf_big_bwd_plain(P, tips, topo: Topology, pi, gbar, S):
-    """The plain version of the large-tree adjoint (B4): (dP [nnode, C, n,
-    n], dpi [C, n]) for the cotangent gbar [C, H] of lnf.  The scaled
+    """The plain version of the adjoint kernels (B4, B2): (dP [nnode, C,
+    n, n], dpi [C, n]) for the cotangent gbar [C, H] of lnf.  The scaled
     partials come from the residual rows S, the cherries' are rebuilt from
     their tips, and the contributions and scale factors are recomputed
-    from them, as in the kernel."""
+    from them, as in the kernels."""
     _count_plain(P)
-    _need_states(tips)
     with torch.no_grad():
         rows = cuda_pruning.big_plan(topo).srow_nodes
-        tipsT = tips.long()
+        tipsT = _tipsT_of(tips, P.dtype)
         s, m, c = _forward_levels(P, tipsT, topo, dict(zip(rows, S)))
         F = _root_F(s[topo.root], pi)
         return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
@@ -297,14 +295,18 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     """Per-(class, pattern) log site likelihood [C, H].
 
     A CUDA tensor runs the hand-written kernels (`cuda_pruning`), which
-    launch or raise; their state codes must lie in [0, n)
-    (`cuda_pruning.check_state_codes`, which the codeml objective runs
-    once).  A CPU tensor runs the plain version.  Gradients w.r.t. P and
-    pi through the analytic adjoint; tips are data."""
+    launch or raise; their codes must lie in [0, n + A)
+    (`cuda_pruning.check_tips`, which the codeml objective runs once).
+    Dense partials are coded first (`cuda_pruning.kernel_tips`).  A CPU
+    tensor runs the plain version.  Gradients w.r.t. P and pi through the
+    analytic adjoint; tips are data."""
     if P.device.type == "cuda":
-        if cuda_pruning.use_big_kernels(_is_state_tips(tips)):
-            return cuda_pruning.ClassSiteLnfBig.apply(P, tips, topo, pi)
-        return cuda_pruning.ClassSiteLnfKernel.apply(P, tips, topo, pi)
+        tips = cuda_pruning.kernel_tips(tips)
+        if cuda_pruning.use_big_kernels(not isinstance(tips, TipCodes)):
+            return cuda_pruning.ClassSiteLnfKernel.apply(P, tips, None, topo,
+                                                         pi)
+        return cuda_pruning.ClassSiteLnfKernel.apply(P, tips.codes, tips.amb,
+                                                     topo, pi)
     if P.device.type != "cpu":
         raise ValueError(f"class_site_lnf: no path for device {P.device}")
     return class_site_lnf_plain(P, tips, topo, pi)
@@ -324,16 +326,19 @@ def lnL(P, tips, topo: Topology, pi, class_w, fpatt) -> torch.Tensor:
 
 
 def split_patterns(tips, fpatt, n_chunks: int):
-    """The pattern axis of tips [ns, H(, n)] and fpatt [H] in n_chunks
-    equal chunks, each a contiguous tensor: (tips chunks, fpatt chunks).
-    Pad the patterns (fpatt 0) to a multiple of n_chunks first."""
-    H = tips.shape[1]
+    """The pattern axis of tips ([ns, H(, n)], or TipCodes) and fpatt [H]
+    in n_chunks equal chunks, each contiguous: (tips chunks, fpatt
+    chunks).  Pad the patterns (fpatt 0) to a multiple of n_chunks
+    first."""
+    codes = tips.codes if isinstance(tips, TipCodes) else tips
+    H = codes.shape[1]
     if H % n_chunks:
         raise ValueError(f"{H} patterns do not split into {n_chunks} equal "
                          "chunks: pad them to a multiple of n_chunks")
     w = H // n_chunks
-    return ([t.contiguous() for t in tips.split(w, dim=1)],
-            [f.contiguous() for f in fpatt.split(w)])
+    chunks = tips.split(w) if isinstance(tips, TipCodes) else \
+        [t.contiguous() for t in tips.split(w, dim=1)]
+    return chunks, [f.contiguous() for f in fpatt.split(w)]
 
 
 def lnL_chunked(P, tips_chunks, topo: Topology, pi, class_w,

@@ -1,547 +1,21 @@
-// Felsenstein pruning for large trees on Hopper: the forward pass with a
-// residual of scaled partials, and the adjoint that reads the residual
-// instead of recomputing the forward; templated on float and double, behind
-// a plain C interface (built with nvcc, loaded with ctypes by
+// Felsenstein pruning for large trees on Hopper (B3/B4): the forward pass
+// with a residual of scaled partials, and the adjoint that reads the
+// residual instead of recomputing the forward; float and double, behind a
+// plain C interface (built with nvcc, loaded with ctypes by
 // paml_tpu_torch/_build.py).
 //
 // Replaces the TPU kernels of paml_tpu/core/pallas_pruning_big.py:
 //   big_fwd  <- _fwd_big_kernel (:170), via _fwd_big_call_x32 (:514)
 //   big_bwd  <- _bwd_big_kernel (:270), via _bwd_big_call_x32 (:566)
 //
-// Schedules (host: cuda_pruning.BigPlan, the port of _sched_arrays :59):
-//   fsched row, DFS postorder, root last:
-//     [v, out_slot, srow | -1, kid_slot x Kmax (-1 pad)]
-//   bsched row, internal nodes in reverse DFS order, root first:
-//     [v, aslot, srow_v, (kid, kid_srow | -1, kid_aslot | -1,
-//                         grandkid_tip x Kmax) x Kmax]
-// A "cherry" is a non-root internal node whose children are all tips: it
-// has no row in the residual S [n_srows, C, n, H]; the adjoint rebuilds its
-// scaled partial from the grandchild tips.
-//
-// Design
-// * Tiles of BHT = 32 patterns.  The forward runs one block per (tile,
-//   class); the adjoint's block (g, c) takes a contiguous range of tiles and
-//   walks the tree once per visit of up to TV of them (TV from the wrapper).
-// * Elementwise phases (the children's product, rescale, the adjoint G_k)
-//   give thread (w = warp, lane) rows 8 w .. 8 w + 7 of pattern `lane`: a
-//   warp's gathers P[j, state[h]] and its loads and stores of partials touch
-//   one row at a time, a few cache lines; a column max or sum over the
-//   states is 8 values in registers and one pass through shared memory
-//   (col_reduce).
-// * Products on the FP64 tensor cores in float64, FMA in float32, through
-//   pruning_common.cuh's prod_* (the same routine in B3 and B4).
-// * The forward gathers a tip child's contribution where its parent needs
-//   it (no tip step, no tip slot) and keeps a node's contribution in shared
-//   memory when the next row is its parent (`keep`).
-// * Rescaling multiplies by 1 / max (an f64 division per value costs more
-//   than the rest of the phase), in B3 and in B4's cherry rebuild alike.
-// * The adjoint keeps the node at hand in shared memory: each child's P_k
-//   (internal children) for the whole visit; for the tile at hand each
-//   child's c_k = P_k s_k, s_k and G_k, and A_v.  A_v and the residual rows
-//   arrive by cp.async, the tips' and cherries' gathers with them.  The
-//   children's dP_k are summed over the visit's tiles before one store to
-//   the block's slab: internal children's in the product's
-//   registers, tip children's in shared memory by a scatter, dP_k[j,
-//   state[h]] += G_k[j, h] (warp w owns the states = w mod 4 of 32 rows and
-//   takes, in order, the patterns whose state it owns, so the sum order is
-//   fixed and the warp does not diverge); a tip's one-hot product is gone.
-// * The slabs (dP [G, nnode, C, N, N], dpi [G, C, N]) are summed by
-//   reduce_kernel (root row zeroed, nan_to_num), as the JAX wrapper does
-//   outside its kernel (:614-617).  Slabs rather than atomics: the sum order
-//   is fixed, so fits repeat bit for bit.
-// * Every internal node is rescaled (the JAX kernel's int_s, :206-214), so
-//   the residual holds s_v = prod / max and the adjoint's recomputed
-//   contributions and scale factors are bit for bit the forward's.
-// * The adjoint slots (nslots + 1 per visit tile; A_v reuses c_v's forward
-//   slot, the root takes slot nslots) and the forward's contribution slots
-//   stay in device memory, where L2 serves most of them.  A node's slot is
-//   its last child's; A_v is copied to shared memory at the start of a
-//   tile, so A_k may overwrite it later in the same tile.
-// * State-code tips only, as in the JAX kernel.  Binary trees only
-//   (KMAX = 2): the wrapper walks cuda_pruning.big_tree, which resolves a
-//   node of more children (a trifurcating root, a polytomy) into binary
-//   ones joined by branches with an identity P.  Three children's buffers
-//   do not fit beside each other; at 1024 taxa a trifurcating root walked
-//   with one s_k / G_k buffer, reloaded per child, took B4 19 ms at a
-//   chunk and 108 ms unchunked, its binary resolution with a buffer per
-//   child 16 and 85 ms (tools/torch_big_probe.py, PERF.md).
-//
-// What bounds it on the H100 (f64, the 1024-taxon balanced tree, C = 4,
-// 10240 patterns; cuda_pruning.kernel_work).  The forward does 1022
-// products of 2 * 61^2 per pattern and class, 312 GFLOP, 4.65 ms at 67
-// TFLOP/s; it writes S, 10.2 GB, 3.1 ms at 3.35 TB/s.  The adjoint does
-// 3066 such products, 935 GFLOP, 13.9 ms, and reads S once.  Measured, both
-// run at about a sixth of that bound (PERF.md): each block walks the tree
-// node by node, and its loads, gathers and barriers at each node leave the
-// tensor cores idle most of the time.  At a 1024-pattern chunk the adjoint
-// also writes G = 32 dP slabs of 268 MB (8.6 GB), which the reduction reads
-// back: 3.3 of B4's 16 ms.  A smaller G writes less but walks longer, and
-// costs more than it saves (G 16: 21 ms; PERF.md).
+// The kernels are pruning_tree.cuh's tree walk with state-code tips (AMB =
+// false): its header has the schedules, the design and what bounds them.
+// State-code tips only, as in the JAX kernel; the coded tips with an
+// ambiguity table go to pruning.cu (B1/B2), the same walk with AMB = true.
 
-#include "pruning_common.cuh"
+#include "pruning_tree.cuh"
 
 namespace {
-
-constexpr int KMAX = 2;      // children per node (cuda_pruning.big_tree)
-constexpr int TLD = N + 1;   // row stride of a tip's dP_k in shared memory
-constexpr int RED = 2 * 8 * BHT;   // values of col_reduce's scratch
-
-// [N][LDN] <- P_v [N][N] by asynchronous 16-byte copies (cp.async), which
-// overlap whatever the block does until cp_async_wait
-template <typename T>
-__device__ __forceinline__ void load_Pn_async(T* Ps, const T* Pv) {
-  constexpr int V = 16 / sizeof(T);          // values per copy
-  constexpr int PER = N * N / V / NT;        // copies per thread
-#pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int e = (threadIdx.x + q * NT) * V;
-    const unsigned dst = static_cast<unsigned>(
-        __cvta_generic_to_shared(Ps + (e / N) * LDN + e % N));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(Pv + e));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// one value by an asynchronous copy, zero-filled where !ok (src must still
-// be a valid address)
-template <typename T>
-__device__ __forceinline__ void cp_async_val(T* dst, const T* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = ok ? (int)sizeof(T) : 0;
-  if constexpr (sizeof(T) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes));
-}
-
-// The max (MAX) or sum over the 64 rows of pattern column `lane`, from
-// each thread's value over its 8 rows, through red [2][8][BHT]: the halves
-// alternate, so a half is written again only after the barrier of the
-// call between, and one barrier a call does.  Every thread gets the result;
-// a sum runs in row order.
-template <typename T, bool MAX>
-__device__ __forceinline__ T col_reduce(T x, T* red, int& half) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* rb = red + half * 8 * BHT;
-  half ^= 1;
-  rb[w * BHT + lane] = x;
-  __syncthreads();
-  T r = rb[lane];
-#pragma unroll
-  for (int i = 1; i < 8; ++i) {
-    const T y = rb[i * BHT + lane];
-    r = MAX ? (y > r ? y : r) : r + y;
-  }
-  return r;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) big_fwd_kernel(
-    const int* __restrict__ fs, int nsteps, int kmax,
-    const T* __restrict__ P, const int* __restrict__ states,
-    const T* __restrict__ pi, T* __restrict__ lnf, T* __restrict__ S,
-    T* __restrict__ work, int C, int H, int ns, int n, int nslots) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ps = reinterpret_cast<T*>(smem_raw);   // [N][LDN]
-  T* Ss = Ps + N * LDN;                      // [N][LDH]
-  T* Cs = Ss + N * LDH;                      // [N][LDH]: the kept c_v
-  T* red = Cs + N * LDH;                     // [RED]: col_reduce
-  const int tile = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
-  const int w = tid >> 5, lane = tid & 31, hg = tile * BHT + lane;
-  const int width = 5 + 2 * kmax;
-  const size_t NH = (size_t)N * BHT;
-  T* wb = work + (size_t)(tile * C + c) * nslots * NH;
-  T logm = T(0);
-  int half = 0;
-  for (int i = 0; i < nsteps; ++i) {
-    const int* r = fs + (size_t)i * width;   // internal nodes only
-    const int srow = r[2], keep = r[3 + 2 * kmax], kept = r[4 + 2 * kmax];
-    const bool root = i == nsteps - 1;
-    __syncthreads();   // the children's slots are written; Ps, Ss are free
-    if (!root) load_Pn_async(Ps, P + ((size_t)r[0] * C + c) * N * N);
-    // the children's contributions (a gather for a tip, its slot or the
-    // kept c for an internal node), their product rescaled by its column
-    // max; each child's source and row stride first, then every load
-    // unconditional, so that all of them are in flight together
-    const T* src[KMAX];
-    int rs[KMAX];
-    bool has[KMAX];
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int kid = k < kmax ? r[3 + kmax + k] : -1;
-      has[k] = kid >= 0;
-      if (kid >= 0 && kid < ns) {
-        const int st = hg < H ? states[(size_t)kid * H + hg] : 0;
-        src[k] = P + ((size_t)kid * C + c) * N * N + st;
-        rs[k] = N;
-      } else if (k == kept) {
-        src[k] = Cs + lane;
-        rs[k] = LDH;
-      } else {
-        src[k] = wb + (size_t)(kid >= 0 ? r[3 + k] : 0) * NH + lane;
-        rs[k] = BHT;
-      }
-    }
-    T y[KMAX][8];
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        y[k][q] = has[k] ? src[k][(8 * w + q) * rs[k]] : T(1);
-    T x[8], m = T(0);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      T p = y[0][q];
-#pragma unroll
-      for (int k = 1; k < KMAX; ++k)
-        if (has[k]) p *= y[k][q];
-      x[q] = p;
-      m = (q == 0 || p > m) ? p : m;
-    }
-    m = col_reduce<T, true>(m, red, half);
-    // times 1 / max: an f64 division per value would cost more than the
-    // rest of the phase; B4 rebuilds a cherry the same way
-    const T ms = m > T(0) ? m : T(1), rms = T(1) / ms;
-    logm += Num<T>::lg(ms);
-    T* Sv = (S != nullptr && srow >= 0) ? S + ((size_t)srow * C + c) * n * H
-                                        : nullptr;
-    T F = T(0);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int j = 8 * w + q;
-      x[q] = x[q] * rms;
-      Ss[j * LDH + lane] = x[q];
-      if (Sv != nullptr && j < n && hg < H) Sv[(size_t)j * H + hg] = x[q];
-      F += pi[(size_t)c * N + j] * x[q];
-    }
-    if (root) {
-      F = col_reduce<T, false>(F, red, half);
-      if (w == 0 && hg < H)
-        lnf[(size_t)c * H + hg] =
-            Num<T>::lg(F > Num<T>::tiny() ? F : Num<T>::tiny()) + logm;
-      return;
-    }
-    cp_async_wait();
-    __syncthreads();
-    T acc[8];
-    prod_ps(Ps, Ss, acc);
-    // c_v into shared memory when the next row is v's parent, else its slot
-    T* out = keep ? Cs : wb + (size_t)r[1] * NH;
-    const int ld = keep ? LDH : BHT;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      int row, col;
-      acc_rc<2>(e, row, col);
-      out[row * ld + col] = acc[e];
-    }
-  }
-}
-
-// a residual row of S into Sb [N][LDH] by asynchronous copies (zero past
-// n and H; the caller waits)
-template <typename T>
-__device__ __forceinline__ void load_S_async(T* Sb, const T* S, int srow,
-                                             int c, int C, int n, int H,
-                                             int h0) {
-  const T* src = S + ((size_t)srow * C + c) * n * H;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int e = threadIdx.x + q * NT, j = e / BHT, h = e % BHT;
-    const bool ok = j < n && h0 + h < H;
-    cp_async_val(Sb + j * LDH + h, ok ? src + (size_t)j * H + h0 + h : src,
-                 ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// the state codes that child kr needs at pattern hg: a tip's own (st[0]),
-// or a cherry's grandchildren's; -1 where there is none
-__device__ __forceinline__ void child_codes(int st[KMAX], const int* kr,
-                                            int kmax, int ns,
-                                            const int* states, int H,
-                                            int hg) {
-#pragma unroll
-  for (int a = 0; a < KMAX; ++a) {
-    const int v = kr[0] < ns ? (a == 0 ? kr[0] : -1)
-                             : (a < kmax ? kr[3 + a] : -1);
-    st[a] = v < 0 ? -1 : (hg < H ? states[(size_t)v * H + hg] : 0);
-  }
-}
-
-// this thread's rows of a tip's contribution P_k[j, st] (kr a tip), or of
-// a cherry's scaled partial rebuilt from its grandchildren's gathers as the
-// forward built it (kr a cherry), into dst [N][LDH]
-template <typename T>
-__device__ __forceinline__ void gather_child(T* dst, const int* kr,
-                                             const int st[KMAX], int ns,
-                                             const T* P, int c, int C,
-                                             T* red, int& half) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* src[KMAX];
-#pragma unroll
-  for (int a = 0; a < KMAX; ++a) {
-    const int v = st[a] < 0 ? 0 : (kr[0] < ns ? kr[0] : kr[3 + a]);
-    src[a] = P + ((size_t)v * C + c) * N * N + (st[a] < 0 ? 0 : st[a]);
-  }
-  T y[KMAX][8];
-#pragma unroll
-  for (int a = 0; a < KMAX; ++a)
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      y[a][q] = st[a] >= 0 ? src[a][(8 * w + q) * N] : T(1);
-  if (kr[0] < ns) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = y[0][q];
-    return;
-  }
-  T x[8], m = T(0);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    x[q] = y[0][q];
-#pragma unroll
-    for (int a = 1; a < KMAX; ++a)
-      if (st[a] >= 0) x[q] *= y[a][q];
-    m = (q == 0 || x[q] > m) ? x[q] : m;
-  }
-  m = col_reduce<T, true>(m, red, half);
-  const T rms = T(1) / (m > T(0) ? m : T(1));
-#pragma unroll
-  for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = x[q] * rms;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) big_bwd_kernel(
-    const int* __restrict__ bs, int nint, int kmax,
-    const T* __restrict__ P, const int* __restrict__ states,
-    const T* __restrict__ pi, const T* __restrict__ gbar,
-    const T* __restrict__ S, T* __restrict__ dP_slab,
-    T* __restrict__ dpi_slab, T* __restrict__ work, int C, int H, int ns,
-    int n, int nnode, int nslots, int ntiles, int TV) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [kmax][N][LDN]: P_k, or a tip's dP_k ([N][TLD] in the same room)
-  T* kb = reinterpret_cast<T*>(smem_raw);
-  T* cb = kb + kmax * N * LDN;               // [kmax][N][LDH]: c_k
-  T* sb = cb + kmax * N * LDH;               // [KMAX][N][LDH]: s_k
-  T* Gb = sb + KMAX * N * LDH;               // [KMAX][N][LDH]: G_k
-  T* Ab = Gb + KMAX * N * LDH;               // [N][LDH]: A_v
-  T* red = Ab + N * LDH;                     // [RED]: col_reduce
-  T* dpa = red + RED;                        // [N]: dpi of the block
-  const int g = blockIdx.x, c = blockIdx.y, G = gridDim.x;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int stride = 3 + kmax, width = 3 + stride * kmax;
-  const size_t NH = (size_t)N * BHT;
-  T* abuf = work + (size_t)(g * C + c) * (nslots + 1) * TV * NH;
-  T* dps = dP_slab + (size_t)g * nnode * C * N * N;
-  const T* pic = pi + (size_t)c * N;
-  const int lo = (int)((long long)g * ntiles / G);
-  const int hi = (int)((long long)(g + 1) * ntiles / G);
-  int half = 0;
-  if (tid < N) dpa[tid] = T(0);
-  for (int t0 = lo; t0 < hi; t0 += TV) {
-    const int nt = min(TV, hi - t0);
-    const bool add = t0 != lo;
-    // root (bsched row 0): gF = gbar / F, A_root = gF pi, dpi += gF s_root
-    for (int t = 0; t < nt; ++t) {
-      const int hg = (t0 + t) * BHT + lane;
-      const T* Sr = S + ((size_t)bs[2] * C + c) * n * H;
-      T* Ar = abuf + ((size_t)bs[1] * TV + t) * NH;
-      T x[8], F = T(0);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int j = 8 * w + q;
-        x[q] = (j < n && hg < H) ? Sr[(size_t)j * H + hg] : T(0);
-        F += pic[j] * x[q];
-      }
-      F = col_reduce<T, false>(F, red, half);
-      F = F > Num<T>::tiny() ? F : Num<T>::tiny();
-      const T gf = hg < H ? gbar[(size_t)c * H + hg] / F : T(0);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int j = 8 * w + q;
-        Ar[j * BHT + lane] = gf * pic[j];
-        // dpi[j] += sum over the tile's patterns (the warp's lanes)
-        T s = gf * x[q];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0) dpa[j] += s;
-      }
-    }
-    for (int i = 0; i < nint; ++i) {
-      const int* r = bs + (size_t)i * width;
-      int K = 0;
-      while (K < kmax && r[3 + stride * K] >= 0) ++K;
-      __syncthreads();   // the previous node's stores have read kb
-      for (int k = 0; k < K; ++k) {
-        const int kid = r[3 + stride * k];
-        T* kk = kb + k * N * LDN;
-        if (kid < ns) {
-          for (int e = tid; e < N * TLD; e += NT) kk[e] = T(0);
-        } else {
-          load_Pn_async(kk, P + ((size_t)kid * C + c) * N * N);
-        }
-      }
-      T acc[KMAX][16];
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[k][e] = T(0);
-      for (int t = 0; t < nt; ++t) {
-        const int ht = (t0 + t) * BHT;
-        __syncthreads();   // kb's zeros are written; cb, sb, Gb, Ab are free
-        // 1) each child's c_k = P_k s_k.  A_v and the residual rows by
-        //    asynchronous copies, every state code the tips and cherries
-        //    need, then their gathers: all in flight together; then the
-        //    products.
-        {
-          const T* Av = abuf + ((size_t)r[1] * TV + t) * NH;
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int e = tid + q * NT;
-            cp_async_val(Ab + (e / BHT) * LDH + e % BHT, Av + e, true);
-          }
-          asm volatile("cp.async.commit_group;\n" ::);
-        }
-        int first = -1;   // the first internal child
-        int st[KMAX][KMAX];
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          const int* kr = r + 3 + stride * k;
-          const bool inner = k < K && kr[0] >= ns;
-          if (inner) {
-            if (first < 0) first = k;
-            if (kr[1] >= 0)
-              load_S_async(sb + k * N * LDH, S, kr[1], c, C, n, H, ht);
-          }
-          if (k < K && (!inner || kr[1] < 0))
-            child_codes(st[k], kr, kmax, ns, states, H, ht + lane);
-        }
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          const int* kr = r + 3 + stride * k;
-          if (k >= K || (kr[0] >= ns && kr[1] >= 0)) continue;
-          gather_child((kr[0] < ns ? cb : sb) + k * N * LDH, kr, st[k], ns,
-                       P, c, C, red, half);
-        }
-        for (int k = first; first >= 0 && k < K; ++k) {
-          const int* kr = r + 3 + stride * k;
-          if (kr[0] < ns) continue;
-          T* ck = cb + k * N * LDH;
-          if (k == first) {
-            cp_async_wait();   // the node's P_k, the s_k
-            __syncthreads();
-          }
-          T a8[8];
-          prod_ps(kb + k * N * LDN, sb + k * N * LDH, a8);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            int row, col;
-            acc_rc<2>(e, row, col);
-            ck[row * LDH + col] = a8[e];
-          }
-        }
-        cp_async_wait();   // A_v (and P_k of a node without products)
-        __syncthreads();
-        // 2) the node's scale factor, from the product of the c_k
-        T m = T(0);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int e = (8 * w + q) * LDH + lane;
-          T p = cb[e];
-          for (int k = 1; k < K; ++k) p *= cb[k * N * LDH + e];
-          m = (q == 0 || p > m) ? p : m;
-        }
-        m = col_reduce<T, true>(m, red, half);
-        const T ms = m > T(0) ? m : T(1), rms = T(1) / ms;
-        // 3) per child, last first: G_k (every child's at once, on the
-        //    first turn), dP_k += G_k s_k^T, A_k = P_k^T G_k
-        // (a tip's codes of the tile are st[k][0]: lane h holds pattern h's)
-        const int hn = min(BHT, H - ht);
-#pragma unroll
-        for (int k = KMAX - 1; k >= 0; --k) {
-          if (k >= K) continue;
-          const int* kr = r + 3 + stride * k;
-          const int kid = kr[0];
-          if (k == K - 1) {
-#pragma unroll
-            for (int k1 = KMAX - 1; k1 >= 0; --k1) {
-              if (k1 >= K) continue;
-              T* G1 = Gb + k1 * N * LDH;
-#pragma unroll
-              for (int q = 0; q < 8; ++q) {
-                const int e = (8 * w + q) * LDH + lane;
-                T loo = T(1);
-                for (int k2 = 0; k2 < K; ++k2)
-                  if (k2 != k1) loo *= cb[k2 * N * LDH + e];
-                G1[e] = clip_adjoint(Ab[e] * rms * loo);
-              }
-            }
-            cp_async_wait();
-            __syncthreads();
-          }
-          const T* Gk = Gb + k * N * LDH;
-          T* kk = kb + k * N * LDN;
-          if (kid < ns) {
-            // dP_k[j, state[h]] += G_k[j, h], h in order; warp w takes
-            // the states = w mod 4 of rows 32 (w / 4) + lane, and walks only
-            // the patterns whose state it owns (a ballot over the tile)
-            const int j = 32 * (w >> 2) + lane;
-            unsigned own = __ballot_sync(
-                0xffffffffu, lane < hn && (st[k][0] & 3) == (w & 3));
-            while (own != 0u) {
-              const int h = __ffs(own) - 1;
-              own &= own - 1u;
-              const int sv = __shfl_sync(0xffffffffu, st[k][0], h);
-              kk[j * TLD + sv] += Gk[j * LDH + h];
-            }
-          } else {
-            prod_gst(Gk, sb + k * N * LDH, acc[k]);
-            T a8[8];
-            prod_pts(kk, Gk, a8);
-            T* Ak = abuf + ((size_t)kr[2] * TV + t) * NH;
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              int row, col;
-              acc_rc<2>(e, row, col);
-              Ak[row * BHT + col] = a8[e];
-            }
-          }
-          if (k == 0) __syncthreads();
-        }
-      }
-      // the visit's dP_k into the block's slab
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k >= K) continue;
-        const int kid = r[3 + stride * k];
-        T* d = dps + ((size_t)kid * C + c) * N * N;
-        if (kid < ns) {
-          const T* kk = kb + k * N * LDN;
-          for (int e = tid; e < N * N; e += NT) {
-            const T x = kk[(e / N) * TLD + e % N];
-            d[e] = add ? d[e] + x : x;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            int row, col;
-            acc_rc<4>(e, row, col);
-            T* p = d + row * N + col;
-            *p = add ? *p + acc[k][e] : acc[k][e];
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < N) dpi_slab[(size_t)(g * C + c) * N + tid] = dpa[tid];
-}
 
 template <typename T>
 int launch_big_fwd(const int* fs, int nsteps, int kmax, const T* P,
@@ -550,10 +24,12 @@ int launch_big_fwd(const int* fs, int nsteps, int kmax, const T* P,
                    int smem, cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      big_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      big_fwd_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  big_fwd_kernel<T><<<dim3(ntiles, C), NT, smem, stream>>>(
-      fs, nsteps, kmax, P, states, pi, lnf, S, work, C, H, ns, n, nslots);
+  big_fwd_kernel<T, false><<<dim3(ntiles, C), NT, smem, stream>>>(
+      fs, nsteps, kmax, P, states, pi, lnf, S, work, C, H, ns, n, nslots,
+      nullptr, 0);
   return (int)cudaGetLastError();
 }
 
@@ -565,11 +41,12 @@ int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
                    int nslots, int root, int smem, cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      big_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      big_bwd_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  big_bwd_kernel<T><<<dim3(G, C), NT, smem, stream>>>(
+  big_bwd_kernel<T, false><<<dim3(G, C), NT, smem, stream>>>(
       bs, nint, kmax, P, states, pi, gbar, S, dP_slab, dpi_slab, work, C, H,
-      ns, n, nnode, nslots, ntiles, TV);
+      ns, n, nnode, nslots, ntiles, TV, nullptr, nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(dP_slab, dpi_slab, dP, dpi, G, nnode, C, n, root,

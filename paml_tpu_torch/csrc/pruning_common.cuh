@@ -1,26 +1,24 @@
-// Device helpers shared by the pruning kernels (pruning.cu: B1/B2,
-// pruning_big.cu: B3/B4).
+// Device helpers shared by the pruning kernels (pruning_tree.cuh's tree
+// walk, instantiated by pruning.cu: B1/B2 and pruning_big.cu: B3/B4).
 //
 // Layout (the JAX package's): P [nnode, C, N, N], row j = parent state,
 // c[j, h] = sum_i P[j, i] s[i, h]; partials are [N, pattern]; states are
 // padded to N = 64 by the wrapper (zero rows and columns), patterns are
 // masked at the ragged edge by the kernels.
 //
-// Two families of products stage their operands in shared memory:
-// * B1/B2 (mm64): [64 x 64] x [64 x 64], 256 threads each holding a 4 x 4
-//   tile of the result and accumulating with FMA in the working type.
-// * B3/B4 (prod_ps, prod_pts, prod_gst): the three forms the large-tree
-//   pair needs on a tile of BHT = 32 patterns, P s and P^T G ([64 x 64] x
-//   [64 x 32]) and G s^T ([64 x 32] x [32 x 64], added into registers).  In
-//   float64 each warp issues Hopper's FP64 tensor-core product
-//   (mma.sync m16n8k8 .f64: 67 TFLOP/s on the H100 SXM's data sheet, twice
-//   its FP64 FMA rate); the operand strides LDN = 68 and LDH = 36 (both 4
-//   mod 16 doubles) make the 8-byte fragment loads free of bank conflicts.  In
-//   float32 the same threads compute the same result elements with FMA
-//   (TF32 would break the f32 tolerances).  B3 and B4 call the same
-//   routine, so B4's recomputed contributions, and the scale factors taken
-//   from them, are bit for bit B3's.  What bounds B3 and B4 is the tree
-//   walk around the products (pruning_big.cu).
+// The products stage their operands in shared memory: the three forms the
+// walk needs on a tile of BHT = 32 patterns (prod_ps, prod_pts, prod_gst),
+// P s and P^T G ([64 x 64] x [64 x 32]) and G s^T ([64 x 32] x [32 x 64],
+// added into registers).  In float64 each warp issues Hopper's FP64
+// tensor-core product (mma.sync m16n8k8 .f64: 67 TFLOP/s on the H100 SXM's
+// data sheet, twice its FP64 FMA rate); the operand strides LDN = 68 and
+// LDH = 36 (both 4 mod 16 doubles) make the 8-byte fragment loads free of
+// bank conflicts.  In float32 the same threads compute the same result
+// elements with FMA (TF32 would break the f32 tolerances).  The forward and
+// the adjoint call the same routine, so the adjoint's recomputed
+// contributions, and the scale factors taken from them, are bit for bit
+// the forward's.  What bounds the kernels is the tree walk around the
+// products (pruning_tree.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,10 +30,8 @@
 namespace {
 
 constexpr int N = 64;        // padded states
-constexpr int HT = 64;       // patterns per tile (B1/B2)
-constexpr int LD = HT + 1;   // shared row stride of B1/B2 (N == HT)
 constexpr int NT = 256;      // threads per block
-constexpr int BHT = 32;      // patterns per tile (B3/B4)
+constexpr int BHT = 32;      // patterns per tile
 constexpr int LDN = N + 4;   // shared row stride of a [64 x 64] operand
 constexpr int LDH = BHT + 4; // shared row stride of a [64 x BHT] operand
 
@@ -57,90 +53,6 @@ template <> struct Num<double> {
   }
 };
 
-// ---------------------------------------------------------------------------
-// B1/B2 helpers (pruning.cu)
-// ---------------------------------------------------------------------------
-
-// acc[p][q] = sum_k opA[ty + 16p][k] * opB[k][tx + 16q] over k < 64, with
-// opA[r][k] = TA ? A[k][r] : A[r][k] and opB[k][c] = TB ? B[c][k] : B[k][c];
-// A and B are [64][LD] in shared memory.
-template <typename T, bool TA, bool TB>
-__device__ __forceinline__ void mm64(const T* A, const T* B, T acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = T(0);
-#pragma unroll 4
-  for (int k = 0; k < 64; ++k) {
-    T a[4], b[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      a[p] = TA ? A[k * LD + ty + 16 * p] : A[(ty + 16 * p) * LD + k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      b[q] = TB ? B[(tx + 16 * q) * LD + k] : B[k * LD + tx + 16 * q];
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[p][q] = Num<T>::fma(a[p], b[q], acc[p][q]);
-  }
-}
-
-// store a [64 x 64] register-tiled result to a row-major buffer (row
-// stride ld), overwriting or adding
-template <typename T>
-__device__ __forceinline__ void store64(T* dst, int ld, T acc[4][4],
-                                        bool add) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      T* d = dst + (size_t)(ty + 16 * p) * ld + tx + 16 * q;
-      *d = add ? *d + acc[p][q] : acc[p][q];
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_P(T* Ps, const T* Pv) {
-  for (int e = threadIdx.x; e < N * N; e += NT)
-    Ps[(e / N) * LD + e % N] = Pv[e];
-}
-
-// contribution of a state-code tip: c[j, h] = P[j, state[h]]
-template <typename T>
-__device__ __forceinline__ void tip_gather(T* out, const T* Pv,
-                                           const int* sv, int h0, int H) {
-  for (int e = threadIdx.x; e < N * HT; e += NT) {
-    const int j = e / HT, h = e % HT, hg = h0 + h;
-    const int s = hg < H ? sv[hg] : 0;
-    out[e] = Pv[j * N + s];
-  }
-}
-
-// per-pattern max over states, msafe = m > 0 ? m : 1 (threads h < HT)
-template <typename T>
-__device__ __forceinline__ T column_msafe(const T* Ss, int h) {
-  T m = Ss[h];
-  for (int j = 1; j < N; ++j) {
-    const T x = Ss[j * LD + h];
-    m = x > m ? x : m;
-  }
-  return m > T(0) ? m : T(1);
-}
-
-template <typename T>
-__device__ __forceinline__ T root_F(const T* Ss, const T* pic, int h) {
-  T F = T(0);
-  for (int j = 0; j < N; ++j) F += pic[j] * Ss[j * LD + h];
-  return F > Num<T>::tiny() ? F : Num<T>::tiny();
-}
-
-// ---------------------------------------------------------------------------
-// both pairs
-// ---------------------------------------------------------------------------
-
 // the adjoint's G = A / m * (product of the siblings), clipped at +-1e12
 // with NaN -> 0 (keeps absurd line-search trial points finite)
 template <typename T>
@@ -159,7 +71,7 @@ __device__ __forceinline__ T guard(T x) {
 }
 
 // ---------------------------------------------------------------------------
-// B3/B4 products.  Warp w owns rows 16 (w & 3) + [0, 16) of the result;
+// Products.  Warp w owns rows 16 (w & 3) + [0, 16) of the result;
 // lane (gq = lane / 4, tq = lane % 4) holds, in each 16 x 8 tile, rows
 // gq and gq + 8 and columns 2 tq and 2 tq + 1 (the m16n8k8 accumulator
 // layout, used for float32 too).  acc8 (a [64 x BHT] result): tiles at

@@ -3,7 +3,8 @@ x0 and at a random in-bounds x, for M0/M1a/M2a/M3, the branch models
 (free ratios, two ratios), branch-site A/B and clade C/D with one labelled
 clade, the pattern axis in chunks, and the codon-frequency and option
 variants of the slice, to 1e-9 relative; clean (state-code) and ambiguous
-(multi-hot) tips; the multi-starts of the fits; unported settings raise."""
+(coded, with an ambiguity table) tips; the multi-starts of the fits;
+unported settings raise."""
 import dataclasses
 import os
 
@@ -20,6 +21,7 @@ from paml_tpu.io import seqio as jax_seqio
 from paml_tpu.io import treeio as jax_treeio
 from paml_tpu_torch import interop
 from paml_tpu_torch.apps import codeml
+from paml_tpu_torch.core.tipcodes import TipCodes
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -112,7 +114,7 @@ def test_objective_matches_jax(name, ambiguous):
     data, topo = interop.packed_from(data_j), interop.topology_from(topo_j)
     neg, unpack, classes_for, x0, b, pi = codeml.make_codon_objective(
         data, topo, spec_t, device="cpu", n_chunks=n_chunks)
-    assert (neg.tips.dim() == 3) == ambiguous
+    assert isinstance(neg.tips, TipCodes) == ambiguous
     np.testing.assert_array_equal(x0, x0_j)
     assert b == b_j
     np.testing.assert_allclose(pi, pi_j, rtol=1e-14)

@@ -2,9 +2,10 @@
 analytic adjoint against `_class_site_lnf_lvl` and `jax.grad` (float64
 to 1e-10, float32 to 2e-6 on values and 3e-5 on gradients, the Pallas
 kernel's own tolerances), once against the Pallas kernel in interpret
-mode; the CUDA kernels' schedule tables against `pallas_pruning._plan`;
-and the CPU behaviour of the dispatch (no kernel launch, no plain call
-counted on CUDA, kernel wrappers refuse CPU tensors)."""
+mode; the kernels' schedule (order and slots) against
+`pallas_pruning._plan`; the CPU behaviour of the dispatch (no kernel
+launch, no plain call counted on CUDA, kernel wrappers refuse CPU
+tensors); and B2's grid."""
 import numpy as np
 import pytest
 import torch
@@ -87,26 +88,17 @@ def test_plain_lnf_matches_pallas_interpret():
                          ids=["ladder", "balanced", "trifurcating",
                               "deep_ladder"])
 def test_schedule_table_matches_pallas_plan(case):
+    # the postorder, children and slot liveness the kernels' tables
+    # (`BigPlan`) are built from
     _, _, topo, _ = _random_problem(H=8, **case)
     ref = pallas_pruning._plan(topo)
     plan = cuda_pruning.plan(interop.topology_from(topo))
     assert plan.order == ref.order
     assert plan.slot == ref.slot
     assert plan.nslots == ref.nslots
-    assert plan.scale_set == ref.scale_set
-    # the device table encodes exactly that plan
-    T, kmax = plan.table, plan.kmax
-    assert T.dtype == np.int32 and list(T[:, 0]) == ref.order
-    for row in T:
-        v, flags, slot, K = (int(x) for x in row[:4])
-        kids = ref.kids_of[v]
-        assert K == len(kids) and tuple(row[4:4 + K]) == kids
-        assert tuple(row[4 + kmax:4 + kmax + K]) == tuple(ref.slot[k]
-                                                          for k in kids)
-        assert bool(flags & cuda_pruning.F_TIP) == (v < topo.ns)
-        assert bool(flags & cuda_pruning.F_ROOT) == (v == ref.root)
-        assert bool(flags & cuda_pruning.F_SCALE) == (v in ref.scale_set)
-        assert slot == ref.slot.get(v, -1)
+    assert plan.root == ref.root
+    assert {v: k for v, k in plan.kids_of.items() if k} == \
+        {v: k for v, k in ref.kids_of.items() if k}
 
 
 def test_cpu_dispatch_counts_nothing():
@@ -135,7 +127,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_pruning.pruning_fwd(Pt, tipst, ttopo, pit)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_pruning.pruning_bwd(Pt, tipst, ttopo, pit,
-                                 torch.ones(1, tipst.shape[1]))
+                                 torch.ones(1, tipst.shape[1]), None)
+    # dense partials are coded before the device check
+    hot = torch.nn.functional.one_hot(tipst.long(), Pt.shape[-1]).double()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_pruning.pruning_fwd(Pt, hot, ttopo, pit)
     assert not any(cuda_pruning.LAUNCHES.values())
 
 
@@ -146,11 +142,46 @@ def test_state_codes_are_range_checked():
         with pytest.raises(ValueError, match="state codes"):
             cuda_pruning.check_state_codes(
                 torch.tensor([[0, bad]], dtype=torch.int32), 61)
+    # coded tips: codes n .. n + A - 1 name the ambiguity table's rows
+    cuda_pruning.check_state_codes(torch.tensor([[0, 63]],
+                                                dtype=torch.int32), 61, 3)
+    with pytest.raises(ValueError, match=r"\[0, 64\)"):
+        cuda_pruning.check_state_codes(
+            torch.tensor([[64, 0]], dtype=torch.int32), 61, 3)
 
 
-def test_adjoint_grid_respects_workspace_budget():
-    # the bench shape runs one block per tile; a 1000-taxon tree at 10240
-    # patterns shrinks the grid to fit the workspace budget
-    assert cuda_pruning.bwd_grid(63, 32, 3, 64, 8) == 64
-    G = cuda_pruning.bwd_grid(1999, 1000, 4, 160, 8)
-    assert 1 <= G < 160
+@pytest.mark.parametrize("shape", ["bench", "bench_m0", "chunk1024",
+                                   "unchunked1024"])
+def test_adjoint_grid_fills_the_card(shape):
+    # B2 sizes its grid as B4 does: G x C reaches the H100's 132 SMs where
+    # there are as many (tile, class) pairs, one tile or more per block,
+    # and the card's size (not a workspace budget) caps it
+    ns, H, C = {"bench": (32, 4096, 3), "bench_m0": (32, 4096, 1),
+                "chunk1024": (1024, 1024, 4),
+                "unchunked1024": (1024, 10240, 4)}[shape]
+    topo = _balanced(ns) if ns == 1024 else interop.topology_from(
+        _random_problem(ns=32, H=8, ladder=True)[2])
+    bp = cuda_pruning.big_plan(topo)
+    ntiles = cuda_pruning.big_tiles(H)
+    for esize in (4, 8):
+        G = cuda_pruning.big_bwd_grid(topo.nnode, C, ntiles, esize, 132,
+                                      80 << 30, bp.work_per_block)
+        assert G * C >= min(132, ntiles * C) and G <= ntiles
+        tv = cuda_pruning.visit_tiles(ntiles, G)
+        assert tv * G >= ntiles and tv <= cuda_pruning.BIG_TMAX
+    # slabs and workspace stay within an eighth of the card
+    per_g = (topo.nnode * C * 64 * 64 + C * 64 + C * bp.work_per_block) * 8
+    assert G * per_g <= (80 << 30) // cuda_pruning.BIG_WORK_SHARE
+
+
+def _balanced(ns):
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+    names = [f"t{i}" for i in range(ns)]
+
+    def bal(lo, hi):
+        if hi - lo == 1:
+            return names[lo]
+        m = (lo + hi) // 2
+        return f"({bal(lo, m)},{bal(m, hi)})"
+    return from_treenode(treeio.parse_newick(bal(0, ns) + ";"), names)

@@ -122,10 +122,13 @@ def _balanced_topo(ns):
 
 
 def test_dispatch_picks_big_kernels_for_large_trees():
-    # one 1024-pattern chunk of the 1024-taxon branch-site shape: B2's
-    # workspace budget gives 2 blocks per class for 16 tiles
+    # one 1024-pattern chunk of the 1024-taxon branch-site shape: the
+    # adjoints of both pairs take 32 blocks per class for its 32 tiles
     big = _balanced_topo(1024)
-    assert cuda_pruning.bwd_grid(big.nnode, big.ns, 4, 16, 8) == 2
+    ntiles = cuda_pruning.big_tiles(1024)
+    assert cuda_pruning.big_bwd_grid(
+        big.nnode, 4, ntiles, 8, 132, 80 << 30,
+        cuda_pruning.big_plan(big).work_per_block) == ntiles == 32
     assert cuda_pruning.use_big_kernels(True)
     # multi-hot tips stay on B1/B2 (B3/B4 take state codes only)
     assert not cuda_pruning.use_big_kernels(False)
@@ -342,7 +345,7 @@ def test_public_wrappers_check_state_codes():
     bad[3, 7] = Pt.shape[-1]
     gbar = torch.ones(2, 20)
     for fn, extra in ((cuda_pruning.pruning_fwd, ()),
-                      (cuda_pruning.pruning_bwd, (gbar,)),
+                      (cuda_pruning.pruning_bwd, (gbar, None)),
                       (cuda_pruning.pruning_big_fwd, ()),
                       (cuda_pruning.pruning_big_bwd, (gbar, None))):
         with pytest.raises(ValueError, match="state codes"):

@@ -11,10 +11,15 @@ the 1024-taxon balanced tree with 4 classes: one 1024-pattern chunk in
 float64, and all 10240 patterns in float64 and float32, on inputs made
 from one seed.  It prints one JSON line per process (with the sums of its
 lnf and dP, so that the two checkouts can be seen to compute the same
-thing), then the card's name and power limit.
+thing; from the process that built the checkout's kernels, the
+registers and spills that ptxas reports for B3 and B4; and a hash of each
+B3/B4 kernel's machine code, `cuobjdump -sass` of the library without the
+function's name, equal where the two checkouts compiled the same
+instructions), then the card's name and power limit.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -35,6 +40,14 @@ def one() -> dict:
     from paml_tpu_torch.io import treeio
 
     _build.build()
+    lines = _build.build_log.splitlines()
+    ptxas = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "big_" in line:
+            kernel = line.split("'")[1]
+            ptxas[kernel] = " | ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "stack frame" in x or "registers" in x)
     names = [f"t{i}" for i in range(TAXA)]
 
     def bal(lo, hi):
@@ -49,7 +62,7 @@ def one() -> dict:
     pi = rng.dirichlet(np.ones(n), size=C)
     st = rng.integers(0, n, size=(TAXA, 10240)).astype(np.int32)
     gb = rng.uniform(0.5, 2.0, size=(C, 10240))
-    out = {"dir": os.getcwd()}
+    out = {"dir": os.getcwd(), "ptxas": ptxas, "sass": sass_hashes(_build)}
     for H, dtype in ((1024, torch.float64), (10240, torch.float64),
                      (10240, torch.float32)):
         dev = dict(dtype=dtype, device="cuda")
@@ -77,6 +90,26 @@ def one() -> dict:
                     "dP_sum": float(dP.double().sum())}
         del Pt, tips, gbar, lnf, S, dP
         torch.cuda.empty_cache()
+    return out
+
+
+def sass_hashes(_build) -> dict:
+    """{big_fwd|big_bwd}_{f32|f64}: sha256 (12 hex digits) and length of
+    the kernel's SASS in the large-tree library."""
+    lib = _build.library_path(_build.CSRC / "pruning_big.cu")
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        for kind in ("big_fwd", "big_bwd"):
+            if f"{kind}_kernel" in name:
+                dt = "f64" if f"{kind}_kernelId" in name else "f32"
+                code = body.split("..........")[0]
+                out[f"{kind}_{dt}"] = (
+                    hashlib.sha256(code.encode()).hexdigest()[:12],
+                    code.count(";"))
     return out
 
 

@@ -137,16 +137,16 @@ def polytomy(torch, rng, out, card):
                f" {dn}")
         ref = level(torch, P, tips, topo, pi, gbar)
         big, _ = big_pair(P, tips, topo, pi, gbar)
-        fused = (cp.pruning_fwd(P, tips, topo, pi),) + cp.pruning_bwd(
-            P, tips, topo, pi, gbar)
+        lnf, S = cp.pruning_fwd(P, tips, topo, pi)
+        fused = (lnf,) + cp.pruning_bwd(P, tips, topo, pi, gbar, S)
         e = max(check(big, ref, dn, f"B3/B4 [{tag}]"),
                 check(fused, ref, dn, f"B1/B2 [{tag}]"))
-        del big, fused, ref
+        del big, fused, ref, S
         reps = dict(reps=3, warmup=1)
         t3, t4 = time_pair(torch, P, tips, topo, pi, gbar, reps)
-        t12 = cs.cuda_ms(lambda: (cp.pruning_fwd(P, tips, topo, pi),
-                                  cp.pruning_bwd(P, tips, topo, pi, gbar)),
-                         **reps)
+        t12 = cs.cuda_ms(lambda: cp.pruning_bwd(
+            P, tips, topo, pi, gbar, cp.pruning_fwd(P, tips, topo, pi)[1]),
+            **reps)
         out.append({"probe": "polytomy", "shape": tag, "max_abs_err": e,
                     "card": card, "B3_ms": t3, "B4_ms": t4, "B1_B2_ms": t12,
                     "added_nodes": tb.nnode - topo.nnode})
