@@ -46,6 +46,25 @@
    plain version, twice unchunked (the same bits), B1/B2 timed unchunked,
    and the model A fit, carried by B1/B2 alone.  Each fit reports ms per
    evaluation gross and net of its own objective's set-up, timed apart.
+6. The program: an alignment simulated under site classes (proportions
+   0.6 / 0.3 / 0.1 of the sites under omega 0.1 / 1 / 3, kappa 2; 32 taxa
+   on the bench's ladder without its root branch, 4096 codons) is written
+   as a PHYLIP file with a tree file and a `codeml.ctl` (`NSsites = 0 1 2
+   7 8`, `ncatG = 10`, `getSE = 1`, `CodonFreq = 2`, `cleandata = 0`), and
+   `paml_tpu_torch.__main__.main(["codeml", ctl])` runs it in this
+   process on the card; then the same alignment with 3b's gaps and Ns,
+   `NSsites = 0 8`.  B3/B4 must carry the clean fits and B1/B2 the gapped
+   ones, with no plain call during a fit (the Hessians' calls of the plain
+   level pass are counted apart); each lnL in `mlc` must match the plain
+   version's at the fitted x; both likelihood-ratio tests (M1a-M2a, M7-M8)
+   must be significant; the SEs of the free parameters finite and
+   positive; M8's BEB sites with P > 0.95 in the majority sites simulated
+   under omega 3; BEB's forward (20 classes, no residual) must match the
+   plain version, and is timed beside its bound.  One value + gradient
+   each, kernel route against plain route, for FMutSel0, FMutSel with
+   estFreq, clock 1, M5 and M8, with the host's share (the quantile code).
+   Per model: evaluations, wall seconds, ms per evaluation, and the
+   seconds in the quantile code, the Hessian and BEB.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -83,6 +102,14 @@ def newick(names, shape, blens=None):
         for i, nm in enumerate(names[1:-1], 1):
             s = f"({s},{lab(i, nm)})"
         return f"({s},{lab(len(names) - 1, names[-1])});"
+
+    if shape == "ladder3":
+        # the ladder with its root branch removed: an unrooted tree
+        s = lab(0, names[0])
+        for i, nm in enumerate(names[1:-2], 1):
+            s = f"({s},{lab(i, nm)})"
+        return (f"({s},{lab(len(names) - 2, names[-2])},"
+                f"{lab(len(names) - 1, names[-1])});")
 
     def bal(lo, hi):
         if hi - lo == 1:
@@ -202,12 +229,13 @@ def max_err(got, ref, rtol, what):
     return float(err.max())
 
 
-def bound(name, topo, C, H, n, esize, n_amb=0):
+def bound(name, topo, C, H, n, esize, n_amb=0, want_S=True):
     """(bound_ms, bound_by) of kernel `name` on these shapes: the larger
     of its operations over the card's peak rate and its bytes over the
-    memory rate (cuda_pruning.kernel_work, PEAK_FLOPS, PEAK_BYTES)."""
+    memory rate (cuda_pruning.kernel_work, PEAK_FLOPS, PEAK_BYTES);
+    want_S false for a forward launched without its residual."""
     from paml_tpu_torch.core import cuda_pruning as cp
-    flop, nbytes = cp.kernel_work(name, topo, C, H, n, esize, n_amb)
+    flop, nbytes = cp.kernel_work(name, topo, C, H, n, esize, n_amb, want_S)
     by = "operations" if flop / cp.PEAK_FLOPS >= nbytes / cp.PEAK_BYTES \
         else "bytes"
     return cp.bound_ms(flop, nbytes), by
@@ -1062,6 +1090,433 @@ def phase_branch_site(torch, rng, report, card):
     branch_site_gapped(torch, rng, data, topo, spec, report, card)
 
 
+# --- phase 6: the program ---------------------------------------------------
+
+SITE_TRUTH = dict(kappa=2.0, p=(0.6, 0.3, 0.1), w=(0.1, 1.0, 3.0))
+CHI2_2DF_05 = 5.991          # the 5 % point of chi-square with 2 d.f.
+
+
+def simulate_site_classes(torch, rng, ns, ncod, device, shape="ladder3"):
+    """A codon alignment simulated under site classes (SITE_TRUTH: the
+    proportions p of the sites evolve under the omegas w; kappa 2, equal
+    codon frequencies) on a tree of `shape` with branch lengths uniform on
+    [0.02, 0.3] (by default the bench's ladder without its root branch:
+    codeml's trees are unrooted, and a rooted one leaves the two root
+    branches' standard errors undefined), with the port's own P(t) (M3's,
+    branch lengths fixed):
+    (names, rows of nucleotides, the Newick string, the class of each
+    site)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.constants import codon_string
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+    from paml_tpu_torch.models import codon
+
+    names = [f"t{i}" for i in range(ns)]
+    nwk = newick(names, shape, rng.uniform(0.02, 0.3, size=ns))
+    tree = treeio.parse_newick(nwk)
+    for node in tree.walk_post():
+        if node.blen is None:
+            node.blen = float(rng.uniform(0.02, 0.3))
+    topo = from_treenode(tree, names)
+    spec = codeml.CodemlSpec(NSsites=3, codonf="Fequal", fix_blength=2)
+    stub = seqio.PackedData(names=names, seqtype=1, nstates=61,
+                            tip_partials=np.zeros((ns, 1), np.int32),
+                            fpatt=np.ones(1))
+    neg = codeml.make_codon_objective(stub, topo, spec, device=device)[0]
+    p, w = SITE_TRUTH["p"], SITE_TRUTH["w"]
+    x_true = np.array([SITE_TRUTH["kappa"], np.log(p[0] / p[2]),
+                       np.log(p[1] / p[2]), *w])
+    with torch.no_grad():
+        P, piC, freqs = neg.model_at(torch.tensor(x_true, device=device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    n = P.shape[-1]
+    cls = torch.multinomial(freqs, ncod, replacement=True, generator=gen)
+    cum = P.cumsum(-1)
+    st = torch.empty((topo.nnode, ncod), dtype=torch.int64, device=device)
+    st[topo.root] = torch.multinomial(piC[0], ncod, replacement=True,
+                                      generator=gen)
+    stack = [topo.root]
+    while stack:
+        v = stack.pop()
+        for c in topo.children[v]:
+            if c < 0:
+                continue
+            u = torch.rand((ncod, 1), dtype=torch.float64, device=device,
+                           generator=gen)
+            st[c] = (u > cum[c, cls, st[v]]).sum(-1).clamp_max(n - 1)
+            stack.append(int(c))
+    sense = codon.codon_graph(0).sense
+    text = np.array([codon_string(int(c)) for c in sense])
+    rows = ["".join(text[st[i].cpu().numpy()]) for i in range(ns)]
+    return names, rows, treeio.write_newick(tree, branch_lengths=False), \
+        cls.cpu().numpy()
+
+
+def gapped_rows(rng, rows):
+    """The rows with `gapped_codes`' gaps and Ns written into the
+    nucleotides: a gap codon is '---', an N replaces one position."""
+    ns, H = len(rows), len(rows[0]) // 3
+    codes, amb = gapped_codes(rng, np.zeros((ns, H), dtype=np.int32))
+    n = amb.shape[1]
+    out = []
+    for t, row in enumerate(rows):
+        cods = [row[3 * h:3 * h + 3] for h in range(H)]
+        for h in np.nonzero(codes[t] >= n)[0]:
+            if codes[t, h] == n:
+                cods[h] = "---"
+            else:
+                k = int(rng.integers(0, 3))
+                cods[h] = cods[h][:k] + "N" + cods[h][k + 1:]
+        out.append("".join(cods))
+    return out
+
+
+CTL = """      seqfile = {seq}
+     treefile = {tree}
+      outfile = mlc
+        noisy = 0
+      verbose = 0
+      runmode = 0
+      seqtype = 1
+    CodonFreq = 2
+        model = {model}
+      NSsites = {nssites}
+        icode = 0
+    fix_kappa = 0
+        kappa = 2
+    fix_omega = 0
+        omega = .4
+        ncatG = 10
+        getSE = 1
+    cleandata = 0
+"""
+
+
+def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
+                model=0):
+    """Write the alignment, the tree and a control file into workdir/tag,
+    run `python -m paml_tpu_torch codeml` there in this process, on the
+    card, and return (its summary, the launch counts, the lnL lines of
+    mlc)."""
+    import os
+    import re
+
+    from paml_tpu_torch import __main__ as cli
+    from paml_tpu_torch.apps import beb, codeml
+    from paml_tpu_torch.core import cuda_pruning, dgamma, pruning
+
+    d = os.path.join(workdir, tag)
+    os.makedirs(d)
+    with open(os.path.join(d, "seq.phy"), "w") as f:
+        f.write(f"{len(names)} {len(rows[0])}\n")
+        for nm, row in zip(names, rows):
+            f.write(f"{nm}  {row}\n")
+    with open(os.path.join(d, "tree.nwk"), "w") as f:
+        f.write(nwk + "\n")
+    ctl = os.path.join(d, "codeml.ctl")
+    with open(ctl, "w") as f:
+        f.write(CTL.format(seq="seq.phy", tree="tree.nwk", nssites=nssites,
+                           model=model))
+    cuda_pruning.reset_launch_counts()
+    pruning.PLAIN_CALLS["cuda"] = pruning.TWICE_CALLS["cuda"] = 0
+    before = dict(h=codeml.SECONDS["hessian"], b=beb.SECONDS["beb"])
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        out = cli.main(["codeml", ctl])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = dict(cuda_pruning.LAUNCHES)
+    plain, twice = pruning.PLAIN_CALLS["cuda"], pruning.TWICE_CALLS["cuda"]
+    for name in ("mlc", "rst", "rst1", "lnf", "rub"):
+        if os.path.getsize(os.path.join(d, name)) == 0:
+            raise AssertionError(f"program, {tag}: {name} is empty")
+    mlc = open(os.path.join(d, "mlc")).read()
+    lnls = [float(v) for v in re.findall(r"lnL\(ntime:.*\): *(-?[0-9.]+)",
+                                         mlc)]
+    print(f"program, {tag} [{card}]: model = {model}, NSsites = {nssites}, "
+          f"{wall:.1f} s wall; "
+          f"Hessians {codeml.SECONDS['hessian'] - before['h']:.1f} s, BEB "
+          f"{beb.SECONDS['beb'] - before['b']:.2f} s; kernel launches "
+          f"{launches}, plain-version calls on CUDA during the fits {plain}, "
+          f"Hessian-route calls of the plain level pass {twice}", flush=True)
+    for run in out["runs"]:
+        res = run["res"]
+        print(f"  NSsites {run['NSsites']} [{card}]: lnL {res.lnL:.6f}, "
+              f"{res.fit.n_eval} evals, {run['fit_seconds']:.2f} s wall, "
+              f"{1e3 * run['fit_seconds'] / res.fit.n_eval:.2f} ms/eval, "
+              f"quantile code {run['quantile_seconds']:.2f} s, Hessian "
+              f"{run.get('hessian_seconds', 0.0):.2f} s, BEB "
+              f"{run.get('beb_seconds', 0.0):.2f} s; kappa "
+              f"{res.kappa}, omegas {np.round(res.class_omegas.ravel(), 4)}, "
+              f"freqs {np.round(res.class_freqs, 4)}", flush=True)
+    if plain:
+        raise AssertionError(f"program, {tag}: the plain pruning version ran "
+                             f"{plain} times on CUDA outside the Hessians")
+    if not twice:
+        raise AssertionError(f"program, {tag}: getSE = 1 made no Hessian")
+    return out, launches, lnls
+
+
+def check_program(torch, out, lnls, tag):
+    """Each model's lnL in mlc against the plain version's at the fitted
+    x; the SEs of the free parameters finite and positive."""
+    from paml_tpu_torch.apps import codeml
+
+    data = out["data"]
+    if len(lnls) != len(out["runs"]):
+        raise AssertionError(f"program, {tag}: {len(lnls)} lnL lines in mlc "
+                             f"for {len(out['runs'])} fits")
+    for run, lnl_mlc in zip(out["runs"], lnls):
+        res = run["res"]
+        neg, _, _, _, bounds, _ = codeml.make_codon_objective(
+            data, res.topo, res.spec, device="cuda")
+        lnl_plain = plain_value_grad(torch, neg, res.x, 1, grad=False)[0]
+        rel = abs(lnl_mlc - lnl_plain) / abs(lnl_plain)
+        lo = np.array([b[0] for b in bounds])
+        hi = np.array([b[1] for b in bounds])
+        free = (res.x > lo + 1e-6 * (hi - lo)) & (res.x < hi - 1e-6 * (hi - lo))
+        ses = run["SEs"]
+        print(f"  check NSsites {run['NSsites']}, {tag}: lnL in mlc "
+              f"{lnl_mlc:.6f}, plain {lnl_plain:.6f} (rel {rel:.2e}); SEs of "
+              f"the {int(free.sum())} free parameters in "
+              f"[{ses[free].min():.3g}, {ses[free].max():.3g}], the last "
+              f"{np.round(ses[-4:], 4)}", flush=True)
+        if rel > 1e-9:
+            raise AssertionError(f"program, {tag}, NSsites {run['NSsites']}: "
+                                 "lnL disagrees with the plain version")
+        if not (np.isfinite(ses).all() and (ses[free] > 0).all()):
+            raise AssertionError(f"program, {tag}, NSsites {run['NSsites']}: "
+                                 f"SEs {ses}")
+
+
+def check_beb(torch, out, cls, report, card):
+    """M8's BEB sites with P > 0.95 against the simulated classes, and the
+    BEB forward (20 classes, no residual) against the plain version, timed
+    beside its bound."""
+    from paml_tpu_torch.apps import beb
+
+    data = out["data"]
+    run = next(r for r in out["runs"] if r["NSsites"] == 8)
+    sites = beb.positive_sites(data, run["beb"], 0.95)
+    hits = sum(cls[s - 1] == 2 for s, _, _ in sites)
+    print(f"  BEB, M8: {len(sites)} sites with P > 0.95, {hits} of them "
+          f"simulated under omega {SITE_TRUTH['w'][2]} "
+          f"({int((cls == 2).sum())} such sites of {len(cls)})", flush=True)
+    if not sites or 2 * hits <= len(sites):
+        raise AssertionError("BEB: the sites with P > 0.95 are not, in the "
+                             "majority, those simulated under positive "
+                             "selection")
+    res = run["res"]
+    fz = beb._Frozen(data, res.topo, res.spec, res.x, "cuda")
+    rK = run["beb"].class_omegas
+    wbar = float((res.params["W"] * res.params["freqs"][None, :]).sum(1)[0])
+    P = fz.P(rK, 1.0 / (fz.rs + fz.ra * wbar))
+    check_beb_forward(torch, fz, P, report, card, f"beb_c{len(rK)}")
+
+
+def check_beb_forward(torch, fz, P, report, card, key):
+    """BEB's forward (P [nnode, K, n, n] of K omega sets, no residual) on
+    the frozen problem `fz`: one launch of B3 (state codes) or B1 (coded
+    tips) against the plain version, timed beside its bound (S counts
+    among neither kernel's bytes here: the launch writes none)."""
+    from paml_tpu_torch.core import cuda_pruning, pruning
+    from paml_tpu_torch.core.tipcodes import TipCodes
+
+    K = P.shape[1]
+    piC = fz.pi.expand(K, fz.n).contiguous()
+    fused = not cuda_pruning.use_big_kernels(
+        not isinstance(fz.tips, TipCodes))
+    name = "pruning_fwd" if fused else "big_fwd"
+    before = cuda_pruning.LAUNCHES[name]
+    lnf = fz.lnf(P)
+    if cuda_pruning.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"BEB's forward did not launch {name}")
+    with torch.no_grad():
+        lnf_r = pruning.class_site_lnf_plain(P, fz.tips, fz.topo, piC)
+    err = max_err(lnf, lnf_r, TOL["float64"]["val"], f"BEB lnf {name}")
+    del lnf_r
+    fwd = cuda_pruning.pruning_fwd if fused else cuda_pruning.pruning_big_fwd
+    ms = cuda_ms(lambda: fwd(P, fz.tips, fz.topo, piC, want_S=False))
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: pruning.class_site_lnf_plain(
+            P, fz.tips, fz.topo, piC), reps=3, warmup=1)
+    H = lnf.shape[1]
+    bnd = bound(name, fz.topo, K, H, fz.n, 8, getattr(fz.tips, "n_amb", 0),
+                want_S=False)
+    report[name]["max_abs_err_float64"] = max(
+        report[name]["max_abs_err_float64"], err)
+    report[name][f"ms_{key}_float64"] = ms
+    report[name][f"plain_ms_{key}_float64"] = plain_ms
+    report[name][f"bound_ms_{key}_float64"] = bnd[0]
+    report[name][f"bound_by_{key}_float64"] = bnd[1]
+    print(f"  BEB forward {name}, {K} classes x {H} patterns, no "
+          f"residual [{card}]: lnf max|diff| {err:.3e}; {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+          f"{100 * bnd[0] / ms:.1f} % of it", flush=True)
+
+
+def check_beb_branch_site(torch, out, gapped, report, card):
+    """Branch-site model A's BEB as the program ran it (121 sets of
+    (background, foreground) omegas on the class axis): the posteriors,
+    then its forward on the clean alignment (B3) and, at the same MLEs, on
+    the `gapped` packed data (B1), each against the plain version."""
+    from paml_tpu_torch.apps import beb
+
+    run = out["runs"][0]
+    res, acd = run["res"], run["beb_A"]
+    post = acd["postSite"]
+    if not (np.isfinite(post).all()
+            and np.abs(post.sum(0) - 1.0).max() < 1e-9):
+        raise AssertionError("branch-site BEB: the class posteriors do not "
+                             "sum to 1")
+    print(f"  branch-site BEB: {int((acd['pos_prob'] > 0.95).sum())} "
+          f"patterns with P(class 2) > 0.95 of {post.shape[1]}; ln f(X) "
+          f"{acd['lnfX']:.4f}", flush=True)
+    w0g, w2g = acd["w0_grid"], acd["w2_grid"]
+    for data in (out["data"], gapped):
+        fz = beb._Frozen(data, res.topo, res.spec, res.x, "cuda")
+        P = beb._branchsite_P_sets(fz, res.topo, res, w0g, w2g)
+        check_beb_forward(torch, fz, P, report, card, f"beb_c{P.shape[1]}")
+        del P, fz
+        torch.cuda.empty_cache()
+
+
+def check_routes(torch, data, topo, card):
+    """One value + gradient each, kernel route against plain route on the
+    card, for objectives this slice adds: frequencies from parameters
+    (FMutSel0), branch lengths from a clock, omegas from gamma quantiles
+    (M5, the incomplete gamma's derivative in its shape)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import dgamma
+
+    for tag, kw in (("FMutSel0", dict(codonf="FMutSel0")),
+                    ("FMutSel, estFreq", dict(codonf="FMutSel",
+                                              estFreq=True)),
+                    ("clock 1", dict(clock=1)),
+                    ("M5", dict(NSsites=5, ncatG=10)),
+                    ("M8", dict(NSsites=8, ncatG=10))):
+        neg, _, _, x0, _, _ = codeml.make_codon_objective(
+            data, topo, codeml.CodemlSpec(**kw), device="cuda")
+        v, g = value_grad(torch, neg, x0)                # warm-up
+        torch.cuda.synchronize()
+        q0, t0 = dgamma.SECONDS["host"], time.perf_counter()
+        v, g = value_grad(torch, neg, x0)
+        wall = time.perf_counter() - t0
+        quant = dgamma.SECONDS["host"] - q0
+        lnl_p, g_p = plain_value_grad(torch, neg, x0, 1)
+        rel = abs(-v - lnl_p) / abs(lnl_p)
+        gerr = np.abs(g + g_p).max() / np.abs(g_p).max()
+        print(f"  value + gradient, {tag}, {len(x0)} parameters [{card}]: "
+              f"lnL kernel {-v:.6f}, plain {lnl_p:.6f} (rel {rel:.2e}), "
+              f"max|grad diff| / max|grad| {gerr:.2e}; {1e3 * wall:.2f} ms, "
+              f"{1e3 * quant:.2f} ms of it in the quantile code on the host",
+              flush=True)
+        if rel > 1e-9 or gerr > 1e-8 or not np.isfinite(g).all():
+            raise AssertionError(f"{tag}: value + gradient disagrees with "
+                                 "the plain version on the card")
+    # the continued fraction three ways on the same ten numbers: a loop of
+    # tensor operations under autograd on the card, the same loop on CPU
+    # tensors, and the package's route (numpy values, dual numbers for the
+    # gradient, on the host)
+    a, b = (torch.tensor(v, dtype=torch.float64, device="cuda",
+                         requires_grad=True) for v in (0.5, 1.2))
+    x = (torch.arange(10, dtype=torch.float64, device="cuda") + 0.5) / 10
+    ah, bh = (v.detach().cpu().requires_grad_(True) for v in (a, b))
+    xh = x.cpu()
+
+    def tensors(a, b, x):
+        I = dgamma._betainc_any(a.expand(10), b.expand(10), x)
+        return torch.autograd.grad(I.sum(), (a, b))
+
+    def duals():
+        return torch.autograd.grad(dgamma.betainc(a, b, x).sum(), (a, b))
+    ways = (("card", lambda: tensors(a, b, x)),
+            ("host_tensors", lambda: tensors(ah, bh, xh)), ("host", duals))
+    got = {name: [float(v) for v in fn()] for name, fn in ways}
+    for name in ("card", "host_tensors"):
+        if not np.allclose(got[name], got["host"], rtol=1e-10):
+            raise AssertionError(f"incomplete beta's gradient, {name}: "
+                                 f"{got[name]} against {got['host']}")
+    torch.cuda.synchronize()
+    t = {}
+    for name, fn in ways:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t[name] = (time.perf_counter() - t0) / 3
+    print(f"  incomplete beta, value + gradient of 10 numbers [{card}]: "
+          f"{1e3 * t['card']:.1f} ms as a loop of tensor operations under "
+          f"autograd on the card, {1e3 * t['host_tensors']:.1f} ms as the "
+          f"same loop on CPU tensors, {1e3 * t['host']:.2f} ms with numpy "
+          f"values and dual numbers on the host "
+          f"({t['host_tensors'] / t['host']:.1f} x)", flush=True)
+
+
+def phase_program(torch, rng, report, card):
+    import tempfile
+
+    t0 = time.perf_counter()
+    names, rows, nwk, cls = simulate_site_classes(torch, rng, 32, 4096,
+                                                  "cuda")
+    print(f"simulated site-class alignment: {len(names)} taxa x "
+          f"{len(rows[0]) // 3} codons, classes {SITE_TRUTH} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        out, launches, lnls = run_program(torch, work, "clean", names, rows,
+                                          nwk, "0 1 2 7 8", card)
+        for name, count in launches.items():
+            if (count > 0) != name.startswith("big"):
+                raise AssertionError(f"program, clean: {name} launched "
+                                     f"{count} times; B3/B4 should carry it")
+            if count:
+                report[name]["launches_program_clean"] = count
+        check_program(torch, out, lnls, "clean")
+        lnl = {r["NSsites"]: r["res"].lnL for r in out["runs"]}
+        lrt = {"M1a-M2a": 2 * (lnl[2] - lnl[1]), "M7-M8": 2 * (lnl[8] - lnl[7])}
+        print(f"  likelihood-ratio tests: {lrt} against {CHI2_2DF_05} "
+              "(chi-square, 2 d.f., 5 %)", flush=True)
+        if min(lrt.values()) < CHI2_2DF_05:
+            raise AssertionError("the tests of positive selection are not "
+                                 "significant on simulated selection")
+        check_beb(torch, out, cls, report, card)
+        data, topo = out["data"], out["runs"][0]["res"].topo
+        check_routes(torch, data, topo, card)
+        out, launches, lnls = run_program(torch, work, "gapped", names,
+                                          gapped_rows(rng, rows), nwk, "0 8",
+                                          card)
+        for name, count in launches.items():
+            if (count > 0) != name.startswith("pruning"):
+                raise AssertionError(f"program, gapped: {name} launched "
+                                     f"{count} times; B1/B2 should carry it")
+            if count:
+                report[name]["launches_program_gapped"] = count
+        check_program(torch, out, lnls, "gapped")
+        check_beb(torch, out, cls, report, card)
+        gapped = out["data"]
+        # branch-site model A on the clean alignment, the first cherry's
+        # branch as foreground: its BEB puts 121 sets on the class axis
+        if "(t0, t1)" not in nwk:
+            raise AssertionError(f"no cherry (t0, t1) in {nwk[:60]}...")
+        out, launches, lnls = run_program(
+            torch, work, "branch-site", names, rows,
+            nwk.replace("(t0, t1)", "(t0, t1) #1"), "2", card, model=2)
+        for name, count in launches.items():
+            if (count > 0) != name.startswith("big"):
+                raise AssertionError(f"program, branch-site: {name} launched "
+                                     f"{count} times; B3/B4 should carry it")
+            if count:
+                report[name]["launches_program_branch_site"] = count
+        check_program(torch, out, lnls, "branch-site")
+        check_beb_branch_site(torch, out, gapped, report, card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1106,10 +1561,14 @@ def main() -> int:
     phase_slice(torch, rng, report, smi[0])
     # 5. the branch-site path at 1024 taxa (B3/B4)
     phase_branch_site(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 6. the program: codeml from a control file (B3/B4 clean, B1/B2 gapped)
+    phase_program(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
         # the main paths' launches, each path counted from 0 (M0/M2a fits
-        # on clean and gapped data, the branch-site fit)
+        # on clean and gapped data, the branch-site fits, the program on
+        # clean and gapped data)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

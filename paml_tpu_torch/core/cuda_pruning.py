@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .pmat import differentiable_once
 from .tipcodes import TipCodes, encode
 from .topology import Topology
 
@@ -473,16 +474,18 @@ def visit_tiles(ntiles: int, G: int) -> int:
 
 
 def kernel_work(name: str, topo: Topology, C: int, H: int, n: int,
-                esize: int, n_amb: int = 0) -> tuple[float, float]:
+                esize: int, n_amb: int = 0,
+                want_S: bool = True) -> tuple[float, float]:
     """(operations, bytes) that kernel `name` needs on these shapes: the
     products of the n real states (2 n^2 per pattern, class and product;
     a tip's contribution is a gather and its dP a scatter, no product),
     each input read once and each output written once.  The forward does
     one product per non-root internal node; the adjoint three (c_k again,
     dP_k, A_k) and reads the residual S.  S counts among B3's outputs, as
-    its TPU counterpart writes it, and not among B1's: the TPU kernel B1
-    replaces computes lnf alone, S being only this design's hand-off to
-    B2.  B1/B2's coded tips
+    its TPU counterpart writes it (unless the launch is one without a
+    residual, `want_S` false: BEB's forward), and not among B1's: the TPU
+    kernel B1 replaces computes lnf alone, S being only this design's
+    hand-off to B2.  B1/B2's coded tips
     with n_amb ambiguity vectors: each tip's table P amb^T needs 2 n^2 A
     per class in the forward, and folding G_k's ambiguous columns into dP_k
     as much again in the adjoint; the codes are 4 bytes a cell."""
@@ -496,7 +499,8 @@ def kernel_work(name: str, topo: Topology, C: int, H: int, n: int,
     if name == "pruning_fwd":
         return nint * prod + table, P_b + tips_b + pi_b + lnf_b
     if name == "big_fwd":
-        return nint * prod + table, P_b + tips_b + pi_b + lnf_b + S_b
+        return (nint * prod + table,
+                P_b + tips_b + pi_b + lnf_b + (S_b if want_S else 0))
     # in: gbar; out: dP, dpi
     return (3 * nint * prod + table,
             2 * (P_b + pi_b) + tips_b + lnf_b + S_b)
@@ -669,6 +673,7 @@ class ClassSiteLnfKernel(torch.autograd.Function):
         return lnf
 
     @staticmethod
+    @differentiable_once
     def backward(ctx, gbar):
         P, codes, amb, pi, S = ctx.saved_tensors
         tips = codes if amb is None else TipCodes(codes, amb)

@@ -29,6 +29,16 @@ class FitResult:
     message: str = ""
 
 
+_RUB_PATH = None   # optimizer trace file (the reference's rub)
+
+
+def set_rub(path: str | None) -> None:
+    """Write an optimizer-iteration trace to `path` (the reference's rub
+    file, written by ming2's fout argument; Forestry codeml.c:756)."""
+    global _RUB_PATH
+    _RUB_PATH = path
+
+
 # scipy L-BFGS-B settings of the JAX package's f64 fits
 _OPTS = {"maxiter": 2000, "ftol": 1e-14, "gtol": 1e-9, "maxcor": 30,
          "maxls": 50}
@@ -44,6 +54,7 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
 
     n_eval = [0]
     vworst = [None]     # worst finite value seen (penalty anchor)
+    rub = open(_RUB_PATH, "a") if _RUB_PATH else None
 
     def fun(x):
         xt = torch.tensor(x, dtype=torch.float64, device=device,
@@ -68,6 +79,9 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
                 # a non-finite gradient at a finite value also poisons the
                 # line search: keep the value, zero the bad components
                 g = np.where(np.isfinite(g), g, 0.0)
+        if rub is not None:
+            rub.write(f"{n_eval[0]:6d} {-v:16.6f} "
+                      f"{float(np.abs(g).max()):12.5g}\n")
         return v, g
 
     starts = [np.asarray(x0, dtype=np.float64)]
@@ -91,6 +105,8 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
                 break
         if best is None or res.fun < best.fun:
             best = res
+    if rub is not None:
+        rub.close()
     return FitResult(x=np.asarray(best.x), lnL=-float(best.fun),
                      n_eval=n_eval[0], converged=bool(best.success),
                      message=str(best.message))

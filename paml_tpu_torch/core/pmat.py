@@ -12,15 +12,42 @@ matrix exponential in the eigenbasis, written as the backward of a
 NaN on degenerate spectra (the Fequal codon Q at kappa = omega = 1 has
 them); the divided differences stay exact there.
 
+That backward takes the saved eigenpairs as constants, so it is marked
+`differentiable_once`: a backward with `create_graph=True` through it
+raises.  Hessians
+(`codeml.standard_errors`) take `pmat_rev_multi_twice`, the same P(t) from
+`torch.linalg.matrix_exp`, whose derivative is itself built from
+differentiable operations.
+
 The float32 uniformization path of the JAX package is not ported yet
 (ROADMAP A1): a float32 call raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 PI_FLOOR = 1e-100   # states with pi below this are dropped (reference:
                     # eigenQREV reduced computation, src/tools.c:5023)
+
+
+def differentiable_once(backward):
+    """Mark a hand-written backward that takes saved intermediates as
+    constants: run under `create_graph=True` it raises, where a second
+    derivative through it would be silently wrong.  (PyTorch's own
+    `once_differentiable` raises only when the second backward reaches its
+    error node, and `torch.autograd.grad` with named inputs prunes that
+    node away.)"""
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{backward.__qualname__} is differentiable once: a "
+                "backward with create_graph=True cannot pass through it "
+                "(second derivatives: the objective's `twice` route)")
+        return backward(ctx, *grads)
+    return wrapper
 
 
 def _sym_parts(Q: torch.Tensor, pi: torch.Tensor):
@@ -72,6 +99,7 @@ class _PmatRevSpectral(torch.autograd.Function):
         return torch.clamp_min(P, 0.0)
 
     @staticmethod
+    @differentiable_once
     def backward(ctx, gP):
         Qs, pi, ts, sqp, mask, lam, U, mu, P = ctx.saved_tensors
         batch = tuple(range(ts.dim() - 1))                  # dims before G
@@ -124,3 +152,16 @@ def pmat_rev_multi(Qs: torch.Tensor, pi: torch.Tensor,
     if pi.dim() == 1:
         pi = pi.expand(Qs.shape[0], -1)
     return _PmatRevSpectral.apply(Qs, pi, ts)
+
+
+def pmat_rev_multi_twice(Qs: torch.Tensor, pi: torch.Tensor,
+                         ts: torch.Tensor) -> torch.Tensor:
+    """`pmat_rev_multi` for second derivatives: P [..., G, n, n] =
+    expm(Qs[g] ts[..., g]) by `torch.linalg.matrix_exp`, differentiable any
+    number of times in Qs and ts.  pi enters through Qs alone here.  A
+    state of zero frequency keeps its row of Q instead of the reduced
+    matrix's identity row; no other state reaches it and the root gives it
+    no weight, so the likelihood is the same."""
+    del pi
+    return torch.clamp_min(
+        torch.linalg.matrix_exp(Qs * ts[..., None, None]), 0.0)

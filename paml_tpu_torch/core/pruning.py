@@ -19,7 +19,10 @@ kernels can be held against them on the card: `class_site_lnf_plain` and
 and `class_site_lnf_big_bwd_plain` (the kernels' inputs and outputs,
 residual S included).
 Each call with a CUDA tensor adds one to `PLAIN_CALLS["cuda"]`, so a run
-can show that its main path never took them there.
+can show that its main path never took them there.  These paths are
+differentiable once (`pmat.differentiable_once`); `class_site_lnf_twice` is
+the level pass under plain autograd, for Hessians, with a count of its own
+(`TWICE_CALLS`).
 
 `lnL_chunked` evaluates the pattern axis in chunks, each checkpointed, so
 that memory holds one chunk's buffers (the JAX package's `lnL_chunked`).
@@ -39,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import cuda_pruning
+from .pmat import differentiable_once
 from .tipcodes import TipCodes
 from .topology import Topology
 
@@ -46,6 +50,7 @@ _GRAD_CAP = 1e12       # adjoint clip at absurd line-search trial points
 _BIG = 1e30            # nan_to_num bound on dP and dpi
 
 PLAIN_CALLS = {"cuda": 0}
+TWICE_CALLS = {"cuda": 0}     # the Hessian route's calls, counted apart
 
 # ---------------------------------------------------------------------------
 # static schedules
@@ -135,7 +140,8 @@ def _forward_levels(P, tipsT, topo: Topology, stored=None):
             prod = kid_c[:, 0]
             for k in range(1, K):
                 prod = prod * kid_c[:, k]                     # [W,C,n,H]
-            mm = prod.amax(dim=-2)                            # [W,C,H]
+            # the scale cancels in lnf: a constant to autograd
+            mm = prod.detach().amax(dim=-2)                   # [W,C,H]
             msafe = torch.where(mm > 0, mm, torch.ones_like(mm))
             sv = prod / msafe[..., None, :]
             for w, (node, _) in enumerate(grp):
@@ -230,6 +236,7 @@ class _ClassSiteLnfLvl(torch.autograd.Function):
         return _lnf_from(m, F)
 
     @staticmethod
+    @differentiable_once
     def backward(ctx, gbar):
         dP, dpi = _lnf_lvl_bwd(ctx.topo, *ctx.res, gbar.contiguous())
         del ctx.res
@@ -246,6 +253,18 @@ def class_site_lnf_plain(P, tips, topo: Topology, pi):
     differentiable in P and pi through the analytic adjoint."""
     _count_plain(P)
     return _ClassSiteLnfLvl.apply(P, tips, topo, pi)
+
+
+def class_site_lnf_twice(P, tips, topo: Topology, pi):
+    """The level pass under plain autograd: lnf [C, H], differentiable any
+    number of times in P and pi (the analytic adjoints and the kernels are
+    differentiable once).  The Hessian of `codeml.standard_errors` is its
+    one caller; on the card it is the one place where the plain version
+    runs inside a program, so its calls have their own count."""
+    if P.is_cuda:
+        TWICE_CALLS["cuda"] += 1
+    s, m, _ = _forward_levels(P, _tipsT_of(tips, P.dtype), topo)
+    return _lnf_from(m, _root_F(s[topo.root], pi))
 
 
 def class_site_lnf_bwd_plain(P, tips, topo: Topology, pi, gbar):
@@ -312,17 +331,20 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     return class_site_lnf_plain(P, tips, topo, pi)
 
 
-def site_loglik(P, tips, topo: Topology, pi, class_w) -> torch.Tensor:
+def site_loglik(P, tips, topo: Topology, pi, class_w,
+                lnf=class_site_lnf) -> torch.Tensor:
     """Per-pattern log-likelihood [H], mixing site classes with weights
     class_w [C] (reference: `lfundG`, src/treesub.c:7608)."""
-    lnf_c = class_site_lnf(P, tips, topo, pi) + torch.log(class_w)[:, None]
+    lnf_c = lnf(P, tips, topo, pi) + torch.log(class_w)[:, None]
     return torch.logsumexp(lnf_c, dim=0)
 
 
-def lnL(P, tips, topo: Topology, pi, class_w, fpatt) -> torch.Tensor:
+def lnL(P, tips, topo: Topology, pi, class_w, fpatt,
+        lnf=class_site_lnf) -> torch.Tensor:
     """Total log-likelihood sum_h fpatt[h] ln f_h (reference: `lfun`,
-    src/treesub.c:7764)."""
-    return torch.sum(fpatt * site_loglik(P, tips, topo, pi, class_w))
+    src/treesub.c:7764).  `lnf` is the pruning pass: `class_site_lnf`, or
+    `class_site_lnf_twice` for second derivatives."""
+    return torch.sum(fpatt * site_loglik(P, tips, topo, pi, class_w, lnf))
 
 
 def split_patterns(tips, fpatt, n_chunks: int):

@@ -1,0 +1,102 @@
+"""Reference-compatible side-output files.
+
+Port of the codeml part of `paml_tpu/io/outputs.py` (numpy only).  The
+reference programs write fixed-name auxiliary files next to the main
+report; downstream tooling parses them, so the formats follow the
+reference's layout closely:
+
+  lnf      per-site log-likelihoods for RELL     (print_lnf_site,
+           src/treesub.c:7597-7605; header src/codeml.c:623-689)
+  rst      NEB/BEB site tables (lfunNSsites_rate, src/codeml.c:5241)
+  rst1     one summary line per dataset (multiruns hook)
+
+The ancestral reconstruction table waits for `apps/ancestral.py` (ROADMAP
+A10), the rates file and the pairwise matrices wait for baseml and yn00 (ROADMAP
+A8, A11), the FigTree tree for mcmctree (A12).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+# --------------------------------------------------------------------------
+# lnf (per-site log likelihoods; consumed by rell, src/treesub.c:5844)
+# --------------------------------------------------------------------------
+
+def write_lnf(path: str, ls: int, fpatt: np.ndarray,
+              lnf_trees: list[np.ndarray],
+              pattern_text: list[str] | None = None) -> None:
+    """lnf_trees: per tree, per-pattern log site likelihood [npatt].
+
+    Header '%6d %6d %6d' = (ntree, ls, npatt); per tree '\\n\\n%2d\\n' then
+    one line per pattern (reference: src/codeml.c:623-689,
+    src/treesub.c:7597-7605)."""
+    npatt = len(fpatt)
+    with open(path, "w") as f:
+        f.write(f"{len(lnf_trees):6d} {int(ls):6d} {npatt:6d}\n")
+        for itree, lnf in enumerate(lnf_trees):
+            f.write(f"\n\n{itree + 1:2d}\n")
+            for h in range(npatt):
+                fh = float(np.exp(lnf[h]))
+                f.write(f"\n{h + 1:6d} {float(fpatt[h]):6.0f} "
+                        f"{float(lnf[h]):16.10f} {fh:16.12f} "
+                        f"{ls * fh:12.4f}  ")
+                if pattern_text is not None:
+                    f.write(pattern_text[h])
+        f.write("\n")
+
+
+def read_lnf(path: str):
+    """Read an lnf file -> (ls, fpatt [npatt], lnf [ntree, npatt])."""
+    with open(path) as f:
+        toks = f.read().split()
+    ntree, ls, npatt = int(toks[0]), int(toks[1]), int(toks[2])
+    if ntree < 0:
+        ntree = 1
+    lnf = np.zeros((ntree, npatt))
+    fpatt = np.zeros(npatt)
+    i = 3
+    for it in range(ntree):
+        i += 1                               # tree index
+        for h in range(npatt):
+            assert int(toks[i]) == h + 1, "lnf: pattern index mismatch"
+            fpatt[h] = float(toks[i + 1])
+            lnf[it, h] = float(toks[i + 2])
+            i += 5                           # idx fpatt lnf fh ls*fh
+            # skip pattern text tokens if any: advance to next int == h+2
+            while i < len(toks):
+                try:
+                    v = int(toks[i])
+                    if v == h + 2 or (h == npatt - 1 and v == it + 2):
+                        break
+                except ValueError:
+                    pass
+                i += 1
+    return ls, fpatt, lnf
+
+
+# --------------------------------------------------------------------------
+# rst: NEB/BEB site tables
+# --------------------------------------------------------------------------
+
+def write_rst_neb(f, site_pattern, post_cls, omegas, fpatt,
+                  label="Naive Empirical Bayes (NEB) probabilities") -> None:
+    """Per-site class posteriors + posterior-mean omega (reference:
+    lfunNSsites_rate, src/codeml.c:5241 output region)."""
+    post = np.asarray(post_cls, float)
+    w = np.asarray(omegas, float).reshape(-1)
+    wmean = (w[:, None] * post).sum(0)
+    f.write(f"\n{label} for site classes\n\n")
+    f.write("site  " + "".join(f"  p(w={wi:.5g})" for wi in w)
+            + "   post-mean w\n")
+    for i, h in enumerate(np.asarray(site_pattern)):
+        probs = "".join(f" {post[k, h]:11.5f}" for k in range(post.shape[0]))
+        f.write(f"{i + 1:5d} {probs}   {wmean[h]:9.5f}\n")
+
+
+def write_rst1(path: str, values: list, append: bool = False) -> None:
+    """One tab-separated summary line per dataset (reference frst1; the
+    hook consumed by multiruns, Technical/Simulation/multiruns.c)."""
+    with open(path, "a" if append else "w") as f:
+        f.write("\t".join(f"{v:.6f}" if isinstance(v, float) else str(v)
+                          for v in values) + "\n")

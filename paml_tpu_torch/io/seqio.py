@@ -2,14 +2,17 @@
 
 Port of `paml_tpu/io/seqio.py` (numpy only): the PAML/PHYLIP reader
 (sequential and interleaved, with the ``G I S P C`` option characters),
-the nucleotide and codon state-set encoders, and `pack`, the pattern
-compression of the reference's `PatternWeight` (src/treesub.c:1386).
+FASTA and basic NEXUS, several alignments stacked in one file
+(`read_alignments`), the nucleotide and codon state-set encoders, and
+`pack`, the pattern compression of the reference's `PatternWeight`
+(src/treesub.c:1386).
 
 Every site is held as a state-set bitmask over model states; tip partials
 fall directly out of the bitmask (unnormalized indicator sums).
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -83,19 +86,93 @@ def _is_blank(line: str) -> bool:
     return not any(c.isalnum() for c in line)
 
 
-def read_alignment(path: str, seqtype: int = BASE_SEQ) -> Alignment:
-    """Read a PAML/PHYLIP alignment (reference: ReadSeq, src/treesub.c:487).
+def read_alignments(path: str, seqtype: int = BASE_SEQ,
+                    ndata: int | None = None) -> list[Alignment]:
+    """Read several PAML/PHYLIP alignments stacked in one file (the
+    reference's `ndata` loop reads successive alignments)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    # header lines: the first two tokens are ints, the rest option letters
+    starts = []
+    for i, line in enumerate(lines):
+        toks = line.split()
+        if len(toks) < 2 or not (toks[0].isdigit() and toks[1].isdigit()):
+            continue
+        if all(re.fullmatch(r"[A-Za-z]+", t) for t in toks[2:]):
+            if any("M" in t.upper() for t in toks[2:]):
+                raise NotImplementedError(
+                    f"{path}: continuous morphological characters are "
+                    "mcmctree's (ROADMAP A12)")
+            starts.append(i)
+    if not starts:
+        raise ValueError(f"no alignment headers found in {path}")
+    if ndata is not None:
+        starts = starts[:ndata]
+    out = []
+    for k, s in enumerate(starts):
+        end = starts[k + 1] if k + 1 < len(starts) else len(lines)
+        out.append(_read_phylip("\n".join(lines[s:end]), seqtype))
+    return out
 
-    FASTA and NEXUS input are not ported yet (ROADMAP A7)."""
+
+def read_alignment(path: str, seqtype: int = BASE_SEQ) -> Alignment:
+    """Autodetect PAML/PHYLIP vs FASTA vs NEXUS (reference: GetSeqFileType,
+    src/treesub.c:367) and parse."""
     with open(path) as f:
         text = f.read()
-    first_tok = text.lstrip().split()[:2]
-    if (len(first_tok) == 2 and first_tok[0].isdigit()
-            and first_tok[1].isdigit()):
+    stripped = text.lstrip()
+    if stripped.startswith(">"):
+        return _read_fasta(stripped, seqtype)
+    low = text.lower()
+    first_tok = stripped.split()[:2]
+    is_phylip = (len(first_tok) == 2 and first_tok[0].isdigit()
+                 and first_tok[1].isdigit())
+    if is_phylip:
         return _read_phylip(text, seqtype)
-    raise NotImplementedError(
-        f"{path}: only PAML/PHYLIP alignments are read by paml_tpu_torch "
-        "(FASTA/NEXUS: ROADMAP A7)")
+    if "begin data" in low or "#nexus" in low:
+        return _read_nexus(text, seqtype)
+    raise ValueError(f"unrecognized sequence file format: {path}")
+
+
+def _read_fasta(text: str, seqtype: int) -> Alignment:
+    names, rows = [], []
+    for block in text.split(">")[1:]:
+        lines = block.splitlines()
+        names.append(lines[0].split()[0] if lines[0].split() else "")
+        rows.append("".join(c for l in lines[1:] for c in l if not c.isspace()).upper())
+    if len({len(r) for r in rows}) != 1:
+        raise ValueError("fasta sequences are not aligned (unequal lengths)")
+    return Alignment(names, rows, seqtype)
+
+
+def _read_nexus(text: str, seqtype: int) -> Alignment:
+    low = text.lower()
+    m = re.search(r"ntax\s*=\s*(\d+)", low)
+    ns = int(m.group(1))
+    m = re.search(r"nchar\s*=\s*(\d+)", low)
+    ls = int(m.group(1))
+    start = low.index("matrix") + len("matrix")
+    end = low.index(";", start)
+    body = text[start:end]
+    names: list[str] = []
+    rows: dict[str, str] = {}
+    for line in body.splitlines():
+        line = re.sub(r"\[.*?\]", "", line).strip()
+        if not line:
+            continue
+        parts = line.split(None, 1)
+        if len(parts) != 2:
+            continue
+        name, seq = parts
+        seq = "".join(seq.split()).upper()
+        if name not in rows:
+            names.append(name)
+            rows[name] = ""
+        rows[name] += seq
+    rows_l = [rows[n] for n in names]
+    if len(names) != ns or any(len(r) != ls for r in rows_l):
+        raise ValueError("nexus matrix dimensions disagree with ntax/nchar")
+    return Alignment(names, rows_l, seqtype)
 
 
 _SEQ_CHARS_NUC = set(NUC_AMBIG) | {"."}

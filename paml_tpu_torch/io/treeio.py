@@ -1,7 +1,8 @@
 """Newick tree reading with the reference's annotation grammar.
 
-Port of `paml_tpu/io/treeio.py` (pure Python): `TreeNode`, `parse_newick`
-and `read_trees`.  Branch lengths (``:x``), branch labels (``#i``), clade
+Port of `paml_tpu/io/treeio.py` (pure Python): `TreeNode`, `parse_newick`,
+`read_trees`, `write_newick`, `parse_tip_dates` (TipDate), and for several
+data sets in one file `read_tree_strings` and `prune_to`.  Branch lengths (``:x``), branch labels (``#i``), clade
 labels (``$i``), node ages (``@x``) and quoted annotations are parsed as
 there; taxa may be given by name or by 1-based index into the alignment.
 """
@@ -201,3 +202,107 @@ def _resolve_names(tree: TreeNode, names: list[str]) -> None:
             else:
                 raise ValueError(f"taxon {node.name!r} not in alignment")
 
+
+def write_newick(root: TreeNode, branch_lengths: bool = True,
+                 labels: bool = False, ages: bool = False,
+                 names: bool = True, digits: int = 6) -> str:
+    def fmt(node: TreeNode) -> str:
+        if node.is_tip:
+            s = node.name if names else str(node.index + 1)
+        else:
+            s = "(" + ", ".join(fmt(c) for c in node.children) + ")"
+            if node.name and names:
+                s += node.name
+        if labels and node.label is not None:
+            s += f" #{node.label}"
+        if ages and node.age is not None:
+            s += f" @{node.age:.{digits}f}"
+        if branch_lengths and node.blen is not None:
+            s += f": {node.blen:.{digits}f}"
+        return s
+
+    return fmt(root) + ";"
+
+
+def parse_tip_dates(names: list[str], timeunit: float | None = None):
+    """Sampling dates from the last numeric field of each sequence name
+    (reference: GetTipDate, treesub.c:3552).  Supports plain numbers
+    (e.g. 'P03h1995' -> 1995) and yyyy-mm-dd (converted to day numbers).
+    Returns (tip_ages, timeunit, youngest): age = (youngest-date)/timeunit,
+    so the most recent tip is age 0."""
+    import numpy as np
+
+    dates = []
+    for name in names:
+        m = re.search(r"([0-9][0-9.\-]*)$", name)
+        if not m:
+            dates.append(None)
+            continue
+        tok = m.group(1)
+        if "-" in tok.strip("-"):
+            import datetime
+            parts = [int(x) for x in tok.split("-") if x]
+            y, mo, d = (parts + [1, 15])[:3]
+            epoch = datetime.date(1970, 1, 1)
+            dates.append((datetime.date(y, max(mo, 1), max(d, 1))
+                          - epoch).days * 1.0)
+        else:
+            dates.append(float(tok.rstrip(".-")))
+    if any(d is None for d in dates):
+        raise ValueError("TipDate model requires a sampling date in every "
+                         "sequence name")
+    arr = np.array(dates)
+    young, old = arr.max(), arr.min()
+    if young - old < 1e-100:
+        raise ValueError("TipDate: all sequences have the same age")
+    if timeunit is None or timeunit <= 0:
+        timeunit = (young - old) * 2.5
+    ages = (young - arr) / timeunit
+    ages[ages < 1e-100] = 0.0
+    return ages, timeunit, float(young)
+
+
+def prune_to(root: TreeNode, keep_names) -> TreeNode:
+    """Subtree restricted to `keep_names`: drop other tips, collapse
+    unary internal nodes (their branch lengths add), like the reference's
+    GetSubTreeN (src/treesub.c:3375) used by the ndata maintree modes."""
+    import copy
+
+    keep = set(keep_names)
+
+    def rec(node: TreeNode) -> TreeNode | None:
+        if node.is_tip:
+            return copy.deepcopy(node) if node.name in keep else None
+        kids = [rec(c) for c in node.children]
+        kids = [k for k in kids if k is not None]
+        if not kids:
+            return None
+        if len(kids) == 1:
+            child = kids[0]
+            if node.blen is not None or child.blen is not None:
+                child.blen = (node.blen or 0.0) + (child.blen or 0.0)
+            return child
+        new = TreeNode(children=kids, name=node.name, blen=node.blen,
+                       label=node.label, clade_label=node.clade_label,
+                       age=node.age, annotation=node.annotation)
+        return new
+
+    out = rec(root)
+    if out is None or out.is_tip:
+        raise ValueError("pruned tree has fewer than 2 tips")
+    out.blen = None
+    return out
+
+
+def read_tree_strings(path: str) -> list[str]:
+    """Raw newick strings from a tree file (ignoring 'ns ntree' headers and
+    comments) — used by ndata separate_trees where each block may use a
+    different taxon set."""
+    import re as _re
+
+    text = open(path).read()
+    idx = text.find("// end")
+    if idx > 0:
+        text = text[:idx]
+    return [m.group(0) for m in
+            _re.finditer(r"\([^;]*\)[^;]*;", text, flags=_re.S)]

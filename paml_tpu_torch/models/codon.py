@@ -4,9 +4,14 @@ Port of `paml_tpu/models/codon.py`.  The numpy half is copied as it is:
 the codon graph (`codon_graph`), data-derived codon frequencies
 (`count_codon_freqs`, `codon_pi`, `mg_pf3x4`) and the dense [n, n] pair
 tables (`_dense_tables`).  The per-evaluation half is PyTorch: the dense,
-scatter-free Q build (`mutation_dense`, `build_Q_dense`, `flux_dense`).
-NSsites class matrices are Q_k = Qsyn + omega_k * Qnonsyn; all class
-normalizations come from the two flux scalars (rs, ra).
+scatter-free Q build (`mutation_dense`, `build_Q_dense`, `flux_dense`) of
+the models whose frequencies are data, and the pair form
+(`mutation_part`, `flux`, `build_Q` over the single-difference pairs) of
+the mutation-selection models FMutSel / FMutSel0, whose frequencies are
+parameters (`fmutsel_pi`, `fmutsel_multiplier`).  NSsites class matrices
+are Q_k = Qsyn + omega_k * Qnonsyn; all class normalizations come from the
+two flux scalars (rs, ra).  `branch_dnds` is the report's dN and dS per
+branch.
 """
 from __future__ import annotations
 
@@ -303,3 +308,160 @@ def flux_dense(T: DenseTables, s_dense: torch.Tensor, pi: torch.Tensor):
     mean rate of Q(omega) is rs + omega * ra."""
     base = pi[:, None] * s_dense * pi[None, :]
     return (base * T.syn).sum(), (base * T.nonsyn).sum()
+
+
+# ---------------------------------------------------------------------------
+# the pair form: Q over the single-difference pairs (i < j)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PairTables:
+    """The index arrays of `CodonGraph` as tensors on one device."""
+    n: int
+    pi_idx: torch.Tensor       # [m] int64
+    pj_idx: torch.Tensor
+    is_ts: torch.Tensor        # [m] bool
+    is_syn: torch.Tensor
+    gtr_class: torch.Tensor    # [m] int64
+    unch_pos: torch.Tensor     # [m, 2] int64
+    unch_nt: torch.Tensor
+    pos_nt: torch.Tensor       # [n, 3] int64
+    aa: torch.Tensor           # [n] int64
+
+
+def pair_tables(icode: int, device) -> PairTables:
+    g = codon_graph(icode)
+
+    def i(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                               device=device)
+
+    def b(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.bool,
+                               device=device)
+
+    return PairTables(n=g.n, pi_idx=i(g.pi_idx), pj_idx=i(g.pj_idx),
+                      is_ts=b(g.is_ts), is_syn=b(g.is_syn),
+                      gtr_class=i(g.gtr_class), unch_pos=i(g.unch_pos),
+                      unch_nt=i(g.unch_nt), pos_nt=i(g.pos_nt), aa=i(g.aa))
+
+
+def mutation_part(G: PairTables, kappa: torch.Tensor, pf3x4=None,
+                  hkyrev: bool = False) -> torch.Tensor:
+    """Symmetric mutation exchangeabilities s [m] of the single-difference
+    pairs.  kappa: HKY kappa (one element) or [5] GTR rates (TC TA TG CA
+    CG, AG = 1); pf3x4: [3, 4] table of the Muse-Gaut divisors, or None."""
+    if hkyrev:
+        s = torch.cat([kappa.reshape(-1), kappa.new_ones(1)])[G.gtr_class]
+    else:
+        s = torch.where(G.is_ts, kappa.reshape(()), kappa.new_ones(()))
+    if pf3x4 is not None:
+        pf = torch.as_tensor(pf3x4, dtype=s.dtype, device=s.device)
+        s = s / (pf[G.unch_pos[:, 0], G.unch_nt[:, 0]]
+                 * pf[G.unch_pos[:, 1], G.unch_nt[:, 1]])
+    return s
+
+
+# FMutSel / FMutSel0 mutation-selection models (Yang & Nielsen 2008;
+# reference: GetCodonFreqs src/codeml.c:2689, GetMutationMultiplier :3060)
+
+def observed_piAA(fcodon, graph: CodonGraph) -> np.ndarray:
+    """Observed amino-acid frequencies pooled from codon frequencies."""
+    piAA = np.zeros(20)
+    np.add.at(piAA, graph.aa, np.asarray(fcodon))
+    return piAA / piAA.sum()
+
+
+def _mut3(pf, G):
+    """Per-codon mutation-bias product pf[b0] pf[b1] pf[b2] ([n]); G is a
+    `PairTables` (tensors) or a `CodonGraph` (numpy)."""
+    return pf[G.pos_nt[:, 0]] * pf[G.pos_nt[:, 1]] * pf[G.pos_nt[:, 2]]
+
+
+def fmutsel_pi(codonf: str, pf: torch.Tensor, fit, fcodon_obs,
+               G: PairTables) -> torch.Tensor:
+    """Equilibrium codon frequencies under FMutSel / FMutSel0.
+
+    pf: [4] normalized mutation-bias nucleotide frequencies.  fit: the
+    estimated fitnesses, [n - 1] per codon (FMutSel) or [19] per amino
+    acid (FMutSel0), the last one fixed at 0, or None for estFreq = 0.
+    Reference: GetCodonFreqs, src/codeml.c:2689-2755."""
+    mut3 = _mut3(pf, G)
+    obs = torch.as_tensor(np.asarray(fcodon_obs), dtype=pf.dtype,
+                          device=pf.device)
+    if codonf == "FMutSel":
+        if fit is None:
+            # npi = 3: the codon frequencies stay at the observed values
+            pi = obs
+        else:
+            pi = mut3 * torch.exp(torch.cat([fit, fit.new_zeros(1)]))
+    elif codonf == "FMutSel0":
+        if fit is None:
+            # npi = 3: mutation bias within a family x observed amino-acid
+            # frequencies (codeml.c:2737-2752)
+            piAA = obs.new_zeros(20).index_add(0, G.aa, obs)
+            piAA = piAA / piAA.sum()
+            mutbias = mut3.new_zeros(20).index_add(0, G.aa, mut3)
+            pi = mut3 / mutbias[G.aa] * piAA[G.aa]
+        else:
+            pi = mut3 * torch.exp(torch.cat([fit, fit.new_zeros(1)])[G.aa])
+    else:
+        raise ValueError(codonf)
+    return pi / pi.sum()
+
+
+def fmutsel_multiplier(G: PairTables, pf: torch.Tensor, pi: torch.Tensor,
+                       ls: int) -> torch.Tensor:
+    """Fixation-probability multiplier of the single-difference pairs [m].
+
+    eF_i = max(pi_i, small) / mut3_i; the pair factor is (ln eF_a - ln
+    eF_b) / (eF_a - eF_b), with the neutral limit 1 / eF_a (reference:
+    GetMutationMultiplier, src/codeml.c:3074-3084).  The division by the
+    unchanged positions' frequencies is `mutation_part`'s, through the
+    tiled pf3x4 table."""
+    small = min(1e-6, 1.0 / max(int(ls), 1))
+    eF = torch.clamp_min(pi, small) / _mut3(pf, G)
+    ea, eb = eF[G.pi_idx], eF[G.pj_idx]
+    d = ea - eb
+    far = d.abs() > 1e-10
+    ratio = (torch.log(ea) - torch.log(eb)) / torch.where(
+        far, d, torch.ones_like(d))
+    return torch.where(far, ratio, 1.0 / ea)
+
+
+def flux(G: PairTables, s: torch.Tensor, pi: torch.Tensor):
+    """(rs, ra): synonymous and nonsynonymous flux at omega = 1."""
+    contrib = s * (pi[G.pi_idx] * pi[G.pj_idx]) * 2.0
+    zero = torch.zeros_like(contrib)
+    return (torch.where(G.is_syn, contrib, zero).sum(),
+            torch.where(G.is_syn, zero, contrib).sum())
+
+
+def build_Q(G: PairTables, s: torch.Tensor, omega: torch.Tensor,
+            pi: torch.Tensor) -> torch.Tensor:
+    """Unnormalized Q [..., n, n] from the pair exchangeabilities; omega
+    may carry a batch shape [...] (one Q per site class)."""
+    omega = torch.as_tensor(omega, dtype=s.dtype, device=s.device)
+    vals = s * torch.where(G.is_syn, omega.new_ones(()), omega[..., None])
+    Q = vals.new_zeros(omega.shape + (G.n, G.n))
+    Q[..., G.pi_idx, G.pj_idx] = vals * pi[G.pj_idx]
+    Q[..., G.pj_idx, G.pi_idx] = vals * pi[G.pi_idx]
+    return Q - torch.diag_embed(Q.sum(-1))
+
+
+def branch_dnds(rs: float, ra: float, omega: float, t: float, ls: int):
+    """dN and dS of one branch (reference: eigenQcodon mode = 2,
+    src/codeml.c:3357-3377): the expected counts S and N of synonymous and
+    nonsynonymous sites and dS, dN for a branch of length t (substitutions
+    per codon) under omega, from the two flux scalars of `flux`."""
+    w = float(omega)
+    mr = rs + w * ra
+    rho_s, rho_a = rs / (rs + ra), ra / (rs + ra)
+    S, N = rho_s * 3 * ls, rho_a * 3 * ls
+    if t <= 0 or mr <= 0:
+        return dict(t=float(t), S=S, N=N, w=w, dN=0.0, dS=0.0)
+    dS = t * (rs / mr) / (3 * rho_s)
+    dN = t * (w * ra / mr) / (3 * rho_a)
+    return dict(t=float(t), S=S, N=N, w=(dN / dS if dS > 0 else -1.0),
+                dN=dN, dS=dS)

@@ -3,7 +3,12 @@ x0 and at a random in-bounds x, for M0/M1a/M2a/M3, the branch models
 (free ratios, two ratios), branch-site A/B and clade C/D with one labelled
 clade, the pattern axis in chunks, and the codon-frequency and option
 variants of the slice, to 1e-9 relative; clean (state-code) and ambiguous
-(coded, with an ambiguity table) tips; the multi-starts of the fits;
+(coded, with an ambiguity table) tips; M2a_rel, the mutation-selection
+models (frequencies from parameters, with and without estFreq), clocks 1-3
+with the tree's `@0.45` fossil and TipDate; the multi-starts of the fits;
+the route that is differentiable twice against the fit's route (against
+`jax.hessian`: tests/test_torch_hessian.py); the fit's route refuses a
+double backward;
 unported settings raise."""
 import dataclasses
 import os
@@ -56,6 +61,10 @@ def _clock56(ambiguous, icode=0, labelled=False):
     return data, topo
 
 
+def _labelled(kw):
+    return kw.get("model", 0) > 0 or kw.get("clock") == 2
+
+
 def _random_x(bounds, nb, rng):
     x = []
     for i, (lo, hi) in enumerate(bounds):
@@ -89,6 +98,16 @@ SPECS = {
     "branch_site_B": dict(model=2, NSsites=3),
     "clade_C": dict(model=3, NSsites=2),
     "clade_D": dict(model=3, NSsites=3),
+    "M2a_rel": dict(NSsites=22),
+    "FMutSel0": dict(codonf="FMutSel0"),
+    "FMutSel": dict(codonf="FMutSel"),
+    "FMutSel0_estFreq": dict(codonf="FMutSel0", estFreq=True),
+    "FMutSel_estFreq_hkyREV": dict(codonf="FMutSel", estFreq=True,
+                                   hkyREV=True),
+    "FMutSel0_M2a": dict(codonf="FMutSel0", NSsites=2),
+    "clock1": dict(clock=1),
+    "clock2": dict(clock=2),
+    "clock3_M1a": dict(clock=3, NSsites=1),
 }
 # objectives built with the pattern axis in chunks (clock56: 111 patterns)
 N_CHUNKS = {"branch_site_A_chunked": ("branch_site_A", 3),
@@ -104,7 +123,7 @@ def test_objective_matches_jax(name, ambiguous):
     base, n_chunks = N_CHUNKS.get(name, (name, 1))
     kw = SPECS[base]
     data_j, topo_j = _clock56(ambiguous, kw.get("icode", 0),
-                              labelled=kw.get("model", 0) > 0)
+                              labelled=_labelled(kw))
     spec_j = jax_codeml.CodemlSpec(**kw)
     spec_t = codeml.CodemlSpec(**kw)
     assert [f.name for f in dataclasses.fields(spec_t)] == \
@@ -120,6 +139,8 @@ def test_objective_matches_jax(name, ambiguous):
     np.testing.assert_allclose(pi, pi_j, rtol=1e-14)
     vg_j = jax.jit(jax.value_and_grad(neg_j))
     nb = len(topo.branch_nodes()) if kw.get("fix_blength") != 2 else 0
+    if kw.get("clock"):
+        nb = 0          # ages and proportions: any in-bounds value will do
     for x in (x0, _random_x(b, nb, np.random.default_rng(5))):
         vj, gj = vg_j(jnp.asarray(x))
         xt = interop.params_from(x, device="cpu").requires_grad_(True)
@@ -153,12 +174,20 @@ def test_integer_state_data_matches_jax():
                                atol=1e-9 * np.abs(np.asarray(gj)).max())
 
 
+SPECS_STARTS = dict(SPECS, M7=dict(NSsites=7, ncatG=5),
+                    M8=dict(NSsites=8, ncatG=5),
+                    M8_fixw=dict(NSsites=8, ncatG=5, fix_omega=True),
+                    M13=dict(NSsites=13, ncatG=4))
+
+
 @pytest.mark.parametrize("name", ["M2a", "M3", "M1a", "branch_site_A",
                                   "branch_site_A_fixw", "clade_C",
-                                  "branch_site_B", "M0"])
+                                  "branch_site_B", "M0", "M7", "M8",
+                                  "M8_fixw", "M13", "M2a_rel", "clock2",
+                                  "clock1"])
 def test_multi_starts_match_jax(name, monkeypatch):
-    kw = SPECS[name]
-    data_j, topo_j = _clock56(False, labelled=kw.get("model", 0) > 0)
+    kw = SPECS_STARTS[name]
+    data_j, topo_j = _clock56(False, labelled=_labelled(kw))
 
     class Starts(Exception):
         pass
@@ -183,13 +212,118 @@ def test_multi_starts_match_jax(name, monkeypatch):
             np.testing.assert_array_equal(a, b)
 
 
+def test_tipdate_objective_matches_jax():
+    # dated tips: sampling years at the end of the names (TipDate), with
+    # the clock they imply
+    data_j, topo_j = _clock56(False)
+    topo_j.ages0[:] = np.nan              # TipDate dates the tips instead
+    data_j.names = [f"{nm}_{1990 + 4 * i}" for i, nm in
+                    enumerate(data_j.names)]
+    kw = dict(clock=1, tipdate=True, tipdate_timeunit=10.0)
+    neg_j, _, _, x0_j, b_j, _ = jax_codeml.make_codon_objective(
+        data_j, topo_j, jax_codeml.CodemlSpec(**kw), jnp.float64)
+    neg, _, _, x0, b, _ = codeml.make_codon_objective(
+        interop.packed_from(data_j), interop.topology_from(topo_j),
+        codeml.CodemlSpec(**kw), device="cpu")
+    np.testing.assert_array_equal(x0, x0_j)
+    assert b == b_j
+    vj, gj = jax.value_and_grad(neg_j)(jnp.asarray(x0))
+    xt = interop.params_from(x0, device="cpu").requires_grad_(True)
+    v = neg(xt)
+    (g,) = torch.autograd.grad(v, xt)
+    assert abs(v.item() - float(vj)) <= 1e-9 * abs(float(vj))
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=1e-8,
+                               atol=1e-9 * np.abs(np.asarray(gj)).max())
+
+
+TWICE = ["M0", "M2a", "M0_F3x4MG_hkyREV", "branch_site_A", "FMutSel0",
+         "FMutSel_estFreq_hkyREV", "clock1", "M0_Fequal"]
+
+
+@pytest.mark.parametrize("name", TWICE)
+def test_twice_route_matches_fit_route(name):
+    # the Hessian's route (matrix_exp, the level pass under plain
+    # autograd) gives the fit's value and gradient, on clean and coded tips
+    kw = SPECS[name]
+    for ambiguous in (False, True):
+        data_j, topo_j = _clock56(ambiguous, labelled=_labelled(kw))
+        neg, _, _, x0, b, _ = codeml.make_codon_objective(
+            interop.packed_from(data_j), interop.topology_from(topo_j),
+            codeml.CodemlSpec(**kw), device="cpu")
+        nb = 0 if kw.get("clock") else len(topo_j.branch_nodes())
+        x = _random_x(b, nb, np.random.default_rng(2))
+        xt = interop.params_from(x, device="cpu").requires_grad_(True)
+        v, v2 = neg(xt), neg.twice(xt)
+        (g,) = torch.autograd.grad(v, xt)
+        (g2,) = torch.autograd.grad(v2, xt)
+        v, v2 = v.detach(), v2.detach()
+        assert abs(float(v2) - float(v)) <= 1e-11 * abs(float(v))
+        np.testing.assert_allclose(g2.numpy(), g.numpy(), rtol=1e-8,
+                                   atol=1e-9 * g.abs().max().item())
+        # and in two pattern chunks
+        parts = (neg.twice(xt, slice(0, 50)) + neg.twice(xt, slice(50, None)))
+        assert abs(float(parts.detach()) - float(v)) <= 1e-11 * abs(float(v))
+
+
+def test_fit_route_refuses_double_backward():
+    # the hand-written backwards take saved eigenvectors and partials as
+    # constants: a second derivative through them must raise, not return
+    # a wrong number
+    from paml_tpu_torch.core import cuda_pruning, pmat, pruning
+    data_j, topo_j = _clock56(False)
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(
+        interop.packed_from(data_j), interop.topology_from(topo_j),
+        codeml.CodemlSpec(), device="cpu")
+    xt = interop.params_from(x0, device="cpu").requires_grad_(True)
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(neg(xt), xt, create_graph=True)
+    # each of the three functions on its own
+    P, piC, freqs = neg.model_at(xt.detach())
+    Pg = P.clone().requires_grad_(True)
+    lnf = pruning.class_site_lnf(Pg, neg.tips, neg.topo, piC)
+    with pytest.raises(RuntimeError, match="_ClassSiteLnfLvl.*once"):
+        torch.autograd.grad(lnf.sum(), Pg, create_graph=True)
+    Q = torch.rand(1, 4, 4, dtype=torch.float64)
+    Q = (Q + Q.transpose(-1, -2)).requires_grad_(True)
+    Pm = pmat.pmat_rev_multi(Q - torch.diag_embed(Q.sum(-1)),
+                             torch.full((4,), 0.25, dtype=torch.float64),
+                             torch.tensor([[0.3]], dtype=torch.float64))
+    with pytest.raises(RuntimeError, match="_PmatRevSpectral.*once"):
+        torch.autograd.grad(Pm.sum(), Q, create_graph=True)
+    # a first derivative passes, and the twice route gives the second
+    (gQ,) = torch.autograd.grad(Pm.sum(), Q)
+    assert torch.isfinite(gQ).all()
+    (g,) = torch.autograd.grad(neg.twice(xt), xt, create_graph=True)
+    (row,) = torch.autograd.grad(g[0], xt)
+    assert torch.isfinite(row).all() and row.abs().max() > 0
+    # the kernels' function launches on the card only; its backward
+    # carries the same mark
+    with pytest.raises(RuntimeError, match="ClassSiteLnfKernel.*once"):
+        with torch.enable_grad():
+            cuda_pruning.ClassSiteLnfKernel.backward(None, lnf.detach())
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(tipdate=True), "A6"), (dict(NSsites=8), "A2"),
-    (dict(codonf="FMutSel"), "A5"), (dict(clock=1), "A6"),
-    (dict(getSE=True), "A3"), (dict(seqtype=2), "A9")])
+    (dict(seqtype=2), "A9"), (dict(seqtype=3), "A9"), (dict(aaDist=1), "A9"),
+    (dict(aaDist=7, NSsites=2), "A9")])
 def test_unported_specs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         codeml.check_slice(codeml.CodemlSpec(**kw))
+
+
+def test_ported_specs_pass_and_unknown_codonf_raises():
+    # ported settings no longer name a ROADMAP item
+    for kw in (dict(tipdate=True, clock=1), dict(NSsites=8),
+               dict(codonf="FMutSel", estFreq=True), dict(clock=3),
+               dict(getSE=True), dict(NSsites=22)):
+        codeml.check_slice(codeml.CodemlSpec(**kw))
+    with pytest.raises(ValueError, match="unknown codonf"):
+        codeml.check_slice(codeml.CodemlSpec(codonf="F2x4"))
+    data_j, _ = _clock56(False)
+    data = interop.packed_from(data_j)
+    data.ngene = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        codeml.check_slice(codeml.CodemlSpec(), data)
 
 
 def test_entry_points_need_a_device():
