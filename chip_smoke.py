@@ -65,6 +65,27 @@
    estFreq, clock 1, M5 and M8, with the host's share (the quantile code).
    Per model: evaluations, wall seconds, ms per evaluation, and the
    seconds in the quantile code, the Hessian and BEB.
+7. baseml: a 100-taxon x 100,000-site alignment simulated under REV + G5
+   (alpha 0.5, pi TCAG 0.2 / 0.3 / 0.3 / 0.2, fixed exchangeabilities) on
+   a random unbalanced unrooted tree with the port's own P(t), with 3b's
+   gap runs over about 5 % of the cells and Ns in 0.2 %, is written with
+   a tree and a `baseml.ctl` (`model = 7`, `ncatG = 5`, `fix_alpha = 0`,
+   `getSE = 1`, `RateAncestor = 1`, `cleandata = 0`) and
+   `paml_tpu_torch.__main__.main(["baseml", ctl])` runs it on the card:
+   the level route must carry it (no kernel launch, no plain call,
+   `pruning.LEVEL_CALLS` counted); the lnL in `mlb` must match the same
+   objective on CPU tensors at the fitted x to 1e-9, alpha lie within 10 %
+   of 0.5, the SEs be finite and positive, the marginal reconstruction
+   equal the CPU's (states equal, probabilities to 1e-9) and `rst` hold
+   it; the share of internal-node sites reconstructed as simulated is
+   printed.  7b (ROADMAP B5's evidence): one value + gradient at the MLEs
+   through the level route and through B1/B2 at N = 64 (the wrappers
+   called directly, in chunks), held to each other to the f64 tolerance,
+   timed with their peak memory, and the level route repeated bit for bit.
+   7c: HKY85 + AdG (K = 5, rho free), one value + gradient over the
+   100,000 sites on the card against CPU tensors, timed.  7d: basemlg on 8
+   taxa x 2000 sites from the same simulator, and an Mgene = 4 TN93 + G4
+   fit with two genes (option G), each lnL against the CPU objective.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -1517,6 +1538,472 @@ def phase_program(torch, rng, report, card):
         check_beb_branch_site(torch, out, gapped, report, card)
 
 
+# --- phase 7: baseml on the card --------------------------------------------
+
+# REV + G5: the exchangeabilities of (T,C), (T,A), (T,G), (C,A), (C,G), with
+# (A,G) = 1; frequencies of T, C, A, G
+NUC_TRUTH = dict(alpha=0.5, pi=(0.2, 0.3, 0.3, 0.2),
+                 rev=(2.5, 0.4, 0.6, 0.5, 0.7))
+NUC_TAXA, NUC_SITES = 100, 100_000
+
+
+def random_unrooted_tree(rng, names, blen=(0.01, 0.1)):
+    """A random binary tree: lineages joined in random pairs until three
+    remain, which meet at the root (a random rooted tree with its root
+    removed, as baseml's trees are unrooted at clock = 0; unbalanced, as
+    real trees are), branch lengths uniform on `blen`.  Newick."""
+    nodes = list(names)
+    while len(nodes) > 3:
+        i, j = sorted(rng.choice(len(nodes), size=2, replace=False))
+        b = rng.uniform(*blen, size=2)
+        joined = f"({nodes[i]}:{b[0]:.6f},{nodes[j]}:{b[1]:.6f})"
+        nodes = [v for k, v in enumerate(nodes) if k not in (i, j)]
+        nodes.append(joined)
+    b = rng.uniform(*blen, size=3)
+    return "(" + ",".join(f"{v}:{x:.6f}" for v, x in zip(nodes, b)) + ");"
+
+
+def simulate_nuc(torch, rng, ns, ls, device, truth=NUC_TRUTH):
+    """An alignment simulated under REV + G5 (`truth`) on
+    `random_unrooted_tree` with the port's own P(t) (`nuc.pmats_for_model`)
+    and its discrete gamma: (names, rows, the Newick string, the states of
+    every node [nnode, ls] (numpy), the Topology)."""
+    from paml_tpu_torch.core.dgamma import discrete_gamma
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+    from paml_tpu_torch.models import nuc
+
+    names = [f"t{i}" for i in range(ns)]
+    nwk = random_unrooted_tree(rng, names)
+    topo = from_treenode(treeio.parse_newick(nwk), names)
+    f64 = dict(dtype=torch.float64, device=device)
+    r, w = discrete_gamma(torch.tensor(truth["alpha"], **f64), 5)
+    pi = torch.tensor(truth["pi"], **f64)
+    t = torch.tensor(topo.blen0, **f64)
+    P, _ = nuc.pmats_for_model("REV", torch.tensor(truth["rev"], **f64), pi,
+                               t[:, None] * r[None, :])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    cls = torch.multinomial(w, ls, replacement=True, generator=gen)
+    cum = P.cumsum(-1)
+    st = torch.empty((topo.nnode, ls), dtype=torch.int64, device=device)
+    st[topo.root] = torch.multinomial(pi, ls, replacement=True, generator=gen)
+    stack = [topo.root]
+    while stack:
+        v = stack.pop()
+        for c in topo.children[v]:
+            if c < 0:
+                continue
+            u = torch.rand((ls, 1), generator=gen, **f64)
+            st[c] = (u > cum[c, cls, st[v]]).sum(-1).clamp_max(3)
+            stack.append(int(c))
+    st = st.cpu().numpy()
+    letters = np.frombuffer(b"TCAG", dtype="S1")
+    rows = [letters[st[i]].tobytes().decode() for i in range(ns)]
+    return names, rows, nwk, st, topo
+
+
+def gapped_nuc_rows(rng, rows):
+    """The rows with gaps in runs of geometric length (mean 10 sites) over
+    about 5 % of each taxon's cells, and an N in 0.2 % of the others, as
+    phase 3b's gapped tips."""
+    ns, L = len(rows), len(rows[0])
+    arr = np.frombuffer("".join(rows).encode(), dtype="S1").reshape(ns, L)
+    arr = arr.copy()
+    runs = rng.poisson(0.05 * L / 10, size=ns)
+    for t in range(ns):
+        for s0, ln in zip(rng.integers(0, L, size=runs[t]),
+                          rng.geometric(0.1, size=runs[t])):
+            arr[t, s0:s0 + ln] = b"-"
+    arr[(rng.random((ns, L)) < 0.002) & (arr != b"-")] = b"N"
+    return [arr[t].tobytes().decode() for t in range(ns)]
+
+
+BASEML_CTL = """      seqfile = seq.phy
+     treefile = tree.nwk
+      outfile = mlb
+        noisy = 0
+      runmode = 0
+        model = {model}
+        Mgene = {mgene}
+        clock = 0
+    fix_kappa = 0
+        kappa = 5
+    fix_alpha = 0
+        alpha = 1.0
+        ncatG = {ncatG}
+        getSE = {getSE}
+ RateAncestor = {rateancestor}
+    cleandata = 0
+"""
+
+
+def write_baseml_problem(workdir, tag, names, rows, nwk, genes=None, **kw):
+    """The alignment (PHYLIP; `genes` lengths as option G), the tree and a
+    baseml.ctl in workdir/tag; returns the ctl's path."""
+    import os
+    import re
+
+    d = os.path.join(workdir, tag)
+    os.makedirs(d)
+    with open(os.path.join(d, "seq.phy"), "w") as f:
+        f.write(f"{len(names)} {len(rows[0])}" + (" G" if genes else "")
+                + "\n")
+        if genes:
+            f.write(f"G {len(genes)} " + " ".join(map(str, genes)) + "\n")
+        for nm, row in zip(names, rows):
+            f.write(f"{nm}  {row}\n")
+    with open(os.path.join(d, "tree.nwk"), "w") as f:
+        # the topology alone: the fit starts from no branch lengths
+        f.write(re.sub(r":[0-9.]+", "", nwk) + "\n")
+    opts = dict(model=7, mgene=0, ncatG=5, getSE=1, rateancestor=1)
+    opts.update(kw)
+    ctl = os.path.join(d, "baseml.ctl")
+    with open(ctl, "w") as f:
+        f.write(BASEML_CTL.format(**opts))
+    return ctl
+
+
+def reset_counts():
+    from paml_tpu_torch.core import cuda_pruning, pruning
+    cuda_pruning.reset_launch_counts()
+    pruning.PLAIN_CALLS["cuda"] = pruning.TWICE_CALLS["cuda"] = 0
+    pruning.LEVEL_CALLS["cuda"] = 0
+
+
+def read_counts():
+    """The kernel launches and the calls of the level route, the plain
+    version and the Hessian route on the card since `reset_counts`."""
+    from paml_tpu_torch.core import cuda_pruning, pruning
+    return dict(launches=dict(cuda_pruning.LAUNCHES),
+                level=pruning.LEVEL_CALLS["cuda"],
+                plain=pruning.PLAIN_CALLS["cuda"],
+                twice=pruning.TWICE_CALLS["cuda"])
+
+
+def run_baseml_program(torch, ctl, prog="baseml"):
+    """`paml_tpu_torch.__main__.main([prog, ctl])` in ctl's directory, in
+    this process, on the card, the counts set to 0 just before: (its
+    summary, wall seconds, kernel launches, level-route calls, plain-version
+    calls, Hessian-route calls, peak GiB, the lnL lines of mlb)."""
+    import os
+    import re
+
+    from paml_tpu_torch import __main__ as cli
+
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(ctl))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        out = cli.main([prog, ctl])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = dict(read_counts(),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    mlb = open(os.path.join(os.path.dirname(ctl), "mlb")).read()
+    lnls = [float(v) for v in re.findall(r"lnL\(ntime:.*\): *(-?[0-9.]+)",
+                                         mlb)]
+    return out, wall, counts, lnls
+
+
+def check_baseml_routes(tag, counts):
+    """The level route carried the program on the card: no kernel launch,
+    no plain-version call, level-route calls counted."""
+    if any(counts["launches"].values()) or counts["plain"] \
+            or not counts["level"]:
+        raise AssertionError(f"baseml, {tag}: kernel launches "
+                             f"{counts['launches']}, plain calls "
+                             f"{counts['plain']}, level-route calls "
+                             f"{counts['level']}: 4 states must take the "
+                             "level route alone")
+
+
+def cpu_objective_lnl(torch, data, topo, spec, x):
+    """The program's objective on CPU tensors at x: (-value, objective)."""
+    from paml_tpu_torch.apps import baseml
+
+    neg = baseml.make_objective(data, topo, spec, device="cpu")[0]
+    with torch.no_grad():
+        return -float(neg(torch.as_tensor(x))), neg
+
+
+def rst_sample(path, sites):
+    """(states, probabilities) of the given 0-based sites in rst's
+    marginal reconstruction table."""
+    want = {s + 1 for s in sites}
+    st, pr = {}, {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("site node#"):
+                break
+        for line in f:
+            toks = line.split()
+            if not toks or not toks[0].isdigit():
+                break
+            site = int(toks[0])
+            if site in want:
+                cells = [c.rstrip(")").split("(") for c in toks[1:]]
+                st[site - 1] = [c[0] for c in cells]
+                pr[site - 1] = [float(c[1]) for c in cells]
+    return st, pr
+
+
+def baseml_value_grad(torch, neg, x, device, reps=1):
+    """-lnL and its gradient at x on device; ms per call (the last of
+    reps, after a warm-up call)."""
+    xt = torch.tensor(x, dtype=torch.float64, device=device,
+                      requires_grad=True)
+    for _ in range(reps + 1):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = neg(xt)
+        (g,) = torch.autograd.grad(v, xt)
+        g = g.cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return float(v.detach()), g, ms
+
+
+def phase_baseml_program(torch, rng, card):
+    """7a: the program on the 100-taxon x 100,000-site REV + G5 alignment
+    with gaps and Ns."""
+    import os
+    import tempfile
+
+    from paml_tpu_torch.apps import ancestral, baseml
+
+    t0 = time.perf_counter()
+    names, rows, nwk, st, topo_sim = simulate_nuc(torch, rng, NUC_TAXA,
+                                                  NUC_SITES, "cuda")
+    rows = gapped_nuc_rows(rng, rows)
+    gap_share = sum(r.count("-") for r in rows) / (NUC_TAXA * NUC_SITES)
+    print(f"simulated REV + G5 alignment (alpha {NUC_TRUTH['alpha']}, pi "
+          f"{NUC_TRUTH['pi']}): {NUC_TAXA} taxa x {NUC_SITES} sites, "
+          f"{100 * gap_share:.2f} % gap cells "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    work = tempfile.mkdtemp(prefix="baseml_")
+    ctl = write_baseml_problem(work, "rev_g5", names, rows, nwk)
+    out, wall, counts, lnls = run_baseml_program(torch, ctl)
+    check_baseml_routes("REV + G5", counts)
+    run = out["runs"][0]
+    res, spec, data = run["res"], run["spec"], out["data"]
+    if counts["twice"] == 0:
+        raise AssertionError("baseml: getSE = 1 made no Hessian")
+    t1 = time.perf_counter()
+    lnl_cpu, neg_cpu = cpu_objective_lnl(torch, data, res.topo, spec, res.x)
+    cpu_s = time.perf_counter() - t1
+    rel = abs(lnls[0] - lnl_cpu) / abs(lnl_cpu)
+    alpha = float(res.alpha[0])
+    _, _, _, bounds = baseml.make_objective(data, res.topo, spec,
+                                            device="cpu")
+    lo = np.array([b[0] for b in bounds])
+    hi = np.array([b[1] for b in bounds])
+    free = (res.x > lo + 1e-6 * (hi - lo)) & (res.x < hi - 1e-6 * (hi - lo))
+    ses = res.SEs
+    n_eval = res.fit.n_eval
+    print(f"baseml, REV + G5 [{card}]: {data.npatt} patterns, {res.np} "
+          f"parameters; {wall:.1f} s wall: fit {run['fit_seconds']:.2f} s "
+          f"in {n_eval} evaluations ({1e3 * run['fit_seconds'] / n_eval:.2f}"
+          f" ms each), Hessian {run['hessian_seconds']:.2f} s, ancestral "
+          f"reconstruction {run['ancestral_seconds']:.2f} s; peak "
+          f"{counts['peak_gib']:.2f} GiB; level-route calls "
+          f"{counts['level']}, Hessian-route calls {counts['twice']}, kernel "
+          f"launches {counts['launches']}", flush=True)
+    print(f"  lnL in mlb {lnls[0]:.6f}, CPU objective at the fitted x "
+          f"{lnl_cpu:.6f} (rel {rel:.2e}; {cpu_s:.1f} s on the host); alpha "
+          f"{alpha:.4f} (simulated {NUC_TRUTH['alpha']}); exchangeabilities "
+          f"{np.round(res.rate_params, 3)} (simulated {NUC_TRUTH['rev']}); "
+          f"SEs of the {int(free.sum())} free parameters in "
+          f"[{ses[free].min():.3g}, {ses[free].max():.3g}]", flush=True)
+    if rel > 1e-9:
+        raise AssertionError("baseml: the lnL in mlb disagrees with the CPU "
+                             "objective at the fitted x")
+    if abs(alpha - NUC_TRUTH["alpha"]) > 0.1 * NUC_TRUTH["alpha"]:
+        raise AssertionError(f"baseml: alpha {alpha} is not within 10 % of "
+                             f"{NUC_TRUTH['alpha']}")
+    if not (np.isfinite(ses).all() and (ses[free] > 0).all()):
+        raise AssertionError(f"baseml: SEs {ses}")
+    # the reconstruction the program wrote, against the CPU's at the same x
+    best, prob = run["ancestral"]
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        P, piC, w, _ = neg_cpu.model_at(res.x)
+        best_c, prob_c, _ = ancestral.marginal_reconstruction(
+            P, neg_cpu.tips, res.topo, piC, w, neg_cpu.fpatt)
+    cpu_s = time.perf_counter() - t1
+    sp = data.site_pattern
+    nint = topo_sim.nnode - topo_sim.ns
+    sample = np.linspace(0, NUC_SITES - 1, 2000).astype(int)
+    st_rst, pr_rst = rst_sample(os.path.join(os.path.dirname(ctl), "rst"),
+                                sample)
+    rst_ok = all(st_rst[s] == ["TCAG"[v] for v in best[:, sp[s]]]
+                 and np.abs(np.array(pr_rst[s]) - prob[:, sp[s]]).max()
+                 <= 5e-4 + 1e-9 for s in sample)
+    truth = st[topo_sim.ns:]                                # [nint, ls]
+    hit = float((best[:, sp] == truth).mean())
+    perr = float(np.abs(prob - prob_c).max())
+    print(f"  marginal reconstruction: {nint} internal nodes x "
+          f"{NUC_SITES} sites; states equal to the CPU's "
+          f"{bool((best == best_c).all())}, probabilities max|diff| "
+          f"{perr:.2e} ({cpu_s:.1f} s on the host); rst holds them at "
+          f"{len(sample)} sampled sites: {rst_ok}; {100 * hit:.2f} % of the "
+          "internal-node sites reconstructed as simulated", flush=True)
+    if not (best == best_c).all() or perr > 1e-9 or not rst_ok:
+        raise AssertionError("baseml: the marginal reconstruction disagrees "
+                             "with the CPU's")
+    return out, names, rows, nwk
+
+
+def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
+                            card):
+    """7b, B5's evidence: one value + gradient in P and pi through the
+    level route, and through B1/B2 at N = 64 (the wrappers called
+    directly, the patterns in chunks so that S and the walk's workspace
+    fit), held to each other; ms and peak GiB of each; the level route
+    repeated bit for bit."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+    from paml_tpu_torch.core import pruning
+    from paml_tpu_torch.core.tipcodes import TipCodes
+
+    H = fpatt.shape[0]
+
+    def level():
+        P_ = P.detach().requires_grad_(True)
+        pi_ = piC.detach().clone().requires_grad_(True)
+        v = pruning.lnL(P_, tips, topo, pi_, w, fpatt)
+        dP, dpi = torch.autograd.grad(v, (P_, pi_))
+        return v.detach(), dP, dpi
+
+    codes = cp.kernel_tips(tips)
+    C = P.shape[1]
+    bp = cp.big_plan(cp.big_tree(topo))
+    per_pattern = (bp.n_srows * C * 4 + C * bp.nslots * cp.N) * 8
+    n_chunks = max(1, -(-per_pattern * H // (8 << 30)))
+    w_chunk = -(-H // n_chunks)
+
+    chunks = (codes.split(w_chunk) if isinstance(codes, TipCodes) else
+              [c.contiguous() for c in codes.split(w_chunk, dim=1)])
+
+    def kernels():
+        total, dP, dpi = 0.0, torch.zeros_like(P), torch.zeros_like(piC)
+        for h0, tc in zip(range(0, H, w_chunk), chunks):
+            sl = slice(h0, min(h0 + w_chunk, H))
+            lnf, S = cp.pruning_fwd(P, tc, topo, piC)
+            z = lnf + torch.log(w)[:, None]
+            site = torch.logsumexp(z, 0)
+            total = total + (fpatt[sl] * site).sum()
+            gbar = fpatt[sl][None, :] * torch.softmax(z, 0)
+            a, b = cp.pruning_bwd(P, tc, topo, piC, gbar, S)
+            dP, dpi = dP + a, dpi + b
+            del S
+        return total, dP, dpi
+
+    out = {}
+    for name, fn in (("level", level), ("kernels", kernels)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(fn, reps=3, warmup=1)
+        out[name] = dict(ms=ms, gib=(torch.cuda.max_memory_allocated()
+                                     - base) / 2 ** 30, res=fn())
+    (v1, dP1, dpi1), (v2, dP2, dpi2) = out["level"]["res"], \
+        out["kernels"]["res"]
+    tol = TOL["float64"]
+    rel = abs(float(v1) - float(v2)) / abs(float(v1))
+    gerr = max(float((dP1 - dP2).abs().max() / dP1.abs().max()),
+               float((dpi1 - dpi2).abs().max() / dpi1.abs().max()))
+    again = out["level"]["res"], level()
+    same = all(torch.equal(a, b) for a, b in zip(*again))
+    n_amb = getattr(codes, "n_amb", 0)
+    bnd = [bound(k, topo, C, H, 4, 8, n_amb) for k in ("pruning_fwd",
+                                                         "pruning_bwd")]
+    print(f"  B5, value + gradient at the MLEs [{card}], {C} classes x {H} "
+          f"patterns x 4 states: level route {out['level']['ms']:.2f} ms, "
+          f"peak {out['level']['gib']:.2f} GiB; B1/B2 at N = {cp.N} in "
+          f"{n_chunks} chunk(s) {out['kernels']['ms']:.2f} ms, peak "
+          f"{out['kernels']['gib']:.2f} GiB (bounds at n = 4: B1 "
+          f"{bnd[0][0]:.3f} ms, B2 {bnd[1][0]:.3f} ms); lnL rel {rel:.2e}, "
+          f"gradient {gerr:.2e} of the largest; the level route repeated "
+          f"bit for bit: {same}", flush=True)
+    if rel > tol["val"] or gerr > tol["grad"] or not same:
+        raise AssertionError("B5: the level route and B1/B2 disagree, or "
+                             "the level route does not repeat")
+    for name, k in (("pruning_fwd", 0), ("pruning_bwd", 1)):
+        report[name]["b5_kernel_pair_ms_float64"] = out["kernels"]["ms"]
+        report[name]["b5_level_route_ms_float64"] = out["level"]["ms"]
+        report[name]["b5_bound_ms_float64"] = bnd[k][0]
+
+
+def phase_baseml(torch, rng, report, card):
+    """Phase 7: baseml and basemlg on the card (the level route)."""
+    import tempfile
+
+    from paml_tpu_torch.apps import baseml
+
+    out, names, rows, nwk = phase_baseml_program(torch, rng, card)
+    run = out["runs"][0]
+    res, spec, data = run["res"], run["spec"], out["data"]
+    neg = baseml.make_objective(data, res.topo, spec, device="cuda")[0]
+    with torch.no_grad():
+        P, piC, w, _ = neg.model_at(res.x)
+    level_kernel_value_grad(torch, P, neg.tips, res.topo, piC.contiguous(),
+                            w, neg.fpatt, report, card)
+    del P, piC, neg
+    torch.cuda.empty_cache()
+    # 7c: HKY85 + AdG, the rate HMM over the 100,000 sites
+    spec_adg = baseml.BasemlSpec(model="HKY85", ncatG=5, fix_alpha=False,
+                                 fix_rho=False)
+    neg, _, x0, _ = baseml.make_objective(data, res.topo, spec_adg,
+                                          device="cuda")
+    reset_counts()
+    v, g, ms = baseml_value_grad(torch, neg, x0, "cuda", reps=3)
+    check_baseml_routes("HKY85 + AdG", read_counts())
+    neg_c = baseml.make_objective(data, res.topo, spec_adg, device="cpu")[0]
+    t0 = time.perf_counter()
+    v_c, g_c, _ = baseml_value_grad(torch, neg_c, x0, "cpu", reps=0)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(v - v_c) / abs(v_c)
+    gerr = np.abs(g - g_c).max() / np.abs(g_c).max()
+    print(f"  HKY85 + AdG (K = 5, rho free), value + gradient over "
+          f"{data.ls} sites [{card}]: {ms:.2f} ms on the card, "
+          f"{cpu_s:.1f} s on CPU tensors; lnL rel {rel:.2e}, gradient "
+          f"{gerr:.2e} of the largest", flush=True)
+    if rel > 1e-9 or gerr > 1e-8 or not np.isfinite(g).all():
+        raise AssertionError("rate HMM: value + gradient on the card "
+                             "disagrees with CPU tensors")
+    del neg, neg_c
+    torch.cuda.empty_cache()
+    # 7d: basemlg, and Mgene = 4 with two genes (option G)
+    work = tempfile.mkdtemp(prefix="basemlg_")
+    names, rows, nwk, _, _ = simulate_nuc(torch, rng, 8, 2000, "cuda")
+    for tag, prog, genes, kw in (
+            ("basemlg", "basemlg", None, dict(model=4, getSE=0)),
+            ("mgene4", "baseml", [1000, 1000],
+             dict(model=6, mgene=4, ncatG=4, getSE=0, rateancestor=0))):
+        ctl = write_baseml_problem(work, tag, names, rows, nwk, genes=genes,
+                                   **kw)
+        out, wall, counts, lnls = run_baseml_program(torch, ctl, prog)
+        check_baseml_routes(tag, counts)
+        run = out["runs"][0]
+        lnl_cpu, _ = cpu_objective_lnl(torch, out["data"], run["res"].topo,
+                                       run["spec"], run["res"].x)
+        rel = abs(lnls[0] - lnl_cpu) / abs(lnl_cpu)
+        print(f"  {tag} [{card}]: 8 taxa x 2000 sites, {out['data'].ngene} "
+              f"gene(s), {run['res'].np} parameters; {wall:.2f} s wall, "
+              f"{run['res'].fit.n_eval} evaluations; lnL in mlb "
+              f"{lnls[0]:.6f}, CPU objective {lnl_cpu:.6f} (rel {rel:.2e});"
+              f" alpha {np.round(run['res'].alpha, 4)}", flush=True)
+        if rel > 1e-9:
+            raise AssertionError(f"{tag}: the lnL in mlb disagrees with the "
+                                 "CPU objective")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1564,6 +2051,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 6. the program: codeml from a control file (B3/B4 clean, B1/B2 gapped)
     phase_program(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 7. baseml and basemlg: nucleotides on the level route, B5's evidence
+    phase_baseml(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
         # the main paths' launches, each path counted from 0 (M0/M2a fits

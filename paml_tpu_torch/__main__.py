@@ -1,19 +1,28 @@
 """Command-line front end with reference-compatible control files.
 
 Usage:
-  python -m paml_tpu_torch codeml [codeml.ctl] [--device cuda|cpu]
+  python -m paml_tpu_torch codeml  [codeml.ctl] [--device cuda|cpu]
+  python -m paml_tpu_torch baseml  [baseml.ctl] [--device cuda|cpu]
+  python -m paml_tpu_torch basemlg [baseml.ctl] [--device cuda|cpu]
 
-Mirrors the reference program's invocation (`codeml codeml.ctl`; the
-default ctl name is the reference's).  The fits and every side computation
-run on the CUDA card; `--device cpu` asks for the CPU instead.  Without a
-card and without `--device cpu` the program stops with an error: it does
-not carry on on the CPU.
+Mirrors the reference programs' invocation (`codeml codeml.ctl`; the
+default ctl names are the reference's).  The fits and every side
+computation run on the CUDA card; `--device cpu` asks for the CPU instead.
+Without a card and without `--device cpu` a program stops with an error:
+it does not carry on on the CPU.
 
-Port of `run_codeml` of `paml_tpu/__main__.py` for codon data at runmode
-0: NSsites lists, several trees, several data sets (`ndata`), standard
-errors, NEB and BEB into `rst`, `rst1`, `lnf`, the optimizer trace `rub`,
-the tree-comparison table and dN & dS per branch.  Settings whose modules
-are not ported yet raise NotImplementedError naming their ROADMAP item.
+Port of `run_codeml`, `run_baseml` and `run_basemlg` of
+`paml_tpu/__main__.py`.  codeml, for codon data at runmode 0: NSsites
+lists, several trees, several data sets (`ndata`), standard errors, NEB
+(with RateAncestor) and BEB into `rst`, the marginal ancestral
+reconstruction (RateAncestor) into `rst`, `rst1`, `lnf`, the optimizer
+trace `rub`, the tree-comparison table and dN & dS per branch.  baseml:
+every model, rate and gene option of `apps/baseml.py`, several trees,
+`rst` with the reconstruction and `rates` (RateAncestor), `rst1`, `lnf`,
+the tree-comparison table, the nhomo frequency sets.  basemlg: the
+continuous-gamma fit and its rate-variance decomposition.  Settings whose
+modules are not ported yet raise NotImplementedError naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -41,9 +50,6 @@ def _check_ported(spec, extras) -> None:
     todo = []
     if spec.seqtype != 1 or spec.aaDist:
         todo.append("amino-acid data and aaDist: ROADMAP A9")
-    if extras.get("RateAncestor", 0):
-        todo.append("RateAncestor (ancestral reconstruction and the NEB "
-                    "table it switches on): ROADMAP A10")
     runmode = extras.get("runmode", 0)
     if runmode in (-2, -3):
         todo.append(f"runmode = {runmode} (pairwise dN/dS): ROADMAP A11")
@@ -80,6 +86,7 @@ def run_codeml(ctl_path: str, device: str) -> dict:
     _check_ported(spec, extras)
     open("rub", "w").close()
     set_rub("rub")
+    rate_ancestor = extras.get("RateAncestor", 0)
     runs = []
     frst = None
     try:
@@ -150,9 +157,9 @@ def run_codeml(ctl_path: str, device: str) -> dict:
                                                   - h0)
                         out.write("SEs for parameters:\n" + " ".join(
                             f"{v:.5f}" for v in ses) + "\n")
-                    if ns_model and sp.model == 0 and itree == 0:
-                        # NEB: class posteriors at the MLEs, as the
-                        # reference writes for every site model
+                    if rate_ancestor and ns_model and sp.model == 0 \
+                            and itree == 0:
+                        # NEB: class posteriors at the MLEs
                         with torch.no_grad():
                             run["neb"] = post = neg.class_posterior(
                                 xt).cpu().numpy()
@@ -160,6 +167,11 @@ def run_codeml(ctl_path: str, device: str) -> dict:
                         write_rst_neb(frst, data.site_pattern, post,
                                       res.class_omegas.reshape(-1),
                                       data.fpatt)
+                    if rate_ancestor and itree == 0:
+                        a0 = time.perf_counter()
+                        run["ancestral"] = _write_ancestral_rst(
+                            frst, data, topo, sp, neg, xt)
+                        run["ancestral_seconds"] = time.perf_counter() - a0
                     if sp.model == 2 and ns_model == 2 and itree == 0:
                         # branch-site model A BEB (reference:
                         # lfunNSsites_ACD, src/codeml.c:6827)
@@ -179,15 +191,7 @@ def run_codeml(ctl_path: str, device: str) -> dict:
             if site_lnf_trees:
                 write_lnf("lnf", data.ls, data.fpatt, site_lnf_trees)
             if len(site_lnf_trees) > 1:
-                from .apps.bootstrap import tree_comparison
-                stats = tree_comparison(np.stack(site_lnf_trees), data.fpatt)
-                out.write("\nTree comparison (RELL / KH / SH)\n")
-                out.write("tree    lnL-diff     pRELL      pKH      pSH\n")
-                for i in range(len(site_lnf_trees)):
-                    out.write(f"{i + 1:4d} {stats['D'][i]:11.4f} "
-                              f"{stats['pRELL'][i]:9.4f} "
-                              f"{stats['pKH'][i]:8.4f}"
-                              f" {stats['pSH'][i]:8.4f}\n")
+                _write_tree_comparison(out, site_lnf_trees, data.fpatt)
         print(f"results written to {outfile}")
     finally:
         set_rub(None)
@@ -237,6 +241,239 @@ def _run_ndata(spec, seqfile, treefile, outfile, extras, device, runs):
                    append=bool(i))
         print(f"lnL = {res.lnL:.6f}")
     print(f"results written to {outfile}")
+
+
+def _write_ancestral_rst(frst, data, topo, sp, neg, xt):
+    """The marginal ancestral reconstruction of codons into rst
+    (reference: AncestralMarginal, src/treesub.c:6288); returns (best,
+    prob)."""
+    import torch
+
+    from .apps.ancestral import marginal_reconstruction
+    from .constants import codon_string
+    from .io.outputs import write_rst_ancestral
+    from .models.codon import codon_graph
+
+    with torch.no_grad():
+        P, piC, freqs = neg.model_at(xt)
+    best, prob, _ = marginal_reconstruction(P, neg.tips, topo, piC, freqs,
+                                            neg.fpatt)
+    codons = [codon_string(int(c)) for c in codon_graph(sp.icode).sense]
+    write_rst_ancestral(frst, data.names,
+                        [i + 1 for i in range(topo.ns, topo.nnode)],
+                        [[codons[s] for s in row] for row in best], prob,
+                        data.site_pattern)
+    return best, prob
+
+
+def _check_baseml(extras) -> None:
+    """Raise NotImplementedError for a baseml control file this package
+    does not cover yet, naming the ROADMAP item that will."""
+    if extras["clock"] in (5, 6):
+        raise NotImplementedError(
+            f"paml_tpu_torch baseml does not cover clock = {extras['clock']} "
+            "(dating heterogeneous multi-locus data): ROADMAP A12")
+    if extras.get("runmode", 0) in (2, 3, 4, 5):
+        raise NotImplementedError(
+            f"paml_tpu_torch baseml does not cover runmode = "
+            f"{extras['runmode']} (tree search): ROADMAP A14")
+
+
+def run_baseml(ctl_path: str, device: str) -> dict:
+    """Run a baseml control file on `device`, writing the reference's
+    output files into the working directory.  Returns a summary: per tree
+    the fit's result, seconds of the fit, the Hessian and the ancestral
+    reconstruction, and the reconstruction itself."""
+    import numpy as np
+    import torch
+
+    from .apps import baseml, codeml
+    from .apps.ancestral import marginal_reconstruction
+    from .core.topology import from_treenode
+    from .io import ctl as ctlmod
+    from .io import seqio, treeio
+    from .io.outputs import (write_lnf, write_rates, write_rst1,
+                             write_rst_ancestral)
+
+    opts = ctlmod.read_ctl(ctl_path)
+    spec, seqfile, treefile, outfile, extras = ctlmod.baseml_spec(opts,
+                                                                  ctl_path)
+    _check_baseml(extras)
+    aln = seqio.read_alignment(seqfile, seqio.BASE_SEQ)
+    data = seqio.pack(aln, cleandata=spec.cleandata)
+    trees = treeio.read_trees(treefile, data.names)
+    rate_ancestor = extras.get("RateAncestor", 0)
+    site_lnf_trees = []
+    runs = []
+    open("rst1", "w").close()
+    with open("rst", "w") as frst, open(outfile, "w") as out:
+        frst.write(f"Supplemental results for BASEML (paml_tpu_torch): "
+                   f"{seqfile}\n")
+        out.write(f"BASEML (paml_tpu_torch) {seqfile}  model {spec.model}\n")
+        out.write(f"ns = {data.ns}  ls = {data.ls}  npatt = {data.npatt}\n")
+        for itree, tree in enumerate(trees):
+            topo = from_treenode(tree, data.names)
+            t0, h0 = time.perf_counter(), codeml.SECONDS["hessian"]
+            # one objective for the fit and every side output
+            objective = None if spec.nhomo else baseml.make_objective(
+                data, topo, spec, device=device)
+            res = baseml.fit_packed(data, topo, spec, device=device,
+                                    objective=objective)
+            hess = codeml.SECONDS["hessian"] - h0
+            run = dict(tree=itree, res=res, spec=spec, hessian_seconds=hess,
+                       fit_seconds=time.perf_counter() - t0 - hess)
+            runs.append(run)
+            bl = dict(zip(res.branch_nodes.tolist(), res.blens.tolist()))
+            out.write(f"\nTREE # {itree + 1}\n")
+            out.write(f"lnL(ntime: {len(res.blens)}  np: {res.np}): "
+                      f"{res.lnL:.6f}\n")
+            out.write(_write_tree_with_blens(res.topo, bl) + "\n")
+            if res.rate_params.size:
+                out.write("rate parameters: " + " ".join(
+                    f"{v:.6f}" for v in np.ravel(res.rate_params)) + "\n")
+            if res.alpha is not None and not spec.nparK:
+                out.write("alpha = "
+                          + " ".join(f"{a:.5f}" for a in res.alpha) + "\n")
+            if not spec.fix_rho:
+                # AdG autocorrelation (reference: rho output,
+                # src/baseml.c:806)
+                out.write(f"rho (auto-discrete-gamma) = "
+                          f"{float(res.x[-1]):.5f}\n")
+            if spec.nparK:
+                K = spec.ncatG
+                n_extra = {1: 0, 2: K - 1, 3: (K - 1) * (K - 1),
+                           4: K * (K - 1)}[spec.nparK]
+                rk = res.x[len(res.x) - (K - 1) - n_extra:][:K - 1]
+                out.write(f"nparK = {spec.nparK} free rates 1..K-1 "
+                          f"(K = {K}; mean rate constrained to 1): "
+                          + " ".join(f"{v:.5f}" for v in rk) + "\n")
+            if res.rgene.size > 1:
+                out.write("rgene: "
+                          + " ".join(f"{v:.5f}" for v in res.rgene) + "\n")
+            if res.SEs is not None:
+                out.write("SEs: " + " ".join(f"{v:.6f}" for v in res.SEs)
+                          + "\n")
+            write_rst1("rst1", [res.lnL] + [float(v) for v in res.x],
+                       append=True)
+            if spec.nhomo:
+                # the frequency sets of a nonhomogeneous fit (reference:
+                # DetailOutput nhomo block, src/baseml.c:786)
+                out.write("base frequency parameter sets (TCAG):\n")
+                for k, p4 in enumerate(np.atleast_2d(res.pi)):
+                    out.write(f"  set {k + 1}: "
+                              + " ".join(f"{v:.5f}" for v in p4) + "\n")
+                print(f"tree {itree + 1}: lnL = {res.lnL:.6f}")
+                continue
+            neg = objective[0]
+            xt = torch.as_tensor(res.x, device=device)
+            with torch.no_grad():
+                if hasattr(neg, "site_loglik"):
+                    site_lnf_trees.append(neg.site_loglik(xt).cpu().numpy())
+                if (rate_ancestor and hasattr(neg, "class_posterior")
+                        and itree == 0):
+                    a0 = time.perf_counter()
+                    post, r, w = neg.class_posterior(xt)
+                    if r.shape[0] > 1:
+                        write_rates("rates", 0, r.cpu().numpy(),
+                                    w.cpu().numpy(), data.site_pattern,
+                                    post.cpu().numpy(), data.fpatt)
+                    P, piC, w2, _ = neg.model_at(xt)
+                    best, prob, _ = marginal_reconstruction(
+                        P, neg.tips, topo, piC, w2, neg.fpatt)
+                    write_rst_ancestral(
+                        frst, data.names,
+                        [i + 1 for i in range(topo.ns, topo.nnode)],
+                        [["TCAG"[s] for s in row] for row in best], prob,
+                        data.site_pattern)
+                    run["ancestral"] = best, prob
+                    run["ancestral_seconds"] = time.perf_counter() - a0
+            print(f"tree {itree + 1}: lnL = {res.lnL:.6f}")
+        if site_lnf_trees:
+            write_lnf("lnf", data.ls, data.fpatt, site_lnf_trees)
+        if len(site_lnf_trees) > 1:
+            _write_tree_comparison(out, site_lnf_trees, data.fpatt)
+    print(f"results written to {outfile}")
+    return {"runs": runs, "data": data}
+
+
+def run_basemlg(ctl_path: str, device: str) -> dict:
+    """basemlg: ML under continuous-gamma rates (reference:
+    src/basemlg.c:82; the ctl format of baseml).  Returns the summary of
+    `run_baseml`, with basemlg's rate-variance decomposition."""
+    import dataclasses
+
+    from .apps import baseml
+    from .core.topology import from_treenode
+    from .io import ctl as ctlmod
+    from .io import seqio, treeio
+
+    opts = ctlmod.read_ctl(ctl_path)
+    spec, seqfile, treefile, outfile, extras = ctlmod.baseml_spec(opts,
+                                                                  ctl_path)
+    # continuous gamma always estimates alpha unless fixed at a positive
+    # value (reference: basemlg's com.alpha handling, src/basemlg.c:141)
+    spec = dataclasses.replace(
+        spec, continuous_gamma=True,
+        fix_alpha=bool(spec.fix_alpha) and spec.alpha > 0)
+    aln = seqio.read_alignment(seqfile, seqio.BASE_SEQ)
+    data = seqio.pack(aln, cleandata=spec.cleandata)
+    if data.ns > 10:
+        print(f"warning: basemlg is meant for small trees "
+              f"(ns = {data.ns} > 10; reference limit src/basemlg.c:14)")
+    trees = treeio.read_trees(treefile, data.names)
+    runs = []
+    with open(outfile, "w") as out:
+        out.write(f"BASEMLG (paml_tpu_torch) {seqfile}  model {spec.model} "
+                  f"(continuous gamma)\n")
+        for itree, tree in enumerate(trees):
+            topo = from_treenode(tree, data.names)
+            t0 = time.perf_counter()
+            res = baseml.fit_packed(data, topo, spec, device=device)
+            run = dict(tree=itree, res=res, spec=spec,
+                       fit_seconds=time.perf_counter() - t0)
+            runs.append(run)
+            bl = dict(zip(res.branch_nodes.tolist(), res.blens.tolist()))
+            out.write(f"\nTREE # {itree + 1}\n")
+            out.write(f"lnL(ntime: {len(res.blens)}  np: {res.np}): "
+                      f"{res.lnL:.6f}\n")
+            out.write(_write_tree_with_blens(res.topo, bl) + "\n")
+            if res.rate_params.size:
+                out.write("rate parameters: "
+                          + " ".join(f"{v:.6f}" for v in res.rate_params)
+                          + "\n")
+            if res.alpha is not None:
+                out.write(f"alpha (continuous gamma) = "
+                          f"{float(res.alpha[0]):.6f}\n")
+            if extras.get("RateAncestor") and itree == 0:
+                run["rho_rate"] = rr = baseml.rho_rate(data, topo, spec,
+                                                       res.x, device=device)
+                out.write(f"rate-variance decomposition: Vr {rr['Vr']:.6f}"
+                          f"  PEV {rr['PEV']:.6f}  RHO {rr['RHO']:.6f}\n")
+                with open("rates", "w") as fr:
+                    fr.write("site  rate (posterior mean, continuous "
+                             "gamma)\n")
+                    rh = rr["rates"]
+                    for s, h in enumerate(data.site_pattern):
+                        fr.write(f"{s + 1:6d}  {rh[h]:9.5f}\n")
+            print(f"tree {itree + 1}: lnL = {res.lnL:.6f}")
+    print(f"results written to {outfile}")
+    return {"runs": runs, "data": data}
+
+
+def _write_tree_comparison(out, site_lnf_trees, fpatt) -> None:
+    """The RELL / KH / SH table over the trees (reference:
+    src/codeml.c:623-689 + rell, src/treesub.c:5844)."""
+    import numpy as np
+
+    from .apps.bootstrap import tree_comparison
+
+    stats = tree_comparison(np.stack(site_lnf_trees), fpatt)
+    out.write("\nTree comparison (RELL / KH / SH)\n")
+    out.write("tree    lnL-diff     pRELL      pKH      pSH\n")
+    for i in range(len(site_lnf_trees)):
+        out.write(f"{i + 1:4d} {stats['D'][i]:11.4f} "
+                  f"{stats['pRELL'][i]:9.4f} {stats['pKH'][i]:8.4f}"
+                  f" {stats['pSH'][i]:8.4f}\n")
 
 
 def _write_beb_A(out, frst, data, acd) -> None:
@@ -317,7 +554,7 @@ def _write_branch_dnds(out, data, sp, res, device) -> None:
 
 def main(argv: list[str] | None = None):
     """Run a program of the package; returns what the program returns
-    (`run_codeml`'s summary)."""
+    (its summary)."""
     argv = list(argv if argv is not None else sys.argv[1:])
     device = "cuda"
     if "--device" in argv:
@@ -331,17 +568,21 @@ def main(argv: list[str] | None = None):
         print(__doc__)
         return None
     prog, *rest = argv
-    if prog != "codeml":
-        print(f"unknown program {prog!r}: paml_tpu_torch runs codeml so far "
-              f"(the other programs: ROADMAP A8-A13)\n{__doc__}",
-              file=sys.stderr)
+    programs = {"codeml": (run_codeml, "codeml.ctl"),
+                "baseml": (run_baseml, "baseml.ctl"),
+                "basemlg": (run_basemlg, "baseml.ctl")}
+    if prog not in programs:
+        print(f"unknown program {prog!r}: paml_tpu_torch runs codeml, "
+              f"baseml and basemlg so far (the other programs: ROADMAP "
+              f"A9-A14)\n{__doc__}", file=sys.stderr)
         sys.exit(2)
     import torch
     if device == "cuda" and not torch.cuda.is_available():
         print("paml_tpu_torch: no CUDA device; it runs on the card unless "
               "--device cpu asks for the CPU", file=sys.stderr)
         sys.exit(2)
-    return run_codeml(rest[0] if rest else "codeml.ctl", device)
+    run, default_ctl = programs[prog]
+    return run(rest[0] if rest else default_ctl, device)
 
 
 if __name__ == "__main__":

@@ -756,7 +756,8 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
 # (nnode x classes x states x patterns) are held some twenty times over by
 # the graph of the gradient, and once more per Hessian row of a block, so a
 # chunk's partials times (20 + rows of a block) stay within this many bytes
-HESSIAN_BYTES = {"cpu": 1 << 31, "cuda": 1 << 34}
+# (on the card 32 GiB of an H100's 80: fewer chunks, each pass longer)
+HESSIAN_BYTES = {"cpu": 1 << 31, "cuda": 1 << 35}
 HESSIAN_ROWS = 16       # Hessian rows per backward pass
 
 
@@ -764,15 +765,19 @@ def hessian(neg_lnl, x, *, device) -> np.ndarray:
     """The Hessian of -lnL at x [np, np] by double backward through
     `neg_lnl.twice`: the gradient with its graph, then the rows in blocks
     of HESSIAN_ROWS, each block one batched backward pass; summed over
-    pattern chunks sized to HESSIAN_BYTES."""
+    pattern chunks sized to HESSIAN_BYTES by the objective's states
+    (`n_states`, 64 by default), unless its `pattern_chunks` is false (a
+    rate HMM over the sites takes them all at once)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     xt = torch.tensor(np.asarray(x, dtype=np.float64), device=device,
                       requires_grad=True)
     H, n_par = neg_lnl.fpatt.shape[0], len(x)
     per_pattern = (neg_lnl.topo.nnode * neg_lnl.n_classes(xt.detach())
-                   * 64 * 8 * (20 + HESSIAN_ROWS))
-    step = max(64, HESSIAN_BYTES[device.type] // per_pattern)
+                   * getattr(neg_lnl, "n_states", 64) * 8
+                   * (20 + HESSIAN_ROWS))
+    step = (max(64, HESSIAN_BYTES[device.type] // per_pattern)
+            if getattr(neg_lnl, "pattern_chunks", True) else H)
     eye = torch.eye(n_par, dtype=torch.float64, device=device)
     hess = torch.zeros_like(eye)
     for h0 in range(0, H, step):

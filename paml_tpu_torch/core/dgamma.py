@@ -5,8 +5,8 @@ src/tools.c:2600, `DiscreteBeta`, :2563): the regularized incomplete beta
 function by its continued fraction (modified Lentz, 200 terms; reference:
 CDFBeta, src/tools.c:3065 region), the regularized incomplete gamma
 function by its series and continued fraction, their inverses, and the
-equal-probability discretizations built on them.  `gauss_laguerre` waits
-for basemlg (ROADMAP A8).
+equal-probability discretizations built on them; `gauss_laguerre` and
+`gamma_expectation_gl` for basemlg's continuous gamma.
 
 This is arithmetic on K <= 11 numbers, so it runs on the host in float64
 whatever device its arguments lie on: the arguments are copied to the
@@ -542,3 +542,24 @@ def discrete_beta(p, q, K: int, use_median: bool = True):
     F = betainc(p + 1.0, q, cuts)
     Fpad = torch.cat([F.new_zeros(1), F, F.new_ones(1)])
     return (Fpad[1:] - Fpad[:-1]) * mean * K, freqs
+
+
+def gauss_laguerre(n: int):
+    """Gauss-Laguerre nodes and weights for integrals of exp(-x) f(x) on
+    [0, inf) (reference: GaussLaguerreRule, src/tools.c:4387, tables up to
+    order 1024; here numpy's Golub-Welsch rule).  Returns (x [n], w [n])."""
+    return np.polynomial.laguerre.laggauss(n)
+
+
+def gamma_expectation_gl(f, alpha: float, beta: float | None = None,
+                         n: int = 32) -> float:
+    """E[f(r)] for r ~ Gamma(alpha, beta) by Gauss-Laguerre after the
+    substitution x = beta r, weighted by the Gamma(alpha) density (the
+    reference's continuous-gamma tail handling in basemlg)."""
+    from scipy.special import gammaln
+
+    beta = alpha if beta is None else beta
+    x, w = gauss_laguerre(n)
+    vals = np.array([f(xi / beta) for xi in x])
+    return float((w * vals * np.exp((alpha - 1) * np.log(x)
+                                    - gammaln(alpha))).sum())

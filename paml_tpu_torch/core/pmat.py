@@ -19,6 +19,11 @@ raises.  Hessians
 `torch.linalg.matrix_exp`, whose derivative is itself built from
 differentiable operations.
 
+The nucleotide models add the closed-form TN93 family (`pmat_tn93`, from
+`paml_tpu/core/pmat.py:321-400`), `pmat_rev` for one reversible Q (REV,
+REVu) and `pmat_expm` for the non-reversible UNREST and UNRESTu, all
+differentiable twice but `pmat_rev` on the fit's route.
+
 The float32 uniformization path of the JAX package is not ported yet
 (ROADMAP A1): a float32 call raises.
 """
@@ -165,3 +170,99 @@ def pmat_rev_multi_twice(Qs: torch.Tensor, pi: torch.Tensor,
     del pi
     return torch.clamp_min(
         torch.linalg.matrix_exp(Qs * ts[..., None, None]), 0.0)
+
+
+def pmat_rev(Q: torch.Tensor, pi: torch.Tensor, t: torch.Tensor,
+             twice: bool = False) -> torch.Tensor:
+    """P(t) for one reversible rate matrix: Q [n, n] reversible w.r.t. pi
+    [n], t of any shape -> [..., n, n] (float64; `pmat_rev_multi` at G = 1,
+    or with `twice` its route that is differentiable twice)."""
+    fn = pmat_rev_multi_twice if twice else pmat_rev_multi
+    return fn(Q[None], pi[None], t[..., None])[..., 0, :, :]
+
+
+# ---------------------------------------------------------------------------
+# closed-form TN93 family (JC69, K80, F81, F84, HKY85, T92, TN93)
+# ---------------------------------------------------------------------------
+# Plain tensor expressions: autograd differentiates them any number of
+# times.  pi may carry leading batch dimensions (one set per branch under
+# nhomo) that broadcast against t's.
+
+
+def tn93_rates(pi, a1, a2, b):
+    """Normalize (alpha1, alpha2, beta) so that the mean rate is 1."""
+    pT, pC, pA, pG = pi[..., 0], pi[..., 1], pi[..., 2], pi[..., 3]
+    pY, pR = pT + pC, pA + pG
+    mr = 2.0 * (pT * pC * a1 + pA * pG * a2 + pY * pR * b)
+    return a1 / mr, a2 / mr, b / mr
+
+
+def pmat_tn93(pi, a1, a2, b, t: torch.Tensor,
+              normalize: bool = True) -> torch.Tensor:
+    """Closed-form TN93 transition matrix, batched over t: [..., 4, 4],
+    states in T, C, A, G order; alpha1 the T<->C rate, alpha2 the A<->G
+    rate, beta the transversion rate, before the normalization
+    (reference: src/tools.c:566-666)."""
+    pT, pC, pA, pG = pi[..., 0], pi[..., 1], pi[..., 2], pi[..., 3]
+    pY, pR = pT + pC, pA + pG
+    if normalize:
+        a1, a2, b = tn93_rates(pi, a1, a2, b)
+    e2 = torch.exp(-b * t)
+    e3 = torch.exp(-(pY * a1 + pR * b) * t)
+    e4 = torch.exp(-(pR * a2 + pY * b) * t)
+    one = torch.ones_like(e2)
+    TT = pT * one + pT * pR / pY * e2 + pC / pY * e3
+    TC = pC * one + pC * pR / pY * e2 - pC / pY * e3
+    TA = pA * (one - e2)
+    TG = pG * (one - e2)
+    CT = pT * one + pT * pR / pY * e2 - pT / pY * e3
+    CC = pC * one + pC * pR / pY * e2 + pT / pY * e3
+    AA = pA * one + pA * pY / pR * e2 + pG / pR * e4
+    AG = pG * one + pG * pY / pR * e2 - pG / pR * e4
+    AT = pT * (one - e2)
+    AC = pC * (one - e2)
+    GA = pA * one + pA * pY / pR * e2 - pA / pR * e4
+    GG = pG * one + pG * pY / pR * e2 + pA / pR * e4
+    return torch.stack([
+        torch.stack([TT, TC, TA, TG], dim=-1),
+        torch.stack([CT, CC, TA, TG], dim=-1),
+        torch.stack([AT, AC, AA, AG], dim=-1),
+        torch.stack([AT, AC, GA, GG], dim=-1),
+    ], dim=-2)
+
+
+def tn93_alphas(model: str, pi, kappa):
+    """A named model and the reference's kappa convention as TN93's
+    (alpha1, alpha2, beta) with beta = 1 before the normalization
+    (reference: src/tools.c:566-666 and baseml SetParameters): JC69 and
+    F81 equal rates; K80, HKY85 and T92 kappa = alpha / beta; F84 alpha1 =
+    1 + kappa / piY, alpha2 = 1 + kappa / piR; TN93 kappa = (kappa1,
+    kappa2), a single kappa standing for both (the JAX package's clamped
+    index reads kappa[0] twice).  kappa is a tensor whose last axis holds
+    the rates."""
+    pY = pi[..., 0] + pi[..., 1]
+    pR = pi[..., 2] + pi[..., 3]
+    one = torch.ones_like(pY)
+    if model in ("JC69", "F81"):
+        return one, one, one
+    if model in ("K80", "HKY85", "T92"):
+        return kappa[..., 0], kappa[..., 0], one
+    if model == "F84":
+        k = kappa[..., 0]
+        return 1.0 + k / pY, 1.0 + k / pR, one
+    if model == "TN93":
+        return kappa[..., 0], kappa[..., min(1, kappa.shape[-1] - 1)], one
+    raise ValueError(f"not a TN93-family model: {model}")
+
+
+# ---------------------------------------------------------------------------
+# non-reversible Q (UNREST, UNRESTu)
+# ---------------------------------------------------------------------------
+
+
+def pmat_expm(Q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """P(t) = expm(Q t) for a general (non-reversible) Q [n, n], batched
+    over t of any shape -> [..., n, n] (reference: QUNREST + matexp,
+    src/treesub.c:2543, src/tools.c:4879).  One `torch.linalg.matrix_exp`
+    over the whole batch, differentiable any number of times."""
+    return torch.linalg.matrix_exp(Q * t[..., None, None])

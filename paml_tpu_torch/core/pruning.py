@@ -9,11 +9,13 @@ by a per-(class, pattern) max-rescale accumulated in log space.  The
 gradient is the analytic inside/outside adjoint (`_lnf_lvl_bwd`), the
 backward of a `torch.autograd.Function`.
 
-`class_site_lnf` is the entry point.  A CUDA tensor goes to the hand
-written kernels in `cuda_pruning` (launched, or an error raised): the
-large-tree pair B3/B4 for state-code tips, the fused pair B1/B2 for tips
-with any ambiguity (`cuda_pruning.use_big_kernels`); a CPU tensor goes to
-the plain version here.  The plain versions run on any device, so the
+`class_site_lnf` is the entry point.  A CUDA tensor of nucleotides (n <
+16 states) takes the level path on the card, counted in `LEVEL_CALLS`,
+as the JAX package keeps such data off its kernels; any other CUDA tensor
+goes to the hand written kernels in `cuda_pruning` (launched, or an error
+raised): the large-tree pair B3/B4 for state-code tips, the fused pair
+B1/B2 for tips with any ambiguity (`cuda_pruning.use_big_kernels`); a CPU
+tensor goes to the plain version here.  The plain versions run on any device, so the
 kernels can be held against them on the card: `class_site_lnf_plain` and
 `class_site_lnf_bwd_plain` (the level path), `class_site_lnf_big_plain`
 and `class_site_lnf_big_bwd_plain` (the kernels' inputs and outputs,
@@ -51,6 +53,11 @@ _BIG = 1e30            # nan_to_num bound on dP and dpi
 
 PLAIN_CALLS = {"cuda": 0}
 TWICE_CALLS = {"cuda": 0}     # the Hessian route's calls, counted apart
+LEVEL_CALLS = {"cuda": 0}     # the 4-state route's calls on the card
+
+# below this many states a CUDA tensor takes the level path on the card
+# (`class_site_lnf_levels`), as the JAX package's dispatch does
+LEVEL_MAX_STATES = 16
 
 # ---------------------------------------------------------------------------
 # static schedules
@@ -127,8 +134,10 @@ def _forward_levels(P, tipsT, topo: Topology, stored=None):
     residual rows of the large-tree adjoint); the scale factors are still
     recomputed from the children."""
     stored = stored or {}
-    ctip = _tip_contribs(P, tipsT, topo)
-    c = {t: ctip[t] for t in range(topo.ns)}
+    # `unbind` rather than one index per node: under autograd (the Hessian
+    # route) an index's backward writes a zero tensor of the whole stack,
+    # so a level of W nodes (or the ns tips) would move W times its size
+    c = dict(enumerate(_tip_contribs(P, tipsT, topo).unbind(0)))
     s: dict[int, torch.Tensor] = {}
     m: dict[int, torch.Tensor] = {}
     for level in _levels(topo):
@@ -137,13 +146,14 @@ def _forward_levels(P, tipsT, topo: Topology, stored=None):
             W = len(grp)
             kid_c = torch.stack([c[k] for _, kids in grp for k in kids])
             kid_c = kid_c.reshape((W, K) + kid_c.shape[1:])   # [W,K,C,n,H]
-            prod = kid_c[:, 0]
+            kid_c = kid_c.unbind(1)
+            prod = kid_c[0]
             for k in range(1, K):
-                prod = prod * kid_c[:, k]                     # [W,C,n,H]
+                prod = prod * kid_c[k]                        # [W,C,n,H]
             # the scale cancels in lnf: a constant to autograd
             mm = prod.detach().amax(dim=-2)                   # [W,C,H]
             msafe = torch.where(mm > 0, mm, torch.ones_like(mm))
-            sv = prod / msafe[..., None, :]
+            sv = (prod / msafe[..., None, :]).unbind(0)
             for w, (node, _) in enumerate(grp):
                 s[node] = stored[node] if node in stored else sv[w]
                 m[node] = msafe[w]
@@ -153,7 +163,7 @@ def _forward_levels(P, tipsT, topo: Topology, stored=None):
         if emit_nodes:
             S = torch.stack(emit_vals)                        # [W,C,n,H]
             Pn = P[torch.as_tensor(emit_nodes, device=P.device)]
-            cv = torch.einsum("wcih,wcji->wcjh", S, Pn)
+            cv = torch.einsum("wcih,wcji->wcjh", S, Pn).unbind(0)
             for w, node in enumerate(emit_nodes):
                 c[node] = cv[w]
     return s, m, c
@@ -243,6 +253,19 @@ class _ClassSiteLnfLvl(torch.autograd.Function):
         return dP, None, None, dpi
 
 
+def class_site_lnf_levels(P, tips, topo: Topology, pi):
+    """The 4-state route: the level path and its analytic adjoint as
+    tensor operations, on whatever device P lies, each call on the card
+    counted in `LEVEL_CALLS` (apart from `PLAIN_CALLS`).  The JAX package
+    keeps the same work off its kernels: `maybe_pallas_lnf` returns None
+    below 16 states (paml_tpu/core/pallas_pruning.py:687, "einsum path is
+    already fine"), while the port's kernels pad every state count to N =
+    64 (`cuda_pruning.N`): 256 times the products that 4 states need."""
+    if P.is_cuda:
+        LEVEL_CALLS["cuda"] += 1
+    return _ClassSiteLnfLvl.apply(P, tips, topo, pi)
+
+
 def _count_plain(P):
     if P.is_cuda:
         PLAIN_CALLS["cuda"] += 1
@@ -313,13 +336,18 @@ def class_site_lnf_big_bwd_plain(P, tips, topo: Topology, pi, gbar, S):
 def class_site_lnf(P, tips, topo: Topology, pi):
     """Per-(class, pattern) log site likelihood [C, H].
 
-    A CUDA tensor runs the hand-written kernels (`cuda_pruning`), which
-    launch or raise; their codes must lie in [0, n + A)
+    A CUDA tensor of fewer than LEVEL_MAX_STATES states (nucleotides) runs
+    the level path as tensor operations on the card
+    (`class_site_lnf_levels`).  Any other CUDA tensor runs the hand-written
+    kernels (`cuda_pruning`), which launch or raise; their codes must lie
+    in [0, n + A)
     (`cuda_pruning.check_tips`, which the codeml objective runs once).
     Dense partials are coded first (`cuda_pruning.kernel_tips`).  A CPU
     tensor runs the plain version.  Gradients w.r.t. P and pi through the
     analytic adjoint; tips are data."""
     if P.device.type == "cuda":
+        if P.shape[-1] < LEVEL_MAX_STATES:
+            return class_site_lnf_levels(P, tips, topo, pi)
         tips = cuda_pruning.kernel_tips(tips)
         if cuda_pruning.use_big_kernels(not isinstance(tips, TipCodes)):
             return cuda_pruning.ClassSiteLnfKernel.apply(P, tips, None, topo,

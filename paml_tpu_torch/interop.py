@@ -36,6 +36,13 @@ def packed_from(data) -> PackedData:
                          for f in dataclasses.fields(PackedData)})
 
 
+def baseml_spec_from(spec):
+    """The port's BasemlSpec from a `paml_tpu.apps.baseml.BasemlSpec`."""
+    from .apps.baseml import BasemlSpec
+    return BasemlSpec(**{f.name: _copy(getattr(spec, f.name))
+                         for f in dataclasses.fields(BasemlSpec)})
+
+
 def params_from(x, *, device) -> torch.Tensor:
     """A parameter vector x (JAX layout) as a float64 tensor on device."""
     return torch.tensor(np.asarray(x, dtype=np.float64), device=device)

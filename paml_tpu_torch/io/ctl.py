@@ -3,9 +3,9 @@ format (reference: GetOptions in each program, e.g. src/codeml.c:1694;
 `*` and `#` start comments; some values are structured, e.g.
 'ndata 3 maintree 1').
 
-Port of the codeml part of `paml_tpu/io/ctl.py` (pure Python):
-`baseml_spec`, `yn00_opts` and `parse_step_matrix` wait for their programs
-(ROADMAP A8, A11).
+Port of the codeml and baseml parts of `paml_tpu/io/ctl.py` (pure
+Python): `codeml_spec`, `baseml_spec` and `parse_step_matrix`; `yn00_opts`
+waits for its program (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -44,6 +44,13 @@ CODEML_OPTS = (
     "fix_kappa", "kappa", "fix_omega", "omega", "fix_alpha", "alpha",
     "Malpha", "ncatG", "fix_rho", "rho", "bootstrap", "Small_Diff",
     "fix_blength")        # src/codeml.c:1698-1704
+BASEML_OPTS = (
+    "seqfile", "outfile", "treefile", "noisy", "ndata", "cleandata",
+    "verbose", "runmode", "method", "clock", "TipDate", "fix_rgene",
+    "Mgene", "nhomo", "getSE", "RateAncestor", "model", "fix_kappa",
+    "kappa", "fix_alpha", "alpha", "Malpha", "ncatG", "fix_rho", "rho",
+    "nparK", "bootstrap", "Small_Diff", "icode", "fix_blength",
+    "seqtype")            # src/baseml.c:958-962
 # keys that only control console verbosity / numeric epsilon; accepted
 # and ignored in every program
 _COSMETIC = ("noisy", "verbose", "Small_Diff")
@@ -152,6 +159,110 @@ def resolve_path(base_ctl: str, p: str) -> str:
 
 CODON_FREQ_BY_INDEX = ["Fequal", "F1x4", "F3x4", "Fcodon",
                        "F1x4MG", "F3x4MG", "FMutSel0", "FMutSel"]
+NUC_MODEL_BY_INDEX = ["JC69", "K80", "F81", "F84", "HKY85", "T92", "TN93",
+                      "REV", "UNREST", "REVu", "UNRESTu"]
+
+
+def parse_step_matrix(val: str, symmetric: bool):
+    """The REVu / UNRESTu constraints after the model number: 'model = 9
+    [2 (TA TC TG CA CG) (AG)]' -> (step [4, 4] with the 1-based rate index
+    of each cell, 0 for the reference rate; nrate = 2) (reference:
+    GetStepMatrix, src/baseml.c:912; base order TCAG).  REVu assigns the
+    pairs symmetrically, UNRESTu by direction."""
+    import numpy as np
+
+    m = re.search(r"\[\s*(\d+)(.*)", val, re.S)
+    if not m:
+        raise ValueError("REVu/UNRESTu model needs '[nrate (pairs)...]' "
+                         "after the model number")
+    nrate = int(m.group(1))
+    groups = re.findall(r"\(([^)]*)\)", m.group(2))
+    if len(groups) != nrate:
+        raise ValueError(f"expected {nrate} '(...)' rate groups, "
+                         f"got {len(groups)}")
+    code = {"T": 0, "C": 1, "A": 2, "G": 3, "U": 0}
+    step = np.zeros((4, 4), dtype=np.int64)
+    for i, grp in enumerate(groups):
+        chars = [c for c in grp.upper() if c in code]
+        if len(chars) % 2:
+            raise ValueError(f"odd base count in rate group {i + 1}")
+        for k in range(0, len(chars), 2):
+            b1, b2 = code[chars[k]], code[chars[k + 1]]
+            if b1 == b2:
+                raise ValueError("diagonal pair in StepMatrix spec")
+            step[b1, b2] = i + 1
+            if symmetric:
+                step[b2, b1] = i + 1
+    return step, nrate
+
+
+def baseml_spec(opts: dict, ctl_path: str):
+    """(BasemlSpec, seqfile, treefile, outfile, extras) from a baseml
+    control file."""
+    from ..apps.baseml import BasemlSpec
+
+    g = OptReader(opts, "baseml", BASEML_OPTS)
+    model_raw = str(g("model", "0"))
+    model_i = int(_first_num(model_raw))
+    spec = BasemlSpec(
+        model=NUC_MODEL_BY_INDEX[model_i],
+        ncatG=int(_first_num(g("ncatG", "5"))),
+        fix_alpha=bool(int(_first_num(g("fix_alpha", "1")))),
+        alpha=float(_first_num(g("alpha", "0"))),
+        # fix_kappa is an int: 2 selects label-defined branch kappa sets
+        # under nhomo (reference: GetOptions, src/baseml.c:1046-1053)
+        fix_kappa=int(_first_num(g("fix_kappa", "0"))),
+        kappa=float(_first_num(g("kappa", "5"))),
+        Mgene=int(_first_num(g("Mgene", "0"))),
+        Malpha=bool(int(_first_num(g("Malpha", "0")))),
+        cleandata=bool(int(_first_num(g("cleandata", "0")))),
+        getSE=bool(int(_first_num(g("getSE", "0")))),
+        clock=int(_first_num(g("clock", "0"))),
+        nhomo=int(_first_num(g("nhomo", "0"))),
+        nparK=int(_first_num(g("nparK", "0"))),
+        fix_rho=bool(int(_first_num(g("fix_rho", "1")))),
+        rho=float(_first_num(g("rho", "0"))),
+    )
+    if spec.model in ("REVu", "UNRESTu"):
+        step, nrate = parse_step_matrix(model_raw,
+                                        symmetric=spec.model == "REVu")
+        spec.step_matrix = step
+        spec.n_user_rates = nrate
+    td = str(g("TipDate", "0")).split()
+    if td and int(float(td[0])):
+        spec.tipdate = True
+        spec.tipdate_timeunit = float(td[1]) if len(td) > 1 else None
+    if spec.nparK >= 1:
+        # the reference coerces the rate-class HMM to fix alpha and rho
+        # (src/baseml.c:1077): the nparK likelihood never uses them
+        spec.fix_alpha = True
+        spec.fix_rho = True
+        spec.rho = 0.0
+    if (spec.ncatG > 1 and spec.fix_alpha and spec.alpha == 0
+            and not spec.nparK and spec.fix_rho and spec.rho == 0):
+        # alpha = 0 fixed means no rate variation (reference semantics);
+        # nparK models keep ncatG as the number of free rate classes
+        spec.ncatG = 1
+    extras = {
+        "runmode": int(_first_num(g("runmode", "0"))),
+        "clock": int(_first_num(g("clock", "0"))),
+        "ndata": int(_first_num(g("ndata", "1"))),
+        "RateAncestor": int(_first_num(g("RateAncestor", "0"))),
+        "method": int(_first_num(g("method", "0"))),
+        "nhomo": spec.nhomo,
+    }
+    g("icode")      # display-only (codon translation in rst output)
+    g("seqfile"), g("treefile"), g("outfile")
+    g.require_off("fix_blength", "fixed/proportional branch lengths in "
+                  "baseml", off=(0, 1, -1))
+    g.require_off("seqtype", "non-nucleotide baseml data types (5 RNA "
+                  "editing / 4 binary)", off=(0,))
+    g.require_off("fix_rgene", "fixed user-supplied gene rates")
+    g.require_off("bootstrap", "bootstrap resampling output")
+    g.finish()
+    return (spec, resolve_path(ctl_path, g("seqfile")),
+            resolve_path(ctl_path, g("treefile", "")),
+            g("outfile", "mlb"), extras)
 
 
 def codeml_spec(opts: dict, ctl_path: str):

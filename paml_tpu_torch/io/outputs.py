@@ -1,18 +1,20 @@
 """Reference-compatible side-output files.
 
-Port of the codeml part of `paml_tpu/io/outputs.py` (numpy only).  The
-reference programs write fixed-name auxiliary files next to the main
-report; downstream tooling parses them, so the formats follow the
+Port of the codeml and baseml parts of `paml_tpu/io/outputs.py` (numpy
+only).  The reference programs write fixed-name auxiliary files next to
+the main report; downstream tooling parses them, so the formats follow the
 reference's layout closely:
 
   lnf      per-site log-likelihoods for RELL     (print_lnf_site,
            src/treesub.c:7597-7605; header src/codeml.c:623-689)
-  rst      NEB/BEB site tables (lfunNSsites_rate, src/codeml.c:5241)
+  rst      NEB/BEB site tables (lfunNSsites_rate, src/codeml.c:5241) and
+           the marginal ancestral reconstruction (AncestralMarginal,
+           src/treesub.c:6288)
   rst1     one summary line per dataset (multiruns hook)
+  rates    site rates under a rate mixture (lfunRates, src/treesub.c:7314)
 
-The ancestral reconstruction table waits for `apps/ancestral.py` (ROADMAP
-A10), the rates file and the pairwise matrices wait for baseml and yn00 (ROADMAP
-A8, A11), the FigTree tree for mcmctree (A12).
+The pairwise matrices wait for yn00 (ROADMAP A11), the FigTree tree for
+mcmctree (A12).
 """
 from __future__ import annotations
 
@@ -76,7 +78,39 @@ def read_lnf(path: str):
 
 
 # --------------------------------------------------------------------------
-# rst: NEB/BEB site tables
+# rates (site-rate estimates; reference lfunRates, src/treesub.c:7314)
+# --------------------------------------------------------------------------
+
+def write_rates(path: str, seqtype: int, rK: np.ndarray, freqK: np.ndarray,
+                site_pattern: np.ndarray, post_cls: np.ndarray,
+                fpatt: np.ndarray, tree_text: str = "") -> None:
+    """The conditional-mean rate and the most probable category of each
+    site, from the posterior class probabilities post_cls [K, npatt]
+    (the reference's 'Site Freq Data ln(f) Rates' table, the same
+    quantities)."""
+    rK = np.asarray(rK, float)
+    post = np.asarray(post_cls, float)
+    re_h = (rK[:, None] * post).sum(0)           # conditional mean rate
+    best_h = post.argmax(0)
+    kind = {0: "BASE", 1: "CODON", 2: "AA"}.get(seqtype, "BASE")
+    with open(path, "w") as f:
+        f.write(f"\nEstimated rates for sites from {kind}ML.\n")
+        if tree_text:
+            f.write(tree_text + "\n")
+        K = len(rK)
+        f.write(f"\nFrequencies and rates for categories (K={K})")
+        f.write("\nrate:" + "".join(f" {v:8.5f}" for v in rK))
+        f.write("\nfreq:" + "".join(f" {v:8.5f}" for v in freqK))
+        f.write("\n\nSite Freq  Rate (posterior mean)  Best category\n")
+        for i, h in enumerate(np.asarray(site_pattern)):
+            f.write(f"{i + 1:6d} {float(fpatt[h]):5.0f} {re_h[h]:9.4f} "
+                    f"{int(best_h[h]) + 1:7d}\n")
+        mre = float((re_h * fpatt).sum() / fpatt.sum())
+        f.write(f"\nmean rate = {mre:.5f}\n")
+
+
+# --------------------------------------------------------------------------
+# rst: NEB/BEB site tables and marginal ancestral states
 # --------------------------------------------------------------------------
 
 def write_rst_neb(f, site_pattern, post_cls, omegas, fpatt,
@@ -92,6 +126,22 @@ def write_rst_neb(f, site_pattern, post_cls, omegas, fpatt,
     for i, h in enumerate(np.asarray(site_pattern)):
         probs = "".join(f" {post[k, h]:11.5f}" for k in range(post.shape[0]))
         f.write(f"{i + 1:5d} {probs}   {wmean[h]:9.5f}\n")
+
+
+def write_rst_ancestral(f, names, node_ids, best, prob, site_pattern) -> None:
+    """The marginal reconstruction table (reference: AncestralMarginal,
+    src/treesub.c:6288): the best state and its posterior per internal
+    node and site.  best / prob: [n_internal, npatt], best already as
+    characters; node_ids: the reference's node numbers."""
+    f.write("\nMarginal reconstruction of ancestral sequences\n")
+    f.write("(eqn. 4 in Yang et al. 1995 Genetics 141:1641-1650)\n\n")
+    f.write("site " + " ".join(f"node#{i}" for i in node_ids) + "\n")
+    # each pattern's cells once, then one line per site
+    cells = [" ".join(f"{best[j][h]}({prob[j][h]:.3f})"
+                      for j in range(len(node_ids)))
+             for h in range(len(prob[0]) if len(node_ids) else 0)]
+    f.write("".join(f"{i + 1:5d}  {cells[h]}\n"
+                    for i, h in enumerate(np.asarray(site_pattern))))
 
 
 def write_rst1(path: str, values: list, append: bool = False) -> None:

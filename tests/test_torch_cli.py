@@ -3,7 +3,10 @@
 simulated under site classes (omega 0.1 / 1 / 3), `NSsites = 0 7 8`, each
 program run in a temporary directory of its own.  Compared: the lnL lines
 of `mlc` (1e-6), `rst1`, `lnf`, the BEB site list and its posteriors, the
-NEB posteriors.  Also the device rule and the settings that still raise.
+NEB posteriors (both with `RateAncestor = 1`, which switches the NEB table
+on).  Also codeml's marginal reconstruction of codons (RateAncestor)
+against the JAX program's, the device rule and the settings that still
+raise.
 `tests/test_torch_cli_more.py` holds the standard errors, FASTA input,
 several trees and `ndata`."""
 import os
@@ -125,10 +128,27 @@ def neb_tables(d):
     return tables
 
 
+def reconstruction(d):
+    """The first marginal reconstruction table of rst: (states [sites,
+    nodes], probabilities [sites, nodes])."""
+    text = open(os.path.join(d, "rst")).read()
+    block = text.split("Marginal reconstruction of ancestral sequences")[1]
+    cells = []
+    for line in block.split("node#", 1)[1].splitlines()[1:]:
+        m = re.match(r"^ *\d+  (.*)$", line)
+        if not m:
+            break
+        cells.append(m.group(1))
+    st = [re.findall(r"(\w+)\(", line) for line in cells]
+    pr = [[float(v) for v in re.findall(r"\(([0-9.]+)\)", line)]
+          for line in cells]
+    return np.array(st), np.array(pr)
+
+
 def test_site_models_match_jax_cli(problem, tmp_path, monkeypatch):
     names, rows, nwk, cls = problem
     dj, dt, out = run_both(tmp_path, monkeypatch, names, rows, [nwk],
-                           nssites="0 7 8", jax_kw=dict(rateancestor=1))
+                           nssites="0 7 8", rateancestor=1)
     for name in ("mlc", "rst", "rst1", "lnf", "rub"):
         assert os.path.getsize(os.path.join(dt, name)) > 0, name
     lj, lt = lnl_lines(dj), lnl_lines(dt)
@@ -159,14 +179,33 @@ def test_site_models_match_jax_cli(problem, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(seqtype=2), "A9"), (dict(rateancestor=1), "A10"),
-    (dict(runmode=-2), "A11"), (dict(runmode=3), "A14")])
+    (dict(seqtype=2), "A9"), (dict(runmode=-2), "A11"),
+    (dict(runmode=3), "A14")])
 def test_unported_settings_raise(problem, tmp_path, monkeypatch, kw, item):
     names, rows, nwk, cls = problem
     ctl = write_problem(str(tmp_path), names, rows, [nwk], **kw)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["codeml", ctl, "--device", "cpu"])
+
+
+def test_rate_ancestor_matches_jax_cli(problem, tmp_path, monkeypatch):
+    """codeml with RateAncestor = 1: the marginal reconstruction of the
+    codons in rst, and the NEB table, as the JAX program writes them."""
+    names, rows, nwk, cls = problem
+    dj, dt, out = run_both(tmp_path, monkeypatch, names, rows, [nwk],
+                           nssites="0 2", rateancestor=1)
+    st_t, pr_t = reconstruction(dt)
+    st_j, pr_j = reconstruction(dj)
+    assert st_t.shape == (150, 4) and len(st_t[0][0]) == 3
+    np.testing.assert_array_equal(st_t, st_j)
+    np.testing.assert_allclose(pr_t, pr_j, atol=1.01e-3)
+    text_t, text_j = (open(os.path.join(d, "rst")).read() for d in (dt, dj))
+    assert text_t.count("Marginal reconstruction") == \
+        text_j.count("Marginal reconstruction") == 2
+    assert text_t.count("Naive Empirical Bayes") == \
+        text_j.count("Naive Empirical Bayes") == 1
+    assert out["runs"][0]["ancestral"][0].shape == (4, out["data"].npatt)
 
 
 def test_runs_on_the_card_unless_asked(problem, tmp_path):
