@@ -86,6 +86,26 @@
    100,000 sites on the card against CPU tensors, timed.  7d: basemlg on 8
    taxa x 2000 sites from the same simulator, and an Mgene = 4 TN93 + G4
    fit with two genes (option G), each lnL against the CPU objective.
+8. The rest of codeml (amino acids, aaDist, Mgene).  8a: 50,000 amino
+   acids simulated under LG + G4 (alpha 0.5, LG's frequencies) on a
+   100-taxon random unrooted tree with 7a's gap runs and X in 0.2 % of
+   the cells; `main(["codeml", ctl])` fits LG + F + G4 (`seqtype = 2`,
+   `model = 3`, `fix_alpha = 0`) twice from the simulated branch lengths
+   (bit for bit, alpha within 10 % of 0.5), then once from the topology
+   alone (shown: the JAX package's start stops at a local optimum).  B1/B2
+   carry the gapped fits; each lnL in `mlc` against the plain version on
+   the card (1e-9).  8b (B5 for 20 states): at the MLEs, on the gapped
+   alignment (B1/B2) and its clean copy (B3/B4), one value + gradient
+   through the level route and through the kernels at N = 64, held to
+   each other, timed (medians of 5) with their peak memory; then each of
+   B1-B4 alone at that shape against its plain version, timed beside its
+   bounds at n = 20 and N = 64.  8c: phase 6's simulator at 32 x 4096
+   codons, one program run each for `seqtype = 3` with JTT, FromCodon0,
+   aaDist = 7 (OmegaAA.dat written here, two classes), aaDist = 1 and
+   Mgene = 4 over two genes, each lnL against the plain version.
+   Phases 3 and 3b also hold B1-B4 at 20 states (the uneven tree, from a
+   generator of its own, so that the later phases' data stay as they
+   were).
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -105,6 +125,7 @@ SEED = 20240601
 BENCH = dict(ns=32, H=4096, C=3, shape="ladder")
 BENCH1 = dict(ns=32, H=4096, C=1, shape="ladder")     # M0's one class
 UNEVEN = dict(ns=11, H=193, C=4, shape="trifurcating")
+UNEVEN20 = dict(UNEVEN, n=20)                         # amino acids
 MID = dict(ns=128, H=1024, C=3, shape="balanced")
 CHUNK = dict(ns=1024, H=1024, C=4, shape="balanced")
 # the JAX package's north-star shape (bench.py:46-48)
@@ -179,14 +200,18 @@ def kernel_problem(rng, ns, H, C, shape, n=61, multihot=True):
     return topo, P, pi, states, (hot, wide), gbar
 
 
+AA_SETS = ("ND", "QE", "IL")        # the amino-acid codes B, Z and J
+
+
 def gapped_codes(rng, states, n=61):
-    """Gapped codon tips from sense-codon state codes [ns, H]: gaps in runs
-    of geometric length (mean 10 codons) over about 5 % of each taxon's
-    cells, and one N at a random position in 0.2 % of the codons, as
-    TipCodes arrays (codes [ns, H] int32, amb [A, n] float64): a code n + a
-    names amb row a, row 0 the gap (all ones), the others the sets of
-    codons that an N allows (the sense codons agreeing at the two other
-    positions)."""
+    """Gapped tips from state codes [ns, H]: gaps in runs of geometric
+    length (mean 10 cells) over about 5 % of each taxon's cells, and an
+    ambiguous cell in 0.2 % of the others, as TipCodes arrays (codes [ns,
+    H] int32, amb [A, n] float64): a code n + a names amb row a, row 0 the
+    gap (all ones).  Sense codons (n = 61) take one N at a random position
+    (the sense codons agreeing at the two other positions); amino acids (n
+    = 20) a B, Z or J (AA_SETS)."""
+    from paml_tpu_torch.constants import AA_ORDER
     from paml_tpu_torch.models import codon
 
     pos = codon.codon_graph(0).pos_nt                   # [n, 3]
@@ -198,6 +223,13 @@ def gapped_codes(rng, states, n=61):
                           rng.geometric(0.1, size=runs[t])):
             codes[t, s0:s0 + ln] = n
     ti, hi = np.nonzero((rng.random((ns, H)) < 0.002) & (codes < n))
+    if n != 61:
+        rows = [np.ones(n)]
+        for pair in AA_SETS:
+            rows.append(np.isin(np.arange(n),
+                                [AA_ORDER.index(a) for a in pair]) * 1.0)
+        codes[ti, hi] = n + rng.integers(1, len(rows), size=len(ti))
+        return codes, np.stack(rows)
     rows, index = [np.ones(n)], {}
     for t, h, p in zip(ti, hi, rng.integers(0, 3, size=len(ti))):
         others = [q for q in range(3) if q != p]
@@ -229,6 +261,23 @@ def cuda_ms(fn, reps=10, warmup=2):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def cuda_ms_median(fn, reps=5, warmup=1):
+    """The median of `reps` calls of fn, each timed with CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def max_err(got, ref, rtol, what):
@@ -302,9 +351,13 @@ def check_fused(torch, P, tips, topo, pi, gbar, tol, tag):
 def phase_kernels(torch, rng, report, card):
     from paml_tpu_torch.core import cuda_pruning, pruning
 
-    for cfg in (BENCH, UNEVEN):
+    for cfg in (BENCH, UNEVEN, UNEVEN20):
+        # the 20-state case draws from a generator of its own, so that the
+        # later phases' data stay as they were before it was added
+        r = np.random.default_rng([SEED, 20]) if cfg is UNEVEN20 else rng
         topo, P_np, pi_np, st_np, (hot_np, wide_np), gb_np = kernel_problem(
-            rng, **cfg)
+            r, **cfg)
+        n = P_np.shape[-1]
         for dtype in (torch.float64, torch.float32):
             dn = str(dtype).split(".")[1]
             tol = TOL[dn]
@@ -318,8 +371,8 @@ def phase_kernels(torch, rng, report, card):
                     ("wide", torch.tensor(wide_np, dtype=dtype,
                                           device="cuda"))):
                 A = n_amb_of(tips)
-                tag = (f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']} "
-                       f"{dn} {enc}, A {A}")
+                tag = (f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']}"
+                       f"x{n} {dn} {enc}, A {A}")
                 e_f, e_b, S = check_fused(torch, P, tips, topo, pi, gbar,
                                           tol, tag)
                 print(f"B1/B2 vs plain [{tag}]: lnf/S max|diff| {e_f:.3e}, "
@@ -389,11 +442,13 @@ def phase_big_kernels(torch, rng, report, card):
     from paml_tpu_torch.core import cuda_pruning, pruning
 
     props = torch.cuda.get_device_properties(0)
-    for cfg in (BENCH, BENCH1, UNEVEN, MID, CHUNK):
+    for cfg in (BENCH, BENCH1, UNEVEN, UNEVEN20, MID, CHUNK):
+        r = np.random.default_rng([SEED, 20]) if cfg is UNEVEN20 else rng
         topo, P_np, pi_np, st_np, _, gb_np = kernel_problem(
-            rng, **cfg, multihot=False)
-        # the same states with gaps and Ns: B1/B2's tips
-        g_codes, g_amb = gapped_codes(rng, st_np)
+            r, **cfg, multihot=False)
+        n = P_np.shape[-1]
+        # the same states with gaps and Ns (B, Z, J): B1/B2's tips
+        g_codes, g_amb = gapped_codes(r, st_np, n)
         # the tree the kernels walk (nodes of more than BIG_KMAX children
         # resolved); the plain residual versions run on it too
         tb = cuda_pruning.big_tree(topo)
@@ -407,7 +462,8 @@ def phase_big_kernels(torch, rng, report, card):
             gbar = torch.tensor(gb_np, dtype=dtype, device="cuda")
             tips = torch.tensor(st_np, device="cuda")
             gap = coded_tips(torch, g_codes, g_amb, dtype)
-            tag = f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']} {dn}"
+            tag = (f"{cfg['shape']} {cfg['ns']}x{cfg['H']}x{cfg['C']}x{n} "
+                   f"{dn}")
             lnf, S = cuda_pruning.pruning_big_fwd(P, tips, topo, pi)
             dP, dpi = cuda_pruning.pruning_big_bwd(P, tips, topo, pi, gbar, S)
             torch.cuda.synchronize()
@@ -1603,10 +1659,10 @@ def simulate_nuc(torch, rng, ns, ls, device, truth=NUC_TRUTH):
     return names, rows, nwk, st, topo
 
 
-def gapped_nuc_rows(rng, rows):
+def gapped_nuc_rows(rng, rows, amb=b"N"):
     """The rows with gaps in runs of geometric length (mean 10 sites) over
-    about 5 % of each taxon's cells, and an N in 0.2 % of the others, as
-    phase 3b's gapped tips."""
+    about 5 % of each taxon's cells, and `amb` (N; X for amino acids) in
+    0.2 % of the others, as phase 3b's gapped tips."""
     ns, L = len(rows), len(rows[0])
     arr = np.frombuffer("".join(rows).encode(), dtype="S1").reshape(ns, L)
     arr = arr.copy()
@@ -1615,7 +1671,7 @@ def gapped_nuc_rows(rng, rows):
         for s0, ln in zip(rng.integers(0, L, size=runs[t]),
                           rng.geometric(0.1, size=runs[t])):
             arr[t, s0:s0 + ln] = b"-"
-    arr[(rng.random((ns, L)) < 0.002) & (arr != b"-")] = b"N"
+    arr[(rng.random((ns, L)) < 0.002) & (arr != b"-")] = amb
     return [arr[t].tobytes().decode() for t in range(ns)]
 
 
@@ -1681,11 +1737,12 @@ def read_counts():
                 twice=pruning.TWICE_CALLS["cuda"])
 
 
-def run_baseml_program(torch, ctl, prog="baseml"):
+def run_ctl_program(torch, ctl, prog="baseml", outfile="mlb"):
     """`paml_tpu_torch.__main__.main([prog, ctl])` in ctl's directory, in
     this process, on the card, the counts set to 0 just before: (its
-    summary, wall seconds, kernel launches, level-route calls, plain-version
-    calls, Hessian-route calls, peak GiB, the lnL lines of mlb)."""
+    summary, wall seconds, a dict of the kernel launches, level-route calls,
+    plain-version calls, Hessian-route calls and peak GiB, the lnL lines of
+    `outfile`)."""
     import os
     import re
 
@@ -1704,9 +1761,9 @@ def run_baseml_program(torch, ctl, prog="baseml"):
         os.chdir(cwd)
     counts = dict(read_counts(),
                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    mlb = open(os.path.join(os.path.dirname(ctl), "mlb")).read()
+    text = open(os.path.join(os.path.dirname(ctl), outfile)).read()
     lnls = [float(v) for v in re.findall(r"lnL\(ntime:.*\): *(-?[0-9.]+)",
-                                         mlb)]
+                                         text)]
     return out, wall, counts, lnls
 
 
@@ -1787,7 +1844,7 @@ def phase_baseml_program(torch, rng, card):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     work = tempfile.mkdtemp(prefix="baseml_")
     ctl = write_baseml_problem(work, "rev_g5", names, rows, nwk)
-    out, wall, counts, lnls = run_baseml_program(torch, ctl)
+    out, wall, counts, lnls = run_ctl_program(torch, ctl)
     check_baseml_routes("REV + G5", counts)
     run = out["runs"][0]
     res, spec, data = run["res"], run["spec"], out["data"]
@@ -1859,45 +1916,53 @@ def phase_baseml_program(torch, rng, card):
 
 
 def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
-                            card):
-    """7b, B5's evidence: one value + gradient in P and pi through the
-    level route, and through B1/B2 at N = 64 (the wrappers called
-    directly, the patterns in chunks so that S and the walk's workspace
-    fit), held to each other; ms and peak GiB of each; the level route
-    repeated bit for bit."""
+                            card, key="b5"):
+    """ROADMAP B5's evidence: one value + gradient in P and pi through the
+    level route (`pruning.class_site_lnf_levels`), and through the kernel
+    pair that the tips take at N = 64 (B1/B2 for coded tips with a table,
+    B3/B4 for state codes; the wrappers called directly, the patterns in
+    chunks so that S and the walk's workspace fit), held to each other; ms
+    and peak GiB of each; the level route repeated bit for bit.  Records
+    the times and the pair's bounds at the real n and at N = 64 under
+    `key` in the pair's report rows, and returns them."""
     from paml_tpu_torch.core import cuda_pruning as cp
     from paml_tpu_torch.core import pruning
     from paml_tpu_torch.core.tipcodes import TipCodes
 
-    H = fpatt.shape[0]
+    H, C, n = fpatt.shape[0], P.shape[1], P.shape[-1]
 
     def level():
         P_ = P.detach().requires_grad_(True)
         pi_ = piC.detach().clone().requires_grad_(True)
-        v = pruning.lnL(P_, tips, topo, pi_, w, fpatt)
+        v = pruning.lnL(P_, tips, topo, pi_, w, fpatt,
+                        lnf=pruning.class_site_lnf_levels)
         dP, dpi = torch.autograd.grad(v, (P_, pi_))
         return v.detach(), dP, dpi
 
     codes = cp.kernel_tips(tips)
-    C = P.shape[1]
+    fused = isinstance(codes, TipCodes)
+    names = ("pruning_fwd", "pruning_bwd") if fused else ("big_fwd",
+                                                          "big_bwd")
+    fwd, bwd = (cp.pruning_fwd, cp.pruning_bwd) if fused else \
+        (cp.pruning_big_fwd, cp.pruning_big_bwd)
     bp = cp.big_plan(cp.big_tree(topo))
-    per_pattern = (bp.n_srows * C * 4 + C * bp.nslots * cp.N) * 8
+    per_pattern = (bp.n_srows * C * n + C * bp.nslots * cp.N) * 8
     n_chunks = max(1, -(-per_pattern * H // (8 << 30)))
     w_chunk = -(-H // n_chunks)
 
-    chunks = (codes.split(w_chunk) if isinstance(codes, TipCodes) else
+    chunks = (codes.split(w_chunk) if fused else
               [c.contiguous() for c in codes.split(w_chunk, dim=1)])
 
     def kernels():
         total, dP, dpi = 0.0, torch.zeros_like(P), torch.zeros_like(piC)
         for h0, tc in zip(range(0, H, w_chunk), chunks):
             sl = slice(h0, min(h0 + w_chunk, H))
-            lnf, S = cp.pruning_fwd(P, tc, topo, piC)
+            lnf, S = fwd(P, tc, topo, piC)
             z = lnf + torch.log(w)[:, None]
             site = torch.logsumexp(z, 0)
             total = total + (fpatt[sl] * site).sum()
             gbar = fpatt[sl][None, :] * torch.softmax(z, 0)
-            a, b = cp.pruning_bwd(P, tc, topo, piC, gbar, S)
+            a, b = bwd(P, tc, topo, piC, gbar, S)
             dP, dpi = dP + a, dpi + b
             del S
         return total, dP, dpi
@@ -1909,7 +1974,7 @@ def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        ms = cuda_ms(fn, reps=3, warmup=1)
+        ms = cuda_ms_median(fn, reps=5, warmup=1)
         out[name] = dict(ms=ms, gib=(torch.cuda.max_memory_allocated()
                                      - base) / 2 ** 30, res=fn())
     (v1, dP1, dpi1), (v2, dP2, dpi2) = out["level"]["res"], \
@@ -1921,23 +1986,29 @@ def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
     again = out["level"]["res"], level()
     same = all(torch.equal(a, b) for a, b in zip(*again))
     n_amb = getattr(codes, "n_amb", 0)
-    bnd = [bound(k, topo, C, H, 4, 8, n_amb) for k in ("pruning_fwd",
-                                                         "pruning_bwd")]
-    print(f"  B5, value + gradient at the MLEs [{card}], {C} classes x {H} "
-          f"patterns x 4 states: level route {out['level']['ms']:.2f} ms, "
-          f"peak {out['level']['gib']:.2f} GiB; B1/B2 at N = {cp.N} in "
-          f"{n_chunks} chunk(s) {out['kernels']['ms']:.2f} ms, peak "
-          f"{out['kernels']['gib']:.2f} GiB (bounds at n = 4: B1 "
-          f"{bnd[0][0]:.3f} ms, B2 {bnd[1][0]:.3f} ms); lnL rel {rel:.2e}, "
-          f"gradient {gerr:.2e} of the largest; the level route repeated "
-          f"bit for bit: {same}", flush=True)
+    bnd = {m: [bound(k, topo, C, H, m, 8, n_amb) for k in names]
+           for m in (n, cp.N)}
+    pair = "B1/B2" if fused else "B3/B4"
+    print(f"  {key}, value + gradient at the MLEs [{card}], {C} classes x "
+          f"{H} patterns x {n} states: level route {out['level']['ms']:.2f}"
+          f" ms, peak {out['level']['gib']:.2f} GiB; {pair} at N = {cp.N} "
+          f"in {n_chunks} chunk(s) {out['kernels']['ms']:.2f} ms, peak "
+          f"{out['kernels']['gib']:.2f} GiB (bounds at n = {n}: "
+          f"{bnd[n][0][0]:.3f} + {bnd[n][1][0]:.3f} ms; at N = {cp.N}: "
+          f"{bnd[cp.N][0][0]:.3f} + {bnd[cp.N][1][0]:.3f} ms); lnL rel "
+          f"{rel:.2e}, gradient {gerr:.2e} of the largest; the level route "
+          f"repeated bit for bit: {same}", flush=True)
     if rel > tol["val"] or gerr > tol["grad"] or not same:
-        raise AssertionError("B5: the level route and B1/B2 disagree, or "
-                             "the level route does not repeat")
-    for name, k in (("pruning_fwd", 0), ("pruning_bwd", 1)):
-        report[name]["b5_kernel_pair_ms_float64"] = out["kernels"]["ms"]
-        report[name]["b5_level_route_ms_float64"] = out["level"]["ms"]
-        report[name]["b5_bound_ms_float64"] = bnd[k][0]
+        raise AssertionError(f"{key}: the level route and {pair} disagree, "
+                             "or the level route does not repeat")
+    for k, name in enumerate(names):
+        report[name][f"{key}_kernel_pair_ms_float64"] = out["kernels"]["ms"]
+        report[name][f"{key}_level_route_ms_float64"] = out["level"]["ms"]
+        report[name][f"{key}_bound_ms_float64"] = bnd[n][k][0]
+        report[name][f"{key}_bound_ms_N64_float64"] = bnd[cp.N][k][0]
+    return dict(level_ms=out["level"]["ms"], kernel_ms=out["kernels"]["ms"],
+                level_gib=out["level"]["gib"],
+                kernel_gib=out["kernels"]["gib"], rel=rel, gerr=gerr)
 
 
 def phase_baseml(torch, rng, report, card):
@@ -1988,7 +2059,7 @@ def phase_baseml(torch, rng, report, card):
              dict(model=6, mgene=4, ncatG=4, getSE=0, rateancestor=0))):
         ctl = write_baseml_problem(work, tag, names, rows, nwk, genes=genes,
                                    **kw)
-        out, wall, counts, lnls = run_baseml_program(torch, ctl, prog)
+        out, wall, counts, lnls = run_ctl_program(torch, ctl, prog)
         check_baseml_routes(tag, counts)
         run = out["runs"][0]
         lnl_cpu, _ = cpu_objective_lnl(torch, out["data"], run["res"].topo,
@@ -2002,6 +2073,336 @@ def phase_baseml(torch, rng, report, card):
         if rel > 1e-9:
             raise AssertionError(f"{tag}: the lnL in mlb disagrees with the "
                                  "CPU objective")
+
+
+# --- phase 8: amino acids, aaDist and Mgene (codeml) -------------------------
+
+AA_TRUTH = dict(matrix="lg", alpha=0.5)           # LG + F + G4, pi LG's
+AA_TAXA, AA_SITES = 100, 50_000
+
+AA_CTL = """      seqfile = seq.phy
+     treefile = tree.nwk
+      outfile = mlc
+        noisy = 0
+      runmode = 0
+      seqtype = {seqtype}
+    CodonFreq = 2
+        model = {model}
+   aaRatefile = {aaRatefile}
+      NSsites = 0
+        icode = 0
+        Mgene = {mgene}
+       aaDist = {aaDist}
+    fix_kappa = 0
+        kappa = 2
+    fix_omega = 0
+        omega = .4
+    fix_alpha = {fix_alpha}
+        alpha = 0.5
+        ncatG = 4
+        getSE = 0
+    cleandata = 0
+"""
+
+# two omega classes over the one-step pairs (OmegaAA.dat, aaDist = 7):
+# the pairs of similar side chains against all others
+OMEGA_AA = "2\n1: AG AS AT VI IL LM FY DE KR ST NS QE\n0: all others\n"
+
+
+def simulate_aa(torch, rng, ns, ls, device, truth=AA_TRUTH):
+    """An amino-acid alignment simulated under an empirical matrix + G4
+    (`truth`: the matrix's own frequencies, discrete gamma of shape alpha)
+    on `random_unrooted_tree` with the port's own P(t): (names, rows, the
+    Newick string)."""
+    from paml_tpu_torch.constants import AA_ORDER
+    from paml_tpu_torch.core.dgamma import discrete_gamma
+    from paml_tpu_torch.core.pmat import pmat_rev
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+    from paml_tpu_torch.models import aa
+
+    names = [f"t{i}" for i in range(ns)]
+    nwk = random_unrooted_tree(rng, names)
+    topo = from_treenode(treeio.parse_newick(nwk), names)
+    f64 = dict(dtype=torch.float64, device=device)
+    S, pi_np = aa.load_empirical(truth["matrix"])
+    pi = torch.tensor(pi_np / pi_np.sum(), **f64)
+    Sd = torch.tensor(S, **f64)
+    Q = aa.build_aa_Q(Sd - torch.diag(torch.diagonal(Sd)), pi)
+    r, w = discrete_gamma(torch.tensor(truth["alpha"], **f64), 4)
+    P = pmat_rev(Q, pi, torch.tensor(topo.blen0, **f64)[:, None] * r)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    cls = torch.multinomial(w, ls, replacement=True, generator=gen)
+    cum = P.cumsum(-1)
+    st = torch.empty((topo.nnode, ls), dtype=torch.int64, device=device)
+    st[topo.root] = torch.multinomial(pi, ls, replacement=True, generator=gen)
+    stack = [topo.root]
+    while stack:
+        v = stack.pop()
+        for c in topo.children[v]:
+            if c < 0:
+                continue
+            u = torch.rand((ls, 1), generator=gen, **f64)
+            st[c] = (u > cum[c, cls, st[v]]).sum(-1).clamp_max(19)
+            stack.append(int(c))
+    letters = np.frombuffer(AA_ORDER.encode(), dtype="S1")
+    rows = [letters[st[i].cpu().numpy()].tobytes().decode()
+            for i in range(ns)]
+    return names, rows, nwk
+
+
+def write_codeml_problem(workdir, tag, names, rows, nwk, genes=None,
+                         lengths=False, **kw):
+    """The alignment (PHYLIP; `genes` lengths as option G), the tree (its
+    topology, or with `lengths` its branch lengths too, the fit's start),
+    an `AA_CTL` control file and, for aaDist = 7, OmegaAA.dat in
+    workdir/tag; returns the ctl's path."""
+    import os
+    import re
+
+    d = os.path.join(workdir, tag)
+    os.makedirs(d)
+    with open(os.path.join(d, "seq.phy"), "w") as f:
+        f.write(f"{len(names)} {len(rows[0])}" + (" G" if genes else "")
+                + "\n")
+        if genes:
+            f.write(f"G {len(genes)} " + " ".join(map(str, genes)) + "\n")
+        for nm, row in zip(names, rows):
+            f.write(f"{nm}  {row}\n")
+    with open(os.path.join(d, "tree.nwk"), "w") as f:
+        f.write((nwk if lengths else re.sub(r":[0-9.]+", "", nwk)) + "\n")
+    opts = dict(seqtype=1, model=0, aaRatefile="jones", mgene=0, aaDist=0,
+                fix_alpha=1)
+    opts.update(kw)
+    if opts["aaDist"] == 7:
+        with open(os.path.join(d, "OmegaAA.dat"), "w") as f:
+            f.write(OMEGA_AA)
+    ctl = os.path.join(d, "codeml.ctl")
+    with open(ctl, "w") as f:
+        f.write(AA_CTL.format(**opts))
+    return ctl
+
+
+def a9_objective(data, topo, spec, device):
+    """The objective that `codeml.fit_packed` fits for an A9 setting."""
+    from paml_tpu_torch.apps import codeml
+    if spec.seqtype in (2, 3):
+        make = (codeml.make_fromcodon0_objective
+                if spec.aa_model == "FromCodon0" else codeml.make_aa_objective)
+        return make(data, topo, spec, device=device)[0]
+    if spec.aaDist:
+        return codeml.make_aadist_objective(data, topo, spec,
+                                            device=device)[0]
+    return codeml.make_codon_mgene_objective(data, topo, spec, spec.Mgene,
+                                             device=device)[0]
+
+
+def plain_lnl(torch, neg, x):
+    """lnL at x with the plain pruning version on the objective's device."""
+    from paml_tpu_torch.core import pruning
+    with torch.no_grad():
+        return -float(neg(torch.as_tensor(x, device="cuda"),
+                          lnf=pruning.class_site_lnf_plain))
+
+
+def run_a9_program(torch, ctl, tag, card, report=None):
+    """The program on ctl, its launches recorded under launches_{tag} in
+    `report` (when given); its lnL in mlc held against the plain version
+    on the card at the fitted x (1e-9 relative).  Returns (summary, wall,
+    counts, lnL in mlc)."""
+    out, wall, counts, lnls = run_ctl_program(torch, ctl, "codeml", "mlc")
+    run = out["runs"][0]
+    res = run["res"]
+    lnl_p = plain_lnl(torch, a9_objective(out["data"], res.topo, res.spec,
+                                          "cuda"), res.x)
+    rel = abs(lnls[0] - lnl_p) / abs(lnl_p)
+    print(f"  {tag} [{card}]: {out['data'].ns} taxa x {out['data'].ls} "
+          f"sites, {out['data'].npatt} patterns, {res.np} parameters; "
+          f"{wall:.2f} s wall, fit {run['fit_seconds']:.2f} s in "
+          f"{res.fit.n_eval} evaluations "
+          f"({1e3 * run['fit_seconds'] / res.fit.n_eval:.2f} ms each; "
+          f"{res.fit.message}); "
+          f"peak {counts['peak_gib']:.2f} GiB; launches "
+          f"{counts['launches']}, level-route calls {counts['level']}, "
+          f"plain calls {counts['plain']}; lnL in mlc {lnls[0]:.6f}, plain "
+          f"version {lnl_p:.6f} (rel {rel:.2e})", flush=True)
+    if counts["plain"]:
+        raise AssertionError(f"{tag}: the plain version ran on the card")
+    if rel > 1e-9:
+        raise AssertionError(f"{tag}: the lnL in mlc disagrees with the "
+                             "plain version")
+    for name, count in counts["launches"].items():
+        if count and report is not None:
+            report[name][f"launches_{tag}"] = count
+    return out, wall, counts, lnls
+
+
+def check_aa_kernels(torch, P, tips, topo, piC, w, fpatt, report, card,
+                     tag):
+    """B1/B2 (coded tips with a table) or B3/B4 (state codes), launched
+    alone at the shape of the amino-acid fit with the fit's own cotangent,
+    against their plain versions (f64: 1e-10 on values, 1e-8 on
+    gradients); each kernel timed beside its plain version and its bounds
+    at n = 20 and at N = 64."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+    from paml_tpu_torch.core import pruning
+    from paml_tpu_torch.core.tipcodes import TipCodes
+
+    tol = TOL["float64"]
+    C, n, H = P.shape[1], P.shape[-1], fpatt.shape[0]
+    codes = cp.kernel_tips(tips)
+    fused = isinstance(codes, TipCodes)
+    with torch.no_grad():
+        z = pruning.class_site_lnf_levels(P, tips, topo, piC) \
+            + torch.log(w)[:, None]
+        gbar = (fpatt[None, :] * torch.softmax(z, 0)).contiguous()
+    del z
+    if fused:
+        names = ("pruning_fwd", "pruning_bwd")
+        e_f, e_b, S = check_fused(torch, P, codes, topo, piC, gbar, tol, tag)
+        fwd, bwd = cp.pruning_fwd, cp.pruning_bwd
+    else:
+        names = ("big_fwd", "big_bwd")
+        fwd, bwd = cp.pruning_big_fwd, cp.pruning_big_bwd
+        lnf, S = fwd(P, codes, topo, piC)
+        dP, dpi = bwd(P, codes, topo, piC, gbar, S)
+        tb = cp.big_tree(topo)
+        Pb = cp.with_identity(P, tb)
+        lnf_r, S_r = pruning.class_site_lnf_big_plain(Pb, codes, tb, piC)
+        e_f = max(max_err(lnf, lnf_r, tol["val"], f"B3 lnf {tag}"),
+                  max_err(S, S_r, tol["val"], f"B3 S {tag}"))
+        del S_r, lnf_r, Pb
+        dP_r, dpi_r = pruning.class_site_lnf_bwd_plain(P, codes, topo, piC,
+                                                       gbar)
+        e_b = max(max_err(dP, dP_r, tol["grad"], f"B4 dP {tag}"),
+                  max_err(dpi, dpi_r, tol["grad"], f"B4 dpi {tag}"))
+        del dP_r, dpi_r, dP, dpi
+    torch.cuda.empty_cache()
+    t = {names[0]: cuda_ms_median(lambda: fwd(P, codes, topo, piC)),
+         names[1]: cuda_ms_median(lambda: bwd(P, codes, topo, piC, gbar, S))}
+    with torch.no_grad():
+        plain_f = cuda_ms_median(lambda: pruning.class_site_lnf_plain(
+            P, codes, topo, piC))
+    plain_b = cuda_ms_median(lambda: pruning.class_site_lnf_bwd_plain(
+        P, codes, topo, piC, gbar))
+    n_amb = getattr(codes, "n_amb", 0)
+    for name, e, pl in ((names[0], e_f, plain_f), (names[1], e_b, plain_b)):
+        report[name]["max_abs_err_float64"] = max(
+            report[name].get("max_abs_err_float64", 0.0), e)
+        b20 = bound(name, topo, C, H, n, 8, n_amb)
+        b64 = bound(name, topo, C, H, cp.N, 8, n_amb)
+        report[name][f"ms_{tag}_float64"] = t[name]
+        report[name][f"plain_ms_{tag}_float64"] = pl
+        report[name][f"bound_ms_{tag}_n20_float64"] = b20[0]
+        report[name][f"bound_ms_{tag}_N64_float64"] = b64[0]
+        print(f"  {name} [{tag}, {C} classes x {H} patterns x {n} states, "
+              f"A {n_amb}, {card}]: {t[name]:.3f} ms (plain {pl:.3f} ms); "
+              f"max|diff| against the plain version {e:.3e}; bound at n = "
+              f"{n} {b20[0]:.4f} ms ({b20[1]}, {100 * b20[0] / t[name]:.2f}"
+              f" % of it), at N = {cp.N} {b64[0]:.4f} ms ({b64[1]}, "
+              f"{100 * b64[0] / t[name]:.2f} %)", flush=True)
+    del S
+    torch.cuda.empty_cache()
+
+
+def phase_aa(torch, rng, report, card):
+    """Phase 8: the amino-acid program at full width (8a), the routes of
+    20 states and the kernels alone at its shape (8b), then one program
+    run for each of the other A9 settings (8c)."""
+    import tempfile
+
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.io import seqio
+
+    t_phase = time.perf_counter()
+    # 8a
+    t0 = time.perf_counter()
+    names, clean_rows, nwk = simulate_aa(torch, rng, AA_TAXA, AA_SITES,
+                                         "cuda")
+    rows = gapped_nuc_rows(rng, clean_rows, amb=b"X")
+    gap_share = sum(r.count("-") for r in rows) / (AA_TAXA * AA_SITES)
+    print(f"simulated amino-acid alignment (LG + G4, alpha "
+          f"{AA_TRUTH['alpha']}): {AA_TAXA} taxa x {AA_SITES} sites, "
+          f"{100 * gap_share:.2f} % gap cells "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    work = tempfile.mkdtemp(prefix="aaml_")
+    fits = []
+    for rep in range(2):
+        # the fit starts from the simulated branch lengths
+        ctl = write_codeml_problem(work, f"lg_{rep}", names, rows, nwk,
+                                   lengths=True, seqtype=2, model=3,
+                                   aaRatefile="lg", fix_alpha=0)
+        # the second run repeats the first: its launches count once
+        out, wall, counts, lnls = run_a9_program(
+            torch, ctl, f"aa_{rep}", card, None if rep else report)
+        fits.append(out["runs"][0]["res"])
+    res, data = fits[0], out["data"]
+    # from the topology alone (every branch 0.1, the JAX package's start)
+    # the fit stops at a local optimum (ROADMAP C): shown, not checked
+    ctl = write_codeml_problem(work, "lg_topology", names, rows, nwk,
+                               seqtype=2, model=3, aaRatefile="lg",
+                               fix_alpha=0)
+    topo_res = run_a9_program(torch, ctl, "aa_topology", card)[0][
+        "runs"][0]["res"]
+    print(f"  aaml from the topology alone: lnL {topo_res.lnL:.6f} "
+          f"({topo_res.lnL - res.lnL:+.3f} against the fit from the "
+          f"simulated lengths), alpha {topo_res.params['alpha']:.4f}, tree "
+          f"length {topo_res.blens.sum():.3f} (from the simulated lengths "
+          f"{res.blens.sum():.3f})", flush=True)
+    alpha = res.params["alpha"]
+    same = fits[0].lnL == fits[1].lnL and np.array_equal(fits[0].x,
+                                                         fits[1].x)
+    print(f"  aaml, LG + F + G4: alpha {alpha:.4f} (simulated "
+          f"{AA_TRUTH['alpha']}); the fit repeated bit for bit: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("aaml: the fit does not repeat bit for bit")
+    if abs(alpha - AA_TRUTH["alpha"]) > 0.1 * AA_TRUTH["alpha"]:
+        raise AssertionError(f"aaml: alpha {alpha} is not within 10 % of "
+                             f"{AA_TRUTH['alpha']}")
+    # 8b: at the MLEs, the gapped alignment (B1/B2) and its clean copy
+    # (B3/B4): the level route against the kernels, then each kernel alone
+    t0 = time.perf_counter()
+    seqio.pack(seqio.Alignment(names, rows, seqio.AA_SEQ))
+    pack_s = time.perf_counter() - t0
+    clean = seqio.pack(seqio.Alignment(names, clean_rows, seqio.AA_SEQ))
+    for tag, d in (("aa_gapped", data), ("aa_clean", clean)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        neg = codeml.make_aa_objective(d, res.topo, res.spec,
+                                       device="cuda")[0]
+        torch.cuda.synchronize()
+        if tag == "aa_gapped":
+            print(f"  aaml's host set-up: pack {pack_s:.2f} s, the "
+                  f"objective {time.perf_counter() - t0:.2f} s", flush=True)
+        with torch.no_grad():
+            P, piC, w = neg.model_at(torch.as_tensor(res.x, device="cuda"))
+        piC = piC.contiguous()
+        level_kernel_value_grad(torch, P, neg.tips, res.topo, piC, w,
+                                neg.fpatt, report, card, key=f"b5_{tag}")
+        torch.cuda.empty_cache()
+        check_aa_kernels(torch, P, neg.tips, res.topo, piC, w, neg.fpatt,
+                         report, card, tag)
+        del P, piC, w, neg
+        torch.cuda.empty_cache()
+    # 8c: phase 6's alignment, one program run per setting
+    t0 = time.perf_counter()
+    names, rows, nwk, _ = simulate_site_classes(torch, rng, 32, 4096, "cuda")
+    print(f"simulated site-class alignment for 8c: {len(names)} taxa x "
+          f"{len(rows[0]) // 3} codons ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    for tag, genes, kw in (
+            ("codon2aa_jtt", None, dict(seqtype=3, model=2)),
+            ("fromcodon0", None, dict(seqtype=3, model=5)),
+            ("aadist7", None, dict(aaDist=7)),
+            ("aadist1", None, dict(aaDist=1)),
+            ("mgene4", [2048, 2048], dict(mgene=4))):
+        ctl = write_codeml_problem(work, tag, names, rows, nwk, genes, **kw)
+        run_a9_program(torch, ctl, tag, card, report)
+    print(f"  8c: five programs in {time.perf_counter() - t0:.1f} s; phase 8 "
+          f"in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2054,6 +2455,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 7. baseml and basemlg: nucleotides on the level route, B5's evidence
     phase_baseml(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 8. amino acids, aaDist and Mgene: 20 states on B1-B4, B5 for them
+    phase_aa(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
         # the main paths' launches, each path counted from 0 (M0/M2a fits

@@ -12,11 +12,13 @@ Without a card and without `--device cpu` a program stops with an error:
 it does not carry on on the CPU.
 
 Port of `run_codeml`, `run_baseml` and `run_basemlg` of
-`paml_tpu/__main__.py`.  codeml, for codon data at runmode 0: NSsites
+`paml_tpu/__main__.py`.  codeml at runmode 0: for codon data NSsites
 lists, several trees, several data sets (`ndata`), standard errors, NEB
 (with RateAncestor) and BEB into `rst`, the marginal ancestral
 reconstruction (RateAncestor) into `rst`, `rst1`, `lnf`, the optimizer
-trace `rub`, the tree-comparison table and dN & dS per branch.  baseml:
+trace `rub`, the tree-comparison table and dN & dS per branch; amino-acid
+data (seqtype 2 and 3), aaDist and several genes (Mgene) with `mlc`,
+`rst1` and `rub` alone, as the JAX program writes them.  baseml:
 every model, rate and gene option of `apps/baseml.py`, several trees,
 `rst` with the reconstruction and `rates` (RateAncestor), `rst1`, `lnf`,
 the tree-comparison table, the nhomo frequency sets.  basemlg: the
@@ -44,22 +46,20 @@ def _write_tree_with_blens(topo, blens_by_node, names=True):
     return build(topo.root) + ";"
 
 
-def _check_ported(spec, extras) -> None:
-    """Raise NotImplementedError for a control file this package does not
-    cover yet, naming the ROADMAP item that will."""
-    todo = []
-    if spec.seqtype != 1 or spec.aaDist:
-        todo.append("amino-acid data and aaDist: ROADMAP A9")
+def _check_ported(extras) -> None:
+    """Raise NotImplementedError for a runmode this package does not cover
+    yet, naming the ROADMAP item that will."""
     runmode = extras.get("runmode", 0)
     if runmode in (-2, -3):
-        todo.append(f"runmode = {runmode} (pairwise dN/dS): ROADMAP A11")
-    elif runmode in (2, 3, 4, 5):
-        todo.append(f"runmode = {runmode} (tree search): ROADMAP A14")
-    elif runmode != 0:
+        raise NotImplementedError(
+            f"paml_tpu_torch codeml does not cover runmode = {runmode} "
+            "(pairwise dN/dS): ROADMAP A11")
+    if runmode in (2, 3, 4, 5):
+        raise NotImplementedError(
+            f"paml_tpu_torch codeml does not cover runmode = {runmode} "
+            "(tree search): ROADMAP A14")
+    if runmode != 0:
         raise ValueError(f"runmode = {runmode} is not a codeml runmode")
-    if todo:
-        raise NotImplementedError("paml_tpu_torch codeml does not cover "
-                                  + "; ".join(todo))
 
 
 def run_codeml(ctl_path: str, device: str) -> dict:
@@ -83,7 +83,7 @@ def run_codeml(ctl_path: str, device: str) -> dict:
     opts = ctlmod.read_ctl(ctl_path)
     spec, seqfile, treefile, outfile, extras = ctlmod.codeml_spec(opts,
                                                                   ctl_path)
-    _check_ported(spec, extras)
+    _check_ported(extras)
     open("rub", "w").close()
     set_rub("rub")
     rate_ancestor = extras.get("RateAncestor", 0)
@@ -93,9 +93,13 @@ def run_codeml(ctl_path: str, device: str) -> dict:
         if extras.get("ndata", 1) > 1:
             _run_ndata(spec, seqfile, treefile, outfile, extras, device, runs)
             return {"runs": runs}
-        aln = seqio.read_alignment(seqfile, seqio.CODON_SEQ)
+        aln = seqio.read_alignment(seqfile, codeml.SEQTYPES[spec.seqtype])
         data = seqio.pack(aln, cleandata=spec.cleandata, icode=spec.icode)
         trees = treeio.read_trees(treefile, data.names)
+        # amino acids, aaDist and several genes: the fit and mlc's lines
+        # alone (the JAX program's side outputs need the codon objective)
+        codon = (spec.seqtype == 1 and not spec.aaDist
+                 and not (data.ngene > 1 and spec.Mgene != 1))
         ns_list = extras["NSsites_list"] or [spec.NSsites]
         site_lnf_trees = []          # per tree [npatt] (first NSsites model)
         frst = open("rst", "w")
@@ -113,8 +117,7 @@ def run_codeml(ctl_path: str, device: str) -> dict:
                     t0, q0 = time.perf_counter(), dgamma.SECONDS["host"]
                     # one objective for the fit and every side output
                     objective = codeml.make_codon_objective(
-                        data, topo, sp, device=device)
-                    neg = objective[0]
+                        data, topo, sp, device=device) if codon else None
                     res = codeml.fit_packed(data, topo, sp, device=device,
                                             objective=objective)
                     run = dict(NSsites=ns_model, tree=itree, res=res,
@@ -132,12 +135,17 @@ def run_codeml(ctl_path: str, device: str) -> dict:
                     if res.kappa.size:
                         out.write("kappa = " + " ".join(
                             f"{k:.5f}" for k in res.kappa) + "\n")
+                    write_rst1("rst1", [res.lnL] + [float(v) for v in res.x],
+                               append=True)
+                    if not codon:
+                        print(f"NSsites={ns_model} tree {itree + 1}: "
+                              f"lnL = {res.lnL:.6f}")
+                        continue
+                    neg = objective[0]
                     out.write("omega classes: " + np.array2string(
                         res.class_omegas, precision=5) + "\n")
                     out.write("class freqs:   " + np.array2string(
                         res.class_freqs, precision=5) + "\n")
-                    write_rst1("rst1", [res.lnL] + [float(v) for v in res.x],
-                               append=True)
                     if (ns_model == 0 and sp.clock == 0
                             and sp.fix_blength != 2):
                         _write_branch_dnds(out, data, sp, res, device)
@@ -213,7 +221,8 @@ def _run_ndata(spec, seqfile, treefile, outfile, extras, device, runs):
     from .io.outputs import write_rst1
 
     mode = extras.get("ndata_mode", "shared")
-    alns = seqio.read_alignments(seqfile, seqio.CODON_SEQ, extras["ndata"])
+    alns = seqio.read_alignments(seqfile, codeml.SEQTYPES[spec.seqtype],
+                                 extras["ndata"])
     tree_strs = treeio.read_tree_strings(treefile)
     main_tree = (treeio.parse_newick(tree_strs[0])
                  if mode == "maintree" else None)
@@ -574,7 +583,7 @@ def main(argv: list[str] | None = None):
     if prog not in programs:
         print(f"unknown program {prog!r}: paml_tpu_torch runs codeml, "
               f"baseml and basemlg so far (the other programs: ROADMAP "
-              f"A9-A14)\n{__doc__}", file=sys.stderr)
+              f"A11-A14)\n{__doc__}", file=sys.stderr)
         sys.exit(2)
     import torch
     if device == "cuda" and not torch.cuda.is_available():

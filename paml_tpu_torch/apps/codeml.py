@@ -1,7 +1,6 @@
-"""codeml: maximum likelihood for codon alignments (site, branch and
-branch-site models).
+"""codeml: maximum likelihood for codon and amino-acid alignments.
 
-Port of the codon slice of `paml_tpu/apps/codeml.py`: one omega per site
+Port of `paml_tpu/apps/codeml.py`.  Codon models: one omega per site
 class and branch type, class frequencies, and mixture normalization through
 the two flux scalars per branch type (reference: Qfactor_NS,
 src/codeml.c:2580-2663); the site classes ride the class axis of the
@@ -16,8 +15,14 @@ NSsites 2 and 3 (branch-site models A and B); model 3 with NSsites 2 and 3
 F1x4MG, F3x4MG and the mutation-selection models FMutSel0 and FMutSel
 (with estFreq: a staged fit), with hkyREV; fix_blength 0, 1 and 2; clocks
 1-3 and TipDate; standard errors (`standard_errors`); the pattern axis in
-chunks (`n_chunks`).  Amino-acid data, aaDist and Mgene raise
-NotImplementedError naming their ROADMAP item.
+chunks (`n_chunks`).  Amino-acid data (seqtype 2, and codons translated,
+seqtype 3): Poisson, EqualInput, Empirical, Empirical_F, FromCodon, REVaa_0,
+REVaa with discrete-gamma rates (`make_aa_objective`) and FromCodon0 on the
+codon chain (`make_fromcodon0_objective`).  aaDist: the chemical-distance
+omegas, AAClasses from OmegaAA.dat and the fitness models FIT1 / FIT2
+(`make_aadist_objective`).  Several genes (Mgene 0, 2, 3, 4:
+`make_codon_mgene_objective`; 1: `fit_mgene_separate`).  `fit_packed`
+dispatches among them as the JAX package does.
 
 The parameter vector keeps the JAX package's layout (`unpack`), so the same
 x means the same model in both packages.  Fits run in float64 on the
@@ -33,6 +38,8 @@ calls are counted apart (`pruning.TWICE_CALLS`).
 """
 from __future__ import annotations
 
+import os
+import re
 import time
 from dataclasses import dataclass
 from dataclasses import replace as _dc_replace
@@ -40,12 +47,14 @@ from dataclasses import replace as _dc_replace
 import numpy as np
 import torch
 
+from ..constants import AA_ORDER
 from ..core import cuda_pruning, dgamma, pruning, tipcodes
 from ..core.clockparam import make_clock_times
 from ..core.optim import FitResult, maximize, simplex_decode
-from ..core.pmat import pmat_rev_multi, pmat_rev_multi_twice
+from ..core.pmat import pmat_rev, pmat_rev_multi, pmat_rev_multi_twice
 from ..core.topology import Topology, from_treenode
 from ..io import seqio, treeio
+from ..models import aa as aamod
 from ..models import codon as codonmod
 
 # reference bounds (SetxBound, src/codeml.c:1583 region)
@@ -63,6 +72,9 @@ M2A_REL = 22
 
 CODON_FREQS = ("Fequal", "F1x4", "F3x4", "Fcodon", "F1x4MG", "F3x4MG",
                "FMutSel0", "FMutSel")
+
+# the alignment reader's data type of each codeml seqtype
+SEQTYPES = {1: seqio.CODON_SEQ, 2: seqio.AA_SEQ, 3: seqio.CODON2AA_SEQ}
 
 # seconds spent in the Hessian route (`standard_errors`) since import
 SECONDS = {"hessian": 0.0}
@@ -121,14 +133,8 @@ def _codonf(spec: CodemlSpec) -> str:
     return "Fcodon" if spec.codonf == "F61" else spec.codonf
 
 
-def check_slice(spec: CodemlSpec, data: seqio.PackedData | None = None):
-    """Raise NotImplementedError, naming its ROADMAP item, for a setting
-    this package does not cover yet."""
-    if spec.seqtype != 1 or spec.aaDist or (data is not None
-                                            and data.ngene > 1):
-        raise NotImplementedError(
-            "paml_tpu_torch does not cover amino-acid data, aaDist and "
-            "Mgene: ROADMAP A9")
+def check_slice(spec: CodemlSpec):
+    """Raise ValueError for a codon-frequency model that does not exist."""
     if _codonf(spec) not in CODON_FREQS:
         raise ValueError(f"unknown codonf {spec.codonf}")
 
@@ -456,6 +462,21 @@ def _nkappa(spec: CodemlSpec) -> int:
     return 0 if spec.fix_kappa else (5 if spec.hkyREV else 1)
 
 
+def _blen_x0(topo: Topology, fill: float = 0.1) -> np.ndarray:
+    """Initial branch lengths: the tree's (at least 2 BLEN_MIN), or `fill`
+    on every branch when the tree has none."""
+    branch_nodes = topo.branch_nodes()
+    t0 = np.clip(topo.blen0[branch_nodes], 0.0, BLEN_MAX)
+    if not (t0 > 0).any():
+        t0 = np.full(len(branch_nodes), fill)
+    return np.maximum(t0, BLEN_MIN * 2)
+
+
+def _scatter_t(t: torch.Tensor, bn: torch.Tensor, nnode: int):
+    """Branch lengths [nb] to a length per node [nnode] (the root's 0)."""
+    return t.new_zeros(nnode).index_put((bn,), t)
+
+
 def make_codon_objective(data: seqio.PackedData, topo: Topology,
                          spec: CodemlSpec, *, device,
                          dtype=torch.float64, n_chunks: int = 1):
@@ -468,7 +489,7 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     that is differentiable twice), `site_loglik(x)` [H] and
     `class_posterior(x)` [K, H], its data (`tips`, `fpatt`, `topo`) and the
     data's frequencies (`pi_np`, `pf3x4`)."""
-    check_slice(spec, data)
+    check_slice(spec)
     device = torch.device(device)
     codonf = _codonf(spec)
     graph = codonmod.codon_graph(spec.icode)
@@ -650,8 +671,7 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
         elif spec.fix_blength == 2:
             tfull = torch.as_tensor(topo.blen0, dtype=dtype, device=device)
         else:
-            tfull = torch.zeros(nnode, dtype=dtype,
-                                device=device).index_put((bn,), t)
+            tfull = _scatter_t(t, bn, nnode)
         ts = tfull[:, None] * scale[None, :]                # [nnode, B*K]
         pmat = pmat_rev_multi_twice if twice else pmat_rev_multi
         P_all = pmat(Qs, pi_d, ts).reshape(nnode, Bc, K, n, n)
@@ -700,11 +720,7 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     elif spec.fix_blength == 2:
         x0, bounds = [], []
     else:
-        t0 = np.clip(topo.blen0[branch_nodes], 0.0, BLEN_MAX)
-        if not (t0 > 0).any():
-            t0 = np.full(nb, 0.1)
-        t0 = np.maximum(t0, BLEN_MIN * 2)
-        x0 = list(t0)
+        x0 = list(_blen_x0(topo))
         bounds = [(BLEN_MIN, BLEN_MAX)] * nb
     if nkappa:
         x0 += [spec.kappa] * nkappa
@@ -858,10 +874,10 @@ def multi_starts(spec: CodemlSpec, topo: Topology, x0: np.ndarray):
 
 def fit(seqfile: str, treefile: str, spec: CodemlSpec | None = None, *,
         device, tree_index: int = 0) -> CodemlResult:
-    """Read a codon alignment and a tree file, then `fit_packed`."""
+    """Read an alignment and a tree file, then `fit_packed`."""
     spec = spec or CodemlSpec()
     check_slice(spec)
-    aln = seqio.read_alignment(seqfile, seqio.CODON_SEQ)
+    aln = seqio.read_alignment(seqfile, SEQTYPES[spec.seqtype])
     data = seqio.pack(aln, cleandata=spec.cleandata, icode=spec.icode)
     trees = treeio.read_trees(treefile, data.names)
     topo = from_treenode(trees[tree_index], data.names)
@@ -904,10 +920,22 @@ def _staged_estfreq_starts(data, topo, spec, x0, device):
 
 def fit_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec, *,
                device, objective=None) -> CodemlResult:
-    """Fit a codon model in float64 on `device` (scipy L-BFGS-B over the
-    device's value + gradient), with the multi-starts of `multi_starts`.
-    `objective`: what `make_codon_objective` returned for these arguments,
-    where the caller goes on using it after the fit."""
+    """Fit a model in float64 on `device` (scipy L-BFGS-B over the
+    device's value + gradient): amino-acid data (`fit_aa_packed`), aaDist
+    (`_fit_aadist`), several genes with Mgene other than 1
+    (`fit_codon_mgene`; a ValueError with branch or NSsites models, as the
+    reference), else a codon model with the multi-starts of
+    `multi_starts`.  `objective`: what `make_codon_objective` returned for
+    these arguments, where the caller goes on using it after the fit."""
+    if spec.seqtype in (2, 3):
+        return fit_aa_packed(data, topo, spec, device=device)
+    if spec.aaDist:
+        return _fit_aadist(data, topo, spec, device=device)
+    if data.ngene > 1 and spec.Mgene != 1:
+        if spec.model or spec.NSsites:
+            raise ValueError("Mgene>0 with branch/NSsites models is not "
+                             "supported (the reference zerrors too)")
+        return fit_codon_mgene(data, topo, spec, spec.Mgene, device=device)
     neg_lnl, unpack, classes_for, x0, bounds, pi_np = objective or \
         make_codon_objective(data, topo, spec, device=device)
     is_fmutsel = _codonf(spec) in ("FMutSel", "FMutSel0")
@@ -939,3 +967,598 @@ def fit_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec, *,
         branch_nodes=topo.branch_nodes(), kappa=kappa.numpy(),
         params=params, pi=pi_np, topo=topo, fit=res, x=np.asarray(res.x),
         spec=spec, class_omegas=W.numpy(), class_freqs=freqs.numpy())
+
+
+# --- amino-acid data (seqtype 2 and 3) ----------------------------------------
+
+def _neg_lnl(model_at, tips, fpatt, topo):
+    """neg_lnl(x, lnf=pruning.class_site_lnf): -lnL at x through the
+    pruning pass `lnf` (the plain version's for a check on the card), of
+    the model that model_at(x) -> (P, root frequencies, class weights)
+    gives; it carries model_at, tips, fpatt and topo."""
+    def neg_lnl(x, lnf=pruning.class_site_lnf):
+        P, piC, w = model_at(x)
+        return -pruning.lnL(P, tips, topo, piC, w, fpatt, lnf=lnf)
+
+    neg_lnl.model_at = model_at
+    neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips, fpatt, topo
+    return neg_lnl
+
+
+def make_aa_objective(data: seqio.PackedData, topo: Topology,
+                      spec: CodemlSpec, *, device, dtype=torch.float64):
+    """(neg_lnl, unpack, x0, bounds, pi) of an amino-acid model (reference:
+    eigenQaa, src/codeml.c:3400; lfun / lfundG over 20 states), with
+    discrete-gamma rates through ncatG (aaml's fix_alpha / alpha; a fixed
+    alpha is taken at no less than 0.5).  Parametric exchangeabilities:
+    FromCodon (the codon chain aggregated, kappa estimated, omega fixed;
+    src/codeml.c:3419,3487), REVaa (189 free rates) and REVaa_0 (the
+    one-step pairs alone), src/codeml.c:3424-3436.
+
+    neg_lnl(x, lnf=pruning.class_site_lnf) maps a tensor x on `device` to
+    -lnL through the pruning pass `lnf`; it carries `model_at(x)` -> (P
+    [nnode, K, 20, 20], root frequencies [K, 20], class weights [K]) and
+    its `tips`, `fpatt`, `topo`."""
+    device = torch.device(device)
+    f64 = dict(dtype=dtype, device=device)
+    model = spec.aa_model
+    parametric = model in ("FromCodon", "REVaa", "REVaa_0")
+    if parametric:
+        pi_np = np.asarray(data.base_freqs, float)
+        pi_np = pi_np / pi_np.sum()
+        graph = codonmod.codon_graph(spec.icode)
+        if model == "FromCodon":
+            nrate = 0 if spec.fix_kappa else 1
+
+            def S_of(rates):
+                kap = rates[0] if nrate else torch.as_tensor(spec.kappa,
+                                                             **f64)
+                return aamod.from_codon_S(kap, spec.omega, pi_np, graph,
+                                          device=device, dtype=dtype)
+            Sjones = None
+        else:
+            g = graph if model == "REVaa_0" else None
+            nrate = aamod.n_revaa_rates(model, graph)
+
+            def S_of(rates):
+                return aamod.revaa_S(rates, g)
+            Sjones, _ = aamod.load_empirical(spec.aa_rate_file or "jones")
+    else:
+        S_static, pi_np = aamod.model_S_pi(model, spec.aa_rate_file,
+                                           data.base_freqs)
+        nrate = 0
+        Q_static = aamod.build_aa_Q(torch.as_tensor(S_static, **f64),
+                                    torch.as_tensor(pi_np, **f64))
+    pi = torch.as_tensor(pi_np, **f64)
+    tips = _codon_tips(data.tip_partials, device, dtype)
+    cuda_pruning.check_tips(tips, 20)
+    fpatt = torch.as_tensor(data.fpatt, **f64)
+    nb = len(topo.branch_nodes())
+    bn = torch.as_tensor(topo.branch_nodes(), device=device)
+    use_gamma = (not spec.fix_alpha) or spec.alpha > 0
+    K = spec.ncatG if use_gamma else 1
+    est_alpha = use_gamma and not spec.fix_alpha
+
+    def unpack(x):
+        t = x[:nb]
+        rates = x[nb:nb + nrate]
+        k = nb + nrate
+        alpha = x[k] if est_alpha else x.new_tensor(max(spec.alpha, 0.5))
+        return t, rates, alpha
+
+    def model_at(x):
+        x = x.to(dtype)
+        t, rates, alpha = unpack(x)
+        Q = aamod.build_aa_Q(S_of(rates), pi) if parametric else Q_static
+        if K > 1:
+            r, w = dgamma.discrete_gamma(alpha, K)
+        else:
+            r = w = x.new_ones(1)
+        ts = _scatter_t(t, bn, topo.nnode)[:, None] * r[None, :]
+        return pmat_rev(Q, pi, ts), pi.expand(K, 20), w
+
+    neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
+    x0 = list(_blen_x0(topo))
+    bounds = [(BLEN_MIN, BLEN_MAX)] * nb
+    if parametric and model == "FromCodon" and nrate:
+        x0.append(spec.kappa)
+        bounds.append((KAPPA_MIN, KAPPA_MAX))
+    elif parametric and nrate:
+        # initials from the empirical matrix, scaled so that the reference
+        # pair (19, 9) is 1 (reference: GetInitials,
+        # src/codeml.c:2384-2392)
+        ii, jj = aamod.aa_pairs_lower()
+        ref = Sjones[aamod.IJ_AA_REF[0], aamod.IJ_AA_REF[1]]
+        vals = Sjones[ii, jj] / max(ref, 1e-8)
+        isref = (ii == aamod.IJ_AA_REF[0]) & (jj == aamod.IJ_AA_REF[1])
+        if model == "REVaa_0":
+            fill = (aamod.aa_1step(graph) > 0) & ~isref
+        else:
+            fill = ~isref
+        x0 += list(np.clip(vals[fill], 1e-4, 999.0))
+        bounds += [(OMEGA_MIN, OMEGA_MAX)] * nrate
+    if est_alpha:
+        x0.append(spec.alpha if spec.alpha > 0 else 0.5)
+        bounds.append((0.005, 99.0))
+    return neg_lnl, unpack, np.array(x0), bounds, pi_np
+
+
+def make_fromcodon0_objective(data: seqio.PackedData, topo: Topology,
+                              spec: CodemlSpec, *, device,
+                              dtype=torch.float64):
+    """FromCodon0 (aa model 5): the amino acids become ambiguous codon
+    data, each tip cell the indicator of its synonymous codons (M [20, 61]),
+    and the likelihood runs on the 61-state codon chain with kappa and
+    omega free and pi the codon frequencies equal within a family
+    (reference: src/codeml.c:498-556, com.pi <- fb61 and the z[] + 64
+    recoding).  Returns what `make_aa_objective` does; model_at gives one
+    class of 61 states."""
+    device = torch.device(device)
+    f64 = dict(dtype=dtype, device=device)
+    graph = codonmod.codon_graph(spec.icode)
+    G = codonmod.pair_tables(spec.icode, device)
+    faa = np.asarray(data.base_freqs, float)
+    faa = faa / faa.sum()
+    fb61 = aamod.aa2codonf(faa, graph)
+    M = np.zeros((20, graph.n))
+    M[graph.aa, np.arange(graph.n)] = 1.0
+    tips = _codon_tips(np.asarray(data.tip_partials) @ M, device, dtype)
+    cuda_pruning.check_tips(tips, graph.n)
+    pi_np = fb61 / fb61.sum()
+    pi = torch.as_tensor(pi_np, **f64)
+    fpatt = torch.as_tensor(data.fpatt, **f64)
+    nb = len(topo.branch_nodes())
+    bn = torch.as_tensor(topo.branch_nodes(), device=device)
+    nkappa = 0 if spec.fix_kappa else 1
+    nomega = 0 if spec.fix_omega else 1
+
+    def unpack(x):
+        t = x[:nb]
+        kap = x[nb] if nkappa else x.new_tensor(spec.kappa)
+        om = x[nb + nkappa] if nomega else x.new_tensor(spec.omega)
+        return t, kap, om
+
+    def model_at(x):
+        x = x.to(dtype)
+        t, kap, om = unpack(x)
+        s = codonmod.mutation_part(G, kap)
+        Q = codonmod.build_Q(G, s, om, pi)
+        mr = codonmod.mean_rate(G, s, om, pi)
+        ts = _scatter_t(t, bn, topo.nnode)[:, None] / mr
+        return pmat_rev(Q, pi, ts), pi.expand(1, graph.n), x.new_ones(1)
+
+    neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
+    x0 = list(_blen_x0(topo, 0.3)) + [spec.kappa] * nkappa \
+        + [spec.omega] * nomega
+    bounds = ([(BLEN_MIN, BLEN_MAX)] * nb
+              + [(KAPPA_MIN, KAPPA_MAX)] * nkappa
+              + [(OMEGA_MIN, OMEGA_MAX)] * nomega)
+    return neg_lnl, unpack, np.array(x0), bounds, pi_np
+
+
+def fit_aa_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec,
+                  *, device) -> CodemlResult:
+    """Fit an amino-acid model (FromCodon0 on the codon chain) in float64
+    on `device`."""
+    if spec.aa_model == "FromCodon0":
+        neg_lnl, unpack, x0, bounds, pi_np = make_fromcodon0_objective(
+            data, topo, spec, device=device)
+        res = maximize(neg_lnl, x0, bounds, device=device)
+        with torch.no_grad():
+            t, kap, om = unpack(torch.as_tensor(res.x, dtype=torch.float64))
+        return CodemlResult(
+            lnL=res.lnL, np=len(res.x), blens=t.numpy(),
+            branch_nodes=topo.branch_nodes(),
+            kappa=np.asarray([float(kap)]), params={"omega": float(om)},
+            pi=pi_np, topo=topo, fit=res, x=np.asarray(res.x), spec=spec)
+    neg_lnl, unpack, x0, bounds, pi_np = make_aa_objective(
+        data, topo, spec, device=device)
+    res = maximize(neg_lnl, x0, bounds, device=device)
+    with torch.no_grad():
+        t, rates, alpha = unpack(torch.as_tensor(res.x, dtype=torch.float64))
+    kap = rates.numpy() if spec.aa_model == "FromCodon" else np.zeros(0)
+    return CodemlResult(
+        lnL=res.lnL, np=len(res.x), blens=t.numpy(),
+        branch_nodes=topo.branch_nodes(), kappa=kap,
+        params={"alpha": float(alpha), "rates": rates.numpy()},
+        pi=pi_np, topo=topo, fit=res, x=np.asarray(res.x), spec=spec)
+
+
+# --- aaDist, AAClasses and the fitness models ---------------------------------
+
+# the AAchem p and v rows normalized by their maxima (reference:
+# src/codeml.c:201, :1632-1634)
+AACHEM_P = np.array([8.1, 10.5, 11.6, 13, 5.5, 10.5, 12.3, 9, 10.4, 5.2,
+                     4.9, 11.3, 5.7, 5.2, 8, 9.2, 8.6, 5.4, 6.2, 5.9]) / 13.0
+AACHEM_V = np.array([31, 124, 56, 54, 55, 85, 83, 3, 96, 111,
+                     111, 119, 105, 132, 32.5, 32, 61, 170, 136, 84]) / 170.0
+
+AADIST_FILES = {1: "grantham", 2: "miyata", 3: "g1974c", 4: "g1974p",
+                5: "g1974v", 6: "g1974a"}
+
+_INT_RE = re.compile(r"\s*(-?\d+)")
+
+
+def parse_omega_aa(text: str, graph) -> tuple[int, np.ndarray]:
+    """OmegaAA.dat (reference: GetOmegaAA, src/codeml.c:4079): (number of
+    omega classes, class of each amino-acid pair [20, 20]); class 0 is the
+    background.
+
+    The file is read as a stream: its first integer is the number of
+    classes ncls, then exactly ncls - 1 class lines `i: PAIRS...` follow,
+    and nothing after them is read (the trailing `0: all others` line and
+    any commentary are never consumed).  Pairs not one nucleotide step
+    apart are ignored, a pair named twice is an error.  An ncls below 1 or
+    above 64 selects the general model: one omega per one-step pair."""
+    one_step = np.zeros((20, 20), dtype=bool)
+    aa_i = graph.aa[graph.pi_idx]
+    aa_j = graph.aa[graph.pj_idx]
+    ns = aa_i != aa_j
+    one_step[aa_i[ns], aa_j[ns]] = True
+    one_step |= one_step.T
+
+    def read_int(pos):
+        m = _INT_RE.match(text, pos)
+        if not m:
+            raise ValueError("OmegaAA.dat: expected an integer")
+        return int(m.group(1)), m.end()
+
+    ncls, pos = read_int(0)
+    cls = np.zeros((20, 20), dtype=np.int64)
+    if ncls < 1 or ncls > 64:         # general model: one w per 1-step pair
+        k = 0
+        for i in range(20):
+            for j in range(i):
+                if one_step[i, j]:
+                    cls[i, j] = cls[j, i] = k
+                    k += 1
+        return k, cls
+    for iomega in range(1, ncls):     # the file declares classes 1..ncls-1
+        j, pos = read_int(pos)
+        if j != iomega:
+            raise ValueError(
+                f"err data file OmegaAA.dat: expected class {iomega}, "
+                f"got {j}")
+        if pos >= len(text) or text[pos] != ":":
+            raise ValueError("OmegaAA.dat: expected ':' after class number")
+        pos += 1
+        eol = text.find("\n", pos)
+        line = text[pos:] if eol < 0 else text[pos:eol]
+        pos = len(text) if eol < 0 else eol + 1
+        i = 0
+        while i < len(line):
+            if not line[i].isalpha():
+                i += 1
+                continue
+            if i + 1 >= len(line) or not line[i + 1].isalpha():
+                raise ValueError("OmegaAA.dat: dangling aa in pair")
+            try:
+                a = AA_ORDER.index(line[i].upper())
+                b = AA_ORDER.index(line[i + 1].upper())
+            except ValueError:
+                raise ValueError(
+                    f"OmegaAA.dat: aa not found in pair {line[i:i + 2]!r}")
+            i += 2
+            if a == b:
+                continue              # "This pair has no effect"
+            if not one_step[a, b]:
+                continue              # unreachable in one step: ignored
+            if cls[a, b]:
+                raise ValueError(
+                    f"OmegaAA.dat: pair {line[i - 2:i]!r} already specified")
+            cls[a, b] = cls[b, a] = iomega
+    return ncls, cls
+
+
+def make_aadist_objective(data: seqio.PackedData, topo: Topology,
+                          spec: CodemlSpec, *, device, dtype=torch.float64):
+    """(neg_lnl, unpack, x0, bounds, pi) of an aaDist model (reference:
+    GetOmega, src/codeml.c:3020): +-1..6 chemical-distance omegas w = b
+    exp(-a d) (+, geometric) or b (1 - a d) (-, linear); 7 AAClasses (an
+    omega class per amino-acid pair from OmegaAA.dat, crossed with the
+    branch types under model = 2); 11 / 12 the fitness models FIT1 / FIT2
+    (Yang et al. 1998), which also tilt the codon frequencies.  neg_lnl
+    as in `make_aa_objective`; model_at gives one class of 61 states."""
+    device = torch.device(device)
+    f64 = dict(dtype=dtype, device=device)
+    codonf = _codonf(spec)
+    graph = codonmod.codon_graph(spec.icode)
+    G = codonmod.pair_tables(spec.icode, device)
+    fcodon, f3x4, f1x4 = codonmod.count_codon_freqs(
+        data.tip_partials, data.fpatt, graph, data.pos_masks)
+    pi_np = codonmod.codon_pi(codonf, fcodon, f3x4, f1x4, graph)
+    pf3x4 = codonmod.mg_pf3x4(codonf, f3x4, f1x4)
+    pi = torch.as_tensor(pi_np, **f64)
+    tips = _codon_tips(data.tip_partials, device, dtype)
+    cuda_pruning.check_tips(tips, graph.n)
+    fpatt = torch.as_tensor(data.fpatt, **f64)
+    branch_nodes = topo.branch_nodes()
+    nb = len(branch_nodes)
+    bn = torch.as_tensor(branch_nodes, device=device)
+    nnode = topo.nnode
+    nkappa = _nkappa(spec)
+    B = _n_btypes(topo, spec.model)
+    btype = (topo.labels.astype(np.int64) if spec.model == 2
+             else np.zeros(nnode, dtype=np.int64))
+    btype_t = torch.as_tensor(btype, device=device)
+    nodes_t = torch.arange(nnode, device=device)
+    aa_i, aa_j = G.aa[G.pi_idx], G.aa[G.pj_idx]
+    nonsyn = ~G.is_syn
+    ad = spec.aaDist
+    if ad in (11, 12):                      # FIT1 / FIT2
+        if B > 1:
+            raise NotImplementedError(
+                "FIT1/FIT2 with branch types is not supported (the "
+                "fitness models tilt the equilibrium frequencies, which "
+                "cannot differ per branch under one reversible chain)")
+        n_pom = (4 + (ad == 12)) * B
+        chem_p = torch.as_tensor(AACHEM_P, **f64)
+        chem_v = torch.as_tensor(AACHEM_V, **f64)
+        # the frequencies tilted by fitness (reference: getpcodonClass,
+        # src/codeml.c:2049-2086: pi_fit(i) = pi0(i) / paa0(aa_i)
+        # paaClass(aa_i), paaClass proportional to exp(2 fit))
+        paa0_np = np.zeros(20)
+        np.add.at(paa0_np, graph.aa, pi_np)
+        paa0 = torch.as_tensor(np.maximum(paa0_np, 1e-300), **f64)
+    elif ad == 7:                           # AAClasses
+        text = spec.omegaAA or ""
+        if text and "\n" not in text and len(text) < 4096 \
+                and os.path.exists(text):
+            with open(text) as f:
+                text = f.read()
+        n_omega, cls = parse_omega_aa(text, graph)
+        edge_cls = torch.as_tensor(cls[graph.aa[graph.pi_idx],
+                                       graph.aa[graph.pj_idx]],
+                                   device=device)
+        n_pom = n_omega * B
+    else:                                   # +-1..6 chemical distances
+        D = aamod.load_distance(AADIST_FILES[abs(ad)])
+        D = D / D.max()                     # reference: GetDaa normalization
+        edge_d = torch.as_tensor(D[graph.aa[graph.pi_idx],
+                                   graph.aa[graph.pj_idx]], **f64)
+        n_pom = 2 * B
+
+    def unpack(x):
+        t = x[:nb]
+        k = nb
+        kappa = x[k:k + nkappa] if nkappa else x.new_tensor(
+            [spec.kappa] * (5 if spec.hkyREV else 1))
+        k += nkappa
+        pom = x[k:k + n_pom].reshape(B, -1)
+        return t, kappa, pom
+
+    def fitness(pom_b):
+        return (-pom_b[0] * (chem_p - pom_b[1]) ** 2
+                - pom_b[2] * (chem_v - pom_b[3]) ** 2)
+
+    def w_pair_of(pom_b):
+        if ad in (11, 12):
+            fit = fitness(pom_b)
+            w = torch.exp(-fit[aa_i] - fit[aa_j])
+            if ad == 12:
+                w = w * pom_b[4]
+        elif ad == 7:
+            w = pom_b[edge_cls]
+        else:
+            w = pom_b[0] * edge_d
+            w = torch.exp(-w) if ad > 0 else torch.clamp_min(1.0 - w, 1e-8)
+            w = w * pom_b[1]
+        return torch.where(nonsyn, w, torch.ones_like(w))
+
+    def model_at(x):
+        x = x.to(dtype)
+        t, kappa, pom = unpack(x)
+        s = codonmod.mutation_part(G, kappa if spec.hkyREV else kappa[0],
+                                   pf3x4, spec.hkyREV)
+        if ad in (11, 12):
+            paaC = torch.exp(2.0 * fitness(pom[0]))
+            paaC = paaC / paaC.sum()
+            pi_use = pi / paa0[G.aa] * paaC[G.aa]
+        else:
+            pi_use = pi
+        Qs, scales = [], []
+        for b in range(B):
+            w_pair = w_pair_of(pom[b])
+            Qs.append(codonmod.build_Q_pair(G, s, w_pair, pi_use))
+            scales.append(1.0 / codonmod.mean_rate_pair(G, s, w_pair,
+                                                        pi_use))
+        ts = _scatter_t(t, bn, nnode)[:, None] * torch.stack(scales)[None]
+        P_all = pmat_rev_multi(torch.stack(Qs), pi_use, ts)  # [nnode, B..]
+        P = P_all[:, :1] if B == 1 else P_all[nodes_t, btype_t][:, None]
+        return P, pi_use[None, :], x.new_ones(1)
+
+    neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
+    x0 = list(_blen_x0(topo))
+    bounds = [(BLEN_MIN, BLEN_MAX)] * nb
+    if nkappa:
+        x0 += [spec.kappa] * nkappa
+        bounds += [(KAPPA_MIN, KAPPA_MAX)] * nkappa
+    if ad in (11, 12):
+        per = [0.5, 0.5, 0.5, 0.5] + ([spec.omega] if ad == 12 else [])
+    elif ad == 7:
+        per = [spec.omega] * (n_pom // B)
+    else:
+        per = [0.5, spec.omega]
+    x0 += per * B
+    bounds += [(OMEGA_MIN, OMEGA_MAX)] * n_pom
+    return neg_lnl, unpack, np.array(x0), bounds, pi_np
+
+
+def aadist_starts(spec: CodemlSpec, topo: Topology, x0: np.ndarray,
+                  bounds) -> list[np.ndarray]:
+    """The extra starts of an aaDist fit: the (kappa, omega class) surface
+    is multimodal (mtCDNAape under aaDist = 7 has a local optimum with
+    kappa at its bound some 900 lnL below the global one), so the starts
+    spread over kappa x a scale of the omega parameters, as the
+    reference's advice to rerun from new initials."""
+    nb = len(topo.branch_nodes())
+    n_pom = len(x0) - nb - _nkappa(spec)
+    lo = [b[0] for b in bounds]
+    hi = [b[1] for b in bounds]
+    multi = []
+    for kap in ([None] if spec.fix_kappa or spec.hkyREV
+                else [None, 5.0, 20.0]):
+        for scale in (1.0, 0.1, 3.0):
+            if kap is None and scale == 1.0:
+                continue               # x0 itself
+            st = x0.copy()
+            if kap is not None:
+                st[nb] = kap
+            st[-n_pom:] = np.asarray(x0[-n_pom:]) * scale
+            multi.append(np.clip(st, lo, hi))
+    return multi
+
+
+def _fit_aadist(data, topo, spec, *, device) -> CodemlResult:
+    neg_lnl, unpack, x0, bounds, pi_np = make_aadist_objective(
+        data, topo, spec, device=device)
+    res = maximize(neg_lnl, x0, bounds, device=device,
+                   multi_start=aadist_starts(spec, topo, x0, bounds))
+    with torch.no_grad():
+        t, kappa, pom = unpack(torch.as_tensor(res.x, dtype=torch.float64))
+    return CodemlResult(
+        lnL=res.lnL, blens=t.numpy(), branch_nodes=topo.branch_nodes(),
+        kappa=kappa.numpy(), params={"pomega": pom.numpy()}, pi=pi_np,
+        np=len(res.x), topo=topo, fit=res, x=np.asarray(res.x), spec=spec)
+
+
+# --- several genes (Mgene) -----------------------------------------------------
+
+def make_codon_mgene_objective(data: seqio.PackedData, topo: Topology,
+                               spec: CodemlSpec, Mgene: int, *, device,
+                               dtype=torch.float64):
+    """Multi-gene codon M0 (reference: SetPGene, src/codeml.c:2421;
+    MultipleGenes, src/treesub.c:5170; the ctl's 'codon: 0:rates,
+    1:separate, 2:diff pi, 3:diff kappa, 4:all diff').  x: t[nb],
+    rgene[ngene - 1], then one (kappa, omega) set (Mgene 0 / 2) or one per
+    gene (3 / 4).  pi pooled for Mgene 0 / 3, per gene for 2 / 4; each
+    gene's Q normalized by its own mean rate, its branch lengths scaled by
+    rgene_g (gene 0 has rate 1).  Each gene's likelihood is a pruning pass
+    of its own over its patterns.  Returns (neg_lnl, unpack, x0, bounds,
+    the frequencies of each gene); neg_lnl as in `make_aa_objective`, with
+    no model_at."""
+    if Mgene not in (0, 2, 3, 4):
+        raise ValueError(f"Mgene {Mgene} not handled here (1 = separate)")
+    device = torch.device(device)
+    f64 = dict(dtype=dtype, device=device)
+    codonf = _codonf(spec)
+    graph = codonmod.codon_graph(spec.icode)
+    G = codonmod.pair_tables(spec.icode, device)
+    ngene = data.ngene
+    per_pi = Mgene in (2, 4)
+    per_rates = Mgene in (3, 4)
+    pis, pfs, tips_g, fpatt_g = [], [], [], []
+    for g in range(ngene):
+        sl = data.gene_slice(g)
+        if per_pi:
+            pm = data.pos_masks[:, sl] if data.pos_masks is not None \
+                else None
+            fc, f3, f1 = codonmod.count_codon_freqs(
+                data.tip_partials[:, sl], data.fpatt[sl], graph, pm)
+        else:
+            fc, f3, f1 = codonmod.count_codon_freqs(
+                data.tip_partials, data.fpatt, graph, data.pos_masks)
+        pis.append(codonmod.codon_pi(codonf, fc, f3, f1, graph))
+        pfs.append(codonmod.mg_pf3x4(codonf, f3, f1))
+        tips_g.append(_codon_tips(data.tip_partials[:, sl], device, dtype))
+        cuda_pruning.check_tips(tips_g[-1], graph.n)
+        fpatt_g.append(torch.as_tensor(data.fpatt[sl], **f64))
+    pis_t = [torch.as_tensor(p, **f64) for p in pis]
+    nb = len(topo.branch_nodes())
+    bn = torch.as_tensor(topo.branch_nodes(), device=device)
+    nkappa1 = _nkappa(spec)
+    nsets = ngene if per_rates else 1
+    nrgene = ngene - 1
+
+    def fixed_omega(gset):
+        # reference: with Mgene >= 3 and fix_omega only the last
+        # partition's omega is fixed (codeml.c:2425)
+        return spec.fix_omega and (not per_rates or gset == nsets - 1)
+
+    def unpack(x):
+        t = x[:nb]
+        rgene = torch.cat([x.new_ones(1), x[nb:nb + nrgene]])
+        k = nb + nrgene
+        kaps, oms = [], []
+        for gset in range(nsets):
+            if nkappa1:
+                kaps.append(x[k:k + nkappa1])
+                k += nkappa1
+            else:
+                kaps.append(x.new_tensor(
+                    [spec.kappa] * (5 if spec.hkyREV else 1)))
+            if fixed_omega(gset):
+                oms.append(x.new_tensor(spec.omega))
+            else:
+                oms.append(x[k])
+                k += 1
+        return t, rgene, kaps, oms
+
+    def neg_lnl(x, lnf=pruning.class_site_lnf):
+        x = x.to(dtype)
+        t, rgene, kaps, oms = unpack(x)
+        tfull = _scatter_t(t, bn, topo.nnode)
+        total = x.new_zeros(())
+        for g in range(ngene):
+            gset = g if per_rates else 0
+            kap, om = kaps[gset], oms[gset]
+            s = codonmod.mutation_part(G, kap if spec.hkyREV else kap[0],
+                                       pfs[g], spec.hkyREV)
+            Q = codonmod.build_Q(G, s, om, pis_t[g])
+            mr = codonmod.mean_rate(G, s, om, pis_t[g])
+            P = pmat_rev(Q, pis_t[g], (tfull * rgene[g] / mr)[:, None])
+            total = total + pruning.lnL(P, tips_g[g], topo,
+                                        pis_t[g].expand(1, graph.n),
+                                        x.new_ones(1), fpatt_g[g], lnf=lnf)
+        return -total
+
+    neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips_g, fpatt_g, topo
+    x0 = list(_blen_x0(topo)) + [1.0] * nrgene
+    bounds = [(BLEN_MIN, BLEN_MAX)] * nb + [(0.01, 99.0)] * nrgene
+    for gset in range(nsets):
+        x0 += [spec.kappa] * nkappa1
+        bounds += [(KAPPA_MIN, KAPPA_MAX)] * nkappa1
+        if not fixed_omega(gset):
+            x0 += [spec.omega]
+            bounds += [(OMEGA_MIN, OMEGA_MAX)]
+    return neg_lnl, unpack, np.array(x0), bounds, pis
+
+
+def gene_slice(data: seqio.PackedData, g: int) -> seqio.PackedData:
+    """One gene of a multi-gene PackedData (reference: MultipleGenes'
+    in-place pointer shuffle, src/treesub.c:5170)."""
+    sl = data.gene_slice(g)
+    lg = (int(data.lgene[g]) if data.lgene is not None
+          else int(np.asarray(data.fpatt[sl]).sum()))
+    return _dc_replace(
+        data, tip_partials=data.tip_partials[:, sl],
+        fpatt=data.fpatt[sl], ls=lg, ngene=1,
+        posG=np.array([0, sl.stop - sl.start]),
+        pos_masks=(data.pos_masks[:, sl] if data.pos_masks is not None
+                   else None),
+        site_pattern=None, pattern_site=None, lgene=None)
+
+
+def fit_mgene_separate(data: seqio.PackedData, topo: Topology,
+                       spec: CodemlSpec, *, device) -> list[CodemlResult]:
+    """Mgene = 1: an independent fit per gene (reference: MultipleGenes,
+    src/treesub.c:5170)."""
+    return [fit_packed(gene_slice(data, g), topo, spec, device=device)
+            for g in range(data.ngene)]
+
+
+def fit_codon_mgene(data: seqio.PackedData, topo: Topology,
+                    spec: CodemlSpec, Mgene: int, *, device) -> CodemlResult:
+    neg_lnl, unpack, x0, bounds, pis = make_codon_mgene_objective(
+        data, topo, spec, Mgene, device=device)
+    res = maximize(neg_lnl, x0, bounds, device=device)
+    with torch.no_grad():
+        t, rgene, kaps, oms = unpack(torch.as_tensor(res.x,
+                                                     dtype=torch.float64))
+    return CodemlResult(
+        lnL=res.lnL, np=len(res.x), blens=t.numpy(),
+        branch_nodes=topo.branch_nodes(),
+        kappa=np.asarray([float(k[0]) for k in kaps]),
+        params={"rgene": rgene.numpy(),
+                "omegas": np.asarray([float(o) for o in oms])},
+        pi=pis[0], topo=topo, fit=res, x=np.asarray(res.x), spec=spec)

@@ -3,8 +3,9 @@
 Port of `paml_tpu/io/seqio.py` (numpy only): the PAML/PHYLIP reader
 (sequential and interleaved, with the ``G I S P C`` option characters),
 FASTA and basic NEXUS, several alignments stacked in one file
-(`read_alignments`), the nucleotide and codon state-set encoders, and
-`pack`, the pattern compression of the reference's `PatternWeight`
+(`read_alignments`), the nucleotide, codon and amino-acid state-set
+encoders, the translation of codons to amino acids, and `pack`, the
+pattern compression of the reference's `PatternWeight`
 (src/treesub.c:1386).
 
 Every site is held as a state-set bitmask over model states; tip partials
@@ -17,7 +18,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..constants import AA_AMBIG, NUC_AMBIG, NUC_ORDER, sense_codons
+from ..constants import (AA_AMBIG, AA_ORDER, NUC_AMBIG, NUC_ORDER,
+                         geneticcode_table, sense_codons)
 
 BASE_SEQ, CODON_SEQ, AA_SEQ, CODON2AA_SEQ = 0, 1, 2, 3
 
@@ -376,6 +378,16 @@ def encode_nuc(rows: list[str]) -> np.ndarray:
     return lut[arr]
 
 
+def encode_aa(rows: list[str]) -> np.ndarray:
+    """[ns, ls, 20] bool."""
+    lut = np.zeros((128, 20), dtype=bool)
+    for c, states in AA_AMBIG.items():
+        for s in states:
+            lut[ord(c), AA_ORDER.index(s)] = True
+    arr = np.frombuffer("".join(rows).encode(), dtype=np.uint8).reshape(len(rows), -1)
+    return lut[arr]
+
+
 def encode_codon(rows: list[str], icode: int = 0, return_pos=False):
     """[ns, ls/3, nsense] bool: possible sense codons per codon site.
 
@@ -405,6 +417,25 @@ def encode_codon(rows: list[str], icode: int = 0, return_pos=False):
     return m[:, :, sense]
 
 
+def translate_codon_rows(rows: list[str], icode: int = 0) -> list[str]:
+    """Translate protein-coding DNA to amino acids (reference: DNA2protein,
+    src/tools.c:814).  Ambiguous codons become 'X'."""
+    tab = geneticcode_table(icode)
+    out = []
+    for row in rows:
+        aas = []
+        for i in range(0, len(row) - 2, 3):
+            cod = row[i:i + 3].upper().replace("U", "T")
+            if all(c in "TCAG" for c in cod):
+                idx = 16 * NUC_ORDER.index(cod[0]) + 4 * NUC_ORDER.index(cod[1]) + NUC_ORDER.index(cod[2])
+                aa = tab[idx]
+                aas.append(AA_ORDER[aa] if aa >= 0 else "*")
+            else:
+                aas.append("X")
+        out.append("".join(aas))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # pattern compression
 # ---------------------------------------------------------------------------
@@ -418,9 +449,10 @@ def pack(aln: Alignment, cleandata: bool = False, icode: int = 0) -> PackedData:
         masks = encode_nuc(aln.rows)
     elif seqtype == CODON_SEQ:
         masks, pos_masks_full = encode_codon(aln.rows, icode, return_pos=True)
-    elif seqtype in (AA_SEQ, CODON2AA_SEQ):
-        raise NotImplementedError(
-            "amino-acid data is not ported yet (ROADMAP A9)")
+    elif seqtype == AA_SEQ:
+        masks = encode_aa(aln.rows)
+    elif seqtype == CODON2AA_SEQ:
+        masks = encode_aa(translate_codon_rows(aln.rows, icode))
     else:
         raise ValueError(f"seqtype {seqtype}")
     ns, nunits, nstates = masks.shape

@@ -8,7 +8,8 @@ scatter-free Q build (`mutation_dense`, `build_Q_dense`, `flux_dense`) of
 the models whose frequencies are data, and the pair form
 (`mutation_part`, `flux`, `build_Q` over the single-difference pairs) of
 the mutation-selection models FMutSel / FMutSel0, whose frequencies are
-parameters (`fmutsel_pi`, `fmutsel_multiplier`).  NSsites class matrices
+parameters (`fmutsel_pi`, `fmutsel_multiplier`), and of the models with an
+omega per pair (`build_Q_pair`, `mean_rate_pair`: aaDist).  NSsites class matrices
 are Q_k = Qsyn + omega_k * Qnonsyn; all class normalizations come from the
 two flux scalars (rs, ra).  `branch_dnds` is the report's dN and dS per
 branch.
@@ -443,11 +444,33 @@ def build_Q(G: PairTables, s: torch.Tensor, omega: torch.Tensor,
     """Unnormalized Q [..., n, n] from the pair exchangeabilities; omega
     may carry a batch shape [...] (one Q per site class)."""
     omega = torch.as_tensor(omega, dtype=s.dtype, device=s.device)
-    vals = s * torch.where(G.is_syn, omega.new_ones(()), omega[..., None])
-    Q = vals.new_zeros(omega.shape + (G.n, G.n))
+    return build_Q_pair(G, s, torch.where(G.is_syn, omega.new_ones(()),
+                                          omega[..., None]), pi)
+
+
+def mean_rate(G: PairTables, s: torch.Tensor, omega, pi: torch.Tensor):
+    """Mean rate of Q(omega): rs + omega ra (`flux`)."""
+    rs, ra = flux(G, s, pi)
+    return rs + omega * ra
+
+
+def build_Q_pair(G: PairTables, s: torch.Tensor, w_pair: torch.Tensor,
+                 pi: torch.Tensor) -> torch.Tensor:
+    """Unnormalized Q [..., n, n] with an omega factor per single-difference
+    pair, w_pair [..., m], 1 on the synonymous pairs (reference: GetOmega
+    inside eigenQcodon, src/codeml.c:3298-3301, for aaDist, AAClasses and
+    the fitness models)."""
+    vals = s * w_pair
+    Q = vals.new_zeros(vals.shape[:-1] + (G.n, G.n))
     Q[..., G.pi_idx, G.pj_idx] = vals * pi[G.pj_idx]
     Q[..., G.pj_idx, G.pi_idx] = vals * pi[G.pi_idx]
     return Q - torch.diag_embed(Q.sum(-1))
+
+
+def mean_rate_pair(G: PairTables, s: torch.Tensor, w_pair: torch.Tensor,
+                   pi: torch.Tensor) -> torch.Tensor:
+    """Mean rate of `build_Q_pair`'s Q."""
+    return torch.sum(s * w_pair * pi[G.pi_idx] * pi[G.pj_idx] * 2.0)
 
 
 def branch_dnds(rs: float, ra: float, omega: float, t: float, ls: int):

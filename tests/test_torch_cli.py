@@ -179,7 +179,7 @@ def test_site_models_match_jax_cli(problem, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(seqtype=2), "A9"), (dict(runmode=-2), "A11"),
+    (dict(runmode=-3), "A11"), (dict(runmode=-2), "A11"),
     (dict(runmode=3), "A14")])
 def test_unported_settings_raise(problem, tmp_path, monkeypatch, kw, item):
     names, rows, nwk, cls = problem

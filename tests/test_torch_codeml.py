@@ -303,27 +303,40 @@ def test_fit_route_refuses_double_backward():
             cuda_pruning.ClassSiteLnfKernel.backward(None, lnf.detach())
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(seqtype=2), "A9"), (dict(seqtype=3), "A9"), (dict(aaDist=1), "A9"),
-    (dict(aaDist=7, NSsites=2), "A9")])
-def test_unported_specs_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        codeml.check_slice(codeml.CodemlSpec(**kw))
+# settings that stay refused, as in the JAX package: the fitness models
+# with branch types, and several genes with branch or NSsites models
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(aaDist=11, model=2), NotImplementedError, "branch types"),
+    (dict(aaDist=12, model=2), NotImplementedError, "branch types"),
+    (dict(Mgene=2, NSsites=2), ValueError, "Mgene>0 with branch/NSsites"),
+    (dict(Mgene=4, model=2), ValueError, "Mgene>0 with branch/NSsites")])
+def test_unported_specs_raise(kw, exc, match):
+    data_j, topo_j = _clock56(False, labelled=True)
+    if "Mgene" in kw:
+        aln = jax_seqio.read_alignment(os.path.join(DATA, "clock56.codon"),
+                                       jax_seqio.CODON_SEQ)
+        data_j = jax_seqio.pack(jax_seqio.Alignment(
+            aln.names, aln.rows, 1, ngene=2,
+            site_gene=np.repeat([0, 1], [150, 150])))
+    with pytest.raises(exc, match=match):
+        jax_codeml.fit_packed(data_j, topo_j, jax_codeml.CodemlSpec(**kw),
+                              dtype=jnp.float64)
+    with pytest.raises(exc, match=match):
+        codeml.fit_packed(interop.packed_from(data_j),
+                          interop.topology_from(topo_j),
+                          codeml.CodemlSpec(**kw), device="cpu")
 
 
 def test_ported_specs_pass_and_unknown_codonf_raises():
     # ported settings no longer name a ROADMAP item
     for kw in (dict(tipdate=True, clock=1), dict(NSsites=8),
                dict(codonf="FMutSel", estFreq=True), dict(clock=3),
-               dict(getSE=True), dict(NSsites=22)):
+               dict(getSE=True), dict(NSsites=22), dict(seqtype=2),
+               dict(seqtype=3, aa_model="FromCodon0"), dict(aaDist=1),
+               dict(aaDist=7, NSsites=2), dict(Mgene=4)):
         codeml.check_slice(codeml.CodemlSpec(**kw))
     with pytest.raises(ValueError, match="unknown codonf"):
         codeml.check_slice(codeml.CodemlSpec(codonf="F2x4"))
-    data_j, _ = _clock56(False)
-    data = interop.packed_from(data_j)
-    data.ngene = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        codeml.check_slice(codeml.CodemlSpec(), data)
 
 
 def test_entry_points_need_a_device():
