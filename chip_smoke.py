@@ -106,6 +106,29 @@
    Phases 3 and 3b also hold B1-B4 at 20 states (the uneven tree, from a
    generator of its own, so that the later phases' data stay as they
    were).
+9. The pairwise programs and evolver (no pruning kernel; each program
+   through `paml_tpu_torch.__main__.main`, its launches counted from 0
+   and required to be 0).  9a: `evolver 6` on a 50-taxon random unrooted
+   tree (branch lengths on [0.01, 0.1]) x 1000 codons x 100 replicates
+   under phase 6's site classes, twice (mc.paml, siterates.txt and
+   ancestral.txt the same bytes); chi-square bounds (the 0.999 quantile)
+   on taxon 1's codons against pi, the site classes against p and the
+   parent -> child transitions of ancestral.txt against P(t) on three
+   branches; replicate 1 refitted by M2a on the card (branch lengths
+   fixed at the simulated ones) within stated bounds of the truth; then `evolver 5` at phase 7's 100 taxa x 100,000 sites
+   under REV + G5 (alpha 0.5), twice (the same bytes), a tip's bases
+   against pi; sampling and writing seconds and peak GiB of each.  9b:
+   `yn00` (weighting = 1) on the first 30 taxa of 9a's replicate 1 (435
+   pairs) on the card and with `--device cpu` (one CPU thread: PyTorch's
+   default count oversubscribes that machine's cores): yn, 2YN.* and 2NG.* the
+   same bytes, every field to 1e-9 relative; seconds per pair on each.
+   9c: codeml `runmode = -2` on 12 taxa x 500 codons (66 pairs, so that
+   phase 9 stays near 90 s; PERF.md has 20 taxa's 190) and `-3` on 6 (15
+   pairs), card against `--device cpu`: lnL to 1e-9 relative,
+   the estimates to 1e-5, E_t, E_w, their SEs and P(w > 1) to 1e-6,
+   2ML.* the same bytes; seconds per pair on each.  9d: `pamp` on 9a's
+   nucleotide alignment with its tree, card against CPU (the estimates
+   and the pattern matrix equal), and `chi2 1 3.84`.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -2405,6 +2428,495 @@ def phase_aa(torch, rng, report, card):
           f"in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the pairwise programs and evolver (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+EVO_CODON = dict(taxa=50, codons=1000, repl=100, seed=4321)
+EVO_NUC = dict(seed=8765)            # phase 7's shape: NUC_TAXA x NUC_SITES
+YN_TAXA, YN_CODONS = 30, 1000
+PW_ML_TAXA, PW_BAYES_TAXA, PW_CODONS = 12, 6, 500
+CHI2_Q = 0.999                       # the distribution checks' quantile
+M2A_BOUNDS = dict(kappa=0.3, p0=0.08, p2=0.05, w0=0.05, w2=1.5)
+# the host CPU's runs of 9b-9d: one thread (PyTorch's default count on
+# the card's machine oversubscribes its cores; the work is 61 x 61)
+CPU_THREADS = 1
+
+
+def codon_dat(nwk, ns, ncod, nrepl, seed):
+    """evolver's codon .dat (MCcodon.dat layout): NSsites classes as in
+    phase 6 (SITE_TRUTH), equal codon frequencies."""
+    p, w = SITE_TRUTH["p"], SITE_TRUTH["w"]
+    freqs = "\n".join(" ".join(["0.015625"] * 4) for _ in range(16))
+    return (f"0\n{seed}\n{ns} {ncod} {nrepl}\n-1\n{nwk}\n{len(p)}\n"
+            f"{' '.join(map(str, p))}\n{' '.join(map(str, w))}\n"
+            f"{SITE_TRUTH['kappa']}\n{freqs}\n0\n")
+
+
+def nuc_dat(nwk, ns, ls, seed):
+    """evolver's nucleotide .dat: REV + G5 as phase 7 (NUC_TRUTH)."""
+    t = NUC_TRUTH
+    return (f"0\n{seed}\n{ns} {ls} 1\n-1\n{nwk}\n7\n"
+            f"{' '.join(map(str, t['rev']))}\n{t['alpha']} 5\n"
+            f"{' '.join(map(str, t['pi']))}\n")
+
+
+def codon_states(seqs, ncod):
+    """Codon strings -> sense-codon indices [len(seqs), ncod]."""
+    from paml_tpu_torch.models import codon
+
+    lut = np.full(256, 255, dtype=np.int64)
+    for k, c in enumerate(b"TCAG"):
+        lut[c] = k
+    b = lut[np.frombuffer("".join(seqs).encode(), dtype=np.uint8)]
+    idx64 = (b.reshape(-1, 3) * np.array([16, 4, 1])).sum(1)
+    to61 = -np.ones(64, dtype=np.int64)
+    to61[codon.codon_graph(0).sense] = np.arange(61)
+    st = to61[idx64].reshape(len(seqs), ncod)
+    assert (st >= 0).all()
+    return st
+
+
+def read_evolver_codon(d, ns, nint, ncod, nrepl):
+    """mc.paml, ancestral.txt and siterates.txt as written by evolver 6:
+    (tips [R, ns, ncod], internal nodes [R, nint, ncod], 0-based site
+    classes [R, ncod])."""
+    import os
+
+    def seq_lines(path):
+        return [ln.split()[1] for ln in open(os.path.join(d, path))
+                if len(ln.split()) == 2 and len(ln.split()[1]) == 3 * ncod]
+
+    tips = codon_states(seq_lines("mc.paml"), ncod)
+    anc = codon_states(seq_lines("ancestral.txt"), ncod)
+    cls = [ln.split() for ln in open(os.path.join(d, "siterates.txt"))]
+    cls = np.array([c for c in cls if len(c) == ncod], dtype=np.int64) - 1
+    return (tips.reshape(nrepl, ns, ncod), anc.reshape(nrepl, nint, ncod),
+            cls)
+
+
+def chi2_stat(obs, exp):
+    """Pearson's statistic of counts `obs` against expectations `exp`,
+    rows of cells [..., k] that each sum to the same total: the cells with
+    an expectation of 5 or more, and per row the rest pooled into one more
+    cell, or into the row's largest cell when the rest expects under 5
+    (rows that expect under 5 in all are left out); the degrees of
+    freedom (cells less one per row) and the CHI2_Q quantile."""
+    from scipy.stats import chi2
+
+    k = obs.shape[-1]
+    obs, exp = obs.reshape(-1, k).astype(float), exp.reshape(-1, k)
+    keep = exp >= 5
+    o_rest, e_rest = (obs * ~keep).sum(1), (exp * ~keep).sum(1)
+    o, e = np.where(keep, obs, 0.0), np.where(keep, exp, 0.0)
+    fold = np.nonzero((e_rest < 5) & keep.any(1))[0]
+    big = e.argmax(1)[fold]
+    o[fold, big] += o_rest[fold]
+    e[fold, big] += e_rest[fold]
+    own = e_rest >= 5
+    o = np.concatenate([o[keep], o_rest[own]])
+    e = np.concatenate([e[keep], e_rest[own]])
+    rows = int((keep.any(1) | own).sum())
+    df = max(len(o) - rows, 1)
+    return float(((o - e) ** 2 / e).sum()), df, float(chi2.ppf(CHI2_Q, df))
+
+
+def run_cli(torch, d, argv, cpu=False):
+    """`paml_tpu_torch.__main__.main(argv)` in directory d on the card, or
+    with `--device cpu` and CPU_THREADS threads, the counts set to 0 just
+    before: (its summary, wall seconds, counts with the program's peak GiB
+    on the card)."""
+    import os
+
+    from paml_tpu_torch import __main__ as cli
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    threads = torch.get_num_threads()
+    if cpu:
+        torch.set_num_threads(CPU_THREADS)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        out = cli.main(argv + (["--device", "cpu"] if cpu else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        torch.set_num_threads(threads)
+    # the program's own peak: above what earlier phases still hold
+    counts = dict(read_counts(), peak_gib=(torch.cuda.max_memory_allocated()
+                                           - held) / 2 ** 30)
+    return out, wall, counts
+
+
+def no_launch(counts, what):
+    """Phase 9 reaches no pruning kernel and no pruning pass."""
+    n = sum(counts["launches"].values())
+    if n or counts["level"] or counts["plain"] or counts["twice"]:
+        raise RuntimeError(f"{what}: pruning ran ({counts})")
+    return n
+
+
+def evolver_codon(torch, rng, work, card):
+    """9a, codons: evolver 6 twice (the same bytes), the distribution
+    checks and the M2a refit.  Returns the directory, the names and the
+    launch count."""
+    import os
+
+    from paml_tpu_torch.apps import codeml, evolver
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+
+    c = EVO_CODON
+    names = [f"t{i}" for i in range(c["taxa"])]
+    nwk = random_unrooted_tree(rng, names)
+    dat = codon_dat(nwk, c["taxa"], c["codons"], c["repl"], c["seed"])
+    dirs = [os.path.join(work, f"evolver6_{k}") for k in (1, 2)]
+    for d in dirs:
+        os.makedirs(d)
+        with open(os.path.join(d, "mc.dat"), "w") as f:
+            f.write(dat)
+    runs = [run_cli(torch, d, ["evolver", "6", "mc.dat"]) for d in dirs]
+    launches = sum(no_launch(r[2], "evolver 6") for r in runs)
+    for name in ("mc.paml", "siterates.txt", "ancestral.txt"):
+        a, b = (open(os.path.join(d, name), "rb").read() for d in dirs)
+        if a != b:
+            raise RuntimeError(f"evolver 6: {name} differs between two runs "
+                               "of one seed")
+    out, wall, counts = runs[0]
+    rate = (2 * c["taxa"] - 2) * c["codons"] * c["repl"] / out[
+        "sample_seconds"]
+    print(f"9a evolver 6 [{card}]: {c['taxa']} taxa x {c['codons']} codons "
+          f"x {c['repl']} replicates, 3 site classes: wall {wall:.2f} s "
+          f"(second run {runs[1][1]:.2f} s), sampling "
+          f"{out['sample_seconds']:.3f} s ({rate:.4g} node-codons/s), "
+          f"writing {out['write_seconds']:.3f} s, peak "
+          f"{counts['peak_gib']:.3f} GiB; mc.paml, siterates.txt and "
+          f"ancestral.txt the same bytes twice", flush=True)
+    model = evolver.prepare_codon(os.path.join(dirs[0], "mc.dat"),
+                                  device="cuda")
+    topo = model.topo
+    tips, anc, cls = read_evolver_codon(dirs[0], topo.ns, topo.nnode - topo.ns,
+                                        c["codons"], c["repl"])
+    checks = []
+    # tip codons against pi: taxon 0 (one draw per site and replicate)
+    obs = np.bincount(tips[:, 0].ravel(), minlength=61)
+    checks.append(("tip codons vs pi", *chi2_stat(
+        obs, model.pi.cpu().numpy() * obs.sum())))
+    p = np.asarray(SITE_TRUTH["p"])
+    obs = np.bincount(cls.ravel(), minlength=3)
+    checks.append(("site classes vs p", *chi2_stat(obs, p * obs.sum())))
+    # parent -> child transitions of ancestral.txt against P(t): the root's
+    # first child, a deep internal branch and an internal node's tip child
+    P = model.P.cpu().numpy()
+    states = np.concatenate([tips, anc], axis=1)        # [R, nnode, ncod]
+    kids = [int(k) for k in topo.children[topo.root] if k >= 0]
+    internal = [v for v in range(topo.ns, topo.nnode)
+                if v != topo.root and topo.parent[v] != topo.root]
+    tip_kid = next(v for v in range(topo.ns)
+                   if topo.parent[v] != topo.root)
+    for node in (next(k for k in kids if k >= topo.ns), internal[-1],
+                 tip_kid):
+        par = topo.parent[node]
+        obs = np.zeros((3, 61, 61))
+        np.add.at(obs, (cls.ravel(), states[:, par].ravel(),
+                        states[:, node].ravel()), 1)
+        exp = obs.sum(-1, keepdims=True) * P[node]
+        checks.append((f"branch {par + 1}..{node + 1} transitions vs P(t)",
+                       *chi2_stat(obs, exp)))
+    for what, stat, df, q in checks:
+        print(f"  {what}: chi2 {stat:.2f} on {df} df ({CHI2_Q} quantile "
+              f"{q:.2f})")
+        if not stat < q:
+            raise RuntimeError(f"evolver 6: {what} fails its chi-square "
+                               f"bound ({stat:.2f} >= {q:.2f})")
+    # refit one replicate with M2a on the card, the branch lengths fixed
+    # at the simulated ones
+    aln = seqio.read_alignment(os.path.join(dirs[0], "mc.paml"),
+                               seqio.CODON_SEQ)
+    data = seqio.pack(aln, cleandata=True)
+    topo_fit = from_treenode(treeio.parse_newick(nwk), data.names)
+    spec = codeml.CodemlSpec(NSsites=2, codonf="Fequal", fix_blength=2)
+    t0 = time.perf_counter()
+    res = codeml.fit_packed(data, topo_fit, spec, device="cuda")
+    wall = time.perf_counter() - t0
+    w, f = res.class_omegas.ravel(), res.class_freqs.ravel()
+    kappa = float(res.kappa[0])
+    got = dict(kappa=kappa, p0=f[0], p2=f[2], w0=w[0], w2=w[2])
+    truth = dict(kappa=SITE_TRUTH["kappa"], p0=p[0], p2=p[2],
+                 w0=SITE_TRUTH["w"][0], w2=SITE_TRUTH["w"][2])
+    print(f"  M2a refit of replicate 1 [{card}]: lnL {res.lnL:.4f}, kappa "
+          f"{kappa:.4f}, p {np.round(f, 4)}, omegas {np.round(w, 4)} "
+          f"({res.fit.n_eval} evaluations, {wall:.2f} s); bounds "
+          f"{M2A_BOUNDS}", flush=True)
+    for k, b in M2A_BOUNDS.items():
+        if not abs(got[k] - truth[k]) <= b:
+            raise RuntimeError(f"M2a refit: {k} {got[k]:.4f} is more than "
+                               f"{b} from the truth {truth[k]}")
+    return dirs[0], aln, launches
+
+
+def evolver_nuc(torch, rng, work, card):
+    """9a, nucleotides: evolver 5 at phase 7's shape, twice (the same
+    bytes); base frequencies of a tip against pi.  Returns the directory,
+    the tree and the launch count."""
+    import os
+
+    from paml_tpu_torch.io import seqio
+
+    names = [f"t{i}" for i in range(NUC_TAXA)]
+    nwk = random_unrooted_tree(rng, names)
+    dat = nuc_dat(nwk, NUC_TAXA, NUC_SITES, EVO_NUC["seed"])
+    dirs = [os.path.join(work, f"evolver5_{k}") for k in (1, 2)]
+    for d in dirs:
+        os.makedirs(d)
+        with open(os.path.join(d, "mc.dat"), "w") as f:
+            f.write(dat)
+    runs = [run_cli(torch, d, ["evolver", "5", "mc.dat"]) for d in dirs]
+    launches = sum(no_launch(r[2], "evolver 5") for r in runs)
+    a, b = (open(os.path.join(d, "mc.paml"), "rb").read() for d in dirs)
+    if a != b:
+        raise RuntimeError("evolver 5: mc.paml differs between two runs of "
+                           "one seed")
+    out, wall, counts = runs[0]
+    aln = seqio.read_alignment(os.path.join(dirs[0], "mc.paml"),
+                               seqio.BASE_SEQ)
+    if (aln.ns, aln.ls) != (NUC_TAXA, NUC_SITES):
+        raise RuntimeError(f"evolver 5: {aln.ns} x {aln.ls}")
+    obs = np.array([aln.rows[0].count(ch) for ch in "TCAG"])
+    stat, df, q = chi2_stat(obs, np.asarray(NUC_TRUTH["pi"]) * obs.sum())
+    rate = (2 * NUC_TAXA - 2) * NUC_SITES / out["sample_seconds"]
+    print(f"9a evolver 5 [{card}]: REV + G5 (alpha {NUC_TRUTH['alpha']}), "
+          f"{NUC_TAXA} taxa x {NUC_SITES} sites x 1 replicate: wall "
+          f"{wall:.2f} s (second run {runs[1][1]:.2f} s), sampling "
+          f"{out['sample_seconds']:.3f} s ({rate:.4g} node-sites/s), "
+          f"writing {out['write_seconds']:.3f} s, peak "
+          f"{counts['peak_gib']:.3f} GiB; the same bytes twice; taxon 1's "
+          f"bases vs pi: chi2 {stat:.2f} on {df} df (quantile {q:.2f})",
+          flush=True)
+    if not stat < q:
+        raise RuntimeError("evolver 5: base frequencies fail their "
+                           "chi-square bound")
+    with open(os.path.join(dirs[0], "tree.nwk"), "w") as f:
+        f.write(nwk + "\n")
+    return dirs[0], launches
+
+
+def same_number(a, b, rtol):
+    if a is None or b is None:
+        return a is None and b is None
+    if not (np.isfinite(a) and np.isfinite(b)):
+        return (np.isnan(a) and np.isnan(b)) or a == b
+    return abs(a - b) <= rtol * max(abs(b), 1e-12)
+
+
+def card_and_cpu(torch, work, tag, argv, inputs, files):
+    """Run one program on the card and with `--device cpu`, each in its own
+    directory under `work` holding the `inputs` ({name: text}); no pruning
+    on the card, and the output `files` the same bytes.  Returns the two
+    summaries and the card's launch count."""
+    import os
+
+    out = {}
+    for dev in ("card", "cpu"):
+        d = os.path.join(work, f"{tag}_{dev}")
+        os.makedirs(d)
+        for name, text in inputs.items():
+            with open(os.path.join(d, name), "w") as f:
+                f.write(text)
+        out[dev] = run_cli(torch, d, argv, cpu=dev == "cpu")
+    launches = no_launch(out["card"][2], tag)
+    for name in files:
+        a, b = (open(os.path.join(work, f"{tag}_{dev}", name), "rb").read()
+                for dev in ("card", "cpu"))
+        if a != b:
+            raise RuntimeError(f"{tag}: {name} differs between card and CPU")
+    return out["card"][0], out["cpu"][0], launches
+
+
+def phylip(names, rows):
+    return f"{len(names)} {len(rows[0])}\n" + "".join(
+        f"{nm}  {r}\n" for nm, r in zip(names, rows))
+
+
+def yn00_both(torch, work, aln, card):
+    """9b: yn00 with weighting = 1 on the card and on the CPU; every
+    number in yn, 2YN.* and 2NG.* (the files the same bytes) and every
+    field of each pair to 1e-9 relative."""
+    from paml_tpu_torch.apps import yn00
+
+    # the code tables are built once per process: outside both timings
+    t0 = time.perf_counter()
+    yn00._tables(0), yn00._path_tables(0)
+    tables_s = time.perf_counter() - t0
+    rows = [r[:3 * YN_CODONS] for r in aln.rows[:YN_TAXA]]
+    ctl = ("seqfile = seq.phy\noutfile = yn\nweighting = 1\n"
+           "commonf3x4 = 0\nicode = 0\n")
+    ot, oc, launches = card_and_cpu(
+        torch, work, "yn00", ["yn00", "yn00.ctl"],
+        {"seq.phy": phylip(aln.names[:YN_TAXA], rows), "yn00.ctl": ctl},
+        ("yn", "2YN.dS", "2YN.dN", "2YN.t", "2NG.dS", "2NG.dN", "2NG.t"))
+    pt, pc = ot["pairs"], oc["pairs"]
+    npair = len(pt)
+    worst = 0.0
+    for a, b in zip(pt, pc):
+        for fld in ("ng_S", "ng_N", "ng_dS", "ng_dN", "ng_t", "S", "N", "t",
+                    "kappa", "omega", "dN", "dS", "SEdN", "SEdS"):
+            u, v = getattr(a, fld), getattr(b, fld)
+            if not same_number(u, v, 1e-9):
+                raise RuntimeError(f"yn00 pair ({a.i + 1}, {a.j + 1}) {fld}: "
+                                   f"card {u!r}, CPU {v!r}")
+            if u is not None and np.isfinite(u) and np.isfinite(v):
+                worst = max(worst, abs(u - v) / max(abs(v), 1e-12))
+        for fam, vals in b.lwl.items():
+            for k, v in vals.items():
+                if not same_number(a.lwl[fam][k], v, 1e-9):
+                    raise RuntimeError(f"yn00 {fam} {k}: card / CPU differ")
+    st, sc = ot["seconds"], oc["seconds"]
+    print(f"9b yn00, weighting = 1, {YN_TAXA} taxa x {YN_CODONS} codons "
+          f"({npair} pairs): card [{card}] {st:.2f} s ({1e3 * st / npair:.2f}"
+          f" ms per pair), host CPU {sc:.2f} s ({1e3 * sc / npair:.2f} ms "
+          f"per pair; the code tables {tables_s:.2f} s once before); yn, "
+          f"2YN.*, 2NG.* the same bytes, fields to {worst:.2e} (bound "
+          f"1e-9)", flush=True)
+    return dict(pairs=npair, card_s=st, cpu_s=sc), launches
+
+
+PW_CTL = """      seqfile = seq.phy
+      outfile = mlc
+      runmode = {runmode}
+      seqtype = 1
+    CodonFreq = 2
+        model = 0
+      NSsites = 0
+        icode = 0
+    fix_kappa = 0
+        kappa = 2
+    fix_omega = 0
+        omega = .4
+    cleandata = 1
+"""
+
+
+def pairwise_both(torch, work, aln, runmode, ntaxa, card):
+    """9c: codeml runmode -2 or -3 on the card and on the CPU; lnL to 1e-9
+    relative, the estimates to 1e-5 (ML) and the posterior summaries to
+    1e-6 (Bayesian); 2ML.* the same bytes."""
+    rows = [r[:3 * PW_CODONS] for r in aln.rows[:ntaxa]]
+    ot, oc, launches = card_and_cpu(
+        torch, work, f"codeml runmode {runmode}", ["codeml", "codeml.ctl"],
+        {"seq.phy": phylip(aln.names[:ntaxa], rows),
+         "codeml.ctl": PW_CTL.format(runmode=runmode)},
+        ("2ML.t", "2ML.dS", "2ML.dN"))
+    pt, pc = ot["pairs"], oc["pairs"]
+    if runmode == -2:
+        fields = dict(t=1e-5, kappa=1e-5, omega=1e-5, dN=1e-5, dS=1e-5)
+    else:
+        fields = dict(E_t=1e-6, E_w=1e-6, p_w_gt1=1e-6, SE_t=1e-6,
+                      SE_w=1e-6, kappa=1e-5)
+    worst_lnl = 0.0
+    worst = {k: 0.0 for k in fields}
+    for a, b in zip(pt, pc):
+        d = abs(a.lnL - b.lnL) / abs(b.lnL)
+        worst_lnl = max(worst_lnl, d)
+        if d > 1e-9:
+            raise RuntimeError(f"runmode {runmode} pair ({a.i + 1}, "
+                               f"{a.j + 1}): lnL card {a.lnL!r}, CPU "
+                               f"{b.lnL!r}")
+        for k, tol in fields.items():
+            u, v = getattr(a, k), getattr(b, k)
+            e = abs(u - v) / max(abs(v), 1.0)
+            worst[k] = max(worst[k], e)
+            if e > tol:
+                raise RuntimeError(f"runmode {runmode} pair ({a.i + 1}, "
+                                   f"{a.j + 1}) {k}: card {u!r}, CPU {v!r}")
+    npair = len(pt)
+    st, sc = ot["seconds"], oc["seconds"]
+    extra = ""
+    if runmode == -3:
+        extra = (f"; P(w > 1) {np.round([p.p_w_gt1 for p in pt], 3)}")
+    print(f"9c codeml runmode {runmode}, {ntaxa} taxa x {PW_CODONS} codons "
+          f"({npair} pairs): card [{card}] {st:.2f} s ({st / npair:.3f} s "
+          f"per pair), host CPU {sc:.2f} s ({sc / npair:.3f} s per pair); "
+          f"lnL to {worst_lnl:.2e}, "
+          + ", ".join(f"{k} to {v:.2e}" for k, v in worst.items())
+          + extra, flush=True)
+    return dict(pairs=npair, card_s=st, cpu_s=sc), launches
+
+
+def pamp_both(torch, work, d_nuc, card):
+    """9d: pamp on evolver 5's alignment with its tree, card and CPU (mp
+    names the seqfile's path, so the estimates are compared instead)."""
+    import os
+
+    inputs = {name: open(os.path.join(d_nuc, name)).read()
+              for name in ("mc.paml", "tree.nwk")}
+    inputs["pamp.ctl"] = ("seqfile = mc.paml\ntreefile = tree.nwk\n"
+                          "outfile = mp\nncatG = 8\n")
+    ot, oc, launches = card_and_cpu(torch, work, "pamp",
+                                    ["pamp", "pamp.ctl"], inputs, ())
+    a, b = ot["result"], oc["result"]
+    for k in ("mean", "var", "alpha_mm", "alpha_sullivan", "alpha_yk96"):
+        if getattr(a, k) != getattr(b, k):
+            raise RuntimeError(f"pamp {k}: card {getattr(a, k)!r}, CPU "
+                               f"{getattr(b, k)!r}")
+    ndiff = int((a.pattern_matrix != b.pattern_matrix).sum())
+    if ndiff:
+        raise RuntimeError(f"pamp: {ndiff} cells of the pattern matrix "
+                           f"differ between card and CPU")
+    print(f"9d pamp, {NUC_TAXA} taxa x {NUC_SITES} sites: alpha MM "
+          f"{a.alpha_mm:.5f}, Sullivan {a.alpha_sullivan:.5f}, YK96 "
+          f"{a.alpha_yk96:.5f} (simulated {NUC_TRUTH['alpha']}); card "
+          f"[{card}] {ot['seconds']:.2f} s, host CPU {oc['seconds']:.2f} s; "
+          f"estimates and pattern matrix equal", flush=True)
+    return launches
+
+
+def chi2_program():
+    import contextlib
+    import io
+
+    from paml_tpu_torch import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["chi2", "1", "3.84"])
+    text = buf.getvalue().strip()
+    p = float(text.split("prob = ")[1].split()[0])
+    if not abs(p - 0.05004352) < 1e-6:
+        raise RuntimeError(f"chi2 1 3.84: {text}")
+    print(f"9d chi2 1 3.84: {text}", flush=True)
+
+
+def phase_pairwise(torch, rng, report, card):
+    """Phase 9: evolver 6 and 5 (9a), yn00 (9b), codeml runmode -2 / -3
+    (9c), pamp and chi2 (9d), each program through
+    `paml_tpu_torch.__main__.main` on the card, and 9b-9d once more with
+    `--device cpu`; no pruning kernel on this path."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pairwise_")
+    print(f"phase 9: the host CPU's runs take {CPU_THREADS} thread(s) "
+          f"(PyTorch's default here: {torch.get_num_threads()})", flush=True)
+    d_codon, aln, n6 = evolver_codon(torch, rng, work, card)
+    d_nuc, n5 = evolver_nuc(torch, rng, work, card)
+    yn, nyn = yn00_both(torch, work, aln, card)
+    ml, nml = pairwise_both(torch, work, aln, -2, PW_ML_TAXA, card)
+    by, nby = pairwise_both(torch, work, aln, -3, PW_BAYES_TAXA, card)
+    npamp = pamp_both(torch, work, d_nuc, card)
+    chi2_program()
+    launches = n6 + n5 + nyn + nml + nby + npamp
+    for r in report.values():
+        r["launches_phase9"] = launches
+    print(f"phase 9: {launches} pruning launches; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(yn00=yn, ml=ml, bayes=by)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2458,11 +2970,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 8. amino acids, aaDist and Mgene: 20 states on B1-B4, B5 for them
     phase_aa(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 9. evolver, yn00, codeml's pairwise runmodes, pamp, chi2: no kernel
+    phase_pairwise(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
         # the main paths' launches, each path counted from 0 (M0/M2a fits
         # on clean and gapped data, the branch-site fits, the program on
-        # clean and gapped data)
+        # clean and gapped data; phase 9's programs, which launch none)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

@@ -4,6 +4,11 @@ Usage:
   python -m paml_tpu_torch codeml  [codeml.ctl] [--device cuda|cpu]
   python -m paml_tpu_torch baseml  [baseml.ctl] [--device cuda|cpu]
   python -m paml_tpu_torch basemlg [baseml.ctl] [--device cuda|cpu]
+  python -m paml_tpu_torch yn00    [yn00.ctl]   [--device cuda|cpu]
+  python -m paml_tpu_torch pamp    [pamp.ctl]   [--device cuda|cpu]
+  python -m paml_tpu_torch chi2    [df stat]    # LRT p-values (scipy)
+  python -m paml_tpu_torch evolver <mode> <args> [--device cuda|cpu]
+                              # 5-7 simulate, 11 label clades
 
 Mirrors the reference programs' invocation (`codeml codeml.ctl`; the
 default ctl names are the reference's).  The fits and every side
@@ -11,20 +16,24 @@ computation run on the CUDA card; `--device cpu` asks for the CPU instead.
 Without a card and without `--device cpu` a program stops with an error:
 it does not carry on on the CPU.
 
-Port of `run_codeml`, `run_baseml` and `run_basemlg` of
-`paml_tpu/__main__.py`.  codeml at runmode 0: for codon data NSsites
-lists, several trees, several data sets (`ndata`), standard errors, NEB
-(with RateAncestor) and BEB into `rst`, the marginal ancestral
-reconstruction (RateAncestor) into `rst`, `rst1`, `lnf`, the optimizer
-trace `rub`, the tree-comparison table and dN & dS per branch; amino-acid
-data (seqtype 2 and 3), aaDist and several genes (Mgene) with `mlc`,
-`rst1` and `rub` alone, as the JAX program writes them.  baseml:
-every model, rate and gene option of `apps/baseml.py`, several trees,
-`rst` with the reconstruction and `rates` (RateAncestor), `rst1`, `lnf`,
-the tree-comparison table, the nhomo frequency sets.  basemlg: the
-continuous-gamma fit and its rate-variance decomposition.  Settings whose
-modules are not ported yet raise NotImplementedError naming their ROADMAP
-item.
+Port of `run_codeml`, `run_baseml`, `run_basemlg`, `run_yn00`, `run_pamp`,
+`run_chi2` and the evolver dispatch of `paml_tpu/__main__.py`.  codeml at
+runmode 0: for codon data NSsites lists, several trees, several data sets
+(`ndata`), standard errors, NEB (with RateAncestor) and BEB into `rst`,
+the marginal ancestral reconstruction (RateAncestor) into `rst`, `rst1`,
+`lnf`, the optimizer trace `rub`, the tree-comparison table and dN & dS
+per branch; amino-acid data (seqtype 2 and 3), aaDist and several genes
+(Mgene) with `mlc`, `rst1` and `rub` alone, as the JAX program writes
+them; codon data at runmode -2 (pairwise ML) and -3 (pairwise Bayesian)
+into `mlc` and `2ML.t`, `2ML.dS`, `2ML.dN`, each pair fitted on the device
+that was asked for.  baseml: every model, rate and gene option of
+`apps/baseml.py`, several trees, `rst` with the reconstruction and
+`rates` (RateAncestor), `rst1`, `lnf`, the tree-comparison table, the
+nhomo frequency sets.  basemlg: the continuous-gamma fit and its
+rate-variance decomposition.  yn00: `yn`, `2YN.*` and `2NG.*`.  pamp:
+`mp`.  evolver: `mc.paml` (or `mc.nex`), `siterates.txt`,
+`ancestral.txt`, `evolver.out`.  Settings and modes whose modules are not
+ported yet raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,20 +55,20 @@ def _write_tree_with_blens(topo, blens_by_node, names=True):
     return build(topo.root) + ";"
 
 
-def _check_ported(extras) -> None:
+def _check_ported(extras, seqtype) -> None:
     """Raise NotImplementedError for a runmode this package does not cover
     yet, naming the ROADMAP item that will."""
     runmode = extras.get("runmode", 0)
-    if runmode in (-2, -3):
-        raise NotImplementedError(
-            f"paml_tpu_torch codeml does not cover runmode = {runmode} "
-            "(pairwise dN/dS): ROADMAP A11")
     if runmode in (2, 3, 4, 5):
         raise NotImplementedError(
             f"paml_tpu_torch codeml does not cover runmode = {runmode} "
             "(tree search): ROADMAP A14")
-    if runmode != 0:
+    if runmode not in (0, -2, -3):
         raise ValueError(f"runmode = {runmode} is not a codeml runmode")
+    if runmode in (-2, -3) and seqtype != 1:
+        raise NotImplementedError(
+            f"paml_tpu_torch codeml runs runmode = {runmode} on codon data "
+            f"(seqtype = 1) only, not on seqtype = {seqtype}: ROADMAP C")
 
 
 def run_codeml(ctl_path: str, device: str) -> dict:
@@ -83,7 +92,7 @@ def run_codeml(ctl_path: str, device: str) -> dict:
     opts = ctlmod.read_ctl(ctl_path)
     spec, seqfile, treefile, outfile, extras = ctlmod.codeml_spec(opts,
                                                                   ctl_path)
-    _check_ported(extras)
+    _check_ported(extras, spec.seqtype)
     open("rub", "w").close()
     set_rub("rub")
     rate_ancestor = extras.get("RateAncestor", 0)
@@ -95,6 +104,9 @@ def run_codeml(ctl_path: str, device: str) -> dict:
             return {"runs": runs}
         aln = seqio.read_alignment(seqfile, codeml.SEQTYPES[spec.seqtype])
         data = seqio.pack(aln, cleandata=spec.cleandata, icode=spec.icode)
+        if extras.get("runmode", 0) in (-2, -3):
+            return _run_pairwise(data, spec, extras["runmode"], outfile,
+                                 device)
         trees = treeio.read_trees(treefile, data.names)
         # amino acids, aaDist and several genes: the fit and mlc's lines
         # alone (the JAX program's side outputs need the codon objective)
@@ -206,6 +218,40 @@ def run_codeml(ctl_path: str, device: str) -> dict:
         if frst is not None:
             frst.close()
     return {"runs": runs, "data": data}
+
+
+def _run_pairwise(data, spec, runmode, outfile, device) -> dict:
+    """codeml's pairwise runmodes on codon data, without a tree: ML (-2)
+    or Bayesian (-3) dN/dS per pair (reference: PairwiseCodon,
+    src/codeml.c:4344, BayesPairwise :4612) into `mlc` and the 2ML.*
+    matrices (written like src/yn00.c:141-167).  Under -3 the t and omega
+    columns hold the posterior means E_t and E_w (the JAX program writes
+    0 there: ROADMAP C).  Returns the pairs and the seconds of the fits."""
+    from .apps import pairwise as pw
+    from .io.outputs import write_pairwise_matrix
+
+    fit = pw.pairwise_codon if runmode == -2 else pw.bayes_pairwise_codon
+    kw = dict(fix_kappa=spec.fix_kappa) if runmode == -2 else {}
+    t0 = time.perf_counter()
+    res = fit(data, codonf=spec.codonf, icode=spec.icode, kappa0=spec.kappa,
+              omega0=spec.omega, device=device, **kw)
+    seconds = time.perf_counter() - t0
+    t_field = "t" if runmode == -2 else "E_t"
+    with open(outfile, "w") as out:
+        out.write(f"CODEML (paml_tpu_torch) pairwise runmode {runmode}\n")
+        out.write("seq1 seq2        t    kappa    omega       dN"
+                  "       dS\n")
+        for r in res:
+            t = getattr(r, t_field)
+            w = r.omega if runmode == -2 else r.E_w
+            dN, dS = getattr(r, "dN", 0.0), getattr(r, "dS", 0.0)
+            out.write(f"{r.i + 1:4d} {r.j + 1:4d} {t:8.4f} "
+                      f"{r.kappa:8.4f} {w:8.4f} {dN:8.4f} {dS:8.4f}\n")
+    for q in ("t", "dS", "dN"):
+        write_pairwise_matrix(f"2ML.{q}", data.names, res,
+                              t_field if q == "t" else q)
+    print(f"pairwise results written to {outfile} + 2ML.*")
+    return {"pairs": res, "data": data, "seconds": seconds}
 
 
 def _run_ndata(spec, seqfile, treefile, outfile, extras, device, runs):
@@ -469,6 +515,134 @@ def run_basemlg(ctl_path: str, device: str) -> dict:
     return {"runs": runs, "data": data}
 
 
+def run_yn00(ctl_path: str, device: str) -> dict:
+    """yn00: NG86, YN00 and the LWL85 family for every pair into the
+    ctl's outfile (`yn`) and the 2YN.* / 2NG.* matrices; with `ndata` the
+    YN00 line of each pair per data set.  Returns the pairs (per data set
+    under `ndata`) and the seconds of the analysis."""
+    from .apps import yn00
+    from .io import ctl as ctlmod
+    from .io import seqio
+    from .io.outputs import write_pairwise_matrix
+
+    opts = ctlmod.yn00_opts(ctlmod.read_ctl(ctl_path), ctl_path)
+    kw = dict(icode=opts["icode"], weighting=opts["weighting"],
+              common_f3x4=opts["common_f3x4"], device=device)
+    ndata = opts.get("ndata", 1)
+    t0 = time.perf_counter()
+    if ndata > 1:
+        # multiple stacked data sets (reference: the yn00 ndata loop)
+        alns = seqio.read_alignments(opts["seqfile"], seqio.CODON_SEQ, ndata)
+        sets = []
+        with open(opts["outfile"], "w") as out:
+            out.write("YN00 (paml_tpu_torch)\n")
+            for i, a in enumerate(alns):
+                d = seqio.pack(a, cleandata=True, icode=opts["icode"])
+                rs = yn00.run_packed(d, **kw)
+                sets.append(rs)
+                out.write(f"\nData set {i + 1}\n")
+                for r in rs:
+                    out.write(f"{r.i + 1:4d}{r.j + 1:4d} {r.t:8.4f}"
+                              f"{r.kappa:8.4f}{r.omega:8.4f} "
+                              f"{r.dN:7.4f} {r.dS:7.4f}\n")
+        print(f"{ndata} data sets written to {opts['outfile']}")
+        return {"datasets": sets, "seconds": time.perf_counter() - t0}
+    results = yn00.run(opts["seqfile"], **kw)
+    seconds = time.perf_counter() - t0
+    # 2YN./2NG. lower-triangle matrices (reference: src/yn00.c:141-167)
+    names = seqio.read_alignment(opts["seqfile"], seqio.CODON_SEQ).names
+    for pre, field in (("2YN", "{}"), ("2NG", "ng_{}")):
+        for q in ("dS", "dN", "t"):
+            write_pairwise_matrix(f"{pre}.{q}", names, results,
+                                  field.format(q))
+    with open(opts["outfile"], "w") as out:
+        out.write("YN00 (paml_tpu_torch)\n\n")
+        out.write("Nei & Gojobori 1986. dN/dS (dN, dS)\n")
+        for r in results:
+            out.write(f"{r.i + 1:4d} vs {r.j + 1:4d}: "
+                      f"{r.ng_dN / r.ng_dS if r.ng_dS > 0 else -1:.4f} "
+                      f"({r.ng_dN:.4f} {r.ng_dS:.4f})\n")
+        out.write("\nYang & Nielsen (2000)\n")
+        out.write("seq seq      S       N      t    kappa   omega   "
+                  "dN +- SE     dS +- SE\n")
+        for r in results:
+            out.write(f"{r.i + 1:4d}{r.j + 1:4d} {r.S:8.1f}{r.N:8.1f}"
+                      f"{r.t:8.4f}{r.kappa:8.4f}{r.omega:8.4f} "
+                      f"{r.dN:7.4f} +- {r.SEdN:6.4f} "
+                      f"{r.dS:7.4f} +- {r.SEdS:6.4f}\n")
+        out.write("\nLWL85 family\n")
+        for r in results:
+            l = r.lwl
+            out.write(f"{r.i + 1:4d} vs {r.j + 1:4d}  "
+                      f"LWL85 dS {l['LWL85']['dS']:.4f} dN "
+                      f"{l['LWL85']['dN']:.4f}  "
+                      f"LWL85m dS {l['LWL85m']['dS']:.4f} dN "
+                      f"{l['LWL85m']['dN']:.4f}  "
+                      f"LPB93 dS {l['LPB93']['dS']:.4f} dN "
+                      f"{l['LPB93']['dN']:.4f}\n")
+    print(f"results written to {opts['outfile']}")
+    return {"pairs": results, "seconds": seconds}
+
+
+def run_pamp(ctl_path: str, device: str) -> dict:
+    """pamp: parsimony-based rate analysis into the ctl's outfile (`mp`)
+    (reference: src/pamp.c:67; ctl template examples/pamp.ctl).  Returns
+    the result and its seconds."""
+    from .apps import pamp
+    from .io import ctl as ctlmod
+
+    opts = ctlmod.read_ctl(ctl_path)
+    seqfile = ctlmod.resolve_path(ctl_path, opts.get("seqfile"))
+    treefile = ctlmod.resolve_path(ctl_path, opts.get("treefile"))
+    outfile = opts.get("outfile", "mp")
+    ncatG = int(ctlmod._first_num(opts.get("ncatG", "8")))
+    t0 = time.perf_counter()
+    res = pamp.run(seqfile, treefile, ncatG=ncatG, device=device)
+    seconds = time.perf_counter() - t0
+    with open(outfile, "w") as out:
+        out.write(f"PAMP (paml_tpu_torch) {seqfile}\n\n")
+        out.write("# changes (parsimony) histogram: sites with k "
+                  "changes\n")
+        for k, c in enumerate(res.n_changes_hist):
+            if c:
+                out.write(f"  {k:3d}: {c:.0f}\n")
+        out.write(f"\nmean changes {res.mean:.4f}  variance "
+                  f"{res.var:.4f}\n")
+        out.write(f"alpha (method of moments)    = {res.alpha_mm:.5f}\n")
+        out.write(f"alpha (Sullivan et al. 1995) = "
+                  f"{res.alpha_sullivan:.5f}\n")
+        out.write(f"alpha (Yang & Kumar 1996)    = {res.alpha_yk96:.5f}\n")
+        out.write("\nsubstitution pattern matrix (parsimony counts, "
+                  "TCAG):\n")
+        for row in res.pattern_matrix:
+            out.write("  " + " ".join(f"{v:9.2f}" for v in row) + "\n")
+    print(f"alpha estimates: MM {res.alpha_mm:.5f}  Sullivan "
+          f"{res.alpha_sullivan:.5f}  YK96 {res.alpha_yk96:.5f}")
+    print(f"results written to {outfile}")
+    return {"result": res, "seconds": seconds}
+
+
+def run_chi2(args: list[str]) -> None:
+    """LRT chi-square p-values (reference: src/chi2.c); scipy only."""
+    from scipy.stats import chi2 as chi2_dist
+    if len(args) >= 2:
+        df, stat = int(args[0]), float(args[1])
+        p = chi2_dist.sf(stat, df)
+        print(f"df = {df}  prob = {p:.9g} = {p:.6e}")
+    else:
+        # critical value table like the reference's interactive mode
+        print("df      0.950    0.990    0.999")
+        for df in list(range(1, 11)) + [20, 50, 100]:
+            row = "  ".join(f"{chi2_dist.isf(a, df):8.4f}"
+                            for a in (0.05, 0.01, 0.001))
+            print(f"{df:3d}  {row}")
+
+
+def run_evolver(args: list[str], device: str):
+    from .apps.evolver import main as evolver_main
+    return evolver_main(args, device)
+
+
 def _write_tree_comparison(out, site_lnf_trees, fpatt) -> None:
     """The RELL / KH / SH table over the trees (reference:
     src/codeml.c:623-689 + rell, src/treesub.c:5844)."""
@@ -577,13 +751,19 @@ def main(argv: list[str] | None = None):
         print(__doc__)
         return None
     prog, *rest = argv
+    if prog == "chi2":
+        return run_chi2(rest)
     programs = {"codeml": (run_codeml, "codeml.ctl"),
                 "baseml": (run_baseml, "baseml.ctl"),
-                "basemlg": (run_basemlg, "baseml.ctl")}
+                "basemlg": (run_basemlg, "baseml.ctl"),
+                "yn00": (run_yn00, "yn00.ctl"),
+                "pamp": (run_pamp, "pamp.ctl"),
+                "evolver": (run_evolver, None)}
     if prog not in programs:
         print(f"unknown program {prog!r}: paml_tpu_torch runs codeml, "
-              f"baseml and basemlg so far (the other programs: ROADMAP "
-              f"A11-A14)\n{__doc__}", file=sys.stderr)
+              f"baseml, basemlg, yn00, pamp, chi2 and evolver so far "
+              f"(mcmctree, infinitesites, ds, bfdriver, multiruns: ROADMAP "
+              f"A12, A13)\n{__doc__}", file=sys.stderr)
         sys.exit(2)
     import torch
     if device == "cuda" and not torch.cuda.is_available():
@@ -591,6 +771,8 @@ def main(argv: list[str] | None = None):
               "--device cpu asks for the CPU", file=sys.stderr)
         sys.exit(2)
     run, default_ctl = programs[prog]
+    if default_ctl is None:
+        return run(rest, device)
     return run(rest[0] if rest else default_ctl, device)
 
 

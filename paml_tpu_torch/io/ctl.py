@@ -3,9 +3,10 @@ format (reference: GetOptions in each program, e.g. src/codeml.c:1694;
 `*` and `#` start comments; some values are structured, e.g.
 'ndata 3 maintree 1').
 
-Port of the codeml and baseml parts of `paml_tpu/io/ctl.py` (pure
-Python): `codeml_spec`, `baseml_spec` and `parse_step_matrix`; `yn00_opts`
-waits for its program (ROADMAP A11).
+Port of the codeml, baseml and yn00 parts of `paml_tpu/io/ctl.py` (pure
+Python): `codeml_spec`, `baseml_spec`, `parse_step_matrix` and
+`yn00_opts`; pamp reads its keys through `read_ctl`, `resolve_path` and
+`_first_num`.
 """
 from __future__ import annotations
 
@@ -51,6 +52,9 @@ BASEML_OPTS = (
     "kappa", "fix_alpha", "alpha", "Malpha", "ncatG", "fix_rho", "rho",
     "nparK", "bootstrap", "Small_Diff", "icode", "fix_blength",
     "seqtype")            # src/baseml.c:958-962
+YN00_OPTS = (
+    "seqfile", "outfile", "verbose", "noisy", "icode", "weighting",
+    "commonkappa", "commonf3x4", "ndata")   # src/yn00.c:189-190
 # keys that only control console verbosity / numeric epsilon; accepted
 # and ignored in every program
 _COSMETIC = ("noisy", "verbose", "Small_Diff")
@@ -337,3 +341,18 @@ def codeml_spec(opts: dict, ctl_path: str):
     return (spec, resolve_path(ctl_path, g("seqfile")),
             resolve_path(ctl_path, g("treefile", "")),
             g("outfile", "mlc"), extras)
+
+
+def yn00_opts(opts: dict, ctl_path: str):
+    g = OptReader(opts, "yn00", YN00_OPTS)
+    out = dict(
+        seqfile=resolve_path(ctl_path, g("seqfile")),
+        outfile=g("outfile", "yn"),
+        icode=int(_first_num(g("icode", "0"))),
+        weighting=bool(int(_first_num(g("weighting", "0")))),
+        common_f3x4=bool(int(_first_num(g("commonf3x4", "0")))),
+        ndata=int(_first_num(g("ndata", "1"))),
+    )
+    g.require_off("commonkappa", "a shared kappa across pairs")
+    g.finish()
+    return out

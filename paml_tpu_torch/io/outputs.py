@@ -12,9 +12,11 @@ reference's layout closely:
            src/treesub.c:6288)
   rst1     one summary line per dataset (multiruns hook)
   rates    site rates under a rate mixture (lfunRates, src/treesub.c:7314)
+  2YN.* 2NG.* 2ML.*
+           lower-triangle pairwise matrices of yn00 and codeml's pairwise
+           runmodes (src/yn00.c:141-167)
 
-The pairwise matrices wait for yn00 (ROADMAP A11), the FigTree tree for
-mcmctree (A12).
+The FigTree tree waits for mcmctree (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -150,3 +152,27 @@ def write_rst1(path: str, values: list, append: bool = False) -> None:
     with open(path, "a" if append else "w") as f:
         f.write("\t".join(f"{v:.6f}" if isinstance(v, float) else str(v)
                           for v in values) + "\n")
+
+
+# --------------------------------------------------------------------------
+# pairwise matrices: 2YN.*, 2NG.*, 2ML.* (src/yn00.c:141-167)
+# --------------------------------------------------------------------------
+
+def write_pairwise_matrix(path: str, names: list[str], pairs,
+                          field: str) -> None:
+    """Lower-triangle matrix file of one field of the pairs (each with
+    0-based `i`, `j`; 0 where a pair lacks the field, as the Bayesian
+    pairs lack dN and dS): '%6d\\n' ns, then per row the name and ' %7.4f'
+    entries for columns j < i."""
+    ns = len(names)
+    wname = max(max(len(n) for n in names), 10)
+    M = np.zeros((ns, ns))
+    for r in pairs:
+        M[r.i, r.j] = M[r.j, r.i] = getattr(r, field, 0.0)
+    with open(path, "w") as f:
+        f.write(f"{ns:6d}\n")
+        for i in range(ns):
+            f.write(f"{names[i]:<{wname}s} ")
+            f.write("".join(f" {M[i, j]:7.4f}" for j in range(i)))
+            f.write("\n")
+        f.write("\n")

@@ -1,8 +1,9 @@
 """Newick tree reading with the reference's annotation grammar.
 
 Port of `paml_tpu/io/treeio.py` (pure Python): `TreeNode`, `parse_newick`,
-`read_trees`, `write_newick`, `parse_tip_dates` (TipDate), and for several
-data sets in one file `read_tree_strings` and `prune_to`.  Branch lengths (``:x``), branch labels (``#i``), clade
+`read_trees`, `write_newick`, `parse_tip_dates` (TipDate), for several
+data sets in one file `read_tree_strings` and `prune_to`, and
+`read_tree_sample` (newick lines, a PAML header file or NEXUS).  Branch lengths (``:x``), branch labels (``#i``), clade
 labels (``$i``), node ages (``@x``) and quoted annotations are parsed as
 there; taxa may be given by name or by 1-based index into the alignment.
 """
@@ -292,6 +293,33 @@ def prune_to(root: TreeNode, keep_names) -> TreeNode:
         raise ValueError("pruned tree has fewer than 2 tips")
     out.blen = None
     return out
+
+
+def read_tree_sample(path: str) -> list[TreeNode]:
+    """Parsed trees from a tree-sample file: plain newick-per-line, a
+    PAML 'ns ntree' header file, or NEXUS with a translate table
+    (MrBayes .t output).  Used by the clade-support workflow (reference:
+    CladeSupport, src/treesub.c:4275, driven from evolver option 9)."""
+    text = open(path).read()
+    trees = []
+    if re.search(r"#\s*NEXUS", text, re.I):
+        tr = {}
+        m = re.search(r"\btranslate\b(.*?);", text, re.I | re.S)
+        if m:
+            for ent in m.group(1).split(","):
+                toks = ent.split()
+                if len(toks) >= 2:
+                    tr[toks[0]] = toks[1].strip().strip("'\"")
+        for tm in re.finditer(r"\btree\b[^=]*=\s*(?:\[[^\]]*\]\s*)*"
+                              r"(\([^;]*\)[^;]*;)", text, re.I | re.S):
+            t = parse_newick(tm.group(1))
+            if tr:
+                for node in t.walk_post():
+                    if node.is_tip and node.name in tr:
+                        node.name = tr[node.name]
+            trees.append(t)
+        return trees
+    return [parse_newick(s) for s in read_tree_strings(path)]
 
 
 def read_tree_strings(path: str) -> list[str]:

@@ -6,7 +6,7 @@ of `mlc` (1e-6), `rst1`, `lnf`, the BEB site list and its posteriors, the
 NEB posteriors (both with `RateAncestor = 1`, which switches the NEB table
 on).  Also codeml's marginal reconstruction of codons (RateAncestor)
 against the JAX program's, the device rule and the settings that still
-raise.
+raise (tree search, evolver's tree modes: ROADMAP A14).
 `tests/test_torch_cli_more.py` holds the standard errors, FASTA input,
 several trees and `ndata`."""
 import os
@@ -179,14 +179,18 @@ def test_site_models_match_jax_cli(problem, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(runmode=-3), "A11"), (dict(runmode=-2), "A11"),
-    (dict(runmode=3), "A14")])
+    (dict(runmode=2), "A14"), (dict(evolver="1"), "A14"),
+    (dict(runmode=3), "A14"), (dict(runmode=-2, seqtype=3), "C")])
 def test_unported_settings_raise(problem, tmp_path, monkeypatch, kw, item):
     names, rows, nwk, cls = problem
-    ctl = write_problem(str(tmp_path), names, rows, [nwk], **kw)
     monkeypatch.chdir(tmp_path)
+    if "evolver" in kw:
+        argv = ["evolver", kw["evolver"], "5"]
+    else:
+        argv = ["codeml", write_problem(str(tmp_path), names, rows, [nwk],
+                                        **kw)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["codeml", ctl, "--device", "cpu"])
+        cli.main(argv + ["--device", "cpu"])
 
 
 def test_rate_ancestor_matches_jax_cli(problem, tmp_path, monkeypatch):
