@@ -129,6 +129,32 @@
    2ML.* the same bytes; seconds per pair on each.  9d: `pamp` on 9a's
    nucleotide alignment with its tree, card against CPU (the estimates
    and the pattern matrix equal), and `chi2 1 3.84`.
+10. mcmctree and its kin (each program through `paml_tpu_torch.__main__.
+   main`).  10a: 4 loci x 2000 sites simulated under HKY85 + G5 (alpha
+   0.5, a relaxed clock) on a random dated 30-species tree, the root in
+   B(0.9, 1.1), one internal node in a soft interval and one above a lower
+   bound; `mcmctree` at usedata = 1, clock 2 then clock 3, twice on the
+   card (mcmc.txt the same bytes) and once with `--device cpu` at one
+   thread (every sample to 1e-9 relative); ms per `lnL_all` and per
+   iteration on each, the card's idle share over one `lnL_all`
+   (`torch.profiler`), the seconds of the fossil-error prior's Monte Carlo
+   constants (host), and ROADMAP B6: the batched level pass against a
+   loop of per-locus passes, on the card and on the host.  10b: usedata = 3
+   (in.BV) on 60 species x 8 loci x 5000 sites on the card, per-locus fit
+   and Hessian seconds, every locus's gradient at its MLE below 1e-2 off
+   the branch-length bound (and pointing below it at the bound); then
+   usedata = 2 from that out.BV at clock 2, card against CPU as in 10a.
+   10c: infinitesites at clock 1 and 2 on fixed distances from 10b's
+   dated tree (posterior root age within 0.2 of the truth), ds on 10a's
+   mcmc.txt, `mcmctree --combine` of two 10a chains, bfdriver, multiruns;
+   each timed and its files checked.  10d: baseml at clock = 5 and 6 on 3
+   loci x 30 species x 3000 sites (locus 3 without a taxon, a point
+   fossil '@' on the largest clade), the level route alone, each lnL
+   against the objective on CPU tensors at the fitted x (1e-9); then
+   `clock56.fit_clock5` on codons (2 loci x 20 species x 1000 codons, M0
+   with kappa 2 and omega 0.3, F3x4), clean (B3/B4 alone) and with 3b's
+   gaps and Ns (B1/B2 alone), each lnL against the plain version on the
+   card (1e-9); their launches join the kernels line.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -2917,6 +2943,719 @@ def phase_pairwise(torch, rng, report, card):
     return dict(yn00=yn, ml=ml, bayes=by)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: mcmctree and its kin
+# ---------------------------------------------------------------------------
+
+# 10a: 30 species, 4 loci x 2000 sites, HKY85 + G5 (alpha 0.5)
+DATE_TAXA, DATE_LOCI, DATE_SITES = 30, 4, 2000
+DATE_TRUTH = dict(kappa=4.0, alpha=0.5, pi=(0.25, 0.25, 0.25, 0.25))
+# the chains (burnin, sampfreq, nsample): 10a's host CPU runs take 80 ms
+# per lnL_all, so its chains are 3 iterations and 10b's 6; PERF.md §4
+CHAIN_EXACT = dict(burnin=1, sampfreq=1, nsample=2)
+CHAIN_APPROX = dict(burnin=2, sampfreq=1, nsample=4)
+# 10b: in.BV at 60 species x 8 loci x 5000 sites
+BV_TAXA, BV_LOCI, BV_SITES = 60, 8, 5000
+# 10d: clock 5 / 6 on 3 loci x 30 species x 3000 sites (locus 3 lacks a
+# taxon); codons: 2 loci x 20 species x 1000 codons
+C56_TAXA, C56_LOCI, C56_SITES = 30, 3, 3000
+C56_CODON_TAXA, C56_CODON_LOCI, C56_CODONS = 20, 2, 1000
+# infinitesites: (burnin, nsample) at sampfreq 2 for clock 1 and clock 2
+IS_CHAIN = {1: (200, 500), 2: (20, 50)}
+
+MCMC_CTL = """         seed = 7
+      seqfile = seq.txt
+     treefile = tree.nwk
+     mcmcfile = mcmc.txt
+      outfile = out.txt
+        ndata = {ndata}
+      usedata = {usedata}
+        clock = {clock}
+        model = 4
+        alpha = 0.5
+        ncatG = 5
+    cleandata = 0
+      BDparas = 1 1 0.1
+  kappa_gamma = 6 2
+  alpha_gamma = 1 1
+  rgene_gamma = 2 4 1
+ sigma2_gamma = 1 10 1
+        print = 1
+       burnin = {burnin}
+     sampfreq = {sampfreq}
+      nsample = {nsample}
+"""
+
+
+def dated_tree(rng, names, root_age=1.0):
+    """A random rooted binary tree with node ages: random pairs of lineages
+    join at ages drawn uniformly below root_age, the last pair at root_age.
+    Returns (internal nodes as (Newick without lengths, age, tip set) in
+    the order they were joined, the root last)."""
+    nodes = [(nm, 0.0, frozenset([nm])) for nm in names]
+    ages = sorted(rng.uniform(0.05, 0.95, size=len(names) - 2) * root_age)
+    ages.append(root_age)
+    joined = []
+    for t in ages:
+        i, j = sorted(rng.choice(len(nodes), size=2, replace=False))
+        a, b = nodes[i], nodes[j]
+        # a parent is older than its children
+        t = max(t, a[1] * 1.01 + 1e-3, b[1] * 1.01 + 1e-3)
+        new = (f"({a[0]}, {b[0]})", t, a[2] | b[2])
+        nodes = [v for k, v in enumerate(nodes) if k not in (i, j)]
+        nodes.append(new)
+        joined.append(new)
+    return joined
+
+
+def annotated_newick(names, joined, cals):
+    """The species tree of `dated_tree` with the calibrations `cals` ({tip
+    set: annotation}) after their nodes."""
+    nodes = {frozenset([nm]): nm for nm in names}
+    kids = {}
+    for nwk, _, tips in joined:
+        # the two children are the largest earlier clades that partition it
+        subs = sorted((s for s in nodes if s < tips), key=len, reverse=True)
+        a = subs[0]
+        b = next(s for s in subs if s == tips - a)
+        kids[tips] = (a, b)
+        nodes[tips] = None
+
+    def build(tips):
+        if len(tips) == 1:
+            return next(iter(tips))
+        a, b = kids[tips]
+        s = f"({build(a)}, {build(b)})"
+        return s + (f" '{cals[tips]}'" if tips in cals else "")
+    return build(joined[-1][2]) + ";"
+
+
+def simulate_dated(torch, rng, names, joined, rates, ls, model="HKY85",
+                   truth=DATE_TRUTH, fossil=None):
+    """Sequences of each locus simulated on the dated tree under
+    HKY85 + G5 with the port's P(t): branch length = duration x the
+    locus's rate x a lognormal factor per branch (sd 0.2: a relaxed
+    clock).  Returns the rows per locus and the Topology with ages."""
+    from paml_tpu_torch.core import simulate
+    from paml_tpu_torch.core.dgamma import discrete_gamma
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+    from paml_tpu_torch.models import nuc
+
+    topo = from_treenode(treeio.parse_newick(
+        annotated_newick(names, joined, {})), names)
+    desc = topo.tip_descendants()
+    age_of = {tips: t for _, t, tips in joined}
+    ages = np.array([age_of.get(frozenset(names[k] for k in desc[v]), 0.0)
+                     for v in range(topo.nnode)])
+    f64 = dict(dtype=torch.float64, device="cuda")
+    r, w = discrete_gamma(torch.tensor(truth["alpha"], **f64), 5)
+    pi = torch.tensor(truth["pi"], **f64)
+    par = np.where(topo.parent >= 0, topo.parent, topo.root)
+    out = []
+    for rate, L in zip(rates, ls):
+        t = (ages[par] - ages) * rate * np.exp(
+            0.2 * rng.standard_normal(topo.nnode))
+        t[topo.root] = 0.0
+        P, _ = nuc.pmats_for_model(model, torch.tensor([truth["kappa"]],
+                                                       **f64), pi,
+                                   torch.tensor(t, **f64)[:, None]
+                                   * r[None, :])
+        st, _ = simulate.simulate_states(topo, P, pi, L, 1, class_probs=w,
+                                         seed=int(rng.integers(2 ** 31)),
+                                         device="cuda")
+        out.append(simulate.states_to_rows(st[0, :topo.ns].cpu().numpy(),
+                                           "TCAG"))
+    return out, topo, ages
+
+
+def stacked_phylip(blocks):
+    return "\n".join(phylip(nm, rows) for nm, rows in blocks)
+
+
+def chain_stats(before, after):
+    """(lnL_all calls, ms per lnL_all, iterations, ms per iteration) of a
+    run between two snapshots of mcmctree's counters."""
+    n = after[1]["lnL_all"] - before[1]["lnL_all"]
+    it = after[1]["iterations"] - before[1]["iterations"]
+    return (n, 1e3 * (after[0]["lnL_all"] - before[0]["lnL_all"]) / max(n, 1),
+            it, 1e3 * (after[0]["chain"] - before[0]["chain"]) / max(it, 1))
+
+
+def snapshot():
+    from paml_tpu_torch.apps import mcmctree
+    return dict(mcmctree.SECONDS), dict(mcmctree.COUNTS)
+
+
+def chain_card_cpu(torch, work, tag, inputs, card, cards=2):
+    """One mcmctree control file run `cards` times on the card (mcmc.txt
+    the same bytes each time) and once with `--device cpu` at
+    CPU_THREADS: every sample to 1e-9 relative.  Returns a dict of the
+    runs' numbers."""
+    import os
+
+    from paml_tpu_torch.apps.mcmcutils import read_mcmc_txt
+
+    runs = {}
+    for k, dev in enumerate(["card"] * cards + ["cpu"]):
+        d = os.path.join(work, f"{tag}_{dev}{k}")
+        os.makedirs(d)
+        for name, text in inputs.items():
+            with open(os.path.join(d, name), "w") as f:
+                f.write(text)
+        s0 = snapshot()
+        _, wall, counts = run_cli(torch, d, ["mcmctree", "mcmctree.ctl"],
+                                  cpu=dev == "cpu")
+        runs[f"{dev}{k}"] = dict(dir=d, wall=wall, counts=counts,
+                                 stats=chain_stats(s0, snapshot()))
+        if dev == "card" and (any(counts["launches"].values())
+                              or counts["plain"]):
+            raise RuntimeError(f"{tag}: a kernel or the plain version ran "
+                               f"({counts})")
+    card_runs = [v for k, v in runs.items() if k.startswith("card")]
+    first = open(os.path.join(card_runs[0]["dir"], "mcmc.txt"), "rb").read()
+    for r in card_runs[1:]:
+        if open(os.path.join(r["dir"], "mcmc.txt"), "rb").read() != first:
+            raise RuntimeError(f"{tag}: two card runs differ")
+    hc, a = read_mcmc_txt(os.path.join(card_runs[0]["dir"], "mcmc.txt"))
+    cpu = runs[f"cpu{cards}"]
+    hp, b = read_mcmc_txt(os.path.join(cpu["dir"], "mcmc.txt"))
+    rel = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12)).max())
+    if hc != hp or a.shape != b.shape or not rel <= 1e-9:
+        raise RuntimeError(f"{tag}: card and CPU chains differ (rel {rel})")
+    c0 = card_runs[0]
+    n, ms, it, ms_it = c0["stats"]
+    _, ms_cpu, _, ms_it_cpu = cpu["stats"]
+    print(f"  {tag} [{card}]: {it} iterations, {n} lnL_all calls; card "
+          f"{ms:.3f} ms per lnL_all, {ms_it:.1f} ms per iteration (wall "
+          f"{c0['wall']:.2f} s, peak {c0['counts']['peak_gib']:.3f} GiB, "
+          f"level-route calls {c0['counts']['level']}); host CPU "
+          f"{ms_cpu:.3f} ms per lnL_all, {ms_it_cpu:.1f} ms per iteration "
+          f"(wall {cpu['wall']:.2f} s); {len(card_runs)} card runs the "
+          f"same bytes, card vs CPU samples to {rel:.2e}; {a.shape[0]} "
+          f"samples x {a.shape[1]} columns", flush=True)
+    return dict(lnL_all_ms=ms, iter_ms=ms_it, lnL_all_ms_cpu=ms_cpu,
+                iter_ms_cpu=ms_it_cpu, calls=n, iterations=it, rel=rel,
+                dirs=[r["dir"] for r in runs.values()])
+
+
+def profile_lnl_all(torch, mc, reps=20):
+    """torch.profiler over `reps` calls of mc.lnL_all(): (wall ms per call,
+    device busy ms per call, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mc.lnL_all()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            mc.lnL_all()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+    if busy <= 0:
+        busy = sum(getattr(e, "self_cuda_time_total", 0)
+                   for e in prof.key_averages()) / 1e3 / reps
+    return wall, busy, 1.0 - busy / wall
+
+
+def b6_routes(torch, mc, where, reps=20):
+    """ROADMAP B6: the exact likelihood of every locus as one batched level
+    pass against a loop of one level pass per locus, on mc's device, each
+    call ending in its copy to the host (medians of `reps`, in turns)."""
+    ex = mc._exact
+    b = mc._branch_lengths_all()
+    out, ms = {}, {}
+    for route in ("batched", "loop", "loop", "batched"):
+        ex.lnl(b, mc.kappa, mc.alpha_g, route=route)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            v = ex.lnl(b, mc.kappa, mc.alpha_g, route=route)
+            ts.append(time.perf_counter() - t0)
+        out[route] = v
+        ms.setdefault(route, []).append(1e3 * float(np.median(ts)))
+    rel = float(np.abs(out["batched"] - out["loop"]).max()
+                / np.abs(out["loop"]).max())
+    if rel > 1e-12:
+        raise RuntimeError(f"B6: the routes disagree ({rel})")
+    print(f"  10a B6 [{where}]: lnL of {mc.g} loci, batched level pass "
+          f"{np.round(ms['batched'], 3).tolist()} ms, loop of per-locus "
+          f"passes {np.round(ms['loop'], 3).tolist()} ms (medians of "
+          f"{reps}, in turns); values to {rel:.1e}", flush=True)
+    return {k: min(v) for k, v in ms.items()}
+
+
+def date_exact(torch, rng, work, card):
+    """10a: mcmctree usedata = 1 at clock 2 and 3, card against CPU; the
+    profile of one lnL_all and B6's two routes."""
+    from paml_tpu_torch.apps import mcmctree
+    from paml_tpu_torch.io import seqio, treeio
+
+    names = [f"s{i}" for i in range(DATE_TAXA)]
+    joined = dated_tree(rng, names)
+    rows, topo, ages = simulate_dated(
+        torch, rng, names, joined, rng.uniform(0.3, 0.8, DATE_LOCI),
+        [DATE_SITES] * DATE_LOCI)
+    # the root and two internal nodes calibrated: a soft-bound interval
+    # and a lower bound
+    inner = sorted(joined[:-1], key=lambda v: -len(v[2]))
+    cals = {joined[-1][2]: "B(0.9, 1.1)",
+            inner[1][2]: f"B({inner[1][1] * 0.8:.4f}, "
+                         f"{inner[1][1] * 1.2:.4f})",
+            inner[3][2]: f">{inner[3][1] * 0.8:.4f}"}
+    nwk = annotated_newick(names, joined, cals)
+    inputs = {"seq.txt": stacked_phylip([(names, r) for r in rows]),
+              "tree.nwk": f"{DATE_TAXA} 1\n\n{nwk}\n"}
+    res = {}
+    for clock in (2, 3):
+        inputs["mcmctree.ctl"] = MCMC_CTL.format(ndata=DATE_LOCI, usedata=1,
+                                                 clock=clock, **CHAIN_EXACT)
+        res[clock] = chain_card_cpu(torch, work, f"10a usedata 1 clock "
+                                    f"{clock}", inputs, card)
+    # one lnL_all under the profiler, and B6, on a chain object
+    d = res[2]["dirs"][0]
+    alns = seqio.read_alignments(f"{d}/seq.txt", seqio.BASE_SEQ, DATE_LOCI)
+    st = mcmctree.build_species_tree(
+        treeio.read_trees(f"{d}/tree.nwk", names)[0], names)
+    spec = mcmctree.McmcSpec(clock=2, usedata=1, alpha=0.5, ncatG=5)
+    mc = mcmctree.MCMCTree(st, [seqio.pack(a, cleandata=False)
+                                for a in alns], spec, device="cuda")
+    wall, busy, idle = profile_lnl_all(torch, mc)
+    print(f"  10a one lnL_all [{card}]: {wall:.3f} ms wall, device busy "
+          f"{busy:.3f} ms, idle share {idle:.3f} (torch.profiler, 20 "
+          f"calls); {sum(a.npatt for a in mc.loci)} patterns over "
+          f"{mc.g} loci", flush=True)
+    res["profile"] = dict(wall_ms=wall, busy_ms=busy, idle=idle)
+    # the fossil-error prior's Monte Carlo constants (host): one per subset
+    # of the three calibrations, 1e5 draws each
+    st.pfossilerror = (2.0, 20.0, 0)
+    f0 = mcmctree.SECONDS["fossil_constant"]
+    lnp = mcmctree.ln_prior_times(st, mc.ages, 0.1)
+    fsec = mcmctree.SECONDS["fossil_constant"] - f0
+    print(f"  10a fossil errors (host): the {2 ** len(st.calibrations)} "
+          f"Monte Carlo constants of the time prior in {fsec:.2f} s; lnp "
+          f"{lnp:.4f}", flush=True)
+    if not np.isfinite(lnp):
+        raise RuntimeError("10a: the fossil-error prior is not finite")
+    st.pfossilerror = None
+    res["fossil_s"] = fsec
+    res["b6"] = b6_routes(torch, mc, card)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    try:
+        mc_cpu = mcmctree.MCMCTree(st, mc.loci, spec, device="cpu")
+        res["b6_cpu"] = b6_routes(torch, mc_cpu, f"host CPU, {CPU_THREADS} "
+                                  "thread", reps=5)
+    finally:
+        torch.set_num_threads(threads)
+    return res, inputs
+
+
+def date_bv(torch, rng, work, card):
+    """10b: usedata = 3 (in.BV) on the card, each locus's gradient at its
+    MLE; then usedata = 2 from that out.BV at clock 2, card against
+    CPU."""
+    import os
+
+    from paml_tpu_torch.apps import codeml, mcmctree
+
+    names = [f"s{i}" for i in range(BV_TAXA)]
+    joined = dated_tree(rng, names)
+    rows, topo, ages = simulate_dated(
+        torch, rng, names, joined, rng.uniform(0.3, 0.8, BV_LOCI),
+        [BV_SITES] * BV_LOCI)
+    inner = sorted(joined[:-1], key=lambda v: -len(v[2]))
+    cals = {joined[-1][2]: "B(0.9, 1.1)",
+            inner[2][2]: f"B({inner[2][1] * 0.8:.4f}, "
+                         f"{inner[2][1] * 1.2:.4f})"}
+    nwk = annotated_newick(names, joined, cals)
+    d = os.path.join(work, "10b_usedata3")
+    os.makedirs(d)
+    inputs = {"seq.txt": stacked_phylip([(names, r) for r in rows]),
+              "tree.nwk": f"{BV_TAXA} 1\n\n{nwk}\n",
+              "mcmctree.ctl": MCMC_CTL.format(ndata=BV_LOCI, usedata=3,
+                                              clock=2, **CHAIN_APPROX)}
+    for name, text in inputs.items():
+        with open(os.path.join(d, name), "w") as f:
+            f.write(text)
+    s0 = snapshot()
+    h0 = codeml.SECONDS["hessian"]
+    _, wall, counts = run_cli(torch, d, ["mcmctree", "mcmctree.ctl"])
+    s1 = snapshot()
+    fit_s = s1[0]["bv_fit"] - s0[0]["bv_fit"]
+    hess_s = s1[0]["bv_hessian"] - s0[0]["bv_hessian"]
+    if any(counts["launches"].values()) or counts["plain"]:
+        raise RuntimeError(f"10b usedata 3: a kernel or the plain version "
+                           f"ran ({counts})")
+    loci = mcmctree.read_BV(os.path.join(d, "out.BV"), BV_LOCI,
+                            transform="none")
+    # a branch at baseml's lower bound (4e-6, written 0.000004) keeps a
+    # gradient that points below it, as the reference's in.BV does
+    at_bound = [l.bl <= 1e-5 for l in loci]
+    gmax = [float(np.abs(l.gradient[~b]).max()) for l, b in
+            zip(loci, at_bound)]
+    gbound = max([float(l.gradient[b].max()) for l, b in zip(loci, at_bound)
+                  if b.any()] or [-np.inf])
+    print(f"  10b usedata 3 [{card}]: {BV_LOCI} loci x {BV_TAXA} species x "
+          f"{BV_SITES} sites, HKY85 + G5: wall {wall:.2f} s, per locus fit "
+          f"{fit_s / BV_LOCI:.2f} s and gradient + Hessian "
+          f"{hess_s / BV_LOCI:.2f} s ({len(loci[0].bl)} branches; "
+          f"codeml.hessian {codeml.SECONDS['hessian'] - h0:.2f} s in all); "
+          f"peak {counts['peak_gib']:.3f} GiB; level-route calls "
+          f"{counts['level']}, Hessian-route calls {counts['twice']}; "
+          f"largest gradient component per locus at its MLE, off the lower "
+          f"bound {np.round(gmax, 6).tolist()}; branches at the bound "
+          f"{[int(b.sum()) for b in at_bound]}, their largest dlnL/db "
+          f"{gbound:.4g}", flush=True)
+    if max(gmax) >= 1e-2 or gbound >= 1e-2:
+        raise RuntimeError("10b: a locus's gradient at its MLE is not "
+                           "below 1e-2 (off the bound), or points above "
+                           "the bound")
+    inputs2 = {"seq.txt": inputs["seq.txt"], "tree.nwk": inputs["tree.nwk"],
+               "in.BV": open(os.path.join(d, "out.BV")).read(),
+               "mcmctree.ctl": MCMC_CTL.format(
+                   ndata=BV_LOCI, usedata="2 in.BV", clock=2,
+                   **CHAIN_APPROX)}
+    res = chain_card_cpu(torch, work, "10b usedata 2 clock 2", inputs2,
+                         card)
+    res.update(bv_fit_s=fit_s / BV_LOCI, bv_hess_s=hess_s / BV_LOCI,
+               bv_wall=wall, gmax=max(gmax))
+    return res, joined, names, ages
+
+
+def host_program(torch, d, argv, files):
+    """A host program through the CLI in d: its files must exist; returns
+    (output, seconds)."""
+    import contextlib
+    import io
+    import os
+
+    from paml_tpu_torch import __main__ as cli
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = cli.main(argv)
+        sec = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    for f in files:
+        if not os.path.exists(os.path.join(d, f)) \
+                or not os.path.getsize(os.path.join(d, f)):
+            raise RuntimeError(f"{argv[0]}: {f} missing or empty")
+    return out, sec
+
+
+def host_programs(torch, work, card, exact, bv):
+    """10c: infinitesites clock 1 and 2 on fixed distances from 10b's tree,
+    ds, mcmctree --combine, bfdriver, multiruns."""
+    import os
+
+    from paml_tpu_torch.apps.mcmcutils import read_mcmc_txt
+
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+
+    res_bv, joined, names, _ = bv
+    d = os.path.join(work, "10c")
+    os.makedirs(d)
+    nwk = annotated_newick(names, joined, {joined[-1][2]: "B(0.9, 1.1)"})
+    with open(os.path.join(d, "tree.nwk"), "w") as f:
+        f.write(f"{len(names)} 1\n\n{nwk}\n")
+    topo = from_treenode(treeio.parse_newick(nwk), names)
+    desc = topo.tip_descendants()
+    age_of = {tips: t for _, t, tips in joined}
+    ages = np.array([age_of.get(frozenset(names[k] for k in desc[v]), 0.0)
+                     for v in range(topo.nnode)])
+    rates = [0.4, 0.7]
+    s = topo.ns
+    d1 = [ages[j] * rates[0] for j in range(s, topo.nnode)]
+    with open(os.path.join(d, "FixedDsClock1.txt"), "w") as f:
+        f.write(f"{s}\n" + " ".join(f"{v:.6f}" for v in d1) + "\n"
+                + f"{ages[topo.root] * rates[1]:.6f}\n")
+    par = np.where(topo.parent >= 0, topo.parent, topo.root)
+    with open(os.path.join(d, "FixedDsClock23.txt"), "w") as f:
+        f.write(f"{s}\n")
+        for r in rates:
+            bl = {i: (ages[par[i]] - ages[i]) * r for i in range(topo.nnode)}
+            f.write(_tree_with_lengths(topo, bl) + "\n")
+    out = {}
+    for clock in (1, 2):
+        with open(os.path.join(d, f"is{clock}.ctl"), "w") as f:
+            f.write(f"seed = 5\ntreefile = tree.nwk\nndata = 2\n"
+                    f"clock = {clock}\nburnin = {IS_CHAIN[clock][0]}\n"
+                    f"sampfreq = 2\nnsample = {IS_CHAIN[clock][1]}\n"
+                    f"rgene_gamma = 2 4 1\n"
+                    f"sigma2_gamma = 1 10 1\nBDparas = 1 1 0.1\n")
+        o, sec = host_program(torch, d, ["infinitesites", f"is{clock}.ctl"],
+                              ())
+        out[f"infinitesites clock {clock}"] = sec
+        t0 = (o["t0_mean"] if clock == 1 else
+              float(np.mean([r[f"t_n{topo.root + 1}"] for r in o])))
+        print(f"  10c infinitesites clock {clock} ({s} species, 2 loci, "
+              f"{IS_CHAIN[clock][0] + 2 * IS_CHAIN[clock][1]} iterations): "
+              f"{sec:.2f} s on the host; posterior mean "
+              f"root age {t0:.4f} (true 1.0, bounds B(0.9, 1.1))",
+              flush=True)
+        if not 0.8 < t0 < 1.2:
+            raise RuntimeError(f"infinitesites clock {clock}: root age "
+                               f"{t0}")
+    c2 = exact[2]["dirs"]
+    mc1, mc2 = (os.path.join(c2[k], "mcmc.txt") for k in (0, 2))
+    stats, sec = host_program(torch, d, ["ds", mc1], ())
+    out["ds"] = sec
+    n, sec2 = host_program(torch, d, ["mcmctree", "--combine",
+                                      "combined.txt", mc1, mc2],
+                           ("combined.txt",))
+    out["combine"] = sec2
+    nrow = len(read_mcmc_txt(mc1)[1]) + len(read_mcmc_txt(mc2)[1])
+    if n != nrow or len(read_mcmc_txt(os.path.join(d, "combined.txt"))[1]) \
+            != nrow:
+        raise RuntimeError("mcmctree --combine: wrong row count")
+    with open(os.path.join(d, "template.ctl"), "w") as f:
+        f.write(open(os.path.join(c2[0], "mcmctree.ctl")).read())
+    _, sec3 = host_program(torch, d, ["bfdriver", "template.ctl", "8"],
+                           ("bf/runbf.sh", "bf/beta_weights.txt",
+                            "bf/b8/mcmctree.ctl"))
+    out["bfdriver"] = sec3
+    rng = np.random.default_rng(3)
+    for k in range(3):
+        with open(os.path.join(d, f"rst1_{k}"), "w") as f:
+            for i in range(50):
+                f.write(f"{i + 1} {rng.uniform(0, 1):.4f} "
+                        f"{-1000 - rng.uniform(0, 5):.6f}\n")
+    n, sec4 = host_program(torch, d, ["multiruns", "best.txt"]
+                           + [f"rst1_{k}" for k in range(3)], ("best.txt",))
+    out["multiruns"] = sec4
+    if n != 50:
+        raise RuntimeError(f"multiruns: {n} data sets")
+    print(f"  10c ds on 10a's mcmc.txt ({len(stats)} columns) {sec:.3f} s; "
+          f"--combine of two 10a chains ({nrow} rows) {sec2:.3f} s; "
+          f"bfdriver (8 betas) {sec3:.3f} s; multiruns (3 x 50 lines) "
+          f"{sec4:.3f} s; host only", flush=True)
+    return out
+
+
+def _tree_with_lengths(topo, bl):
+    def build(i):
+        kids = [c for c in topo.children[i] if c >= 0]
+        s = (topo.node_names[i] if not kids
+             else "(" + ", ".join(build(c) for c in kids) + ")")
+        return s + (f": {bl[i]:.6f}" if i != topo.root else "")
+    return build(topo.root) + ";"
+
+
+C56_CTL = """      seqfile = seq.txt
+     treefile = tree.nwk
+      outfile = mlb
+        noisy = 0
+        ndata = {ndata}
+        clock = {clock}
+        model = 4
+    fix_kappa = 0
+        kappa = 2
+    fix_alpha = 1
+        alpha = 0
+        ncatG = 1
+    cleandata = 0
+"""
+
+
+def fossil_tree(rng, names, joined):
+    """The dated tree with its largest non-root clade's age fixed by '@'
+    (a point fossil) and no other calibration."""
+    inner = sorted(joined[:-1], key=lambda v: -len(v[2]))
+    return annotated_newick(names, joined,
+                            {inner[0][2]: f"@{inner[0][1]:.4f}"})
+
+
+def c56_check(torch, res, hd, spec, device, tag, card, plain=False):
+    """The fitted lnL against the step-3 objective at the fitted x: on CPU
+    tensors (nucleotides), or with the plain pruning version on the card
+    (codons); 1e-9 relative."""
+    from paml_tpu_torch.apps import clock56
+    from paml_tpu_torch.core import pruning
+
+    nb = [len(r) for r in res.rates]
+    neg = clock56.make_step3_objective(hd, spec, res.labels, nb,
+                                       device=device)[0]
+    saved = pruning.class_site_lnf
+    if plain:
+        pruning.class_site_lnf = pruning.class_site_lnf_plain
+    try:
+        with torch.no_grad():
+            v = -float(neg(torch.as_tensor(res.fit.x, device=device)))
+    finally:
+        pruning.class_site_lnf = saved
+    rel = abs(v - res.lnL) / abs(v)
+    if rel > 1e-9:
+        raise RuntimeError(f"{tag}: lnL {res.lnL!r} against {v!r}")
+    return v, rel
+
+
+def clock56_phase(torch, rng, work, report, card):
+    """10d: baseml clock = 5 and 6 on nucleotides through the CLI (level
+    route), then `clock56.fit_clock5` on codons, clean (B3/B4) and with
+    3b's gaps and Ns (B1/B2), each lnL against its plain version."""
+    import dataclasses
+    import os
+
+    from paml_tpu_torch.apps import clock56
+    from paml_tpu_torch.constants import codon_string
+    from paml_tpu_torch.core import simulate
+    from paml_tpu_torch.core.pmat import pmat_rev_multi
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+    from paml_tpu_torch.models import codon
+
+    names = [f"s{i}" for i in range(C56_TAXA)]
+    joined = dated_tree(rng, names)
+    rows, topo, ages = simulate_dated(
+        torch, rng, names, joined, rng.uniform(0.3, 0.8, C56_LOCI),
+        [C56_SITES] * C56_LOCI)
+    blocks = [(names, r) for r in rows]
+    blocks[-1] = (names[:-1], rows[-1][:-1])       # locus 3 lacks a taxon
+    nwk = fossil_tree(rng, names, joined)
+    out = {}
+    for clock in (5, 6):
+        d = os.path.join(work, f"10d_clock{clock}")
+        os.makedirs(d)
+        for name, text in {"seq.txt": stacked_phylip(blocks),
+                           "tree.nwk": f"{C56_TAXA} 1\n\n{nwk}\n",
+                           "baseml.ctl": C56_CTL.format(ndata=C56_LOCI,
+                                                        clock=clock)}.items():
+            with open(os.path.join(d, name), "w") as f:
+                f.write(text)
+        o, wall, counts = run_cli(torch, d, ["baseml", "baseml.ctl"])
+        check_baseml_routes(f"clock {clock}", counts)
+        res = o["result"]
+        spec = clock56.Clock56Spec(model="HKY85", clock=clock, kappa=[2.0],
+                                   alpha=[0.0], ncatG=1)
+        hd = clock56.read_tree_seqs(os.path.join(d, "tree.nwk"),
+                                    os.path.join(d, "seq.txt"), C56_LOCI)
+        v, rel = c56_check(torch, res, hd, spec, "cpu", f"clock {clock}",
+                           card)
+        mlb = open(os.path.join(d, "mlb")).read()
+        if f"lnL = {res.lnL:.6f}" not in mlb:
+            raise RuntimeError(f"clock {clock}: mlb lacks the lnL")
+        print(f"  10d baseml clock = {clock} [{card}]: {C56_LOCI} loci x "
+              f"{C56_TAXA} species x {C56_SITES} sites (locus 3 without "
+              f"{names[-1]}), HKY85: lnL {res.lnL:.6f}, {res.np} "
+              f"parameters, {o['seconds']:.2f} s ({res.fit.n_eval} "
+              f"evaluations in the last fit, "
+              f"{res.fit.message}); level-route calls {counts['level']}, "
+              f"Hessian-route calls {counts['twice']}, peak "
+              f"{counts['peak_gib']:.3f} GiB; CPU objective at the fitted "
+              f"x {v:.6f} (rel {rel:.1e}); root age "
+              f"{res.ages[res.sp_topo.root]:.4f} (simulated 1.0)",
+              flush=True)
+        out[f"clock{clock}"] = dict(seconds=o["seconds"],
+                                    evals=res.fit.n_eval, lnL=res.lnL)
+    # codons: M0 (kappa 2, omega 0.3) on a dated tree, F3x4 frequencies
+    cnames = [f"c{i}" for i in range(C56_CODON_TAXA)]
+    cjoined = dated_tree(rng, cnames)
+    ctopo_rows, ctopo, cages = [], None, None
+    graph = codon.codon_graph(0)
+    f3x4 = rng.dirichlet(np.full(4, 8.0), size=3)
+    pi_np = codon.codon_pi("F3x4", None, f3x4, f3x4.mean(0), graph)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    T = codon.dense_tables(0, "cuda")
+    pi = torch.tensor(pi_np, **f64)
+    s = codon.mutation_dense(T, torch.tensor([2.0], **f64))
+    Q = codon.build_Q_dense(T, s, torch.tensor([0.3], **f64), pi)
+    rs, ra = codon.flux_dense(T, s, pi)
+    ctopo = from_treenode(treeio.parse_newick(
+        annotated_newick(cnames, cjoined, {})), cnames)
+    desc = ctopo.tip_descendants()
+    age_of = {tips: t for _, t, tips in cjoined}
+    cages = np.array([age_of.get(frozenset(cnames[k] for k in desc[v]), 0.0)
+                      for v in range(ctopo.nnode)])
+    par = np.where(ctopo.parent >= 0, ctopo.parent, ctopo.root)
+    sense = [codon_string(int(c)) for c in graph.sense]
+    for rate in rng.uniform(0.4, 0.8, C56_CODON_LOCI):
+        t = torch.tensor((cages[par] - cages) * rate, **f64)
+        P = pmat_rev_multi(Q, pi, (t / (rs + ra * 0.3))[:, None])[:, :1]
+        st, _ = simulate.simulate_states(ctopo, P, pi, C56_CODONS, 1,
+                                         seed=int(rng.integers(2 ** 31)),
+                                         device="cuda")
+        ctopo_rows.append(simulate.states_to_rows(
+            st[0, :ctopo.ns].cpu().numpy(), sense))
+    cnwk = fossil_tree(rng, cnames, cjoined)
+    spec = clock56.Clock56Spec(clock=5, seqtype=seqio.CODON_SEQ,
+                               codonf="F3x4", ncatG=1)
+    for tag, rowsets in (("clean", ctopo_rows),
+                         ("gapped", [gapped_rows(rng, r)
+                                     for r in ctopo_rows])):
+        d = os.path.join(work, f"10d_codon_{tag}")
+        os.makedirs(d)
+        with open(os.path.join(d, "seq.txt"), "w") as f:
+            f.write(stacked_phylip([(cnames, r) for r in rowsets]))
+        with open(os.path.join(d, "tree.nwk"), "w") as f:
+            f.write(f"{C56_CODON_TAXA} 1\n\n{cnwk}\n")
+        hd = clock56.read_tree_seqs(os.path.join(d, "tree.nwk"),
+                                    os.path.join(d, "seq.txt"),
+                                    C56_CODON_LOCI, seqtype=seqio.CODON_SEQ)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = clock56.fit_clock5(hd, spec, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = ("big_fwd", "big_bwd") if tag == "clean" else \
+            ("pruning_fwd", "pruning_bwd")
+        if counts["plain"] or not all(counts["launches"][k] for k in want):
+            raise RuntimeError(f"codon clock 5 {tag}: launches "
+                               f"{counts['launches']}, plain calls "
+                               f"{counts['plain']}")
+        for name, count in counts["launches"].items():
+            report[name][f"launches_clock5_codon_{tag}"] = count
+        v, rel = c56_check(torch, res, hd, dataclasses.replace(spec), "cuda",
+                           f"codon clock 5 {tag}", card, plain=True)
+        print(f"  10d codon clock 5, {tag} [{card}]: {C56_CODON_LOCI} loci "
+              f"x {C56_CODON_TAXA} species x {C56_CODONS} codons (F3x4): lnL "
+              f"{res.lnL:.6f}, {res.np} parameters, {sec:.2f} s in "
+              f"{res.fit.n_eval} evaluations "
+              f"({1e3 * sec / res.fit.n_eval:.2f} ms each); launches "
+              f"{counts['launches']}, plain calls {counts['plain']}; peak "
+              f"{peak:.3f} GiB; plain version at the fitted x {v:.6f} (rel "
+              f"{rel:.1e}); kappa {np.round(res.kappa.ravel(), 3).tolist()} "
+              f"(simulated 2), omega "
+              f"{np.round(res.omega, 3).tolist()} (0.3)", flush=True)
+        out[f"codon_{tag}"] = dict(seconds=sec, evals=res.fit.n_eval)
+    return out
+
+
+def phase_dating(torch, rng, report, card):
+    """Phase 10: mcmctree usedata 1 (10a), in.BV and usedata 2 (10b), the
+    host programs (10c), clock 5 / 6 (10d)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dating_")
+    t = {}
+    t0 = time.perf_counter()
+    exact, _ = date_exact(torch, rng, work, card)
+    t["10a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bv = date_bv(torch, rng, work, card)
+    t["10b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_programs(torch, work, card, exact, bv)
+    t["10c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clock56_phase(torch, rng, work, report, card)
+    t["10d"] = time.perf_counter() - t0
+    print(f"phase 10: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2973,11 +3712,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 9. evolver, yn00, codeml's pairwise runmodes, pamp, chi2: no kernel
     phase_pairwise(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 10. mcmctree, in.BV, the MCMC utilities, clock 5 / 6 (B1-B4 on codons)
+    phase_dating(torch, rng, report, smi[0])
     kernels = []
     for r in report.values():
         # the main paths' launches, each path counted from 0 (M0/M2a fits
         # on clean and gapped data, the branch-site fits, the program on
-        # clean and gapped data; phase 9's programs, which launch none)
+        # clean and gapped data; phase 9's programs, which launch none;
+        # phase 10's codon clock 5 fits)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

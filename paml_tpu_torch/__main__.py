@@ -9,15 +9,24 @@ Usage:
   python -m paml_tpu_torch chi2    [df stat]    # LRT p-values (scipy)
   python -m paml_tpu_torch evolver <mode> <args> [--device cuda|cpu]
                               # 5-7 simulate, 11 label clades
+  python -m paml_tpu_torch mcmctree [mcmctree.ctl] [--device cuda|cpu]
+  python -m paml_tpu_torch mcmctree --combine <dir> | <out> <in1> <in2> ...
+  python -m paml_tpu_torch infinitesites [mcmctree.ctl]  # infinite sites
+  python -m paml_tpu_torch ds      <samplefile>     # descriptive statistics
+  python -m paml_tpu_torch bfdriver <ctl> [nbeta]   # marginal likelihood
+  python -m paml_tpu_torch multiruns <out> <rst1 files...>
 
 Mirrors the reference programs' invocation (`codeml codeml.ctl`; the
 default ctl names are the reference's).  The fits and every side
 computation run on the CUDA card; `--device cpu` asks for the CPU instead.
 Without a card and without `--device cpu` a program stops with an error:
-it does not carry on on the CPU.
+it does not carry on on the CPU.  infinitesites, ds, bfdriver, multiruns,
+chi2 and `mcmctree --combine` compute host scalars and files only (in
+both packages): they need no card and take no `--device`.
 
 Port of `run_codeml`, `run_baseml`, `run_basemlg`, `run_yn00`, `run_pamp`,
-`run_chi2` and the evolver dispatch of `paml_tpu/__main__.py`.  codeml at
+`run_chi2` and the evolver, mcmctree, infinitesites, ds, bfdriver and
+multiruns dispatch of `paml_tpu/__main__.py`.  codeml at
 runmode 0: for codon data NSsites lists, several trees, several data sets
 (`ndata`), standard errors, NEB (with RateAncestor) and BEB into `rst`,
 the marginal ancestral reconstruction (RateAncestor) into `rst`, `rst1`,
@@ -29,11 +38,15 @@ into `mlc` and `2ML.t`, `2ML.dS`, `2ML.dN`, each pair fitted on the device
 that was asked for.  baseml: every model, rate and gene option of
 `apps/baseml.py`, several trees, `rst` with the reconstruction and
 `rates` (RateAncestor), `rst1`, `lnf`, the tree-comparison table, the
-nhomo frequency sets.  basemlg: the continuous-gamma fit and its
-rate-variance decomposition.  yn00: `yn`, `2YN.*` and `2NG.*`.  pamp:
+nhomo frequency sets, and at clock = 5 / 6 the dating of heterogeneous
+multi-locus data (`apps/clock56.py`).  basemlg: the continuous-gamma fit
+and its rate-variance decomposition.  yn00: `yn`, `2YN.*` and `2NG.*`.  pamp:
 `mp`.  evolver: `mc.paml` (or `mc.nex`), `siterates.txt`,
-`ancestral.txt`, `evolver.out`.  Settings and modes whose modules are not
-ported yet raise NotImplementedError naming their ROADMAP item.
+`ancestral.txt`, `evolver.out`.  mcmctree: `mcmc.txt`, `out.txt`,
+`FigTree.tre` (or `out.BV` at usedata = 3), checkpoints; infinitesites,
+ds, bfdriver and multiruns print and write as the JAX program does.
+Settings and modes whose modules are not ported yet raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -324,10 +337,6 @@ def _write_ancestral_rst(frst, data, topo, sp, neg, xt):
 def _check_baseml(extras) -> None:
     """Raise NotImplementedError for a baseml control file this package
     does not cover yet, naming the ROADMAP item that will."""
-    if extras["clock"] in (5, 6):
-        raise NotImplementedError(
-            f"paml_tpu_torch baseml does not cover clock = {extras['clock']} "
-            "(dating heterogeneous multi-locus data): ROADMAP A12")
     if extras.get("runmode", 0) in (2, 3, 4, 5):
         raise NotImplementedError(
             f"paml_tpu_torch baseml does not cover runmode = "
@@ -354,6 +363,9 @@ def run_baseml(ctl_path: str, device: str) -> dict:
     spec, seqfile, treefile, outfile, extras = ctlmod.baseml_spec(opts,
                                                                   ctl_path)
     _check_baseml(extras)
+    if extras["clock"] in (5, 6):
+        return run_clock56(opts, spec, seqfile, treefile, outfile, extras,
+                           device)
     aln = seqio.read_alignment(seqfile, seqio.BASE_SEQ)
     data = seqio.pack(aln, cleandata=spec.cleandata)
     trees = treeio.read_trees(treefile, data.names)
@@ -449,6 +461,49 @@ def run_baseml(ctl_path: str, device: str) -> dict:
             _write_tree_comparison(out, site_lnf_trees, data.fpatt)
     print(f"results written to {outfile}")
     return {"runs": runs, "data": data}
+
+
+def run_clock56(opts, spec, seqfile, treefile, outfile, extras,
+                device) -> dict:
+    """baseml at clock = 5 / 6: dating heterogeneous multi-locus data
+    (reference: DatingHeteroData, src/treesub.c:10100) into the outfile,
+    as the JAX program writes it.  Returns the result and its seconds."""
+    from .apps import clock56
+
+    spec56 = clock56.Clock56Spec(
+        model=spec.model, clock=extras["clock"],
+        fix_kappa=spec.fix_kappa,
+        kappa=[float(v) for v in str(opts.get("kappa", "2")).split()],
+        fix_alpha=spec.fix_alpha,
+        alpha=[float(v) for v in str(opts.get("alpha", "0")).split()],
+        ncatG=spec.ncatG, cleandata=spec.cleandata, getSE=spec.getSE)
+    t0 = time.perf_counter()
+    res = clock56.fit(treefile, seqfile, extras["ndata"], spec56,
+                      device=device)
+    seconds = time.perf_counter() - t0
+    with open(outfile, "w") as out:
+        out.write(f"BASEML (paml_tpu_torch) clock = {extras['clock']} "
+                  f"({extras['ndata']} loci)\n")
+        out.write(f"lnL = {res.lnL:.6f}   np = {res.np}\n\nNode ages:\n")
+        st = res.sp_topo
+        for n in range(st.ns, st.nnode):
+            out.write(f"  node {n + 1}: {res.ages[n]:.6f}\n")
+        out.write("\nSubstitution rates for genes (per time unit)\n")
+        for g, r in enumerate(res.rates):
+            out.write(f"  Gene {g + 1}: "
+                      + " ".join(f"{v:.5f}" for v in r) + "\n")
+        if res.kappa is not None:
+            out.write("\nkappa for genes\n  "
+                      + " ".join(f"{v:.5f}" for v in res.kappa.ravel())
+                      + "\n")
+        if res.alpha is not None:
+            out.write("\nalpha for genes\n  "
+                      + " ".join(f"{v:.5f}" for v in res.alpha) + "\n")
+        if res.SEs is not None:
+            out.write("\nSEs:\n  "
+                      + " ".join(f"{v:.5f}" for v in res.SEs) + "\n")
+    print(f"lnL = {res.lnL:.6f}; results written to {outfile}")
+    return {"result": res, "seconds": seconds}
 
 
 def run_basemlg(ctl_path: str, device: str) -> dict:
@@ -643,6 +698,73 @@ def run_evolver(args: list[str], device: str):
     return evolver_main(args, device)
 
 
+def run_mcmctree(args: list[str], device: str):
+    """mcmctree on a control file (its likelihoods on `device`); returns
+    the posterior summaries (None at usedata = 3)."""
+    from .apps.mcmctree import main as mcmctree_main
+    return mcmctree_main(args, device)
+
+
+def run_infinitesites(args: list[str]):
+    """infinitesites on an mcmctree control file (host scalars); prints
+    what the JAX program prints and returns the chain's output."""
+    from .apps.infinitesites import run_ctl as is_run
+    from .io.ctl import read_ctl
+
+    ctl = args[0] if args else "mcmctree.ctl"
+    out = is_run(read_ctl(ctl), ctl, progress=True)
+    if isinstance(out, dict):            # clock 1
+        lo, hi = out["t0_CI"]
+        print(f"\nPosterior root age t0: mean {out['t0_mean']:.6f} "
+              f"95% CI ({lo:.6f}, {hi:.6f})")
+        for lab in ("mean", "low", "high"):
+            ages = out["times"][lab]
+            print(f"{lab:>5s} times: "
+                  + " ".join(f"{a:.6f}" for a in ages))
+    else:                                # clock 2/3 sample list
+        from .apps.mcmctree import summarize
+        summ = summarize(out)
+        print(f"{'param':>12s} {'mean':>10s} {'2.5%':>10s} "
+              f"{'97.5%':>10s}")
+        for k, v in summ.items():
+            print(f"{k:>12s} {v['mean']:10.5f} {v['eq_lo']:10.5f} "
+                  f"{v['eq_hi']:10.5f}")
+    return out
+
+
+def run_ds(args: list[str]):
+    """ds: descriptive statistics of a sample file (host)."""
+    from .apps.mcmcutils import describe_file
+
+    stats = describe_file(args[0])
+    print(f"{'param':>12s} {'mean':>10s} {'sd':>10s} {'median':>10s} "
+          f"{'2.5%':>10s} {'97.5%':>10s} {'ESS':>8s}")
+    for k, v in stats.items():
+        print(f"{k:>12s} {v['mean']:10.4f} {v['sd']:10.4f} "
+              f"{v['median']:10.4f} {v['eq_lo']:10.4f} "
+              f"{v['eq_hi']:10.4f} {v['ess']:8.1f}")
+    return stats
+
+
+def run_bfdriver(args: list[str]):
+    """BFdriver: per-beta control files and their run script (host)."""
+    from .apps.mcmcutils import bfdriver
+
+    nb = int(args[1]) if len(args) > 1 else 8
+    betas, ws = bfdriver(args[0], nbeta=nb)
+    print(f"wrote {nb} per-beta configs under bf/ + runbf.sh")
+    return betas, ws
+
+
+def run_multiruns(args: list[str]):
+    """multiruns: the best-lnL line per data set over replicate tables."""
+    from .apps.mcmcutils import multiruns
+
+    n = multiruns(args[1:], args[0])
+    print(f"merged {len(args) - 1} runs, {n} datasets -> {args[0]}")
+    return n
+
+
 def _write_tree_comparison(out, site_lnf_trees, fpatt) -> None:
     """The RELL / KH / SH table over the trees (reference:
     src/codeml.c:623-689 + rell, src/treesub.c:5844)."""
@@ -751,19 +873,23 @@ def main(argv: list[str] | None = None):
         print(__doc__)
         return None
     prog, *rest = argv
-    if prog == "chi2":
-        return run_chi2(rest)
+    # host programs: no card, no --device
+    host = {"chi2": run_chi2, "infinitesites": run_infinitesites,
+            "ds": run_ds, "bfdriver": run_bfdriver,
+            "multiruns": run_multiruns}
+    if prog in host:
+        return host[prog](rest)
+    if prog == "mcmctree" and rest[:1] == ["--combine"]:
+        return run_mcmctree(rest, "cpu")
     programs = {"codeml": (run_codeml, "codeml.ctl"),
                 "baseml": (run_baseml, "baseml.ctl"),
                 "basemlg": (run_basemlg, "baseml.ctl"),
                 "yn00": (run_yn00, "yn00.ctl"),
                 "pamp": (run_pamp, "pamp.ctl"),
-                "evolver": (run_evolver, None)}
+                "evolver": (run_evolver, None),
+                "mcmctree": (run_mcmctree, None)}
     if prog not in programs:
-        print(f"unknown program {prog!r}: paml_tpu_torch runs codeml, "
-              f"baseml, basemlg, yn00, pamp, chi2 and evolver so far "
-              f"(mcmctree, infinitesites, ds, bfdriver, multiruns: ROADMAP "
-              f"A12, A13)\n{__doc__}", file=sys.stderr)
+        print(f"unknown program {prog!r}\n{__doc__}", file=sys.stderr)
         sys.exit(2)
     import torch
     if device == "cuda" and not torch.cuda.is_available():

@@ -28,6 +28,8 @@ the level pass under plain autograd, for Hessians, with a count of its own
 
 `lnL_chunked` evaluates the pattern axis in chunks, each checkpointed, so
 that memory holds one chunk's buffers (the JAX package's `lnL_chunked`).
+`lnL_levels_batched` is the level path's forward alone with a leading
+axis over data sets on one tree (mcmctree's loci).
 
 Shapes (the JAX package's layout):
   tips:  [ns, H] integer state codes, [ns, H, n] (multi-)hot partials, or
@@ -403,6 +405,72 @@ def lnL_chunked(P, tips_chunks, topo: Topology, pi, class_w,
         v = checkpoint(lnL, P, tp, topo, pi, class_w, fp, use_reentrant=False)
         total = v if total is None else total + v
     return total
+
+
+def _batched_plan(topo: Topology, device):
+    """The level schedule of `lnL_levels_batched` as index tensors on
+    `device`, built once per tree and device: per arity group (arity,
+    width, the children [W * K], the non-root nodes, their rows in the
+    group, the root's row or None)."""
+    cache = topo.__dict__.setdefault("_batched_plan_cache", {})
+    key = str(device)
+    if key not in cache:
+        plan = []
+        for level in _levels(topo):
+            for K, grp in _arity_groups(level).items():
+                nodes = [v for v, _ in grp]
+                rows = [w for w, v in enumerate(nodes) if v != topo.root]
+
+                def t(a):
+                    return torch.as_tensor(a, dtype=torch.long, device=device)
+                plan.append((K, len(grp), t([k for _, ks in grp for k in ks]),
+                             t([nodes[w] for w in rows]), t(rows),
+                             nodes.index(topo.root) if topo.root in nodes
+                             else None))
+        cache[key] = plan
+    return cache[key]
+
+
+def lnL_levels_batched(P, tips, topo: Topology, pi, class_w, fpatt):
+    """Log-likelihoods of G data sets on one tree, values only: the level
+    path with a leading axis over the data sets (mcmctree's loci, which
+    the JAX package evaluates as one `jax.vmap` of `lnL`,
+    paml_tpu/apps/mcmctree.py:1272).  P [G, nnode, C, n, n], tips [G, ns,
+    H, n] partials (a data set with fewer patterns padded with all-ones
+    cells), pi [G, C, n], class_w [G, C], fpatt [G, H] (0 on padding) ->
+    lnL [G].  Every node's contribution lives in one [G, nnode, C, n, H]
+    buffer; no autograd graph; each call on the card counts in
+    `LEVEL_CALLS`."""
+    if P.is_cuda:
+        LEVEL_CALLS["cuda"] += 1
+    with torch.inference_mode():
+        G, nnode, C, n = P.shape[:4]
+        ns, H = topo.ns, tips.shape[2]
+        c = P.new_empty((G, nnode, C, n, H))
+        c[:, :ns] = torch.einsum("gthi,gtcji->gtcjh", tips.to(P.dtype),
+                                 P[:, :ns])
+        logm = P.new_zeros((G, C, H))
+        s_root = None
+        for K, W, kids, nodes, rows, root_row in _batched_plan(topo,
+                                                                P.device):
+            kid_c = c.index_select(1, kids).reshape(G, W, K, C, n, H)
+            prod = kid_c[:, :, 0]
+            for k in range(1, K):
+                prod = prod * kid_c[:, :, k]              # [G, W, C, n, H]
+            mm = prod.amax(dim=-2)                        # [G, W, C, H]
+            msafe = torch.where(mm > 0, mm, torch.ones_like(mm))
+            logm += torch.log(msafe).sum(1)
+            sv = prod / msafe[..., None, :]
+            if root_row is not None:
+                s_root = sv[:, root_row]
+                sv = sv.index_select(1, rows)
+            if nodes.numel():
+                c.index_copy_(1, nodes, torch.einsum(
+                    "gwcih,gwcji->gwcjh", sv, P.index_select(1, nodes)))
+        F = torch.einsum("gcnh,gcn->gch", s_root, pi)
+        F = torch.clamp_min(F, torch.finfo(F.dtype).tiny)
+        lnf = torch.log(F) + logm + torch.log(class_w)[..., None]
+        return (fpatt * torch.logsumexp(lnf, dim=1)).sum(-1)
 
 
 def site_class_posterior(P, tips, topo: Topology, pi, class_w):

@@ -3,7 +3,8 @@
 Port of `paml_tpu/core/topology.py` (numpy only): trees are integer
 arrays (parent pointers, padded child lists, a postorder schedule).  Tips
 are numbered in alignment order, internal nodes ns, ns+1, ... in preorder,
-matching the reference's node numbering.
+matching the reference's node numbering.  `deroot` and `is_rooted`
+(in.BV's unrooted gene trees) are the JAX package's, line for line.
 """
 from __future__ import annotations
 
@@ -134,3 +135,70 @@ def from_treenode(root: TreeNode, names: list[str]) -> Topology:
                     blen0=blen0, labels=labels, node_names=node_names,
                     ages0=ages0)
 
+
+def deroot(topo: Topology) -> Topology:
+    """Collapse a binary root into a basal trichotomy (reference: DeRoot,
+    src/treesub.c:3290).  The two root-child branches merge; the summed
+    length goes on the surviving child."""
+    root = topo.root
+    kids = [c for c in topo.children[root] if c >= 0]
+    if len(kids) != 2:
+        return topo
+    # keep the internal child as the absorbed one if possible
+    a, b = kids
+    absorb = a if a >= topo.ns else b        # node whose children move up
+    keep = b if absorb == a else a
+    if absorb < topo.ns:
+        raise ValueError("cannot deroot a 2-taxon tree")
+    sub_kids = [c for c in topo.children[absorb] if c >= 0]
+    new_children_of_root = sub_kids + [keep]
+    maxk = max(topo.maxk, len(new_children_of_root))
+
+    # rebuild arrays without node `absorb`, renumbering nodes > absorb down 1
+    def renum(i: int) -> int:
+        return i - 1 if i > absorb else i
+
+    nnode = topo.nnode - 1
+    parent = np.full(nnode, -1, dtype=np.int32)
+    children = np.full((nnode, maxk), -1, dtype=np.int32)
+    blen0 = np.zeros(nnode)
+    labels = np.zeros(nnode, dtype=np.int32)
+    ages0 = np.full(nnode, np.nan)
+    node_names = [""] * nnode
+    for i in range(topo.nnode):
+        if i == absorb:
+            continue
+        j = renum(i)
+        node_names[j] = topo.node_names[i]
+        labels[j] = topo.labels[i]
+        ages0[j] = topo.ages0[i] if topo.ages0 is not None else np.nan
+        blen0[j] = topo.blen0[i]
+        if i == root:
+            kids_i = new_children_of_root
+        else:
+            kids_i = [c for c in topo.children[i] if c >= 0]
+        for k, c in enumerate(kids_i):
+            children[j, k] = renum(c)
+            parent[renum(c)] = j
+    # merged branch length onto `keep`
+    blen0[renum(keep)] = topo.blen0[keep] + topo.blen0[absorb]
+
+    post = []
+
+    def walk(i: int):
+        for c in children[i]:
+            if c >= 0:
+                walk(c)
+        if i >= topo.ns:
+            post.append(i)
+
+    walk(renum(root))
+    return Topology(ns=topo.ns, nnode=nnode, root=renum(root), parent=parent,
+                    children=children, postorder=np.array(post, dtype=np.int32),
+                    blen0=blen0, labels=labels, node_names=node_names,
+                    ages0=ages0)
+
+
+def is_rooted(topo: Topology) -> bool:
+    """Is the root binary (a rooted tree)?"""
+    return int((topo.children[topo.root] >= 0).sum()) == 2

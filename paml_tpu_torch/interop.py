@@ -24,23 +24,26 @@ def _copy(v):
         v, "__array__") else v
 
 
+def _fields_from(cls, obj, **override):
+    kw = {f.name: _copy(getattr(obj, f.name)) for f in dataclasses.fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
 def topology_from(topo) -> Topology:
     """The port's Topology from a `paml_tpu.core.topology.Topology`."""
-    return Topology(**{f.name: _copy(getattr(topo, f.name))
-                       for f in dataclasses.fields(Topology)})
+    return _fields_from(Topology, topo)
 
 
 def packed_from(data) -> PackedData:
     """The port's PackedData from a `paml_tpu.io.seqio.PackedData`."""
-    return PackedData(**{f.name: _copy(getattr(data, f.name))
-                         for f in dataclasses.fields(PackedData)})
+    return _fields_from(PackedData, data)
 
 
 def baseml_spec_from(spec):
     """The port's BasemlSpec from a `paml_tpu.apps.baseml.BasemlSpec`."""
     from .apps.baseml import BasemlSpec
-    return BasemlSpec(**{f.name: _copy(getattr(spec, f.name))
-                         for f in dataclasses.fields(BasemlSpec)})
+    return _fields_from(BasemlSpec, spec)
 
 
 def params_from(x, *, device) -> torch.Tensor:
@@ -61,3 +64,47 @@ def kernel_inputs_from(P, tips, pi, *, device, dtype=None):
         tips_t = torch.tensor(tips, dtype=dtype, device=device)
     return (torch.tensor(P, dtype=dtype, device=device), tips_t,
             torch.tensor(np.asarray(pi), dtype=dtype, device=device))
+
+
+def mcmc_spec_from(spec):
+    """The port's McmcSpec from a `paml_tpu.apps.mcmctree.McmcSpec`."""
+    from .apps.mcmctree import McmcSpec
+    return _fields_from(McmcSpec, spec)
+
+
+def clock56_spec_from(spec):
+    """The port's Clock56Spec from a `paml_tpu.apps.clock56.Clock56Spec`."""
+    from .apps.clock56 import Clock56Spec
+    return _fields_from(Clock56Spec, spec)
+
+
+def species_tree_from(st):
+    """The port's SpeciesTree from a `paml_tpu.apps.mcmctree.SpeciesTree`
+    (its calibrations, priors, mirrors and fossil-error settings copied;
+    the Monte Carlo cache of the fossil-error constants is not)."""
+    import copy
+
+    from .apps.mcmctree import SpeciesTree
+    return SpeciesTree(
+        topo=topology_from(st.topo),
+        calibrations=copy.deepcopy(st.calibrations),
+        root_age_prior=copy.deepcopy(st.root_age_prior),
+        bds=tuple(st.bds), multiplicative=st.multiplicative, psi=st.psi,
+        tip_ages=_copy(st.tip_ages), mirror_of=dict(st.mirror_of),
+        pfossilerror=st.pfossilerror)
+
+
+def approx_locus_from(locus):
+    """The port's ApproxLocus from a `paml_tpu.apps.mcmctree.ApproxLocus`
+    (already transformed or not: the fields are copied as they are)."""
+    from .apps.mcmctree import ApproxLocus
+    return _fields_from(ApproxLocus, locus, topo=topology_from(locus.topo))
+
+
+def hetero_data_from(hd):
+    """The port's HeteroData from a `paml_tpu.apps.clock56.HeteroData`."""
+    from .apps.clock56 import GeneTree, HeteroData
+    return HeteroData(
+        sp_topo=topology_from(hd.sp_topo), fixed_ages=dict(hd.fixed_ages),
+        loci=[GeneTree(topo=topology_from(g.topo), ipop=_copy(g.ipop),
+                       data=packed_from(g.data)) for g in hd.loci])

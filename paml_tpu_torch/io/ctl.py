@@ -3,10 +3,10 @@ format (reference: GetOptions in each program, e.g. src/codeml.c:1694;
 `*` and `#` start comments; some values are structured, e.g.
 'ndata 3 maintree 1').
 
-Port of the codeml, baseml and yn00 parts of `paml_tpu/io/ctl.py` (pure
-Python): `codeml_spec`, `baseml_spec`, `parse_step_matrix` and
-`yn00_opts`; pamp reads its keys through `read_ctl`, `resolve_path` and
-`_first_num`.
+Port of `paml_tpu/io/ctl.py` (pure Python): `codeml_spec`,
+`baseml_spec`, `parse_step_matrix`, `yn00_opts` and the mcmctree
+vocabulary `MCMCTREE_OPTS` (mcmctree reads its keys through `OptReader`);
+pamp reads its keys through `read_ctl`, `resolve_path` and `_first_num`.
 """
 from __future__ import annotations
 
@@ -52,6 +52,14 @@ BASEML_OPTS = (
     "kappa", "fix_alpha", "alpha", "Malpha", "ncatG", "fix_rho", "rho",
     "nparK", "bootstrap", "Small_Diff", "icode", "fix_blength",
     "seqtype")            # src/baseml.c:958-962
+MCMCTREE_OPTS = (
+    "seed", "seqfile", "treefile", "outfile", "mcmcfile", "checkpoint",
+    "BayesFactorBeta", "seqtype", "aaRatefile", "icode", "noisy",
+    "usedata", "ndata", "duplication", "model", "clock", "TipDate",
+    "RootAge", "fossilerror", "pfossilerror", "alpha", "ncatG",
+    "cleandata", "BDparas", "kappa_gamma", "alpha_gamma", "rgene_gamma",
+    "sigma2_gamma", "print", "burnin", "sampfreq", "nsample",
+    "finetune")           # src/mcmctree.c:1499-1503
 YN00_OPTS = (
     "seqfile", "outfile", "verbose", "noisy", "icode", "weighting",
     "commonkappa", "commonf3x4", "ndata")   # src/yn00.c:189-190

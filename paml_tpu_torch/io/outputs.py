@@ -15,8 +15,9 @@ reference's layout closely:
   2YN.* 2NG.* 2ML.*
            lower-triangle pairwise matrices of yn00 and codeml's pairwise
            runmodes (src/yn00.c:141-167)
-
-The FigTree tree waits for mcmctree (ROADMAP A12).
+  FigTree.tre
+           mcmctree's dated tree with 95% HPD node bars (FigTree.tre block
+           of DescriptiveStatisticsSimpleMCMCTREE, src/mcmctree.c)
 """
 from __future__ import annotations
 
@@ -176,3 +177,48 @@ def write_pairwise_matrix(path: str, names: list[str], pairs,
             f.write("".join(f" {M[i, j]:7.4f}" for j in range(i)))
             f.write("\n")
         f.write("\n")
+
+
+# --------------------------------------------------------------------------
+# FigTree tree with posterior mean ages + HPD CIs (mcmctree)
+# --------------------------------------------------------------------------
+
+def figtree_newick(parent, children, root, names, ages_mean,
+                   hpd_lo=None, hpd_hi=None) -> str:
+    """Rooted Newick with branch lengths = mean age differences and
+    '[&95%HPD={lo, hi}]' node annotations (reference annotation string,
+    mcmctree DescriptiveStatisticsSimpleMCMCTREE)."""
+    def ann(i):
+        if hpd_lo is None or not any(c >= 0 for c in children[i]):
+            return ""
+        return f"[&95%HPD={{{hpd_lo[i]:.6g}, {hpd_hi[i]:.6g}}}]"
+
+    def bl(i):
+        return ages_mean[parent[i]] - ages_mean[i]
+
+    def build(i):
+        kids = [c for c in children[i] if c >= 0]
+        if not kids:
+            s = names[i]
+        else:
+            s = "(" + ", ".join(build(c) for c in kids) + ")"
+        s += ann(i)
+        if i != root:
+            s += f": {bl(i):.6f}"
+        return s
+
+    return build(root) + ";"
+
+
+def write_figtree(path: str, newick_annotated: str,
+                  timeunit: float | None = None) -> None:
+    """NEXUS wrapper (reference: mcmctree.c FigTree.tre block)."""
+    with open(path, "w") as f:
+        f.write("#NEXUS\nBEGIN TREES;\n\n\tUTREE 1 = ")
+        f.write(newick_annotated)
+        f.write("\n\nEND;\n")
+        if timeunit and timeunit != 1:
+            f.write(f"\n[Note for FigTree: Under Time Scale, set Offset = "
+                    f"{0.0:.1f}, Scale factor = -{timeunit:.1f}\n")
+            f.write("Untick Scale Bar, & tick Tip Labels, Node Bars, "
+                    "Scale Axis, Reverse Axis, Show Grid.]\n")

@@ -3,10 +3,11 @@
 Port of `paml_tpu/io/seqio.py` (numpy only): the PAML/PHYLIP reader
 (sequential and interleaved, with the ``G I S P C`` option characters),
 FASTA and basic NEXUS, several alignments stacked in one file
-(`read_alignments`), the nucleotide, codon and amino-acid state-set
-encoders, the translation of codons to amino acids, and `pack`, the
-pattern compression of the reference's `PatternWeight`
-(src/treesub.c:1386).
+(`read_alignments`, which also reads mcmctree's continuous
+morphological characters into `MorphAlignment`), the nucleotide, codon
+and amino-acid state-set encoders, the translation of codons to amino
+acids, and `pack`, the pattern compression of the reference's
+`PatternWeight` (src/treesub.c:1386).
 
 Every site is held as a state-set bitmask over model states; tip partials
 fall directly out of the bitmask (unnormalized indicator sums).
@@ -42,6 +43,20 @@ class Alignment:
     @property
     def ls(self) -> int:
         return len(self.rows[0])
+
+
+@dataclass
+class MorphAlignment:
+    """Continuous morphological characters (mcmctree option M locus)."""
+    names: list
+    z: np.ndarray            # [ns, ls]
+    popvar: float = 0.0
+    ldetRm: float = 0.0
+    seqtype: int = 3         # MORPHC-style marker
+
+    @property
+    def ns(self):
+        return len(self.names)
 
 
 @dataclass
@@ -89,22 +104,26 @@ def _is_blank(line: str) -> bool:
 
 
 def read_alignments(path: str, seqtype: int = BASE_SEQ,
-                    ndata: int | None = None) -> list[Alignment]:
-    """Read several PAML/PHYLIP alignments stacked in one file (the
-    reference's `ndata` loop reads successive alignments)."""
+                    ndata: int | None = None) -> list:
+    """Read several alignments stacked in one file (the reference's `ndata`
+    loop and mcmctree's loci): PAML/PHYLIP blocks, or `MorphAlignment`
+    for a block whose header carries M."""
     with open(path) as f:
         lines = f.read().splitlines()
-    # header lines: the first two tokens are ints, the rest option letters
+    # header lines: first two tokens are ints, remaining are option
+    # letters; a morphological locus adds numbers after 'M'
+    # ('ns ls M popvar ldetRm', reference: src/treesub.c:552-556)
     starts = []
     for i, line in enumerate(lines):
         toks = line.split()
         if len(toks) < 2 or not (toks[0].isdigit() and toks[1].isdigit()):
             continue
-        if all(re.fullmatch(r"[A-Za-z]+", t) for t in toks[2:]):
-            if any("M" in t.upper() for t in toks[2:]):
-                raise NotImplementedError(
-                    f"{path}: continuous morphological characters are "
-                    "mcmctree's (ROADMAP A12)")
+        rest = toks[2:]
+        letters = [t for t in rest if re.fullmatch(r"[A-Za-z]+", t)]
+        numbers = [t for t in rest
+                   if re.fullmatch(r"[-+0-9.eE]+", t)]
+        if len(letters) + len(numbers) == len(rest) and (
+                not numbers or any("M" in t.upper() for t in letters)):
             starts.append(i)
     if not starts:
         raise ValueError(f"no alignment headers found in {path}")
@@ -113,8 +132,41 @@ def read_alignments(path: str, seqtype: int = BASE_SEQ,
     out = []
     for k, s in enumerate(starts):
         end = starts[k + 1] if k + 1 < len(starts) else len(lines)
-        out.append(_read_phylip("\n".join(lines[s:end]), seqtype))
+        block = "\n".join(lines[s:end])
+        toks = lines[s].split()
+        if any("M" in t.upper() for t in toks[2:]
+               if re.fullmatch(r"[A-Za-z]+", t)):
+            out.append(_read_morphology(block))
+        else:
+            out.append(_read_phylip(block, seqtype))
     return out
+
+
+def _read_morphology(text: str) -> MorphAlignment:
+    """Continuous-character block: 'ns ls M [popvar [ldetRm]]' then per
+    species a name and ls values (reference: ReadMorphology,
+    src/treesub.c:436)."""
+    toks = text.split()
+    ns, ls = int(toks[0]), int(toks[1])
+    i = 2
+    if "M" not in toks[i].upper():
+        raise ValueError(f"morphology header without M: {toks[:3]}")
+    i += 1
+    extras = []
+    while i < len(toks) and re.fullmatch(r"[-+0-9.eE]+", toks[i]) \
+            and len(extras) < 2:
+        extras.append(float(toks[i]))
+        i += 1
+    popvar = extras[0] if extras else 0.0
+    ldetRm = extras[1] if len(extras) > 1 else 0.0
+    names, z = [], np.zeros((ns, ls))
+    for s in range(ns):
+        names.append(toks[i])
+        i += 1
+        for j in range(ls):
+            z[s, j] = float(toks[i])
+            i += 1
+    return MorphAlignment(names=names, z=z, popvar=popvar, ldetRm=ldetRm)
 
 
 def read_alignment(path: str, seqtype: int = BASE_SEQ) -> Alignment:

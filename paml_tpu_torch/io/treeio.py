@@ -1,7 +1,8 @@
 """Newick tree reading with the reference's annotation grammar.
 
 Port of `paml_tpu/io/treeio.py` (pure Python): `TreeNode`, `parse_newick`,
-`read_trees`, `write_newick`, `parse_tip_dates` (TipDate), for several
+`read_trees`, `write_newick`, `parse_tip_dates` (TipDate), the fossil-calibration grammar
+`parse_calibration` (mcmctree), for several
 data sets in one file `read_tree_strings` and `prune_to`, and
 `read_tree_sample` (newick lines, a PAML header file or NEXUS).  Branch lengths (``:x``), branch labels (``#i``), clade
 labels (``$i``), node ages (``@x``) and quoted annotations are parsed as
@@ -261,6 +262,41 @@ def parse_tip_dates(names: list[str], timeunit: float | None = None):
     ages = (young - arr) / timeunit
     ages[ages < 1e-100] = 0.0
     return ages, timeunit, float(young)
+
+
+# --- calibration annotation grammar (reference: src/treesub.c:8653) -------
+
+_DIST_RE = re.compile(r"([A-Za-z0-9]+)\s*[({]([^)}]*)[)}]")
+
+
+def parse_calibration(ann: str):
+    """Parse a fossil-calibration annotation into (kind, params).
+
+    Grammar (reference ProcessNodeAnnotation): '>0.06' lower bound,
+    '<0.08' upper bound, '>0.06<0.08' joint bounds, 'L{...}', 'U{...}',
+    'B{...}', 'G{...}', 'SN{...}', 'ST{...}', 'S2N{...}' densities.
+    Returns None for non-calibration annotations.
+    """
+    if ann is None:
+        return None
+    a = ann.strip()
+    m = _DIST_RE.match(a)
+    if m:
+        kind = m.group(1).upper()
+        params = [float(x) for x in re.split(r"[\s,]+", m.group(2).strip())
+                  if x]
+        if kind in ("L", "U", "B", "G", "SN", "ST", "S2N"):
+            return kind, params
+        return None
+    lower = re.search(r">\s*([0-9.eE+-]+)", a)
+    upper = re.search(r"<\s*([0-9.eE+-]+)", a)
+    if lower and upper:
+        return "B", [float(lower.group(1)), float(upper.group(1))]
+    if lower:
+        return "L", [float(lower.group(1))]
+    if upper:
+        return "U", [float(upper.group(1))]
+    return None
 
 
 def prune_to(root: TreeNode, keep_names) -> TreeNode:

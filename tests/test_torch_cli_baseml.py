@@ -13,8 +13,8 @@ differentiate the incomplete gamma twice (the JAX run takes `getSE = 0`,
 the port's SEs are checked finite and positive; its Hessian is held by
 central differences in tests/test_torch_baseml_fit.py), and with nhomo it
 cannot format its 2-D rate parameters (the port's report is held against
-the JAX package's `fit_packed`).  Also the device rule and the settings
-that still raise (clock 5 / 6, runmode 2-5)."""
+the JAX package's `fit_packed`).  Also the device rule, the settings that
+still raise (runmode 2-5) and the wiring of clock 5 / 6."""
 import os
 import re
 import shutil
@@ -213,6 +213,30 @@ def test_two_trees_match_jax_cli(tmp_path, monkeypatch):
     (dict(clock=5), "A12"), (dict(clock=6), "A12"),
     (dict(runmode=2), "A14"), (dict(runmode=3), "A14")])
 def test_unported_settings_raise(tmp_path, monkeypatch, kw, item):
+    """runmode 2-5 (tree search) raise naming ROADMAP A14.  clock = 5 / 6,
+    which raised naming A12 before the dating module was ported, now run:
+    the program's mlb holds the lnL and the node ages of `clock56.fit` on
+    the same files (tests/test_torch_cli_mcmctree.py and
+    tests/test_torch_clock56*.py hold them against the JAX package)."""
+    from paml_tpu_torch.apps import clock56
+
+    if item == "A12":
+        trees = [open(os.path.join(DATA, "clock56.trees")).read()]
+        ctl = write_baseml(str(tmp_path), trees, **kw)
+        monkeypatch.chdir(tmp_path)
+        out = cli.main(["baseml", ctl, "--device", "cpu"])
+        res = clock56.fit(str(tmp_path / "trees.txt"),
+                          str(tmp_path / "seq.txt"), 1,
+                          clock56.Clock56Spec(model="HKY85", clock=kw["clock"],
+                                              kappa=[5.0], alpha=[0.0],
+                                              ncatG=1), device="cpu")
+        mlb = (tmp_path / "mlb").read_text()
+        assert f"clock = {kw['clock']}" in mlb
+        assert f"lnL = {res.lnL:.6f}   np = {res.np}" in mlb
+        assert out["result"].lnL == res.lnL
+        for n in range(res.sp_topo.ns, res.sp_topo.nnode):
+            assert f"node {n + 1}: {res.ages[n]:.6f}" in mlb
+        return
     ctl = write_baseml(str(tmp_path), TREES[:1], **kw)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -91,11 +91,20 @@ def test_pack_ambiguous_codons_match():
 
 
 def test_unported_inputs_raise(tmp_path):
-    # continuous morphological characters wait for mcmctree
+    """Continuous morphological characters, once refused until mcmctree
+    was ported, read as the JAX package reads them: a block whose header
+    carries M (with popvar and ldetRm), after a sequence block."""
     path = tmp_path / "morph.txt"
-    path.write_text("2 3 M\na 0.1 0.2 0.3\nb 0.2 0.1 0.0\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        seqio.read_alignments(str(path))
+    path.write_text("3 6\na  ACGTAC\nb  ACGTTC\nc  AGGTAC\n\n"
+                    "3 3 M 0.2 -0.5\na 0.1 0.2 0.3\nb 0.2 0.1 0.0\n"
+                    "c 1 2 3\n")
+    at = seqio.read_alignments(str(path))
+    aj = jax_seqio.read_alignments(str(path))
+    assert isinstance(at[1], seqio.MorphAlignment) and len(at) == 2
+    assert at[0].rows == aj[0].rows
+    for f in ("names", "popvar", "ldetRm", "seqtype"):
+        assert getattr(at[1], f) == getattr(aj[1], f), f
+    np.testing.assert_array_equal(at[1].z, aj[1].z)
 
 
 def test_import_leaves_jax_out():
@@ -245,9 +254,13 @@ def test_stacked_alignments_and_bad_files(tmp_path):
     path.write_text(">a\nATG\n>b\nATGC\n")
     with pytest.raises(ValueError, match="not aligned"):
         seqio.read_alignment(str(path), 1)
+    # a morphology block (refused until mcmctree was ported) reads as
+    # the JAX package's reader reads it
     path.write_text("2 3 M\na 0.1 0.2 0.3\nb 0.3 0.2 0.1\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        seqio.read_alignments(str(path), 1)
+    mt, = seqio.read_alignments(str(path), 1)
+    mj, = jax_seqio.read_alignments(str(path), 1)
+    assert isinstance(mt, seqio.MorphAlignment) and mt.names == mj.names
+    np.testing.assert_array_equal(mt.z, mj.z)
 
 
 def test_tree_helpers_match(tmp_path):
