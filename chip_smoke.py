@@ -155,6 +155,40 @@
    with kappa 2 and omega 0.3, F3x4), clean (B3/B4 alone) and with 3b's
    gaps and Ns (B1/B2 alone), each lnL against the plain version on the
    card (1e-9); their launches join the kernels line.
+11. Tree search (each program through `paml_tpu_torch.__main__.main`, the
+   objectives' host set-up timed with `utils.timing`).  11a: baseml
+   runmode 3 (stepwise addition, 63 fits) on 10 taxa x 20,000 sites
+   simulated under HKY85 + G5 (kappa 5, alpha 0.5) on a random unrooted
+   tree, fitted with HKY85 + G5 at alpha 0.5, on the level route alone;
+   11d: runmode 2 (star decomposition, 81 fits) on 8 taxa x 5000 sites,
+   HKY85; 11b: codeml runmode 3 (35 fits) on 8 taxa x 2000 codons
+   simulated under M0 with 3b's gaps and Ns, B1/B2 alone; 11c: runmode 4
+   (NNI from the parsimony stepwise tree) on their clean copy, B3/B4
+   alone.  Each search must find the simulated tree (partition distance
+   0), its best lnL match the objective at the best fit's x on CPU tensors
+   (nucleotides) or with the plain version on the card (codons) to 1e-9;
+   fits, seconds per fit and the host set-up's share are printed, and the
+   codon searches' launches join the kernels line.  11e: one value +
+   gradient of M2a on the 32-taxon x 4096-codon star tree (resolved under
+   identity-P nodes for the kernels) through B3/B4 (clean) and B1/B2 (3b's
+   gaps and Ns), each against the plain version on the star itself.  11f:
+   evolver 1-4, 8 and 9 and pamp's `pattern_ls` on 11a's alignment, with
+   no pruning launch.
+12. The pattern axis (`pruning.set_pattern_mesh`).  12a: a mesh of two
+   shards on cuda:0: one value + gradient of M2a at the bench shape on
+   clean codons (B3/B4) and with 3b's gaps and Ns (B1/B2), and of model A
+   on phase 5's 1024-taxon alignment unchunked, each equal to unsharded
+   (1e-12 relative on the value, 1e-10 of the largest gradient
+   component), each kernel of the pair launched once per shard, timed
+   beside unsharded; an M0 fit at the bench shape on the mesh twice (bit
+   for bit; lnL within 1e-9 of unsharded; its launches join the kernels
+   line).  12b: `python -m torch.distributed.run --nproc_per_node 2 -m
+   paml_tpu_torch codeml` (M0 on the bench alignment) on the one card,
+   two gloo ranks: one mlc and one rank's output, with the one-process
+   lnL to 1e-9.  12c: a NCCL group of `torch.cuda.device_count()` ranks
+   (one process each): value + gradient of B3/B4 at the bench shape on
+   the group's mesh against unsharded.  12d: `entry.entry()` and
+   `entry.dryrun_multichip(2, ["cuda:0", "cuda:0"])`.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -613,16 +647,16 @@ def phase_big_kernels(torch, rng, report, card):
             torch.cuda.empty_cache()
 
 
-def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
-    """Codon alignment simulated under M0 on a ladder tree with the port's
-    own float64 P(t) (F3x4 frequencies from random nucleotide tables):
-    (packed data, topology, the same data with the last taxon's second
-    half gaps).  Gaps make that taxon's tips multi-hot partials (every
-    sense codon, cleandata = 0), the tips B1/B2 serve."""
+def simulate_m0_rows(torch, rng, ns, ncod, kappa=2.0, omega=0.3,
+                     device="cuda"):
+    """Codon rows simulated under M0 on a ladder tree (branch lengths
+    uniform on [0.02, 0.3]) with the port's own float64 P(t) on `device`
+    (F3x4 frequencies from random nucleotide tables): (names, rows, the
+    Topology)."""
     from paml_tpu_torch.constants import codon_string
     from paml_tpu_torch.core.pmat import pmat_rev_multi
     from paml_tpu_torch.core.topology import from_treenode
-    from paml_tpu_torch.io import seqio, treeio
+    from paml_tpu_torch.io import treeio
     from paml_tpu_torch.models import codon
 
     names = [f"t{i}" for i in range(ns)]
@@ -635,14 +669,14 @@ def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
     graph = codon.codon_graph(0)
     f3x4 = rng.dirichlet(np.full(4, 8.0), size=3)
     pi_np = codon.codon_pi("F3x4", None, f3x4, f3x4.mean(0), graph)
-    T = codon.dense_tables(0, "cuda")
-    pi = torch.tensor(pi_np, dtype=torch.float64, device="cuda")
+    T = codon.dense_tables(0, device)
+    pi = torch.tensor(pi_np, dtype=torch.float64, device=device)
     s = codon.mutation_dense(T, torch.tensor([kappa], dtype=torch.float64,
-                                             device="cuda"))
+                                             device=device))
     Q = codon.build_Q_dense(T, s, torch.tensor([omega], dtype=torch.float64,
-                                               device="cuda"), pi)
+                                               device=device), pi)
     rs, ra = codon.flux_dense(T, s, pi)
-    t = torch.tensor(topo.blen0, dtype=torch.float64, device="cuda")
+    t = torch.tensor(topo.blen0, dtype=torch.float64, device=device)
     t[topo.root] = 0.0
     P = pmat_rev_multi(Q, pi, (t / (rs + ra * omega))[:, None])[:, 0]
     P = P.cpu().numpy()
@@ -661,6 +695,18 @@ def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
             stack.append(int(c))
     rows = ["".join(codon_string(int(graph.sense[k])) for k in st[i])
             for i in range(ns)]
+    return names, rows, topo
+
+
+def simulate_m0(torch, rng, ns, ncod, kappa=2.0, omega=0.3):
+    """Codon alignment simulated under M0 on a ladder tree
+    (`simulate_m0_rows`, on the card): (packed data, topology, the same
+    data with the last taxon's second half gaps).  Gaps make that taxon's
+    tips multi-hot partials (every sense codon, cleandata = 0), the tips
+    B1/B2 serve."""
+    from paml_tpu_torch.io import seqio
+
+    names, rows, topo = simulate_m0_rows(torch, rng, ns, ncod, kappa, omega)
     data = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ))
     half = 3 * (ncod // 2)
     rows[-1] = rows[-1][:half] + "-" * (3 * ncod - half)
@@ -1214,6 +1260,7 @@ def phase_branch_site(torch, rng, report, card):
     branch_site_fit(torch, data, topo, spec, x_true, report, card)
     torch.cuda.empty_cache()
     branch_site_gapped(torch, rng, data, topo, spec, report, card)
+    return data, topo, spec, x_true
 
 
 # --- phase 6: the program ---------------------------------------------------
@@ -3656,7 +3703,605 @@ def phase_dating(torch, rng, report, card):
     print(f"phase 10: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 11: tree search and tree generation (ROADMAP A14)
+# ---------------------------------------------------------------------------
+
+# 11a: baseml runmode 3 (stepwise addition, 63 fits) on 10 taxa x 20,000
+# sites simulated under HKY85 + G5 (kappa 5, alpha 0.5), fitted with
+# HKY85 + G5 at alpha 0.5 (fix_alpha: a free alpha puts the host's gamma
+# quantiles into every evaluation, 1.8 s per fit on the card against
+# about 0.6); 11d: runmode 2 (star decomposition, 81 fits) on 8 taxa x
+# 5000 sites under HKY85 + G5, fitted with HKY85 (2.3 s per fit with a
+# free alpha); 11b / 11c: codeml runmode 3 (35 fits) and 4 on M0 data, 8
+# taxa x 2000 codons
+TS_NUC_TAXA, TS_NUC_SITES = 10, 20_000
+TS_STAR_TAXA, TS_STAR_SITES = 8, 5000
+TS_CODON_TAXA, TS_CODONS = 8, 2000
+HKY_TRUTH = dict(pi=(0.2, 0.3, 0.3, 0.2), rev=(1.0, 0.2, 0.2, 0.2, 0.2),
+                 alpha=0.5)
+# 11e: the star tree at the bench shape
+STAR_TAXA, STAR_CODONS = 32, 4096
+
+TS_BASEML_CTL = """      seqfile = seq.phy
+     treefile = tree.nwk
+      outfile = mlb
+        noisy = 0
+      runmode = {runmode}
+        model = 4
+        Mgene = 0
+        clock = 0
+    fix_kappa = 0
+        kappa = 5
+    fix_alpha = 1
+        alpha = {alpha}
+        ncatG = {ncatG}
+        getSE = 0
+ RateAncestor = 0
+    cleandata = 0
+"""
+
+TS_CODEML_CTL = """      seqfile = seq.phy
+     treefile = tree.nwk
+      outfile = mlc
+        noisy = 0
+      runmode = {runmode}
+      seqtype = 1
+    CodonFreq = 2
+        model = 0
+      NSsites = 0
+        icode = 0
+    fix_kappa = 0
+        kappa = 2
+    fix_omega = 0
+        omega = .4
+        getSE = 0
+    cleandata = 0
+"""
+
+
+def write_search(workdir, tag, names, rows, nwk, template, runmode, **kw):
+    """The alignment, the simulated tree (which a search does not read)
+    and a control file in workdir/tag; returns the directory."""
+    import os
+
+    d = os.path.join(workdir, tag)
+    os.makedirs(d)
+    with open(os.path.join(d, "seq.phy"), "w") as f:
+        f.write(phylip(names, rows))
+    with open(os.path.join(d, "tree.nwk"), "w") as f:
+        f.write(nwk + "\n")
+    with open(os.path.join(d, "search.ctl"), "w") as f:
+        f.write(template.format(runmode=runmode, **kw))
+    return d
+
+
+class SetupTimer:
+    """Times the objectives' set-up inside the fits (`codeml.
+    make_codon_objective`, `baseml.make_objective`: the frequency counts,
+    the tips' coding, their check) with `utils.timing.phase("setup")`,
+    the functions wrapped in their modules while the block runs."""
+
+    def __enter__(self):
+        from paml_tpu_torch.apps import baseml, codeml
+        from paml_tpu_torch.utils import timing
+
+        def timed(fn):
+            def run(*a, **kw):
+                with timing.phase("setup"):
+                    return fn(*a, **kw)
+            return run
+        self.saved = (codeml.make_codon_objective, baseml.make_objective)
+        codeml.make_codon_objective = timed(self.saved[0])
+        baseml.make_objective = timed(self.saved[1])
+        timing.reset()
+        return self
+
+    def __exit__(self, *exc):
+        from paml_tpu_torch.apps import baseml, codeml
+        from paml_tpu_torch.utils import timing
+
+        codeml.make_codon_objective, baseml.make_objective = self.saved
+        self.seconds = timing.report().get("setup", {}).get("seconds", 0.0)
+        return False
+
+
+def unrooted(topo):
+    from paml_tpu_torch.core.topology import deroot, is_rooted
+    return deroot(topo) if is_rooted(topo) else topo
+
+
+def run_search(torch, d, prog, card):
+    """`main([prog, search.ctl])` in d on the card, the counts set to 0
+    just before: (its summary, wall seconds, counts, set-up seconds)."""
+    with SetupTimer() as st:
+        out, wall, counts = run_cli(torch, d, [prog, "search.ctl"])
+    return out, wall, counts, st.seconds
+
+
+def check_search(torch, tag, prog, d, truth, out, wall, counts, setup,
+                 card):
+    """The search found the simulated tree (partition distance 0), and
+    its best lnL is the objective's at the best fit's x: on CPU tensors
+    for nucleotides, with the plain version on the card for codons
+    (1e-9).  Prints the fits, seconds per fit and the host set-up's
+    share; returns the number of fits."""
+    import os
+
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.apps.bootstrap import partition_distance
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import ctl as ctlmod
+
+    data = out["data"]
+    found = from_treenode(out["tree"], data.names)
+    dist = partition_distance(unrooted(found), unrooted(truth))
+    if dist:
+        raise AssertionError(f"{tag}: the search found a tree at partition "
+                             f"distance {dist} from the simulated one")
+    best = [f for f in out["fits"] if f["res"].lnL == out["lnL"]
+            and f["data"].ns == data.ns][-1]
+    ctl = os.path.join(d, "search.ctl")
+    opts = ctlmod.read_ctl(ctl)
+    if prog == "baseml":
+        spec = ctlmod.baseml_spec(opts, ctl)[0]
+        ref, _ = cpu_objective_lnl(torch, best["data"], best["topo"], spec,
+                                   best["res"].x)
+        where = "CPU tensors"
+    else:
+        spec = ctlmod.codeml_spec(opts, ctl)[0]
+        neg = codeml.make_codon_objective(best["data"], best["topo"], spec,
+                                          device="cuda")[0]
+        ref, _ = plain_value_grad(torch, neg, best["res"].x, 1, grad=False)
+        where = "the plain version on the card"
+    if not same_number(out["lnL"], ref, 1e-9):
+        raise AssertionError(f"{tag}: best lnL {out['lnL']!r} against "
+                             f"{ref!r} on {where}")
+    text = open(os.path.join(d, "mlb" if prog == "baseml" else "mlc")).read()
+    if f"best lnL = {out['lnL']:.6f}" not in text:
+        raise AssertionError(f"{tag}: the output file lacks the best lnL")
+    n = len(out["fits"])
+    fit_s = sum(f["seconds"] for f in out["fits"])
+    print(f"{tag} [{card}]: {prog} found the simulated tree, lnL "
+          f"{out['lnL']:.6f} (against {where}: {out['lnL'] - ref:+.2e}); "
+          f"{n} fits, {fit_s / n:.3f} s per fit, {wall:.1f} s wall, the "
+          f"objectives' host set-up {setup:.1f} s ({setup / wall:.3f} of "
+          f"the wall); launches {counts['launches']}, level-route calls "
+          f"{counts['level']}, plain calls {counts['plain']}", flush=True)
+    return n
+
+
+def codon_routes(tag, counts, pair, report, key):
+    """B1/B2 or B3/B4 alone carried a codon search: their launches go to
+    the kernels line under `key`."""
+    from paml_tpu_torch.core import cuda_pruning
+
+    for name in cuda_pruning.LAUNCHES:
+        n = counts["launches"][name]
+        if (n > 0) != (name in pair) or counts["plain"]:
+            raise AssertionError(f"{tag}: launches {counts['launches']}, "
+                                 f"plain calls {counts['plain']}: only "
+                                 f"{pair} should carry it")
+        if n:
+            report[name][key] = n
+
+
+def star_value_grad(torch, rng, card):
+    """11e: one value + gradient of M2a on the 32-taxon x 4096-codon star
+    tree (the root's 32 children resolved under big_tree's identity-P
+    nodes for the kernels) through B3/B4 (clean) and B1/B2 (phase 3b's
+    gaps and Ns), each against the plain version on the star itself."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+
+    names, rows, _ = simulate_m0_rows(torch, rng, STAR_TAXA, STAR_CODONS)
+    star = from_treenode(treeio.parse_newick("(" + ",".join(names) + ");"),
+                         names)
+    spec = codeml.CodemlSpec(NSsites=2, codonf="F3x4", cleandata=False)
+    tol = TOL["float64"]
+    for route, rws, pair in (("clean", rows, ("big_fwd", "big_bwd")),
+                             ("gapped", gapped_rows(rng, rows),
+                              ("pruning_fwd", "pruning_bwd"))):
+        data = seqio.pack(seqio.Alignment(names, rws, seqio.CODON_SEQ),
+                          cleandata=False)
+        neg, _, _, x0, _, _ = codeml.make_codon_objective(data, star, spec,
+                                                          device="cuda")
+        cuda_pruning.reset_launch_counts()
+        t0 = time.perf_counter()
+        v, g = value_grad(torch, neg, x0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        la = dict(cuda_pruning.LAUNCHES)
+        if any((la[k] > 0) != (k in pair) for k in la):
+            raise AssertionError(f"11e {route}: launches {la}, not {pair}")
+        t0 = time.perf_counter()
+        lp, gp = plain_value_grad(torch, neg, x0, 1)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        dv = abs(-v - lp) / abs(lp)
+        dg = float(np.abs(-g - gp).max() / np.abs(gp).max())
+        if dv > tol["val"] or dg > tol["grad"]:
+            raise AssertionError(f"11e {route}: value off by {dv:.2e}, "
+                                 f"gradient by {dg:.2e} of its largest "
+                                 f"component, against the plain version")
+        print(f"11e star tree {STAR_TAXA} x {data.npatt} patterns, {route} "
+              f"({'+'.join(pair)}) [{card}]: lnL {-v:.6f}, value {dv:.1e} "
+              f"and gradient {dg:.1e} off the plain version; {ms:.1f} ms "
+              f"against {plain_ms:.1f} ms plain", flush=True)
+
+
+def tree_modes(torch, work, nuc, card):
+    """11f: evolver 1-4, 8 and 9, and pamp's `pattern_ls` on 11a's
+    alignment and tree, with no pruning at all."""
+    import os
+
+    from paml_tpu_torch.apps import pamp
+    from paml_tpu_torch.io import seqio, treeio
+
+    d = os.path.join(work, "trees")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    n = 0
+    _, _, c = run_cli(torch, d, ["evolver", "1", "8", "12", "3"])
+    n += no_launch(c, "evolver 1")
+    sample = open(os.path.join(d, "evolver.out")).read()
+    if sample.count(";") != 12:
+        raise AssertionError("evolver 1: not 12 trees")
+    with open(os.path.join(d, "sample.trees"), "w") as f:
+        f.write(sample)
+    _, _, c = run_cli(torch, d, ["evolver", "2", "6", "5", "3", "2", "1",
+                                 "0.5", "1"])
+    n += no_launch(c, "evolver 2")
+    for mode, ns, want in (("3", 7, 945), ("4", 6, 945)):
+        _, _, c = run_cli(torch, d, ["evolver", mode, str(ns)])
+        n += no_launch(c, f"evolver {mode}")
+        got = open(os.path.join(d, "evolver.out")).read().count(";")
+        if got != want:
+            raise AssertionError(f"evolver {mode} {ns}: {got} trees, not "
+                                 f"{want}")
+    _, _, c = run_cli(torch, d, ["evolver", "8", "sample.trees"])
+    n += no_launch(c, "evolver 8")
+    _, _, c = run_cli(torch, d, ["evolver", "9", "sample.trees"])
+    n += no_launch(c, "evolver 9")
+    main = treeio.parse_newick(open(os.path.join(d, "evolver.out")).read())
+    sup = [float(v.name) for v in main.walk_post()
+           if v.children and v is not main]
+    # the main tree is the sample's first: each of its clades at least 1 / 12
+    if len(sup) != 5 or not all(100 / 12 - 0.05 <= s <= 100.0 for s in sup):
+        raise AssertionError(f"evolver 9: clade supports {sup}")
+    names, rows, nwk, topo = nuc
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.BASE_SEQ))
+    reset_counts()
+    t1 = time.perf_counter()
+    res = pamp.pattern_ls(topo, data, alpha=HKY_TRUTH["alpha"])
+    ls_s = time.perf_counter() - t1
+    n += no_launch(read_counts(), "pattern_ls")
+    bn = topo.branch_nodes()
+    est, true = res["blens"][bn].sum(), topo.blen0[bn].sum()
+    if not (np.isfinite(res["blens"]).all() and abs(est / true - 1) < 0.25):
+        raise AssertionError(f"pattern_ls: tree length {est} against the "
+                             f"simulated {true}")
+    print(f"11f [{card}]: evolver 1-4, 8, 9 and pattern_ls with no pruning "
+          f"launch; pattern_ls tree length {est:.4f} (simulated {true:.4f})"
+          f" in {ls_s:.2f} s; {time.perf_counter() - t0:.1f} s", flush=True)
+    return n
+
+
+def phase_search(torch, rng, report, card):
+    """Phase 11: baseml runmode 3 (11a) and 2 (11d), codeml runmode 3 on
+    gapped codons (11b, B1/B2) and 4 on their clean copy (11c, B3/B4), the
+    star tree through the kernels (11e), evolver's tree modes and
+    pattern_ls (11f)."""
+    import tempfile
+
+    from paml_tpu_torch.io import treeio
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="search_")
+    t = {}
+    # 11a / 11d: nucleotides, the level route
+    for tag, ns, ls, runmode, gamma in (
+            ("11a", TS_NUC_TAXA, TS_NUC_SITES, 3,
+             dict(alpha=HKY_TRUTH["alpha"], ncatG=5)),
+            ("11d", TS_STAR_TAXA, TS_STAR_SITES, 2, dict(alpha=0, ncatG=1))):
+        t0 = time.perf_counter()
+        names, rows, nwk, _, topo = simulate_nuc(torch, rng, ns, ls, "cuda",
+                                                 truth=HKY_TRUTH)
+        if tag == "11a":
+            nuc = (names, rows, nwk, topo)
+        d = write_search(work, tag, names, rows, nwk, TS_BASEML_CTL,
+                         runmode, **gamma)
+        out, wall, counts, setup = run_search(torch, d, "baseml", card)
+        check_baseml_routes(tag, counts)
+        check_search(torch, tag, "baseml", d, topo, out, wall, counts, setup,
+                     card)
+        t[tag] = time.perf_counter() - t0
+    # 11b / 11c: codons through the kernels
+    names, rows, topo = simulate_m0_rows(torch, rng, TS_CODON_TAXA, TS_CODONS)
+    nwk = treeio.write_newick(treeio.parse_newick(
+        newick(names, "ladder")), branch_lengths=False)
+    for tag, rws, runmode, pair in (
+            ("11b", gapped_rows(rng, rows), 3, ("pruning_fwd",
+                                                "pruning_bwd")),
+            ("11c", rows, 4, ("big_fwd", "big_bwd"))):
+        t1 = time.perf_counter()
+        d = write_search(work, tag, names, rws, nwk, TS_CODEML_CTL, runmode)
+        out, wall, counts, setup = run_search(torch, d, "codeml", card)
+        codon_routes(tag, counts, pair, report, f"launches_search_{tag}")
+        check_search(torch, tag, "codeml", d, topo, out, wall, counts, setup,
+                     card)
+        t[tag] = time.perf_counter() - t1
+    t0 = time.perf_counter()
+    star_value_grad(torch, rng, card)
+    t["11e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_modes(torch, work, nuc, card)
+    t["11f"] = time.perf_counter() - t0
+    print("phase 11: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the pattern axis over devices and ranks (ROADMAP A13)
+# ---------------------------------------------------------------------------
+
+MESH_RANK_WORKER = r'''
+import os, sys
+import numpy as np
+import torch
+sys.path.insert(0, os.getcwd())
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+os.environ["LOCAL_RANK"] = str(rank)
+from paml_tpu_torch import entry
+from paml_tpu_torch.core import cuda_pruning, pruning
+from paml_tpu_torch.parallel import distributed
+distributed.initialize(backend="nccl", init_method=f"tcp://localhost:{port}",
+                       world_size=world, rank=rank)
+dev = distributed.local_device()
+P, tips, topo, pi = entry._random_kernel_problem(32, 4096, 3, seed=1,
+                                                 device=dev)
+w = torch.as_tensor(np.random.default_rng(2).uniform(0.5, 2.0, 4096),
+                    device=dev)
+def vg():
+    Pg, pig = P.detach().requires_grad_(True), pi.detach().requires_grad_(True)
+    v = (w * pruning.class_site_lnf(Pg, tips, topo, pig).sum(0)).sum()
+    return (float(v),) + torch.autograd.grad(v, (Pg, pig))
+ref = vg()
+pruning.set_pattern_mesh(distributed.global_data_mesh())
+cuda_pruning.reset_launch_counts()
+got = vg()
+dv = abs(got[0] - ref[0]) / abs(ref[0])
+dg = max(float((a - b).abs().max() / b.abs().max())
+         for a, b in zip(got[1:], ref[1:]))
+print(f"RANK {rank} {dv!r} {dg!r} {cuda_pruning.LAUNCHES['big_fwd']} "
+      f"{cuda_pruning.LAUNCHES['big_bwd']}", flush=True)
+torch.distributed.destroy_process_group()
+'''
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_value_grad(torch, neg, x, mesh, pair, tag, card):
+    """One value + gradient unsharded and on `mesh` (two shards on one
+    card), each timed (medians of 3); the sharded one must equal the
+    unsharded one (1e-12 relative on the value, 1e-10 of the largest
+    gradient component) and launch each kernel of `pair` once per shard."""
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    def timed():
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, g = value_grad(torch, neg, x)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return v, g, float(np.median(ts))
+
+    v1, g1, ms1 = timed()
+    pruning.set_pattern_mesh(mesh)
+    try:
+        cuda_pruning.reset_launch_counts()
+        v2, g2 = value_grad(torch, neg, x)
+        la = dict(cuda_pruning.LAUNCHES)
+        v2, g2, ms2 = timed()
+    finally:
+        pruning.set_pattern_mesh(None)
+    want = {k: (mesh.n_shards if k in pair else 0) for k in la}
+    if la != want:
+        raise AssertionError(f"12a {tag}: launches {la} per sharded "
+                             f"evaluation, not {want}")
+    dv = abs(v2 - v1) / abs(v1)
+    dg = float(np.abs(g2 - g1).max() / np.abs(g1).max())
+    if dv > 1e-12 or dg > 1e-10:
+        raise AssertionError(f"12a {tag}: sharded value off by {dv:.2e}, "
+                             f"gradient by {dg:.2e}")
+    print(f"12a {tag} [{card}]: {mesh.n_shards} shards on one card equal "
+          f"unsharded (value {dv:.1e}, gradient {dg:.1e}); {ms2:.2f} ms "
+          f"sharded against {ms1:.2f} ms unsharded; launches per "
+          f"evaluation {la}", flush=True)
+
+
+def mesh_fit(torch, data, topo, mesh, report, card):
+    """12a: M0 at the bench shape fitted unsharded and twice on the mesh:
+    the lnL within 1e-9 of unsharded, the two sharded fits bit for bit;
+    the sharded fits' launches go to the kernels line."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    spec = codeml.CodemlSpec(NSsites=0, codonf="F3x4")
+    t0 = time.perf_counter()
+    one = codeml.fit_packed(data, topo, spec, device="cuda")
+    t1 = time.perf_counter() - t0
+    pruning.set_pattern_mesh(mesh)
+    try:
+        cuda_pruning.reset_launch_counts()
+        t0 = time.perf_counter()
+        a = codeml.fit_packed(data, topo, spec, device="cuda")
+        t2 = time.perf_counter() - t0
+        la = dict(cuda_pruning.LAUNCHES)
+        b = codeml.fit_packed(data, topo, spec, device="cuda")
+    finally:
+        pruning.set_pattern_mesh(None)
+    if a.lnL != b.lnL or not np.array_equal(a.x, b.x):
+        raise AssertionError(f"12a: sharded fits differ: {a.lnL!r}, "
+                             f"{b.lnL!r}")
+    if not same_number(a.lnL, one.lnL, 1e-9):
+        raise AssertionError(f"12a: sharded fit lnL {a.lnL!r} against "
+                             f"{one.lnL!r} unsharded")
+    for name, n in la.items():
+        if n:
+            report[name]["launches_mesh_fit"] = n
+    print(f"12a M0 fit [{card}]: lnL {a.lnL:.6f} sharded ({a.fit.n_eval} "
+          f"evals, {t2:.2f} s, bit for bit twice), {one.lnL:.6f} unsharded "
+          f"({one.fit.n_eval} evals, {t1:.2f} s); launches {la}", flush=True)
+
+
+def two_ranks(torch, work, names, rows, nwk, card):
+    """12b: `python -m torch.distributed.run --nproc_per_node 2 -m
+    paml_tpu_torch codeml` (M0 on the bench alignment) on the one card
+    (gloo: NCCL refuses two ranks on one device); rank 0 alone writes mlc
+    and prints, with the single-process lnL to 1e-9."""
+    import os
+    import re
+
+    d = os.path.join(work, "ranks")
+    os.makedirs(d)
+    with open(os.path.join(d, "seq.phy"), "w") as f:
+        f.write(phylip(names, rows))
+    with open(os.path.join(d, "tree.nwk"), "w") as f:
+        f.write(nwk + "\n")
+    with open(os.path.join(d, "codeml.ctl"), "w") as f:
+        f.write(TS_CODEML_CTL.format(runmode=0))
+    out, one_s, _ = run_cli(torch, d, ["codeml", "codeml.ctl"])
+    one = out["runs"][0]["res"].lnL
+    os.rename(os.path.join(d, "mlc"), os.path.join(d, "mlc.one"))
+    env = dict(os.environ, PYTHONPATH=os.getcwd() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "--master_port", str(free_port()), "-m", "paml_tpu_torch",
+         "codeml", "codeml.ctl"], cwd=d, env=env, capture_output=True,
+        text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if p.returncode:
+        raise AssertionError(f"12b: torchrun exited {p.returncode}:\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    printed = p.stdout.count("results written to mlc")
+    lnl = [float(v) for v in re.findall(
+        r"lnL\(ntime:.*\): *(-?[0-9.]+)", open(os.path.join(d, "mlc")).read())]
+    if printed != 1 or len(lnl) != 1:
+        raise AssertionError(f"12b: {printed} ranks printed, mlc has "
+                             f"{len(lnl)} lnL lines: one rank writes")
+    if not same_number(lnl[0], one, 1e-9):
+        raise AssertionError(f"12b: two ranks' lnL {lnl[0]!r} against "
+                             f"{one!r} in one process")
+    print(f"12b [{card}]: two gloo ranks on one card wrote one mlc, lnL "
+          f"{lnl[0]:.6f} (one process: {one:.6f}); {wall:.1f} s for the "
+          f"two ranks against {one_s:.1f} s in one process", flush=True)
+
+
+def nccl_group(torch, card):
+    """12c: a NCCL group of torch.cuda.device_count() ranks, one value +
+    gradient of B3/B4 at the bench shape on the group's mesh against
+    unsharded in each rank."""
+    import os
+
+    world = torch.cuda.device_count()
+    port = free_port()
+    worker = os.path.join(os.getcwd(), "build", "mesh_rank_worker.py")
+    os.makedirs(os.path.dirname(worker), exist_ok=True)
+    with open(worker, "w") as f:
+        f.write(MESH_RANK_WORKER)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, str(r), str(world),
+                               str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    for pr in procs:
+        try:
+            outs.append(pr.communicate(timeout=240)[0])
+        except subprocess.TimeoutExpired:
+            pr.kill()
+            outs.append(pr.communicate()[0])
+    for r, (pr, o) in enumerate(zip(procs, outs)):
+        line = [ln for ln in o.splitlines() if ln.startswith("RANK")]
+        if pr.returncode or not line:
+            raise AssertionError(f"12c rank {r}: exit {pr.returncode}\n"
+                                 f"{o[-3000:]}")
+        _, _, dv, dg, nf, nb = line[0].split()
+        if float(dv) > 1e-12 or float(dg) > 1e-10 or (nf, nb) != ("1", "1"):
+            raise AssertionError(f"12c rank {r}: {line[0]}")
+    print(f"12c [{card}]: a NCCL group of {world} rank(s): value + gradient "
+          f"on the group's mesh equal unsharded ({time.perf_counter() - t0:.1f}"
+          f" s)", flush=True)
+
+
+def phase_mesh(torch, rng, report, card, big):
+    """Phase 12: the pattern mesh of two shards on one card (12a), two
+    gloo ranks running codeml (12b), a NCCL group (12c), `entry()` and
+    `dryrun_multichip` (12d).  `big`: phase 5's (data, topo, spec, x)."""
+    import tempfile
+
+    from paml_tpu_torch import entry
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.io import seqio, treeio
+    from paml_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mesh_")
+    mesh = sharding.data_mesh(["cuda:0", "cuda:0"])
+    t = {}
+    t0 = time.perf_counter()
+    names, rows, topo = simulate_m0_rows(torch, rng, 32, 4096)
+    spec = codeml.CodemlSpec(NSsites=2, codonf="F3x4", cleandata=False)
+    for tag, rws, pair in (("bench clean", rows, ("big_fwd", "big_bwd")),
+                           ("bench gapped", gapped_rows(rng, rows),
+                            ("pruning_fwd", "pruning_bwd"))):
+        data = seqio.pack(seqio.Alignment(names, rws, seqio.CODON_SEQ),
+                          cleandata=False)
+        neg, _, _, x0, _, _ = codeml.make_codon_objective(data, topo, spec,
+                                                          device="cuda")
+        mesh_value_grad(torch, neg, x0, mesh, pair, tag, card)
+    data, btopo, bspec, x_true = big
+    free = dataclasses.replace(bspec, fix_blength=0)
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(data, btopo, free,
+                                                      device="cuda")
+    mesh_value_grad(torch, neg, x0, mesh, ("big_fwd", "big_bwd"),
+                    f"{data.ns} taxa model A, unchunked", card)
+    del neg
+    torch.cuda.empty_cache()
+    clean = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ))
+    mesh_fit(torch, clean, topo, mesh, report, card)
+    t["12a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nwk = treeio.write_newick(treeio.parse_newick(newick(names, "ladder")),
+                              branch_lengths=False)
+    two_ranks(torch, work, names, rows, nwk, card)
+    t["12b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl_group(torch, card)
+    t["12c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, (x,) = entry.entry()
+    v, g = fn(x)
+    if not (torch.isfinite(v) and torch.isfinite(g).all()):
+        raise AssertionError("12d: entry() is not finite")
+    entry.dryrun_multichip(2, ["cuda:0", "cuda:0"])
+    t["12d"] = time.perf_counter() - t0
+    print("phase 12: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3699,7 +4344,7 @@ def main() -> int:
     # 4. the M0 / M2a path (B3/B4 on clean data, B1/B2 on gapped data)
     phase_slice(torch, rng, report, smi[0])
     # 5. the branch-site path at 1024 taxa (B3/B4)
-    phase_branch_site(torch, rng, report, smi[0])
+    big = phase_branch_site(torch, rng, report, smi[0])
     torch.cuda.empty_cache()
     # 6. the program: codeml from a control file (B3/B4 clean, B1/B2 gapped)
     phase_program(torch, rng, report, smi[0])
@@ -3715,12 +4360,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 10. mcmctree, in.BV, the MCMC utilities, clock 5 / 6 (B1-B4 on codons)
     phase_dating(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 11. tree search (B1-B4 for codons, the level route for nucleotides)
+    phase_search(torch, rng, report, smi[0])
+    torch.cuda.empty_cache()
+    # 12. the pattern axis over two shards, two ranks and a NCCL group
+    phase_mesh(torch, rng, report, smi[0], big)
+    print(f"chip_smoke: the build and phases 3-12 in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
         # the main paths' launches, each path counted from 0 (M0/M2a fits
         # on clean and gapped data, the branch-site fits, the program on
         # clean and gapped data; phase 9's programs, which launch none;
-        # phase 10's codon clock 5 fits)
+        # phase 10's codon clock 5 fits; phase 11's codon tree searches;
+        # phase 12's fit on the mesh)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

@@ -8,7 +8,9 @@ Usage:
   python -m paml_tpu_torch pamp    [pamp.ctl]   [--device cuda|cpu]
   python -m paml_tpu_torch chi2    [df stat]    # LRT p-values (scipy)
   python -m paml_tpu_torch evolver <mode> <args> [--device cuda|cpu]
-                              # 5-7 simulate, 11 label clades
+                              # 1-4 trees, 5-7 simulate, 8 tree distances,
+                              # 9 clade support, 11 label clades
+  torchrun --nproc_per_node N -m paml_tpu_torch codeml|baseml|basemlg ...
   python -m paml_tpu_torch mcmctree [mcmctree.ctl] [--device cuda|cpu]
   python -m paml_tpu_torch mcmctree --combine <dir> | <out> <in1> <in2> ...
   python -m paml_tpu_torch infinitesites [mcmctree.ctl]  # infinite sites
@@ -22,7 +24,9 @@ computation run on the CUDA card; `--device cpu` asks for the CPU instead.
 Without a card and without `--device cpu` a program stops with an error:
 it does not carry on on the CPU.  infinitesites, ds, bfdriver, multiruns,
 chi2 and `mcmctree --combine` compute host scalars and files only (in
-both packages): they need no card and take no `--device`.
+both packages): they need no card and take no `--device`.  codeml,
+baseml and basemlg cut the site patterns over every card of the host, and
+under torchrun over the ranks (`_run_on_mesh`).
 
 Port of `run_codeml`, `run_baseml`, `run_basemlg`, `run_yn00`, `run_pamp`,
 `run_chi2` and the evolver, mcmctree, infinitesites, ds, bfdriver and
@@ -35,18 +39,22 @@ per branch; amino-acid data (seqtype 2 and 3), aaDist and several genes
 (Mgene) with `mlc`, `rst1` and `rub` alone, as the JAX program writes
 them; codon data at runmode -2 (pairwise ML) and -3 (pairwise Bayesian)
 into `mlc` and `2ML.t`, `2ML.dS`, `2ML.dN`, each pair fitted on the device
-that was asked for.  baseml: every model, rate and gene option of
+that was asked for; codon and amino-acid data at runmode 2-5 (tree
+search: star decomposition, stepwise addition, NNI from the parsimony
+tree; every candidate a full fit) into `mlc`, as the JAX program writes
+it.  baseml: every model, rate and gene option of
 `apps/baseml.py`, several trees, `rst` with the reconstruction and
 `rates` (RateAncestor), `rst1`, `lnf`, the tree-comparison table, the
-nhomo frequency sets, and at clock = 5 / 6 the dating of heterogeneous
-multi-locus data (`apps/clock56.py`).  basemlg: the continuous-gamma fit
-and its rate-variance decomposition.  yn00: `yn`, `2YN.*` and `2NG.*`.  pamp:
+nhomo frequency sets, at clock = 5 / 6 the dating of heterogeneous
+multi-locus data (`apps/clock56.py`), and tree search at runmode 2-5.
+basemlg: the continuous-gamma fit and its rate-variance decomposition.  yn00: `yn`, `2YN.*` and `2NG.*`.  pamp:
 `mp`.  evolver: `mc.paml` (or `mc.nex`), `siterates.txt`,
-`ancestral.txt`, `evolver.out`.  mcmctree: `mcmc.txt`, `out.txt`,
+`ancestral.txt`, `evolver.out` (random, enumerated and labelled trees,
+clade support).  mcmctree: `mcmc.txt`, `out.txt`,
 `FigTree.tre` (or `out.BV` at usedata = 3), checkpoints; infinitesites,
 ds, bfdriver and multiruns print and write as the JAX program does.
-Settings and modes whose modules are not ported yet raise
-NotImplementedError naming their ROADMAP item.
+The one setting refused (codeml's pairwise runmodes on amino-acid data)
+raises NotImplementedError naming ROADMAP C.
 """
 from __future__ import annotations
 
@@ -69,19 +77,58 @@ def _write_tree_with_blens(topo, blens_by_node, names=True):
 
 
 def _check_ported(extras, seqtype) -> None:
-    """Raise NotImplementedError for a runmode this package does not cover
-    yet, naming the ROADMAP item that will."""
+    """Raise NotImplementedError for a setting this package refuses,
+    naming the ROADMAP item that says why.  As in the JAX program, a
+    runmode other than -2 / -3 (pairwise) and 2-5 (tree search) fits the
+    given trees, as runmode 0 does (runmode 1, which the reference reads
+    as a search from the given tree, included: ROADMAP C)."""
     runmode = extras.get("runmode", 0)
-    if runmode in (2, 3, 4, 5):
-        raise NotImplementedError(
-            f"paml_tpu_torch codeml does not cover runmode = {runmode} "
-            "(tree search): ROADMAP A14")
-    if runmode not in (0, -2, -3):
-        raise ValueError(f"runmode = {runmode} is not a codeml runmode")
     if runmode in (-2, -3) and seqtype != 1:
         raise NotImplementedError(
             f"paml_tpu_torch codeml runs runmode = {runmode} on codon data "
             f"(seqtype = 1) only, not on seqtype = {seqtype}: ROADMAP C")
+
+
+def run_tree_search(data, fit, runmode: int, outfile: str,
+                    program: str) -> dict:
+    """Tree search (reference: runmode 2 star decomposition, 3 stepwise
+    addition, 4 / 5 NNI from the parsimony stepwise-addition tree;
+    src/treesub.c:4642-5170), as the JAX program runs it: every candidate
+    is a full fit, `fit(topo, data) -> result` with `.lnL`.  Writes the
+    best lnL and the tree to `outfile`.  Returns the tree, its lnL and
+    every fit in order (topology, data, result, seconds)."""
+    from .apps import treesearch
+    from .io import treeio
+
+    fits = []
+
+    def fit_fn(topo_, sub):
+        t0 = time.perf_counter()
+        res = fit(topo_, sub)
+        fits.append(dict(topo=topo_, data=sub, res=res,
+                         seconds=time.perf_counter() - t0))
+        return res.lnL
+
+    t0 = time.perf_counter()
+    if runmode == 3:
+        tree, score = treesearch.stepwise_addition_ml(data, fit_fn,
+                                                      progress=True)
+    elif runmode == 2:
+        tree, score = treesearch.star_decomposition(data, fit_fn,
+                                                    progress=True)
+    else:
+        start, _ = treesearch.stepwise_addition_mp(data)
+        tree, score = treesearch.nni_search_ml(
+            data, start, lambda t_: fit_fn(t_, data))
+    seconds = time.perf_counter() - t0
+    with open(outfile, "w") as out:
+        out.write(f"{program} (paml_tpu_torch) tree search runmode "
+                  f"{runmode}\n")
+        out.write(f"best lnL = {score:.6f}\n")
+        out.write(treeio.write_newick(tree, branch_lengths=False) + "\n")
+    print(f"tree search done: lnL {score:.6f} -> {outfile}")
+    return {"tree": tree, "lnL": score, "fits": fits, "data": data,
+            "seconds": seconds}
 
 
 def run_codeml(ctl_path: str, device: str) -> dict:
@@ -120,6 +167,13 @@ def run_codeml(ctl_path: str, device: str) -> dict:
         if extras.get("runmode", 0) in (-2, -3):
             return _run_pairwise(data, spec, extras["runmode"], outfile,
                                  device)
+        if extras.get("runmode", 0) in (2, 3, 4, 5):
+            # tree search under the codon / amino-acid model (reference:
+            # Forestry -> StepwiseAddition etc., src/codeml.c:606)
+            return run_tree_search(
+                data, lambda topo_, sub: codeml.fit_packed(
+                    sub, topo_, spec, device=device),
+                extras["runmode"], outfile, "CODEML")
         trees = treeio.read_trees(treefile, data.names)
         # amino acids, aaDist and several genes: the fit and mlc's lines
         # alone (the JAX program's side outputs need the codon objective)
@@ -334,15 +388,6 @@ def _write_ancestral_rst(frst, data, topo, sp, neg, xt):
     return best, prob
 
 
-def _check_baseml(extras) -> None:
-    """Raise NotImplementedError for a baseml control file this package
-    does not cover yet, naming the ROADMAP item that will."""
-    if extras.get("runmode", 0) in (2, 3, 4, 5):
-        raise NotImplementedError(
-            f"paml_tpu_torch baseml does not cover runmode = "
-            f"{extras['runmode']} (tree search): ROADMAP A14")
-
-
 def run_baseml(ctl_path: str, device: str) -> dict:
     """Run a baseml control file on `device`, writing the reference's
     output files into the working directory.  Returns a summary: per tree
@@ -362,12 +407,16 @@ def run_baseml(ctl_path: str, device: str) -> dict:
     opts = ctlmod.read_ctl(ctl_path)
     spec, seqfile, treefile, outfile, extras = ctlmod.baseml_spec(opts,
                                                                   ctl_path)
-    _check_baseml(extras)
     if extras["clock"] in (5, 6):
         return run_clock56(opts, spec, seqfile, treefile, outfile, extras,
                            device)
     aln = seqio.read_alignment(seqfile, seqio.BASE_SEQ)
     data = seqio.pack(aln, cleandata=spec.cleandata)
+    if extras.get("runmode", 0) in (2, 3, 4, 5):
+        return run_tree_search(
+            data, lambda topo_, sub: baseml.fit_packed(sub, topo_, spec,
+                                                       device=device),
+            extras["runmode"], outfile, "BASEML")
     trees = treeio.read_trees(treefile, data.names)
     rate_ancestor = extras.get("RateAncestor", 0)
     site_lnf_trees = []
@@ -899,8 +948,64 @@ def main(argv: list[str] | None = None):
     run, default_ctl = programs[prog]
     if default_ctl is None:
         return run(rest, device)
-    return run(rest[0] if rest else default_ctl, device)
+    ctl = rest[0] if rest else default_ctl
+    if prog in ("codeml", "baseml", "basemlg"):
+        return _run_on_mesh(run, ctl, device)
+    return run(ctl, device)
 
+
+def _run_on_mesh(run, ctl: str, device: str):
+    """codeml, baseml and basemlg cut the pattern axis over every device
+    they are given (`pruning.set_pattern_mesh`).  Under torchrun each rank
+    joins the group (`distributed.initialize`: NCCL with a card per rank,
+    gloo on the CPU or on a shared card), runs the program on its own
+    device (`cuda:{LOCAL_RANK}`) with the pattern axis cut over the ranks,
+    and only the primary rank writes into the working directory and
+    prints: the others run in a temporary directory, removed at the end,
+    with their standard output discarded.  In one process on a host with
+    more than one card the axis is cut over all of them
+    (`sharding.engage_auto_mesh`, as `paml_tpu/__main__.py:779-784`).  The
+    mesh in force before is restored at the end, and a group joined here
+    is left once the program has run (`distributed.shutdown`: every rank
+    waits for the others; a rank that raises leaves torchrun to stop
+    the rest)."""
+    import contextlib
+    import os
+    import tempfile
+
+    import torch
+
+    from .core import pruning
+    from .parallel import distributed, sharding
+
+    before = pruning.pattern_mesh()
+    joined = not torch.distributed.is_initialized() and \
+        distributed.initialize(device=device)
+    try:
+        if not torch.distributed.is_initialized():
+            if device == "cuda":
+                sharding.engage_auto_mesh()
+            return run(ctl, device)
+        device = str(distributed.local_device(device))
+        pruning.set_pattern_mesh(distributed.global_data_mesh(device))
+        if distributed.is_primary():
+            out = run(ctl, device)
+        else:
+            ctl = os.path.abspath(ctl)
+            cwd = os.getcwd()
+            with tempfile.TemporaryDirectory() as scratch, \
+                    open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null):
+                os.chdir(scratch)
+                try:
+                    out = run(ctl, device)
+                finally:
+                    os.chdir(cwd)
+    finally:
+        pruning.set_pattern_mesh(before)
+    if joined:
+        distributed.shutdown()
+    return out
 
 if __name__ == "__main__":
     main()

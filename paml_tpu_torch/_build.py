@@ -39,14 +39,14 @@ _SIGNATURES = {
                              _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "paml_pruning_bwd": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "pruning_big": {
         "paml_big_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _P],
         "paml_big_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
+                         _I, _P],
     },
 }
 

@@ -1,9 +1,9 @@
 """RELL tree support and the tree-comparison table (reference: rell,
 src/treesub.c:5844).
 
-Port of `rell` and `tree_comparison` of `paml_tpu/apps/bootstrap.py`
-(numpy only).  The sequence bootstrap and clade support of that module wait
-for their callers (ROADMAP A14).
+Port of `paml_tpu/apps/bootstrap.py` (numpy only): RELL and the
+tree-comparison table, the pattern-count bootstrap, tree partitions, the
+partition distance and clade support.
 """
 from __future__ import annotations
 
@@ -63,3 +63,48 @@ def tree_comparison(site_lnf: np.ndarray, fpatt: np.ndarray,
         pSH[i] = float(((maxR - R[:, i]) > -D[i]).mean())
     return dict(lnL=lnL, D=D, SE=SE, pKH=pKH, pSH=pSH, pRELL=support,
                 best=best)
+
+
+def bootstrap_alignment(data, seed: int = 0,
+                        n_rep: int = 1):
+    """Bootstrap pattern-count resamples (reference: BootstrapSeq).
+    Returns list of fpatt vectors (same patterns, resampled counts)."""
+    rng = np.random.default_rng(seed)
+    ls = int(round(data.fpatt.sum()))
+    p = data.fpatt / data.fpatt.sum()
+    return [rng.multinomial(ls, p).astype(float) for _ in range(n_rep)]
+
+
+def tree_partitions(topo) -> set:
+    """Set of tip-index bipartitions (frozensets) defined by internal
+    branches (reference: Tree2Partition, src/treesub.c:4128)."""
+    desc = topo.tip_descendants()
+    all_tips = frozenset(range(topo.ns))
+    parts = set()
+    for node in range(topo.ns, topo.nnode):
+        if node == topo.root:
+            continue
+        s = frozenset(desc[node])
+        parts.add(min(s, all_tips - s, key=lambda x: (len(x), sorted(x))))
+    return parts
+
+
+def partition_distance(topo1, topo2) -> int:
+    """Robinson-Foulds distance (reference: NSameBranch-based distance,
+    src/treesub.c:4560)."""
+    p1, p2 = tree_partitions(topo1), tree_partitions(topo2)
+    return len(p1 ^ p2)
+
+
+def clade_support(main_topo, sample_topos) -> dict:
+    """Support proportion for each clade of `main_topo` among the sampled
+    trees (reference: CladeSupport, src/treesub.c:4275)."""
+    main = tree_partitions(main_topo)
+    counts = {p: 0 for p in main}
+    for t in sample_topos:
+        parts = tree_partitions(t)
+        for p in main:
+            if p in parts:
+                counts[p] += 1
+    n = max(len(sample_topos), 1)
+    return {p: c / n for p, c in counts.items()}

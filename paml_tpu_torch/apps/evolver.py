@@ -14,13 +14,19 @@ model's per-(node, class) matrices as one `pmat_rev_multi` batch; then
 replicates, one `torch.Generator` per replicate) and writes the files.
 
 Modes (matching the reference menu numbers / CLI):
+  1 <ns> [ntree seed birth death sample mut]  random unrooted trees
+  2 <ns> [...]  random rooted trees
+  3 <ns>  list all unrooted trees
+  4 <ns>  list all rooted trees
   5 <file>  simulate nucleotide data
   6 <file>  simulate codon data
   7 <file>  simulate amino-acid data
+  8 <treefile>  partition distances between trees
+  9 <sample> [maintree] [pick1tree]  clade support
   11 <treefile> <keys...>  label clades
-Modes 1-4 (random and enumerated trees), 8 (tree distances) and 9
-(clade support) need tree generation and the rest of the bootstrap
-module: ROADMAP A14.
+Modes 1-4, 8, 9 and 11 write `evolver.out` or print, on the host (numpy's
+Generator, `apps/treegen.py`, `apps/bootstrap.py`); only 5-7 sample on the
+device.
 """
 from __future__ import annotations
 
@@ -387,6 +393,54 @@ def simulate_aa(datfile: str, out="mc.paml", seed=None, *, device="cuda"):
     return res["path"], res["nrepl"]
 
 
+def clade_support_cli(treefile: str, maintreefile: str | None = None,
+                      pick1tree: int = 1) -> dict:
+    """Support of the main tree's clades among a tree sample, written as
+    a support-labeled tree to evolver.out (reference: CladeSupport,
+    src/treesub.c:4275).  With no maintreefile, the first sample tree is
+    the main tree."""
+    from ..core.topology import from_treenode
+    from ..io import treeio
+    from .bootstrap import clade_support
+
+    sample = treeio.read_tree_sample(treefile)
+    if not sample:
+        raise ValueError(f"no trees in {treefile}")
+    if maintreefile:
+        mains = treeio.read_tree_sample(maintreefile)
+        main = mains[min(max(pick1tree, 1), len(mains)) - 1]
+    else:
+        main = sample[0]
+    names = sorted(n.name for n in main.walk_post() if n.is_tip)
+    main_topo = from_treenode(main, names)
+    topos = [from_treenode(t, names) for t in sample]
+    support = clade_support(main_topo, topos)
+
+    # annotate internal nodes of the main tree with their support
+    def tipset(node):
+        return frozenset(names.index(t.name) for t in node.walk_post()
+                         if t.is_tip)
+    allset = frozenset(range(len(names)))
+    by_part = {}
+    for part, s in support.items():
+        by_part[part] = s
+    for node in main.walk_post():
+        if node.is_tip or node is main:
+            continue
+        ts = tipset(node)
+        part = min(ts, allset - ts, key=lambda x: (len(x), sorted(x)))
+        if part in by_part:
+            node.name = f"{100 * by_part[part]:.1f}"
+    with open("evolver.out", "w") as f:
+        f.write(treeio.write_newick(main, branch_lengths=False) + "\n")
+    for part, s in sorted(support.items(), key=lambda kv: -kv[1]):
+        tipnames = " ".join(names[i] for i in sorted(part))
+        print(f"{100 * s:6.1f}%  ({tipnames})")
+    print(f"support-labeled main tree -> evolver.out "
+          f"({len(sample)} sample trees)")
+    return support
+
+
 def label_clades_cli(treefile: str, keys: list[str]) -> None:
     """For each key, select tips whose names contain it and label their
     clade '#i' when monophyletic in the (unrooted) tree — checking the
@@ -431,16 +485,65 @@ PREPARE = {"5": prepare_nuc, "6": prepare_codon, "7": prepare_aa}
 
 def main(argv, device="cuda"):
     """Modes mirror the reference evolver menu (src/evolver.c:159-168):
-    5/6/7 simulate nuc/codon/aa data, 11 label clades; 1-4, 8 and 9 are
-    not ported yet.  Returns `sample_and_write`'s summary for 5-7."""
+    1/2 random unrooted/rooted trees, 3/4 list all unrooted/rooted trees,
+    5/6/7 simulate nuc/codon/aa data, 8 partition distances between
+    trees, 9 clade support from a tree sample, 11 label clades.  Returns
+    `sample_and_write`'s summary for 5-7, None for the others."""
     if len(argv) < 2:
         print(__doc__)
         sys.exit(2)
     mode = argv[0]
-    if mode in ("1", "2", "3", "4", "8", "9"):
-        raise NotImplementedError(
-            f"paml_tpu_torch evolver does not cover mode {mode} (tree "
-            "generation, tree distances and clade support): ROADMAP A14")
+    if mode in ("1", "2"):
+        from . import treegen
+        from ..io.treeio import write_newick
+        ns = int(argv[1])
+        ntree = int(argv[2]) if len(argv) > 2 else 1
+        seed = int(argv[3]) if len(argv) > 3 else 1
+        bd = [float(v) for v in argv[4:8]]  # birth death sample mut
+        rng = np.random.default_rng(seed)
+        out = "evolver.out"
+        with open(out, "w") as f:
+            for _ in range(ntree):
+                if bd:
+                    t = treegen.random_tree_bd(
+                        ns, rooted=(mode == "2"), birth=bd[0], death=bd[1],
+                        sample=bd[2], mut=bd[3], rng=rng)
+                else:
+                    t, _h = treegen.random_labeled_history(
+                        ns, rooted=(mode == "2"), rng=rng)
+                f.write(write_newick(t, branch_lengths=bool(bd)) + "\n")
+        print(f"{ntree} random {'rooted' if mode == '2' else 'unrooted'} "
+              f"tree(s) -> {out}")
+        return None
+    if mode in ("3", "4"):
+        from . import treegen
+        from ..io.treeio import write_newick
+        ns = int(argv[1])
+        out = "evolver.out"
+        n = 0
+        with open(out, "w") as f:
+            for t in treegen.list_trees(ns, rooted=(mode == "4")):
+                f.write(write_newick(t, branch_lengths=False) + "\n")
+                n += 1
+        print(f"{n} {'rooted' if mode == '4' else 'unrooted'} trees -> "
+              f"{out}")
+        return None
+    if mode == "8":
+        from . import treegen
+        sh, rf = treegen.tree_distances_file(argv[1])
+        n = len(sh)
+        print("pairwise (shared partitions, partition distance):")
+        for i in range(n):
+            print(" ".join(f"{sh[i, j]}/{rf[i, j]}" for j in range(n)))
+        return None
+    if mode == "9":
+        # clade support values from a tree sample onto a main tree
+        # (reference: `evolver 9 treefile maintreefile <pick1tree>`,
+        # src/evolver.c:130-134 -> CladeSupport src/treesub.c:4275).
+        # The sample file may be newick-per-line or MrBayes NEXUS .t
+        clade_support_cli(argv[1], argv[2] if len(argv) > 2 else None,
+                          int(argv[3]) if len(argv) > 3 else 1)
+        return None
     if mode == "11":
         # label clades selected by name substrings (reference:
         # LabelClades, src/evolver.c:271; keys passed as CLI args
@@ -449,8 +552,9 @@ def main(argv, device="cuda"):
         return None
     prepare = PREPARE.get(mode)
     if prepare is None:
-        print(f"unknown evolver mode {mode}; use 5 (nuc), 6 (codon), "
-              "7 (aa) or 11 (label clades)")
+        print(f"unknown evolver mode {mode}; use 1-4 (trees), 5 (nuc), "
+              "6 (codon), 7 (aa), 8 (tree distances), 9 (clade support) "
+              "or 11 (label clades)")
         sys.exit(2)
     out = argv[2] if len(argv) > 2 else "mc.paml"
     res = sample_and_write(prepare(argv[1], device=device), out,

@@ -10,9 +10,9 @@ substitution pattern matrix (PatternMP :343).
 Port of `paml_tpu/apps/pamp.py`: the change counts and the three
 estimators on the host (numpy and scipy, as there); the pattern matrix's
 JC69 joint reconstruction (`models/nuc.pmats_for_model`,
-`apps/ancestral.joint_reconstruction`) on the device `run` is given.
-`pattern_ls` needs least-squares branch lengths from tree search and
-raises naming ROADMAP A14.
+`apps/ancestral.joint_reconstruction`) on the device `run` is given;
+`pattern_ls` (REV distances and least-squares branch lengths, from
+`treesearch.ls_branch_lengths`) on the host.
 """
 from __future__ import annotations
 
@@ -149,10 +149,29 @@ def distance_rev(Ft: np.ndarray, alpha: float = 0.0, ls: int = 1000):
 def pattern_ls(topo: Topology, data: seqio.PackedData,
                alpha: float = 0.0):
     """Pairwise REV distances from observed divergence matrices + LS
-    branch lengths (reference: PatternLS, src/pamp.c:631).  Its least
-    squares come from tree search, which is not ported yet."""
-    raise NotImplementedError(
-        "pamp.pattern_ls needs treesearch.ls_branch_lengths: ROADMAP A14")
+    branch lengths (reference: PatternLS, src/pamp.c:631).
+
+    Returns dict with D [ns, ns] REV distances, Qt (Q from the average
+    F(t)), pi, and blens (least-squares branch lengths)."""
+    from .treesearch import ls_branch_lengths
+
+    states = np.argmax(data.tip_partials, axis=-1)       # clean data
+    n = data.nstates
+    ns = data.ns
+    D = np.zeros((ns, ns))
+    Qt = np.zeros((n, n))
+    npair = ns * (ns - 1) / 2
+    for i in range(ns):
+        for j in range(i):
+            F = np.zeros((n, n))
+            np.add.at(F, (states[i], states[j]), data.fpatt / 2)
+            np.add.at(F, (states[j], states[i]), data.fpatt / 2)
+            Qt += F / npair
+            t, _, _, _ = distance_rev(F, alpha, data.ls)
+            D[i, j] = D[j, i] = t
+    _, Qavg, pi, _ = distance_rev(Qt, alpha, data.ls)
+    blens, ss = ls_branch_lengths(topo, D)
+    return dict(D=D, Q=Qavg, pi=pi, blens=blens, ss=ss)
 
 
 def pattern_matrix(topo: Topology, data: seqio.PackedData, *,

@@ -217,9 +217,11 @@ def big_tree(topo: Topology) -> Topology:
     groups of near-equal size (np.array_split order), each group of more
     than one child under a new internal node, recursively, so that depth
     grows by the log of the arity.  The new nodes are numbered from
-    topo.nnode on; their branches have length 0 and take an identity P
-    (`with_identity`), so lnf and the original nodes' dP are unchanged.
-    `topo` itself when no node is wider."""
+    topo.nnode on (`n_own` = topo.nnode on the result); their branches
+    have length 0 and take an identity P (`with_identity`), so lnf and the
+    original nodes' dP are unchanged: the adjoints clip G only for the
+    children of topo's own nodes (`pruning_common.cuh: clip_adjoint`,
+    `pruning._lnf_lvl_bwd`).  `topo` itself when no node is wider."""
     t = getattr(topo, "_cuda_big_tree", None)
     if t is not None:
         return t
@@ -269,6 +271,7 @@ def big_tree(topo: Topology) -> Topology:
         blen0=np.concatenate([topo.blen0, np.zeros(extra)]),
         labels=np.concatenate([topo.labels, np.zeros(extra, np.int32)]),
         node_names=list(topo.node_names) + [""] * extra, ages0=ages0)
+    t.n_own = nnode
     topo._cuda_big_tree = t
     return t
 
@@ -590,7 +593,8 @@ def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
             x.states.data_ptr())
     slabs = (gbar.data_ptr(), S.data_ptr(), dP_slab.data_ptr(),
              dpi_slab.data_ptr(), work.data_ptr())
-    tail = (G, ntiles, tv, x.C, x.H, x.ns, x.n, x.nnode, bp.nslots, bp.root)
+    tail = (G, ntiles, tv, x.C, x.H, x.ns, x.n, x.nnode, x.nnode_in,
+            bp.nslots, bp.root)
     smem = big_bwd_smem(x.P.element_size(), bp.kmax)
     stream = _stream(x.P.device)
     lib, sfx = _build.lib(), _suffix(x.P.dtype)

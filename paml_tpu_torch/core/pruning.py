@@ -26,6 +26,10 @@ differentiable once (`pmat.differentiable_once`); `class_site_lnf_twice` is
 the level pass under plain autograd, for Hessians, with a count of its own
 (`TWICE_CALLS`).
 
+Under `set_pattern_mesh` the pattern axis of `class_site_lnf` is cut over
+the devices and ranks of a `parallel.sharding.Mesh`, each slice taking
+the one-device dispatch above.
+
 `lnL_chunked` evaluates the pattern axis in chunks, each checkpointed, so
 that memory holds one chunk's buffers (the JAX package's `lnL_chunked`).
 `lnL_levels_batched` is the level path's forward alone with a leading
@@ -183,6 +187,7 @@ def _lnf_from(m, F):
 def _lnf_lvl_bwd(topo: Topology, P, tipsT, s, m, c, F, pi, gbar):
     """Analytic inside/outside adjoint: one downward sweep -> (dP, dpi)."""
     ns = topo.ns
+    n_own = getattr(topo, "n_own", topo.nnode)
     dtype = P.dtype
     C, n = P.shape[1], P.shape[3]
     state_tips = _is_state_tips(tipsT)
@@ -211,11 +216,20 @@ def _lnf_lvl_bwd(topo: Topology, P, tipsT, s, m, c, F, pi, gbar):
             Av = torch.stack([A[node] for node, _ in grp])      # [W,C,n,H]
             mv = torch.stack([m[node] for node, _ in grp])      # [W,C,H]
             G = Av[:, None] * loo / mv[:, None, :, None, :]     # [W,K,C,n,H]
-            # keep the adjoint finite at absurd line-search trial points
-            G = torch.clamp(torch.nan_to_num(G, nan=0.0, posinf=_GRAD_CAP,
-                                             neginf=-_GRAD_CAP),
-                            -_GRAD_CAP, _GRAD_CAP)
             kidflat = [k for _, kids in grp for k in kids]
+            # keep the adjoint finite at absurd line-search trial points;
+            # a node that `cuda_pruning.big_tree` added keeps its G (NaN ->
+            # 0 alone), as in the kernels (`clip_adjoint`)
+            own = [k < n_own for k in kidflat]
+            Gc = torch.clamp(torch.nan_to_num(G, nan=0.0, posinf=_GRAD_CAP,
+                                              neginf=-_GRAD_CAP),
+                             -_GRAD_CAP, _GRAD_CAP)
+            if not all(own):
+                keep = torch.as_tensor(own, device=G.device).reshape(
+                    W, K, 1, 1, 1)
+                Gc = torch.where(keep, Gc, torch.nan_to_num(
+                    G, nan=0.0, posinf=float("inf"), neginf=float("-inf")))
+            G = Gc
             U = torch.stack([
                 (tip_onehotT(k)[None].expand(C, n, H) if k < ns else s[k])
                 for k in kidflat]).reshape(W, K, C, n, H)
@@ -335,8 +349,95 @@ def class_site_lnf_big_bwd_plain(P, tips, topo: Topology, pi, gbar, S):
 # ---------------------------------------------------------------------------
 
 
+# The pattern mesh (`parallel/sharding.py`): None, or a `sharding.Mesh`
+# over which `class_site_lnf` cuts the pattern axis.  This is where the
+# JAX package shard_maps the pass (paml_tpu/core/pruning.py:588-634): P and
+# pi replicated, tips and lnf split on the pattern axis, so that every
+# caller (codeml, baseml, the clocks, BEB's forward, the level route)
+# inherits it.
+_pattern_mesh = None
+
+
+def set_pattern_mesh(mesh) -> None:
+    """Cut the pattern axis of `class_site_lnf` over `mesh` (a
+    `parallel.sharding.Mesh`); None disengages it."""
+    global _pattern_mesh
+    _pattern_mesh = mesh
+
+
+def pattern_mesh():
+    """The engaged pattern mesh, or None."""
+    return _pattern_mesh
+
+
+def _n_patterns(tips) -> int:
+    return (tips.codes if isinstance(tips, TipCodes) else tips).shape[1]
+
+
+def _tip_shards(tips, mesh, kernel: bool):
+    """This process's slices of tips for `mesh`, each on its device: one
+    contiguous pattern range per mesh device (`Mesh.local_bounds`).  With
+    `kernel` (CUDA tensors at LEVEL_MAX_STATES states or more) the tips are
+    coded for the kernels first, so that dense partials are coded once
+    for the whole axis (`cuda_pruning.kernel_tips`).  Made once per tips
+    object and cached on it (codes, like the objectives' tips, are checked
+    once and never re-coded per evaluation); a tensor changed in place is
+    sliced again."""
+    key = (mesh, kernel)
+    version = None if isinstance(tips, TipCodes) else tips._version
+    hit = tips.shards if isinstance(tips, TipCodes) else \
+        getattr(tips, "_pattern_shards", None)
+    if hit is not None and hit[0] == key and hit[1] == version:
+        return hit[2]
+    src = cuda_pruning.kernel_tips(tips) if kernel else tips
+    b = mesh.local_bounds(_n_patterns(tips))
+    parts = []
+    for d, lo, hi in zip(mesh.devices, b, b[1:]):
+        if isinstance(src, TipCodes):
+            parts.append(TipCodes(src.codes[:, lo:hi].contiguous().to(d),
+                                  src.amb.to(d)))
+        else:
+            parts.append(src[:, lo:hi].contiguous().to(d))
+    hit = (key, version, parts)
+    if isinstance(tips, TipCodes):
+        tips.shards = hit
+    else:
+        tips._pattern_shards = hit
+    return parts
+
+
+def _class_site_lnf_sharded(P, tips, topo: Topology, pi, mesh):
+    """lnf [C, H] with the pattern axis cut over `mesh`: each device runs
+    the one-device dispatch on its slice (kernel launches are
+    asynchronous, so the cards work side by side), and lnf comes back in
+    pattern order on P's device; autograd carries dP and dpi home through
+    the device copies.  Under a process group each rank computes its own
+    slice and lnf is all-gathered, so every rank computes the same
+    downstream; the cotangent of each rank's slice gives its share of dP
+    and dpi, summed over the ranks (`distributed.sum_grad`)."""
+    kernel = P.is_cuda and P.shape[-1] >= LEVEL_MAX_STATES
+    parts = _tip_shards(tips, mesh, kernel)
+    if mesh.group is not None:
+        from ..parallel import distributed
+        P, pi = distributed.sum_grad(P, mesh), distributed.sum_grad(pi, mesh)
+    outs = [_class_site_lnf_local(P.to(d), t, topo, pi.to(d)).to(P.device)
+            for d, t in zip(mesh.devices, parts)]
+    lnf = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    if mesh.group is not None:
+        lnf = distributed.gather_patterns(lnf, mesh, _n_patterns(tips))
+    return lnf
+
+
 def class_site_lnf(P, tips, topo: Topology, pi):
     """Per-(class, pattern) log site likelihood [C, H].
+
+    Under `set_pattern_mesh` the pattern axis is cut over the mesh's
+    devices and ranks (`_class_site_lnf_sharded`) when it has at least one
+    pattern per shard: the shards need not be equal (the JAX package pads
+    to equal shards and shards only when H divides by their number); the
+    port has no batched calls here (mcmctree's loci take
+    `lnL_levels_batched`).  Each shard, or the whole axis, then takes the
+    one-device dispatch below.
 
     A CUDA tensor of fewer than LEVEL_MAX_STATES states (nucleotides) runs
     the level path as tensor operations on the card
@@ -347,6 +448,14 @@ def class_site_lnf(P, tips, topo: Topology, pi):
     Dense partials are coded first (`cuda_pruning.kernel_tips`).  A CPU
     tensor runs the plain version.  Gradients w.r.t. P and pi through the
     analytic adjoint; tips are data."""
+    mesh = _pattern_mesh
+    if mesh is not None and _n_patterns(tips) >= mesh.n_shards:
+        return _class_site_lnf_sharded(P, tips, topo, pi, mesh)
+    return _class_site_lnf_local(P, tips, topo, pi)
+
+
+def _class_site_lnf_local(P, tips, topo: Topology, pi):
+    """`class_site_lnf` on P's device alone."""
     if P.device.type == "cuda":
         if P.shape[-1] < LEVEL_MAX_STATES:
             return class_site_lnf_levels(P, tips, topo, pi)

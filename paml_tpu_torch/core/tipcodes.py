@@ -26,10 +26,13 @@ import torch
 class TipCodes:
     """codes [ns, H] int32 and amb [A, n] (see the module docstring)."""
 
-    __slots__ = ("codes", "amb")
+    # shards: the pattern mesh's slices of these tips, made once
+    # (`pruning.class_site_lnf` under `set_pattern_mesh`)
+    __slots__ = ("codes", "amb", "shards")
 
     def __init__(self, codes: torch.Tensor, amb: torch.Tensor):
         self.codes, self.amb = codes, amb
+        self.shards = None
 
     @property
     def n_amb(self) -> int:

@@ -108,8 +108,8 @@ int launch_bwd(const int* bs, int nint, int kmax, const T* P,
                const int* codes, const T* amb, int A, const T* pi,
                const T* gbar, const T* S, T* dP_slab, T* dpi_slab, T* work,
                T* TA, T* dP, T* dpi, int G, int ntiles, int TV, int C, int H,
-               int ns, int n, int nnode, int nslots, int root, int LA,
-               int smem, cudaStream_t stream) {
+               int ns, int n, int nnode, int vclip, int nslots, int root,
+               int LA, int smem, cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
   int err = launch_tip_table(P, amb, TA, ns, C, A, LA, stream);
   if (err != (int)cudaSuccess) return err;
@@ -119,7 +119,7 @@ int launch_bwd(const int* bs, int nint, int kmax, const T* P,
   if (e != cudaSuccess) return (int)e;
   big_bwd_kernel<T, true><<<dim3(G, C), NT, smem, stream>>>(
       bs, nint, kmax, P, codes, pi, gbar, S, dP_slab, dpi_slab, work, C, H,
-      ns, n, nnode, nslots, ntiles, TV, amb, TA, LA);
+      ns, n, nnode, vclip, nslots, ntiles, TV, amb, TA, LA);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_reduce(dP_slab, dpi_slab, dP, dpi, G, nnode, C, n, root,
@@ -142,11 +142,11 @@ int launch_bwd(const int* bs, int nint, int kmax, const T* P,
       const int* bs, int nint, int kmax, const T* P, const int* codes,        \
       const T* amb, int A, const T* pi, const T* gbar, const T* S,            \
       T* dP_slab, T* dpi_slab, T* work, T* TA, T* dP, T* dpi, int G,          \
-      int ntiles, int TV, int C, int H, int ns, int n, int nnode, int nslots, \
-      int root, int LA, int smem, void* stream) {                             \
+      int ntiles, int TV, int C, int H, int ns, int n, int nnode, int vclip,  \
+      int nslots, int root, int LA, int smem, void* stream) {                 \
     return launch_bwd<T>(bs, nint, kmax, P, codes, amb, A, pi, gbar, S,       \
                          dP_slab, dpi_slab, work, TA, dP, dpi, G, ntiles, TV, \
-                         C, H, ns, n, nnode, nslots, root, LA, smem,          \
+                         C, H, ns, n, nnode, vclip, nslots, root, LA, smem,   \
                          static_cast<cudaStream_t>(stream));                  \
   }
 

@@ -38,7 +38,8 @@ int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
                    const int* states, const T* pi, const T* gbar, const T* S,
                    T* dP_slab, T* dpi_slab, T* work, T* dP, T* dpi, int G,
                    int ntiles, int TV, int C, int H, int ns, int n, int nnode,
-                   int nslots, int root, int smem, cudaStream_t stream) {
+                   int vclip, int nslots, int root, int smem,
+                   cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       big_bwd_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -46,7 +47,7 @@ int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
   if (err != cudaSuccess) return (int)err;
   big_bwd_kernel<T, false><<<dim3(G, C), NT, smem, stream>>>(
       bs, nint, kmax, P, states, pi, gbar, S, dP_slab, dpi_slab, work, C, H,
-      ns, n, nnode, nslots, ntiles, TV, nullptr, nullptr, 0);
+      ns, n, nnode, vclip, nslots, ntiles, TV, nullptr, nullptr, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(dP_slab, dpi_slab, dP, dpi, G, nnode, C, n, root,
@@ -68,11 +69,11 @@ int launch_big_bwd(const int* bs, int nint, int kmax, const T* P,
       const int* bs, int nint, int kmax, const T* P, const int* states,       \
       const T* pi, const T* gbar, const T* S, T* dP_slab, T* dpi_slab,        \
       T* work, T* dP, T* dpi, int G, int ntiles, int TV, int C, int H,        \
-      int ns, int n, int nnode, int nslots, int root, int smem,               \
+      int ns, int n, int nnode, int vclip, int nslots, int root, int smem,    \
       void* stream) {                                                         \
     return launch_big_bwd<T>(bs, nint, kmax, P, states, pi, gbar, S,          \
                              dP_slab, dpi_slab, work, dP, dpi, G, ntiles, TV, \
-                             C, H, ns, n, nnode, nslots, root, smem,          \
+                             C, H, ns, n, nnode, vclip, nslots, root, smem,   \
                              static_cast<cudaStream_t>(stream));              \
   }
 

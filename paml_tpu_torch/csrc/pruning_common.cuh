@@ -54,11 +54,18 @@ template <> struct Num<double> {
 };
 
 // the adjoint's G = A / m * (product of the siblings), clipped at +-1e12
-// with NaN -> 0 (keeps absurd line-search trial points finite)
+// with NaN -> 0 (keeps absurd line-search trial points finite).  Only a
+// child of the caller's tree is clipped (kid < vclip); a node that
+// big_tree added (identity P) keeps its G, NaN -> 0 alone: each added
+// level rescales its partial, so its G legitimately grows by 1 / m per
+// level, and a clip there would change the gradient of a wide node's
+// children from what the tree itself gives
 template <typename T>
-__device__ __forceinline__ T clip_adjoint(T x) {
+__device__ __forceinline__ T clip_adjoint(T x, bool own) {
   const T cap = T(1e12);
-  return x != x ? T(0) : (x > cap ? cap : (x < -cap ? -cap : x));
+  if (x != x) return T(0);
+  if (!own) return x;
+  return x > cap ? cap : (x < -cap ? -cap : x);
 }
 
 template <typename T>

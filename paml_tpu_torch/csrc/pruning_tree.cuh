@@ -373,7 +373,7 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
     const T* __restrict__ pi, const T* __restrict__ gbar,
     const T* __restrict__ S, T* __restrict__ dP_slab,
     T* __restrict__ dpi_slab, T* __restrict__ work, int C, int H, int ns,
-    int n, int nnode, int nslots, int ntiles, int TV,
+    int n, int nnode, int vclip, int nslots, int ntiles, int TV,
     const T* __restrict__ amb, const T* __restrict__ TA, int LA) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [kmax][N][LDN]: P_k, or a tip's dP_k ([N][TLD] in the same room)
@@ -526,13 +526,14 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
             for (int k1 = KMAX - 1; k1 >= 0; --k1) {
               if (k1 >= K) continue;
               T* G1 = Gb + k1 * N * LDH;
+              const bool own = (r + 3 + stride * k1)[0] < vclip;
 #pragma unroll
               for (int q = 0; q < 8; ++q) {
                 const int e = (8 * w + q) * LDH + lane;
                 T loo = T(1);
                 for (int k2 = 0; k2 < K; ++k2)
                   if (k2 != k1) loo *= cb[k2 * N * LDH + e];
-                G1[e] = clip_adjoint(Ab[e] * rms * loo);
+                G1[e] = clip_adjoint(Ab[e] * rms * loo, own);
               }
             }
             cp_async_wait();

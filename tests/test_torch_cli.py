@@ -5,8 +5,9 @@ program run in a temporary directory of its own.  Compared: the lnL lines
 of `mlc` (1e-6), `rst1`, `lnf`, the BEB site list and its posteriors, the
 NEB posteriors (both with `RateAncestor = 1`, which switches the NEB table
 on).  Also codeml's marginal reconstruction of codons (RateAncestor)
-against the JAX program's, the device rule and the settings that still
-raise (tree search, evolver's tree modes: ROADMAP A14).
+against the JAX program's, the device rule, tree search (runmode 2 and
+3) and evolver's random trees against the JAX program, and the one
+setting that still raises (ROADMAP C).
 `tests/test_torch_cli_more.py` holds the standard errors, FASTA input,
 several trees and `ndata`."""
 import os
@@ -182,15 +183,43 @@ def test_site_models_match_jax_cli(problem, tmp_path, monkeypatch):
     (dict(runmode=2), "A14"), (dict(evolver="1"), "A14"),
     (dict(runmode=3), "A14"), (dict(runmode=-2, seqtype=3), "C")])
 def test_unported_settings_raise(problem, tmp_path, monkeypatch, kw, item):
+    """Tree search (runmode 2 and 3) and evolver's random trees, which
+    raised naming ROADMAP A14 until tree search was ported, now run: the
+    port's program against the JAX program on the same files (mlc's best
+    lnL and tree, on 4 taxa for the star decomposition's 7 fits and on 5
+    for stepwise addition's 8; evolver.out's bytes).  codeml's pairwise
+    runmodes on amino-acid data still raise, naming ROADMAP C."""
+    from paml_tpu.apps import evolver as jax_evolver
+
     names, rows, nwk, cls = problem
-    monkeypatch.chdir(tmp_path)
-    if "evolver" in kw:
-        argv = ["evolver", kw["evolver"], "5"]
-    else:
+    if item == "C":
+        monkeypatch.chdir(tmp_path)
         argv = ["codeml", write_problem(str(tmp_path), names, rows, [nwk],
                                         **kw)]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(argv + ["--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="ROADMAP C"):
+            cli.main(argv + ["--device", "cpu"])
+        return
+    if "evolver" in kw:
+        argv = [kw["evolver"], "7", "4", "5"]
+        monkeypatch.chdir(tmp_path)
+        jax_evolver.main(argv)
+        want = (tmp_path / "evolver.out").read_text()
+        (tmp_path / "evolver.out").unlink()
+        assert cli.main(["evolver"] + argv + ["--device", "cpu"]) is None
+        assert (tmp_path / "evolver.out").read_text() == want
+        assert want.count(";") == 4
+        return
+    k = 4 if kw["runmode"] == 2 else 5
+    dj, dt, out = run_both(tmp_path, monkeypatch, names[:k], rows[:k], [nwk],
+                           **kw)
+    mj, mt = (open(os.path.join(d, "mlc")).read().splitlines()
+              for d in (dj, dt))
+    assert mt[0] == f"CODEML (paml_tpu_torch) tree search runmode " \
+        f"{kw['runmode']}"
+    assert mt[1:] == mj[1:]
+    assert abs(out["lnL"] - float(mj[1].split()[-1])) <= 5e-7
+    assert len(out["fits"]) == (7 if k == 4 else 8)
+    assert out["tree"] is not None and out["data"].ns == k
 
 
 def test_rate_ancestor_matches_jax_cli(problem, tmp_path, monkeypatch):

@@ -213,11 +213,13 @@ def test_two_trees_match_jax_cli(tmp_path, monkeypatch):
     (dict(clock=5), "A12"), (dict(clock=6), "A12"),
     (dict(runmode=2), "A14"), (dict(runmode=3), "A14")])
 def test_unported_settings_raise(tmp_path, monkeypatch, kw, item):
-    """runmode 2-5 (tree search) raise naming ROADMAP A14.  clock = 5 / 6,
-    which raised naming A12 before the dating module was ported, now run:
-    the program's mlb holds the lnL and the node ages of `clock56.fit` on
-    the same files (tests/test_torch_cli_mcmctree.py and
-    tests/test_torch_clock56*.py hold them against the JAX package)."""
+    """Settings that raised until their modules were ported now run.
+    clock = 5 / 6 (A12): the program's mlb holds the lnL and the node ages
+    of `clock56.fit` on the same files (tests/test_torch_cli_mcmctree.py
+    and tests/test_torch_clock56*.py hold them against the JAX package).
+    runmode 2 and 3 (tree search, A14): the port's program against the
+    JAX program on the first 5 taxa of clock56.nuc (mlb's best lnL and
+    tree; 17 and 8 fits)."""
     from paml_tpu_torch.apps import clock56
 
     if item == "A12":
@@ -237,10 +239,25 @@ def test_unported_settings_raise(tmp_path, monkeypatch, kw, item):
         for n in range(res.sp_topo.ns, res.sp_topo.nnode):
             assert f"node {n + 1}: {res.ages[n]:.6f}" in mlb
         return
-    ctl = write_baseml(str(tmp_path), TREES[:1], **kw)
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["baseml", ctl, "--device", "cpu"])
+    from paml_tpu_torch.io import seqio
+
+    aln = seqio.read_alignment(os.path.join(DATA, "clock56.nuc"),
+                               seqio.BASE_SEQ)
+    five = (aln.names[:5], aln.rows[:5])
+    dj, dt = str(tmp_path / "jax"), str(tmp_path / "torch")
+    ctl_j = write_baseml(dj, TREES[:1], aln=five, **kw)
+    ctl_t = write_baseml(dt, TREES[:1], aln=five, **kw)
+    monkeypatch.chdir(dj)
+    jax_cli.run_baseml(ctl_j)
+    monkeypatch.chdir(dt)
+    out = cli.main(["baseml", ctl_t, "--device", "cpu"])
+    mj, mt = (open(os.path.join(d, "mlb")).read().splitlines()
+              for d in (dj, dt))
+    assert mt[0] == f"BASEML (paml_tpu_torch) tree search runmode " \
+        f"{kw['runmode']}"
+    assert mt[1:] == mj[1:]
+    assert abs(out["lnL"] - float(mj[1].split()[-1])) <= 5e-7
+    assert len(out["fits"]) == (17 if kw["runmode"] == 2 else 8)
 
 
 @pytest.mark.parametrize("prog", ["baseml", "basemlg"])

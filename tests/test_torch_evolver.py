@@ -14,7 +14,8 @@
 - Simulate -> refit with the port's own fits, as tests/test_evolver.py
   does, with the JAX package's reader on the port's mc.paml.
 - Mode 11 (label clades) writes the JAX program's evolver.out; modes 1-4,
-  8 and 9 raise naming ROADMAP A14.
+  8 and 9 (random and enumerated trees, tree distances, clade support)
+  write and print what the JAX program does.
 
 Every test runs in its own directory (an autouse fixture's
 `monkeypatch.chdir(tmp_path)`): the codon simulator writes siterates.txt
@@ -266,7 +267,37 @@ def test_label_clades_matches_jax(tmp_path):
     assert got == want and "#3" in got
 
 
+TREE_ARGS = {"1": ["1", "9", "6", "4"],
+             "2": ["2", "7", "5", "2", "2.0", "1.0", "0.4", "1.5"],
+             "3": ["3", "6"], "4": ["4", "5"],
+             "8": ["8", "sample.trees"], "9": ["9", "sample.trees"]}
+
+
 @pytest.mark.parametrize("mode", ["1", "2", "3", "4", "8", "9"])
-def test_tree_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        evolver.main([mode, "5"], device="cpu")
+def test_tree_modes_raise(mode, capsys):
+    """The tree modes, which raised naming ROADMAP A14 until tree
+    generation was ported, now run: evolver.out and the printed lines
+    against the JAX program's on the same arguments (modes 8 and 9 on a
+    sample of random trees from mode 1)."""
+    with open("sample.trees", "w") as f:
+        for tree in jax_evolver_sample():
+            f.write(tree + "\n")
+    jax_evolver.main(TREE_ARGS[mode])
+    want = capsys.readouterr().out
+    want_file = open("evolver.out").read() if mode not in "8" else None
+    assert evolver.main(TREE_ARGS[mode], device="cpu") is None
+    got = capsys.readouterr().out
+    assert got == want and got
+    if want_file is not None:
+        assert open("evolver.out").read() == want_file and want_file
+
+
+def jax_evolver_sample():
+    """12 random unrooted 7-taxon trees (paml_tpu's treegen, seed 8)."""
+    from paml_tpu.apps import treegen as jax_treegen
+    from paml_tpu.io.treeio import write_newick
+
+    rng = np.random.default_rng(8)
+    return [write_newick(jax_treegen.random_labeled_history(7, False,
+                                                            rng)[0],
+                         branch_lengths=False) for _ in range(12)]

@@ -3,7 +3,7 @@
 estimators of the gamma shape (method of moments, Sullivan et al. 1995,
 Yang & Kumar 1996), the REV distance and the pattern matrix of the JC69
 joint reconstruction (run on the device the port is given; here the
-CPU); `pattern_ls` raises naming ROADMAP A14."""
+CPU); `pattern_ls`'s distances and least-squares branch lengths."""
 import os
 
 import numpy as np
@@ -91,5 +91,16 @@ def test_run_matches_jax():
 
 
 def test_pattern_ls_raises(clock56):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        pamp.pattern_ls(clock56[3], clock56[2])
+    """`pattern_ls`, which raised naming ROADMAP A14 until tree search was
+    ported: the REV distances, the average Q, pi and the least-squares
+    branch lengths against the JAX package's (1e-9), without and with
+    gamma."""
+    data, topo, data_t, topo_t = clock56
+    for alpha in (0.0, 0.5):
+        rt = pamp.pattern_ls(topo_t, data_t, alpha)
+        rj = jax_pamp.pattern_ls(topo, data, alpha)
+        for k in ("D", "Q", "pi", "blens"):
+            np.testing.assert_allclose(rt[k], rj[k], rtol=1e-9, atol=1e-12)
+        assert abs(rt["ss"] - rj["ss"]) <= 1e-9 * max(rj["ss"], 1e-12)
+        assert (rt["blens"][topo.branch_nodes()] >= 0).all()
+        assert rt["blens"].sum() > 0
