@@ -189,6 +189,27 @@
    (one process each): value + gradient of B3/B4 at the bench shape on
    the group's mesh against unsharded.  12d: `entry.entry()` and
    `entry.dryrun_multichip(2, ["cuda:0", "cuda:0"])`.
+13. The float32 path.  13a: float32 P(t) (uniformization) of M2a's three
+   rate matrices at phase 4's F3x4 frequencies over the bench's 63
+   branches, three of them long enough for one to six squarings and the
+   root's at 0, against the same function on CPU tensors (2e-6) and the
+   float64 spectral P on the card (1e-5); both dtypes timed, forward and
+   forward + backward, and the six masked squarings alone.  13b: one
+   value + gradient of M0 and M2a on phase 4's alignment, clean (B3/B4)
+   and gapped (B1/B2), float32 against the plain float32 version on the
+   card (2e-6 relative on the value, 3e-5 of the largest gradient
+   component) and against float64 (5e-6 relative); ms per evaluation of
+   both dtypes.  13c: `fit_packed(dtype=torch.float32)` under M0 on both
+   routes, within 0.1 lnL of phase 4's float64 fits, carried by the
+   float32 instances of its pair alone.  13d: `maximize_device_bounded`
+   on the clean M0 objective in float64 (within 2e-4 of phase 4's scipy
+   fit) and float32 (0.1): iterations, evaluations, wall; then each again
+   under `torch.cuda.set_sync_debug_mode("warn")`, its synchronizing
+   operations by source line, the optimizer's own between its checks
+   required 0.  13e: one float32 value + gradient of phase 5's 1024-taxon
+   model A alignment in 10 chunks against float64 (5e-6 relative), timed,
+   with peak memory.  The float32 runs' launches join the kernels line
+   (`launches_f32_*`), with the float64 device fit's.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -813,6 +834,7 @@ def phase_slice(torch, rng, report, card):
           f" / {fitted['gapped']['M0'].kappa}, omega "
           f"{fitted['clean']['M0'].class_omegas.ravel()} / "
           f"{fitted['gapped']['M0'].class_omegas.ravel()}", flush=True)
+    return clean, gapped, topo, fitted
 
 
 def check_m0_fits(torch, data, topo, specs, fits, route):
@@ -4300,6 +4322,363 @@ def phase_mesh(torch, rng, report, card, big):
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+
+# --- phase 13: the float32 path ---------------------------------------------
+
+F32_CHECK = dict(P_cpu=2e-6, P_f64=1e-5, val=2e-6, grad=3e-5, f64_rel=5e-6)
+
+
+def bench_Qs(torch, neg, topo, dtype):
+    """M2a's three rate matrices at the bench alignment's F3x4 frequencies
+    (kappa 2, omegas 0.1 / 1 / 3, proportions 0.6 / 0.3 / 0.1) and the
+    scaled branch lengths [63, 3] of `topo`, as the codon objective builds
+    them, with the first three branches at lengths that need one to six
+    squarings and the root's at 0: (Qs, pi, ts)."""
+    from paml_tpu_torch.models import codon
+
+    T = codon.dense_tables(0, "cuda", dtype)
+    pi = torch.tensor(neg.pi_np, dtype=dtype, device="cuda")
+    w = torch.tensor([0.1, 1.0, 3.0], dtype=dtype, device="cuda")
+    s = codon.mutation_dense(T, torch.tensor([2.0], dtype=dtype,
+                                             device="cuda"))
+    rs, ra = codon.flux_dense(T, s, pi)
+    Qs = codon.build_Q_dense(T, s, w, pi)
+    wbar = (w * torch.tensor([0.6, 0.3, 0.1], dtype=dtype,
+                             device="cuda")).sum()
+    t = torch.tensor(topo.blen0, dtype=dtype, device="cuda")
+    t[topo.root] = 0.0
+    t[:3] = torch.tensor([3.0, 10.0, 60.0], dtype=dtype, device="cuda")
+    return Qs, pi, t[:, None] / (rs + ra * wbar) * torch.ones_like(w)
+
+
+def f32_pmat(torch, neg, topo, card):
+    """13a: float32 P(t) by uniformization at the bench's 3 classes x 63
+    branches against the same function on CPU tensors and against the
+    float64 spectral P on the card; both timed, forward and forward +
+    backward, and the six masked squarings alone."""
+    from paml_tpu_torch.core import pmat
+
+    Qs, pi, ts = bench_Qs(torch, neg, topo, torch.float32)
+    P = pmat.pmat_rev_multi(Qs, pi, ts)
+    P_cpu = pmat.pmat_rev_multi(Qs.cpu(), pi.cpu(), ts.cpu())
+    args64 = [a.double() for a in (Qs, pi, ts)]
+    P64 = pmat.pmat_rev_multi(*args64)
+    e_cpu = float((P.cpu() - P_cpu).abs().max())
+    e_64 = float((P.double() - P64).abs().max())
+    nsq = torch.clamp(torch.ceil(torch.log2(torch.clamp_min(
+        Qs.diagonal(dim1=-2, dim2=-1).neg().amax(-1) * ts / pmat._UNIF_AMAX,
+        1.0))), max=pmat._UNIF_NSQ)
+    print(f"13a P(t) float32, {tuple(P.shape)} [{card}]: max|card - CPU| "
+          f"{e_cpu:.3e}, max|float32 - float64 spectral| {e_64:.3e}; "
+          f"squarings per branch 0-{int(nsq.max())} "
+          f"({int((nsq > 0).sum())} of {nsq.numel()} need any)", flush=True)
+    if e_cpu > F32_CHECK["P_cpu"] or e_64 > F32_CHECK["P_f64"]:
+        raise AssertionError("13a: float32 P(t) off its CPU run or the "
+                             "float64 P")
+    ct = torch.randn(P.shape, dtype=torch.float64, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(13))
+    t = {}
+    for tag, args in (("float32", (Qs, pi, ts)), ("float64", args64)):
+        t[tag] = cuda_ms(lambda: pmat.pmat_rev_multi(*args))
+        lf = [a.detach().requires_grad_(a is not args[1]) for a in args]
+        c = ct.to(args[0].dtype)
+
+        def fwd_bwd():
+            torch.autograd.grad((pmat.pmat_rev_multi(*lf) * c).sum(),
+                                (lf[0], lf[2]))
+        t[tag + " + backward"] = cuda_ms(fwd_bwd)
+    t["six masked squarings"] = cuda_ms(
+        lambda: pmat._square_masked(P, torch.zeros_like(ts)))
+    print("13a P(t) ms [" + card + "]: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in t.items()), flush=True)
+
+
+def f32_value_grads(torch, bench, report, card):
+    """13b: one value + gradient of M0 and M2a on phase 4's alignment,
+    clean (B3/B4) and gapped (B1/B2), in float32 against the plain float32
+    version on the card and against float64; ms per evaluation of both
+    dtypes, medians of 5.  The kernel runs' launches join the kernels
+    line (`launches_f32_vg_<route>`)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    clean, gapped, topo, _ = bench
+    for route, data, pair in (("clean", clean, ("big_fwd", "big_bwd")),
+                              ("gapped", gapped,
+                               ("pruning_fwd", "pruning_bwd"))):
+        launches = {k: 0 for k in cuda_pruning.LAUNCHES}
+        for name in ("M0", "M2a"):
+            spec = codeml.CodemlSpec(NSsites=2 if name == "M2a" else 0,
+                                     codonf="F3x4")
+            negs = {dt: codeml.make_codon_objective(
+                data, topo, spec, device="cuda", dtype=dt)[0]
+                for dt in (torch.float32, torch.float64)}
+            x0 = codeml.make_codon_objective(data, topo, spec,
+                                             device="cuda")[3]
+            cuda_pruning.reset_launch_counts()
+            pruning.PLAIN_CALLS["cuda"] = 0
+            v32, g32 = value_grad(torch, negs[torch.float32], x0)
+            ms = {}
+            for dt, neg in negs.items():
+                walls = []
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    value_grad(torch, neg, x0)
+                    walls.append(time.perf_counter() - t0)
+                ms[dt] = 1e3 * float(np.median(walls[1:]))
+            for k, v in cuda_pruning.LAUNCHES.items():
+                launches[k] += v
+            if pruning.PLAIN_CALLS["cuda"] or not all(
+                    cuda_pruning.LAUNCHES[k] for k in pair):
+                raise AssertionError(f"13b {name} {route}: {pair} must carry "
+                                     "the float32 value + gradient alone")
+            v64, g64 = value_grad(torch, negs[torch.float64], x0)
+            lp, gp = plain_value_grad(torch, negs[torch.float32], x0, 1)
+            rel_p = abs(-v32 - lp) / abs(lp)
+            gerr = float(np.abs(g32 + gp).max() / np.abs(gp).max())
+            rel64 = abs(v32 - v64) / abs(v64)
+            gerr64 = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+            print(f"13b {name}, {route} [{card}]: float32 lnL {-v32:.6f}, "
+                  f"against plain float32 rel {rel_p:.2e} (gradient "
+                  f"{gerr:.2e} of its largest), against float64 "
+                  f"{-v64:.6f} rel {rel64:.2e} (gradient {gerr64:.2e}); "
+                  f"ms per evaluation float32 {ms[torch.float32]:.2f}, "
+                  f"float64 {ms[torch.float64]:.2f} "
+                  f"({ms[torch.float64] / ms[torch.float32]:.2f} x)",
+                  flush=True)
+            if rel_p > F32_CHECK["val"] or gerr > F32_CHECK["grad"] or \
+                    rel64 > F32_CHECK["f64_rel"]:
+                raise AssertionError(f"13b {name} {route}: float32 value + "
+                                     "gradient off the plain version or "
+                                     "float64")
+        for name in pair:
+            report[name][f"launches_f32_vg_{route}"] = launches[name]
+        if any(launches[k] for k in launches if k not in pair):
+            raise AssertionError(f"13b {route}: launches {launches}")
+
+
+def f32_fits(torch, bench, report, card):
+    """13c: `fit_packed(dtype=torch.float32)` under M0 on phase 4's clean
+    (B3/B4) and gapped (B1/B2) alignments, each within 0.1 lnL of phase
+    4's float64 fit, carried by its pair alone."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    clean, gapped, topo, fitted = bench
+    spec = codeml.CodemlSpec(NSsites=0, codonf="F3x4")
+    for route, data, pair in (("clean", clean, ("big_fwd", "big_bwd")),
+                              ("gapped", gapped,
+                               ("pruning_fwd", "pruning_bwd"))):
+        ref = fitted[route]["M0"]
+        cuda_pruning.reset_launch_counts()
+        pruning.PLAIN_CALLS["cuda"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = codeml.fit_packed(data, topo, spec, device="cuda",
+                                dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_pruning.LAUNCHES)
+        print(f"13c fit_packed float32 M0, {route} [{card}]: lnL "
+              f"{res.lnL:.6f} (float64 {ref.lnL:.6f}, {ref.fit.n_eval} "
+              f"evals), {res.fit.n_eval} evals, {wall:.2f} s wall, "
+              f"{1e3 * wall / res.fit.n_eval:.2f} ms/eval; launches "
+              f"{launches}, plain calls {pruning.PLAIN_CALLS['cuda']}",
+              flush=True)
+        if abs(res.lnL - ref.lnL) > 0.1 or pruning.PLAIN_CALLS["cuda"]:
+            raise AssertionError(f"13c {route}: the float32 fit is off the "
+                                 "float64 one, or ran the plain version")
+        for name, count in launches.items():
+            if (count > 0) != (name in pair):
+                raise AssertionError(f"13c {route}: {name} launched {count}"
+                                     f" times; only {pair} should carry it")
+            if count:
+                report[name][f"launches_f32_fit_{route}"] = count
+
+
+def sync_census(torch, fn):
+    """fn() under `torch.cuda.set_sync_debug_mode("warn")`: (its result,
+    the synchronizing operations counted by the file and line of the
+    Python call that made them)."""
+    import collections
+    import os
+    import warnings
+
+    counts = collections.Counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in rec:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            counts[(os.path.relpath(w.filename), w.lineno)] += 1
+    return out, counts
+
+
+def _lines_of(fn):
+    import inspect
+    src, first = inspect.getsourcelines(fn)
+    return range(first, first + len(src))
+
+
+def f32_device_fits(torch, bench, report, card):
+    """13d: `maximize_device_bounded` on phase 4's clean M0 objective in
+    float64 (within 2e-4 lnL of phase 4's scipy fit) and float32 (within
+    0.1): iterations, evaluations, wall, launches (`launches_f32_device_fit`,
+    `launches_device_fit_f64`); then each again under the CUDA sync debug
+    mode, its synchronizing operations by source line: the optimizer's own
+    between its checks must be 0 (its loop, `optim._lbfgs_run`, reads only
+    the stop flag, `optim._stop_read`)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, optim, pruning
+
+    clean, _, topo, fitted = bench
+    ref = fitted["clean"]["M0"]
+    spec = codeml.CodemlSpec(NSsites=0, codonf="F3x4")
+    loop, reads = _lines_of(optim._lbfgs_run), _lines_of(optim._stop_read)
+    grads = _lines_of(optim._value_grad)
+    for dt, tol, key in ((torch.float64, 2e-4, "launches_device_fit_f64"),
+                         (torch.float32, 0.1, "launches_f32_device_fit")):
+        neg, _, _, x0, bounds, _ = codeml.make_codon_objective(
+            clean, topo, spec, device="cuda", dtype=dt)
+        calls = [0]
+
+        def fn(x):
+            calls[0] += 1
+            return neg(x)
+
+        def fit():
+            optim.CHECKS["reads"] = 0
+            calls[0] = 0
+            return optim.maximize_device_bounded(fn, x0, bounds,
+                                                 device="cuda", dtype=dt)
+        fit()                                      # warm-up
+        cuda_pruning.reset_launch_counts()
+        pruning.PLAIN_CALLS["cuda"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, lnl, it = fit()
+        wall = time.perf_counter() - t0
+        launches, n_eval = dict(cuda_pruning.LAUNCHES), calls[0]
+        n_reads = optim.CHECKS["reads"]
+        print(f"13d maximize_device_bounded {str(dt)[6:]} M0 [{card}]: lnL "
+              f"{lnl:.6f} (scipy float64 {ref.lnL:.6f}, {ref.fit.n_eval} "
+              f"evals), {it} iterations, {n_eval} evaluations, {n_reads} "
+              f"reads of the stop flag, {wall:.3f} s wall, "
+              f"{1e3 * wall / n_eval:.2f} ms/eval; launches {launches}",
+              flush=True)
+        if abs(lnl - ref.lnL) > tol or pruning.PLAIN_CALLS["cuda"] or \
+                n_reads > -(-it // optim.CHECK_EVERY) + 1:
+            raise AssertionError(f"13d {dt}: the device fit is off the scipy"
+                                 " fit, ran the plain version or read the "
+                                 "stop flag too often")
+        for name in ("big_fwd", "big_bwd"):
+            if not launches[name]:
+                raise AssertionError(f"13d {dt}: {name} did not carry the "
+                                     "device fit")
+            report[name][key] = launches[name]
+        (_, _, it2), counts = sync_census(torch, fit)
+        own = {k: v for k, v in counts.items()
+               if k[0].endswith("core/optim.py") and k[1] in loop
+               and k[1] not in reads and k[1] not in grads}
+        n_read = sum(v for k, v in counts.items()
+                     if k[0].endswith("core/optim.py") and k[1] in reads)
+        print(f"13d host syncs, {str(dt)[6:]}, {it2} iterations, "
+              f"{calls[0]} evaluations: the optimizer's own between checks "
+              f"{sum(own.values())} ({sum(own.values()) / max(it2, 1):.2f} "
+              f"per iteration), stop-flag reads {n_read}; by line:",
+              flush=True)
+        for (f, line), v in sorted(counts.items(), key=lambda kv: -kv[1]):
+            where = ("the stop flag" if f.endswith("core/optim.py")
+                     and line in reads else
+                     "the objective's backward, replayed at its gradient "
+                     "call" if f.endswith("core/optim.py") and line in grads
+                     else "")
+            print(f"    {f}:{line} {v} ({v / max(calls[0], 1):.2f} per "
+                  f"evaluation) {where}", flush=True)
+        if own:
+            raise AssertionError(f"13d {dt}: the optimizer synchronized "
+                                 f"between its checks: {own}")
+
+
+def f32_big(torch, big, report, card):
+    """13e: one float32 value + gradient of phase 5's 1024-taxon model A
+    alignment (every branch length free) in 10 chunks against float64,
+    both timed with their peak memory; the float32 run's launches join the
+    kernels line (`launches_f32_big`)."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, pruning
+
+    data, topo, spec, _ = big
+    free = dataclasses.replace(spec, fix_blength=0)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        neg, _, _, x0, _, _ = codeml.make_codon_objective(
+            data, topo, free, device="cuda", dtype=dt, n_chunks=BIG_CHUNKS)
+        cuda_pruning.reset_launch_counts()
+        pruning.PLAIN_CALLS["cuda"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            v, g = value_grad(torch, neg, x0)
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[dt] = (v, g)
+        if dt == torch.float32:
+            launches = dict(cuda_pruning.LAUNCHES)
+            if pruning.PLAIN_CALLS["cuda"] or launches["pruning_fwd"] or \
+                    not launches["big_fwd"] or not launches["big_bwd"]:
+                raise AssertionError(f"13e: B3/B4 must carry it: {launches}")
+            for name in ("big_fwd", "big_bwd"):
+                report[name]["launches_f32_big"] = launches[name]
+        print(f"13e model A, {data.ns} taxa x {data.npatt} patterns, "
+              f"{BIG_CHUNKS} chunks, {str(dt)[6:]} [{card}]: lnL {-v:.6f}, "
+              f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, peak "
+              f"{peak:.2f} GiB", flush=True)
+        del neg
+        torch.cuda.empty_cache()
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    rel = abs(v32 - v64) / abs(v64)
+    gerr = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+    print(f"13e float32 against float64: lnL rel {rel:.2e}, gradient "
+          f"{gerr:.2e} of its largest", flush=True)
+    if rel > F32_CHECK["f64_rel"]:
+        raise AssertionError("13e: the float32 lnL is off float64")
+
+
+def phase_f32(torch, report, card, bench, big):
+    """Phase 13: the float32 path on the card (13a-13e); `bench`: phase
+    4's (clean, gapped, topology, fits), `big`: phase 5's (data, topo,
+    spec, x)."""
+    from paml_tpu_torch.apps import codeml
+
+    t_phase = time.perf_counter()
+    t = {}
+    clean, _, topo, _ = bench
+    neg = codeml.make_codon_objective(
+        clean, topo, codeml.CodemlSpec(NSsites=2, codonf="F3x4"),
+        device="cuda")[0]
+    for tag, fn, args in (("13a", f32_pmat, (torch, neg, topo, card)),
+                          ("13b", f32_value_grads, (torch, bench, report,
+                                                    card)),
+                          ("13c", f32_fits, (torch, bench, report, card)),
+                          ("13d", f32_device_fits, (torch, bench, report,
+                                                    card)),
+                          ("13e", f32_big, (torch, big, report, card))):
+        t0 = time.perf_counter()
+        fn(*args)
+        t[tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 13: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4342,7 +4721,7 @@ def main() -> int:
     # 3b. the large-tree kernels against their plain versions
     phase_big_kernels(torch, rng, report, smi[0])
     # 4. the M0 / M2a path (B3/B4 on clean data, B1/B2 on gapped data)
-    phase_slice(torch, rng, report, smi[0])
+    bench = phase_slice(torch, rng, report, smi[0])
     # 5. the branch-site path at 1024 taxa (B3/B4)
     big = phase_branch_site(torch, rng, report, smi[0])
     torch.cuda.empty_cache()
@@ -4366,7 +4745,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 12. the pattern axis over two shards, two ranks and a NCCL group
     phase_mesh(torch, rng, report, smi[0], big)
-    print(f"chip_smoke: the build and phases 3-12 in "
+    torch.cuda.empty_cache()
+    # 13. the float32 path: P(t), objectives, fits, the device L-BFGS
+    phase_f32(torch, report, smi[0], bench, big)
+    print(f"chip_smoke: the build and phases 3-13 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
@@ -4374,7 +4756,9 @@ def main() -> int:
         # on clean and gapped data, the branch-site fits, the program on
         # clean and gapped data; phase 9's programs, which launch none;
         # phase 10's codon clock 5 fits; phase 11's codon tree searches;
-        # phase 12's fit on the mesh)
+        # phase 12's fit on the mesh; phase 13's float32 value + gradient,
+        # fits and device fits, `launches_f32_*`, and the float64 device
+        # fit)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

@@ -12,9 +12,10 @@ shares everything and frees per-gene rates `rgene`; 2 per-gene
 analyses per gene (`fit_separate`).
 
 The parameter vector keeps the JAX package's layout (`unpack`), so the
-same x means the same model in both packages.  Fits run in float64 on the
-device the caller names, as one `core/optim.maximize` stage (the JAX
-package's f32 stage is TPU machinery).  With 4 states the pruning runs
+same x means the same model in both packages.  Fits run on the device
+the caller names, as one `core/optim.maximize` stage (the JAX package's
+f32 stage is TPU machinery), the objective in float64 unless the caller
+asks for float32 (`dtype`).  With 4 states the pruning runs
 the level path on the card (`pruning.class_site_lnf`'s rule below 16
 states), as the JAX package keeps nucleotides off its kernels.
 
@@ -598,14 +599,14 @@ def rho_rate(data: seqio.PackedData, topo: Topology, spec: BasemlSpec, x,
 
 
 def fit(seqfile: str, treefile: str, spec: BasemlSpec | None = None, *,
-        device, tree_index: int = 0) -> BasemlResult:
+        device, tree_index: int = 0, dtype=None) -> BasemlResult:
     """Read a nucleotide alignment and a tree file, then `fit_packed`."""
     spec = spec or BasemlSpec()
     aln = seqio.read_alignment(seqfile, seqio.BASE_SEQ)
     data = seqio.pack(aln, cleandata=spec.cleandata)
     trees = treeio.read_trees(treefile, data.names)
     topo = from_treenode(trees[tree_index], data.names)
-    return fit_packed(data, topo, spec, device=device)
+    return fit_packed(data, topo, spec, device=device, dtype=dtype)
 
 
 def npark_starts(spec: BasemlSpec, x0: np.ndarray):
@@ -638,16 +639,18 @@ def npark_starts(spec: BasemlSpec, x0: np.ndarray):
 
 
 def fit_packed(data: seqio.PackedData, topo: Topology, spec: BasemlSpec, *,
-               device, objective=None) -> BasemlResult:
-    """Fit a nucleotide model in float64 on `device` (scipy L-BFGS-B over
-    the device's value + gradient), with the JAX package's multi-starts;
-    SEs (getSE) by `codeml.standard_errors`.  `objective`: what
-    `make_objective` returned for these arguments, where the caller goes
-    on using it after the fit."""
+               device, dtype=None, objective=None) -> BasemlResult:
+    """Fit a nucleotide model on `device` (scipy L-BFGS-B over the
+    device's value + gradient), with the JAX package's multi-starts;
+    SEs (getSE) by `codeml.standard_errors`.  The objective computes in
+    `dtype` (None: float64; torch.float32 the float32 path), the optimizer
+    in float64.  `objective`: what `make_objective` returned for these
+    arguments, where the caller goes on using it after the fit."""
+    dtype = torch.float64 if dtype is None else dtype
     if spec.nhomo:
-        return _fit_nhomo(data, topo, spec, device=device)
+        return _fit_nhomo(data, topo, spec, device=device, dtype=dtype)
     neg_lnl, unpack, x0, bounds = objective or make_objective(
-        data, topo, spec, device=device)
+        data, topo, spec, device=device, dtype=dtype)
     multi = npark_starts(spec, x0) if spec.nparK else None
     res = maximize(neg_lnl, x0, bounds, device=device, multi_start=multi)
     with torch.no_grad():
@@ -664,7 +667,7 @@ def fit_packed(data: seqio.PackedData, topo: Topology, spec: BasemlSpec, *,
 
 
 def fit_separate(seqfile: str, treefile: str, spec: BasemlSpec, *,
-                 device) -> list[BasemlResult]:
+                 device, dtype=None) -> list[BasemlResult]:
     """Mgene = 1: an independent analysis per gene (reference:
     MultipleGenes, src/treesub.c:5170)."""
     aln = seqio.read_alignment(seqfile, seqio.BASE_SEQ)
@@ -678,7 +681,7 @@ def fit_separate(seqfile: str, treefile: str, spec: BasemlSpec, *,
         topo = from_treenode(trees[0], data.names)
         results.append(fit_packed(data, topo,
                                   dataclasses.replace(spec, Mgene=0),
-                                  device=device))
+                                  device=device, dtype=dtype))
     return results
 
 
@@ -700,9 +703,10 @@ def nhomo_starts(data: seqio.PackedData, topo: Topology, x0: np.ndarray):
     return multi
 
 
-def _fit_nhomo(data, topo, spec, *, device):
+def _fit_nhomo(data, topo, spec, *, device, dtype=torch.float64):
     neg_lnl, unpack, x0, bounds = make_nhomo_objective(data, topo, spec,
-                                                       device=device)
+                                                       device=device,
+                                                       dtype=dtype)
     res = maximize(neg_lnl, x0, bounds, device=device,
                    multi_start=nhomo_starts(data, topo, x0))
     with torch.no_grad():

@@ -25,8 +25,10 @@ omegas, AAClasses from OmegaAA.dat and the fitness models FIT1 / FIT2
 dispatches among them as the JAX package does.
 
 The parameter vector keeps the JAX package's layout (`unpack`), so the same
-x means the same model in both packages.  Fits run in float64 on the
-device the caller names.
+x means the same model in both packages.  Fits run on the device the
+caller names, in float64 unless the caller asks for float32 (`dtype`, as
+in the JAX package's `fit_packed`; P(t) then by uniformization and the
+float32 instances of the kernels).
 
 An objective has two routes.  `neg_lnl(x)` is the fit's: P(t) from the
 eigendecomposition with its hand-written backward, pruning through
@@ -274,14 +276,16 @@ def nssites_mixture_cdf(NSsites: int, theta):
 def _mixture_quantiles(NSsites: int, theta: torch.Tensor, K: int,
                        second_order: bool = False):
     """K median quantiles of M6/M9-M13's continuous part, on theta's
-    device; computed on the host (K numbers)."""
-    th = theta.to("cpu")
+    device and in its dtype; computed on the host in float64 (K
+    numbers)."""
+    th = theta.to("cpu", torch.float64)
     cdf_t = nssites_mixture_cdf(NSsites, th)
     cdf_n = nssites_mixture_cdf(NSsites, th.detach().numpy())
 
     def cdf(x):
         return cdf_t(x) if _is_t(x) else cdf_n(x)
-    return cdf_quantiles(cdf, K, second_order=second_order).to(theta.device)
+    return cdf_quantiles(cdf, K, second_order=second_order).to(
+        theta.device, theta.dtype)
 
 
 def nssites_nparams(NSsites: int, ncatG: int, fix_omega: bool) -> int:
@@ -873,7 +877,7 @@ def multi_starts(spec: CodemlSpec, topo: Topology, x0: np.ndarray):
 
 
 def fit(seqfile: str, treefile: str, spec: CodemlSpec | None = None, *,
-        device, tree_index: int = 0) -> CodemlResult:
+        device, tree_index: int = 0, dtype=None) -> CodemlResult:
     """Read an alignment and a tree file, then `fit_packed`."""
     spec = spec or CodemlSpec()
     check_slice(spec)
@@ -881,10 +885,10 @@ def fit(seqfile: str, treefile: str, spec: CodemlSpec | None = None, *,
     data = seqio.pack(aln, cleandata=spec.cleandata, icode=spec.icode)
     trees = treeio.read_trees(treefile, data.names)
     topo = from_treenode(trees[tree_index], data.names)
-    return fit_packed(data, topo, spec, device=device)
+    return fit_packed(data, topo, spec, device=device, dtype=dtype)
 
 
-def _staged_estfreq_starts(data, topo, spec, x0, device):
+def _staged_estfreq_starts(data, topo, spec, x0, device, dtype):
     """The staged start of an FMutSel / FMutSel0 fit with estFreq: the
     60-fitness (resp. 19-fitness) surface is ridged, so the full model
     starts from the estFreq = 0 optimum (branch lengths, kappa, pi_TCA,
@@ -893,7 +897,7 @@ def _staged_estfreq_starts(data, topo, spec, x0, device):
     GetInitialsCodon uses, src/codeml.c:2111-2122).  Returns (x0, extra
     starts)."""
     res0 = fit_packed(data, topo, _dc_replace(spec, estFreq=False),
-                      device=device)
+                      device=device, dtype=dtype)
     i2 = len(topo.branch_nodes()) + _nkappa(spec) + 3
     nfit0 = len(x0) - len(res0.x)
     graph = codonmod.codon_graph(spec.icode)
@@ -919,29 +923,35 @@ def _staged_estfreq_starts(data, topo, spec, x0, device):
 
 
 def fit_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec, *,
-               device, objective=None) -> CodemlResult:
-    """Fit a model in float64 on `device` (scipy L-BFGS-B over the
-    device's value + gradient): amino-acid data (`fit_aa_packed`), aaDist
-    (`_fit_aadist`), several genes with Mgene other than 1
-    (`fit_codon_mgene`; a ValueError with branch or NSsites models, as the
-    reference), else a codon model with the multi-starts of
-    `multi_starts`.  `objective`: what `make_codon_objective` returned for
-    these arguments, where the caller goes on using it after the fit."""
+               device, dtype=None, objective=None) -> CodemlResult:
+    """Fit a model on `device` (scipy L-BFGS-B over the device's value +
+    gradient): amino-acid data (`fit_aa_packed`), aaDist (`_fit_aadist`),
+    several genes with Mgene other than 1 (`fit_codon_mgene`; a
+    ValueError with branch or NSsites models, as the reference), else a
+    codon model with the multi-starts of `multi_starts`.  The objective
+    computes in `dtype` (None: float64, what the JAX package's None gives
+    off a TPU; torch.float32 runs the float32 path), the optimizer and
+    the result's fields in float64.  `objective`: what
+    `make_codon_objective` returned for these arguments, where the caller
+    goes on using it after the fit."""
+    dtype = torch.float64 if dtype is None else dtype
     if spec.seqtype in (2, 3):
-        return fit_aa_packed(data, topo, spec, device=device)
+        return fit_aa_packed(data, topo, spec, device=device, dtype=dtype)
     if spec.aaDist:
-        return _fit_aadist(data, topo, spec, device=device)
+        return _fit_aadist(data, topo, spec, device=device, dtype=dtype)
     if data.ngene > 1 and spec.Mgene != 1:
         if spec.model or spec.NSsites:
             raise ValueError("Mgene>0 with branch/NSsites models is not "
                              "supported (the reference zerrors too)")
-        return fit_codon_mgene(data, topo, spec, spec.Mgene, device=device)
+        return fit_codon_mgene(data, topo, spec, spec.Mgene, device=device,
+                               dtype=dtype)
     neg_lnl, unpack, classes_for, x0, bounds, pi_np = objective or \
-        make_codon_objective(data, topo, spec, device=device)
+        make_codon_objective(data, topo, spec, device=device, dtype=dtype)
     is_fmutsel = _codonf(spec) in ("FMutSel", "FMutSel0")
     multi = None
     if is_fmutsel and spec.estFreq:
-        x0, multi = _staged_estfreq_starts(data, topo, spec, x0, device)
+        x0, multi = _staged_estfreq_starts(data, topo, spec, x0, device,
+                                           dtype)
     more = multi_starts(spec, topo, x0)
     if more is not None:
         multi = more
@@ -1137,12 +1147,12 @@ def make_fromcodon0_objective(data: seqio.PackedData, topo: Topology,
 
 
 def fit_aa_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec,
-                  *, device) -> CodemlResult:
-    """Fit an amino-acid model (FromCodon0 on the codon chain) in float64
-    on `device`."""
+                  *, device, dtype=torch.float64) -> CodemlResult:
+    """Fit an amino-acid model (FromCodon0 on the codon chain) on `device`,
+    the objective in `dtype`."""
     if spec.aa_model == "FromCodon0":
         neg_lnl, unpack, x0, bounds, pi_np = make_fromcodon0_objective(
-            data, topo, spec, device=device)
+            data, topo, spec, device=device, dtype=dtype)
         res = maximize(neg_lnl, x0, bounds, device=device)
         with torch.no_grad():
             t, kap, om = unpack(torch.as_tensor(res.x, dtype=torch.float64))
@@ -1152,7 +1162,7 @@ def fit_aa_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec,
             kappa=np.asarray([float(kap)]), params={"omega": float(om)},
             pi=pi_np, topo=topo, fit=res, x=np.asarray(res.x), spec=spec)
     neg_lnl, unpack, x0, bounds, pi_np = make_aa_objective(
-        data, topo, spec, device=device)
+        data, topo, spec, device=device, dtype=dtype)
     res = maximize(neg_lnl, x0, bounds, device=device)
     with torch.no_grad():
         t, rates, alpha = unpack(torch.as_tensor(res.x, dtype=torch.float64))
@@ -1409,9 +1419,10 @@ def aadist_starts(spec: CodemlSpec, topo: Topology, x0: np.ndarray,
     return multi
 
 
-def _fit_aadist(data, topo, spec, *, device) -> CodemlResult:
+def _fit_aadist(data, topo, spec, *, device,
+                dtype=torch.float64) -> CodemlResult:
     neg_lnl, unpack, x0, bounds, pi_np = make_aadist_objective(
-        data, topo, spec, device=device)
+        data, topo, spec, device=device, dtype=dtype)
     res = maximize(neg_lnl, x0, bounds, device=device,
                    multi_start=aadist_starts(spec, topo, x0, bounds))
     with torch.no_grad():
@@ -1540,17 +1551,20 @@ def gene_slice(data: seqio.PackedData, g: int) -> seqio.PackedData:
 
 
 def fit_mgene_separate(data: seqio.PackedData, topo: Topology,
-                       spec: CodemlSpec, *, device) -> list[CodemlResult]:
+                       spec: CodemlSpec, *, device,
+                       dtype=None) -> list[CodemlResult]:
     """Mgene = 1: an independent fit per gene (reference: MultipleGenes,
     src/treesub.c:5170)."""
-    return [fit_packed(gene_slice(data, g), topo, spec, device=device)
+    return [fit_packed(gene_slice(data, g), topo, spec, device=device,
+                       dtype=dtype)
             for g in range(data.ngene)]
 
 
 def fit_codon_mgene(data: seqio.PackedData, topo: Topology,
-                    spec: CodemlSpec, Mgene: int, *, device) -> CodemlResult:
+                    spec: CodemlSpec, Mgene: int, *, device,
+                    dtype=torch.float64) -> CodemlResult:
     neg_lnl, unpack, x0, bounds, pis = make_codon_mgene_objective(
-        data, topo, spec, Mgene, device=device)
+        data, topo, spec, Mgene, device=device, dtype=dtype)
     res = maximize(neg_lnl, x0, bounds, device=device)
     with torch.no_grad():
         t, rgene, kaps, oms = unpack(torch.as_tensor(res.x,

@@ -461,11 +461,15 @@ class _GammaIncInv(torch.autograd.Function):
 
 def _host(*args):
     """The arguments as float64 CPU tensors of one shape, and the device
-    the result returns to (the first tensor argument's)."""
-    dev = next((a.device for a in args if _is_t(a)), torch.device("cpu"))
+    and dtype the result returns in (the first tensor argument's; float64
+    for integer or no tensors)."""
+    first = next((a for a in args if _is_t(a)), None)
+    dev = torch.device("cpu") if first is None else first.device
+    dt = first.dtype if first is not None and first.is_floating_point() \
+        else torch.float64
     ts = [a.to(device="cpu", dtype=torch.float64) if _is_t(a)
           else torch.as_tensor(a, dtype=torch.float64) for a in args]
-    return [t.contiguous() for t in torch.broadcast_tensors(*ts)], dev
+    return [t.contiguous() for t in torch.broadcast_tensors(*ts)], (dev, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -475,28 +479,28 @@ def _host(*args):
 
 def betainc(a, b, x) -> torch.Tensor:
     """Regularized incomplete beta I_x(a, b), differentiable in a, b, x."""
-    args, dev = _host(a, b, x)
-    return _Direct.apply(_betainc_any, *args).to(dev)
+    args, out = _host(a, b, x)
+    return _Direct.apply(_betainc_any, *args).to(*out)
 
 
 def gammainc(a, x) -> torch.Tensor:
     """Regularized lower incomplete gamma P(a, x), differentiable in a
     and x."""
-    args, dev = _host(a, x)
-    return _Direct.apply(_gammainc_any, *args).to(dev)
+    args, out = _host(a, x)
+    return _Direct.apply(_gammainc_any, *args).to(*out)
 
 
 def betaincinv(p, q, y) -> torch.Tensor:
     """Inverse regularized incomplete beta: x with I_x(p, q) = y, kept in
     [1e-12, 1 - 1e-12]; gradients by the inverse-function theorem."""
-    args, dev = _host(p, q, y)
-    return _BetaIncInv.apply(*args).to(dev)
+    args, out = _host(p, q, y)
+    return _BetaIncInv.apply(*args).to(*out)
 
 
 def gammaincinv(a, p) -> torch.Tensor:
     """Inverse regularized lower incomplete gamma: x with P(a, x) = p."""
-    args, dev = _host(a, p)
-    return _GammaIncInv.apply(*args).to(dev)
+    args, out = _host(a, p)
+    return _GammaIncInv.apply(*args).to(*out)
 
 
 def _grid(lo: float, K: int, like: torch.Tensor, step: float = 1.0):
@@ -505,10 +509,21 @@ def _grid(lo: float, K: int, like: torch.Tensor, step: float = 1.0):
 
 
 def discrete_gamma(alpha, K: int, beta=None, use_median: bool = False):
-    """K equal-probability gamma rate categories: (rates [K], freqs [K]).
+    """K equal-probability gamma rate categories: (rates [K], freqs [K]),
+    computed in float64 and returned in alpha's floating dtype.
     The mean method by default; the median method rescales the category
     medians so that the overall mean is alpha / beta (reference:
     src/tools.c:2600)."""
+    dt = _out_dtype(alpha)
+    r, freqs = _discrete_gamma64(alpha, K, beta, use_median)
+    return r.to(dt), freqs.to(dt)
+
+
+def _out_dtype(a):
+    return a.dtype if _is_t(a) and a.is_floating_point() else torch.float64
+
+
+def _discrete_gamma64(alpha, K, beta, use_median):
     alpha = torch.as_tensor(alpha, dtype=torch.float64)
     beta = alpha if beta is None else torch.as_tensor(
         beta, dtype=torch.float64, device=alpha.device)
@@ -530,7 +545,14 @@ def discrete_gamma(alpha, K: int, beta=None, use_median: bool = False):
 
 def discrete_beta(p, q, K: int, use_median: bool = True):
     """K equal-probability beta(p, q) categories (reference:
-    src/tools.c:2563); NSsites M7/M8 use the median method."""
+    src/tools.c:2563), computed in float64 and returned in p's floating
+    dtype; NSsites M7/M8 use the median method."""
+    dt = _out_dtype(p)
+    x, freqs = _discrete_beta64(p, q, K, use_median)
+    return x.to(dt), freqs.to(dt)
+
+
+def _discrete_beta64(p, q, K, use_median):
     p = torch.as_tensor(p, dtype=torch.float64)
     q = torch.as_tensor(q, dtype=torch.float64, device=p.device)
     mean = p / (p + q)

@@ -46,7 +46,10 @@ def binormal_cdf(h, k, r):
 def autod_gamma(alpha, rho, K: int):
     """(rates [K], freqs [K], M [K, K]) of the auto-discrete-gamma model
     (reference: AutodGamma, src/tools.c:2641): M[i, j] = P(class_t = j |
-    class_t-1 = i), K times the binormal mass of bin (i, j)."""
+    class_t-1 = i), K times the binormal mass of bin (i, j); M computed
+    in float64 and returned in rho's floating dtype."""
+    dt = rho.dtype if isinstance(rho, torch.Tensor) and \
+        rho.is_floating_point() else torch.float64
     rho = torch.as_tensor(rho, dtype=torch.float64)
     dev = rho.device
     pts = torch.special.ndtri(
@@ -59,7 +62,7 @@ def autod_gamma(alpha, rho, K: int):
     M = torch.clamp_min(bin_mass * K, 0.0)
     M = M / torch.clamp_min(M.sum(1, keepdim=True), 1e-300)
     r, w = discrete_gamma(alpha, K)
-    return r, w, M
+    return r, w, M.to(dt)
 
 
 def _product(A: torch.Tensor, s: torch.Tensor):

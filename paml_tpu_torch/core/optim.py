@@ -1,15 +1,23 @@
 """Bounded quasi-Newton maximization of likelihood functions.
 
-Port of `maximize` in `paml_tpu/core/optim.py`: host-side scipy L-BFGS-B
+Port of `paml_tpu/core/optim.py`.  `maximize`: host-side scipy L-BFGS-B
 driving a torch value + gradient (one forward and one backward per
 evaluation, on the device the objective lives on), with restarts from
-the optimum and multi-start.  The non-finite value and gradient guards of
-the JAX package are kept: each fixed a real stalled fit.
+the optimum and multi-start; a float32 objective takes the same float64
+tolerances and restarts, as the JAX package's fits with an explicit dtype
+do.  The non-finite value and gradient guards of the JAX package are
+kept: each fixed a real stalled fit.
+
+`maximize_device` and `maximize_device_bounded` (the JAX package's
+`maximize_jax` and `maximize_jax_bounded`) run the whole L-BFGS on the
+device: x, the memory, the value and the gradient never leave it, and
+the host reads one flag, the stop test, once every CHECK_EVERY
+iterations (`_stop_read`).
 
 The JAX package's `maximize_policy` (an f32 stage on the chip, then an f64
 polish on the host) is not ported: it exists because f64 is emulated on
-the TPU, and the H100 runs f64 natively, so a fit here is one f64 stage
-on the device.
+the TPU, and the H100 runs f64 natively, so a fit here is one stage on the
+device, in the dtype its objective was built in.
 """
 from __future__ import annotations
 
@@ -49,7 +57,8 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
              bounds: list[tuple[float, float]] | None = None, *, device,
              multi_start: list[np.ndarray] | None = None) -> FitResult:
     """Maximize a log-likelihood by minimizing `neg_fn` (a function of a
-    float64 1-D tensor on `device` returning a scalar tensor)."""
+    float64 1-D tensor on `device` returning a scalar tensor; an objective
+    built in float32 casts x itself)."""
     from scipy.optimize import minimize
 
     n_eval = [0]
@@ -110,6 +119,160 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
     return FitResult(x=np.asarray(best.x), lnL=-float(best.fun),
                      n_eval=n_eval[0], converged=bool(best.success),
                      message=str(best.message))
+
+
+# --- L-BFGS on the device ----------------------------------------------------
+#
+# The JAX package runs optax's L-BFGS under one `jax.jit` (a while loop
+# whose zoom line search takes as many trials as it needs).  Here the loop
+# is on the host but reads nothing from the device: every branch is a
+# `torch.where` on device tensors, so the host only queues work, and it
+# learns that the run has stopped from one flag read every CHECK_EVERY
+# iterations.  An iteration is one trial step, one value + gradient: the
+# line search is a backtracking one carried across iterations (a rejected
+# trial leaves x and the memory as they were, and the next iteration
+# tries a shorter step along the same direction), so every iteration costs
+# exactly one evaluation.  Iterations after the stop are frozen no-ops:
+# the result is the one of an exact stop, and at most CHECK_EVERY - 1
+# evaluations are spent after it.
+
+CHECK_EVERY = 5          # iterations between reads of the stop flag
+LBFGS_MEMORY = 10        # optax.lbfgs's default memory
+ARMIJO_C1 = 1e-4         # sufficient decrease of an accepted step
+ALPHA_MIN = 1e-12        # a step scale below it: the line search failed
+CHECKS = {"reads": 0}    # reads of the stop flag (`_stop_read`)
+
+
+def _stop_read(done: torch.Tensor) -> bool:
+    """The device loop's one read of the device: its stop flag."""
+    CHECKS["reads"] += 1
+    return bool(done)
+
+
+def _value_grad(neg_fn, y: torch.Tensor):
+    y = y.detach().requires_grad_(True)
+    with torch.enable_grad():
+        v = neg_fn(y)
+        (g,) = torch.autograd.grad(v, y)
+    return v.detach(), torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _lbfgs_run(neg_fn, y0: torch.Tensor, maxiter: int, tol: float,
+               ftol: float = 0.0, patience: int | None = None):
+    """Minimize neg_fn from y0 on y0's device and in its dtype: (y, the
+    value at y, iterations) as device tensors.  Stops at a gradient norm
+    at most tol, after `patience` accepted steps in a row that improve the
+    value by at most ftol (1 + |f|) (None: never), after two line-search
+    failures in a row (the second from a reset memory), or at maxiter."""
+    m = LBFGS_MEMORY
+    y = y0.detach().clone()
+    f, g = _value_grad(neg_fn, y)
+    S = y.new_zeros((m, y.numel()))        # steps, oldest first
+    Yg = torch.zeros_like(S)               # gradient changes
+    rho = y.new_zeros(m)                   # 1 / (s . y); 0 for no pair
+
+    def scale0(g):
+        return torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+
+    gamma = scale0(g)
+    alpha = y.new_ones(())
+    zero = torch.zeros((), dtype=torch.int64, device=y.device)
+    stall, fails, it = zero, zero, zero
+    done = torch.linalg.vector_norm(g) <= tol
+    for i in range(maxiter):
+        if i % CHECK_EVERY == 0 and _stop_read(done):
+            break
+        live = ~done
+        # the two-loop recursion: p = -H g
+        q, a = g, [None] * m
+        for j in reversed(range(m)):
+            a[j] = rho[j] * torch.dot(S[j], q)
+            q = q - a[j] * Yg[j]
+        r = gamma * q
+        for j in range(m):
+            r = r + S[j] * (a[j] - rho[j] * torch.dot(Yg[j], r))
+        gp = -torch.dot(g, r)
+        descent = gp < 0
+        p = torch.where(descent, -r, -scale0(g) * g)
+        gp = torch.where(descent, gp, -scale0(g) * torch.dot(g, g))
+        rho = torch.where(descent | done, rho, torch.zeros_like(rho))
+        # one trial
+        f_t, g_t = _value_grad(neg_fn, y + alpha * p)
+        ok = torch.isfinite(f_t) & (f_t <= f + ARMIJO_C1 * alpha * gp)
+        accept = live & ok
+        s_k, y_k = alpha * p, g_t - g
+        sy = torch.dot(s_k, y_k)
+        pair = accept & (sy > torch.finfo(y.dtype).eps * torch.dot(y_k, y_k))
+        S = torch.where(pair, torch.cat([S[1:], s_k[None]]), S)
+        Yg = torch.where(pair, torch.cat([Yg[1:], y_k[None]]), Yg)
+        rho = torch.where(pair, torch.cat([rho[1:], (1.0 / sy)[None]]), rho)
+        gamma = torch.where(pair, sy / torch.dot(y_k, y_k), gamma)
+        if patience is not None:
+            improved = (f - f_t) > ftol * (1.0 + f_t.abs())
+            stall = torch.where(accept, torch.where(improved, zero, stall + 1),
+                                stall)
+        # a rejected trial: the minimum of the quadratic through f, its
+        # slope and f_t, kept within [0.1, 0.5] of the step
+        curv = 2.0 * (f_t - f - alpha * gp)
+        a_q = torch.where(torch.isfinite(f_t) & (curv > 0),
+                          -gp * alpha * alpha / curv, 0.1 * alpha)
+        a_q = torch.minimum(torch.maximum(a_q, 0.1 * alpha), 0.5 * alpha)
+        fail = live & ~ok & (a_q < ALPHA_MIN)
+        # after a failure: a reset memory and a steepest-descent step
+        rho = torch.where(fail, torch.zeros_like(rho), rho)
+        y = torch.where(accept, y + s_k, y)
+        f = torch.where(accept, f_t, f)
+        g = torch.where(accept, g_t, g)
+        gamma = torch.where(fail, scale0(g), gamma)
+        alpha = torch.where(accept | fail, torch.ones_like(alpha),
+                            torch.where(live, a_q, alpha))
+        fails = torch.where(fail, fails + 1, torch.where(accept, zero, fails))
+        it = it + live.long()
+        done = (done | (accept & (torch.linalg.vector_norm(g) <= tol))
+                | (fails >= 2))
+        if patience is not None:
+            done = done | (stall >= patience)
+    return y, f, it
+
+
+def maximize_device(neg_fn: Callable, x0: torch.Tensor, *,
+                    maxiter: int = 500, tol: float = 1e-10):
+    """Unbounded maximization with the whole L-BFGS on x0's device and in
+    its dtype (the JAX package's `maximize_jax`, optax L-BFGS under one
+    jit): minimizes neg_fn from x0, stopping at a gradient norm below tol
+    or at maxiter.  Returns (x as numpy, lnL, iterations)."""
+    y, f, it = _lbfgs_run(neg_fn, x0, maxiter, tol)
+    return y.detach().cpu().numpy(), -float(f), int(it)
+
+
+def maximize_device_bounded(neg_fn: Callable, x0, bounds, *, device, dtype,
+                            maxiter: int = 500, tol: float = 1e-9,
+                            ftol: float | None = None, patience: int = 5):
+    """Whole-fit-on-device bounded maximization (the JAX package's
+    `maximize_jax_bounded`): the box mapped to an unconstrained chart by a
+    scaled sigmoid, x = lo + (hi - lo) sigmoid(y), x0 clipped 1e-6 of the
+    span inside the box; then `_lbfgs_run` in `dtype` on `device`, no host
+    round trip per evaluation.  Stops on a gradient norm (in y) below tol,
+    on `patience` accepted steps in a row that improve -lnL by less than
+    ftol (1 + |f|) (ftol 3e-7 in float32, 1e-10 in float64 by default: a
+    float32 gradient never reaches a float64 tolerance), or at maxiter.
+    Returns (x as numpy, lnL, iterations).  Parity-grade optima are
+    `maximize`'s; this is the wall-time engine."""
+    lo = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
+    hi = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
+    span = hi - lo
+    x0 = torch.as_tensor(np.asarray(x0), dtype=dtype, device=device)
+    x0 = torch.minimum(torch.maximum(x0, lo + 1e-6 * span), hi - 1e-6 * span)
+    y0 = torch.logit((x0 - lo) / span)
+
+    def to_x(y):
+        return lo + span * torch.sigmoid(y)
+
+    if ftol is None:
+        ftol = 3e-7 if dtype == torch.float32 else 1e-10
+    y, f, it = _lbfgs_run(lambda y: neg_fn(to_x(y)), y0, maxiter, tol,
+                          ftol, patience)
+    return to_x(y).cpu().numpy(), -float(f), int(it)
 
 
 # --- parameter transforms --------------------------------------------------

@@ -1,8 +1,8 @@
 """Transition-probability matrices P(t) = expm(Q t) for reversible Q.
 
-Port of the float64 spectral path of `paml_tpu/core/pmat.py`: one batched
-symmetric eigendecomposition per rate matrix, then every branch's P(t) from
-the eigenbasis (reference: `PMatUVRoot`, src/tools.c:516, after
+Port of `paml_tpu/core/pmat.py`.  In float64, one batched symmetric
+eigendecomposition per rate matrix, then every branch's P(t) from the
+eigenbasis (reference: `PMatUVRoot`, src/tools.c:516, after
 `eigenQREV`, src/tools.c:5023).
 
 The gradient is the Daleckii-Krein (divided-difference) derivative of the
@@ -24,11 +24,15 @@ The nucleotide models add the closed-form TN93 family (`pmat_tn93`, from
 REVu) and `pmat_expm` for the non-reversible UNREST and UNRESTu, all
 differentiable twice but `pmat_rev` on the fit's route.
 
-The float32 uniformization path of the JAX package is not ported yet
-(ROADMAP A1): a float32 call raises.
+In float32, `pmat_rev` and `pmat_rev_multi` take the JAX package's
+uniformization series with per-branch masked squaring (`_pmat_rev_unif`,
+paml_tpu/core/pmat.py:89-268): no eigendecomposition, every product in
+full float32 whatever the caller's TF32 setting (`_mm`), and the gradient
+by plain autograd through the chain of products.  Float64 stays spectral.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -67,6 +71,11 @@ def _sym_parts(Q: torch.Tensor, pi: torch.Tensor):
                     torch.zeros_like(Q))
     S = 0.5 * (S + S.transpose(-1, -2))
     return S, sqp, mask
+
+
+def symmetrize(Q: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """S = D^{1/2} Q D^{-1/2}, symmetric for reversible Q."""
+    return _sym_parts(Q, pi)[0]
 
 
 def _phi(mu_k: torch.Tensor, mu_l: torch.Tensor) -> torch.Tensor:
@@ -146,16 +155,163 @@ class _PmatRevSpectral(torch.autograd.Function):
         return gQ, gpi, gts
 
 
+# ---------------------------------------------------------------------------
+# float32: uniformization with masked squaring (no eigendecomposition)
+# ---------------------------------------------------------------------------
+# The JAX package's design (paml_tpu/core/pmat.py:89-126): in float32 the
+# spectral reconstruction carries ~2e-6 absolute noise, a large relative
+# error in a short branch's small entries, where site likelihoods divide
+# by them.  The series
+#   P(t) = e^{-a} sum_k a^k / k! M^k,   M = I + Q / q,   a = q t,
+# q = max_i -Q_ii, has no negative term, so each entry keeps ~n K eps
+# relative accuracy.  A branch with a > AMAX sums the series at a / 2^s
+# and squares the result s times.
+
+_UNIF_K = 24          # series terms: Poisson tail P(X > 24 | a0 = 5) ~ 3e-10
+_UNIF_AMAX = 5.0      # series radius; above it, scale down and square
+_UNIF_NSQ = 6         # at most this many squarings (a0 <= AMAX to q t = 320)
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """cuBLAS products in full float32 inside the block, TF32 off whatever
+    the caller set (the JAX package's `_PREC` HIGH, f32-faithful)."""
+    m = torch.backends.cuda.matmul
+    if not m.allow_tf32:
+        yield
+        return
+    m.allow_tf32 = False
+    try:
+        yield
+    finally:
+        m.allow_tf32 = True
+
+
+class _MatmulF32(torch.autograd.Function):
+    """torch.bmm(a, b), forward and backward in full float32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _full_float32():
+            return torch.bmm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with _full_float32():
+            if ctx.needs_input_grad[0]:
+                ga = torch.bmm(g, b.transpose(-1, -2))
+            if ctx.needs_input_grad[1]:
+                gb = torch.bmm(a.transpose(-1, -2), g)
+        return ga, gb
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched product of 3-D a and b in full float32: with TF32
+    allowed when the product is formed, through `_MatmulF32`, which turns
+    it off for the forward and the backward; otherwise PyTorch's own
+    `bmm` (no Python, and one autograd node, in its backward)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        return _MatmulF32.apply(a, b)
+    return torch.bmm(a, b)
+
+
+def _mat_powers(M: torch.Tensor, K: int) -> torch.Tensor:
+    """[M^0 .. M^K] of M [G, n, n] stacked on axis -3: the sequential
+    chain of K - 1 products (the JAX package's default,
+    `PAML_TPU_POWS=seq`)."""
+    pows = [torch.eye(M.shape[-1], dtype=M.dtype,
+                      device=M.device).expand_as(M), M]
+    for _ in range(2, K + 1):
+        pows.append(_mm(pows[-1], M))
+    return torch.stack(pows, dim=-3)
+
+
+class _PoissonWeights(torch.autograd.Function):
+    """w_k = e^-a a^k / k!, k = 0 .. _UNIF_K, on a new last axis: the JAX
+    package's recurrence w_k = w_{k-1} a / k as one running product (the
+    log form has a 0 log 0 NaN in its derivative at a = 0), and the
+    derivative dw_k / da = w_{k-1} - w_k (w_{-1} = 0), finite everywhere.
+    (Autograd of the running product would read back whether any a is 0:
+    a host sync per backward.)"""
+
+    @staticmethod
+    def forward(ctx, a):
+        k = torch.arange(1, _UNIF_K + 1, dtype=a.dtype, device=a.device)
+        w = torch.cumprod(torch.cat([torch.exp(-a)[..., None],
+                                     a[..., None] / k], -1), -1)
+        ctx.save_for_backward(w)
+        return w
+
+    @staticmethod
+    @differentiable_once
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dw = torch.cat([-w[..., :1], w[..., :-1] - w[..., 1:]], -1)
+        return (g * dw).sum(-1)
+
+
+def _square_masked(P: torch.Tensor, s_b: torch.Tensor) -> torch.Tensor:
+    """P [..., n, n] squared s_b [...] times, at most _UNIF_NSQ.  All
+    _UNIF_NSQ squarings run on every branch, each kept where s_b asks for
+    it: the JAX package gates them behind one `lax.cond` on any(s_b > 0),
+    which here would cost a host sync per call; `where` selects, so the
+    values are the same."""
+    shape = P.shape
+    P, s_b = P.reshape((-1,) + shape[-2:]), s_b.reshape(-1, 1, 1)
+    for i in range(_UNIF_NSQ):
+        P = torch.where(s_b > i, _mm(P, P), P)
+    return P.reshape(shape)
+
+
+def _pmat_rev_unif(Qs: torch.Tensor, pi: torch.Tensor,
+                   ts: torch.Tensor) -> torch.Tensor:
+    """Float32 P(t) by uniformization and per-branch masked squaring: Qs
+    [G, n, n], pi [G, n], ts [..., G] -> P [..., G, n, n].  States with pi
+    at or below PI_FLOOR get zeroed Q rows and columns, hence identity
+    rows in P (the reference's reduced Q, eigenQREV src/tools.c:5023),
+    here set exactly."""
+    G, n = Qs.shape[0], Qs.shape[-1]
+    mask = pi > PI_FLOOR
+    Qm = torch.where(mask[:, :, None] & mask[:, None, :], Qs,
+                     torch.zeros_like(Qs))
+    q = torch.clamp_min((-torch.diagonal(Qm, dim1=-2, dim2=-1)).amax(-1),
+                        1e-30)                                   # [G]
+    M = torch.eye(n, dtype=Qs.dtype, device=Qs.device) + Qm / q[:, None, None]
+    Mk = _mat_powers(M, _UNIF_K)                                 # [G, K+1, n, n]
+    a = q * ts                                                   # [..., G]
+    # squarings s = ceil(log2(a / AMAX)), clamped to [0, NSQ]; above
+    # AMAX 2^NSQ the scaled a0 saturates at 2 AMAX, where P is at its
+    # stationary rows to the series' accuracy
+    s_b = torch.clamp(torch.ceil(torch.log2(torch.clamp_min(
+        a / _UNIF_AMAX, 1.0))), max=float(_UNIF_NSQ))
+    a0 = torch.clamp(a / torch.exp2(s_b), max=2.0 * _UNIF_AMAX)
+    w = _PoissonWeights.apply(a0)                                # [..., G, K+1]
+
+    batch = w.shape[:-2]
+    wg = w.reshape(-1, G, _UNIF_K + 1).transpose(0, 1)           # [G, B, K+1]
+    P = _mm(wg, Mk.reshape(G, _UNIF_K + 1, n * n))               # [G, B, n*n]
+    P = P.transpose(0, 1).reshape(batch + (G, n, n))
+    # a dropped state's row is e_i times the weights' sum, 1 to within a
+    # rounding that s squarings would multiply by 2^s: make it exact
+    eye = torch.eye(n, dtype=Qs.dtype, device=Qs.device)
+    P = torch.where(mask[:, :, None], P, eye)
+    return _square_masked(P, s_b)
+
+
 def pmat_rev_multi(Qs: torch.Tensor, pi: torch.Tensor,
                    ts: torch.Tensor) -> torch.Tensor:
     """P(t) for G reversible rate matrices at once: Qs [G, n, n], pi [n] or
-    [G, n], ts [..., G] -> P [..., G, n, n] (float64)."""
-    if Qs.dtype != torch.float64:
-        raise NotImplementedError(
-            f"P(t) in {Qs.dtype}: only the float64 spectral path is ported "
-            "(float32 uniformization: ROADMAP A1)")
+    [G, n], ts [..., G] -> P [..., G, n, n]; float64 by the spectral form,
+    float32 by uniformization (`_pmat_rev_unif`)."""
     if pi.dim() == 1:
         pi = pi.expand(Qs.shape[0], -1)
+    if Qs.dtype == torch.float32:
+        return _pmat_rev_unif(Qs, pi, ts)
+    if Qs.dtype != torch.float64:
+        raise TypeError(f"P(t) takes float32 or float64, got {Qs.dtype}")
     return _PmatRevSpectral.apply(Qs, pi, ts)
 
 
@@ -163,20 +319,22 @@ def pmat_rev_multi_twice(Qs: torch.Tensor, pi: torch.Tensor,
                          ts: torch.Tensor) -> torch.Tensor:
     """`pmat_rev_multi` for second derivatives: P [..., G, n, n] =
     expm(Qs[g] ts[..., g]) by `torch.linalg.matrix_exp`, differentiable any
-    number of times in Qs and ts.  pi enters through Qs alone here.  A
-    state of zero frequency keeps its row of Q instead of the reduced
-    matrix's identity row; no other state reaches it and the root gives it
-    no weight, so the likelihood is the same."""
+    number of times in Qs and ts, computed in float64 and returned in Qs's
+    dtype (a float32 objective's Hessian keeps float64 P(t) and its
+    derivatives).  pi enters through Qs alone here.  A state of zero
+    frequency keeps its row of Q instead of the reduced matrix's identity
+    row; no other state reaches it and the root gives it no weight, so the
+    likelihood is the same."""
     del pi
-    return torch.clamp_min(
-        torch.linalg.matrix_exp(Qs * ts[..., None, None]), 0.0)
+    P = torch.linalg.matrix_exp(Qs.double() * ts.double()[..., None, None])
+    return torch.clamp_min(P, 0.0).to(Qs.dtype)
 
 
 def pmat_rev(Q: torch.Tensor, pi: torch.Tensor, t: torch.Tensor,
              twice: bool = False) -> torch.Tensor:
     """P(t) for one reversible rate matrix: Q [n, n] reversible w.r.t. pi
-    [n], t of any shape -> [..., n, n] (float64; `pmat_rev_multi` at G = 1,
-    or with `twice` its route that is differentiable twice)."""
+    [n], t of any shape -> [..., n, n] (`pmat_rev_multi` at G = 1, or with
+    `twice` its route that is differentiable twice)."""
     fn = pmat_rev_multi_twice if twice else pmat_rev_multi
     return fn(Q[None], pi[None], t[..., None])[..., 0, :, :]
 

@@ -175,6 +175,17 @@ def _forward_levels(P, tipsT, topo: Topology, stored=None):
     return s, m, c
 
 
+def root_partials(P, tips, topo: Topology):
+    """Per-class root partials [C, H, n] and per-(class, pattern) log scale
+    [C, H] (the JAX package's `root_partials`): the level sweep's scaled
+    partial of the root and the sum of every internal node's log scale
+    factor, so that the conditional likelihood of the root's states is
+    exp(logscale) x partials."""
+    s, m, _ = _forward_levels(P, _tipsT_of(tips, P.dtype), topo)
+    return (s[topo.root].transpose(-1, -2),
+            torch.log(torch.stack(list(m.values()))).sum(0))
+
+
 def _root_F(s_root, pi):
     F = torch.einsum("cnh,cn->ch", s_root, pi)
     return torch.clamp_min(F, torch.finfo(F.dtype).tiny)

@@ -4,13 +4,13 @@ pattern mesh's checks.
 Port of `__graft_entry__.py`.  `entry()` returns the codon model's -lnL
 and gradient step (the flagship compute path: M2a on a synthetic 8-taxon x
 96-pattern problem) with its example argument, on the card unless the
-caller asks for the CPU.  `dryrun_multichip(n)` runs the JAX package's
+caller asks for the CPU, in float64 unless it asks for float32 (the JAX
+entry point's own type).  `dryrun_multichip(n)` runs the JAX package's
 four multi-device checks on the port's pattern mesh
 (`parallel/sharding.py`): the objective's value and gradient, B1/B2 and
 B3/B4 per shard, and a whole codeml program, each sharded against
-unsharded.  The port computes in float64 (the JAX package's entry point
-takes float32, its TPU's type), so the checks hold 1e-12 relative on
-values and 1e-10 of the largest gradient component.
+unsharded, in float64, so the checks hold 1e-12 relative on values and
+1e-10 of the largest gradient component.
 """
 from __future__ import annotations
 
@@ -19,9 +19,10 @@ import torch
 
 
 def _synthetic_codon_problem(ns=8, npatt=96, NSsites=2, seed=0, *,
-                             device="cuda"):
+                             device="cuda", dtype=torch.float64):
     """Small self-contained codon problem (no file dependencies): the JAX
-    package's, draw for draw.  Returns (neg_lnl, x0, tips, fpatt)."""
+    package's, draw for draw, its objective in `dtype`.  Returns (neg_lnl,
+    x0, tips, fpatt)."""
     from .apps.codeml import CodemlSpec, make_codon_objective
     from .core.topology import from_treenode
     from .io import seqio, treeio
@@ -50,14 +51,14 @@ def _synthetic_codon_problem(ns=8, npatt=96, NSsites=2, seed=0, *,
         posG=np.array([0, npatt]), base_freqs=np.full(graph.n, 1 / graph.n))
     spec = CodemlSpec(NSsites=NSsites, codonf="Fequal", cleandata=True)
     neg_lnl, _unpack, _classes_for, x0, _bounds, _pi = \
-        make_codon_objective(data, topo, spec, device=device)
+        make_codon_objective(data, topo, spec, device=device, dtype=dtype)
     return neg_lnl, np.asarray(x0), tips, fpatt
 
 
-def entry(device="cuda"):
+def entry(device="cuda", dtype=torch.float64):
     """(fn, example_args): fn(x) -> (-lnL, its gradient) on the flagship
-    model, x on `device`."""
-    neg_lnl, x0, _, _ = _synthetic_codon_problem(device=device)
+    model, computed in `dtype`, x on `device` in `dtype`."""
+    neg_lnl, x0, _, _ = _synthetic_codon_problem(device=device, dtype=dtype)
 
     def step(x):
         x = x.detach().requires_grad_(True)
@@ -65,7 +66,7 @@ def entry(device="cuda"):
         (grad,) = torch.autograd.grad(val, x)
         return val.detach(), grad
 
-    return step, (torch.as_tensor(x0, device=device),)
+    return step, (torch.as_tensor(x0, dtype=dtype, device=device),)
 
 
 def _balanced_topo(ns: int):

@@ -173,6 +173,12 @@ CODON_FREQ_BY_INDEX = ["Fequal", "F1x4", "F3x4", "Fcodon",
                        "F1x4MG", "F3x4MG", "FMutSel0", "FMutSel"]
 NUC_MODEL_BY_INDEX = ["JC69", "K80", "F81", "F84", "HKY85", "T92", "TN93",
                       "REV", "UNREST", "REVu", "UNRESTu"]
+# the JAX package's list, copied as it stands (paml_tpu/io/ctl.py:205):
+# index 7 holds REVaa_0, where its comment, the reference and both
+# packages' ctl readers (`codeml_spec`) put REVaa_0 at 8 and REVaa at 9
+AA_MODEL_BY_INDEX = ["Poisson", "EqualInput", "Empirical", "Empirical_F",
+                     "FromCodon0", "FromCodon", "FromCodon", "REVaa_0",
+                     "REVaa"]
 
 
 def parse_step_matrix(val: str, symmetric: bool):

@@ -426,9 +426,47 @@ def fmutsel_multiplier(G: PairTables, pf: torch.Tensor, pi: torch.Tensor,
     ea, eb = eF[G.pi_idx], eF[G.pj_idx]
     d = ea - eb
     far = d.abs() > 1e-10
-    ratio = (torch.log(ea) - torch.log(eb)) / torch.where(
-        far, d, torch.ones_like(d))
+    # ln ea - ln eb as -log1p(-d / ea): the difference of two logs cancels
+    # to ~eps / (d / ea) relative, which float32 cannot afford
+    ratio = -torch.log1p(-d / ea) / torch.where(far, d, torch.ones_like(d))
     return torch.where(far, ratio, 1.0 / ea)
+
+
+def selection_coefficients(graph: CodonGraph, pf, pi, kappa, omega,
+                           hkyrev: bool, ls: int) -> dict:
+    """Per-pair 2Ns selection coefficients and the mutation and
+    substitution flux under FMutSel, host numpy (reference:
+    SelectionCoefficients, src/codeml.c:3089).  For each single-difference
+    pair (a, b) = (pi_idx, pj_idx): Ns_ba = ln(eF_a / eF_b), the 2Ns of b
+    -> a, eF = max(pi, small) / mut3; qmut_ba = pi_b q pf[nt_i] (and
+    qmut_ab); qsub = qmut x 2Ns / (1 - e^-2Ns), 1 in the neutral limit;
+    qsubw the same times omega on nonsynonymous pairs."""
+    pf = np.asarray(pf, float)
+    pi = np.asarray(pi, float)
+    small = min(1e-6, 1.0 / max(int(ls), 1))
+    eF = np.maximum(pi, small) / _mut3(pf, graph)
+    a, b = graph.pi_idx, graph.pj_idx
+    Ns_ba = np.log(eF[a] / eF[b])
+    if hkyrev:
+        rates6 = np.concatenate([np.asarray(kappa, float).reshape(-1),
+                                 [1.0]])
+        q = rates6[graph.gtr_class]
+    else:
+        q = np.where(graph.is_ts, float(np.asarray(kappa).reshape(-1)[0]),
+                     1.0)
+    qmut_ba = pi[b] * q * pf[graph.nt_i]
+    qmut_ab = pi[a] * q * pf[graph.nt_j]
+    nz = np.abs(Ns_ba) > 1e-20
+    with np.errstate(divide="ignore", invalid="ignore"):   # where's unused side
+        qsub_ba = qmut_ba * np.where(nz, Ns_ba / (1 - np.exp(-Ns_ba)), 1.0)
+        qsub_ab = qmut_ab * np.where(nz, -Ns_ba / (1 - np.exp(Ns_ba)), 1.0)
+    wfac = np.where(graph.is_syn, 1.0, float(omega))
+    return {
+        "Ns_ba": Ns_ba, "qmut_ba": qmut_ba, "qmut_ab": qmut_ab,
+        "qsub_ba": qsub_ba, "qsub_ab": qsub_ab,
+        "qsubw_ba": qsub_ba * wfac, "qsubw_ab": qsub_ab * wfac,
+        "is_syn": np.asarray(graph.is_syn),
+    }
 
 
 def flux(G: PairTables, s: torch.Tensor, pi: torch.Tensor):

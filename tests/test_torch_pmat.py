@@ -108,7 +108,15 @@ def test_pmat_zero_branch_is_identity():
 
 
 def test_pmat_float32_raises():
-    Q = _codon_case(_fequal(), 2.0, [0.5]).float()
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        pmat.pmat_rev_multi(Q, torch.tensor(_fequal()).float(),
-                            torch.ones(2, 1))
+    """The float32 refusal is gone: float32 takes the uniformization path
+    (held against the JAX package's in tests/test_torch_f32.py) and agrees
+    with float64 to 2e-6; a dtype other than float32 and float64 raises."""
+    Q = _codon_case(_fequal(), 2.0, [0.5])
+    pi, t = torch.tensor(_fequal()), torch.ones(2, 1, dtype=torch.float64)
+    P32 = pmat.pmat_rev_multi(Q.float(), pi.float(), t.float())
+    assert P32.dtype == torch.float32
+    np.testing.assert_allclose(P32.numpy(),
+                               pmat.pmat_rev_multi(Q, pi, t).numpy(),
+                               rtol=0, atol=2e-6)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        pmat.pmat_rev_multi(Q.half(), pi.half(), t.half())
