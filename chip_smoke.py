@@ -193,20 +193,22 @@
    rate matrices at phase 4's F3x4 frequencies over the bench's 63
    branches, three of them long enough for one to six squarings and the
    root's at 0, against the same function on CPU tensors (2e-6) and the
-   float64 spectral P on the card (1e-5); both dtypes timed, forward and
-   forward + backward, and the six masked squarings alone.  13b: one
-   value + gradient of M0 and M2a on phase 4's alignment, clean (B3/B4)
-   and gapped (B1/B2), float32 against the plain float32 version on the
-   card (2e-6 relative on the value, 3e-5 of the largest gradient
+   float64 spectral P on the card (1e-5); P and its VJP with TF32
+   allowed bit-equal to TF32 off, the flag left on; both dtypes timed,
+   forward and forward + backward, and the six masked squarings alone.
+   13b: one value + gradient of M0 and M2a on phase 4's alignment, clean
+   (B3/B4) and gapped (B1/B2), float32 against the plain float32 version
+   on the card (2e-6 relative on the value, 3e-5 of the largest gradient
    component) and against float64 (5e-6 relative); ms per evaluation of
-   both dtypes.  13c: `fit_packed(dtype=torch.float32)` under M0 on both
-   routes, within 0.1 lnL of phase 4's float64 fits, carried by the
-   float32 instances of its pair alone.  13d: `maximize_device_bounded`
-   on the clean M0 objective in float64 (within 2e-4 of phase 4's scipy
-   fit) and float32 (0.1): iterations, evaluations, wall; then each again
-   under `torch.cuda.set_sync_debug_mode("warn")`, its synchronizing
-   operations by source line, the optimizer's own between its checks
-   required 0.  13e: one float32 value + gradient of phase 5's 1024-taxon
+   both dtypes, the launches counted over the float32 runs alone.  13c:
+   `fit_packed(dtype=torch.float32)` under M0 on both routes, within 0.1
+   lnL of phase 4's float64 fits, carried by the float32 instances of
+   its pair alone.  13d: `maximize_device_bounded` on the clean M0
+   objective in float64 (within 2e-4 of phase 4's scipy fit) and float32
+   (0.1): iterations (line searches), trials, evaluations, wall; then
+   each again under `torch.cuda.set_sync_debug_mode("warn")`, its
+   synchronizing operations by source line, the optimizer's own between
+   its checks required 0.  13e: one float32 value + gradient of phase 5's 1024-taxon
    model A alignment in 10 chunks against float64 (5e-6 relative), timed,
    with peak memory.  The float32 runs' launches join the kernels line
    (`launches_f32_*`), with the float64 device fit's.
@@ -4377,6 +4379,7 @@ def f32_pmat(torch, neg, topo, card):
                              "float64 P")
     ct = torch.randn(P.shape, dtype=torch.float64, device="cuda",
                      generator=torch.Generator("cuda").manual_seed(13))
+    f32_tf32(torch, (Qs, pi, ts), ct.float(), card)
     t = {}
     for tag, args in (("float32", (Qs, pi, ts)), ("float64", args64)):
         t[tag] = cuda_ms(lambda: pmat.pmat_rev_multi(*args))
@@ -4393,12 +4396,49 @@ def f32_pmat(torch, neg, topo, card):
         f"{k} {v:.3f}" for k, v in t.items()), flush=True)
 
 
+def f32_tf32(torch, args, ct, card):
+    """13a: float32 P(t) and its VJP (cotangent ct) with TF32 allowed are
+    bit for bit those with it off, and the flag is left as the caller set
+    it; the same P(t) with its products as plain `bmm` under TF32 (`_mm`
+    swapped for the call) shows what the setting would change."""
+    from paml_tpu_torch.core import pmat
+
+    def p_and_vjp():
+        lf = [a.detach().requires_grad_(a is not args[1]) for a in args]
+        P = pmat.pmat_rev_multi(*lf)
+        return (P.detach(),) + torch.autograd.grad((P * ct).sum(),
+                                                   (lf[0], lf[2]))
+
+    m = torch.backends.cuda.matmul
+    off = p_and_vjp()
+    m.allow_tf32 = True
+    try:
+        on = p_and_vjp()
+        kept = m.allow_tf32
+        mm, pmat._mm = pmat._mm, torch.bmm
+        try:
+            tf32 = p_and_vjp()
+        finally:
+            pmat._mm = mm
+    finally:
+        m.allow_tf32 = False
+    same = [torch.equal(a, b) for a, b in zip(on, off)]
+    gaps = ", ".join(f"{float((a - b).abs().max() / b.abs().max()):.2e}"
+                     for a, b in zip(tf32, off))
+    print(f"13a TF32 allowed [{card}]: P, dQ, dt bit-equal to TF32 off "
+          f"{same}, flag still on after {kept}; with plain bmm under TF32 "
+          f"they would be off by {gaps} of their largest", flush=True)
+    if not all(same) or not kept:
+        raise AssertionError("13a: float32 P(t) depends on the TF32 setting "
+                             "or changed it")
+
+
 def f32_value_grads(torch, bench, report, card):
     """13b: one value + gradient of M0 and M2a on phase 4's alignment,
     clean (B3/B4) and gapped (B1/B2), in float32 against the plain float32
     version on the card and against float64; ms per evaluation of both
-    dtypes, medians of 5.  The kernel runs' launches join the kernels
-    line (`launches_f32_vg_<route>`)."""
+    dtypes, medians of 5.  The float32 runs' launches (counted before the
+    float64 timing) join the kernels line (`launches_f32_vg_<route>`)."""
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning, pruning
 
@@ -4415,11 +4455,12 @@ def f32_value_grads(torch, bench, report, card):
                 for dt in (torch.float32, torch.float64)}
             x0 = codeml.make_codon_objective(data, topo, spec,
                                              device="cuda")[3]
-            cuda_pruning.reset_launch_counts()
-            pruning.PLAIN_CALLS["cuda"] = 0
-            v32, g32 = value_grad(torch, negs[torch.float32], x0)
             ms = {}
             for dt, neg in negs.items():
+                cuda_pruning.reset_launch_counts()
+                pruning.PLAIN_CALLS["cuda"] = 0
+                if dt == torch.float32:
+                    v32, g32 = value_grad(torch, neg, x0)
                 walls = []
                 for _ in range(6):
                     torch.cuda.synchronize()
@@ -4427,10 +4468,13 @@ def f32_value_grads(torch, bench, report, card):
                     value_grad(torch, neg, x0)
                     walls.append(time.perf_counter() - t0)
                 ms[dt] = 1e3 * float(np.median(walls[1:]))
-            for k, v in cuda_pruning.LAUNCHES.items():
+                if dt == torch.float32:
+                    # the float32 runs' own launches, before float64's
+                    own = dict(cuda_pruning.LAUNCHES)
+                    plain = pruning.PLAIN_CALLS["cuda"]
+            for k, v in own.items():
                 launches[k] += v
-            if pruning.PLAIN_CALLS["cuda"] or not all(
-                    cuda_pruning.LAUNCHES[k] for k in pair):
+            if plain or not all(own[k] for k in pair):
                 raise AssertionError(f"13b {name} {route}: {pair} must carry "
                                      "the float32 value + gradient alone")
             v64, g64 = value_grad(torch, negs[torch.float64], x0)
@@ -4531,15 +4575,19 @@ def f32_device_fits(torch, bench, report, card):
     0.1): iterations, evaluations, wall, launches (`launches_f32_device_fit`,
     `launches_device_fit_f64`); then each again under the CUDA sync debug
     mode, its synchronizing operations by source line: the optimizer's own
-    between its checks must be 0 (its loop, `optim._lbfgs_run`, reads only
-    the stop flag, `optim._stop_read`)."""
+    between its checks must be 0 (its loop, `optim._lbfgs_run` and the
+    line search's helpers, reads only the stop flag, `optim._stop_read`)."""
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning, optim, pruning
 
     clean, _, topo, fitted = bench
     ref = fitted["clean"]["M0"]
     spec = codeml.CodemlSpec(NSsites=0, codonf="F3x4")
-    loop, reads = _lines_of(optim._lbfgs_run), _lines_of(optim._stop_read)
+    loop = set().union(*(_lines_of(f) for f in (
+        optim._lbfgs_run, optim._direction, optim._scale0, optim._ls_start,
+        optim._zoom_trial, optim._cubicmin, optim._quadmin,
+        optim._wolfe_errors)))
+    reads = _lines_of(optim._stop_read)
     grads = _lines_of(optim._value_grad)
     for dt, tol, key in ((torch.float64, 2e-4, "launches_device_fit_f64"),
                          (torch.float32, 0.1, "launches_f32_device_fit")):
@@ -4552,7 +4600,7 @@ def f32_device_fits(torch, bench, report, card):
             return neg(x)
 
         def fit():
-            optim.CHECKS["reads"] = 0
+            optim.CHECKS.update(reads=0, trials=0)
             calls[0] = 0
             return optim.maximize_device_bounded(fn, x0, bounds,
                                                  device="cuda", dtype=dt)
@@ -4564,15 +4612,15 @@ def f32_device_fits(torch, bench, report, card):
         x, lnl, it = fit()
         wall = time.perf_counter() - t0
         launches, n_eval = dict(cuda_pruning.LAUNCHES), calls[0]
-        n_reads = optim.CHECKS["reads"]
+        n_reads, trials = optim.CHECKS["reads"], optim.CHECKS["trials"]
         print(f"13d maximize_device_bounded {str(dt)[6:]} M0 [{card}]: lnL "
               f"{lnl:.6f} (scipy float64 {ref.lnL:.6f}, {ref.fit.n_eval} "
-              f"evals), {it} iterations, {n_eval} evaluations, {n_reads} "
-              f"reads of the stop flag, {wall:.3f} s wall, "
-              f"{1e3 * wall / n_eval:.2f} ms/eval; launches {launches}",
-              flush=True)
+              f"evals), {it} iterations, {trials} line-search trials, "
+              f"{n_eval} evaluations, {n_reads} reads of the stop flag, "
+              f"{wall:.3f} s wall, {1e3 * wall / n_eval:.2f} ms/eval; "
+              f"launches {launches}", flush=True)
         if abs(lnl - ref.lnL) > tol or pruning.PLAIN_CALLS["cuda"] or \
-                n_reads > -(-it // optim.CHECK_EVERY) + 1:
+                n_reads > -(-trials // optim.CHECK_EVERY) + 1:
             raise AssertionError(f"13d {dt}: the device fit is off the scipy"
                                  " fit, ran the plain version or read the "
                                  "stop flag too often")

@@ -109,15 +109,6 @@ def _per_omega_loglik(data: seqio.PackedData, topo: Topology, spec,
     return fz.lnf(fz.P(omegas, qfactor)), fz.pi_np
 
 
-def _mle_qfactor(spec, res, graph_pi):
-    """The mean omega of the site classes at the MLE (model 0), the wbar of
-    Qfactor_NS = 1 / (rs + ra wbar).  No caller: `neb` computes it inline,
-    as in the JAX package."""
-    W = res.params["W"]
-    freqs = res.params["freqs"]
-    return float((W * freqs[None, :]).sum(1)[0])
-
-
 def neb(data: seqio.PackedData, topo: Topology, spec, res, *,
         device, neg=None) -> SitePosteriors:
     """NEB site-class posteriors at the MLEs (model 0 NSsites); `neg` as

@@ -12,7 +12,7 @@ kept: each fixed a real stalled fit.
 `maximize_jax` and `maximize_jax_bounded`) run the whole L-BFGS on the
 device: x, the memory, the value and the gradient never leave it, and
 the host reads one flag, the stop test, once every CHECK_EVERY
-iterations (`_stop_read`).
+line-search trials (`_stop_read`).
 
 The JAX package's `maximize_policy` (an f32 stage on the chip, then an f64
 polish on the host) is not ported: it exists because f64 is emulated on
@@ -123,24 +123,34 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
 
 # --- L-BFGS on the device ----------------------------------------------------
 #
-# The JAX package runs optax's L-BFGS under one `jax.jit` (a while loop
-# whose zoom line search takes as many trials as it needs).  Here the loop
-# is on the host but reads nothing from the device: every branch is a
-# `torch.where` on device tensors, so the host only queues work, and it
-# learns that the run has stopped from one flag read every CHECK_EVERY
-# iterations.  An iteration is one trial step, one value + gradient: the
-# line search is a backtracking one carried across iterations (a rejected
-# trial leaves x and the memory as they were, and the next iteration
-# tries a shorter step along the same direction), so every iteration costs
-# exactly one evaluation.  Iterations after the stop are frozen no-ops:
-# the result is the one of an exact stop, and at most CHECK_EVERY - 1
-# evaluations are spent after it.
+# The JAX package runs optax's L-BFGS under one `jax.jit`: a while loop
+# whose zoom line search (strong Wolfe conditions, Nocedal and Wright
+# algorithms 3.5 and 3.6, with Hager and Zhang's approximate decrease)
+# takes as many trials as it needs.  Here the loop is on the host but
+# reads nothing from the device: every branch is a `torch.where` on device
+# tensors, so the host only queues work, and it learns that the run has
+# stopped from one flag read every CHECK_EVERY passes.  A pass is one
+# line-search trial, one value + gradient: the same zoom line search is a
+# state machine carried across passes (bracketing, then the cubic, the
+# quadratic or the midpoint inside the bracket), and an iteration ends
+# when its line search does, with a step or with none.  The accepted
+# trial's value and gradient start the next iteration, so an iteration
+# costs as many evaluations as its line search took trials (optax's loop
+# evaluates the start point once more).  Passes after the stop are frozen
+# no-ops: the result is the one of an exact stop, and at most
+# CHECK_EVERY - 1 evaluations are spent after it.
 
-CHECK_EVERY = 5          # iterations between reads of the stop flag
+CHECK_EVERY = 5          # passes (trials) between reads of the stop flag
 LBFGS_MEMORY = 10        # optax.lbfgs's default memory
-ARMIJO_C1 = 1e-4         # sufficient decrease of an accepted step
-ALPHA_MIN = 1e-12        # a step scale below it: the line search failed
-CHECKS = {"reads": 0}    # reads of the stop flag (`_stop_read`)
+LS_STEPS = 20            # trials per line search (optax.lbfgs's default)
+LS_C1, LS_C2 = 1e-4, 0.9     # sufficient decrease, curvature (optax's
+                             # slope_rtol, curv_rtol)
+LS_APPROX = 1e-6         # approximate decrease: value within this of the
+                         # start, relative (optax's approx_dec_rtol)
+LS_MIN_BRACKET = 1e-5    # a bracket this narrow with a point of decrease
+                         # ends the search there (optax's interval_threshold)
+CHECKS = {"reads": 0,    # reads of the stop flag (`_stop_read`)
+          "trials": 0}   # line-search trials, one evaluation each
 
 
 def _stop_read(done: torch.Tensor) -> bool:
@@ -157,91 +167,216 @@ def _value_grad(neg_fn, y: torch.Tensor):
     return v.detach(), torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
 
 
+def _scale0(g: torch.Tensor) -> torch.Tensor:
+    """The first step's scale, min(1, 1 / |g|) (optax's capped inverse
+    gradient norm)."""
+    return torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+
+
+def _direction(g, S, Yg, rho, gamma):
+    """-H g by the two-loop recursion over the memory (steps S, gradient
+    changes Yg, rho = 1 / (s . y), 0 for no pair; H0 = gamma I): (p, its
+    slope g . p, whether it descends)."""
+    q, a = g, [None] * len(rho)
+    for j in reversed(range(len(rho))):
+        a[j] = rho[j] * torch.dot(S[j], q)
+        q = q - a[j] * Yg[j]
+    r = gamma * q
+    for j in range(len(rho)):
+        r = r + S[j] * (a[j] - rho[j] * torch.dot(Yg[j], r))
+    d0 = -torch.dot(g, r)
+    descent = d0 < 0
+    p = torch.where(descent, -r, -_scale0(g) * g)
+    return p, torch.where(descent, d0, torch.dot(g, p)), descent
+
+
+def _cubicmin(a, fa, da, b, fb, c, fc):
+    """The minimum of the cubic through (a, fa) with slope da, (b, fb) and
+    (c, fc); NaN where there is none (optax `_cubicmin`)."""
+    db, dc = b - a, c - a
+    rb, rc = fb - fa - da * db, fc - fa - da * dc
+    denom = (db * dc) ** 2 * (db - dc)
+    A = (dc * dc * rb - db * db * rc) / denom
+    B = (db ** 3 * rc - dc ** 3 * rb) / denom
+    return a + (-B + torch.sqrt(B * B - 3.0 * A * da)) / (3.0 * A)
+
+
+def _quadmin(a, fa, da, b, fb):
+    """The minimum of the quadratic through (a, fa) with slope da and
+    (b, fb) (optax `_quadmin`)."""
+    db = b - a
+    return a - da / (2.0 * (fb - fa - da * db) / (db * db))
+
+
+def _zoom_trial(lo, f_lo, d_lo, hi, f_hi, cref, f_cref):
+    """The next trial inside the bracket: the cubic's minimum if it lies
+    in the bracket's middle three fifths, else the quadratic's if in its
+    middle four fifths, else the midpoint (optax `_zoom_into_interval`)."""
+    delta = (hi - lo).abs()
+    left, right = torch.minimum(lo, hi), torch.maximum(lo, hi)
+    mc = _cubicmin(lo, f_lo, d_lo, hi, f_hi, cref, f_cref)
+    mq = _quadmin(lo, f_lo, d_lo, hi, f_hi)
+    cubic = (mc > left + 0.2 * delta) & (mc < right - 0.2 * delta)
+    quad = ~cubic & (mq > left + 0.1 * delta) & (mq < right - 0.1 * delta)
+    return torch.where(cubic, mc, torch.where(quad, mq, 0.5 * (lo + hi)))
+
+
+def _wolfe_errors(a, f_t, d_t, f0, d0):
+    """How far a trial at step a (value f_t, slope d_t) misses sufficient
+    decrease (exact, or approximate: the slope bound with a value within
+    LS_APPROX of the start) and the strong curvature condition; 0 where it
+    meets them, inf where the trial is not finite (optax
+    `_compute_decrease_error`, `_compute_curvature_error`)."""
+    inf = torch.full_like(f0, float("inf"))
+    exact = f_t - f0 - LS_C1 * a * d0
+    approx = torch.maximum(d_t - (2.0 * LS_C1 - 1.0) * d0,
+                           f_t - f0 - LS_APPROX * f0.abs())
+    dec = torch.clamp_min(torch.minimum(approx, exact), 0.0)
+    curv = torch.clamp_min(d_t.abs() - LS_C2 * d0.abs(), 0.0)
+    return (torch.where(torch.isnan(dec), inf, dec),
+            torch.where(torch.isnan(curv), inf, curv))
+
+
+def _ls_start(f, g, p, d0):
+    """A line search's state at its start along p (slope d0) from the
+    point of value f and gradient g: no trial yet, the bracket and the
+    best point of sufficient decrease (`safe`) at step 0."""
+    zero = torch.zeros_like(f)
+    return dict(p=p, d0=d0, count=torch.zeros((), dtype=torch.int64,
+                                              device=f.device),
+                found=torch.zeros((), dtype=torch.bool, device=f.device),
+                a_prev=zero, f_prev=f, d_prev=d0, lo=zero, f_lo=f, d_lo=d0,
+                hi=zero, f_hi=f, d_hi=d0, cref=zero, f_cref=f,
+                safe_a=zero, safe_f=f, safe_g=g)
+
+
 def _lbfgs_run(neg_fn, y0: torch.Tensor, maxiter: int, tol: float,
                ftol: float = 0.0, patience: int | None = None):
     """Minimize neg_fn from y0 on y0's device and in its dtype: (y, the
-    value at y, iterations) as device tensors.  Stops at a gradient norm
-    at most tol, after `patience` accepted steps in a row that improve the
-    value by at most ftol (1 + |f|) (None: never), after two line-search
-    failures in a row (the second from a reset memory), or at maxiter."""
+    value at y, iterations, trials) as device tensors.  An iteration is
+    one zoom line search along the L-BFGS direction: it ends at a trial
+    that meets the strong Wolfe conditions (exact or approximate
+    decrease), or after LS_STEPS trials (or in a bracket narrower than
+    LS_MIN_BRACKET) at its best point of sufficient decrease, or with no
+    step if it found none.  Stops at a gradient norm at most tol, after
+    `patience` iterations in a row that improve the value by at most
+    ftol (1 + |f|) (None: never), after two iterations in a row with no
+    step (the second from a reset memory), or after maxiter iterations."""
     m = LBFGS_MEMORY
     y = y0.detach().clone()
     f, g = _value_grad(neg_fn, y)
     S = y.new_zeros((m, y.numel()))        # steps, oldest first
     Yg = torch.zeros_like(S)               # gradient changes
     rho = y.new_zeros(m)                   # 1 / (s . y); 0 for no pair
-
-    def scale0(g):
-        return torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
-
-    gamma = scale0(g)
-    alpha = y.new_ones(())
+    gamma = _scale0(g)
+    p, d0, _ = _direction(g, S, Yg, rho, gamma)
     zero = torch.zeros((), dtype=torch.int64, device=y.device)
-    stall, fails, it = zero, zero, zero
+    st = dict(y=y, f=f, g=g, S=S, Yg=Yg, rho=rho, gamma=gamma, it=zero,
+              trials=zero, stall=zero, fails=zero, **_ls_start(f, g, p, d0))
     done = torch.linalg.vector_norm(g) <= tol
-    for i in range(maxiter):
+    for i in range(maxiter * LS_STEPS + CHECK_EVERY):
         if i % CHECK_EVERY == 0 and _stop_read(done):
             break
         live = ~done
-        # the two-loop recursion: p = -H g
-        q, a = g, [None] * m
-        for j in reversed(range(m)):
-            a[j] = rho[j] * torch.dot(S[j], q)
-            q = q - a[j] * Yg[j]
-        r = gamma * q
-        for j in range(m):
-            r = r + S[j] * (a[j] - rho[j] * torch.dot(Yg[j], r))
-        gp = -torch.dot(g, r)
-        descent = gp < 0
-        p = torch.where(descent, -r, -scale0(g) * g)
-        gp = torch.where(descent, gp, -scale0(g) * torch.dot(g, g))
-        rho = torch.where(descent | done, rho, torch.zeros_like(rho))
-        # one trial
-        f_t, g_t = _value_grad(neg_fn, y + alpha * p)
-        ok = torch.isfinite(f_t) & (f_t <= f + ARMIJO_C1 * alpha * gp)
-        accept = live & ok
-        s_k, y_k = alpha * p, g_t - g
-        sy = torch.dot(s_k, y_k)
-        pair = accept & (sy > torch.finfo(y.dtype).eps * torch.dot(y_k, y_k))
-        S = torch.where(pair, torch.cat([S[1:], s_k[None]]), S)
-        Yg = torch.where(pair, torch.cat([Yg[1:], y_k[None]]), Yg)
-        rho = torch.where(pair, torch.cat([rho[1:], (1.0 / sy)[None]]), rho)
-        gamma = torch.where(pair, sy / torch.dot(y_k, y_k), gamma)
+        s = st
+        f, g, p, d0, count, found = (s["f"], s["g"], s["p"], s["d0"],
+                                     s["count"], s["found"])
+        # the trial: doubling until a bracket is found, then inside it
+        a = torch.where(found, _zoom_trial(s["lo"], s["f_lo"], s["d_lo"],
+                                           s["hi"], s["f_hi"], s["cref"],
+                                           s["f_cref"]),
+                        torch.where(count == 0, torch.ones_like(f),
+                                    2.0 * s["a_prev"]))
+        f_t, g_t = _value_grad(neg_fn, s["y"] + a * p)
+        d_t = torch.dot(g_t, p)
+        dec, curv = _wolfe_errors(a, f_t, d_t, f, d0)
+        ok = torch.maximum(dec, curv) <= 0.0
+        safe = (dec <= 0.0) & (~found | (f_t < s["safe_f"]))
+        safe_a = torch.where(safe, a, s["safe_a"])
+        safe_f = torch.where(safe, f_t, s["safe_f"])
+        safe_g = torch.where(safe, g_t, s["safe_g"])
+        # bracketing (algorithm 3.5): the trial ends the bracket when it
+        # misses decrease or is no better than the last, or starts it
+        # when the slope has turned
+        b_hi = (dec > 0.0) | ((f_t >= s["f_prev"]) & (count > 0))
+        b_lo = (d_t >= 0.0) & ~b_hi
+        new, prev = (a, f_t, d_t), (s["a_prev"], s["f_prev"], s["d_prev"])
+        blo = [torch.where(b_lo, u, v) for u, v in zip(new, prev)]
+        bhi = [torch.where(b_lo, v, u) for u, v in zip(new, prev)]
+        # zooming (algorithm 3.6): the trial replaces one end
+        old_lo = (s["lo"], s["f_lo"], s["d_lo"])
+        old_hi = (s["hi"], s["f_hi"], s["d_hi"])
+        z_mid = (dec > 0.0) | (f_t >= s["f_lo"])
+        z_flip = (d_t * (s["hi"] - s["lo"]) >= 0.0) & ~z_mid
+        zhi = [torch.where(z_mid, u, torch.where(z_flip, w, v))
+               for u, v, w in zip(new, old_hi, old_lo)]
+        zlo = [torch.where(z_mid, w, u) for u, w in zip(new, old_lo)]
+        zref = [torch.where(z_mid | z_flip, v, w)
+                for v, w in zip(old_hi[:2], old_lo[:2])]
+        lo = [torch.where(found, u, v) for u, v in zip(zlo, blo)]
+        hi = [torch.where(found, u, v) for u, v in zip(zhi, bhi)]
+        cref = [torch.where(found, u, v) for u, v in zip(zref, blo[:2])]
+        narrow = found & ((s["hi"] - s["lo"]).abs() <= LS_MIN_BRACKET)
+        failed = ~ok & ((count + 1 >= LS_STEPS) | (narrow & (safe_a > 0.0)))
+        end = ok | failed
+        # where the line search ends: the trial, else its best point of
+        # sufficient decrease, else no step
+        a_fin = torch.where(failed, safe_a, a)
+        f_fin = torch.where(failed, safe_f, f_t)
+        g_fin = torch.where(failed, safe_g, g_t)
+        moved = end & (a_fin > 0.0)
+        nomove = end & ~moved
+        s_k, y_k = a_fin * p, g_fin - g
+        sy, yy = torch.dot(s_k, y_k), torch.dot(y_k, y_k)
+        pair = moved & (sy > torch.finfo(y.dtype).eps * yy)
+        S = torch.where(pair, torch.cat([s["S"][1:], s_k[None]]), s["S"])
+        Yg = torch.where(pair, torch.cat([s["Yg"][1:], y_k[None]]), s["Yg"])
+        rho = torch.where(pair, torch.cat([s["rho"][1:], (1.0 / sy)[None]]),
+                          s["rho"])
+        gamma = torch.where(pair, sy / yy, s["gamma"])
+        # after a search with no step: a reset memory
+        rho = torch.where(nomove, torch.zeros_like(rho), rho)
+        gamma = torch.where(nomove, _scale0(g), gamma)
+        improved = (f - f_fin) > ftol * (1.0 + f_fin.abs())
+        y_n = torch.where(moved, s["y"] + s_k, s["y"])
+        f_n = torch.where(moved, f_fin, f)
+        g_n = torch.where(moved, g_fin, g)
+        # the next iteration's direction; one that does not descend
+        # resets the memory
+        p_n, d0_n, descent = _direction(g_n, S, Yg, rho, gamma)
+        rho = torch.where(end & ~descent, torch.zeros_like(rho), rho)
+        nxt = dict(y=y_n, f=f_n, g=g_n, S=S, Yg=Yg, rho=rho, gamma=gamma,
+                   it=s["it"] + end.long(), trials=s["trials"] + 1,
+                   stall=torch.where(end, torch.where(improved, 0,
+                                                      s["stall"] + 1),
+                                     s["stall"]),
+                   fails=torch.where(nomove, s["fails"] + 1,
+                                     torch.where(moved, 0, s["fails"])),
+                   p=p, d0=d0, count=count + 1, found=found | b_hi | b_lo | ok,
+                   a_prev=a, f_prev=f_t, d_prev=d_t, lo=lo[0], f_lo=lo[1],
+                   d_lo=lo[2], hi=hi[0], f_hi=hi[1], d_hi=hi[2], cref=cref[0],
+                   f_cref=cref[1], safe_a=safe_a, safe_f=safe_f,
+                   safe_g=safe_g)
+        start = _ls_start(f_n, g_n, p_n, d0_n)
+        nxt.update({k: torch.where(end, v, nxt[k]) for k, v in start.items()})
+        st = {k: torch.where(live, nxt[k], st[k]) for k in st}
+        done = (done | (end & (torch.linalg.vector_norm(st["g"]) <= tol))
+                | (st["fails"] >= 2) | (st["it"] >= maxiter))
         if patience is not None:
-            improved = (f - f_t) > ftol * (1.0 + f_t.abs())
-            stall = torch.where(accept, torch.where(improved, zero, stall + 1),
-                                stall)
-        # a rejected trial: the minimum of the quadratic through f, its
-        # slope and f_t, kept within [0.1, 0.5] of the step
-        curv = 2.0 * (f_t - f - alpha * gp)
-        a_q = torch.where(torch.isfinite(f_t) & (curv > 0),
-                          -gp * alpha * alpha / curv, 0.1 * alpha)
-        a_q = torch.minimum(torch.maximum(a_q, 0.1 * alpha), 0.5 * alpha)
-        fail = live & ~ok & (a_q < ALPHA_MIN)
-        # after a failure: a reset memory and a steepest-descent step
-        rho = torch.where(fail, torch.zeros_like(rho), rho)
-        y = torch.where(accept, y + s_k, y)
-        f = torch.where(accept, f_t, f)
-        g = torch.where(accept, g_t, g)
-        gamma = torch.where(fail, scale0(g), gamma)
-        alpha = torch.where(accept | fail, torch.ones_like(alpha),
-                            torch.where(live, a_q, alpha))
-        fails = torch.where(fail, fails + 1, torch.where(accept, zero, fails))
-        it = it + live.long()
-        done = (done | (accept & (torch.linalg.vector_norm(g) <= tol))
-                | (fails >= 2))
-        if patience is not None:
-            done = done | (stall >= patience)
-    return y, f, it
+            done = done | (st["stall"] >= patience)
+    return st["y"], st["f"], st["it"], st["trials"]
 
 
 def maximize_device(neg_fn: Callable, x0: torch.Tensor, *,
                     maxiter: int = 500, tol: float = 1e-10):
     """Unbounded maximization with the whole L-BFGS on x0's device and in
-    its dtype (the JAX package's `maximize_jax`, optax L-BFGS under one
-    jit): minimizes neg_fn from x0, stopping at a gradient norm below tol
-    or at maxiter.  Returns (x as numpy, lnL, iterations)."""
-    y, f, it = _lbfgs_run(neg_fn, x0, maxiter, tol)
+    its dtype (the JAX package's `maximize_jax`, optax L-BFGS with its
+    zoom line search under one jit): minimizes neg_fn from x0, stopping at
+    a gradient norm below tol or after maxiter iterations.  Returns (x as
+    numpy, lnL, iterations); an iteration is one line search, and
+    CHECKS["trials"] adds its trials (evaluations after the first)."""
+    y, f, it, trials = _lbfgs_run(neg_fn, x0, maxiter, tol)
+    CHECKS["trials"] += int(trials)
     return y.detach().cpu().numpy(), -float(f), int(it)
 
 
@@ -253,11 +388,12 @@ def maximize_device_bounded(neg_fn: Callable, x0, bounds, *, device, dtype,
     scaled sigmoid, x = lo + (hi - lo) sigmoid(y), x0 clipped 1e-6 of the
     span inside the box; then `_lbfgs_run` in `dtype` on `device`, no host
     round trip per evaluation.  Stops on a gradient norm (in y) below tol,
-    on `patience` accepted steps in a row that improve -lnL by less than
+    on `patience` iterations in a row that improve -lnL by less than
     ftol (1 + |f|) (ftol 3e-7 in float32, 1e-10 in float64 by default: a
     float32 gradient never reaches a float64 tolerance), or at maxiter.
-    Returns (x as numpy, lnL, iterations).  Parity-grade optima are
-    `maximize`'s; this is the wall-time engine."""
+    Returns (x as numpy, lnL, iterations), iterations counted as
+    `maximize_device` counts them.  Parity-grade optima are `maximize`'s;
+    this is the wall-time engine."""
     lo = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
     hi = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
     span = hi - lo
@@ -270,8 +406,9 @@ def maximize_device_bounded(neg_fn: Callable, x0, bounds, *, device, dtype,
 
     if ftol is None:
         ftol = 3e-7 if dtype == torch.float32 else 1e-10
-    y, f, it = _lbfgs_run(lambda y: neg_fn(to_x(y)), y0, maxiter, tol,
-                          ftol, patience)
+    y, f, it, trials = _lbfgs_run(lambda y: neg_fn(to_x(y)), y0, maxiter,
+                                  tol, ftol, patience)
+    CHECKS["trials"] += int(trials)
     return to_x(y).cpu().numpy(), -float(f), int(it)
 
 

@@ -1,9 +1,10 @@
 """Every top-level name of every paml_tpu module exists in its
 paml_tpu_torch counterpart (by `ast`, no import): the same name, or the
 renamed counterpart of RENAMED; the only exceptions are the TPU- and
-JAX-only machinery of NOT_PORTED, each with its reason (ROADMAP B7).
-Each exception must still be missing from the port, so the list cannot
-outlive the gap it records."""
+JAX-only machinery of NOT_PORTED, each with its reason (ROADMAP B7), and
+the JAX package's dead code of NO_CALLER, which nothing in paml_tpu or
+its tests calls.  Each exception must still be missing from the port,
+so the list cannot outlive the gap it records."""
 import ast
 import pathlib
 
@@ -66,6 +67,12 @@ NOT_PORTED = {
     },
 }
 
+# module -> names that nothing in paml_tpu, its entry points or its tests
+# uses (checked below): dead code, not copied
+NO_CALLER = {
+    "apps/beb.py": {"_mle_qfactor"},   # `neb` computes wbar inline
+}
+
 # module -> {JAX name: the port's counterpart}
 RENAMED = {
     "core/optim.py": {"maximize_jax": "maximize_device",
@@ -106,7 +113,8 @@ def test_every_name_has_a_counterpart(module):
     assert port.exists(), f"paml_tpu_torch/{module} is missing"
     want = top_level_names(JAX_PKG / module)
     have = top_level_names(port)
-    skip = NOT_PORTED.get(module, {})
+    skip = {**NOT_PORTED.get(module, {}),
+            **dict.fromkeys(NO_CALLER.get(module, ()), "no caller")}
     renamed = RENAMED.get(module, {})
     for name in list(skip) + list(renamed):
         assert name in want, f"{module}: {name} is gone from paml_tpu"
@@ -118,5 +126,24 @@ def test_every_name_has_a_counterpart(module):
 
 
 def test_exceptions_name_real_modules():
-    for module in list(NOT_PORTED) + list(RENAMED) + list(NOT_PORTED_MODULES):
+    for module in (list(NOT_PORTED) + list(RENAMED) + list(NOT_PORTED_MODULES)
+                   + list(NO_CALLER)):
         assert module in MODULES, module
+
+
+@pytest.mark.parametrize("module,name", sorted(
+    (m, n) for m, names in NO_CALLER.items() for n in names))
+def test_no_caller_names_are_dead(module, name):
+    """A NO_CALLER name appears once in the JAX package, its tests and its
+    entry points: where it is defined."""
+    files = (list(JAX_PKG.rglob("*.py"))
+             + [p for p in (ROOT / "tests").glob("test_*.py")
+                if not p.name.startswith("test_torch_")]
+             + [ROOT / f for f in ("bench.py", "bench_examples.py",
+                                   "__graft_entry__.py")])
+    uses = sum(sum(1 for n in ast.walk(ast.parse(p.read_text()))
+                   if (isinstance(n, ast.Name) and n.id == name)
+                   or (isinstance(n, ast.Attribute) and n.attr == name)
+                   or (isinstance(n, ast.FunctionDef) and n.name == name))
+               for p in files if p.exists())
+    assert uses == 1, f"{module}: {name} is used {uses - 1} times"

@@ -7,7 +7,8 @@ clock56.codon, baseml HKY85 + G5 and REV on clock56.nuc, LG + F + G4 on
 clock56 translated), values to 5e-6 relative and gradients to 3e-5 of
 the largest component (the JAX package's own float32 tolerances,
 tests/test_f32_parity.py and tests/test_pallas_pruning.py); the float32
-`fit_packed` under M0 within 2e-4 lnL of the port's float64 fit; baseml's
+`fit_packed` under M0 against the JAX package's float32 fit (lnL to 2e-4,
+estimates to 2e-3) and the port's float64 fit; baseml's
 float32 fit with getSE (REV, HKY85 on clock56.nuc unrooted): the Hessian
 against `jax.hessian` of the JAX package's float32 objective and the SEs
 from it, to 3e-5; and `entry(dtype=torch.float32)` against
@@ -193,18 +194,27 @@ def test_aa_objective_float32_matches_jax():
 
 
 def test_fit_packed_float32_m0():
-    """JAX: -1560.3374023 in float32 against -1560.3374773 in float64."""
+    """The port's float32 fit against the JAX package's on the same
+    inputs (JAX: -1560.3374023 in float32, -1560.3374773 in float64): lnL
+    to 2e-4, kappa, omega and the branch lengths to 2e-3 relative; then
+    the port's float64 fit as a second check, lnL to 2e-4 and the
+    estimates within the JAX package's float32 envelope of a fit
+    (tests/test_f32_parity.py: kappa on a flat ridge, 3 %)."""
     data_j, topo_j = clock56("codon")
     data, topo = interop.packed_from(data_j), interop.topology_from(topo_j)
     spec = codeml.CodemlSpec()
-    r64 = codeml.fit_packed(data, topo, spec, device="cpu")
     r32 = codeml.fit_packed(data, topo, spec, device="cpu",
                             dtype=torch.float32)
-    assert abs(r32.lnL - r64.lnL) <= 2e-4
+    rj = jax_codeml.fit_packed(data_j, topo_j, jax_codeml.CodemlSpec(),
+                               dtype=jnp.float32)
+    assert abs(r32.lnL - rj.lnL) <= 2e-4
+    for field in ("kappa", "class_omegas", "blens"):
+        np.testing.assert_allclose(getattr(r32, field),
+                                   np.asarray(getattr(rj, field)), rtol=2e-3)
     for field in (r32.x, r32.blens, r32.kappa, r32.class_omegas):
         assert field.dtype == np.float64
-    # the JAX package's float32 envelope of a fit's estimates
-    # (tests/test_f32_parity.py: kappa on a flat ridge, 3 %)
+    r64 = codeml.fit_packed(data, topo, spec, device="cpu")
+    assert abs(r32.lnL - r64.lnL) <= 2e-4
     np.testing.assert_allclose(r32.kappa, r64.kappa, rtol=0.03)
     np.testing.assert_allclose(r32.class_omegas, r64.class_omegas, rtol=0.03)
 
