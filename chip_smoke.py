@@ -208,10 +208,24 @@
    (0.1): iterations (line searches), trials, evaluations, wall; then
    each again under `torch.cuda.set_sync_debug_mode("warn")`, its
    synchronizing operations by source line, the optimizer's own between
-   its checks required 0.  13e: one float32 value + gradient of phase 5's 1024-taxon
-   model A alignment in 10 chunks against float64 (5e-6 relative), timed,
-   with peak memory.  The float32 runs' launches join the kernels line
+   its checks required 0 (the objective's own per evaluation: none in
+   float32, `eigh`'s one in float64).  13e: one float32 value + gradient
+   of phase 5's 1024-taxon model A alignment in 10 chunks against float64
+   (5e-6 relative), timed, with peak memory.  The float32 runs' launches join the kernels line
    (`launches_f32_*`), with the float64 device fit's.
+14. The port's bench: `python -m paml_tpu_torch.bench` as a subprocess.
+   The bench stops with an error unless one float32 value + gradient of
+   its primary problem (M3 on `entry._synthetic_codon_problem(32, 4096,
+   seed=1)`) runs under `torch.cuda.set_sync_debug_mode("error")`, B3/B4
+   alone carry every part of it (30 launches each at the capture of its
+   30-step CUDA graph), and the graph's step 0 is the eager step bit for
+   bit; so exit 0 is required.  Then its last line (bench.py's): f32_rel
+   within 2e-6, mfu_vs_fp32_peak in (0, 1]; its clock56 M0 device fit:
+   the card's value and gradient at the start and at the fitted x against
+   the CPU's (2e-6 relative; 3e-5 of the gradient's largest component at
+   the start, where the optimum's own is float32 noise) and the lnL within
+   0.1 of the float64 optimum.  Its numbers are printed; its launches join
+   the kernels line (`launches_bench`).
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -4576,7 +4590,9 @@ def f32_device_fits(torch, bench, report, card):
     `launches_device_fit_f64`); then each again under the CUDA sync debug
     mode, its synchronizing operations by source line: the optimizer's own
     between its checks must be 0 (its loop, `optim._lbfgs_run` and the
-    line search's helpers, reads only the stop flag, `optim._stop_read`)."""
+    line search's helpers, reads only the stop flag, `optim._stop_read`);
+    the objective's own are printed (per evaluation none in float32, one
+    in float64: `eigh`)."""
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning, optim, pruning
 
@@ -4727,6 +4743,77 @@ def phase_f32(torch, report, card, bench, big):
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --- phase 14: the port's bench ---------------------------------------------
+
+BENCH_CHECK = dict(f32_rel=2e-6, fit_val=F32_CHECK["val"],
+                   fit_grad=F32_CHECK["grad"], fit_lnl=0.1, timeout=600)
+
+
+def phase_bench(torch, report, card):
+    """Phase 14: `python -m paml_tpu_torch.bench` as a subprocess from the
+    checkout's root.  The bench itself raises, so exits non-zero, on a host
+    sync in the primary step, on a launch other than B3/B4's or on a graph
+    whose step 0 is not the eager step; here: its last line (f32_rel,
+    mfu_vs_fp32_peak) and its device fit, held to BENCH_CHECK.  Its
+    numbers are printed and its launches join the kernels line
+    (`launches_bench`: host launches, a graph's once)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "paml_tpu_torch.bench"],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=BENCH_CHECK["timeout"])
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        if line.startswith("paml_tpu_torch.bench:"):
+            print("  " + line, flush=True)
+    if r.returncode:
+        raise AssertionError(f"14: the bench exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    last = json.loads(r.stdout.strip().splitlines()[-1])
+    extra = last["extra"]
+    with open(os.path.join(root, extra["detail_file"])) as f:
+        detail = json.load(f)
+    g = detail["graph"]
+    fit = detail["onchip_fit_clock56_M0"]
+    print(f"14 python -m paml_tpu_torch.bench [{card}], {wall:.1f} s: "
+          f"{last['value']} {last['unit']}, vs_baseline "
+          f"{last['vs_baseline']}; primary {extra['primary_ms_per_eval']} ms "
+          f"per eval (graph of {g['steps']} steps), "
+          f"{detail['primary_ms_per_eval_with_dispatch']:.3f} dispatched, "
+          f"float64 {detail['primary_f64_ms_per_eval_with_dispatch']:.3f} "
+          f"dispatched; model_at "
+          f"{detail['phase_split']['model_at_fwd_ms']:.3f} ms; "
+          f"mfu_vs_fp32_peak {extra['mfu_vs_fp32_peak']} (B3/B4's own "
+          f"products {detail['kernel_flops_share_of_fp32_peak']:.4f}); "
+          f"f32_rel {extra['f32_rel']}; 1024 taxa {extra['big_ms_per_eval']}"
+          f" ms ({detail['big_roofline']['share_of_step']:.3f} of it the "
+          f"kernels' bound); launches at the capture "
+          f"{g['launches_at_capture']}, per replay (profiler) "
+          f"{g['launches_per_replay']}, step 0 equal to the eager step "
+          f"{g['step0_equal_eager']}", flush=True)
+    start, end = fit["card_vs_cpu_at_start"], fit["card_vs_cpu_at_fit"]
+    print(f"14 clock56 M0 device fit, float32: {fit['wall_s']:.3f} s, lnL "
+          f"{fit['lnL']:.4f} ({fit['lnL_gap_vs_f64_optimum']:+.2e} from the "
+          f"float64 optimum), {fit['iters']} iterations; card against CPU "
+          + "; ".join(f"{at}: value {d['value_rel']:.2e} relative, gradient "
+                      f"{d['grad_abs']:.2e} (largest {d['grad_max']:.2e})"
+                      for at, d in (("at the start", start),
+                                    ("at the fit", end))), flush=True)
+    if not extra["f32_rel"] <= BENCH_CHECK["f32_rel"] or \
+            not 0 < extra["mfu_vs_fp32_peak"] <= 1:
+        raise AssertionError(f"14: the bench's line is off: {last}")
+    g_tol = BENCH_CHECK["fit_grad"] * start["grad_max"]
+    if any(not d["value_rel"] <= BENCH_CHECK["fit_val"] or
+           not d["grad_abs"] <= g_tol for d in (start, end)) or \
+            not abs(fit["lnL_gap_vs_f64_optimum"]) <= BENCH_CHECK["fit_lnl"]:
+        raise AssertionError(f"14: the bench's device fit is off: {fit}")
+    for name in ("big_fwd", "big_bwd"):
+        report[name]["launches_bench"] = detail["launches_total"][name]
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4796,7 +4883,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 13. the float32 path: P(t), objectives, fits, the device L-BFGS
     phase_f32(torch, report, smi[0], bench, big)
-    print(f"chip_smoke: the build and phases 3-13 in "
+    del big
+    torch.cuda.empty_cache()
+    # 14. the port's bench: the graph-captured primary step, 1024 taxa
+    phase_bench(torch, report, smi[0])
+    print(f"chip_smoke: the build and phases 3-14 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
@@ -4806,7 +4897,7 @@ def main() -> int:
         # phase 10's codon clock 5 fits; phase 11's codon tree searches;
         # phase 12's fit on the mesh; phase 13's float32 value + gradient,
         # fits and device fits, `launches_f32_*`, and the float64 device
-        # fit)
+        # fit; phase 14's bench, a CUDA graph's launches counted once)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

@@ -328,6 +328,21 @@ def check_tips(tips, n: int) -> None:
         check_state_codes(tips, n)
 
 
+def padded_P(P: torch.Tensor, nnode: int) -> torch.Tensor:
+    """P [nnode_P, C, n, n] as the kernels take it: N states (zeros outside
+    n), and an identity P for each node from nnode_P to nnode (the nodes
+    `big_tree` added); P itself when it is that already.  Views and fills
+    only, no index tensor from the host: no host sync, so an evaluation can
+    be captured in a CUDA graph."""
+    n = P.shape[-1]
+    if n == N and P.is_contiguous() and P.shape[0] == nnode:
+        return P
+    out = P.new_zeros((nnode, P.shape[1], N, N))
+    out[:P.shape[0], :, :n, :n] = P
+    out[P.shape[0]:, :, :n, :n].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    return out
+
+
 class _Inputs:
     """Kernel-ready inputs: P padded to N states and extended to the tree
     the kernels walk (`big_tree(topo)`, identity P on the added nodes), pi
@@ -378,12 +393,7 @@ class _Inputs:
             self.amb = P.new_zeros((self.A, N))
             self.amb[:, :n] = amb
         run = big_tree(topo)
-        if n == N and P.is_contiguous() and run.nnode == nnode:
-            self.P = P
-        else:
-            self.P = P.new_zeros((run.nnode, C, N, N))
-            self.P[:nnode, :, :n, :n] = P
-            self.P[nnode:, :, range(n), range(n)] = 1.0
+        self.P = padded_P(P, run.nnode)
         self.pi = pi.new_zeros((C, N))
         self.pi[:, :n] = pi
         self.topo = run
