@@ -208,8 +208,9 @@
    (0.1): iterations (line searches), trials, evaluations, wall; then
    each again under `torch.cuda.set_sync_debug_mode("warn")`, its
    synchronizing operations by source line, the optimizer's own between
-   its checks required 0 (the objective's own per evaluation: none in
-   float32, `eigh`'s one in float64).  13e: one float32 value + gradient
+   its checks required 0 (the objective's own per evaluation: none; the
+   eigensolver's status word is read with the stop flag); these fits
+   dispatch their passes op by op.  13e: one float32 value + gradient
    of phase 5's 1024-taxon model A alignment in 10 chunks against float64
    (5e-6 relative), timed, with peak memory.  The float32 runs' launches join the kernels line
    (`launches_f32_*`), with the float64 device fit's.
@@ -224,8 +225,39 @@
    the card's value and gradient at the start and at the fitted x against
    the CPU's (2e-6 relative; 3e-5 of the gradient's largest component at
    the start, where the optimum's own is float32 noise) and the lnL within
-   0.1 of the float64 optimum.  Its numbers are printed; its launches join
-   the kernels line (`launches_bench`).
+   0.1 of the float64 optimum; the fit replays its line-search trials
+   from one CUDA graph (one capture, the start evaluated op by op).  Its
+   numbers are printed; its launches join the kernels line
+   (`launches_bench`).
+15. CUDA graphs (`core/graphs.py`), the port's counterpart of `jax.jit`.
+   15a: the float64 eigensolver (`csrc/eigh.cu`, parallel cyclic Jacobi,
+   its status word on the card) on the bench's M2a class matrices and the
+   1024-taxon model A's: against its plain version (`cuda_eigh.
+   jacobi_plain`, 1e-12; the same bits when the sweeps agree) and P(t) and
+   its VJP against `torch.linalg.eigh`'s (1e-12 of the largest entry); a
+   NaN entry gives status 1 and raises, through `eigh` and through a
+   graphed value + gradient; the kernel timed beside its bound, its plain
+   version and `torch.linalg.eigh` (its `library_ms`).  15b: M2a and M3 on
+   phase 4's clean (B3/B4) and gapped (B1/B2) alignments, float64 and
+   float32: value + gradient from `graphs.GraphedValueGrad` against the
+   eager one at three x, bit for bit; ms per evaluation both ways, the
+   capture's cost and one replay's kernels (`torch.profiler`).  15c:
+   `fit_packed` M0 and M2a, float64, on both routes, graphed against
+   eager: the same x bit for bit and the same evaluations; wall, ms and
+   host syncs per evaluation (1 graphed).  15d: the bench's clock56
+   device fit (float32) with its trials replayed from graphs of
+   CHECK_EVERY passes against the same passes dispatched: the same
+   iterations and x bit for bit, the syncs at the stop flag equal to
+   `optim.CHECKS["reads"]` (`optim.GRAPHS` counts the captures and the
+   graphed and eager evaluations).  15e: phase 5's 1024-taxon model A, every
+   branch free, 10 checkpointed chunks, float64: graphed against eager
+   bit for bit, ms, the capture's peak memory and its pool.  15f: in a
+   process of its own, a fit whose objective is declared capturable but
+   reads the host: its capture raises, and the fit stops.  Phase 6's
+   programs also require every capturable model's fit to run from its
+   graph (`optim.GRAPHS`) and the others (M7, M8) op by op.  The graphed
+   paths' host launches join the kernels line (`launches_graph_*`), with
+   the eigensolver's.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -1433,6 +1465,7 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
     cuda_pruning.reset_launch_counts()
     pruning.PLAIN_CALLS["cuda"] = pruning.TWICE_CALLS["cuda"] = 0
     before = dict(h=codeml.SECONDS["hessian"], b=beb.SECONDS["beb"])
+    checks0 = fit_counts()
     cwd = os.getcwd()
     os.chdir(d)
     try:
@@ -1466,12 +1499,33 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
               f"{run.get('beb_seconds', 0.0):.2f} s; kappa "
               f"{res.kappa}, omegas {np.round(res.class_omegas.ravel(), 4)}, "
               f"freqs {np.round(res.class_freqs, 4)}", flush=True)
+    check_graphed_runs(out["runs"], checks0, tag, card)
     if plain:
         raise AssertionError(f"program, {tag}: the plain pruning version ran "
                              f"{plain} times on CUDA outside the Hessians")
     if not twice:
         raise AssertionError(f"program, {tag}: getSE = 1 made no Hessian")
     return out, launches, lnls
+
+
+def check_graphed_runs(runs, checks0, tag, card):
+    """The program's fits from their CUDA graphs where the objective is
+    capturable (no clock, no quantile model: one capture each, every
+    evaluation replayed) and op by op where it is not."""
+    from paml_tpu_torch.apps import codeml
+
+    d = {k: v - checks0[k] for k, v in fit_counts().items()}
+    graphed = [r for r in runs
+               if r["NSsites"] not in codeml.HOST_QUANTILE_MODELS]
+    n_graph = sum(r["res"].fit.n_eval for r in graphed)
+    n_eager = sum(r["res"].fit.n_eval for r in runs) - n_graph
+    print(f"  {tag}: NSsites {[r['NSsites'] for r in graphed]} from their "
+          f"graphs ({n_graph} evaluations), the others op by op ({n_eager});"
+          f" counts {d}", flush=True)
+    if d["captures"] != len(graphed) or d["graphed_evals"] != n_graph or \
+            d["eager_evals"] != n_eager:
+        raise AssertionError(f"program, {tag}: the capturable fits must run "
+                             f"from their graphs and the others eagerly: {d}")
 
 
 def check_program(torch, out, lnls, tag):
@@ -4589,10 +4643,12 @@ def f32_device_fits(torch, bench, report, card):
     0.1): iterations, evaluations, wall, launches (`launches_f32_device_fit`,
     `launches_device_fit_f64`); then each again under the CUDA sync debug
     mode, its synchronizing operations by source line: the optimizer's own
-    between its checks must be 0 (its loop, `optim._lbfgs_run` and the
-    line search's helpers, reads only the stop flag, `optim._stop_read`);
-    the objective's own are printed (per evaluation none in float32, one
-    in float64: `eigh`)."""
+    between its checks must be 0 (its loop, `optim._lbfgs_run`, its pass
+    and the line search's helpers, reads only the stop flag and the status
+    word, `optim._stop_read`); the objective's own are printed (none per
+    evaluation: the eigensolver's status word goes to the loop's state).
+    The objective is called through `fn`, which declares nothing, so these
+    fits dispatch their passes op by op (15d replays them from graphs)."""
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning, optim, pruning
 
@@ -4600,9 +4656,9 @@ def f32_device_fits(torch, bench, report, card):
     ref = fitted["clean"]["M0"]
     spec = codeml.CodemlSpec(NSsites=0, codonf="F3x4")
     loop = set().union(*(_lines_of(f) for f in (
-        optim._lbfgs_run, optim._direction, optim._scale0, optim._ls_start,
-        optim._zoom_trial, optim._cubicmin, optim._quadmin,
-        optim._wolfe_errors)))
+        optim._lbfgs_run, optim._lbfgs_state, optim._lbfgs_pass,
+        optim._direction, optim._scale0, optim._ls_start, optim._zoom_trial,
+        optim._cubicmin, optim._quadmin, optim._wolfe_errors)))
     reads = _lines_of(optim._stop_read)
     grads = _lines_of(optim._value_grad)
     for dt, tol, key in ((torch.float64, 2e-4, "launches_device_fit_f64"),
@@ -4796,7 +4852,9 @@ def phase_bench(torch, report, card):
     start, end = fit["card_vs_cpu_at_start"], fit["card_vs_cpu_at_fit"]
     print(f"14 clock56 M0 device fit, float32: {fit['wall_s']:.3f} s, lnL "
           f"{fit['lnL']:.4f} ({fit['lnL_gap_vs_f64_optimum']:+.2e} from the "
-          f"float64 optimum), {fit['iters']} iterations; card against CPU "
+          f"float64 optimum), {fit['iters']} iterations, {fit['evaluations']}"
+          f" evaluations, {fit['captures']} capture, {fit['replays']} "
+          f"replays, {fit['stop_reads']} stop-flag reads; card against CPU "
           + "; ".join(f"{at}: value {d['value_rel']:.2e} relative, gradient "
                       f"{d['grad_abs']:.2e} (largest {d['grad_max']:.2e})"
                       for at, d in (("at the start", start),
@@ -4812,6 +4870,433 @@ def phase_bench(torch, report, card):
     for name in ("big_fwd", "big_bwd"):
         report[name]["launches_bench"] = detail["launches_total"][name]
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# --- phase 15: CUDA graphs ----------------------------------------------------
+
+# the eigensolver against torch.linalg.eigh: P(t) and its VJP, of their
+# largest entry (the same float64 arithmetic up to the eigenvectors' basis
+# within clusters, ~1e-14 measured); the kernel against its plain version
+# (the same rotations, each rounding in the same order)
+GRAPH_CHECK = dict(P=1e-12, vjp=1e-12, plain=1e-12)
+
+
+def model_a_Qs(torch, topo):
+    """The 1024-taxon branch-site A alignment's 8 rate matrices (2 branch
+    types x 4 classes at BS_TRUTH, Fequal) and their scaled branch lengths
+    [nnode, 8], as the codon objective builds them: (Qs, pi [8, n],
+    ts)."""
+    from paml_tpu_torch.models import codon
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    T = codon.dense_tables(0, "cuda", torch.float64)
+    t = BS_TRUTH
+    pi = torch.full((61,), 1 / 61, **f64)
+    s = codon.mutation_dense(T, torch.tensor([t["kappa"]], **f64))
+    rs, ra = codon.flux_dense(T, s, pi)
+    W = torch.tensor([[t["w0"], 1.0, t["w0"], 1.0],
+                      [t["w0"], 1.0, t["w2"], t["w2"]]], **f64)
+    p0, p1 = t["p0"], t["p1"]
+    q = (1 - p0 - p1) / (p0 + p1)
+    freqs = torch.tensor([p0, p1, q * p0, q * p1], **f64)
+    Qs = codon.build_Q_dense(T, s, W.reshape(-1), pi)
+    scale = (1.0 / (rs + ra * (W * freqs).sum(1))).repeat_interleave(4)
+    ts = torch.tensor(topo.blen0, **f64)[:, None] * scale
+    return Qs, pi.expand(8, -1), ts
+
+
+def eigh_case(torch, tag, Qs, pi, ts, root, card):
+    """15a on one set of rate matrices: the kernel against its plain
+    version (`cuda_eigh.jacobi_plain`) and P(t) and its VJP against
+    `torch.linalg.eigh`'s (the root's cotangent 0: its P is never used and
+    its branch has length 0, where the off-diagonal P is rounding noise
+    around 0 and the clip's mask follows the noise's sign); returns (the
+    P(t) error, sweeps per matrix)."""
+    from paml_tpu_torch.core import cuda_eigh, pmat
+
+    S = pmat.symmetrize(Qs, pi)
+    lam, U, info = cuda_eigh.eigh_kernel(S)
+    lp, Up, ip = cuda_eigh.jacobi_plain(S)
+    e_plain = max(float((lam - lp).abs().max()),
+                  float((U - Up).abs().max()))
+    bits = torch.equal(lam, lp) and torch.equal(U, Up)
+    ct = torch.randn(ts.shape + Qs.shape[-2:], dtype=torch.float64,
+                     device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(15))
+    ct[root] = 0.0
+
+    def p_and_vjp():
+        a = [Qs.detach().requires_grad_(), pi, ts.detach().requires_grad_()]
+        P = pmat.pmat_rev_multi(*a)
+        return (P.detach(),) + torch.autograd.grad((P * ct).sum(),
+                                                   (a[0], a[2]))
+    got = p_and_vjp()
+    orig = cuda_eigh.eigh
+    cuda_eigh.eigh = torch.linalg.eigh
+    try:
+        ref = p_and_vjp()
+    finally:
+        cuda_eigh.eigh = orig
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, ref)]
+    sweeps = info[:, 1].tolist()
+    print(f"15a eigh, {tag}, {tuple(S.shape)} [{card}]: status "
+          f"{info[:, 0].tolist()}, sweeps {sweeps} (plain {ip[:, 1].tolist()})"
+          f"; kernel against its plain version {e_plain:.2e} (bit for bit "
+          f"{bits}); against torch.linalg.eigh, of the largest: P(t) "
+          f"{errs[0]:.2e}, dQ {errs[1]:.2e}, dt {errs[2]:.2e}", flush=True)
+    if not info[:, 0].eq(0).all() or not torch.equal(info, ip) or \
+            e_plain > GRAPH_CHECK["plain"] or errs[0] > GRAPH_CHECK["P"] or \
+            max(errs[1:]) > GRAPH_CHECK["vjp"]:
+        raise AssertionError(f"15a {tag}: the eigensolver is off")
+    return float((got[0] - ref[0]).abs().max()), S, sweeps
+
+
+def graph_eigh(torch, bench, big, report, card):
+    """15a: the Jacobi kernel at the bench's M2a class matrices and the
+    1024-taxon model A's, against its plain version and against
+    torch.linalg.eigh (P(t), VJP); a NaN entry gives status 1 and raises,
+    through `eigh` and through a graphed value + gradient; the kernel, its
+    plain version and torch.linalg.eigh timed beside the kernel's bound."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_eigh, graphs
+    from paml_tpu_torch.core import cuda_pruning as cp
+
+    clean, _, topo, _ = bench
+    spec = codeml.CodemlSpec(NSsites=2, codonf="F3x4")
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(clean, topo, spec,
+                                                      device="cuda")
+    Qs, pi, ts = bench_Qs(torch, neg, topo, torch.float64)
+    err, S, sweeps = eigh_case(torch, "bench M2a", Qs, pi.expand(3, -1), ts,
+                               topo.root, card)
+    _, btopo, _, _ = big
+    Qb, pib, tsb = model_a_Qs(torch, btopo)
+    err_b, _, _ = eigh_case(torch, "1024-taxon model A", Qb, pib, tsb,
+                            btopo.root, card)
+    bad = S.clone()
+    bad[1, 3, 3] = float("nan")
+    status = cuda_eigh.eigh_kernel(bad)[2][:, 0].tolist()
+    raised = []
+    try:
+        cuda_eigh.eigh(bad)
+    except graphs.DeviceStatusError as e:
+        raised.append(str(e))
+    x_nan = np.array(x0, float)
+    x_nan[len(topo.branch_nodes())] = np.nan          # kappa
+    gv = graphs.GraphedValueGrad(neg, torch.as_tensor(np.asarray(x0, float))
+                                 .cuda())
+    try:
+        gv(x_nan)
+    except graphs.DeviceStatusError as e:
+        raised.append(str(e))
+    gv.close()
+    print(f"15a a NaN entry [{card}]: status {status}; raised {raised}",
+          flush=True)
+    if status != [0, 1, 0] or len(raised) != 2:
+        raise AssertionError("15a: a NaN matrix must give status 1 and raise")
+    ms = cuda_ms(lambda: cuda_eigh.eigh_kernel(S))
+    plain_ms = cuda_ms(lambda: cuda_eigh.jacobi_plain(S), reps=2, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.linalg.eigh(S))
+    flop, nbytes = cuda_eigh.kernel_work(S.shape[-1], sweeps)
+    bnd = (cp.bound_ms(flop, nbytes),
+           "operations" if flop / cp.PEAK_FLOPS >= nbytes / cp.PEAK_BYTES
+           else "bytes")
+    r = report["eigh"]
+    r["max_abs_err_float64"] = max(err, err_b)
+    record(report, "eigh", "float64", ms, plain_ms, bnd)
+    r["library_ms_float64"] = lib_ms
+    print(f"15a eigh timed, 3 x 61 x 61 [{card}]: kernel {ms:.3f} ms, plain "
+          f"version {plain_ms:.1f} ms, torch.linalg.eigh {lib_ms:.3f} ms; "
+          f"bound {bnd[0]:.4f} ms by {bnd[1]} ({flop:.3g} operations)",
+          flush=True)
+
+
+def fit_counts() -> dict:
+    """The fits' counters: the device L-BFGS's stop-flag reads and trials
+    (`optim.CHECKS`) and the evaluations replayed from graphs, dispatched
+    op by op, and the captures (`optim.GRAPHS`)."""
+    from paml_tpu_torch.core import optim
+    return {**optim.CHECKS, **optim.GRAPHS}
+
+
+def reset_all_launches():
+    from paml_tpu_torch.core import cuda_eigh, cuda_pruning
+    cuda_pruning.reset_launch_counts()
+    cuda_eigh.LAUNCHES["eigh"] = 0
+
+
+def record_launches(report, key, keys):
+    """The wrappers' launch counts since `reset_all_launches`, as
+    report[name][key] for each of keys; every one of them launched."""
+    from paml_tpu_torch.core import graphs
+    launches = graphs.kernel_launches()
+    for name in keys:
+        if not launches[name]:
+            raise AssertionError(f"{key}: {name} did not launch: {launches}")
+        report[name][key] = launches[name]
+    return launches
+
+
+GRAPH_ROUTES = (("clean", ("big_fwd", "big_bwd")),
+                ("gapped", ("pruning_fwd", "pruning_bwd")))
+
+
+def graph_value_grads(torch, bench, report, card):
+    """15b: M2a and M3 on phase 4's clean (B3/B4) and gapped (B1/B2)
+    alignments, float32 and float64: a value + gradient replayed from its
+    CUDA graph against the eager one at three x, bit for bit; ms per
+    evaluation both ways (the graph's with its copies in and out), the
+    kernels of one replay, the capture's own cost."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import graphs
+
+    clean, gapped, topo, _ = bench
+    for (route, pair), data in zip(GRAPH_ROUTES, (clean, gapped)):
+        reset_all_launches()
+        for dt in (torch.float64, torch.float32):
+            for name in ("M2a", "M3"):
+                spec = codeml.CodemlSpec(NSsites=2 if name == "M2a" else 3,
+                                         codonf="F3x4")
+                neg, _, _, x0, _, _ = codeml.make_codon_objective(
+                    data, topo, spec, device="cuda", dtype=dt)
+                x0 = np.asarray(x0, float)
+                xs = [x0 * (1.0 + 1e-3 * i) for i in range(3)]
+                eager = [graphs.value_grad_eager(neg, x, "cuda") for x in xs]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gv = graphs.GraphedValueGrad(neg, torch.as_tensor(x0).cuda())
+                torch.cuda.synchronize()
+                cap_ms = 1e3 * (time.perf_counter() - t0)
+                same = all(np.array_equal(gv(x), e)
+                           for x, e in zip(xs, eager))
+                t0 = time.perf_counter()
+                for x in xs * 7:
+                    gv(x)
+                ms_g = 1e3 * (time.perf_counter() - t0) / 21
+                t0 = time.perf_counter()
+                for x in xs * 3:
+                    graphs.value_grad_eager(neg, x, "cuda")
+                ms_e = 1e3 * (time.perf_counter() - t0) / 9
+                kern = graphs.replay_kernels(gv.graph)
+                gv.close()
+                print(f"15b {name}, {route}, {str(dt)[6:]} [{card}]: lnL "
+                      f"{-eager[0][0]:.6f}; graphed = eager bit for bit "
+                      f"{same}; ms per evaluation graphed {ms_g:.3f}, eager "
+                      f"{ms_e:.3f}; capture {cap_ms:.1f} ms; one replay "
+                      f"{kern}", flush=True)
+                want = {k: 1 for k in pair}
+                want["eigh"] = int(dt == torch.float64)
+                if not same or any(kern[k] != want.get(k, 0) for k in want) \
+                        or any(kern[k] for k in ("pruning_fwd", "big_fwd")
+                               if k not in pair):
+                    raise AssertionError(f"15b {name} {route} {dt}: the graph "
+                                         "is not the eager evaluation")
+        record_launches(report, f"launches_graph_vg_{route}",
+                        pair + ("eigh",))
+
+
+def graph_fits(torch, bench, report, card):
+    """15c: `fit_packed` under M0 and M2a in float64 on phase 4's clean
+    and gapped alignments, from the objective's CUDA graph and eagerly
+    (the same objective with `capturable` set False here, the declared
+    route of an objective with host code): the same x bit for bit and the
+    same evaluations; wall, ms per evaluation and host syncs per
+    evaluation (the graph's: its one copy back, plus the first copy of x
+    in)."""
+    from paml_tpu_torch.apps import codeml
+
+    clean, gapped, topo, fitted = bench
+    for (route, pair), data in zip(GRAPH_ROUTES, (clean, gapped)):
+        reset_all_launches()
+        for name in ("M0", "M2a"):
+            spec = codeml.CodemlSpec(NSsites=2 if name == "M2a" else 0,
+                                     codonf="F3x4")
+            got = {}
+            for kind in ("eager", "graph"):
+                obj = codeml.make_codon_objective(data, topo, spec,
+                                                  device="cuda")
+                obj[0].capturable = kind == "graph"
+                before = fit_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, counts = sync_census(torch, lambda: codeml.fit_packed(
+                    data, topo, spec, device="cuda", objective=obj))
+                wall = time.perf_counter() - t0
+                checks = {k: v - before[k] for k, v in fit_counts().items()}
+                got[kind] = (res, wall, sum(counts.values()), checks)
+            (rg, wg, sg, cg), (re_, we, se, ce) = got["graph"], got["eager"]
+            same = np.array_equal(rg.x, re_.x) and rg.lnL == re_.lnL
+            n = rg.fit.n_eval
+            print(f"15c fit_packed {name}, {route}, float64 [{card}]: lnL "
+                  f"{rg.lnL:.6f} (phase 4 {fitted[route][name].lnL:.6f}); "
+                  f"graphed = eager x bit for bit {same}, evaluations {n} / "
+                  f"{re_.fit.n_eval}; wall {wg:.3f} / {we:.3f} s, ms per "
+                  f"evaluation {1e3 * wg / n:.3f} / "
+                  f"{1e3 * we / re_.fit.n_eval:.3f}; host syncs per "
+                  f"evaluation {sg / n:.3f} / {se / re_.fit.n_eval:.3f}; "
+                  f"counts {cg} / {ce}", flush=True)
+            if not same or n != re_.fit.n_eval or cg["captures"] != 1 or \
+                    cg["graphed_evals"] != n or cg["eager_evals"] or \
+                    ce["captures"] or ce["eager_evals"] != n or sg > n + 3:
+                raise AssertionError(f"15c {name} {route}: the graphed fit is "
+                                     "not the eager fit, or not graphed")
+        record_launches(report, f"launches_graph_fit_{route}",
+                        pair + ("eigh",))
+
+
+def graph_device_fit(torch, report, card):
+    """15d: the bench's clock56 device fit (`maximize_device_bounded`, M0
+    F3x4, float32), its trials replayed from CUDA graphs of CHECK_EVERY
+    passes, against the same passes dispatched op by op (the objective
+    behind a plain function, which declares nothing): the same iterations
+    and x bit for bit; wall; the host syncs at the stop flag equal to
+    CHECKS["reads"]."""
+    from paml_tpu_torch.bench import clock56_objective
+    from paml_tpu_torch.core import optim
+
+    neg, x0, bounds, ns, npatt = clock56_objective("cuda")
+    reads = _lines_of(optim._stop_read)
+    got = {}
+    for kind, fn in (("eager", lambda x: neg(x)), ("graph", neg)):
+        reset_all_launches()
+        before = fit_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (x, lnl, it), counts = sync_census(
+            torch, lambda: optim.maximize_device_bounded(
+                fn, x0, bounds, device="cuda", dtype=torch.float32))
+        wall = time.perf_counter() - t0
+        at_reads = sum(v for k, v in counts.items()
+                       if k[0].endswith("core/optim.py") and k[1] in reads)
+        got[kind] = (x, lnl, it, wall, at_reads, sum(counts.values()),
+                     {k: v - before[k] for k, v in fit_counts().items()})
+    (xg, lg, ig, wg, rg, sg, cg), (xe, le, ie, we, re_, se, ce) = (
+        got["graph"], got["eager"])
+    same = np.array_equal(xg, xe) and lg == le and ig == ie
+    print(f"15d device L-BFGS, clock56 ({ns} taxa x {npatt} patterns) M0 "
+          f"float32 [{card}]: lnL {lg:.6f}, {ig} iterations; graphed = eager"
+          f" bit for bit {same}; wall {wg:.3f} / {we:.3f} s; syncs at the "
+          f"stop flag {rg} / {re_} (CHECKS reads {cg['reads']} / "
+          f"{ce['reads']}), all syncs {sg} / {se}; counts {cg} / {ce}",
+          flush=True)
+    if not same or rg != cg["reads"] or cg["captures"] != 1 or \
+            cg["eager_evals"] != 1 or not cg["graphed_evals"]:
+        raise AssertionError("15d: the graphed device fit is not the eager "
+                             "one, or not graphed")
+    record_launches(report, "launches_graph_device_fit",
+                    ("big_fwd", "big_bwd"))
+
+
+def graph_big(torch, big, report, card):
+    """15e: one float64 model A value + gradient on phase 5's 1024-taxon
+    alignment, every branch length free, in 10 chunks (checkpointed),
+    replayed from its CUDA graph against the eager one: bits, ms, and the
+    peak memory of the capture (its pool) and of an eager evaluation."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import graphs
+
+    data, topo, spec, _ = big
+    free = dataclasses.replace(spec, fix_blength=0)
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(
+        data, topo, free, device="cuda", n_chunks=BIG_CHUNKS)
+    x0 = np.asarray(x0, float)
+    reset_all_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eager = graphs.value_grad_eager(neg, x0, "cuda")
+    ms_e = 1e3 * (time.perf_counter() - t0)
+    peak_e = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gv = graphs.GraphedValueGrad(neg, torch.as_tensor(x0).cuda())
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    peak_g = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    # what stays reserved once the allocator's cache is emptied: the
+    # graph's private pool (and its static buffers)
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    same = np.array_equal(gv(x0), eager)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        gv(x0)
+    ms_g = 1e3 * (time.perf_counter() - t0) / 2
+    kern = graphs.replay_kernels(gv.graph)
+    gv.close()
+    print(f"15e model A, {data.ns} taxa x {data.npatt} patterns, "
+          f"{BIG_CHUNKS} chunks, float64 [{card}]: lnL {-eager[0]:.6f}; "
+          f"graphed = eager bit for bit {same}; ms graphed {ms_g:.1f}, eager "
+          f"{ms_e:.1f}; capture {cap_s:.2f} s; peak GiB over the objective "
+          f"eager {peak_e:.2f}, at the capture {peak_g:.2f}, held by the "
+          f"graph's pool {held:.2f}; one replay {kern}", flush=True)
+    if not same or kern["big_fwd"] != 2 * BIG_CHUNKS or \
+            kern["big_bwd"] != BIG_CHUNKS or kern["eigh"] != 1:
+        raise AssertionError("15e: the graphed 1024-taxon evaluation is not "
+                             "the eager one")
+    record_launches(report, "launches_graph_big",
+                    ("big_fwd", "big_bwd", "eigh"))
+
+
+CAPTURE_FAILS = r'''
+import sys
+import numpy as np
+import torch
+from paml_tpu_torch.core import optim
+
+
+def neg(x):
+    v = ((x - 1.0) ** 2).sum()
+    return v + 0.0 * float(v.detach())  # a host read: no graph holds it
+neg.capturable = True                  # declared capturable all the same
+try:
+    optim.maximize(neg, np.zeros(3), device="cuda")
+except RuntimeError as e:
+    print(f"raised {type(e).__name__}: {str(e).splitlines()[0][:160]}; "
+          f"counts {optim.GRAPHS}")
+    sys.exit(0)
+print("no error: the fit went on without its graph")
+sys.exit(1)
+'''
+
+
+def graph_capture_fails(torch, card):
+    """15f: `maximize` on CUDA with an objective declared capturable that
+    reads the host: its capture raises and the fit stops (no fallback to
+    eager evaluation).  In a process of its own, since a failed capture
+    leaves the allocator's routing to the dead graph's pool in place."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", CAPTURE_FAILS], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    print(f"15f a capture that fails [{card}]: exit {r.returncode}; "
+          f"{r.stdout.strip()}", flush=True)
+    if r.returncode:
+        raise AssertionError(f"15f: a failed capture must raise:\n"
+                             f"{r.stdout}{r.stderr[-2000:]}")
+
+
+def phase_graphs(torch, report, card, bench, big):
+    """Phase 15: CUDA graphs (15a-15f); `bench` and `big` as phase 13's."""
+    t_phase = time.perf_counter()
+    t = {}
+    for tag, fn, args in (
+            ("15a", graph_eigh, (torch, bench, big, report, card)),
+            ("15b", graph_value_grads, (torch, bench, report, card)),
+            ("15c", graph_fits, (torch, bench, report, card)),
+            ("15d", graph_device_fit, (torch, report, card)),
+            ("15e", graph_big, (torch, big, report, card)),
+            ("15f", graph_capture_fails, (torch, card))):
+        t0 = time.perf_counter()
+        fn(*args)
+        t[tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 15: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4852,6 +5337,11 @@ def main() -> int:
                   ("pruning_bwd", "pruning.cu", "pallas_pruning.py:406"),
                   ("big_fwd", "pruning_big.cu", "pallas_pruning_big.py:170"),
                   ("big_bwd", "pruning_big.cu", "pallas_pruning_big.py:270"))}
+    # the float64 P(t)'s eigensolver, which replaces XLA's eigh (not a TPU
+    # kernel) on the card
+    report["eigh"] = {"name": "eigh", "route": "cuda",
+                      "source": "paml_tpu_torch/csrc/eigh.cu",
+                      "replaces": "paml_tpu/core/pmat.py:90"}
     phase_kernels(torch, rng, report, smi[0])
     # 3b. the large-tree kernels against their plain versions
     phase_big_kernels(torch, rng, report, smi[0])
@@ -4883,11 +5373,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 13. the float32 path: P(t), objectives, fits, the device L-BFGS
     phase_f32(torch, report, smi[0], bench, big)
-    del big
     torch.cuda.empty_cache()
     # 14. the port's bench: the graph-captured primary step, 1024 taxa
     phase_bench(torch, report, smi[0])
-    print(f"chip_smoke: the build and phases 3-14 in "
+    # 15. CUDA graphs: the eigensolver, value + gradient, fits, device L-BFGS
+    phase_graphs(torch, report, smi[0], bench, big)
+    del big
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: the build and phases 3-15 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
@@ -4897,7 +5390,9 @@ def main() -> int:
         # phase 10's codon clock 5 fits; phase 11's codon tree searches;
         # phase 12's fit on the mesh; phase 13's float32 value + gradient,
         # fits and device fits, `launches_f32_*`, and the float64 device
-        # fit; phase 14's bench, a CUDA graph's launches counted once)
+        # fit; phase 14's bench, a CUDA graph's launches counted once;
+        # phase 15's graphed paths, `launches_graph_*`: their host launches,
+        # the warm-ups' and the captures' with the eager comparisons')
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]
@@ -4905,8 +5400,9 @@ def main() -> int:
         r["plain_ms"] = r["plain_ms_float64"]
         r["bound_ms"] = r["bound_ms_float64"]
         r["bound_by"] = r["bound_by_float64"]
-        # no single PyTorch call computes a pruning pass
-        r["library_ms"] = None
+        # no single PyTorch call computes a pruning pass; torch.linalg.eigh
+        # computes the eigensolver's function
+        r["library_ms"] = r.get("library_ms_float64")
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

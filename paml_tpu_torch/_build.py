@@ -48,7 +48,12 @@ _SIGNATURES = {
                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],
     },
+    "eigh": {
+        "paml_eigh": [_P, _P, _P, _P, _I, _I, _P],
+    },
 }
+# dtype suffixes of each source's entries (default: both)
+_SUFFIXES = {"eigh": ("f64",)}
 
 _lib = None
 build_log = ""          # nvcc's output (ptxas register/spill report)
@@ -116,7 +121,7 @@ def lib() -> types.SimpleNamespace:
         for src, path in zip(_sources(), build()):
             handle = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES[src.stem].items():
-                for suffix in ("f32", "f64"):
+                for suffix in _SUFFIXES.get(src.stem, ("f32", "f64")):
                     fn = getattr(handle, f"{name}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

@@ -71,6 +71,11 @@ TRANS_MIN, TRANS_MAX = -99.0, 99.0     # transformed proportions
 NSSITES_NONE, M1A, M2A, M3, M4, M5, M7, M8 = 0, 1, 2, 3, 4, 5, 7, 8
 M6, M9, M10, M11, M12, M13 = 6, 9, 10, 11, 12, 13
 M2A_REL = 22
+# NSsites models whose class omegas are quantiles computed on the host
+# (`core/dgamma.py`, `_mixture_quantiles`): their objectives cannot be
+# recorded in a CUDA graph
+HOST_QUANTILE_MODELS = (M5, M6, M7, M8, M9, M10, M11, M12, M13)
+M4_OMEGAS = (0.0, 1 / 3, 2 / 3, 1.0, 3.0)
 
 CODON_FREQS = ("Fequal", "F1x4", "F3x4", "Fcodon", "F1x4MG", "F3x4MG",
                "FMutSel0", "FMutSel")
@@ -328,14 +333,14 @@ def nssites_classes(NSsites: int, theta: torch.Tensor, ncatG: int,
         return torch.stack([w0, one]), torch.stack([p0, 1.0 - p0])
     if NSsites in (M2A, M2A_REL):
         p = simplex_decode(theta[:2])
-        w2 = theta.new_tensor(omega_fix) if fix_omega else theta[3]
+        w2 = theta.new_full((), omega_fix) if fix_omega else theta[3]
         return torch.stack([theta[2], one, w2]), p
     if NSsites == M3:
         p = simplex_decode(theta[:ncatG - 1])
         return theta[ncatG - 1:ncatG - 1 + ncatG], p
     if NSsites == M4:
         p = simplex_decode(theta[:ncatG - 1])
-        return theta.new_tensor([0.0, 1 / 3, 2 / 3, 1.0, 3.0]), p
+        return torch.stack([theta.new_full((), w) for w in M4_OMEGAS]), p
     if NSsites == M5:
         return (gamma_median_quantiles(theta[0], theta[1], ncatG),
                 equal(ncatG))
@@ -345,7 +350,7 @@ def nssites_classes(NSsites: int, theta: torch.Tensor, ncatG: int,
     if NSsites == M8:
         p0 = theta[0]
         w = beta_median_quantiles(theta[1], theta[2], ncatG)
-        ws = theta.new_tensor(omega_fix) if fix_omega else theta[3]
+        ws = theta.new_full((), omega_fix) if fix_omega else theta[3]
         return (torch.cat([w, ws[None]]),
                 torch.cat([equal(ncatG) * p0, (1.0 - p0)[None]]))
     if NSsites in (M6, M9, M10, M11, M13):
@@ -508,6 +513,14 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     cuda_pruning.check_tips(tips, graph.n)
     if n_chunks > 1:
         tips_c, fpatt_c = pruning.split_patterns(tips, fpatt, n_chunks)
+    # the evaluation's constants on the device once: a copy from the host
+    # in every evaluation would be a host sync, which a CUDA graph cannot
+    # record
+    pf3x4_t = None if pf3x4 is None else torch.as_tensor(
+        pf3x4, dtype=dtype, device=device)
+    fcodon_t = torch.as_tensor(fcodon, dtype=dtype, device=device)
+    blen_fixed = (torch.as_tensor(topo.blen0, dtype=dtype, device=device)
+                  if spec.fix_blength == 2 else None)
 
     branch_nodes = topo.branch_nodes()
     nb = len(branch_nodes)
@@ -579,8 +592,8 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     def unpack(x):
         t = x[:n_time]
         k = n_time
-        kappa = x[k:k + nkappa] if nkappa else torch.as_tensor(
-            [spec.kappa] * (5 if spec.hkyREV else 1), dtype=dtype,
+        kappa = x[k:k + nkappa] if nkappa else torch.full(
+            (5 if spec.hkyREV else 1,), spec.kappa, dtype=dtype,
             device=x.device)
         k += nkappa
         ppi = x[k:k + npi]
@@ -594,14 +607,14 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
         one = theta.new_ones(())
         if NS == NSSITES_NONE:
             if spec.model == 0:
-                w = (theta.new_tensor(spec.omega) if spec.fix_omega
+                w = (theta.new_full((), spec.omega) if spec.fix_omega
                      else theta[0])
                 W = w.reshape(1, 1)
             else:
                 ws = theta[:n_w]
                 if spec.fix_omega:
                     # the last branch type has the fixed omega
-                    ws = torch.cat([ws, theta.new_tensor([spec.omega])])
+                    ws = torch.cat([ws, theta.new_full((1,), spec.omega)])
                 W = ws.reshape(B, 1)
             return W, theta.new_ones(1), "per_Q"
         if spec.model == 0:
@@ -614,7 +627,7 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
             p = simplex_decode(theta[:2])       # p0, p1 renormalized
             if NS == M2A:
                 w0, w1 = theta[2], one
-                w2 = (theta.new_tensor(spec.omega) if spec.fix_omega
+                w2 = (theta.new_full((), spec.omega) if spec.fix_omega
                       else theta[3])
             else:
                 w0, w1, w2 = theta[2], theta[3], theta[4]
@@ -655,14 +668,14 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
             pf = torch.cat([ppi[:3], ppi.new_ones(1)])
             pf = pf / pf.sum()
             pi_d = codonmod.fmutsel_pi(codonf, pf, ppi[3:] if nfit else None,
-                                       fcodon, G)
+                                       fcodon_t, G)
             s = codonmod.mutation_part(G, kap, pf.expand(3, 4), spec.hkyREV)
             s = s * codonmod.fmutsel_multiplier(G, pf, pi_d, data.ls)
             rs, ra = codonmod.flux(G, s, pi_d)
             Qs = codonmod.build_Q(G, s, w_flat, pi_d)       # [B*K, n, n]
         else:
             pi_d = pi
-            s_d = codonmod.mutation_dense(T, kap, pf3x4, spec.hkyREV)
+            s_d = codonmod.mutation_dense(T, kap, pf3x4_t, spec.hkyREV)
             rs, ra = codonmod.flux_dense(T, s_d, pi)
             Qs = codonmod.build_Q_dense(T, s_d, w_flat, pi)
         if scale_mode == "per_Q":
@@ -673,7 +686,7 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
         if spec.clock >= 1:
             tfull = clock_fn(t)
         elif spec.fix_blength == 2:
-            tfull = torch.as_tensor(topo.blen0, dtype=dtype, device=device)
+            tfull = blen_fixed
         else:
             tfull = _scatter_t(t, bn, nnode)
         ts = tfull[:, None] * scale[None, :]                # [nnode, B*K]
@@ -717,6 +730,10 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips, fpatt, topo
     neg_lnl.pi_np, neg_lnl.pf3x4 = pi_np, pf3x4
     neg_lnl.n_classes = lambda x: classes_for(unpack(x)[3])[0].shape[1]
+    # an evaluation reads nothing on the host but under a clock (the node
+    # ages on the host) and the quantile models: the fits may replay it
+    # from a CUDA graph (`optim.graphed`)
+    neg_lnl.capturable = spec.clock < 1 and NS not in HOST_QUANTILE_MODELS
 
     # x0 / bounds
     if spec.clock >= 1:

@@ -48,7 +48,9 @@ objective on CPU tensors in float32 (the plain version; bench.py
 in 10 pattern chunks, is timed per step (3 + 5), beside the bound of its
 B3/B4 launches (`cuda_pruning.kernel_work`, `bound_ms`).  The on-device
 fit is `optim.maximize_device_bounded` on M0 F3x4 in float32 on
-tests/data/clock56.codon with the first tree of clock56.trees; the card's
+tests/data/clock56.codon with the first tree of clock56.trees, its
+line-search trials replayed from a CUDA graph (captures, replays,
+evaluations and stop-flag reads in the detail); the card's
 value and gradient at the start and at the fitted x go into the detail
 beside those of the same objective on CPU tensors, and the fit's lnL
 beside the float64 optimum.
@@ -71,6 +73,7 @@ import torch
 
 from .core import cuda_pruning
 from .core.cuda_pruning import LAUNCHES, bound_ms, kernel_work
+from .core.graphs import capture, replay_kernels
 
 # the H100 SXM's FP32 rate outside the tensor cores (the float32 kernels'
 # bound), 67 TFLOP/s
@@ -229,37 +232,6 @@ def checked(fn, *args):
     for k, v in launches.items():
         CHECK_LAUNCHES[k] += v
     return out
-
-
-def replay_kernels(graph) -> dict:
-    """B3's and B4's kernels that one replay of graph runs, counted by
-    name under `torch.profiler` (no wrapper sees a replay)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        graph.replay()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type.name == "CUDA"]
-    return {k: sum(f"::{k}_kernel<" in name for name in names)
-            for k in ("big_fwd", "big_bwd")}
-
-
-def capture(body):
-    """(a CUDA graph of body(), the launches at its capture): body() runs
-    once on a side stream first (the allocator's pool, cuBLAS's workspace,
-    the schedules' device tables)."""
-    s = torch.cuda.Stream()
-    s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(s):
-        body()
-    torch.cuda.current_stream().wait_stream(s)
-    graph = torch.cuda.CUDAGraph()
-
-    def record():
-        with torch.cuda.graph(graph):
-            body()
-    return graph, launches_of(record)[1]
 
 
 def time_replays(graph, n_iter=N_FUSED, reps=REPLAYS) -> float:
@@ -475,33 +447,40 @@ def value_grad_gap(neg, neg_cpu, x, device="cuda") -> dict:
 
 def device_fit(detail: dict) -> None:
     """`maximize_device_bounded` on M0 F3x4 in float32 on clock56.codon
-    (bench.py :454-480 fits abglobin, whose files the repository lacks);
-    at the start and at the fitted x, the card's value and gradient
-    against the CPU's.  At the optimum the gradient is float32 noise (its
-    largest component 5.6e-4 in float64 on the CPU, float32's 1.1e-4
-    off it), so its gap is read against the largest component at the
-    start."""
-    from .core.optim import maximize_device_bounded
+    (bench.py :454-480 fits abglobin, whose files the repository lacks),
+    its line-search trials replayed from a CUDA graph (`optim._lbfgs_run`):
+    one capture, the start evaluated op by op, every other evaluation
+    replayed; at the start and at the fitted x, the card's value and
+    gradient against the CPU's.  At the optimum the gradient is float32
+    noise (its largest component 5.6e-4 in float64 on the CPU, float32's
+    1.1e-4 off it), so its gap is read against the largest component at
+    the start."""
+    from .core import optim
 
     neg, x0, bounds, ns, npatt = clock56_objective("cuda")
-    calls = [0]
-
-    def fn(x):
-        calls[0] += 1
-        return neg(x)
+    before = {**optim.CHECKS, **optim.GRAPHS}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     (xf, lnl, it), launches = launches_of(
-        maximize_device_bounded, fn, x0, bounds, device="cuda",
+        optim.maximize_device_bounded, neg, x0, bounds, device="cuda",
         dtype=torch.float32)
     wall = time.perf_counter() - t0
+    checks = {k: v - before[k]
+              for k, v in {**optim.CHECKS, **optim.GRAPHS}.items()}
     _require_big_pair(launches, "the device fit")
+    if checks["captures"] != 1 or checks["eager_evals"] != 1 or \
+            not checks["graphed_evals"]:
+        raise AssertionError(f"the device fit must replay its CUDA graph: "
+                             f"{checks}")
     neg_cpu = clock56_objective("cpu")[0]
     detail["onchip_fit_clock56_M0"] = {
         "config": f"tests/data/clock56.codon ({ns} taxa x {npatt} "
                   "patterns), M0 F3x4, float32",
-        "wall_s": wall, "lnL": lnl, "iters": it, "evaluations": calls[0],
-        "launches": launches,
+        "wall_s": wall, "lnL": lnl, "iters": it,
+        "evaluations": checks["graphed_evals"] + checks["eager_evals"],
+        "trials": checks["trials"], "captures": checks["captures"],
+        "replays": checks["graphed_evals"] // optim.CHECK_EVERY,
+        "stop_reads": checks["reads"], "launches": launches,
         "lnL_gap_vs_f64_optimum": lnl - CLOCK56_M0_F64_LNL,
         "card_vs_cpu_at_start": value_grad_gap(neg, neg_cpu, x0),
         "card_vs_cpu_at_fit": value_grad_gap(neg, neg_cpu, xf)}

@@ -27,6 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import graphs, pruning
+
 
 @dataclass
 class FitResult:
@@ -58,21 +60,33 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
              multi_start: list[np.ndarray] | None = None) -> FitResult:
     """Maximize a log-likelihood by minimizing `neg_fn` (a function of a
     float64 1-D tensor on `device` returning a scalar tensor; an objective
-    built in float32 casts x itself)."""
-    from scipy.optimize import minimize
-
+    built in float32 casts x itself).  On a CUDA device an objective that
+    declares itself `capturable` is evaluated from one CUDA graph
+    (`graphs.GraphedValueGrad`, captured at the first evaluation, used by
+    every start and restart, released on return): one copy of x in, one
+    replay, one copy of the value, the gradient and the status word out.
+    Any other objective, and any on the CPU, is evaluated op by op
+    (`graphs.value_grad_eager`); `GRAPHS` counts both kinds and the
+    captures."""
+    device = torch.device(device)
     n_eval = [0]
     vworst = [None]     # worst finite value seen (penalty anchor)
     rub = open(_RUB_PATH, "a") if _RUB_PATH else None
+    graph = [None]      # the objective's GraphedValueGrad, made at first use
 
     def fun(x):
-        xt = torch.tensor(x, dtype=torch.float64, device=device,
-                          requires_grad=True)
-        v = neg_fn(xt)
-        (g,) = torch.autograd.grad(v, xt)
+        if graphed(neg_fn, device):
+            if graph[0] is None:
+                graph[0] = graphs.GraphedValueGrad(
+                    neg_fn, torch.as_tensor(x, dtype=torch.float64).to(device))
+                GRAPHS["captures"] += 1
+            out = graph[0](x)
+            GRAPHS["graphed_evals"] += 1
+        else:
+            out = graphs.value_grad_eager(neg_fn, x, device)
+            GRAPHS["eager_evals"] += 1
         n_eval[0] += 1
-        v = float(v.detach())
-        g = g.detach().cpu().numpy().astype(np.float64)
+        v, g = float(out[0]), out[1:]
         if not np.isfinite(v):
             # Non-finite value at a line-search trial: a huge sentinel makes
             # the line search's interpolation step underflow to zero and
@@ -96,6 +110,23 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
     starts = [np.asarray(x0, dtype=np.float64)]
     if multi_start:
         starts += [np.asarray(s, dtype=np.float64) for s in multi_start]
+    try:
+        best = _minimize_starts(fun, starts, bounds)
+    finally:
+        if graph[0] is not None:
+            graph[0].close()
+        if rub is not None:
+            rub.close()
+    return FitResult(x=np.asarray(best.x), lnL=-float(best.fun),
+                     n_eval=n_eval[0], converged=bool(best.success),
+                     message=str(best.message))
+
+
+def _minimize_starts(fun, starts, bounds):
+    """scipy's L-BFGS-B from each start, with restarts from each optimum:
+    the best result."""
+    from scipy.optimize import minimize
+
     best = None
     for s in starts:
         res = minimize(fun, s, jac=True, method="L-BFGS-B", bounds=bounds,
@@ -114,11 +145,7 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
                 break
         if best is None or res.fun < best.fun:
             best = res
-    if rub is not None:
-        rub.close()
-    return FitResult(x=np.asarray(best.x), lnL=-float(best.fun),
-                     n_eval=n_eval[0], converged=bool(best.success),
-                     message=str(best.message))
+    return best
 
 
 # --- L-BFGS on the device ----------------------------------------------------
@@ -139,6 +166,14 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
 # evaluates the start point once more).  Passes after the stop are frozen
 # no-ops: the result is the one of an exact stop, and at most
 # CHECK_EVERY - 1 evaluations are spent after it.
+#
+# The state lives in tensors made once, which every pass overwrites in
+# place, so that CHECK_EVERY passes can be recorded as one CUDA graph
+# (the JAX package's `jit` of the loop) and replayed between the reads of
+# the stop flag: on a CUDA device for an objective that declares itself
+# `capturable`; elsewhere the same passes run op by op.  Both give the
+# same bits.  The evaluations' status words (`graphs.status_sink`) are
+# folded into the state and read with the stop flag.
 
 CHECK_EVERY = 5          # passes (trials) between reads of the stop flag
 LBFGS_MEMORY = 10        # optax.lbfgs's default memory
@@ -151,20 +186,42 @@ LS_MIN_BRACKET = 1e-5    # a bracket this narrow with a point of decrease
                          # ends the search there (optax's interval_threshold)
 CHECKS = {"reads": 0,    # reads of the stop flag (`_stop_read`)
           "trials": 0}   # line-search trials, one evaluation each
+# how every fit evaluated its objective (`maximize` and the device L-BFGS)
+GRAPHS = {"graphed_evals": 0,    # evaluations replayed from a CUDA graph
+          "eager_evals": 0,      # evaluations dispatched op by op
+          "captures": 0}         # CUDA graphs captured (`graphs.capture`)
 
 
-def _stop_read(done: torch.Tensor) -> bool:
-    """The device loop's one read of the device: its stop flag."""
+def graphed(neg_fn, device) -> bool:
+    """Whether the fits evaluate neg_fn from a CUDA graph: on a CUDA
+    device, for an objective that declares itself `capturable` (no host
+    read in an evaluation), with no pattern mesh engaged (whose shards may
+    lie on other cards or ranks)."""
+    return (torch.device(device).type == "cuda"
+            and getattr(neg_fn, "capturable", False)
+            and pruning.pattern_mesh() is None)
+
+
+def _stop_read(st: dict) -> bool:
+    """The device loop's one read of the device: its stop flag, and with it
+    the status word of every evaluation since the start
+    (`graphs.DeviceStatusError` if it is not 0)."""
     CHECKS["reads"] += 1
+    done, status = torch.stack([st["done"].to(st["status"].dtype),
+                                st["status"]]).tolist()
+    graphs.check_status(status, "the device L-BFGS")
     return bool(done)
 
 
-def _value_grad(neg_fn, y: torch.Tensor):
+def _value_grad(neg_fn, y: torch.Tensor, status: torch.Tensor):
+    """(value, gradient with non-finite components 0, status), status the
+    larger of `status` and the evaluation's status words."""
     y = y.detach().requires_grad_(True)
-    with torch.enable_grad():
+    with graphs.status_sink() as sink, torch.enable_grad():
         v = neg_fn(y)
         (g,) = torch.autograd.grad(v, y)
-    return v.detach(), torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+    return (v.detach(), torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0),
+            torch.maximum(status, graphs.status_of(sink, y)))
 
 
 def _scale0(g: torch.Tensor) -> torch.Tensor:
@@ -261,10 +318,48 @@ def _lbfgs_run(neg_fn, y0: torch.Tensor, maxiter: int, tol: float,
     step if it found none.  Stops at a gradient norm at most tol, after
     `patience` iterations in a row that improve the value by at most
     ftol (1 + |f|) (None: never), after two iterations in a row with no
-    step (the second from a reset memory), or after maxiter iterations."""
+    step (the second from a reset memory), or after maxiter iterations.
+    The passes between two reads of the stop flag are replayed from one
+    CUDA graph where `graphed(neg_fn, device)` holds, else dispatched op
+    by op; `GRAPHS` counts the evaluations of each kind and the
+    captures."""
+    st = _lbfgs_state(neg_fn, y0, tol)
+
+    def one_pass():
+        _lbfgs_pass(neg_fn, st, maxiter, tol, ftol, patience)
+
+    def passes():
+        for _ in range(CHECK_EVERY):
+            one_pass()
+
+    graph, kind = None, "eager_evals"
+    if graphed(neg_fn, y0.device):
+        # the warm-up pass moves the state: take it back before replaying
+        before = {k: v.clone() for k, v in st.items()}
+        graph, _ = graphs.capture(passes, warmup=one_pass)
+        GRAPHS["captures"] += 1
+        for k, v in before.items():
+            st[k].copy_(v)
+        del before
+        passes, kind = graph.replay, "graphed_evals"
+    try:
+        for _ in range(-(-maxiter * LS_STEPS // CHECK_EVERY) + 1):
+            if _stop_read(st):
+                break
+            passes()
+            GRAPHS[kind] += CHECK_EVERY
+    finally:
+        del graph
+    return st["y"], st["f"], st["it"], st["trials"]
+
+
+def _lbfgs_state(neg_fn, y0: torch.Tensor, tol: float) -> dict:
+    """`_lbfgs_run`'s state at y0 (one evaluation, op by op): every entry
+    a buffer of its own, which each pass overwrites in place."""
     m = LBFGS_MEMORY
     y = y0.detach().clone()
-    f, g = _value_grad(neg_fn, y)
+    f, g, status = _value_grad(neg_fn, y, y.new_zeros((), dtype=torch.float64))
+    GRAPHS["eager_evals"] += 1
     S = y.new_zeros((m, y.numel()))        # steps, oldest first
     Yg = torch.zeros_like(S)               # gradient changes
     rho = y.new_zeros(m)                   # 1 / (s . y); 0 for no pair
@@ -272,99 +367,105 @@ def _lbfgs_run(neg_fn, y0: torch.Tensor, maxiter: int, tol: float,
     p, d0, _ = _direction(g, S, Yg, rho, gamma)
     zero = torch.zeros((), dtype=torch.int64, device=y.device)
     st = dict(y=y, f=f, g=g, S=S, Yg=Yg, rho=rho, gamma=gamma, it=zero,
-              trials=zero, stall=zero, fails=zero, **_ls_start(f, g, p, d0))
-    done = torch.linalg.vector_norm(g) <= tol
-    for i in range(maxiter * LS_STEPS + CHECK_EVERY):
-        if i % CHECK_EVERY == 0 and _stop_read(done):
-            break
-        live = ~done
-        s = st
-        f, g, p, d0, count, found = (s["f"], s["g"], s["p"], s["d0"],
-                                     s["count"], s["found"])
-        # the trial: doubling until a bracket is found, then inside it
-        a = torch.where(found, _zoom_trial(s["lo"], s["f_lo"], s["d_lo"],
-                                           s["hi"], s["f_hi"], s["cref"],
-                                           s["f_cref"]),
-                        torch.where(count == 0, torch.ones_like(f),
-                                    2.0 * s["a_prev"]))
-        f_t, g_t = _value_grad(neg_fn, s["y"] + a * p)
-        d_t = torch.dot(g_t, p)
-        dec, curv = _wolfe_errors(a, f_t, d_t, f, d0)
-        ok = torch.maximum(dec, curv) <= 0.0
-        safe = (dec <= 0.0) & (~found | (f_t < s["safe_f"]))
-        safe_a = torch.where(safe, a, s["safe_a"])
-        safe_f = torch.where(safe, f_t, s["safe_f"])
-        safe_g = torch.where(safe, g_t, s["safe_g"])
-        # bracketing (algorithm 3.5): the trial ends the bracket when it
-        # misses decrease or is no better than the last, or starts it
-        # when the slope has turned
-        b_hi = (dec > 0.0) | ((f_t >= s["f_prev"]) & (count > 0))
-        b_lo = (d_t >= 0.0) & ~b_hi
-        new, prev = (a, f_t, d_t), (s["a_prev"], s["f_prev"], s["d_prev"])
-        blo = [torch.where(b_lo, u, v) for u, v in zip(new, prev)]
-        bhi = [torch.where(b_lo, v, u) for u, v in zip(new, prev)]
-        # zooming (algorithm 3.6): the trial replaces one end
-        old_lo = (s["lo"], s["f_lo"], s["d_lo"])
-        old_hi = (s["hi"], s["f_hi"], s["d_hi"])
-        z_mid = (dec > 0.0) | (f_t >= s["f_lo"])
-        z_flip = (d_t * (s["hi"] - s["lo"]) >= 0.0) & ~z_mid
-        zhi = [torch.where(z_mid, u, torch.where(z_flip, w, v))
-               for u, v, w in zip(new, old_hi, old_lo)]
-        zlo = [torch.where(z_mid, w, u) for u, w in zip(new, old_lo)]
-        zref = [torch.where(z_mid | z_flip, v, w)
-                for v, w in zip(old_hi[:2], old_lo[:2])]
-        lo = [torch.where(found, u, v) for u, v in zip(zlo, blo)]
-        hi = [torch.where(found, u, v) for u, v in zip(zhi, bhi)]
-        cref = [torch.where(found, u, v) for u, v in zip(zref, blo[:2])]
-        narrow = found & ((s["hi"] - s["lo"]).abs() <= LS_MIN_BRACKET)
-        failed = ~ok & ((count + 1 >= LS_STEPS) | (narrow & (safe_a > 0.0)))
-        end = ok | failed
-        # where the line search ends: the trial, else its best point of
-        # sufficient decrease, else no step
-        a_fin = torch.where(failed, safe_a, a)
-        f_fin = torch.where(failed, safe_f, f_t)
-        g_fin = torch.where(failed, safe_g, g_t)
-        moved = end & (a_fin > 0.0)
-        nomove = end & ~moved
-        s_k, y_k = a_fin * p, g_fin - g
-        sy, yy = torch.dot(s_k, y_k), torch.dot(y_k, y_k)
-        pair = moved & (sy > torch.finfo(y.dtype).eps * yy)
-        S = torch.where(pair, torch.cat([s["S"][1:], s_k[None]]), s["S"])
-        Yg = torch.where(pair, torch.cat([s["Yg"][1:], y_k[None]]), s["Yg"])
-        rho = torch.where(pair, torch.cat([s["rho"][1:], (1.0 / sy)[None]]),
-                          s["rho"])
-        gamma = torch.where(pair, sy / yy, s["gamma"])
-        # after a search with no step: a reset memory
-        rho = torch.where(nomove, torch.zeros_like(rho), rho)
-        gamma = torch.where(nomove, _scale0(g), gamma)
-        improved = (f - f_fin) > ftol * (1.0 + f_fin.abs())
-        y_n = torch.where(moved, s["y"] + s_k, s["y"])
-        f_n = torch.where(moved, f_fin, f)
-        g_n = torch.where(moved, g_fin, g)
-        # the next iteration's direction; one that does not descend
-        # resets the memory
-        p_n, d0_n, descent = _direction(g_n, S, Yg, rho, gamma)
-        rho = torch.where(end & ~descent, torch.zeros_like(rho), rho)
-        nxt = dict(y=y_n, f=f_n, g=g_n, S=S, Yg=Yg, rho=rho, gamma=gamma,
-                   it=s["it"] + end.long(), trials=s["trials"] + 1,
-                   stall=torch.where(end, torch.where(improved, 0,
-                                                      s["stall"] + 1),
-                                     s["stall"]),
-                   fails=torch.where(nomove, s["fails"] + 1,
-                                     torch.where(moved, 0, s["fails"])),
-                   p=p, d0=d0, count=count + 1, found=found | b_hi | b_lo | ok,
-                   a_prev=a, f_prev=f_t, d_prev=d_t, lo=lo[0], f_lo=lo[1],
-                   d_lo=lo[2], hi=hi[0], f_hi=hi[1], d_hi=hi[2], cref=cref[0],
-                   f_cref=cref[1], safe_a=safe_a, safe_f=safe_f,
-                   safe_g=safe_g)
-        start = _ls_start(f_n, g_n, p_n, d0_n)
-        nxt.update({k: torch.where(end, v, nxt[k]) for k, v in start.items()})
-        st = {k: torch.where(live, nxt[k], st[k]) for k in st}
-        done = (done | (end & (torch.linalg.vector_norm(st["g"]) <= tol))
-                | (st["fails"] >= 2) | (st["it"] >= maxiter))
-        if patience is not None:
-            done = done | (st["stall"] >= patience)
-    return st["y"], st["f"], st["it"], st["trials"]
+              trials=zero, stall=zero, fails=zero, **_ls_start(f, g, p, d0),
+              status=status, done=torch.linalg.vector_norm(g) <= tol)
+    return {k: v.clone() for k, v in st.items()}
+
+
+def _lbfgs_pass(neg_fn, st: dict, maxiter: int, tol: float, ftol: float,
+                patience: int | None) -> None:
+    """One line-search trial of `_lbfgs_run`, its state `st` updated in
+    place (a no-op once st["done"] is set)."""
+    s = st
+    live = ~s["done"]
+    f, g, p, d0, count, found = (s["f"], s["g"], s["p"], s["d0"],
+                                 s["count"], s["found"])
+    # the trial: doubling until a bracket is found, then inside it
+    a = torch.where(found, _zoom_trial(s["lo"], s["f_lo"], s["d_lo"],
+                                       s["hi"], s["f_hi"], s["cref"],
+                                       s["f_cref"]),
+                    torch.where(count == 0, torch.ones_like(f),
+                                2.0 * s["a_prev"]))
+    f_t, g_t, status = _value_grad(neg_fn, s["y"] + a * p, s["status"])
+    d_t = torch.dot(g_t, p)
+    dec, curv = _wolfe_errors(a, f_t, d_t, f, d0)
+    ok = torch.maximum(dec, curv) <= 0.0
+    safe = (dec <= 0.0) & (~found | (f_t < s["safe_f"]))
+    safe_a = torch.where(safe, a, s["safe_a"])
+    safe_f = torch.where(safe, f_t, s["safe_f"])
+    safe_g = torch.where(safe, g_t, s["safe_g"])
+    # bracketing (algorithm 3.5): the trial ends the bracket when it
+    # misses decrease or is no better than the last, or starts it
+    # when the slope has turned
+    b_hi = (dec > 0.0) | ((f_t >= s["f_prev"]) & (count > 0))
+    b_lo = (d_t >= 0.0) & ~b_hi
+    new, prev = (a, f_t, d_t), (s["a_prev"], s["f_prev"], s["d_prev"])
+    blo = [torch.where(b_lo, u, v) for u, v in zip(new, prev)]
+    bhi = [torch.where(b_lo, v, u) for u, v in zip(new, prev)]
+    # zooming (algorithm 3.6): the trial replaces one end
+    old_lo = (s["lo"], s["f_lo"], s["d_lo"])
+    old_hi = (s["hi"], s["f_hi"], s["d_hi"])
+    z_mid = (dec > 0.0) | (f_t >= s["f_lo"])
+    z_flip = (d_t * (s["hi"] - s["lo"]) >= 0.0) & ~z_mid
+    zhi = [torch.where(z_mid, u, torch.where(z_flip, w, v))
+           for u, v, w in zip(new, old_hi, old_lo)]
+    zlo = [torch.where(z_mid, w, u) for u, w in zip(new, old_lo)]
+    zref = [torch.where(z_mid | z_flip, v, w)
+            for v, w in zip(old_hi[:2], old_lo[:2])]
+    lo = [torch.where(found, u, v) for u, v in zip(zlo, blo)]
+    hi = [torch.where(found, u, v) for u, v in zip(zhi, bhi)]
+    cref = [torch.where(found, u, v) for u, v in zip(zref, blo[:2])]
+    narrow = found & ((s["hi"] - s["lo"]).abs() <= LS_MIN_BRACKET)
+    failed = ~ok & ((count + 1 >= LS_STEPS) | (narrow & (safe_a > 0.0)))
+    end = ok | failed
+    # where the line search ends: the trial, else its best point of
+    # sufficient decrease, else no step
+    a_fin = torch.where(failed, safe_a, a)
+    f_fin = torch.where(failed, safe_f, f_t)
+    g_fin = torch.where(failed, safe_g, g_t)
+    moved = end & (a_fin > 0.0)
+    nomove = end & ~moved
+    s_k, y_k = a_fin * p, g_fin - g
+    sy, yy = torch.dot(s_k, y_k), torch.dot(y_k, y_k)
+    pair = moved & (sy > torch.finfo(s["y"].dtype).eps * yy)
+    S = torch.where(pair, torch.cat([s["S"][1:], s_k[None]]), s["S"])
+    Yg = torch.where(pair, torch.cat([s["Yg"][1:], y_k[None]]), s["Yg"])
+    rho = torch.where(pair, torch.cat([s["rho"][1:], (1.0 / sy)[None]]),
+                      s["rho"])
+    gamma = torch.where(pair, sy / yy, s["gamma"])
+    # after a search with no step: a reset memory
+    rho = torch.where(nomove, torch.zeros_like(rho), rho)
+    gamma = torch.where(nomove, _scale0(g), gamma)
+    improved = (f - f_fin) > ftol * (1.0 + f_fin.abs())
+    y_n = torch.where(moved, s["y"] + s_k, s["y"])
+    f_n = torch.where(moved, f_fin, f)
+    g_n = torch.where(moved, g_fin, g)
+    # the next iteration's direction; one that does not descend
+    # resets the memory
+    p_n, d0_n, descent = _direction(g_n, S, Yg, rho, gamma)
+    rho = torch.where(end & ~descent, torch.zeros_like(rho), rho)
+    nxt = dict(y=y_n, f=f_n, g=g_n, S=S, Yg=Yg, rho=rho, gamma=gamma,
+               it=s["it"] + end.long(), trials=s["trials"] + 1,
+               stall=torch.where(end, torch.where(improved, 0,
+                                                  s["stall"] + 1),
+                                 s["stall"]),
+               fails=torch.where(nomove, s["fails"] + 1,
+                                 torch.where(moved, 0, s["fails"])),
+               p=p, d0=d0, count=count + 1, found=found | b_hi | b_lo | ok,
+               a_prev=a, f_prev=f_t, d_prev=d_t, lo=lo[0], f_lo=lo[1],
+               d_lo=lo[2], hi=hi[0], f_hi=hi[1], d_hi=hi[2], cref=cref[0],
+               f_cref=cref[1], safe_a=safe_a, safe_f=safe_f,
+               safe_g=safe_g, status=status)
+    start = _ls_start(f_n, g_n, p_n, d0_n)
+    nxt.update({k: torch.where(end, v, nxt[k]) for k, v in start.items()})
+    upd = {k: torch.where(live, nxt[k], s[k]) for k in nxt}
+    done = (s["done"] | (end & (torch.linalg.vector_norm(upd["g"]) <= tol))
+            | (upd["fails"] >= 2) | (upd["it"] >= maxiter))
+    if patience is not None:
+        done = done | (upd["stall"] >= patience)
+    for k, v in upd.items():
+        s[k].copy_(v)
+    s["done"].copy_(done)
 
 
 def maximize_device(neg_fn: Callable, x0: torch.Tensor, *,
@@ -404,10 +505,13 @@ def maximize_device_bounded(neg_fn: Callable, x0, bounds, *, device, dtype,
     def to_x(y):
         return lo + span * torch.sigmoid(y)
 
+    def neg_y(y):
+        return neg_fn(to_x(y))
+    neg_y.capturable = getattr(neg_fn, "capturable", False)
+
     if ftol is None:
         ftol = 3e-7 if dtype == torch.float32 else 1e-10
-    y, f, it, trials = _lbfgs_run(lambda y: neg_fn(to_x(y)), y0, maxiter,
-                                  tol, ftol, patience)
+    y, f, it, trials = _lbfgs_run(neg_y, y0, maxiter, tol, ftol, patience)
     CHECKS["trials"] += int(trials)
     return to_x(y).cpu().numpy(), -float(f), int(it)
 

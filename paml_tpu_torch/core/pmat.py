@@ -3,7 +3,9 @@
 Port of `paml_tpu/core/pmat.py`.  In float64, one batched symmetric
 eigendecomposition per rate matrix, then every branch's P(t) from the
 eigenbasis (reference: `PMatUVRoot`, src/tools.c:516, after
-`eigenQREV`, src/tools.c:5023).
+`eigenQREV`, src/tools.c:5023); on the card by `cuda_eigh`'s Jacobi
+kernel, which makes no host read, so that an evaluation can be captured
+in a CUDA graph, on the CPU by `torch.linalg.eigh`.
 
 The gradient is the Daleckii-Krein (divided-difference) derivative of the
 matrix exponential in the eigenbasis, written as the backward of a
@@ -36,6 +38,8 @@ import contextlib
 import functools
 
 import torch
+
+from . import cuda_eigh
 
 PI_FLOOR = 1e-100   # states with pi below this are dropped (reference:
                     # eigenQREV reduced computation, src/tools.c:5023)
@@ -97,18 +101,27 @@ def _phi(mu_k: torch.Tensor, mu_l: torch.Tensor) -> torch.Tensor:
     return torch.where(near, phi_near, phi_far)
 
 
+def spectral_P(lam, U, sqp, ts):
+    """(mu = ts lam [..., G, k], P [..., G, n, n] before the clip at 0)
+    from the eigenpairs lam [G, k], U [G, n, k] of S = D^{1/2} Q D^{-1/2}
+    and sqp = pi^{1/2} [G, n]."""
+    L = U / sqp[..., :, None]                               # [G, n, k]
+    R = U.transpose(-1, -2) * sqp[..., None, :]             # [G, k, n]
+    mu = ts[..., None] * lam                                # [..., G, k]
+    e = torch.exp(mu)
+    return mu, torch.matmul(L * e[..., None, :], R)         # [..., G, n, n]
+
+
 class _PmatRevSpectral(torch.autograd.Function):
-    """P [..., G, n, n] from Qs [G, n, n], pi [G, n], ts [..., G]."""
+    """P [..., G, n, n] from Qs [G, n, n], pi [G, n], ts [..., G]; on the
+    card the eigenpairs come from `cuda_eigh`'s kernel, which reads nothing
+    on the host (its status word goes to the caller's `status_sink`)."""
 
     @staticmethod
     def forward(ctx, Qs, pi, ts):
         S, sqp, mask = _sym_parts(Qs, pi)
-        lam, U = torch.linalg.eigh(S)                      # [G,k], [G,n,k]
-        L = U / sqp[..., :, None]                           # [G, n, k]
-        R = U.transpose(-1, -2) * sqp[..., None, :]         # [G, k, n]
-        mu = ts[..., None] * lam                            # [..., G, k]
-        e = torch.exp(mu)
-        P = torch.matmul(L * e[..., None, :], R)            # [..., G, n, n]
+        lam, U = cuda_eigh.eigh(S)                          # [G,k], [G,n,k]
+        mu, P = spectral_P(lam, U, sqp, ts)
         ctx.save_for_backward(Qs, pi, ts, sqp, mask, lam, U, mu, P)
         return torch.clamp_min(P, 0.0)
 

@@ -519,10 +519,13 @@ def lnL_chunked(P, tips_chunks, topo: Topology, pi, class_w,
     `split_patterns`).  Each chunk is checkpointed: its forward keeps no
     buffers and is recomputed in the backward, so memory holds one
     chunk's buffers (reference: `lnL_chunked`,
-    paml_tpu/core/pruning.py:670)."""
+    paml_tpu/core/pruning.py:670).  Nothing in a chunk draws random
+    numbers, so the checkpoint keeps no RNG state: saving it reads the
+    card's generator on the host, which a CUDA graph cannot record."""
     total = None
     for tp, fp in zip(tips_chunks, fpatt_chunks):
-        v = checkpoint(lnL, P, tp, topo, pi, class_w, fp, use_reentrant=False)
+        v = checkpoint(lnL, P, tp, topo, pi, class_w, fp, use_reentrant=False,
+                       preserve_rng_state=False)
         total = v if total is None else total + v
     return total
 

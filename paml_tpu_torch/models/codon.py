@@ -389,8 +389,7 @@ def fmutsel_pi(codonf: str, pf: torch.Tensor, fit, fcodon_obs,
     acid (FMutSel0), the last one fixed at 0, or None for estFreq = 0.
     Reference: GetCodonFreqs, src/codeml.c:2689-2755."""
     mut3 = _mut3(pf, G)
-    obs = torch.as_tensor(np.asarray(fcodon_obs), dtype=pf.dtype,
-                          device=pf.device)
+    obs = torch.as_tensor(fcodon_obs, dtype=pf.dtype, device=pf.device)
     if codonf == "FMutSel":
         if fit is None:
             # npi = 3: the codon frequencies stay at the observed values

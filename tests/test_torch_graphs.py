@@ -1,0 +1,343 @@
+"""paml_tpu_torch's compiled execution on the CPU: what a CUDA graph needs
+of the work it records, held where a card is not needed.
+
+- The device L-BFGS (`optim._lbfgs_run`), its state overwritten in place
+  by each pass, gives the same bits with the stop flag read after every
+  pass as after every CHECK_EVERY (the graphed loop replays CHECK_EVERY
+  passes between reads), and as the passes stepped one at a time by hand.
+- Every codon objective of tests/test_torch_codeml.py::SPECS (and the
+  quantile models M5, M7, M8) evaluates a value + gradient under a guard
+  that makes the host reads (`item`, `__bool__`, `__float__`, `__int__`,
+  `tolist`, `numpy`, `cpu`, `to` the CPU) raise: the guard passes exactly
+  for the objectives marked `capturable` and trips for the others.
+- `GraphedValueGrad` on a CPU device raises; `maximize` and the device
+  L-BFGS on the CPU make no capture and count their evaluations as eager
+  (`optim.GRAPHS`); the status words.
+- The Jacobi eigensolver's plain version (`cuda_eigh.jacobi_plain`, the
+  kernel's sweep order and rounding) against `torch.linalg.eigh` on codon
+  S matrices (P(t) within 1e-13 of its largest entry, the VJP within
+  1e-11 of its largest component), at 61, 20, 5 and 4 states, with
+  degenerate spectra and zero-frequency states; its status words; and the
+  port's float64 P(t) with that eigensolver against paml_tpu's
+  `pmat_rev_multi` within 1e-12, the same inputs from one numpy seed.
+"""
+import contextlib
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paml_tpu.core import pmat as jax_pmat
+from paml_tpu_torch import interop
+from paml_tpu_torch.apps import codeml
+from paml_tpu_torch.bench import clock56_objective
+from paml_tpu_torch.core import cuda_eigh, graphs, optim, pmat
+from paml_tpu_torch.models import codon
+
+import test_torch_codeml as tc
+
+torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+# --- the device L-BFGS in place ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def clock56_f64():
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+    data = seqio.pack(seqio.read_alignment(
+        os.path.join(DATA, "clock56.codon"), seqio.CODON_SEQ))
+    topo = from_treenode(treeio.read_trees(
+        os.path.join(DATA, "clock56.trees"), data.names)[0], data.names)
+    neg, _, _, x0, bounds, _ = codeml.make_codon_objective(
+        data, topo, codeml.CodemlSpec(), device="cpu")
+    return neg, x0, bounds
+
+
+def _bounded(neg, x0, bounds, dtype):
+    """`maximize_device_bounded`'s chart: (neg of y, y0)."""
+    lo = torch.tensor([b[0] for b in bounds], dtype=dtype)
+    hi = torch.tensor([b[1] for b in bounds], dtype=dtype)
+    x = torch.as_tensor(np.asarray(x0), dtype=dtype)
+    x = torch.minimum(torch.maximum(x, lo + 1e-6 * (hi - lo)),
+                      hi - 1e-6 * (hi - lo))
+    return (lambda y: neg(lo + (hi - lo) * torch.sigmoid(y)),
+            torch.logit((x - lo) / (hi - lo)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lbfgs_in_place_same_bits_per_pass(monkeypatch, clock56_f64, dtype):
+    if dtype == torch.float32:
+        neg, x0, bounds = clock56_objective("cpu")[:3]
+    else:
+        neg, x0, bounds = clock56_f64
+    fn, y0 = _bounded(neg, x0, bounds, dtype)
+    ftol = 3e-7 if dtype == torch.float32 else 1e-10
+    y, f, it, trials = optim._lbfgs_run(fn, y0, 500, 1e-9, ftol, 5)
+    # the stop flag read after every pass
+    monkeypatch.setattr(optim, "CHECK_EVERY", 1)
+    y1, f1, it1, trials1 = optim._lbfgs_run(fn, y0, 500, 1e-9, ftol, 5)
+    assert torch.equal(y, y1) and torch.equal(f, f1)
+    assert int(it) == int(it1) and int(trials) == int(trials1)
+    assert 0 < int(it) < 200
+    # one pass at a time, by hand
+    st = optim._lbfgs_state(fn, y0, 1e-9)
+    while not bool(st["done"]):
+        optim._lbfgs_pass(fn, st, 500, 1e-9, ftol, 5)
+    assert torch.equal(y, st["y"]) and torch.equal(f, st["f"])
+    assert int(it) == int(st["it"]) and int(trials) == int(st["trials"])
+
+
+def test_lbfgs_counts_eager_evaluations_on_cpu(clock56_f64):
+    neg, x0, bounds = clock56_f64
+    neg.capturable = True
+    try:
+        optim.CHECKS.update(dict.fromkeys(optim.CHECKS, 0))
+        optim.GRAPHS.update(dict.fromkeys(optim.GRAPHS, 0))
+        x, lnl, it = optim.maximize_device_bounded(
+            neg, x0, bounds, device="cpu", dtype=torch.float64)
+    finally:
+        del neg.capturable
+    c = {**optim.CHECKS, **optim.GRAPHS}
+    assert c["captures"] == 0 and c["graphed_evals"] == 0
+    assert c["eager_evals"] == 1 + optim.CHECK_EVERY * (c["reads"] - 1)
+    assert c["trials"] + 1 <= c["eager_evals"]
+
+
+# --- objectives that capture: no host read ---------------------------------
+
+class HostRead(Exception):
+    pass
+
+
+HOST_READS = ("item", "__bool__", "__float__", "__int__", "tolist", "numpy",
+              "cpu")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Tensor methods that read a tensor on the host raise HostRead inside
+    the block (and `to` the CPU, the clock's way to the host)."""
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+    saved["to"] = torch.Tensor.to
+
+    def trip(name):
+        def f(self, *args, **kw):
+            raise HostRead(name)
+        return f
+
+    def to(self, *args, **kw):
+        dev = kw.get("device", args[0] if args else None)
+        if isinstance(dev, (str, torch.device)) and \
+                torch.device(dev).type == "cpu":
+            raise HostRead("to the CPU")
+        return saved["to"](self, *args, **kw)
+    try:
+        for name in HOST_READS:
+            setattr(torch.Tensor, name, trip(name))
+        torch.Tensor.to = to
+        yield
+    finally:
+        for name, f in saved.items():
+            setattr(torch.Tensor, name, f)
+
+
+QUANTILE_SPECS = {"M5": dict(NSsites=5), "M7": dict(NSsites=7),
+                  "M8": dict(NSsites=8)}
+GUARD_CASES = ([(n, False) for n in tc.SPECS] + [(n, False) for n in
+                                                 QUANTILE_SPECS]
+               + [("M0", True), ("M2a", True)] + [(n, False) for n in
+                                                  tc.N_CHUNKS])
+
+
+@pytest.mark.parametrize("name,ambiguous", GUARD_CASES)
+def test_capturable_objectives_read_nothing_on_the_host(name, ambiguous):
+    base, n_chunks = tc.N_CHUNKS.get(name, (name, 1))
+    kw = {**tc.SPECS, **QUANTILE_SPECS}[base]
+    data_j, topo_j = tc._clock56(ambiguous, kw.get("icode", 0),
+                                 labelled=tc._labelled(kw))
+    data, topo = interop.packed_from(data_j), interop.topology_from(topo_j)
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(
+        data, topo, codeml.CodemlSpec(**kw), device="cpu", n_chunks=n_chunks)
+    expect = not (kw.get("clock", 0) or
+                  kw.get("NSsites", 0) in codeml.HOST_QUANTILE_MODELS)
+    assert neg.capturable is expect
+    xt = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
+    read = None
+    try:
+        with no_host_reads():
+            v = neg(xt)
+            (g,) = torch.autograd.grad(v, xt)
+    except HostRead as e:
+        read = str(e)
+    assert (read is None) == neg.capturable, read
+    if read is None:
+        assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
+def test_guard_trips_on_each_host_read():
+    t = torch.ones(2)
+    for name in HOST_READS:
+        with no_host_reads(), pytest.raises(HostRead):
+            f = getattr(t[0], name)
+            f()
+    with no_host_reads(), pytest.raises(HostRead):
+        t.to("cpu", torch.float64)
+    with no_host_reads():
+        assert t.to(torch.float64).dtype == torch.float64
+
+
+# --- graphs on the CPU, counters, status words -------------------------------
+
+def test_graphed_value_grad_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA"):
+        graphs.GraphedValueGrad(lambda x: (x * x).sum(), torch.zeros(3))
+
+
+def test_maximize_on_cpu_makes_no_capture():
+    def neg(x):
+        return ((x - torch.arange(3, dtype=x.dtype)) ** 2).sum()
+    neg.capturable = True
+    assert optim.graphed(neg, "cuda") and not optim.graphed(neg, "cpu")
+    optim.GRAPHS.update(dict.fromkeys(optim.GRAPHS, 0))
+    res = optim.maximize(neg, np.full(3, 5.0), device="cpu")
+    np.testing.assert_allclose(res.x, [0.0, 1.0, 2.0], atol=1e-6)
+    assert optim.GRAPHS["captures"] == 0
+    assert optim.GRAPHS["graphed_evals"] == 0
+    assert optim.GRAPHS["eager_evals"] == res.n_eval > 0
+
+
+def test_status_words():
+    with pytest.raises(graphs.DeviceStatusError):
+        graphs.report_status(torch.tensor([0, 2], dtype=torch.int32), "k")
+    graphs.report_status(torch.zeros(3, dtype=torch.int32), "k")
+    with graphs.status_sink() as sink:
+        graphs.report_status(torch.tensor([0, 1], dtype=torch.int32), "k")
+        graphs.report_status(torch.tensor([2], dtype=torch.int32), "k")
+    assert len(sink) == 2
+    assert float(graphs.status_of(sink, torch.zeros(1))) == 2.0
+    assert float(graphs.status_of([], torch.zeros(1))) == 0.0
+    graphs.check_status(0.0, "k")
+    with pytest.raises(graphs.DeviceStatusError):
+        graphs.check_status(1.0, "k")
+    out = graphs.value_grad_eager(lambda x: (x ** 3).sum(),
+                                  np.array([1.0, 2.0]), "cpu")
+    np.testing.assert_array_equal(out, [9.0, 3.0, 12.0])
+
+
+# --- the Jacobi eigensolver's plain version ----------------------------------
+
+def _codon_Q(pi, kappa, omegas):
+    T = codon.dense_tables(0, "cpu")
+    s = codon.mutation_dense(T, torch.tensor([kappa], dtype=torch.float64))
+    return codon.build_Q_dense(T, s, torch.tensor(omegas,
+                                                  dtype=torch.float64),
+                               torch.tensor(pi))
+
+
+def _small_Q(rng, n, G):
+    pi = rng.dirichlet(np.full(n, 3.0))
+    Qs = []
+    for _ in range(G):
+        R = rng.uniform(0.2, 2.0, size=(n, n))
+        Q = (R + R.T) * pi[None, :]
+        np.fill_diagonal(Q, 0.0)
+        Qs.append(Q - np.diag(Q.sum(1)))
+    return torch.tensor(np.stack(Qs)), pi
+
+
+def _cases():
+    rng = np.random.default_rng(13)
+    zero = rng.dirichlet(np.ones(61))
+    zero[[0, 7, 30]] = 0.0
+    f3 = rng.dirichlet(np.full(4, 5.0), size=3)
+    f3x4 = codon.codon_pi("F3x4", None, f3, f3.mean(0),
+                          codon.codon_graph(0))
+    out = {"codon": (_codon_Q(f3x4, 2.3, [0.05, 1.0, 3.0]), f3x4),
+           "degenerate": (_codon_Q(np.full(61, 1 / 61), 1.0, [1.0]),
+                          np.full(61, 1 / 61)),
+           "zero_pi": (_codon_Q(zero / zero.sum(), 1.8, [0.3, 2.0]),
+                       zero / zero.sum())}
+    for n in (20, 5, 4):
+        out[f"n{n}"] = _small_Q(rng, n, 2)
+    return out
+
+
+CASES = _cases()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_jacobi_plain_against_eigh(name, monkeypatch):
+    Q, pi = CASES[name]
+    pit = torch.as_tensor(pi).expand(Q.shape[0], -1)
+    S, sqp, _ = pmat._sym_parts(Q, pit)
+    lam, U, info = cuda_eigh.jacobi_plain(S)
+    assert info[:, 0].eq(0).all() and info[:, 1].le(20).all()
+    lr, Ur = torch.linalg.eigh(S)
+    scale = float(S.abs().max())
+    assert float((lam - lr).abs().max()) <= 1e-13 * 61 * scale
+    eye = torch.eye(S.shape[-1], dtype=S.dtype)
+    assert float((U.transpose(-1, -2) @ U - eye).abs().max()) <= 1e-13
+    ts = torch.as_tensor(np.random.default_rng(2).uniform(
+        0.001, 1.5, size=(7, Q.shape[0])))
+    P = pmat.spectral_P(lam, U, sqp, ts)[1]
+    Pr = pmat.spectral_P(lr, Ur, sqp, ts)[1]
+    assert float((P - Pr).abs().max()) <= 1e-13 * float(Pr.abs().max())
+
+    # P(t) and its VJP through the fit's route with either eigensolver
+    W = torch.as_tensor(np.random.default_rng(3).normal(
+        size=ts.shape + Q.shape[1:]))
+
+    def p_and_vjp():
+        a = [Q.clone().requires_grad_(), torch.as_tensor(pi),
+             ts.clone().requires_grad_()]
+        Pv = pmat.pmat_rev_multi(*a)
+        return (Pv.detach(),) + torch.autograd.grad((Pv * W).sum(),
+                                                    (a[0], a[2]))
+    ref = p_and_vjp()
+    monkeypatch.setattr(cuda_eigh, "eigh",
+                        lambda S: cuda_eigh.jacobi_plain(S)[:2])
+    got = p_and_vjp()
+    for g, r, tol in zip(got, ref, (1e-13, 1e-11, 1e-11)):
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max())
+
+
+def test_jacobi_status_words(monkeypatch):
+    Q, pi = CASES["codon"]
+    S = pmat.symmetrize(Q, torch.as_tensor(pi))
+    bad = S.clone()
+    bad[1, 3, 3] = float("nan")
+    lam, U, info = cuda_eigh.jacobi_plain(bad)
+    assert info[:, 0].tolist() == [0, 1, 0]
+    assert torch.isnan(lam[1]).all() and torch.isnan(U[1]).all()
+    assert torch.isfinite(lam[[0, 2]]).all()
+    monkeypatch.setattr(cuda_eigh, "MAX_SWEEPS", 2)
+    info = cuda_eigh.jacobi_plain(S)[2]
+    assert info[:, 0].tolist() == [2, 2, 2] and info[:, 1].tolist() == [2] * 3
+
+
+def test_eigh_kernel_refuses_cpu_and_wide_matrices():
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_eigh.eigh_kernel(torch.eye(4, dtype=torch.float64)[None])
+    assert cuda_eigh.eigh(torch.eye(3, dtype=torch.float64))[0].tolist() == \
+        [1.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("name", ["codon", "degenerate", "zero_pi"])
+def test_pmat_with_jacobi_matches_jax(name, monkeypatch):
+    Q, pi = CASES[name]
+    rng = np.random.default_rng(7)
+    ts = rng.uniform(0.001, 1.5, size=(5, Q.shape[0]))
+    monkeypatch.setattr(cuda_eigh, "eigh",
+                        lambda S: cuda_eigh.jacobi_plain(S)[:2])
+    P = pmat.pmat_rev_multi(Q, torch.as_tensor(pi), torch.as_tensor(ts))
+    Pj = jax.jit(jax_pmat.pmat_rev_multi)(jnp.asarray(Q.numpy()),
+                                          jnp.asarray(pi), jnp.asarray(ts))
+    assert np.abs(P.numpy() - np.asarray(Pj)).max() <= \
+        1e-12 * np.abs(np.asarray(Pj)).max()
