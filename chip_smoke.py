@@ -231,13 +231,17 @@
    (`launches_bench`).
 15. CUDA graphs (`core/graphs.py`), the port's counterpart of `jax.jit`.
    15a: the float64 eigensolver (`csrc/eigh.cu`, parallel cyclic Jacobi,
-   its status word on the card) on the bench's M2a class matrices and the
-   1024-taxon model A's: against its plain version (`cuda_eigh.
-   jacobi_plain`, 1e-12; the same bits when the sweeps agree) and P(t) and
-   its VJP against `torch.linalg.eigh`'s (1e-12 of the largest entry); a
-   NaN entry gives status 1 and raises, through `eigh` and through a
-   graphed value + gradient; the kernel timed beside its bound, its plain
-   version and `torch.linalg.eigh` (its `library_ms`).  15b: M2a and M3 on
+   its status word on the card) on the bench's M2a class matrices, the
+   1024-taxon model A's and random reversible matrices of every order the
+   kernel's instances split on (1-5, 20, 33, 60-64): against its plain
+   version (`cuda_eigh.jacobi_plain`) bit for bit, with the same status
+   words and sweeps, and P(t) and its VJP against `torch.linalg.eigh`'s (1e-12 of
+   the largest entry); a NaN entry gives status 1 and raises, through
+   `eigh` and through a graphed value + gradient; the kernel timed at 3 x
+   61, 8 x 61, 4 x 20 and 1 x 4 beside its bound, its plain version and
+   `torch.linalg.eigh` (its `library_ms`), and one round at 3 x 61 split
+   by the kernel's debug instance (`cuda_eigh.eigh_probe`: A alone with V
+   skipped, the rotation chain alone, each warp's clock).  15b: M2a and M3 on
    phase 4's clean (B3/B4) and gapped (B1/B2) alignments, float64 and
    float32: value + gradient from `graphs.GraphedValueGrad` against the
    eager one at three x, bit for bit; ms per evaluation both ways, the
@@ -4877,8 +4881,11 @@ def phase_bench(torch, report, card):
 # the eigensolver against torch.linalg.eigh: P(t) and its VJP, of their
 # largest entry (the same float64 arithmetic up to the eigenvectors' basis
 # within clusters, ~1e-14 measured); the kernel against its plain version
-# (the same rotations, each rounding in the same order)
-GRAPH_CHECK = dict(P=1e-12, vjp=1e-12, plain=1e-12)
+# bit for bit (the same rotations, each rounding in the same order)
+GRAPH_CHECK = dict(P=1e-12, vjp=1e-12)
+# the orders 15a holds the kernel at: each instance's (npad 4, 20, 60, 62,
+# 64, the generic one at 1, 2, 5 and 33), odd and even
+EIGH_ORDERS = (1, 2, 3, 4, 5, 20, 33, 60, 61, 62, 63, 64)
 
 
 def model_a_Qs(torch, topo):
@@ -4915,11 +4922,7 @@ def eigh_case(torch, tag, Qs, pi, ts, root, card):
     from paml_tpu_torch.core import cuda_eigh, pmat
 
     S = pmat.symmetrize(Qs, pi)
-    lam, U, info = cuda_eigh.eigh_kernel(S)
-    lp, Up, ip = cuda_eigh.jacobi_plain(S)
-    e_plain = max(float((lam - lp).abs().max()),
-                  float((U - Up).abs().max()))
-    bits = torch.equal(lam, lp) and torch.equal(U, Up)
+    bits, info, ip = kernel_bits(torch, S)
     ct = torch.randn(ts.shape + Qs.shape[-2:], dtype=torch.float64,
                      device="cuda",
                      generator=torch.Generator("cuda").manual_seed(15))
@@ -4942,24 +4945,97 @@ def eigh_case(torch, tag, Qs, pi, ts, root, card):
     sweeps = info[:, 1].tolist()
     print(f"15a eigh, {tag}, {tuple(S.shape)} [{card}]: status "
           f"{info[:, 0].tolist()}, sweeps {sweeps} (plain {ip[:, 1].tolist()})"
-          f"; kernel against its plain version {e_plain:.2e} (bit for bit "
-          f"{bits}); against torch.linalg.eigh, of the largest: P(t) "
-          f"{errs[0]:.2e}, dQ {errs[1]:.2e}, dt {errs[2]:.2e}", flush=True)
-    if not info[:, 0].eq(0).all() or not torch.equal(info, ip) or \
-            e_plain > GRAPH_CHECK["plain"] or errs[0] > GRAPH_CHECK["P"] or \
-            max(errs[1:]) > GRAPH_CHECK["vjp"]:
+          f"; kernel against its plain version bit for bit {bits}; against "
+          f"torch.linalg.eigh, of the largest: P(t) {errs[0]:.2e}, dQ "
+          f"{errs[1]:.2e}, dt {errs[2]:.2e}", flush=True)
+    if not info[:, 0].eq(0).all() or not bits or \
+            errs[0] > GRAPH_CHECK["P"] or max(errs[1:]) > GRAPH_CHECK["vjp"]:
         raise AssertionError(f"15a {tag}: the eigensolver is off")
     return float((got[0] - ref[0]).abs().max()), S, sweeps
 
 
+def kernel_bits(torch, S):
+    """The eigh kernel against its plain version on S: (eigenvalues,
+    eigenvectors and status words identical to the bit, info, the plain
+    version's info)."""
+    from paml_tpu_torch.core import cuda_eigh
+
+    lam, U, info = cuda_eigh.eigh_kernel(S)
+    lp, Up, ip = cuda_eigh.jacobi_plain(S)
+    bits = (torch.equal(info, ip) and
+            torch.equal(lam.view(torch.int64), lp.view(torch.int64)) and
+            torch.equal(U.view(torch.int64), Up.view(torch.int64)))
+    return bits, info, ip
+
+
+def reversible_S(torch, rng, n, G):
+    """S = D^{1/2} Q D^{-1/2} of G random reversible rate matrices of order
+    n under one frequency vector (as tests/test_torch_graphs.py::_small_Q
+    builds them), on the card."""
+    from paml_tpu_torch.core import pmat
+
+    pi = rng.dirichlet(np.full(n, 3.0))
+    Qs = []
+    for _ in range(G):
+        R = rng.uniform(0.2, 2.0, size=(n, n))
+        Q = (R + R.T) * pi[None, :]
+        np.fill_diagonal(Q, 0.0)
+        Qs.append(Q - np.diag(Q.sum(1)))
+    f64 = dict(dtype=torch.float64, device="cuda")
+    return pmat.symmetrize(torch.tensor(np.stack(Qs), **f64),
+                           torch.tensor(pi, **f64).expand(G, -1))
+
+
+def eigh_orders(torch, card):
+    """15a: the kernel bit for bit against its plain version at every order
+    of EIGH_ORDERS (random reversible matrices, three each)."""
+    rng = np.random.default_rng(SEED + 14)
+    out = []
+    for n in EIGH_ORDERS:
+        bits, info, _ = kernel_bits(torch, reversible_S(torch, rng, n, 3))
+        out.append((n, bits, info[:, 1].tolist()))
+        if not bits or not info[:, 0].eq(0).all():
+            raise AssertionError(f"15a: the eigh kernel is off at n = {n}: "
+                                 f"info {info.tolist()}")
+    print(f"15a eigh, every instance's orders [{card}]: bit for bit with "
+          f"the same status and sweeps at n = "
+          + ", ".join(f"{n} ({'/'.join(map(str, sw))})" for n, _, sw in out),
+          flush=True)
+
+
+def eigh_round(torch, S, sweeps, card):
+    """15a: one round at S (3 x 61) split by the kernel's debug instance:
+    the full round, A alone (V skipped), the rotation chain alone (A and V
+    skipped), all but the chain, per round at the sweeps the kernel took;
+    and each warp's clock around its part of a round (work, then the wait
+    at the barrier), the mean over the first sweep."""
+    from paml_tpu_torch.core import cuda_eigh as ce
+
+    sw, rounds = max(sweeps), max(sweeps) * (S.shape[-1] + S.shape[-1] % 2
+                                             - 1)
+    modes = {"full": 0, "A alone": ce.SKIP_V,
+             "chain alone": ce.SKIP_V | ce.SKIP_A,
+             "without the chain": ce.SKIP_CHAIN}
+    us = {k: cuda_ms(lambda f=f: ce.eigh_probe(S, f, sw)) * 1e3 / rounds
+          for k, f in modes.items()}
+    st = ce.round_stamps(S, sw)
+    print(f"15a eigh, one round at {tuple(S.shape)} [{card}], us: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+          + f"; clock cycles of a round {st['round']:.0f}, per warp (work / "
+          f"wait) " + ", ".join(f"{w} {a:.0f}/{b:.0f}" for w, (a, b) in
+                                  st["warps"].items()), flush=True)
+    return us
+
+
 def graph_eigh(torch, bench, big, report, card):
-    """15a: the Jacobi kernel at the bench's M2a class matrices and the
-    1024-taxon model A's, against its plain version and against
-    torch.linalg.eigh (P(t), VJP); a NaN entry gives status 1 and raises,
-    through `eigh` and through a graphed value + gradient; the kernel, its
-    plain version and torch.linalg.eigh timed beside the kernel's bound."""
+    """15a: the Jacobi kernel at the bench's M2a class matrices, the
+    1024-taxon model A's and every order of EIGH_ORDERS, against its plain
+    version (bit for bit) and against torch.linalg.eigh (P(t), VJP); a NaN
+    entry gives status 1 and raises, through `eigh` and through a graphed
+    value + gradient; the kernel, its plain version and torch.linalg.eigh
+    timed beside the kernel's bound at four shapes; one round split."""
     from paml_tpu_torch.apps import codeml
-    from paml_tpu_torch.core import cuda_eigh, graphs
+    from paml_tpu_torch.core import cuda_eigh, graphs, pmat
     from paml_tpu_torch.core import cuda_pruning as cp
 
     clean, _, topo, _ = bench
@@ -4994,21 +5070,34 @@ def graph_eigh(torch, bench, big, report, card):
           flush=True)
     if status != [0, 1, 0] or len(raised) != 2:
         raise AssertionError("15a: a NaN matrix must give status 1 and raise")
-    ms = cuda_ms(lambda: cuda_eigh.eigh_kernel(S))
-    plain_ms = cuda_ms(lambda: cuda_eigh.jacobi_plain(S), reps=2, warmup=1)
-    lib_ms = cuda_ms(lambda: torch.linalg.eigh(S))
-    flop, nbytes = cuda_eigh.kernel_work(S.shape[-1], sweeps)
-    bnd = (cp.bound_ms(flop, nbytes),
-           "operations" if flop / cp.PEAK_FLOPS >= nbytes / cp.PEAK_BYTES
-           else "bytes")
+    eigh_orders(torch, card)
+    rng = np.random.default_rng(SEED + 15)
     r = report["eigh"]
     r["max_abs_err_float64"] = max(err, err_b)
-    record(report, "eigh", "float64", ms, plain_ms, bnd)
-    r["library_ms_float64"] = lib_ms
-    print(f"15a eigh timed, 3 x 61 x 61 [{card}]: kernel {ms:.3f} ms, plain "
-          f"version {plain_ms:.1f} ms, torch.linalg.eigh {lib_ms:.3f} ms; "
-          f"bound {bnd[0]:.4f} ms by {bnd[1]} ({flop:.3g} operations)",
-          flush=True)
+    r["shapes"] = {}
+    for tag, Sx in (("3x61", S), ("8x61", pmat.symmetrize(Qb, pib)),
+                    ("4x20", reversible_S(torch, rng, 20, 4)),
+                    ("1x4", reversible_S(torch, rng, 4, 1))):
+        sw = cuda_eigh.eigh_kernel(Sx)[2][:, 1].tolist()
+        ms = cuda_ms(lambda: cuda_eigh.eigh_kernel(Sx))
+        plain_ms = cuda_ms(lambda: cuda_eigh.jacobi_plain(Sx),
+                           reps=2 if tag == "3x61" else 1,
+                           warmup=1 if tag == "3x61" else 0)
+        lib_ms = cuda_ms(lambda: torch.linalg.eigh(Sx))
+        flop, nbytes = cuda_eigh.kernel_work(Sx.shape[-1], sw)
+        bnd = (cp.bound_ms(flop, nbytes),
+               "operations" if flop / cp.PEAK_FLOPS >= nbytes / cp.PEAK_BYTES
+               else "bytes")
+        r["shapes"][tag] = dict(sweeps=sw, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bnd[0])
+        if tag == "3x61":
+            record(report, "eigh", "float64", ms, plain_ms, bnd)
+            r["library_ms_float64"] = lib_ms
+        print(f"15a eigh timed, {tag} [{card}]: kernel {ms:.4f} ms, plain "
+              f"version {plain_ms:.1f} ms, torch.linalg.eigh {lib_ms:.4f} ms"
+              f"; bound {bnd[0]:.3g} ms by {bnd[1]} ({flop:.3g} operations, "
+              f"sweeps {sw})", flush=True)
+    r["round_us"] = eigh_round(torch, S, sweeps, card)
 
 
 def fit_counts() -> dict:

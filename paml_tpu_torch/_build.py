@@ -50,6 +50,7 @@ _SIGNATURES = {
     },
     "eigh": {
         "paml_eigh": [_P, _P, _P, _P, _I, _I, _P],
+        "paml_eigh_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 # dtype suffixes of each source's entries (default: both)

@@ -6,15 +6,22 @@ to XLA's `jnp.linalg.eigh` (paml_tpu/core/pmat.py:82-90).  On the card
 `torch.linalg.eigh` reads cuSOLVER's info on the host after each call, so
 an evaluation that uses it cannot be recorded in a CUDA graph.  `eigh`
 here sends a CUDA tensor to the hand-written Jacobi kernel of
-`csrc/eigh.cu` instead: one block per matrix (order at most 64), and its
-failure state (a non-finite entry, no convergence within MAX_SWEEPS
-sweeps) goes to a status word on the card, which `graphs.report_status`
-hands to the caller's `status_sink` or reads at once and raises on.
-A CPU tensor takes `torch.linalg.eigh` (the plain version, and the path
-of the tests).  `jacobi_plain` is the kernel's arithmetic as tensor
-operations, in its order of rotations and rounding, for the tests on the
-CPU and the checks on the card; each kernel launch adds one to
-`LAUNCHES["eigh"]`.
+`csrc/eigh.cu` instead: one block per matrix (order at most 64; S must be
+symmetric, the kernel reads its upper triangle), and its failure state (a
+non-finite entry, no convergence within MAX_SWEEPS sweeps) goes to a
+status word on the card, which `graphs.report_status` hands to the
+caller's `status_sink` or reads at once and raises on.  A CPU tensor
+takes `torch.linalg.eigh` (the plain version, and the path of the tests).
+
+`jacobi_plain` is the kernel's arithmetic as tensor operations, in its
+order of rotations and rounding: on the card the kernel gives its bits
+(chip_smoke.py 15a holds them equal at orders of each of the kernel's
+instances).  The kernel is bound by the latency of its rounds, not by its
+operations: one warp computes the next round's rotations while the others
+apply the current one to A and V, behind one barrier a round
+(`csrc/eigh.cu`'s header).  Each launch adds one to `LAUNCHES["eigh"]`;
+`eigh_probe` is a debug entry that splits a round's time and is on no
+path of the package.
 
 Eigenvalues come out ascending, eigenvectors as U's columns.  Within a
 cluster of equal eigenvalues the vectors are another basis than LAPACK's
@@ -49,6 +56,48 @@ def eigh_kernel(S: torch.Tensor):
     """The kernel's launch: (lam [..., n], U [..., n, n], info [..., 2]
     int32: the status word and the sweeps taken per matrix).  S: a CUDA
     float64 tensor of symmetric matrices of order n <= NMAX."""
+    return _launch(S, None)
+
+
+# eigh_probe's flags: skip V's update, A's update, the rotations' chain;
+# stamp each warp's clock (two stamps per warp, at most 17, and round)
+SKIP_V, SKIP_A, SKIP_CHAIN, STAMPS = 1, 2, 4, 8
+STAMP_WORDS = 17 * 64 * 2
+
+
+def eigh_probe(S: torch.Tensor, flags: int = 0, sweeps: int = 0):
+    """The kernel's debug instance (its npad 62 instance, or the generic
+    one at other orders), for timing the parts of a round: as
+    `eigh_kernel`, with the parts named in `flags` skipped (the results
+    are then not the eigenpairs, but for SKIP_V's eigenvalues) and, with
+    sweeps > 0, exactly that many sweeps run; with STAMPS, U's storage
+    holds the clock stamps `round_stamps` reads.  Not counted in LAUNCHES
+    and on no path of the package."""
+    return _launch(S, (int(flags), int(sweeps)))
+
+
+def round_stamps(S: torch.Tensor, sweeps: int, flags: int = 0) -> dict:
+    """Clock cycles of the debug instance's rounds at S (the parts in
+    `flags` skipped), from lane 0 of each warp of block 0 over the first
+    sweep: {"round": the mean cycles from one round's start to the next
+    (warp 0), "warps": {"w<i>": (mean cycles of its part of a round, mean
+    cycles then waiting for the round's barrier)}}."""
+    n = S.shape[-1]
+    mc = n + (n & 1) - 1
+    U = eigh_probe(S, STAMPS | flags, sweeps)[1]
+    st = torch.as_strided(U, (STAMP_WORDS,), (1,)).view(torch.int64)
+    st = st.reshape(-1, 64, 2).cpu().numpy().astype(np.float64)[:, :mc]
+    warps = {}
+    for w in range(st.shape[0]):
+        if st[w, 0, 0] == 0:
+            break
+        a, b = st[w, :, 0], st[w, :, 1]
+        warps[f"w{w}"] = (float(np.mean(b - a)),
+                          float(np.mean(a[1:] - b[:-1])))
+    return {"round": float(np.mean(np.diff(st[0, :, 0]))), "warps": warps}
+
+
+def _launch(S: torch.Tensor, probe):
     from .. import _build
 
     if not S.is_cuda:
@@ -63,14 +112,21 @@ def eigh_kernel(S: torch.Tensor):
     Sc = S.reshape(-1, n, n).contiguous()
     G = Sc.shape[0]
     lam = S.new_empty((G, n))
-    U = S.new_empty((G, n, n))
+    if probe is None:
+        U = S.new_empty((G, n, n))
+    else:        # zeros, with room for the stamps of every warp
+        U = S.new_zeros(max(G * n * n, STAMP_WORDS))[:G * n * n].view(G, n, n)
     info = torch.empty((G, 2), dtype=torch.int32, device=S.device)
     if G:
+        args = (Sc.data_ptr(), lam.data_ptr(), U.data_ptr(), info.data_ptr(),
+                G, n)
         with torch.cuda.device(S.device):
-            err = _build.lib().paml_eigh_f64(
-                Sc.data_ptr(), lam.data_ptr(), U.data_ptr(), info.data_ptr(),
-                G, n, torch.cuda.current_stream(S.device).cuda_stream)
-        LAUNCHES["eigh"] += 1
+            stream = torch.cuda.current_stream(S.device).cuda_stream
+            if probe is None:
+                err = _build.lib().paml_eigh_f64(*args, stream)
+                LAUNCHES["eigh"] += 1
+            else:
+                err = _build.lib().paml_eigh_probe_f64(*args, *probe, stream)
         _build.check(err, "eigh launch")
     return (lam.reshape(batch + (n,)), U.reshape(batch + (n, n)),
             info.reshape(batch + (2,)))

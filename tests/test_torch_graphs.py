@@ -16,8 +16,10 @@ of the work it records, held where a card is not needed.
 - The Jacobi eigensolver's plain version (`cuda_eigh.jacobi_plain`, the
   kernel's sweep order and rounding) against `torch.linalg.eigh` on codon
   S matrices (P(t) within 1e-13 of its largest entry, the VJP within
-  1e-11 of its largest component), at 61, 20, 5 and 4 states, with
-  degenerate spectra and zero-frequency states; its status words; and the
+  1e-11 of its largest component), at 61, 20, 5, 4, 3, 2 and 1 states and
+  at 63 and 64 (the kernel's largest), with degenerate spectra and
+  zero-frequency states, and on the 60 and 63 sense codons of the
+  vertebrate mitochondrial and ciliate codes; its status words; and the
   port's float64 P(t) with that eigensolver against paml_tpu's
   `pmat_rev_multi` within 1e-12, the same inputs from one numpy seed.
 """
@@ -233,8 +235,8 @@ def test_status_words():
 
 # --- the Jacobi eigensolver's plain version ----------------------------------
 
-def _codon_Q(pi, kappa, omegas):
-    T = codon.dense_tables(0, "cpu")
+def _codon_Q(pi, kappa, omegas, icode=0):
+    T = codon.dense_tables(icode, "cpu")
     s = codon.mutation_dense(T, torch.tensor([kappa], dtype=torch.float64))
     return codon.build_Q_dense(T, s, torch.tensor(omegas,
                                                   dtype=torch.float64),
@@ -266,6 +268,14 @@ def _cases():
                        zero / zero.sum())}
     for n in (20, 5, 4):
         out[f"n{n}"] = _small_Q(rng, n, 2)
+    # the smallest and odd orders, the kernel's largest (NMAX), and the
+    # sense codons of two other genetic codes: 60 (vertebrate mitochondrial)
+    # and 63 (ciliate)
+    for n in (1, 2, 3, 63, 64):
+        out[f"n{n}"] = _small_Q(rng, n, 2)
+    for name, icode in (("mito60", 1), ("ciliate63", 5)):
+        pi = rng.dirichlet(np.full(codon.codon_graph(icode).n, 5.0))
+        out[name] = (_codon_Q(pi, 2.1, [0.2, 1.7], icode), pi)
     return out
 
 
@@ -325,6 +335,8 @@ def test_jacobi_status_words(monkeypatch):
 def test_eigh_kernel_refuses_cpu_and_wide_matrices():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_eigh.eigh_kernel(torch.eye(4, dtype=torch.float64)[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_eigh.eigh_probe(torch.eye(4, dtype=torch.float64)[None])
     assert cuda_eigh.eigh(torch.eye(3, dtype=torch.float64))[0].tolist() == \
         [1.0, 1.0, 1.0]
 
