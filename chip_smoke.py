@@ -57,14 +57,16 @@
    ones, with no plain call during a fit (the Hessians' calls of the plain
    level pass are counted apart); each lnL in `mlc` must match the plain
    version's at the fitted x; both likelihood-ratio tests (M1a-M2a, M7-M8)
-   must be significant; the SEs of the free parameters finite and
-   positive; M8's BEB sites with P > 0.95 in the majority sites simulated
+   must be significant; every fit replays its evaluations from a CUDA
+   graph, E2 carrying M7 / M8's quantiles (no host second in the quantile
+   code); the SEs of the free parameters finite and positive; M8's BEB sites with P > 0.95 in the majority sites simulated
    under omega 3; BEB's forward (20 classes, no residual) must match the
    plain version, and is timed beside its bound.  One value + gradient
    each, kernel route against plain route, for FMutSel0, FMutSel with
-   estFreq, clock 1, M5 and M8, with the host's share (the quantile code).
-   Per model: evaluations, wall seconds, ms per evaluation, and the
-   seconds in the quantile code, the Hessian and BEB.
+   estFreq, clock 1, M5 and M8 (no host second in the quantile code), and
+   the incomplete beta's gradient through E2, the host route and a tensor
+   loop.  Per model: evaluations, wall seconds, ms per evaluation, and the
+   seconds in the Hessian and BEB.
 7. baseml: a 100-taxon x 100,000-site alignment simulated under REV + G5
    (alpha 0.5, pi TCAG 0.2 / 0.3 / 0.3 / 0.2, fixed exchangeabilities) on
    a random unbalanced unrooted tree with the port's own P(t), with 3b's
@@ -258,10 +260,29 @@
    bit for bit, ms, the capture's peak memory and its pool.  15f: in a
    process of its own, a fit whose objective is declared capturable but
    reads the host: its capture raises, and the fit stops.  Phase 6's
-   programs also require every capturable model's fit to run from its
-   graph (`optim.GRAPHS`) and the others (M7, M8) op by op.  The graphed
-   paths' host launches join the kernels line (`launches_graph_*`), with
-   the eigensolver's.
+   programs also require every fit to run from its graph
+   (`optim.GRAPHS`).  The graphed paths' host launches join the kernels
+   line (`launches_graph_*`), with the eigensolver's.
+16. E2, the quantile code on the card (`csrc/quantile.cu`,
+   `core/cuda_quantile.py`).  16a: each entry (the incomplete beta and
+   gamma functions, their inverses, at orders 0, 1 and 2) against its
+   plain version on CPU copies of the inputs (the beta inverse's on the
+   card) at
+   tests/test_torch_quantile.py's grids (p, q to 0.005 and 99, alpha 0.02
+   to 49), M8's and M5's ten medians, a discrete gamma's cuts and BEB's
+   10 x 10 x 9 grid (1e-12 relative on values, 1e-9 of the largest
+   partial, the same status words); the mixture brackets of M6, M9-M13
+   at their x0 with 10 quantiles and M9's with 40 (1e-12); the kernels' digamma and
+   trigamma against torch.special (1e-14); a NaN input raising through
+   dgamma; E2 timed per launch at M8's, M5's, the cuts' and BEB's shapes
+   and the M9 bracket beside its bound and its plain version, P(a, x)
+   beside torch.special.gammainc.  16b: M5, M7, M8 and M10 (ncatG 10) on
+   phase 4's clean alignment, an amino-acid LG + F + G4 fit and a
+   nucleotide REV + G5 fit, alpha free (20 simulated taxa each): each fit
+   from its CUDA graph against eagerly, the same x, lnL and evaluations
+   bit for bit, one host sync per graphed evaluation, no host second in
+   the quantile code; ms per evaluation both ways.  E2's launches in phase
+   6's programs and 16b's fits join the kernels line.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -1452,7 +1473,8 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
 
     from paml_tpu_torch import __main__ as cli
     from paml_tpu_torch.apps import beb, codeml
-    from paml_tpu_torch.core import cuda_pruning, dgamma, pruning
+    from paml_tpu_torch.core import cuda_pruning, cuda_quantile, dgamma
+    from paml_tpu_torch.core import pruning
 
     d = os.path.join(workdir, tag)
     os.makedirs(d)
@@ -1467,8 +1489,10 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
         f.write(CTL.format(seq="seq.phy", tree="tree.nwk", nssites=nssites,
                            model=model))
     cuda_pruning.reset_launch_counts()
+    reset_e2()
     pruning.PLAIN_CALLS["cuda"] = pruning.TWICE_CALLS["cuda"] = 0
-    before = dict(h=codeml.SECONDS["hessian"], b=beb.SECONDS["beb"])
+    before = dict(h=codeml.SECONDS["hessian"], b=beb.SECONDS["beb"],
+                  q=dgamma.SECONDS["host"])
     checks0 = fit_counts()
     cwd = os.getcwd()
     os.chdir(d)
@@ -1480,6 +1504,7 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
     finally:
         os.chdir(cwd)
     launches = dict(cuda_pruning.LAUNCHES)
+    e2 = cuda_quantile.LAUNCHES["quantile"]
     plain, twice = pruning.PLAIN_CALLS["cuda"], pruning.TWICE_CALLS["cuda"]
     for name in ("mlc", "rst", "rst1", "lnf", "rub"):
         if os.path.getsize(os.path.join(d, name)) == 0:
@@ -1491,45 +1516,45 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
           f"{wall:.1f} s wall; "
           f"Hessians {codeml.SECONDS['hessian'] - before['h']:.1f} s, BEB "
           f"{beb.SECONDS['beb'] - before['b']:.2f} s; kernel launches "
-          f"{launches}, plain-version calls on CUDA during the fits {plain}, "
-          f"Hessian-route calls of the plain level pass {twice}", flush=True)
+          f"{launches}, E2 {e2}, plain-version calls on CUDA during the fits "
+          f"{plain}, Hessian-route calls of the plain level pass {twice}; "
+          f"host seconds in the quantile code "
+          f"{dgamma.SECONDS['host'] - before['q']}", flush=True)
     for run in out["runs"]:
         res = run["res"]
         print(f"  NSsites {run['NSsites']} [{card}]: lnL {res.lnL:.6f}, "
               f"{res.fit.n_eval} evals, {run['fit_seconds']:.2f} s wall, "
               f"{1e3 * run['fit_seconds'] / res.fit.n_eval:.2f} ms/eval, "
-              f"quantile code {run['quantile_seconds']:.2f} s, Hessian "
+              f"quantile code on the card (E2), Hessian "
               f"{run.get('hessian_seconds', 0.0):.2f} s, BEB "
               f"{run.get('beb_seconds', 0.0):.2f} s; kappa "
               f"{res.kappa}, omegas {np.round(res.class_omegas.ravel(), 4)}, "
               f"freqs {np.round(res.class_freqs, 4)}", flush=True)
     check_graphed_runs(out["runs"], checks0, tag, card)
+    if dgamma.SECONDS["host"] != before["q"] or \
+            any(r["quantile_seconds"] is not None for r in out["runs"]):
+        raise AssertionError(f"program, {tag}: the quantile code ran on "
+                             "the host")
     if plain:
         raise AssertionError(f"program, {tag}: the plain pruning version ran "
                              f"{plain} times on CUDA outside the Hessians")
     if not twice:
         raise AssertionError(f"program, {tag}: getSE = 1 made no Hessian")
-    return out, launches, lnls
+    return out, dict(launches, quantile=e2), lnls
 
 
 def check_graphed_runs(runs, checks0, tag, card):
-    """The program's fits from their CUDA graphs where the objective is
-    capturable (no clock, no quantile model: one capture each, every
-    evaluation replayed) and op by op where it is not."""
-    from paml_tpu_torch.apps import codeml
-
+    """The program's fits from their CUDA graphs, every NSsites model's
+    objective being capturable (no clock: one capture each, every
+    evaluation replayed)."""
     d = {k: v - checks0[k] for k, v in fit_counts().items()}
-    graphed = [r for r in runs
-               if r["NSsites"] not in codeml.HOST_QUANTILE_MODELS]
-    n_graph = sum(r["res"].fit.n_eval for r in graphed)
-    n_eager = sum(r["res"].fit.n_eval for r in runs) - n_graph
-    print(f"  {tag}: NSsites {[r['NSsites'] for r in graphed]} from their "
-          f"graphs ({n_graph} evaluations), the others op by op ({n_eager});"
-          f" counts {d}", flush=True)
-    if d["captures"] != len(graphed) or d["graphed_evals"] != n_graph or \
-            d["eager_evals"] != n_eager:
-        raise AssertionError(f"program, {tag}: the capturable fits must run "
-                             f"from their graphs and the others eagerly: {d}")
+    n_eval = sum(r["res"].fit.n_eval for r in runs)
+    print(f"  {tag}: NSsites {[r['NSsites'] for r in runs]} from their "
+          f"graphs ({n_eval} evaluations); counts {d}", flush=True)
+    if d["captures"] != len(runs) or d["graphed_evals"] != n_eval or \
+            d["eager_evals"]:
+        raise AssertionError(f"program, {tag}: every fit must run from its "
+                             f"graph: {d}")
 
 
 def check_program(torch, out, lnls, tag):
@@ -1686,29 +1711,29 @@ def check_routes(torch, data, topo, card):
               f"max|grad diff| / max|grad| {gerr:.2e}; {1e3 * wall:.2f} ms, "
               f"{1e3 * quant:.2f} ms of it in the quantile code on the host",
               flush=True)
-        if rel > 1e-9 or gerr > 1e-8 or not np.isfinite(g).all():
+        if rel > 1e-9 or gerr > 1e-8 or not np.isfinite(g).all() or quant:
             raise AssertionError(f"{tag}: value + gradient disagrees with "
                                  "the plain version on the card")
-    # the continued fraction three ways on the same ten numbers: a loop of
-    # tensor operations under autograd on the card, the same loop on CPU
-    # tensors, and the package's route (numpy values, dual numbers for the
-    # gradient, on the host)
+    # the incomplete beta three ways on the same ten numbers: E2 on the
+    # card (dgamma's card route), the host route on CPU tensors (numpy
+    # values, dual numbers for the gradient), and the same continued
+    # fraction as a loop of tensor operations under autograd on the card
     a, b = (torch.tensor(v, dtype=torch.float64, device="cuda",
                          requires_grad=True) for v in (0.5, 1.2))
     x = (torch.arange(10, dtype=torch.float64, device="cuda") + 0.5) / 10
     ah, bh = (v.detach().cpu().requires_grad_(True) for v in (a, b))
     xh = x.cpu()
 
-    def tensors(a, b, x):
+    def tensors():
         I = dgamma._betainc_any(a.expand(10), b.expand(10), x)
         return torch.autograd.grad(I.sum(), (a, b))
 
-    def duals():
+    def route(a, b, x):
         return torch.autograd.grad(dgamma.betainc(a, b, x).sum(), (a, b))
-    ways = (("card", lambda: tensors(a, b, x)),
-            ("host_tensors", lambda: tensors(ah, bh, xh)), ("host", duals))
+    ways = (("E2", lambda: route(a, b, x)), ("host", lambda: route(ah, bh, xh)),
+            ("tensor_loop", tensors))
     got = {name: [float(v) for v in fn()] for name, fn in ways}
-    for name in ("card", "host_tensors"):
+    for name in ("E2", "tensor_loop"):
         if not np.allclose(got[name], got["host"], rtol=1e-10):
             raise AssertionError(f"incomplete beta's gradient, {name}: "
                                  f"{got[name]} against {got['host']}")
@@ -1721,11 +1746,10 @@ def check_routes(torch, data, topo, card):
         torch.cuda.synchronize()
         t[name] = (time.perf_counter() - t0) / 3
     print(f"  incomplete beta, value + gradient of 10 numbers [{card}]: "
-          f"{1e3 * t['card']:.1f} ms as a loop of tensor operations under "
-          f"autograd on the card, {1e3 * t['host_tensors']:.1f} ms as the "
-          f"same loop on CPU tensors, {1e3 * t['host']:.2f} ms with numpy "
-          f"values and dual numbers on the host "
-          f"({t['host_tensors'] / t['host']:.1f} x)", flush=True)
+          f"{1e3 * t['E2']:.2f} ms through E2 on the card, "
+          f"{1e3 * t['host']:.2f} ms on the host route, "
+          f"{1e3 * t['tensor_loop']:.1f} ms as a loop of tensor operations "
+          "under autograd on the card", flush=True)
 
 
 def phase_program(torch, rng, report, card):
@@ -1741,9 +1765,11 @@ def phase_program(torch, rng, report, card):
         out, launches, lnls = run_program(torch, work, "clean", names, rows,
                                           nwk, "0 1 2 7 8", card)
         for name, count in launches.items():
-            if (count > 0) != name.startswith("big"):
+            # E2 carries M7 / M8's quantiles, B3/B4 the pruning
+            if (count > 0) != (name.startswith("big") or name == "quantile"):
                 raise AssertionError(f"program, clean: {name} launched "
-                                     f"{count} times; B3/B4 should carry it")
+                                     f"{count} times; B3/B4 and E2 should "
+                                     "carry it")
             if count:
                 report[name]["launches_program_clean"] = count
         check_program(torch, out, lnls, "clean")
@@ -1761,9 +1787,11 @@ def phase_program(torch, rng, report, card):
                                           gapped_rows(rng, rows), nwk, "0 8",
                                           card)
         for name, count in launches.items():
-            if (count > 0) != name.startswith("pruning"):
+            if (count > 0) != (name.startswith("pruning")
+                               or name == "quantile"):
                 raise AssertionError(f"program, gapped: {name} launched "
-                                     f"{count} times; B1/B2 should carry it")
+                                     f"{count} times; B1/B2 and E2 should "
+                                     "carry it")
             if count:
                 report[name]["launches_program_gapped"] = count
         check_program(torch, out, lnls, "gapped")
@@ -3805,12 +3833,12 @@ def phase_dating(torch, rng, report, card):
 
 # 11a: baseml runmode 3 (stepwise addition, 63 fits) on 10 taxa x 20,000
 # sites simulated under HKY85 + G5 (kappa 5, alpha 0.5), fitted with
-# HKY85 + G5 at alpha 0.5 (fix_alpha: a free alpha puts the host's gamma
-# quantiles into every evaluation, 1.8 s per fit on the card against
-# about 0.6); 11d: runmode 2 (star decomposition, 81 fits) on 8 taxa x
-# 5000 sites under HKY85 + G5, fitted with HKY85 (2.3 s per fit with a
-# free alpha); 11b / 11c: codeml runmode 3 (35 fits) and 4 on M0 data, 8
-# taxa x 2000 codons
+# HKY85 + G5 at alpha 0.5 (fix_alpha, which keeps the phase's time; a free
+# alpha took 1.8 s per fit against about 0.6 while the gamma quantiles ran
+# on the host, before E2; phase 16 fits one with alpha free); 11d: runmode
+# 2 (star decomposition, 81 fits) on 8 taxa x 5000 sites under HKY85 + G5,
+# fitted with HKY85; 11b / 11c: codeml runmode 3 (35 fits) and 4 on M0
+# data, 8 taxa x 2000 codons
 TS_NUC_TAXA, TS_NUC_SITES = 10, 20_000
 TS_STAR_TAXA, TS_STAR_SITES = 8, 5000
 TS_CODON_TAXA, TS_CODONS = 8, 2000
@@ -5388,6 +5416,370 @@ def phase_graphs(torch, report, card, bench, big):
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --- phase 16: the quantile code on the card (E2) ------------------------------
+
+# E2 against its plain versions: values relative, partials of the largest
+# entry of each (the same arithmetic; the kernel stops its loops on
+# convergence and fuses multiply-adds, the plain version runs its fixed
+# trip counts with converged entries held).  The plain versions run on CPU
+# copies of the inputs (one thread): thousands of small operations, which
+# the host runs in a fraction of the time the card's launches take.  The
+# beta inverse's stays on the card: its roots' condition (up to 1 / p =
+# 200 at p = 0.005) lifts the last-bit differences between the host's and
+# the card's lgamma at q = 99 past 1e-12 (1.1e-11 measured on the H100).
+E2_PLAIN_ON_CARD = {("inc_inv", 0)}
+E2_TOL = dict(val=1e-12, part=1e-9)
+E2_PQ = [(0.05, 0.05), (0.05, 2.0), (0.5, 1.2), (2.0, 3.0), (30.0, 0.3),
+         (0.005, 0.005), (0.005, 99.0), (99.0, 0.005)]
+E2_ALPHAS = [0.02, 0.6, 1.0, 5.0, 49.0]
+# the mixtures of M6, M9-M13, each at its x0 (codeml.nssites_x0_bounds)
+E2_MIX = (6, 9, 10, 11, 12, 13)
+
+
+def e2_grids(torch):
+    """The inputs 16a holds E2 at: {name: (entry, kind, a, b, x)}, CUDA
+    float64: the test grids of tests/test_torch_quantile.py, the medians
+    of M8 (10 roots at p 0.3, q 1.7) and M5 (alpha 0.6), the cuts of a
+    discrete gamma's mean method (alpha + 1 at 4 cuts) and BEB's p x q x
+    edge grid (10 x 10 x 9)."""
+    f64 = dict(dtype=torch.float64, device="cuda")
+    ys = (np.arange(10) + 0.5) / 10
+    xs = np.random.default_rng(3).uniform(0.001, 0.999, 9)
+
+    def g(pairs, xv):
+        return (np.repeat([a for a, _ in pairs], len(xv)),
+                np.repeat([b for _, b in pairs], len(xv)),
+                np.tile(xv, len(pairs)))
+    a = np.repeat(E2_ALPHAS, 9)
+    xg = np.concatenate([[1e-5, 0.01, 0.3, 1.0, 3.0, al, al + 1.5,
+                          4 * al + 2, 60.0] for al in E2_ALPHAS])
+    ga = [(al, 1.0) for al in E2_ALPHAS]
+    pg = (np.arange(10) + 0.5) * 0.2
+    beb = [v.ravel() for v in np.meshgrid(pg, pg, np.arange(1, 10) / 10,
+                                          indexing="ij")]
+    cuts = np.array([0.3, 0.9, 1.7, 3.1])
+    grids = {"beta": ("inc", 0, *g(E2_PQ, xs)),
+             "gamma": ("inc", 1, a, np.ones_like(a), xg),
+             "beta_inv": ("inc_inv", 0, *g(E2_PQ, ys)),
+             "gamma_inv": ("inc_inv", 1, *g(ga, ys)),
+             "M8": ("inc_inv", 0, np.full(10, 0.3), np.full(10, 1.7), ys),
+             "M5": ("inc_inv", 1, np.full(10, 0.6), np.ones(10), ys),
+             "gamma_cuts": ("inc", 1, np.full(4, 1.6), np.ones(4), cuts),
+             "BEB": ("inc", 0, *beb)}
+    return {k: (e, kind) + tuple(torch.tensor(np.asarray(v, float), **f64)
+                                 for v in vs)
+            for k, (e, kind, *vs) in grids.items()}
+
+
+def e2_check(torch, name, got, ref):
+    """The kernel's (value, d1, d2, info) against the plain version's (on
+    the CPU)."""
+    got, ref = (tuple(None if t is None else t.cpu() for t in r)
+                for r in (got, ref))
+    errs = {"val": float(((got[0] - ref[0]).abs()
+                          / ref[0].abs().clamp_min(1e-300)).max())}
+    for k, g, r in (("d1", got[1], ref[1]), ("d2", got[2], ref[2])):
+        if g is not None:
+            errs[k] = float((g - r).abs().max()
+                            / r.abs().max().clamp_min(1e-300))
+    same_status = torch.equal(got[3][..., 0], ref[3][..., 0])
+    if errs["val"] > E2_TOL["val"] or \
+            max(errs.get("d1", 0.0), errs.get("d2", 0.0)) > E2_TOL["part"] \
+            or not same_status or int(got[3][..., 0].max()):
+        raise AssertionError(f"16a E2 {name}: {errs}, status kernel "
+                             f"{got[3][..., 0].unique().tolist()} plain "
+                             f"{ref[3][..., 0].unique().tolist()}")
+    return errs
+
+
+def e2_kernels(torch, report, card):
+    """16a: E2 against its plain versions (on CPU copies of the inputs but
+    for the beta inverse, E2_PLAIN_ON_CARD; every entry and order at the
+    test grids, M8's and M5's medians, a discrete gamma's cuts and BEB's
+    grid, the grids of one entry in one call; the mixture bracket of each
+    model at its x0 with 10 quantiles, and M9's with 40: a block per
+    quantile), its digamma and trigamma against torch.special, a NaN
+    input's status raising through dgamma, and E2 timed at each path's
+    shape beside its bound, with its plain version's time for M8 (on the
+    card, the kernels line's row) and the M9 bracket (on the CPU) and, for
+    P(a, x), torch.special.gammainc."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, dgamma, graphs
+    from paml_tpu_torch.core import cuda_quantile as cq
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    worst, plain_ms = 0.0, {}
+    grids = e2_grids(torch)
+    groups = {}             # the grids of one entry and kind in one call
+    for name, (entry, kind, a, b, x) in grids.items():
+        if name != "M5":    # alpha 0.6 is in gamma_inv's grid
+            groups.setdefault((entry, kind), []).append((name, a, b, x))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for (entry, kind), members in groups.items():
+            a, b, x = (torch.cat([m[i] for m in members]) for i in (1, 2, 3))
+            on_card = (entry, kind) in E2_PLAIN_ON_CARD
+            plain = getattr(cq, entry + "_plain")
+            ref, ms = ((wall_ms(lambda: plain(kind, a, b, x, 2))) if on_card
+                       else host_ms(lambda: plain(kind, a.cpu(), b.cpu(),
+                                                  x.cpu(), 2)))
+            names = "+".join(m[0] for m in members)
+            for order in (0, 1, 2):
+                got = getattr(cq, entry)(kind, a, b, x, order)
+                errs = e2_check(torch, f"{names} order {order}", got, ref)
+                worst = max([worst] + list(errs.values()))
+            print(f"16a E2 {entry} {names} ({a.numel()} values) [{card}]: "
+                  f"against the plain version {errs}, operations "
+                  f"{int(got[3][..., 1].sum())}; the plain version (order "
+                  f"2, {'card' if on_card else 'CPU'}) {ms:.0f} ms",
+                  flush=True)
+    finally:
+        torch.set_num_threads(threads)
+    mix_worst = 0.0
+    for model, K in [(m, 10) for m in E2_MIX] + [(9, 40)]:
+        t = torch.tensor(codeml.nssites_x0_bounds(model, K, False, 0.4)[0],
+                         dtype=torch.float64, device="cuda")
+        xk, ik = cq.mix_quantiles(model, t, K)
+        torch.set_num_threads(1)
+        try:
+            (xp, ip), plain_ms[f"M{model}_bracket_{K}"] = host_ms(
+                lambda: cq.mix_quantiles_plain(model, t.cpu(), K))
+        finally:
+            torch.set_num_threads(threads)
+        xk = xk.cpu()
+        err = float(((xk - xp).abs() / xp.abs()).max())
+        mix_worst = max(mix_worst, err)
+        if xk.shape != (K,) or err > E2_TOL["val"] or \
+                int(ik[:, 0].max()) or int(ip[:, 0].max()):
+            raise AssertionError(f"16a E2 mixture M{model}, K {K}: {err}")
+    worst = max(worst, mix_worst)
+    print(f"16a E2 mixture brackets M6, M9-M13 (10 quantiles) and M9 (40) "
+          f"[{card}]: against the plain version within {mix_worst:.2e}",
+          flush=True)
+    z = torch.tensor(np.exp(np.linspace(np.log(0.004), np.log(300.0), 400)),
+                     dtype=torch.float64, device="cuda")
+    psi, psi1 = cq.polygamma_kernel(z)
+    dg, tg = torch.special.digamma(z), torch.special.polygamma(1, z)
+    e_psi = float(((psi - dg).abs() / dg.abs().clamp_min(1.0)).max())
+    e_psi1 = float(((psi1 - tg).abs() / tg).max())
+    print(f"16a E2 digamma / trigamma on [0.004, 300] against "
+          f"torch.special [{card}]: {e_psi:.2e} / {e_psi1:.2e}", flush=True)
+    # torch's trigamma truncates its asymptotic series at x^-7 from x >= 6
+    # (4.9e-10 relative off scipy's on the CPU; E2's and the plain
+    # versions' own 7e-16)
+    if e_psi > 1e-14 or e_psi1 > 1e-9:
+        raise AssertionError("16a E2's digamma or trigamma disagrees")
+    nan = torch.tensor([0.3, float("nan")], dtype=torch.float64,
+                       device="cuda")
+    try:
+        dgamma.betainc(nan, 1.2, 0.4)
+        raise AssertionError("16a a NaN input did not raise")
+    except graphs.DeviceStatusError as e:
+        print(f"16a E2 NaN input [{card}]: raises ({e})", flush=True)
+
+    # times at each path's shape: the kernel and its bound; the plain
+    # version's on the card for M8 at the fit's order 1, and on the CPU
+    # for the M9 bracket from the check above
+    def bound(flop, nbytes):
+        return dict(bound_ms=cuda_pruning.bound_ms(flop, nbytes),
+                    bound_by=("operations" if flop / cuda_pruning.PEAK_FLOPS
+                              > nbytes / cuda_pruning.PEAK_BYTES
+                              else "bytes"))
+
+    rows = {}
+    for name, order in (("M8", 1), ("M5", 1), ("gamma_cuts", 1),
+                        ("BEB", 0)):
+        entry, kind, a, b, x = grids[name]
+        kern = getattr(cq, entry)
+        info = kern(kind, a, b, x, order)[3]
+        flop, nbytes = cq.kernel_work(entry, order, info)
+        rows[name] = dict(ms=cuda_ms(lambda: kern(kind, a, b, x, order),
+                                     reps=50),
+                          **bound(flop, nbytes))
+    entry, kind, a, b, x = grids["M8"]
+    rows["M8"]["plain_ms"] = wall_ms(
+        lambda: cq.inc_inv_plain(kind, a, b, x, 1))[1]
+    entry, kind, a, b, x = grids["gamma_cuts"]
+    rows["gamma_cuts"]["library_ms"] = cuda_ms(
+        lambda: torch.special.gammainc(a, x), reps=50)
+    t = torch.tensor(codeml.nssites_x0_bounds(9, 10, False, 0.4)[0],
+                     dtype=torch.float64, device="cuda")
+    info = cq.mix_quantiles(9, t, 10)[1]
+    flop, nbytes = cq.kernel_work("mix", 0, info, 5)
+    rows["M9_bracket"] = dict(
+        ms=cuda_ms(lambda: cq.mix_quantiles(9, t, 10), reps=20),
+        plain_cpu_ms=plain_ms["M9_bracket_10"], **bound(flop, nbytes))
+    for name, r in rows.items():
+        plain = (f"{r['plain_ms']:.1f} ms on the card" if "plain_ms" in r
+                 else f"{r['plain_cpu_ms']:.1f} ms on the CPU (one thread)"
+                 if "plain_cpu_ms" in r else "not timed")
+        print(f"16a E2 {name} [{card}]: {r['ms']:.4f} ms per launch, plain "
+              f"version {plain}, bound {r['bound_ms']:.2e} ms "
+              f"({r['bound_by']})"
+              + (f", torch.special.gammainc {r['library_ms']:.4f} ms"
+                 if "library_ms" in r else ""), flush=True)
+    # the kernels line's row: M8's quantile step (no PyTorch call computes
+    # I_x(a, b) or its inverse: library_ms null)
+    r = rows["M8"]
+    report["quantile"].update(
+        max_abs_err_float64=worst, ms_float64=r["ms"],
+        plain_ms_float64=r["plain_ms"], bound_ms_float64=r["bound_ms"],
+        bound_by_float64=r["bound_by"], library_ms_float64=None,
+        times=rows)
+
+
+def reset_e2():
+    from paml_tpu_torch.core import cuda_quantile as cq
+    cq.LAUNCHES["quantile"] = 0
+
+
+def graphed_against_eager(torch, tag, fit, build, card):
+    """One fit from its objective's CUDA graph and one eagerly (`fit(kind)`
+    builds the objective with `capturable` as `kind` says and fits it):
+    the same x, lnL and evaluations bit for bit, one host sync per graphed
+    evaluation (beside those of building the objective, `build()`, counted
+    apart, and at most 8 more: the capture's copy of x, the result's
+    read-back), no host second in the quantile code;
+    returns (graphed result, ms per evaluation graphed and eager, E2's
+    launches in the graphed fit)."""
+    from paml_tpu_torch.core import cuda_quantile as cq
+    from paml_tpu_torch.core import dgamma
+
+    setup = sum(sync_census(torch, build)[1].values())
+    got = {}
+    for kind in ("eager", "graph"):
+        before, q0 = fit_counts(), dgamma.SECONDS["host"]
+        reset_e2()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, counts = sync_census(torch, lambda: fit(kind))
+        wall = time.perf_counter() - t0
+        checks = {k: v - before[k] for k, v in fit_counts().items()}
+        got[kind] = (res, wall, sum(counts.values()), checks,
+                     dgamma.SECONDS["host"] - q0, cq.LAUNCHES["quantile"],
+                     counts)
+    (rg, wg, sg, cg, hg, lg, lines), (re_, we, se, ce, he, le, _) = (
+        got["graph"], got["eager"])
+    n = rg.fit.n_eval
+    same = np.array_equal(rg.x, re_.x) and rg.lnL == re_.lnL
+    print(f"16b {tag} [{card}]: lnL {rg.lnL:.6f}, graphed = eager bit for "
+          f"bit {same}, evaluations {n} / {re_.fit.n_eval}; ms per "
+          f"evaluation {1e3 * wg / n:.3f} graphed / "
+          f"{1e3 * we / re_.fit.n_eval:.3f} dispatched; host syncs per "
+          f"evaluation {(sg - setup) / n:.3f} / "
+          f"{(se - setup) / re_.fit.n_eval:.3f} (the objective's set-up's "
+          f"{setup} apart); host seconds "
+          f"in the quantile code {hg} / {he}; E2 launches {lg} / {le}; counts "
+          f"{cg} / {ce}", flush=True)
+    if not same or n != re_.fit.n_eval or cg["captures"] != 1 or \
+            cg["graphed_evals"] != n or cg["eager_evals"] or \
+            ce["captures"] or ce["eager_evals"] != n or \
+            sg - setup > n + 8 or hg or he or not lg:
+        print(f"  syncs by line, graphed: {dict(lines)}", flush=True)
+        raise AssertionError(f"16b {tag}: the graphed fit is not the eager "
+                             "fit, not graphed, or not on E2")
+    return rg, 1e3 * wg / n, 1e3 * we / re_.fit.n_eval, lg
+
+
+def e2_fits(torch, bench, report, card):
+    """16b: M5, M7, M8 and M10 (ncatG = 10) on phase 4's clean alignment
+    (B3/B4), an amino-acid LG + F + G4 fit with alpha free and a
+    nucleotide REV + G5 fit with alpha free (simulated, 20 taxa): each
+    from its CUDA graph against eagerly (`graphed_against_eager`)."""
+    from paml_tpu_torch.apps import baseml, codeml
+    from paml_tpu_torch.io import seqio, treeio
+    from paml_tpu_torch.core.topology import from_treenode
+
+    clean, _, topo, _ = bench
+    launches = 0
+    for name, ns in (("M5", 5), ("M7", 7), ("M8", 8), ("M10", 10)):
+        spec = codeml.CodemlSpec(NSsites=ns, ncatG=10, codonf="F3x4")
+
+        def build(spec=spec):
+            return codeml.make_codon_objective(clean, topo, spec,
+                                               device="cuda")
+
+        def fit(kind, spec=spec, build=build):
+            obj = build()
+            obj[0].capturable = kind == "graph"
+            return codeml.fit_packed(clean, topo, spec, device="cuda",
+                                     objective=obj)
+        res, msg, mse, n = graphed_against_eager(torch, f"{name} fit", fit,
+                                                 build, card)
+        report["quantile"][f"ms_per_eval_{name}"] = (msg, mse)
+        launches += n
+    rng = np.random.default_rng(SEED + 16)
+    names, rows, nwk = simulate_aa(torch, rng, 20, 2000, "cuda")
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.AA_SEQ))
+    atopo = from_treenode(treeio.parse_newick(nwk), data.names)
+    aspec = codeml.CodemlSpec(seqtype=2, aa_model="Empirical_F",
+                              aa_rate_file="lg", fix_alpha=False, alpha=0.5,
+                              ncatG=4)
+    make = codeml.make_aa_objective
+
+    def afit(kind):
+        def made(*a, **kw):
+            out = make(*a, **kw)
+            out[0].capturable = kind == "graph"
+            return out
+        codeml.make_aa_objective = made
+        try:
+            return codeml.fit_packed(data, atopo, aspec, device="cuda")
+        finally:
+            codeml.make_aa_objective = make
+    _, msg, mse, n = graphed_against_eager(
+        torch, "aa LG + F + G4 fit", afit,
+        lambda: make(data, atopo, aspec, device="cuda"), card)
+    report["quantile"]["ms_per_eval_aa_G4"] = (msg, mse)
+    launches += n
+    names, rows, nwk, _, _ = simulate_nuc(torch, rng, 20, 5000, "cuda")
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.BASE_SEQ))
+    ntopo = from_treenode(treeio.parse_newick(nwk), data.names)
+    nspec = baseml.BasemlSpec(model="REV", ncatG=5, fix_alpha=False,
+                              alpha=0.5)
+
+    def nbuild():
+        return baseml.make_objective(data, ntopo, nspec, device="cuda")
+
+    def nfit(kind):
+        obj = nbuild()
+        obj[0].capturable = kind == "graph"
+        return baseml.fit_packed(data, ntopo, nspec, device="cuda",
+                                 objective=obj)
+    res, msg, mse, n = graphed_against_eager(torch, "nucleotide REV + G5 "
+                                             "fit, alpha free", nfit, nbuild,
+                                             card)
+    report["quantile"]["ms_per_eval_REV_G5"] = (msg, mse)
+    report["quantile"]["launches_graph_quantile_fits"] = launches + n
+
+
+def phase_quantile(torch, report, card, bench):
+    """Phase 16: E2 (16a) and the fits it frees (16b); `bench` as phase
+    13's, `report` holding a "quantile" entry."""
+    t_phase = time.perf_counter()
+    t = {}
+    for tag, fn, args in (("16a", e2_kernels, (torch, report, card)),
+                          ("16b", e2_fits, (torch, bench, report, card))):
+        t0 = time.perf_counter()
+        fn(*args)
+        t[tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 16: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5431,6 +5823,11 @@ def main() -> int:
     report["eigh"] = {"name": "eigh", "route": "cuda",
                       "source": "paml_tpu_torch/csrc/eigh.cu",
                       "replaces": "paml_tpu/core/pmat.py:90"}
+    # E2, the quantile code (the XLA-compiled incomplete beta / gamma
+    # functions, their inverses, the mixtures' quantiles; not a TPU kernel)
+    report["quantile"] = {"name": "quantile", "route": "cuda",
+                          "source": "paml_tpu_torch/csrc/quantile.cu",
+                          "replaces": "paml_tpu/core/dgamma.py:16"}
     phase_kernels(torch, rng, report, smi[0])
     # 3b. the large-tree kernels against their plain versions
     phase_big_kernels(torch, rng, report, smi[0])
@@ -5469,7 +5866,9 @@ def main() -> int:
     phase_graphs(torch, report, smi[0], bench, big)
     del big
     torch.cuda.empty_cache()
-    print(f"chip_smoke: the build and phases 3-15 in "
+    # 16. E2: the quantile code on the card, and the fits it lets graph
+    phase_quantile(torch, report, smi[0], bench)
+    print(f"chip_smoke: the build and phases 3-16 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
@@ -5481,7 +5880,8 @@ def main() -> int:
         # fits and device fits, `launches_f32_*`, and the float64 device
         # fit; phase 14's bench, a CUDA graph's launches counted once;
         # phase 15's graphed paths, `launches_graph_*`: their host launches,
-        # the warm-ups' and the captures' with the eager comparisons')
+        # the warm-ups' and the captures' with the eager comparisons; E2's
+        # from phase 6's programs and phase 16's fits)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]
@@ -5489,8 +5889,8 @@ def main() -> int:
         r["plain_ms"] = r["plain_ms_float64"]
         r["bound_ms"] = r["bound_ms_float64"]
         r["bound_by"] = r["bound_by_float64"]
-        # no single PyTorch call computes a pruning pass; torch.linalg.eigh
-        # computes the eigensolver's function
+        # no single PyTorch call computes a pruning pass or I_x(a, b);
+        # torch.linalg.eigh computes the eigensolver's function
         r["library_ms"] = r.get("library_ms_float64")
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))

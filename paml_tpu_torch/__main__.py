@@ -199,10 +199,13 @@ def run_codeml(ctl_path: str, device: str) -> dict:
                         data, topo, sp, device=device) if codon else None
                     res = codeml.fit_packed(data, topo, sp, device=device,
                                             objective=objective)
+                    # the host route's seconds in the quantile code; None
+                    # on the card, where E2 runs it inside each evaluation
                     run = dict(NSsites=ns_model, tree=itree, res=res,
                                fit_seconds=time.perf_counter() - t0,
-                               quantile_seconds=(dgamma.SECONDS["host"]
-                                                 - q0))
+                               quantile_seconds=(
+                                   None if torch.device(device).type ==
+                                   "cuda" else dgamma.SECONDS["host"] - q0))
                     runs.append(run)
                     bl = dict(zip(res.branch_nodes.tolist(),
                                   res.blens.tolist()))

@@ -52,9 +52,15 @@ _SIGNATURES = {
         "paml_eigh": [_P, _P, _P, _P, _I, _I, _P],
         "paml_eigh_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "quantile": {
+        "paml_inc": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "paml_inc_inv": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "paml_mix_quantiles": [_I, _P, _I, _I, _P, _P, _P],
+        "paml_polygamma": [_P, _I, _P, _P, _P],
+    },
 }
 # dtype suffixes of each source's entries (default: both)
-_SUFFIXES = {"eigh": ("f64",)}
+_SUFFIXES = {"eigh": ("f64",), "quantile": ("f64",)}
 
 _lib = None
 build_log = ""          # nvcc's output (ptxas register/spill report)

@@ -466,6 +466,14 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
         return -hmm_lnL(lnf[:, site_pattern], M, w)
 
     neg_lnl.twice = lambda x, patterns=slice(None): neg_lnl(x, True, patterns)
+    # an evaluation reads nothing on the host (the gamma rates from E2 on
+    # the card): the fits may replay it from a CUDA graph.  Not under a
+    # clock (the node ages on the host), with AdG (`hmm.binormal_cdf`
+    # copies its quadrature from the host), with nparK = 4
+    # (`torch.linalg.solve` checks its result on the host) or UNREST /
+    # UNRESTu (`matrix_exp` picks its degree on the host)
+    neg_lnl.capturable = (clock == 0 and not adg and nparK != 4
+                          and model not in ("UNREST", "UNRESTu"))
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips_all, fpatt_all, topo
     neg_lnl.n_states = 4
     neg_lnl.pattern_chunks = not (adg or nparK)

@@ -205,8 +205,9 @@ def beb(data: seqio.PackedData, topo: Topology, spec, res, n1d: int = 10,
         # class weights: p0 * beta-bin probs for k<n1d; 1-p0 for ws.
         # CDFBeta at the bin edges for each (p, q) pair
         edges = np.arange(1, n1d) / n1d
-        cdf = dgamma.betainc(pg[:, None, None], qg[None, :, None],
-                             edges[None, None, :]).numpy()
+        cdf = dgamma.betainc(*(torch.as_tensor(v, device=device) for v in (
+            pg[:, None, None], qg[None, :, None], edges[None, None, :]))
+        ).cpu().numpy()
         cdf_full = np.concatenate(
             [np.zeros((n1d, n1d, 1)), cdf, np.ones((n1d, n1d, 1))], axis=2)
         binp = np.diff(cdf_full, axis=2)                      # [p, q, n1d]

@@ -313,7 +313,7 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
     for g in range(G):
         if K > 1 and not est_alpha:
             rw = discrete_gamma(torch.tensor(_per_gene_param(spec.alpha, g, G),
-                                             dtype=dtype), K,
+                                             dtype=dtype, device=device), K,
                                 use_median=spec.use_median)
         else:
             rw = (torch.ones(1, dtype=dtype), torch.ones(1, dtype=dtype))

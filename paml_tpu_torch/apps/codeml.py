@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from ..constants import AA_ORDER
-from ..core import cuda_pruning, dgamma, pruning, tipcodes
+from ..core import (cuda_pruning, cuda_quantile, dgamma, graphs, pruning,
+                    tipcodes)
 from ..core.clockparam import make_clock_times
 from ..core.optim import FitResult, maximize, simplex_decode
 from ..core.pmat import pmat_rev, pmat_rev_multi, pmat_rev_multi_twice
@@ -71,10 +72,6 @@ TRANS_MIN, TRANS_MAX = -99.0, 99.0     # transformed proportions
 NSSITES_NONE, M1A, M2A, M3, M4, M5, M7, M8 = 0, 1, 2, 3, 4, 5, 7, 8
 M6, M9, M10, M11, M12, M13 = 6, 9, 10, 11, 12, 13
 M2A_REL = 22
-# NSsites models whose class omegas are quantiles computed on the host
-# (`core/dgamma.py`, `_mixture_quantiles`): their objectives cannot be
-# recorded in a CUDA graph
-HOST_QUANTILE_MODELS = (M5, M6, M7, M8, M9, M10, M11, M12, M13)
 M4_OMEGAS = (0.0, 1 / 3, 2 / 3, 1.0, 3.0)
 
 CODON_FREQS = ("Fequal", "F1x4", "F3x4", "Fcodon", "F1x4MG", "F3x4MG",
@@ -177,17 +174,27 @@ def cdf_quantiles(cdf, K: int, lo=1e-7, hi=99.0, iters=70,
     gradients (reference: Quantile(CDFdN_dS) in DiscreteNSsites,
     src/codeml.c:2873-2877).  `cdf` maps omegas, a numpy array or a CPU
     tensor, to CDF values; on a tensor it may depend on parameters in its
-    closure.  With `second_order` (the Hessian route) the Newton steps'
-    pdf keeps its graph; otherwise it is a constant, which leaves the
-    first derivative at the root exact."""
+    closure.  `second_order` as in `newton_quantiles`."""
     p = (np.arange(K) + 0.5) / K
     l, h = np.full(K, lo), np.full(K, hi)
     for _ in range(iters):
         m = (l + h) / 2
         below = cdf(m) < p
         l, h = np.where(below, m, l), np.where(below, h, m)
-    x = torch.as_tensor((l + h) / 2, dtype=torch.float64)
-    pt = torch.as_tensor(p, dtype=torch.float64)
+    return newton_quantiles(cdf, torch.as_tensor((l + h) / 2,
+                                                 dtype=torch.float64),
+                            lo, hi, second_order)
+
+
+def newton_quantiles(cdf, x, lo=1e-7, hi=99.0, second_order: bool = False):
+    """Two Newton steps from the bracketed median quantiles x [K] (no
+    gradient) of the distribution whose CDF, a function of tensors on x's
+    device, is `cdf`: the steps carry the gradients of the parameters in
+    its closure.  With `second_order` (the Hessian route) the steps' pdf
+    keeps its graph; otherwise it is a constant, which leaves the first
+    derivative at the root exact."""
+    K = x.shape[0]
+    pt = (torch.arange(K, dtype=torch.float64, device=x.device) + 0.5) / K
     for _ in range(2):
         with torch.enable_grad():
             xg = x if x.requires_grad else x.detach().requires_grad_(True)
@@ -281,8 +288,20 @@ def nssites_mixture_cdf(NSsites: int, theta):
 def _mixture_quantiles(NSsites: int, theta: torch.Tensor, K: int,
                        second_order: bool = False):
     """K median quantiles of M6/M9-M13's continuous part, on theta's
-    device and in its dtype; computed on the host in float64 (K
-    numbers)."""
+    device and in its dtype, computed in float64.  On the card the
+    bracket is E2's (`cuda_quantile.mix_quantiles`, the end of
+    `cdf_quantiles`' bisection) and the Newton steps run there through
+    `dgamma`'s functions on the card; on the CPU the host route
+    (`cdf_quantiles` on numpy values)."""
+    e2 = dgamma._e2(theta)
+    if e2 is not None:
+        th = theta.to(torch.float64)
+        x, info = e2.mix_quantiles(NSsites, th.detach(), K)
+        graphs.report_status(info[..., 0], "the mixture quantiles")
+        with dgamma.third_partials_as_zero():
+            return newton_quantiles(
+                nssites_mixture_cdf(NSsites, th), x, cuda_quantile.MIX_LO,
+                cuda_quantile.MIX_HI, second_order).to(theta.dtype)
     th = theta.to("cpu", torch.float64)
     cdf_t = nssites_mixture_cdf(NSsites, th)
     cdf_n = nssites_mixture_cdf(NSsites, th.detach().numpy())
@@ -731,9 +750,9 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     neg_lnl.pi_np, neg_lnl.pf3x4 = pi_np, pf3x4
     neg_lnl.n_classes = lambda x: classes_for(unpack(x)[3])[0].shape[1]
     # an evaluation reads nothing on the host but under a clock (the node
-    # ages on the host) and the quantile models: the fits may replay it
-    # from a CUDA graph (`optim.graphed`)
-    neg_lnl.capturable = spec.clock < 1 and NS not in HOST_QUANTILE_MODELS
+    # ages on the host): the fits may replay it from a CUDA graph
+    # (`optim.graphed`)
+    neg_lnl.capturable = spec.clock < 1
 
     # x0 / bounds
     if spec.clock >= 1:
@@ -973,10 +992,14 @@ def fit_packed(data: seqio.PackedData, topo: Topology, spec: CodemlSpec, *,
     if more is not None:
         multi = more
     res = maximize(neg_lnl, x0, bounds, device=device, multi_start=multi)
-    with torch.no_grad():
-        t, kappa, ppi, theta = unpack(torch.as_tensor(res.x,
-                                                      dtype=torch.float64))
-        W, freqs, _ = classes_for(theta)
+    with torch.no_grad(), graphs.status_sink() as sink:
+        # decoded on the fit's device: the class omegas' quantiles by the
+        # fit's own route (E2 on the card), read back in one copy
+        parts = unpack(torch.as_tensor(res.x, dtype=torch.float64,
+                                       device=device))
+        W, freqs, _ = classes_for(parts[3])
+    t, kappa, ppi, theta, W, freqs = graphs.fetch([*parts, W, freqs], sink,
+                                                  "the fit's classes")
     params = {"theta": theta.numpy(), "W": W.numpy(),
               "freqs": freqs.numpy()}
     if is_fmutsel:
@@ -1070,7 +1093,7 @@ def make_aa_objective(data: seqio.PackedData, topo: Topology,
         t = x[:nb]
         rates = x[nb:nb + nrate]
         k = nb + nrate
-        alpha = x[k] if est_alpha else x.new_tensor(max(spec.alpha, 0.5))
+        alpha = x[k] if est_alpha else x.new_full((), max(spec.alpha, 0.5))
         return t, rates, alpha
 
     def model_at(x):
@@ -1085,6 +1108,11 @@ def make_aa_objective(data: seqio.PackedData, topo: Topology,
         return pmat_rev(Q, pi, ts), pi.expand(K, 20), w
 
     neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
+    # an evaluation reads nothing on the host (the gamma rates from E2 on
+    # the card): the fits may replay it from a CUDA graph; FromCodon and
+    # REVaa copy their index tables from the host at every evaluation
+    # (`aamod.from_codon_S`, `aamod.revaa_S`)
+    neg_lnl.capturable = not parametric
     x0 = list(_blen_x0(topo))
     bounds = [(BLEN_MIN, BLEN_MAX)] * nb
     if parametric and model == "FromCodon" and nrate:

@@ -8,11 +8,21 @@ function by its series and continued fraction, their inverses, and the
 equal-probability discretizations built on them; `gauss_laguerre` and
 `gamma_expectation_gl` for basemlg's continuous gamma.
 
-This is arithmetic on K <= 11 numbers, so it runs on the host in float64
-whatever device its arguments lie on: the arguments are copied to the
-CPU, the result goes back to their device, and autograd crosses both
-copies.  PyTorch has no incomplete beta function, and its `gammainc` has
-no derivative in the shape parameter, so both are the package's own, each
+The functions dispatch by device.  CUDA tensors go to E2, the hand-written
+float64 kernels of `csrc/quantile.cu` (`core/cuda_quantile.py`), through
+autograd functions: the forward launches the kernel, which returns the
+value and its partials; the backward multiplies by those partials, taken
+as the output of a second function whose own backward launches the kernel
+for the second partials, so that the Hessian of
+`codeml.standard_errors` (`create_graph=True`) is exact on the card.  A
+third derivative raises, but inside `third_partials_as_zero` (the mixture
+quantiles' Newton steps, where the third partials multiply the root's
+residual).  Nothing on that route reads the host: the kernels' status
+words go to `graphs.report_status`.
+
+CPU tensors take the host route, arithmetic on K <= 11 numbers in numpy.
+PyTorch has no incomplete beta function, and its `gammainc` has no
+derivative in the shape parameter, so both are the package's own, each
 written once over three kinds of number (`_betainc_any`, `_gammainc_any`):
 
 * numpy arrays: the values (the forward of every function here, and the
@@ -28,11 +38,14 @@ written once over three kinds of number (`_betainc_any`, `_gammainc_any`):
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
 import numpy as np
 import torch
+
+from . import cuda_quantile, graphs
 
 N_BETA_CF = 200       # terms of the incomplete beta continued fraction
 N_GAMMA = 400         # terms of the incomplete gamma series / fraction
@@ -41,7 +54,8 @@ _EXTRA_T = 64         # for tensors, whose derivatives the loop cannot see
 _TINY = 1e-30
 X_LO, X_HI = 1e-12, 1.0 - 1e-12      # the beta quantiles' range
 
-# seconds spent in this module's forwards and backwards since import
+# seconds spent in the host route's forwards and backwards since import (the
+# card's route adds nothing here)
 SECONDS = {"host": 0.0}
 
 
@@ -459,17 +473,119 @@ class _GammaIncInv(torch.autograd.Function):
                      for v, need in zip(parts, ctx.needs_input_grad))
 
 
-def _host(*args):
-    """The arguments as float64 CPU tensors of one shape, and the device
-    and dtype the result returns in (the first tensor argument's; float64
-    for integer or no tensors)."""
+def _args(*args):
+    """The arguments as float64 tensors of one shape on the first tensor
+    argument's device (the CPU when there is none), and the dtype the
+    result returns in (that tensor's; float64 for integer or no
+    tensors)."""
     first = next((a for a in args if _is_t(a)), None)
     dev = torch.device("cpu") if first is None else first.device
     dt = first.dtype if first is not None and first.is_floating_point() \
         else torch.float64
-    ts = [a.to(device="cpu", dtype=torch.float64) if _is_t(a)
-          else torch.as_tensor(a, dtype=torch.float64) for a in args]
-    return [t.contiguous() for t in torch.broadcast_tensors(*ts)], (dev, dt)
+    ts = [(a if a.device == dev else a.to(dev)).to(torch.float64) if _is_t(a)
+          else torch.full((), float(a), dtype=torch.float64, device=dev)
+          if isinstance(a, (int, float)) else
+          torch.as_tensor(a, dtype=torch.float64, device=dev) for a in args]
+    return [t.contiguous() for t in torch.broadcast_tensors(*ts)], dt
+
+
+# ---------------------------------------------------------------------------
+# the card's route: E2
+# ---------------------------------------------------------------------------
+
+
+def _e2(t: torch.Tensor):
+    """The quantile kernels that take tensors on t's device
+    (`cuda_quantile.KERNEL` for CUDA), or None: the host route."""
+    return cuda_quantile.KERNEL if t.is_cuda else None
+
+
+_ZERO3 = [False]
+
+
+@contextlib.contextmanager
+def third_partials_as_zero():
+    """E2's functions applied inside the block take their third partials
+    as 0 instead of raising on a third derivative (codeml's mixture
+    quantiles: a Newton step's pdf keeps its graph on the Hessian route,
+    and its second derivatives there multiply the residual F(x) - p of the
+    bracketed root)."""
+    _ZERO3.append(True)
+    try:
+        yield
+    finally:
+        _ZERO3.pop()
+
+
+class _Op:
+    """One of E2's elementwise functions: the kernels' namespace, the entry
+    (`inc` or `inc_inv`), the kind (beta or gamma) and whether third
+    partials are taken as 0."""
+    __slots__ = ("e2", "entry", "kind", "zero3")
+
+    def __init__(self, e2, entry, kind):
+        self.e2, self.entry, self.kind = e2, entry, kind
+        self.zero3 = _ZERO3[-1]
+
+    def __call__(self, a, b, x, order):
+        val, d1, d2, info = getattr(self.e2, self.entry)(self.kind, a, b, x,
+                                                          order)
+        graphs.report_status(info[..., 0], f"quantile {self.entry}")
+        return val, d1, d2
+
+
+class _E2(torch.autograd.Function):
+    """An elementwise function of three float64 tensors of one shape on
+    the card: the value and its partials from one launch."""
+
+    @staticmethod
+    def forward(ctx, op, a, b, x):
+        order = 1 if any(ctx.needs_input_grad[1:]) else 0
+        val, d1, _ = op(a, b, x, order)
+        ctx.op = op
+        ctx.save_for_backward(a, b, x, d1)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, x, d1 = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            d1 = _E2Partials.apply(ctx.op, d1, a, b, x)
+        return (None,) + tuple(g * d1[..., i] if need else None
+                               for i, need in
+                               enumerate(ctx.needs_input_grad[1:]))
+
+
+class _E2Partials(torch.autograd.Function):
+    """The first partials [..., 3] of an _E2 function as a function of its
+    arguments, for a backward with create_graph=True: its own backward
+    launches the kernel once for the second partials."""
+
+    @staticmethod
+    def forward(ctx, op, d1, a, b, x):
+        ctx.op, ctx.d2 = op, None
+        ctx.save_for_backward(a, b, x)
+        return d1.clone()
+
+    @staticmethod
+    def backward(ctx, gd):
+        if torch.is_grad_enabled() and not ctx.op.zero3:
+            raise RuntimeError(
+                "the quantile kernels' functions are differentiable twice: "
+                "a third derivative cannot pass through them")
+        if ctx.d2 is None:
+            with torch.no_grad():
+                ctx.d2 = ctx.op(*ctx.saved_tensors, 2)[2]
+        gv = (gd[..., :, None] * ctx.d2).sum(-2)
+        return (None, None) + tuple(gv[..., j] if ctx.needs_input_grad[2 + j]
+                                    else None for j in range(3))
+
+
+def _card(entry, kind, e2, args, dt):
+    a = args[0]
+    if kind == cuda_quantile.GAMMA:
+        args = [a, torch.ones_like(a), args[1]]
+    return _E2.apply(_Op(e2, entry, kind), *args).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -479,28 +595,40 @@ def _host(*args):
 
 def betainc(a, b, x) -> torch.Tensor:
     """Regularized incomplete beta I_x(a, b), differentiable in a, b, x."""
-    args, out = _host(a, b, x)
-    return _Direct.apply(_betainc_any, *args).to(*out)
+    args, dt = _args(a, b, x)
+    e2 = _e2(args[0])
+    if e2 is not None:
+        return _card("inc", cuda_quantile.BETA, e2, args, dt)
+    return _Direct.apply(_betainc_any, *args).to(dt)
 
 
 def gammainc(a, x) -> torch.Tensor:
     """Regularized lower incomplete gamma P(a, x), differentiable in a
     and x."""
-    args, out = _host(a, x)
-    return _Direct.apply(_gammainc_any, *args).to(*out)
+    args, dt = _args(a, x)
+    e2 = _e2(args[0])
+    if e2 is not None:
+        return _card("inc", cuda_quantile.GAMMA, e2, args, dt)
+    return _Direct.apply(_gammainc_any, *args).to(dt)
 
 
 def betaincinv(p, q, y) -> torch.Tensor:
     """Inverse regularized incomplete beta: x with I_x(p, q) = y, kept in
     [1e-12, 1 - 1e-12]; gradients by the inverse-function theorem."""
-    args, out = _host(p, q, y)
-    return _BetaIncInv.apply(*args).to(*out)
+    args, dt = _args(p, q, y)
+    e2 = _e2(args[0])
+    if e2 is not None:
+        return _card("inc_inv", cuda_quantile.BETA, e2, args, dt)
+    return _BetaIncInv.apply(*args).to(dt)
 
 
 def gammaincinv(a, p) -> torch.Tensor:
     """Inverse regularized lower incomplete gamma: x with P(a, x) = p."""
-    args, out = _host(a, p)
-    return _GammaIncInv.apply(*args).to(*out)
+    args, dt = _args(a, p)
+    e2 = _e2(args[0])
+    if e2 is not None:
+        return _card("inc_inv", cuda_quantile.GAMMA, e2, args, dt)
+    return _GammaIncInv.apply(*args).to(dt)
 
 
 def _grid(lo: float, K: int, like: torch.Tensor, step: float = 1.0):

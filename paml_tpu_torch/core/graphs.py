@@ -76,10 +76,27 @@ def check_status(code: float, what: str) -> None:
         raise DeviceStatusError(f"{what}: status {int(code)}")
 
 
+def fetch(tensors, sink: list, what: str) -> list:
+    """The tensors (on one device) as float64 CPU tensors of their shapes,
+    through one copy to the host that also carries the largest status word
+    collected in `sink` (`DeviceStatusError` if it is not 0)."""
+    like = tensors[0]
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                      for t in tensors]
+                     + [status_of(sink, like).reshape(1)]).cpu()
+    check_status(float(flat[-1]), what)
+    out, k = [], 0
+    for t in tensors:
+        out.append(flat[k:k + t.numel()].reshape(t.shape))
+        k += t.numel()
+    return out
+
+
 def kernel_launches() -> dict:
     """The hand-written kernels' launch counts, by wrapper."""
-    from . import cuda_eigh, cuda_pruning
-    return {**cuda_pruning.LAUNCHES, **cuda_eigh.LAUNCHES}
+    from . import cuda_eigh, cuda_pruning, cuda_quantile
+    return {**cuda_pruning.LAUNCHES, **cuda_eigh.LAUNCHES,
+            **cuda_quantile.LAUNCHES}
 
 
 def capture(body: Callable[[], None],
@@ -128,6 +145,8 @@ def replay_kernels(graph) -> dict:
                            ("big_bwd", "::big_bwd_kernel<", ", false>")):
         out[key] = sum(walk in s and amb in s for s in names)
     out["eigh"] = sum("jacobi_eigh_kernel" in s for s in names)
+    out["quantile"] = sum(k in s for s in names for k in (
+        "inc_kernel<", "inc_inv_kernel<", "mix_kernel"))
     return out
 
 

@@ -168,11 +168,23 @@ def _forward_levels(P, tipsT, topo: Topology, stored=None):
                     emit_vals.append(s[node])
         if emit_nodes:
             S = torch.stack(emit_vals)                        # [W,C,n,H]
-            Pn = P[torch.as_tensor(emit_nodes, device=P.device)]
+            Pn = P[_index(topo, emit_nodes, P.device)]
             cv = torch.einsum("wcih,wcji->wcjh", S, Pn).unbind(0)
             for w, node in enumerate(emit_nodes):
                 c[node] = cv[w]
     return s, m, c
+
+
+def _index(topo: Topology, values: list, device) -> torch.Tensor:
+    """The list of node numbers (or flags) `values` as a tensor on
+    `device`, made once per tree and device: an evaluation then copies
+    nothing from the host (a CUDA graph cannot record the copy)."""
+    cache = topo.__dict__.setdefault("_index_cache", {})
+    # the element type in the key: flags (True, False) equal nodes (1, 0)
+    key = (tuple(values), tuple(type(v) for v in values), str(device))
+    if key not in cache:
+        cache[key] = torch.as_tensor(values, device=device)
+    return cache[key]
 
 
 def root_partials(P, tips, topo: Topology):
@@ -236,8 +248,7 @@ def _lnf_lvl_bwd(topo: Topology, P, tipsT, s, m, c, F, pi, gbar):
                                               neginf=-_GRAD_CAP),
                              -_GRAD_CAP, _GRAD_CAP)
             if not all(own):
-                keep = torch.as_tensor(own, device=G.device).reshape(
-                    W, K, 1, 1, 1)
+                keep = _index(topo, own, G.device).reshape(W, K, 1, 1, 1)
                 Gc = torch.where(keep, Gc, torch.nan_to_num(
                     G, nan=0.0, posinf=float("inf"), neginf=float("-inf")))
             G = Gc
@@ -245,7 +256,7 @@ def _lnf_lvl_bwd(topo: Topology, P, tipsT, s, m, c, F, pi, gbar):
                 (tip_onehotT(k)[None].expand(C, n, H) if k < ns else s[k])
                 for k in kidflat]).reshape(W, K, C, n, H)
             dPk = torch.einsum("wkcjh,wkcih->wkcji", G, U)
-            Pk = P[torch.as_tensor(kidflat, device=P.device)]
+            Pk = P[_index(topo, kidflat, P.device)]
             Ak = torch.einsum("wkcjh,wkcji->wkcih", G,
                               Pk.reshape(W, K, C, n, n))
             for w, (_, kids) in enumerate(grp):

@@ -6,10 +6,14 @@ of the work it records, held where a card is not needed.
   pass as after every CHECK_EVERY (the graphed loop replays CHECK_EVERY
   passes between reads), and as the passes stepped one at a time by hand.
 - Every codon objective of tests/test_torch_codeml.py::SPECS (and the
-  quantile models M5, M7, M8) evaluates a value + gradient under a guard
-  that makes the host reads (`item`, `__bool__`, `__float__`, `__int__`,
-  `tolist`, `numpy`, `cpu`, `to` the CPU) raise: the guard passes exactly
-  for the objectives marked `capturable` and trips for the others.
+  quantile models M5-M13), and amino-acid and nucleotide objectives with
+  and without gamma rates, evaluate a value + gradient under a guard that
+  makes the host reads (`item`, `__bool__`, `__float__`, `__int__`,
+  `tolist`, `numpy`, `cpu`, `to` the CPU) and the copies from the host
+  (`torch.as_tensor` / `torch.tensor` of anything but a tensor) raise,
+  with `core/dgamma.py` on its card route with the plain versions
+  (`cuda_quantile.PLAIN`): the guard passes exactly for the objectives
+  marked `capturable` and trips for the others.
 - `GraphedValueGrad` on a CPU device raises; `maximize` and the device
   L-BFGS on the CPU make no capture and count their evaluations as eager
   (`optim.GRAPHS`); the status words.
@@ -37,7 +41,10 @@ from paml_tpu.core import pmat as jax_pmat
 from paml_tpu_torch import interop
 from paml_tpu_torch.apps import codeml
 from paml_tpu_torch.bench import clock56_objective
-from paml_tpu_torch.core import cuda_eigh, graphs, optim, pmat
+from paml_tpu_torch.apps import baseml
+from paml_tpu_torch.core import cuda_eigh, cuda_quantile, dgamma, graphs, optim
+from paml_tpu_torch.core import pmat
+from paml_tpu_torch.io import seqio
 from paml_tpu_torch.models import codon
 
 import test_torch_codeml as tc
@@ -125,9 +132,16 @@ HOST_READS = ("item", "__bool__", "__float__", "__int__", "tolist", "numpy",
 @contextlib.contextmanager
 def no_host_reads():
     """Tensor methods that read a tensor on the host raise HostRead inside
-    the block (and `to` the CPU, the clock's way to the host)."""
+    the block (and `to` the CPU, the clock's way to the host), and so do
+    `torch.as_tensor` and `torch.tensor` of anything but a tensor (a copy
+    from the host on the card) and the two linear-algebra calls that read
+    the host on the card (`torch.linalg.solve` checks its result there,
+    `matrix_exp` picks its degree there)."""
     saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
     saved["to"] = torch.Tensor.to
+    made = {name: getattr(torch, name) for name in ("as_tensor", "tensor")}
+    linalg = {name: getattr(torch.linalg, name)
+              for name in ("solve", "matrix_exp")}
 
     def trip(name):
         def f(self, *args, **kw):
@@ -140,18 +154,58 @@ def no_host_reads():
                 torch.device(dev).type == "cpu":
             raise HostRead("to the CPU")
         return saved["to"](self, *args, **kw)
+
+    def copy(name):
+        def f(data, *args, **kw):
+            if not isinstance(data, torch.Tensor):
+                raise HostRead(f"torch.{name} of {type(data).__name__}")
+            return made[name](data, *args, **kw)
+        return f
     try:
         for name in HOST_READS:
             setattr(torch.Tensor, name, trip(name))
         torch.Tensor.to = to
+        for name in made:
+            setattr(torch, name, copy(name))
+        for name in linalg:
+            setattr(torch.linalg, name, trip(f"torch.linalg.{name}"))
         yield
     finally:
         for name, f in saved.items():
             setattr(torch.Tensor, name, f)
+        for name, f in made.items():
+            setattr(torch, name, f)
+        for name, f in linalg.items():
+            setattr(torch.linalg, name, f)
 
 
-QUANTILE_SPECS = {"M5": dict(NSsites=5), "M7": dict(NSsites=7),
-                  "M8": dict(NSsites=8)}
+def guarded_value_grad(neg, x0, monkeypatch):
+    """(value, gradient, None) of neg at x0 under `no_host_reads`, the
+    quantile code on its card route with the plain versions and the status
+    words collected as a graph's evaluation collects them, after one
+    evaluation outside the guard (the capture's warm-up, which makes the
+    objective's device tables); or (None, None, the read) if the guard
+    tripped."""
+    monkeypatch.setattr(dgamma, "_e2", lambda t: cuda_quantile.PLAIN)
+    xt = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
+    with graphs.status_sink():
+        torch.autograd.grad(neg(xt), xt)
+    try:
+        with no_host_reads(), graphs.status_sink():
+            v = neg(xt)
+            (g,) = torch.autograd.grad(v, xt)
+    except HostRead as e:
+        return None, None, str(e)
+    return v, g, None
+
+
+QUANTILE_SPECS = {"M5": dict(NSsites=5), "M6": dict(NSsites=6, ncatG=4),
+                  "M7": dict(NSsites=7), "M8": dict(NSsites=8),
+                  "M9": dict(NSsites=9, ncatG=4),
+                  "M10": dict(NSsites=10, ncatG=4),
+                  "M11": dict(NSsites=11, ncatG=4),
+                  "M12": dict(NSsites=12, ncatG=4),
+                  "M13": dict(NSsites=13, ncatG=4)}
 GUARD_CASES = ([(n, False) for n in tc.SPECS] + [(n, False) for n in
                                                  QUANTILE_SPECS]
                + [("M0", True), ("M2a", True)] + [(n, False) for n in
@@ -159,7 +213,8 @@ GUARD_CASES = ([(n, False) for n in tc.SPECS] + [(n, False) for n in
 
 
 @pytest.mark.parametrize("name,ambiguous", GUARD_CASES)
-def test_capturable_objectives_read_nothing_on_the_host(name, ambiguous):
+def test_capturable_objectives_read_nothing_on_the_host(name, ambiguous,
+                                                        monkeypatch):
     base, n_chunks = tc.N_CHUNKS.get(name, (name, 1))
     kw = {**tc.SPECS, **QUANTILE_SPECS}[base]
     data_j, topo_j = tc._clock56(ambiguous, kw.get("icode", 0),
@@ -167,18 +222,93 @@ def test_capturable_objectives_read_nothing_on_the_host(name, ambiguous):
     data, topo = interop.packed_from(data_j), interop.topology_from(topo_j)
     neg, _, _, x0, _, _ = codeml.make_codon_objective(
         data, topo, codeml.CodemlSpec(**kw), device="cpu", n_chunks=n_chunks)
-    expect = not (kw.get("clock", 0) or
-                  kw.get("NSsites", 0) in codeml.HOST_QUANTILE_MODELS)
-    assert neg.capturable is expect
-    xt = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
-    read = None
-    try:
-        with no_host_reads():
-            v = neg(xt)
-            (g,) = torch.autograd.grad(v, xt)
-    except HostRead as e:
-        read = str(e)
+    assert neg.capturable is not kw.get("clock", 0)
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
     assert (read is None) == neg.capturable, read
+    if read is None:
+        assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
+def _port_data(name, seqtype, genes=False):
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+    aln = seqio.read_alignment(os.path.join(DATA, name), seqtype)
+    if genes:
+        ls = len(aln.rows[0])
+        aln = seqio.Alignment(aln.names, aln.rows, aln.seqtype, ngene=2,
+                              site_gene=(np.arange(ls) >= ls // 2)
+                              .astype(np.int64))
+    data = seqio.pack(aln)
+    topo = from_treenode(treeio.read_trees(
+        os.path.join(DATA, "clock56.trees"), data.names)[0], data.names)
+    return data, topo
+
+
+# the census of the amino-acid and nucleotide objectives: each with its
+# `capturable` flag; those that stay eager read the host where named
+AA_CENSUS = {
+    "aa_F_G_free": (dict(aa_model="Empirical_F", fix_alpha=False, alpha=0.5,
+                         ncatG=4), True),
+    "aa_F_G_fixed": (dict(aa_model="Empirical_F", fix_alpha=True, alpha=0.8,
+                          ncatG=4), True),
+    "aa_G_free": (dict(aa_model="Empirical", fix_alpha=False, alpha=0.5,
+                       ncatG=4), True),
+    "aa_Poisson": (dict(aa_model="Poisson"), True),
+    # the index tables copied from the host (aamod.revaa_S, from_codon_S)
+    "aa_REVaa_0_G": (dict(aa_model="REVaa_0", fix_alpha=False, alpha=0.5,
+                          ncatG=4), False),
+    "aa_FromCodon": (dict(aa_model="FromCodon"), False),
+}
+NUC_CENSUS = {
+    "REV_G5": (dict(model="REV", ncatG=5, fix_alpha=False, alpha=0.5),
+               "", True),
+    "HKY85_G5": (dict(model="HKY85", ncatG=5, fix_alpha=False, alpha=0.5),
+                 "", True),
+    "HKY85_G5_median": (dict(model="HKY85", ncatG=5, fix_alpha=False,
+                             alpha=0.5, use_median=True), "", True),
+    "TN93_G4_fixed": (dict(model="TN93", ncatG=4, fix_alpha=True,
+                           alpha=0.7), "", True),
+    "F84": (dict(model="F84"), "", True),
+    "HKY85_G4_Mgene4": (dict(model="HKY85", ncatG=4, fix_alpha=False,
+                             alpha=0.5, Mgene=4), "genes", True),
+    "basemlg": (dict(model="HKY85", continuous_gamma=True, fix_alpha=False,
+                     alpha=0.5), "", True),
+    "HKY85_nparK1": (dict(model="HKY85", ncatG=3, nparK=1), "", True),
+    "HKY85_nparK3": (dict(model="HKY85", ncatG=3, nparK=3), "", True),
+    # matrix_exp's degree, AdG's quadrature, nparK 4's solve and the
+    # clock's node ages read the host
+    "UNREST": (dict(model="UNREST"), "", False),
+    "HKY85_AdG": (dict(model="HKY85", ncatG=4, fix_alpha=False, alpha=0.5,
+                       fix_rho=False, rho=0.4), "", False),
+    "HKY85_nparK4": (dict(model="HKY85", ncatG=3, nparK=4), "", False),
+    "HKY85_clock1": (dict(model="HKY85", clock=1), "", False),
+}
+
+
+@pytest.mark.parametrize("name", list(AA_CENSUS))
+def test_aa_objectives_census(name, monkeypatch):
+    kw, expect = AA_CENSUS[name]
+    data, topo = _port_data("clock56.codon", seqio.CODON2AA_SEQ)
+    neg, _, x0, _, _ = codeml.make_aa_objective(
+        data, topo, codeml.CodemlSpec(seqtype=3, **kw), device="cpu")
+    assert getattr(neg, "capturable", False) is expect
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
+    assert (read is None) == expect, read
+    if read is None:
+        assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
+@pytest.mark.parametrize("name", list(NUC_CENSUS))
+def test_nucleotide_objectives_census(name, monkeypatch):
+    kw, variant, expect = NUC_CENSUS[name]
+    data, topo = _port_data("clock56.nuc", seqio.BASE_SEQ,
+                            genes=variant == "genes")
+    neg, _, x0, _ = baseml.make_objective(data, topo,
+                                          baseml.BasemlSpec(**kw),
+                                          device="cpu")
+    assert getattr(neg, "capturable", False) is expect
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
+    assert (read is None) == expect, read
     if read is None:
         assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
 
@@ -193,6 +323,25 @@ def test_guard_trips_on_each_host_read():
         t.to("cpu", torch.float64)
     with no_host_reads():
         assert t.to(torch.float64).dtype == torch.float64
+
+
+def test_level_route_index_cache_keeps_flags_and_nodes_apart():
+    """The level route's per-tree index tensors: a list of flags and an
+    equal list of node numbers ((True, False) == (1, 0)) each keep their
+    own dtype, in either order."""
+    from paml_tpu_torch.core import pruning
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import treeio
+
+    names = ["a", "b", "c"]
+    for first in ("flags", "nodes"):
+        topo = from_treenode(treeio.parse_newick("((a,b),c);"), names)
+        lists = {"flags": [True, False], "nodes": [1, 0]}
+        order = [first] + [k for k in lists if k != first]
+        got = {k: pruning._index(topo, lists[k], "cpu") for k in order}
+        assert got["flags"].dtype == torch.bool
+        assert got["nodes"].dtype == torch.int64
+        assert got["nodes"].tolist() == [1, 0]
 
 
 # --- graphs on the CPU, counters, status words -------------------------------
