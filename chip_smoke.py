@@ -272,17 +272,26 @@
    to 49), M8's and M5's ten medians, a discrete gamma's cuts and BEB's
    10 x 10 x 9 grid (1e-12 relative on values, 1e-9 of the largest
    partial, the same status words); the mixture brackets of M6, M9-M13
-   at their x0 with 10 quantiles and M9's with 40 (1e-12); the kernels' digamma and
-   trigamma against torch.special (1e-14); a NaN input raising through
-   dgamma; E2 timed per launch at M8's, M5's, the cuts' and BEB's shapes
-   and the M9 bracket beside its bound and its plain version, P(a, x)
-   beside torch.special.gammainc.  16b: M5, M7, M8 and M10 (ncatG 10) on
-   phase 4's clean alignment, an amino-acid LG + F + G4 fit and a
+   at their x0 with 10 quantiles, M9's with 40 and M12's and M13's with
+   modes far apart (1e-12, status 0); the kernels'
+   digamma and trigamma against torch.special (1e-14); a NaN input
+   raising through
+   dgamma; E2 timed per launch at M8's, M5's, the cuts' (order 0 beside
+   torch.special.gammainc, which gives values alone, and order 1) and
+   BEB's shapes and the M9 bracket beside its bound and its plain
+   version.  16b: M5, M7, M8 and M10 (ncatG
+   10) on phase 4's clean alignment, an amino-acid LG + F + G4 fit and a
    nucleotide REV + G5 fit, alpha free (20 simulated taxa each): each fit
    from its CUDA graph against eagerly, the same x, lnL and evaluations
    bit for bit, one host sync per graphed evaluation, no host second in
-   the quantile code; ms per evaluation both ways.  E2's launches in phase
-   6's programs and 16b's fits join the kernels line.
+   the quantile code; ms per evaluation both ways; the codon fits' lnL
+   against the plain versions' at their x (1e-9).  Then M11 at ncatG 10
+   and its start point on clock56.codon (ROADMAP C1) through E2 against
+   the host route on CPU tensors: value 1e-8, gradient 1e-6; mu's and
+   sigma's components, far below that, each route's within 1e-3 of its
+   own central differences, and the tenth omega's landing above 1 on
+   each.  E2's
+   launches in phase 6's programs and 16b's fits join the kernels line.
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -5434,6 +5443,14 @@ E2_PQ = [(0.05, 0.05), (0.05, 2.0), (0.5, 1.2), (2.0, 3.0), (30.0, 0.3),
 E2_ALPHAS = [0.02, 0.6, 1.0, 5.0, 49.0]
 # the mixtures of M6, M9-M13, each at its x0 (codeml.nssites_x0_bounds)
 E2_MIX = (6, 9, 10, 11, 12, 13)
+# M12 and M13 with modes far apart, median targets on the flat stretches
+# between them (tests/test_torch_quantile.py's SEPARATED): the bracket's
+# Newton clusters miss there, and it multisects
+E2_MIX_SEPARATED = [(12, [0.2, 0.55, 8.0, 0.05, 0.3], 10),
+                    (12, [0.2, 0.3, 30.0, 0.02, 2.0], 10),
+                    (13, [float(np.log(2.0)), 0.0, 10.0, 0.05, 0.05, 0.5],
+                     2),
+                    (13, [0.0, 0.0, 20.0, 0.01, 0.02, 1.0], 10)]
 
 
 def e2_grids(torch):
@@ -5497,8 +5514,8 @@ def e2_kernels(torch, report, card):
     for the beta inverse, E2_PLAIN_ON_CARD; every entry and order at the
     test grids, M8's and M5's medians, a discrete gamma's cuts and BEB's
     grid, the grids of one entry in one call; the mixture bracket of each
-    model at its x0 with 10 quantiles, and M9's with 40: a block per
-    quantile), its digamma and trigamma against torch.special, a NaN
+    model at its x0 with 10 quantiles, M9's with 40, and M12's and M13's
+    with modes far apart: a block per quantile), its digamma and trigamma against torch.special, a NaN
     input's status raising through dgamma, and E2 timed at each path's
     shape beside its bound, with its plain version's time for M8 (on the
     card, the kernels line's row) and the M9 bracket (on the CPU) and, for
@@ -5548,9 +5565,11 @@ def e2_kernels(torch, report, card):
     finally:
         torch.set_num_threads(threads)
     mix_worst = 0.0
-    for model, K in [(m, 10) for m in E2_MIX] + [(9, 40)]:
-        t = torch.tensor(codeml.nssites_x0_bounds(model, K, False, 0.4)[0],
-                         dtype=torch.float64, device="cuda")
+    for model, th, K in ([(m, None, 10) for m in E2_MIX] + [(9, None, 40)]
+                         + E2_MIX_SEPARATED):
+        if th is None:
+            th = codeml.nssites_x0_bounds(model, K, False, 0.4)[0]
+        t = torch.tensor(th, dtype=torch.float64, device="cuda")
         xk, ik = cq.mix_quantiles(model, t, K)
         torch.set_num_threads(1)
         try:
@@ -5565,8 +5584,9 @@ def e2_kernels(torch, report, card):
                 int(ik[:, 0].max()) or int(ip[:, 0].max()):
             raise AssertionError(f"16a E2 mixture M{model}, K {K}: {err}")
     worst = max(worst, mix_worst)
-    print(f"16a E2 mixture brackets M6, M9-M13 (10 quantiles) and M9 (40) "
-          f"[{card}]: against the plain version within {mix_worst:.2e}",
+    print(f"16a E2 mixture brackets M6, M9-M13 (10 quantiles), M9 (40) and "
+          f"M12 / M13 with modes far apart [{card}]: against the plain "
+          f"version within {mix_worst:.2e}",
           flush=True)
     z = torch.tensor(np.exp(np.linspace(np.log(0.004), np.log(300.0), 400)),
                      dtype=torch.float64, device="cuda")
@@ -5599,9 +5619,11 @@ def e2_kernels(torch, report, card):
                               else "bytes"))
 
     rows = {}
-    for name, order in (("M8", 1), ("M5", 1), ("gamma_cuts", 1),
-                        ("BEB", 0)):
-        entry, kind, a, b, x = grids[name]
+    for name, grid, order in (("M8", "M8", 1), ("M5", "M5", 1),
+                              ("gamma_cuts", "gamma_cuts", 0),
+                              ("gamma_cuts_order1", "gamma_cuts", 1),
+                              ("BEB", "BEB", 0)):
+        entry, kind, a, b, x = grids[grid]
         kern = getattr(cq, entry)
         info = kern(kind, a, b, x, order)[3]
         flop, nbytes = cq.kernel_work(entry, order, info)
@@ -5611,6 +5633,7 @@ def e2_kernels(torch, report, card):
     entry, kind, a, b, x = grids["M8"]
     rows["M8"]["plain_ms"] = wall_ms(
         lambda: cq.inc_inv_plain(kind, a, b, x, 1))[1]
+    # torch.special.gammainc gives values alone: against the cuts at order 0
     entry, kind, a, b, x = grids["gamma_cuts"]
     rows["gamma_cuts"]["library_ms"] = cuda_ms(
         lambda: torch.special.gammainc(a, x), reps=50)
@@ -5625,10 +5648,11 @@ def e2_kernels(torch, report, card):
         plain = (f"{r['plain_ms']:.1f} ms on the card" if "plain_ms" in r
                  else f"{r['plain_cpu_ms']:.1f} ms on the CPU (one thread)"
                  if "plain_cpu_ms" in r else "not timed")
-        print(f"16a E2 {name} [{card}]: {r['ms']:.4f} ms per launch, plain "
-              f"version {plain}, bound {r['bound_ms']:.2e} ms "
-              f"({r['bound_by']})"
-              + (f", torch.special.gammainc {r['library_ms']:.4f} ms"
+        print(f"16a E2 {name} [{card}]: {r['ms']:.4f} ms per launch, "
+              f"plain version {plain}, bound "
+              f"{r['bound_ms']:.2e} ms ({r['bound_by']})"
+              + (f", torch.special.gammainc {r['library_ms']:.4f} ms "
+                 "(values, as E2 at order 0)"
                  if "library_ms" in r else ""), flush=True)
     # the kernels line's row: M8's quantile step (no PyTorch call computes
     # I_x(a, b) or its inverse: library_ms null)
@@ -5693,6 +5717,103 @@ def graphed_against_eager(torch, tag, fit, build, card):
     return rg, 1e3 * wg / n, 1e3 * we / re_.fit.n_eval, lg
 
 
+def e2_m11_kink(torch, report, card):
+    """16b: M11 at ncatG 10 and its start point on tests/data/clock56.codon
+    (its tenth median target on the kink at omega = 1, ROADMAP C1) through
+    E2 on the card against the host route on CPU tensors: the value within
+    1e-8 relative, the gradient within 1e-6 relative of each component or
+    1e-6 of the largest (the CPU tests' tolerance against the JAX
+    package's) but p0's (x[-5]: the kink).  mu and sigma (x[-2], x[-1])
+    move the value only through the tenth omega's landing just above 1,
+    where the first Newton step's clamped pdf turns the last bits of F(1)
+    into a step of about 1e-3 and the second lands about its square above
+    the root, so their components are far below that tolerance and differ
+    between the routes as the landings do: each route's are held within
+    1e-3 of its own value's central differences (h = 1e-3), and the
+    landings and the components' spread are printed."""
+    import os
+    from paml_tpu_torch import interop
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "data")
+    aln = seqio.read_alignment(os.path.join(d, "clock56.codon"),
+                               seqio.CODON_SEQ)
+    data = seqio.pack(aln)
+    topo = from_treenode(treeio.read_trees(os.path.join(
+        d, "clock56.trees"), data.names)[0], data.names)
+    spec = codeml.CodemlSpec(NSsites=11, ncatG=10)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        neg, _, _, x0, _, _ = codeml.make_codon_objective(data, topo, spec,
+                                                         device=dev)
+        xn = np.asarray(x0, float)
+        x = interop.params_from(xn, device=dev).requires_grad_(True)
+        v = neg(x)
+        (g,) = torch.autograd.grad(v, x)
+        fd = []
+        with torch.no_grad():
+            for i in (-2, -1):
+                e = np.zeros_like(xn)
+                e[i] = 1e-3
+                fd.append(float(neg(interop.params_from(xn + e, device=dev))
+                                - neg(interop.params_from(xn - e,
+                                                          device=dev)))
+                          / 2e-3)
+            w = codeml._mixture_quantiles(
+                11, interop.params_from(xn, device=dev)[-5:], 10)
+        got[dev] = (float(v.detach()), g.detach().cpu().numpy(),
+                    np.array(fd), float(w[-1]) - 1.0)
+    (vc, gc, fc, lc), (vh, gh, fh, lh) = got["cuda"], got["cpu"]
+    err_v = abs(vc - vh) / abs(vh)
+    ok = np.abs(gc - gh) <= np.maximum(1e-6 * np.abs(gh),
+                                       1e-6 * np.abs(gh).max())
+    ok[-5] = np.isfinite(gc[-5])
+    own = [float(np.abs(gr[-2:] - fr).max() / np.abs(fr).min())
+           for gr, fr in ((gc, fc), (gh, fh))]
+    spread = np.abs(gc[-2:] - gh[-2:]) / np.abs(gh[-2:])
+    print(f"16b M11 ncatG 10 at x0 [{card}]: value {vc:.9f} (host route "
+          f"{vh:.9f}, {err_v:.2e} relative), gradient but p0 within "
+          f"{np.delete(np.abs(gc - gh), -5).max():.2e} of the host route's "
+          f"(largest {np.abs(gh).max():.4g}); p0 {gc[-5]:.4f} (host "
+          f"{gh[-5]:.4f}); mu, sigma {gc[-2]:.4e}, {gc[-1]:.4e} (host "
+          f"{gh[-2]:.4e}, {gh[-1]:.4e}; {spread[0]:.3f}, {spread[1]:.3f} "
+          f"of the host's apart), each route's within {own[0]:.2e} / "
+          f"{own[1]:.2e} of its own central differences; the tenth omega "
+          f"1 + {lc:.4e} (host 1 + {lh:.4e}, ratio {lc / lh:.4f})",
+          flush=True)
+    if not err_v <= 1e-8 or not ok.all() or not np.isfinite(gc).all() \
+            or not max(own) <= 1e-3:
+        raise AssertionError(f"16b M11 at its kink: value {err_v:.2e}, "
+                             f"gradient entries {np.nonzero(~ok)[0]}, mu "
+                             f"and sigma off their central differences by "
+                             f"{own}")
+    report["quantile"]["m11_kink"] = dict(
+        value_rel=err_v, grad=gc.tolist(), host=gh.tolist(),
+        fd_mu_sigma=fc.tolist(), host_fd_mu_sigma=fh.tolist(),
+        omega10_minus_1=lc, host_omega10_minus_1=lh)
+
+
+def e2_plain_lnl(torch, build, x):
+    """-lnL of an objective (`build()`) at x through E2's plain versions on
+    the card (`dgamma._e2` sent to them)."""
+    from paml_tpu_torch import interop
+    from paml_tpu_torch.core import cuda_quantile as cq
+    from paml_tpu_torch.core import dgamma
+
+    e2 = dgamma._e2
+    dgamma._e2 = lambda t: cq.PLAIN if t.is_cuda else None
+    try:
+        neg = build()[0]
+        with torch.no_grad():
+            return float(neg(interop.params_from(np.asarray(x, float),
+                                                 device="cuda")))
+    finally:
+        dgamma._e2 = e2
+
+
 def e2_fits(torch, bench, report, card):
     """16b: M5, M7, M8 and M10 (ncatG = 10) on phase 4's clean alignment
     (B3/B4), an amino-acid LG + F + G4 fit with alpha free and a
@@ -5720,6 +5841,16 @@ def e2_fits(torch, bench, report, card):
                                                  build, card)
         report["quantile"][f"ms_per_eval_{name}"] = (msg, mse)
         launches += n
+        # the fitted lnL against the same objective at the fitted x
+        # through the plain versions
+        lp = -e2_plain_lnl(torch, build, res.x)
+        err = abs(res.lnL - lp) / abs(lp)
+        print(f"16b {name} fit [{card}]: lnL {res.lnL:.9f} against "
+              f"{lp:.9f} through the plain versions at its x ({err:.2e} "
+              "relative)", flush=True)
+        if not err <= 1e-9:
+            raise AssertionError(f"16b {name}: the fitted lnL is {err:.2e} "
+                                 "off the plain versions'")
     rng = np.random.default_rng(SEED + 16)
     names, rows, nwk = simulate_aa(torch, rng, 20, 2000, "cuda")
     data = seqio.pack(seqio.Alignment(names, rows, seqio.AA_SEQ))
@@ -5771,7 +5902,8 @@ def phase_quantile(torch, report, card, bench):
     t_phase = time.perf_counter()
     t = {}
     for tag, fn, args in (("16a", e2_kernels, (torch, report, card)),
-                          ("16b", e2_fits, (torch, bench, report, card))):
+                          ("16b", e2_fits, (torch, bench, report, card)),
+                          ("16b M11", e2_m11_kink, (torch, report, card))):
         t0 = time.perf_counter()
         fn(*args)
         t[tag] = time.perf_counter() - t0

@@ -189,23 +189,52 @@ def cdf_quantiles(cdf, K: int, lo=1e-7, hi=99.0, iters=70,
 def newton_quantiles(cdf, x, lo=1e-7, hi=99.0, second_order: bool = False):
     """Two Newton steps from the bracketed median quantiles x [K] (no
     gradient) of the distribution whose CDF, a function of tensors on x's
-    device, is `cdf`: the steps carry the gradients of the parameters in
-    its closure.  With `second_order` (the Hessian route) the steps' pdf
-    keeps its graph; otherwise it is a constant, which leaves the first
-    derivative at the root exact."""
+    device, is `cdf`; the values are the JAX package's steps, and the
+    gradients those of the parameters in the CDF's closure.
+
+    The first step runs on values.  The second starts from its result x1
+    as a constant and reads the CDF F and the pdf F_x there, the pdf
+    keeping the parameters' graph: the gradient is the derivative of that
+    step at x1, -F_theta / F_x + (F - p) F_x,theta / F_x^2, at a root the
+    implicit-function derivative.  A target on a point of zero density
+    (M10 / M11 with p0 on a median target: the bracket ends on the kink
+    at omega = 1, where the beta part's pdf is 0) sends the first step
+    far past the root with a pdf clamped at 1e-12; the second step then
+    starts where F - p is not small, and a pdf held constant there (the
+    implicit derivative at x1, not the step's) or one whose graph runs
+    back through x1 (the JAX package's, x1's derivative 1 / 1e-12) would
+    give a gradient that the function's own differences do not show.
+
+    With `second_order` (the Hessian route) both steps' pdfs keep their
+    graphs in x and in the parameters, which exact second derivatives at
+    a root need."""
     K = x.shape[0]
     pt = (torch.arange(K, dtype=torch.float64, device=x.device) + 0.5) / K
-    for _ in range(2):
+    if second_order:
+        for _ in range(2):
+            with torch.enable_grad():
+                xg = x if x.requires_grad else x.detach().requires_grad_(True)
+                c = cdf(xg)
+                (pdf,) = torch.autograd.grad(c.sum(), xg, create_graph=True,
+                                             retain_graph=True)
+            if xg is not x:
+                c = cdf(x)
+            x = torch.clamp(x - (c - pt) / torch.clamp_min(pdf, 1e-12), lo,
+                            hi)
+        return x
+    x = x.detach()
+    for last in (False, True):
         with torch.enable_grad():
-            xg = x if x.requires_grad else x.detach().requires_grad_(True)
+            xg = x.detach().requires_grad_(True)
             c = cdf(xg)
-            (pdf,) = torch.autograd.grad(c.sum(), xg,
-                                         create_graph=second_order,
-                                         retain_graph=True)
-        if xg is not x:
-            # the pdf came from a leaf copy of x; the step's own CDF keeps
-            # to the parameters' graph
+            (pdf,) = torch.autograd.grad(c.sum(), xg, create_graph=last)
+        c = c.detach()
+        if last:
+            # the step's CDF with the parameters' graph alone; without one,
+            # the pdf's graph (which holds the leaf xg) goes too
             c = cdf(x)
+            if not c.requires_grad:
+                pdf = pdf.detach()
         x = torch.clamp(x - (c - pt) / torch.clamp_min(pdf, 1e-12), lo, hi)
     return x
 

@@ -19,16 +19,19 @@ arguments, with order 2 the second partials, d2[..., i, j] the partial of
 d1[..., i] in argument j (for the inverses that of the capped first
 partials, as the host route differentiates them); info the status word (0
 ok, 1 a non-finite input or result, 2 a series or continued fraction that
-did not converge: its last factor further than CONV_TOL from 1) and the
-FP64 operations of the series / fraction terms the kernel evaluated for
-the element, each distinct evaluation once (0 in the plain versions).  Nothing here reads the device on the host: the callers hand
-the status words to `graphs.report_status`.
+did not converge: its last factor further than CONV_TOL from 1, or a
+mixture bracket still wider than the first design's after MIX_ROUNDS) and
+the FP64 operations of the series / fraction terms the element's result
+needed: the estimate's chain (lane 0's evaluations) and the partials (0
+in the plain versions).  Nothing here reads the device on the host: the
+callers hand the status words to `graphs.report_status`.
 
 Each function has a kernel (`KERNEL`, CUDA float64 tensors only, one
 launch each, counted in LAUNCHES) and a plain version (`PLAIN`, the same
 arithmetic as tensor operations on the tensors' own device: the same
-starts, brackets, clamps, guards and caps, with fixed trip counts where
-the kernel stops on convergence, entries that converged held where they
+recurrences and rescalings, starts, rounds (a warp's 32 lanes as a last
+axis of 32), brackets, clamps and caps, with fixed trip counts where the
+kernel stops on convergence, entries that converged held where they
 are).  The plain versions serve the tests and chip_smoke.py's checks of
 the kernels; nothing on the main path calls them while a card is present.
 """
@@ -46,17 +49,20 @@ N_BETA_CF = 200       # terms of the beta continued fraction
 N_GAMMA = 400         # terms of the gamma series / continued fraction
 EXTRA = 8             # converged terms before the kernel's loop stops
 CONV_TOL = 1e-12      # a converged loop's last factor lies this near 1
-TINY = 1e-30
+RESCALE = 4           # terms between the recurrences' rescalings
 X_LO, X_HI = 1e-12, 1.0 - 1e-12      # the beta roots' range
 CAP = 1e14            # cap of the inverse's sensitivities and 1 / pdf
-BETA_ROUNDS, BETA_NEWTON = 6, 8      # logit multisection, then Newton
-LOG_NEWTON, POLISH = 40, 4           # gamma root: Newton on log x, polish
-MIX_ROUNDS = 14                      # 33^14 > 2^70: cdf_quantiles' width
+ROOT_ROUNDS = 12                     # rounds of a beta or gamma root
+STEP_DONE = 1e-9                     # a Halley step this small ends a root
+Y_LO = -690.0                        # a gamma root's log bracket, below
+MIX_ROUNDS = 17                      # the first design's 14 and three
+MIX_SECTIONS = 2                     # multisection rounds before Newton
 MIX_LO, MIX_HI = 1e-7, 99.0
+MIX_WIDTH = (MIX_HI - MIX_LO) / 33.0 ** 14   # the first design's width
 NTHETA = {6: 4, 9: 5, 10: 5, 11: 5, 12: 5, 13: 6}
 OK, NONFINITE, NOCONV = 0, 1, 2
 SQRT2, SQRT1_2 = math.sqrt(2.0), math.sqrt(0.5)
-LOGIT_LO = math.log(X_LO) - math.log1p(-X_LO)
+INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +162,9 @@ def polygamma_kernel(x):
 def kernel_work(entry, order, info, n_theta=0):
     """(operations, bytes) of one launch whose info came back as `info`:
     the FP64 operations the kernel counted in info[..., 1] (its loops'
-    terms at their order, each distinct evaluation once: a lower bound,
-    without the transcendental set-up), the inputs read once and the
+    terms at their order along the estimate's chain and the partials,
+    not the other lanes' bracket points: a lower bound, without the
+    transcendental set-up), the inputs read once and the
     outputs written once (the bound: `cuda_pruning.bound_ms`)."""
     ops = float(info[..., 1].sum())
     n = info[..., 0].numel()
@@ -340,83 +347,116 @@ def _zero_where(mask, u, v):
               [torch.where(mask, 0.0, x) for x in u.h])
 
 
-def _guard(u):
-    return _zero_where(_val(u).abs() < TINY, u, TINY)
-
-
 class _Stop:
-    """The kernel's stopping rule over a loop of fixed trip count: an entry
-    whose factor has been 1 to the last bit (its partials 0) for EXTRA
-    terms is done, and `hold` keeps its sums where they are from then on;
-    `conv` tests the factor of the term it stopped at (or the last)."""
+    """The kernel's stopping rule over a loop of fixed trip count: a term
+    whose factor 1 + U / Y is 1 to the last bit (|U| < 4e-16 |Y|, each of
+    its partials, formed by a division where that holds, below 1e-15 (1 +
+    |the same partial of Y / Y|)) counts;
+    an entry with EXTRA such terms in a row is done, and `hold` keeps its
+    numbers where they are from then on; `conv` tests the term it stopped
+    at (or the last)."""
 
     def __init__(self, like):
         self.count = torch.zeros(like.shape, dtype=torch.int32,
                                  device=like.device)
         self.done = torch.zeros(like.shape, dtype=torch.bool,
                                 device=like.device)
-        self.last = torch.zeros_like(like)
+        self.diff = torch.full_like(like, math.inf)
+        self.den = torch.zeros_like(like)
 
     def hold(self, new, old):
-        if not _is_d(new):
-            return torch.where(self.done, old, new)
-        return _D(torch.where(self.done, old.v, new.v),
-                  [torch.where(self.done, x, y) for x, y in zip(old.g, new.g)],
-                  None if new.h is None else
-                  [torch.where(self.done, x, y) for x, y in zip(old.h, new.h)])
+        return _where(self.done, old, new)
 
-    def step(self, f):
-        v = _val(f)
-        ok = (v - 1.0).abs() < 4e-16
-        if _is_d(f):
-            for t in f.g + (f.h or []):
-                ok = ok & (t.abs() < 1e-15)
-        self.last = torch.where(self.done, self.last, v)
+    def step(self, U, Y):
+        diff, den = _val(U).abs(), _val(Y).abs()
+        ok = diff < 4e-16 * den
+        if _is_d(U):
+            f = U / Y
+            for t, y in zip(f.g + (f.h or []), Y.g + (Y.h or [])):
+                ok = ok & (t.abs() < 1e-15 * (1.0 + (y / Y.v).abs()))
+        self.diff = torch.where(self.done, self.diff, diff)
+        self.den = torch.where(self.done, self.den, den)
         self.count = torch.where(ok, self.count + 1, 0)
         self.done = self.done | (self.count >= EXTRA)
 
     def conv(self):
-        return (self.last - 1.0).abs() <= CONV_TOL
+        return self.diff <= CONV_TOL * self.den
 
 
-def _betainc(a, b, x, order):
+def _pow2_scale(u, w):
+    """2^-e, e the exponent of the larger of |u| and |w| (1 where that is 0
+    or not finite): the kernel's rescaling, exact."""
+    m = torch.maximum(_val(u).abs(), _val(w).abs())
+    e = torch.frexp(m)[1]
+    e = torch.where((m > 0.0) & torch.isfinite(m), e, 0)
+    return torch.ldexp(torch.ones_like(m), -e)
+
+
+def _beta_cf(aa, bb, xx):
+    """(h = B / A of the transformed beta fraction, converged): the
+    kernel's `beta_cf`."""
+    qab = aa + bb
+    Ap, Bp = _const(aa, 1.0), _const(aa, 1.0)
+    Ac, Bc = (aa + 1.0) - qab * xx, aa + 1.0
+    stop = _Stop(xx)
+    for m in range(1, N_BETA_CF):
+        fm = float(m)
+        e = (bb - fm) * (fm * xx)
+        be = aa + 2.0 * fm
+        An, Bn = be * Ac + e * Ap, be * Bc + e * Bp
+        Ap1, Bp1, Ac1, Bc1 = Ac, Bc, An, Bn
+        o = -((aa + fm) * (qab + fm)) * xx
+        bo = aa + (2.0 * fm + 1.0)
+        An, Bn = bo * Ac1 + o * Ap1, bo * Bc1 + o * Bp1
+        Y = An * Bc1
+        U = Bn * Ac1 - Y
+        new = [Ac1, Bc1, An, Bn]
+        if m % RESCALE == 0:
+            scale = _pow2_scale(An, Bn)
+            new = [u * scale for u in new]
+        Ap, Bp, Ac, Bc = (stop.hold(n, o) for n, o in
+                          zip(new, (Ap, Bp, Ac, Bc)))
+        stop.step(U, Y)
+    return Bc / Ac, stop.conv()
+
+
+def _const(like, v):
+    """v as a number of like's kind (a _D with zero partials, or a tensor)
+    and shape."""
+    t = torch.full_like(_val(like), v)
+    if not _is_d(like):
+        return t
+    z = torch.zeros_like(t)
+    return _D(t, [z, z], None if like.h is None else [z, z, z])
+
+
+def _beta_lnB(p, q):
+    return torch.lgamma(p) + torch.lgamma(q) - torch.lgamma(p + q)
+
+
+def _betainc(a, b, x, order, lnB=None):
     """(I_x(a, b) as a tensor (order 0) or _D in (a, b), its value
-    converged within N_BETA_CF terms, clamped to [0, 1]) elementwise."""
+    converged within N_BETA_CF terms, clamped to [0, 1]) elementwise; lnB
+    the lgamma terms at order 0 (computed here when None)."""
     a, b, x = torch.broadcast_tensors(a, b, x)
     sym = x > (a + 1.0) / (a + b + 2.0)
     if order:
         A, B = _D.seed(a, 0, order), _D.seed(b, 1, order)
         aa, bb = _where(sym, B, A), _where(sym, A, B)
+        lnb = _lgamma(aa) + _lgamma(bb) - _lgamma(aa + bb)
     else:
         aa, bb = torch.where(sym, b, a), torch.where(sym, a, b)
+        lnb = _beta_lnB(a, b) if lnB is None else lnB
     xx = torch.clamp(torch.where(sym, 1.0 - x, x), 0.0, 1.0 - 1e-16)
     lnfront = (aa * torch.log(torch.clamp_min(xx, 1e-300))
-               + bb * torch.log1p(-xx) - _log(aa)
-               - (_lgamma(aa) + _lgamma(bb) - _lgamma(aa + bb)))
-    qab, qap, qam = aa + bb, aa + 1.0, aa - 1.0
-    c = torch.ones_like(x)
-    d = 1.0 / _guard(1.0 - qab * xx / qap)
-    h = d
-    stop = _Stop(x)
-    for m in range(1, N_BETA_CF):
-        fm = float(m)
-        num = fm * (bb - fm) * xx / ((qam + 2.0 * fm) * (aa + 2.0 * fm))
-        d = 1.0 / _guard(1.0 + num * d)
-        c = 1.0 + num / _guard(c)
-        h1 = h * d * c
-        num = -(aa + fm) * (qab + fm) * xx / ((aa + 2.0 * fm)
-                                              * (qap + 2.0 * fm))
-        d = 1.0 / _guard(1.0 + num * d)
-        c = 1.0 + num / _guard(c)
-        delta = d * c
-        h = stop.hold(h1 * delta, h)
-        stop.step(delta)
+               + bb * torch.log1p(-xx) - _log(aa) - lnb)
+    h, conv = _beta_cf(aa, bb, xx)
     res = _exp(lnfront) * h
     out = _where(sym, 1.0 - res, res)
     v = _val(out)
     lo, hi = v < 0.0, v > 1.0
     out = _zero_where(hi, _zero_where(lo, out, 0.0), 1.0)
-    return out, stop.conv(), lo | hi
+    return out, conv, lo | hi
 
 
 def _gammainc(a, x0, order):
@@ -429,30 +469,40 @@ def _gammainc(a, x0, order):
     x = torch.clamp_min(x0, 1e-300)
     xs = torch.where(ser, x, 0.5 * a + 0.5)
     xc = torch.where(ser, a + 1.0, x)
-    ap, term = A, 1.0 / A
-    total = term
+    ap, Q, N = A, A, _const(A, 1.0)
+    P = torch.ones_like(a)
     ss = _Stop(a)
-    for _ in range(N_GAMMA):
+    for k in range(N_GAMMA):
         ap = ap + 1.0
-        term = term * xs / ap
-        total = ss.hold(total + term, total)
-        ss.step(1.0 + term / total)
-    p_ser = total * _exp(-xs + A * torch.log(xs) - _lgamma(A))
+        P1 = P * xs
+        new = [N * ap + P1, Q * ap, P1]
+        U, Y = _const(A, 0.0) + P1, new[0]
+        if (k + 1) % RESCALE == 0:
+            scale = _pow2_scale(new[0], new[1])
+            new = [u * scale for u in new]
+        N, Q, P = (ss.hold(n, o) for n, o in zip(new, (N, Q, P)))
+        ss.step(U, Y)
+    p_ser = N / Q * _exp(-xs + A * torch.log(xs) - _lgamma(A))
+    rx = 1.0 / xc
     bcf = xc + 1.0 - A
-    c = torch.full_like(a, 1.0 / TINY)
-    d = 1.0 / _guard(bcf)
-    h = d
+    Ap, Bp, Ac, Bc = _const(A, 1.0), _const(A, 0.0), bcf * rx, _const(A, 1.0)
     sc = _Stop(a)
     for i in range(1, N_GAMMA):
         fi = float(i)
-        an = -fi * (fi - A)
+        an = (fi - A) * (-fi * rx * rx)
         bcf = bcf + 2.0
-        d = 1.0 / _guard(an * d + bcf)
-        c = _guard(bcf + an / c)
-        delta = d * c
-        h = sc.hold(h * delta, h)
-        sc.step(delta)
-    p_cf = 1.0 - _exp(-xc + A * torch.log(xc) - _lgamma(A)) * h
+        bi = bcf * rx
+        An, Bn = bi * Ac + an * Ap, bi * Bc + an * Bp
+        Y = An * Bc
+        U = Bn * Ac - Y
+        new = [Ac, Bc, An, Bn]
+        if i % RESCALE == 0:
+            scale = _pow2_scale(An, Bn)
+            new = [u * scale for u in new]
+        Ap, Bp, Ac, Bc = (sc.hold(n, o) for n, o in
+                          zip(new, (Ap, Bp, Ac, Bc)))
+        sc.step(U, Y)
+    p_cf = 1.0 - _exp(-xc + A * torch.log(xc) - _lgamma(A)) * (Bc / Ac * rx)
     out = _where(ser, p_ser, p_cf)
     v = _val(out)
     lo, hi = (v < 0.0) | (x0 <= 0.0), v > 1.0
@@ -482,7 +532,7 @@ def _finite(*ts):
 
 def _beta_logpdf(p, q, x):
     return ((p - 1.0) * torch.log(x) + (q - 1.0) * torch.log1p(-x)
-            - (torch.lgamma(p) + torch.lgamma(q) - torch.lgamma(p + q)))
+            - _beta_lnB(p, q))
 
 
 def inc_plain(kind, a, b, x, order=1):
@@ -521,76 +571,131 @@ def inc_plain(kind, a, b, x, order=1):
     return v, d1, d2, info
 
 
+# --- the warp's rounds, lanes as a last axis of 32 ---------------------------
+
+
+def _narrow(t, f, lo, hi):
+    """The kernel's `narrow`: hi the smallest point not below, lo the
+    largest below it, over the lanes (last axis) and the old bracket."""
+    below = f < 0.0
+    hi = torch.minimum(hi, torch.where(below, math.inf, t).amin(-1))
+    lo = torch.maximum(lo, torch.where(below & (t < hi[..., None]), t,
+                                       -math.inf).amax(-1))
+    return lo, hi
+
+
+def _beta_start(p, q, y):
+    """The kernel's `beta_start` (AS 26.5.22; the tails' power laws)."""
+    pp = torch.where(y < 0.5, y, 1.0 - y)
+    t = torch.sqrt(-2.0 * torch.log(pp))
+    z = (2.30753 + t * 0.27061) / (1.0 + t * (0.99229 + t * 0.04481)) - t
+    z = torch.where(y < 0.5, -z, z)
+    al = (z * z - 3.0) / 6.0
+    h = 2.0 / (1.0 / (2.0 * p - 1.0) + 1.0 / (2.0 * q - 1.0))
+    w = z * torch.sqrt(al + h) / h - (1.0 / (2.0 * q - 1.0)
+                                      - 1.0 / (2.0 * p - 1.0)) * (
+        al + 5.0 / 6.0 - 2.0 / (3.0 * h))
+    x_big = p / (p + q * torch.exp(2.0 * w))
+    lna, lnb = torch.log(p / (p + q)), torch.log(q / (p + q))
+    t, u = torch.exp(p * lna) / p, torch.exp(q * lnb) / q
+    w = t + u
+    x_small = torch.where(y < t / w, torch.pow(p * w * y, 1.0 / p),
+                          1.0 - torch.pow(q * w * (1.0 - y), 1.0 / q))
+    x = torch.where((p >= 1.0) & (q >= 1.0), x_big, x_small)
+    return torch.where(torch.isfinite(x), torch.clamp(x, X_LO, X_HI), 0.5)
+
+
+def _logistic(t):
+    return 1.0 / (1.0 + torch.exp(-t))
+
+
 def _beta_root(p, q, y):
-    """(x, converged): the kernel's logit multisection and Newton."""
-    tlo = torch.full_like(p, LOGIT_LO)
-    thi = -tlo
-    lanes = torch.arange(1, 33, dtype=p.dtype, device=p.device)
-    conv = torch.ones(p.shape, dtype=torch.bool, device=p.device)
-    for _ in range(BETA_ROUNDS):
-        w = (thi - tlo) / 33.0
-        t = tlo[..., None] + lanes * w[..., None]
-        f, c, _ = _betainc(p[..., None], q[..., None],
-                           1.0 / (1.0 + torch.exp(-t)), 0)
-        conv = conv & c.all(-1)
-        below = f < y[..., None]
-        k = torch.where(below.all(-1), 32,
-                        (~below).to(torch.uint8).argmax(-1))
-        kf = k.to(p.dtype)
-        nlo = tlo + kf * w
-        thi = torch.where(k == 32, thi, tlo + (kf + 1.0) * w)
-        tlo = nlo
-    x = torch.clamp(1.0 / (1.0 + torch.exp(-0.5 * (tlo + thi))), X_LO, X_HI)
-    lnB = torch.lgamma(p) + torch.lgamma(q) - torch.lgamma(p + q)
-    active = torch.ones_like(conv)
-    for _ in range(BETA_NEWTON):
-        f, c, _ = _betainc(p, q, x, 0)
-        conv = conv & (c | ~active)
-        f = f - y
-        logpdf = (p - 1.0) * torch.log(x) + (q - 1.0) * torch.log1p(-x) - lnB
-        xn = torch.clamp(x - f / torch.clamp_min(torch.exp(logpdf), 1e-300),
-                         X_LO, X_HI)
-        xn = torch.where(torch.isnan(xn), x, xn)
-        moved = (xn - x).abs() > 4e-16 * x
-        x = torch.where(active, xn, x)
-        active = active & moved
+    """(x, converged): the kernel's `beta_root`, its rounds held once an
+    entry stops."""
+    lnB = _beta_lnB(p, q)
+    lanes = torch.arange(32, dtype=p.dtype, device=p.device)
+    lo, hi = torch.full_like(p, X_LO), torch.full_like(p, X_HI)
+    tlo = torch.log(lo) - torch.log1p(-lo)
+    thi = torch.log(hi) - torch.log1p(-hi)
+    x = _beta_start(p, q, y)
+    prev = torch.full_like(p, math.inf)
+    active = torch.ones(p.shape, dtype=torch.bool, device=p.device)
+    conv = active.clone()
+    for _ in range(ROOT_ROUNDS):
+        w = (thi - tlo) / 32.0
+        t = torch.where(lanes == 0,
+                        (torch.log(x) - torch.log1p(-x))[..., None],
+                        tlo[..., None] + lanes * w[..., None])
+        xl = torch.where(lanes == 0, x[..., None], _logistic(t))
+        f, c, _ = _betainc(p[..., None], q[..., None], xl, 0, lnB[..., None])
+        conv = conv & (c.all(-1) | ~active)
+        f = f - y[..., None]
+        nlo, nhi = _narrow(t, f, tlo, thi)
+        f0 = f[..., 0]
+        u = f0 / torch.clamp_min(torch.exp(
+            (p - 1.0) * torch.log(x) + (q - 1.0) * torch.log1p(-x) - lnB),
+            1e-300)
+        cc = u * ((p - 1.0) / x - (q - 1.0) / (1.0 - x))
+        xn = torch.clamp(x - u / (1.0 - 0.5 * torch.fmin(
+            torch.ones_like(cc), cc)), X_LO, X_HI)
+        tn = torch.log(xn) - torch.log1p(-xn)
+        step = (xn - x).abs()
+        take = torch.isfinite(xn) & (tn >= nlo) & (tn <= nhi) & (
+            step <= 0.5 * prev)
+        mid = torch.clamp(_logistic(0.5 * (nlo + nhi)), X_LO, X_HI)
+        x = torch.where(active, torch.where(take, xn, mid), x)
+        prev = torch.where(active, torch.where(take, step, math.inf), prev)
+        tlo = torch.where(active, nlo, tlo)
+        thi = torch.where(active, nhi, thi)
+        active = active & ~(take & ~(step > STEP_DONE * torch.fmin(
+            xn, 1.0 - xn)))
     return x, conv
 
 
 def _gamma_root(a, p):
-    """(x, converged): the kernel's start, Newton on log x and polish."""
+    """(x, converged): the kernel's `gamma_root`."""
     lg = torch.lgamma(a)
     z = SQRT2 * torch.special.erfinv(2.0 * p - 1.0)
     g = 2.0 / (9.0 * a)
-    c = 1.0 - g + z * torch.sqrt(g)
-    x_wh = torch.clamp_min(a * (c * c * c), 1e-300)
-    x_sm = torch.exp((torch.log(p) + torch.lgamma(a + 1.0)) / a)
-    f_wh, c_wh, _ = _gammainc(a, x_wh, 0)
-    f_sm, c_sm, _ = _gammainc(a, x_sm, 0)
-    conv = c_wh & c_sm
-    x0 = torch.where((f_sm - p).abs() < (f_wh - p).abs(), x_sm, x_wh)
-    y = torch.log(torch.clamp_min(x0, 1e-300))
-    logp = torch.log(p)
-    active = torch.ones_like(conv)
-    for _ in range(LOG_NEWTON):
+    c3 = 1.0 - g + z * torch.sqrt(g)
+    y_wh = torch.log(torch.clamp_min(a * (c3 * c3 * c3), 1e-300))
+    y_sm = (torch.log(p) + torch.lgamma(a + 1.0)) / a
+    lanes = torch.arange(32, dtype=a.dtype, device=a.device)
+    ylo = torch.full_like(a, Y_LO)
+    yhi = torch.log(2.0 * a + 40.0 * torch.sqrt(a) + 800.0)
+    y = torch.clamp(y_wh, ylo, yhi)
+    prev = torch.full_like(a, math.inf)
+    active = torch.ones(a.shape, dtype=torch.bool, device=a.device)
+    conv = active.clone()
+    for r in range(ROOT_ROUNDS):
+        w = (yhi - ylo) / 32.0
+        t = ylo[..., None] + lanes * w[..., None]
+        if r == 0:
+            t = torch.where(lanes == 1, y_sm[..., None], t)
+        t = torch.where(lanes == 0, y[..., None], t)
+        f, c, _ = _gammainc(a[..., None], torch.exp(t), 0)
+        conv = conv & (c.all(-1) | ~active)
+        f = f - p[..., None]
+        nlo, nhi = _narrow(t, f, ylo, yhi)
+        f0 = f[..., 0]
+        if r == 0:
+            better = f[..., 1].abs() < f0.abs()
+            y = torch.where(better, y_sm, y)
+            f0 = torch.where(better, f[..., 1], f0)
         x = torch.exp(y)
-        F, c, _ = _gammainc(a, x, 0)
-        conv = conv & (c | ~active)
-        F = torch.clamp_min(F, 1e-300)
-        step = torch.clamp((torch.log(F) - logp) * F
-                           * torch.exp(-(a * y - x - lg)), -2.0, 2.0)
-        yn = y - step
-        y = torch.where(active & torch.isfinite(yn), yn, y)
-        active = active & (step.abs() > 1e-10)
-    active = torch.ones_like(conv)
-    for _ in range(POLISH):
-        x = torch.exp(y)
-        f, c, _ = _gammainc(a, x, 0)
-        conv = conv & (c | ~active)
-        step = torch.clamp((f - p) * torch.exp(-(a * y - x - lg)), -1.0, 1.0)
-        yn = y - step
-        y = torch.where(active & torch.isfinite(yn), yn, y)
-        active = active & (step.abs() > 4e-16 * torch.clamp_min(y.abs(), 1.0))
+        u = f0 / torch.clamp_min(torch.exp(a * y - x - lg), 1e-300)
+        cc = u * (a - x)
+        yn = y - torch.clamp(u / (1.0 - 0.5 * torch.fmin(
+            torch.ones_like(cc), cc)), -2.0, 2.0)
+        step = (yn - y).abs()
+        take = torch.isfinite(yn) & (yn >= nlo) & (yn <= nhi) & (
+            step <= 0.5 * prev)
+        y = torch.where(active, torch.where(take, yn, 0.5 * (nlo + nhi)), y)
+        prev = torch.where(active, torch.where(take, step, math.inf), prev)
+        ylo = torch.where(active, nlo, ylo)
+        yhi = torch.where(active, nhi, yhi)
+        active = active & ~(take & ~(step > STEP_DONE * torch.clamp_min(
+            yn.abs(), 1.0)))
     return torch.exp(y), conv
 
 
@@ -679,13 +784,30 @@ def _ndtr(z):
     return 0.5 * torch.erfc(-z * SQRT1_2)
 
 
-def _mix_cdf(model, th, x):
-    """(the continuous part's CDF at x, converged): the kernel's
-    `mix_cdf`; th [..., ntheta] against x [..., K, 32]."""
-    t = [th[..., j, None, None] for j in range(th.shape[-1])]
+def _npdf(z):
+    return INV_SQRT2PI * torch.exp(-0.5 * z * z)
 
-    def bcdf(p, q):
-        return _betainc(p, q, torch.clamp(x, 1e-12, 1.0 - 1e-12), 0)[:2]
+
+def _mix_parts(model, th):
+    """[t_0 ... t_5] [..., 1, 1] and the lgamma terms (lnB, lg1, lg2) of the
+    kernel's `Mix`."""
+    t = [th[..., j, None, None] for j in range(th.shape[-1])]
+    zero = torch.zeros_like(t[0])
+    lnB = _beta_lnB(t[1], t[2]) if model in (9, 10, 11) else zero
+    lg1 = (torch.lgamma(t[1]) if model == 6 else
+           torch.lgamma(t[3]) if model in (9, 10) else zero)
+    lg2 = torch.lgamma(t[3]) if model == 6 else zero
+    return t, lnB, lg1, lg2
+
+
+def _mix_cdf(model, parts, x):
+    """(the continuous part's CDF at x, converged): the kernel's
+    `mix_cdf`; `parts` from _mix_parts against x [..., K, 32]."""
+    t, lnB, lg1, lg2 = parts
+
+    def bcdf():
+        return _betainc(t[1], t[2], torch.clamp(x, 1e-12, 1.0 - 1e-12), 0,
+                        lnB)[:2]
 
     def gcdf(a, b, xv):
         return _gammainc(a, b * torch.clamp_min(xv, 0.0), 0)[:2]
@@ -695,18 +817,18 @@ def _mix_cdf(model, th, x):
         g2, c2 = gcdf(t[3], t[3], x)
         return t[0] * g1 + (1.0 - t[0]) * g2, c1 & c2
     if model == 9:
-        b1, c1 = bcdf(t[1], t[2])
+        b1, c1 = bcdf()
         g2, c2 = gcdf(t[3], t[4], x)
         return t[0] * b1 + (1.0 - t[0]) * g2, c1 & c2
     low = x <= 1.0
     if model == 10:
-        b1, c1 = bcdf(t[1], t[2])
+        b1, c1 = bcdf()
         g2, c2 = gcdf(t[3], t[4], x - 1.0)
         return (torch.where(low, t[0] * b1, t[0] + (1.0 - t[0]) * g2),
                 torch.where(low, c1, c2))
     if model == 11:
         z1 = torch.clamp_min(_ndtr((t[3] - 1.0) / t[4]), 1e-12)
-        b1, c1 = bcdf(t[1], t[2])
+        b1, c1 = bcdf()
         hi = t[0] + (1.0 - t[0]) * (1.0 - _ndtr((t[3] - x) / t[4]) / z1)
         return torch.where(low, t[0] * b1, hi), c1 | ~low
     ones = torch.ones(x.shape, dtype=torch.bool, device=x.device)
@@ -726,34 +848,113 @@ def _mix_cdf(model, th, x):
             / torch.clamp_min(_ndtr(mu2 / s2), 1e-12)), ones
 
 
+def _mix_pdf(model, parts, x):
+    """The kernel's `mix_pdf`: the density, 0 where the CDF clamps."""
+    t, lnB, lg1, lg2 = parts
+    zero = torch.zeros_like(x)
+
+    def bpdf():
+        inside = (x > 1e-12) & (x < 1.0 - 1e-12)
+        return torch.where(inside, torch.exp(
+            (t[1] - 1.0) * torch.log(x) + (t[2] - 1.0) * torch.log1p(-x)
+            - lnB), zero)
+
+    def gpdf(a, b, lg, xv):
+        return torch.where(xv > 0.0, b * torch.exp(
+            (a - 1.0) * torch.log(b * xv) - b * xv - lg), zero)
+
+    if model == 6:
+        return (t[0] * gpdf(t[1], t[2], lg1, x)
+                + (1.0 - t[0]) * gpdf(t[3], t[3], lg2, x))
+    if model == 9:
+        return t[0] * bpdf() + (1.0 - t[0]) * gpdf(t[3], t[4], lg1, x)
+    low = x <= 1.0
+    if model == 10:
+        return torch.where(low, t[0] * bpdf(),
+                           (1.0 - t[0]) * gpdf(t[3], t[4], lg1, x - 1.0))
+    if model == 11:
+        z1 = torch.clamp_min(_ndtr((t[3] - 1.0) / t[4]), 1e-12)
+        return torch.where(low, t[0] * bpdf(), (1.0 - t[0])
+                           * _npdf((t[3] - x) / t[4]) / (t[4] * z1))
+    if model == 12:
+        p1, mu2, s1, s2 = t[1], t[2], t[3], t[4]
+        return (p1 * _npdf((x - 1.0) / s1) / (s1 * _ndtr(1.0 / s1))
+                + (1.0 - p1) * _npdf((x - mu2) / s2)
+                / (s2 * torch.clamp_min(_ndtr(mu2 / s2), 1e-12)))
+    e0, e1 = torch.exp(t[0]), torch.exp(t[1])
+    z = e0 + e1 + 1.0
+    f0, f1 = e0 / z, e1 / z
+    f2 = 1.0 - f0 - f1
+    mu2, s0, s1, s2 = t[2], t[3], t[4], t[5]
+    return (f0 * 2.0 * _npdf(x / s0) / s0
+            + f1 * _npdf((x - 1.0) / s1) / (s1 * _ndtr(1.0 / s1))
+            + f2 * _npdf((x - mu2) / s2)
+            / (s2 * torch.clamp_min(_ndtr(mu2 / s2), 1e-12)))
+
+
 def mix_quantiles_plain(model, theta, K):
     """`mix_quantiles`' plain version (any device; no host read); theta may
     carry leading axes, one set of parameters per row: x [..., K]."""
+    lo, hi, info = mix_bracket_plain(model, theta, K)
+    return 0.5 * (lo + hi), info
+
+
+def mix_bracket_plain(model, theta, K):
+    """The brackets [lo, hi] whose midpoints `mix_quantiles` returns, and
+    its info: NOCONV where a bracket is still wider than the first
+    design's (MIX_WIDTH, or two adjacent doubles) after MIX_ROUNDS."""
     if model not in NTHETA or K < 1:
         raise ValueError(f"mix_quantiles: NSsites {model}, K {K}")
     th = theta[..., :NTHETA[model]].to(torch.float64)
     shape = th.shape[:-1] + (K,)
     ok = torch.isfinite(th).all(-1)[..., None]
     kw = dict(dtype=th.dtype, device=th.device)
+    parts = _mix_parts(model, th)
     target = (torch.arange(K, **kw) + 0.5) / K
     lo = torch.full(shape, MIX_LO, **kw)
     hi = torch.full_like(lo, MIX_HI)
-    lanes = torch.arange(1, 33, **kw)
-    conv = torch.ones(shape, dtype=torch.bool, device=th.device)
+    xe = torch.full_like(lo, math.nan)
+    step = torch.zeros_like(lo)
+    lanes = torch.arange(32, **kw)
+    active = torch.ones(shape, dtype=torch.bool, device=th.device)
+    conv = active.clone()
     nan = torch.zeros_like(conv)
-    for _ in range(MIX_ROUNDS):
-        w = (hi - lo) / 33.0
-        c, cv = _mix_cdf(model, th, lo[..., None] + lanes * w[..., None])
-        conv = conv & cv.all(-1)
-        nan = nan | torch.isnan(c).any(-1)
-        below = c < target[:, None]
-        k = torch.where(below.all(-1), 32,
-                        (~below).to(torch.uint8).argmax(-1))
-        kf = k.to(th.dtype)
-        nlo = lo + kf * w
-        hi = torch.where(k == 32, hi, lo + (kf + 1.0) * w)
-        lo = nlo
-    return 0.5 * (lo + hi), _info(nan | ~ok, conv)
+    misses = torch.zeros(shape, dtype=torch.int32, device=th.device)
+    for r in range(MIX_ROUNDS):
+        w0 = hi - lo
+        half = torch.fmax(2.0 * step, 8.0 * (torch.nextafter(
+            xe, torch.full_like(xe, math.inf)) - xe))
+        clo = torch.fmax(lo, xe - half)
+        chi = torch.fmin(hi, xe + half)
+        cluster = torch.where(lanes == 0, xe[..., None], clo[..., None]
+                              + lanes * ((chi - clo) / 32.0)[..., None])
+        sect = lo[..., None] + (lanes + 1.0) * ((hi - lo) / 33.0)[..., None]
+        x = torch.where(torch.isnan(xe)[..., None], sect, cluster)
+        c, cv = _mix_cdf(model, parts, x)
+        conv = conv & (cv.all(-1) | ~active)
+        nan = nan | (torch.isnan(c).any(-1) & active)
+        f = c - target[:, None]
+        nlo, nhi = _narrow(x, f, lo, hi)
+        lo = torch.where(active, nlo, lo)
+        hi = torch.where(active, nhi, hi)
+        tight = ~(nhi > torch.nextafter(nlo, torch.full_like(nlo, math.inf))
+                  ) | (nhi - nlo <= MIX_WIDTH)
+        # a cluster that missed the root: one 33-section round after the
+        # first, only 33-section rounds after the second
+        missed = active & ~torch.isnan(xe) & (nhi - nlo > w0 / 32.0)
+        misses = misses + missed.to(torch.int32)
+        best = torch.where(torch.isnan(f), math.inf, f.abs()).argmin(-1,
+                                                                    True)
+        xb = x.gather(-1, best)
+        fb = f.gather(-1, best)
+        xn = (xb - fb / _mix_pdf(model, parts, xb))[..., 0]
+        newton = ((r + 1 >= MIX_SECTIONS) & torch.isfinite(xn) & ~missed
+                  & (misses < 2))
+        xn = torch.clamp(xn, nlo, nhi)
+        xe = torch.where(active, torch.where(newton, xn, math.nan), xe)
+        step = torch.where(active & newton, (xn - xb[..., 0]).abs(), step)
+        active = active & ~tight
+    return lo, hi, _info(nan | ~ok, conv & ~active)
 
 
 PLAIN = types.SimpleNamespace(inc=inc_plain, inc_inv=inc_inv_plain,

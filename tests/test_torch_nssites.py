@@ -4,7 +4,7 @@ paml_tpu.apps.codeml: class omegas and weights of M1a-M13 and M2a_rel
 parameter counts and extra starts; the quantile helpers; and the
 objective's value (1e-8 relative) and gradient (1e-6, against `jax.grad`)
 on `tests/data/clock56.codon` for the models whose omegas are quantiles
-(M5, M6, M7, M8, M9, M10, M12, M13)."""
+(M5-M13), and M11 at ncatG = 10 on the kink at omega = 1."""
 import numpy as np
 import pytest
 import torch
@@ -100,7 +100,7 @@ def test_cdf_quantiles_match_jax():
 # (its incomplete gamma's derivatives at 0, where every omega below 1
 # evaluates the gamma part, times the zero of a `where`); the port's is
 # finite.  The two are held together on the entries JAX can give.
-OBJECTIVES = [5, 6, 7, 8, 9, 10, 12, 13]
+OBJECTIVES = [5, 6, 7, 8, 9, 10, 11, 12, 13]
 
 
 @pytest.mark.parametrize("ns", OBJECTIVES)
@@ -139,3 +139,51 @@ def test_quantile_model_objective_matches_jax(ns):
                           ) / 2e-6
                 assert abs(float(fd) - float(g[i])) <= 1e-5 * max(
                     1.0, abs(float(g[i])))
+
+
+def _central(neg, x, i, h):
+    e = np.zeros_like(x)
+    e[i] = h
+    with torch.no_grad():
+        return float((neg(interop.params_from(x + e, device="cpu"))
+                      - neg(interop.params_from(x - e, device="cpu")))
+                     / (2 * h))
+
+
+def test_m11_gradient_at_its_kink():
+    # M11 at ncatG = 10 and its start point: p0 = 0.95 puts the tenth
+    # median target on omega = 1, where the beta part's density is 0 and
+    # the normal part's starts.  The bracket ends there, the first Newton
+    # step leaves it with a pdf clamped at 1e-12, and the second starts
+    # 1.3e-3 past the root.  The value within 1e-8 of the JAX package's;
+    # the gradient within the other models' tolerance but for p0 (x[-5],
+    # the kink: the root moves at one rate above p0 and another below).
+    # mu and sigma (x[-2], x[-1]) move the value only through the tenth
+    # omega's landing 7e-8 above 1: their components (-2.2e-5, 4.0e-6)
+    # are far below that tolerance, and are held to 1e-3 of their own size
+    # against the port's own central differences, at a step h = 1e-3 where
+    # those have settled (h from 1e-5 to 1e-2 agree within 2e-4; at 1e-6
+    # the value's rounding moves x[-1]'s by 4 %).
+    data_j, topo_j = _clock56(False)
+    kw = dict(NSsites=11, ncatG=10)
+    neg_j, _, _, x0_j, _, _ = jax_codeml.make_codon_objective(
+        data_j, topo_j, jax_codeml.CodemlSpec(**kw), jnp.float64)
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(
+        interop.packed_from(data_j), interop.topology_from(topo_j),
+        codeml.CodemlSpec(**kw), device="cpu")
+    x = np.asarray(x0, float)
+    np.testing.assert_array_equal(x, x0_j)
+    vj, gj = jax.jit(jax.value_and_grad(neg_j))(jnp.asarray(x))
+    gj = np.asarray(gj)
+    xt = interop.params_from(x, device="cpu").requires_grad_(True)
+    v = neg(xt)
+    (g,) = torch.autograd.grad(v, xt)
+    g = g.numpy()
+    assert abs(v.item() - float(vj)) <= 1e-8 * abs(float(vj))
+    assert np.isfinite(g).all()
+    keep = np.arange(len(x)) != len(x) - 5
+    np.testing.assert_allclose(g[keep], gj[keep], rtol=1e-6,
+                               atol=1e-6 * np.abs(gj).max())
+    for i in (len(x) - 2, len(x) - 1):
+        fd = _central(neg, x, i, 1e-3)
+        assert abs(fd - g[i]) <= 1e-3 * abs(fd), (i, fd, g[i])

@@ -18,7 +18,12 @@ and paml_tpu.apps.codeml on the same numpy inputs, float64, on the CPU:
   `paml_tpu.apps.codeml.cdf_quantiles` at each model's x0 and three
   seeded theta within its bounds (values 1e-9 relative, gradients 1e-6 of
   the largest component; where JAX's gradient is NaN, as M10's is at some
-  theta, the port's must be finite), and with 40 quantiles at x0;
+  theta, the port's must be finite), and with 40 quantiles at x0; M10 at
+  five quantiles and x0, a target on a point of zero density: values
+  1e-12 of the JAX package's, a finite Jacobian at the port's own central
+  differences; M12 and M13 with modes far apart: the bracket as narrow as
+  the first design's (33-section rounds) and its midpoint the same, and
+  NOCONV where it is cut short;
 - the status words (1 on a NaN input), a failed status raising through
   dgamma, a third derivative raising, and the kernels refusing CPU
   tensors.
@@ -240,6 +245,24 @@ def test_mixture_quantiles_against_jax(NS):
             close_of_largest(g, gj, 1e-6)
 
 
+@pytest.mark.parametrize("NS", MIX_MODELS)
+def test_mixture_density_matches_the_cdf(NS):
+    # the closed-form density the bracket's Newton steps use (the kernel's
+    # mix_pdf) against autograd of the host route's mixture CDF, at omegas
+    # on both sides of the kink at 1 and at each model's x0 and a seeded
+    # theta
+    xs = torch.tensor([1e-3, 0.05, 0.4, 0.93, 1.0 + 1e-6, 1.7, 4.0, 12.0],
+                      dtype=torch.float64)
+    for row in _thetas(NS, MIX_K)[:2]:
+        th = torch.tensor(row)
+        xg = xs.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(
+            codeml.nssites_mixture_cdf(NS, th)(xg).sum(), xg)
+        got = cq._mix_pdf(NS, cq._mix_parts(NS, th), xs[None, :, None])
+        np.testing.assert_allclose(got.reshape(-1), want, rtol=1e-12,
+                                   atol=1e-300)
+
+
 # ncatG above 32 (the kernel takes a block per quantile): the bracket and
 # the Newton steps at each model's x0
 MANY_K = 40
@@ -257,6 +280,57 @@ def test_mixture_quantiles_many_classes(NS):
     assert rel(x, xj) < 1e-9
 
 
+# M12 and M13 with modes far apart, targets on the flat stretches between
+# them included (M12's p1 = 0.55 and M13's 0.5 + 0.25 put a median target
+# exactly there), where the Newton clusters miss the root
+SEPARATED = [(12, [0.2, 0.55, 8.0, 0.05, 0.3], 10),
+             (12, [0.2, 0.3, 30.0, 0.02, 2.0], 10),
+             (13, [np.log(2.0), 0.0, 10.0, 0.05, 0.05, 0.5], 2),
+             (13, [0.0, 0.0, 20.0, 0.01, 0.02, 1.0], 10)]
+
+
+def _sections(NS, th, K, rounds=14):
+    """The first design's bracket: 14 rounds of 33-section, each keeping
+    the section whose upper end is the first point not below the target."""
+    parts = cq._mix_parts(NS, th)
+    target = (torch.arange(K, dtype=torch.float64) + 0.5) / K
+    lo = torch.full((K,), cq.MIX_LO, dtype=torch.float64)
+    hi = torch.full_like(lo, cq.MIX_HI)
+    lanes = torch.arange(32, dtype=torch.float64)
+    for _ in range(rounds):
+        x = lo[:, None] + (lanes + 1.0) * ((hi - lo) / 33.0)[:, None]
+        f = cq._mix_cdf(NS, parts, x)[0] - target[:, None]
+        lo, hi = cq._narrow(x, f, lo, hi)
+    return lo, hi
+
+
+@pytest.mark.parametrize("case", range(len(SEPARATED)))
+def test_mixture_bracket_width_at_separated_modes(case):
+    NS, row, K = SEPARATED[case]
+    th = torch.tensor(row, dtype=torch.float64)
+    lo, hi, info = cq.mix_bracket_plain(NS, th, K)
+    assert (info[:, 0] == cq.OK).all()
+    adjacent = hi <= torch.nextafter(lo, torch.full_like(lo, np.inf))
+    assert (adjacent | (hi - lo <= cq.MIX_WIDTH)).all()
+    slo, shi = _sections(NS, th, K)
+    assert torch.equal(0.5 * (lo + hi), 0.5 * (slo + shi))
+    x, xinfo = cq.mix_quantiles_plain(NS, th, K)
+    assert torch.equal(x, 0.5 * (lo + hi)) and torch.equal(xinfo, info)
+
+
+def test_mixture_bracket_short_of_its_width_is_noconv(monkeypatch):
+    # M13's second target lies on the flat stretch between its modes and
+    # takes 14 rounds, its first 7: with 12 the second's bracket stays
+    # wide, and its status says so
+    NS, row, K = SEPARATED[2]
+    monkeypatch.setattr(cq, "MIX_ROUNDS", 12)
+    lo, hi, info = cq.mix_bracket_plain(NS, torch.tensor(row), K)
+    assert info[:, 0].tolist() == [cq.OK, cq.NOCONV]
+    up = torch.nextafter(lo, torch.full_like(lo, np.inf))
+    assert hi[0] <= up[0]
+    assert hi[1] > up[1] and hi[1] - lo[1] > cq.MIX_WIDTH
+
+
 def test_mixture_quantiles_card_route(monkeypatch):
     th = torch.tensor(_thetas(10, MIX_K)[1], requires_grad=True)
     host = codeml._mixture_quantiles(10, th, MIX_K)
@@ -268,6 +342,57 @@ def test_mixture_quantiles_card_route(monkeypatch):
     assert len(sink) >= 1 and float(graphs.status_of(sink, th)) == 0.0
     assert rel(card.detach(), host.detach()) < 1e-10
     close_of_largest(gc, gh, 1e-8)
+
+
+def test_m10_zero_density_target_pinned(monkeypatch):
+    # M10 at five quantiles and its x0, the point MIX_K avoids: p0 = 0.9
+    # puts the fifth median target on omega = 1, where the beta part's
+    # density is 0.  The two Newton steps then land away from the root
+    # (omega 0.988), as the JAX package's do: the values are its
+    # cdf_quantiles' (called as it is, 1e-12 relative).  The port's
+    # class-omega Jacobian is finite and its own function's: central
+    # differences of the host route, but for the fifth quantile's p0
+    # column, where the quantile jumps (a p0 above the target moves the
+    # root into the beta part), shown as a difference that does not
+    # shrink with h.  The card's route (the plain versions) the host's.
+    K = 5
+    row = _thetas(10, K)[0]
+    wj = np.asarray(jax_codeml.cdf_quantiles(
+        jax_codeml.nssites_mixture_cdf(10, jnp.asarray(row)), K))
+
+    def quantiles(th):
+        return codeml._mixture_quantiles(10, th, K)
+
+    def jacobian():
+        th = torch.tensor(row, requires_grad=True)
+        w = quantiles(th)
+        return w.detach(), torch.stack([
+            torch.autograd.grad(w[k], th, retain_graph=True)[0]
+            for k in range(K)]).numpy()
+
+    w, J = jacobian()
+    assert rel(w, wj) < 1e-12
+    assert np.isfinite(J).all()
+
+    def at(th):
+        with torch.no_grad():
+            return quantiles(torch.tensor(th)).numpy()
+    fd = np.zeros_like(J)
+    for j in range(len(row)):
+        e = np.zeros_like(row)
+        e[j] = 1e-6
+        fd[:, j] = (at(row + e) - at(row - e)) / 2e-6
+    smooth = np.ones_like(J, dtype=bool)
+    smooth[K - 1, 0] = False
+    np.testing.assert_allclose(J[smooth], fd[smooth], rtol=1e-6, atol=1e-9)
+    for h in (1e-6, 1e-9):
+        e = np.zeros_like(row)
+        e[0] = h
+        assert abs(at(row + e)[-1] - at(row - e)[-1]) > 1e-3
+    monkeypatch.setattr(dgamma, "_e2", lambda t: cq.PLAIN)
+    wc, Jc = jacobian()
+    assert rel(wc, w) < 1e-12
+    close_of_largest(Jc, J, 1e-8)
 
 
 # --- status words and derivatives -------------------------------------------
