@@ -292,6 +292,22 @@
    own central differences, and the tenth omega's landing above 1 on
    each.  E2's
    launches in phase 6's programs and 16b's fits join the kernels line.
+17. The rest of the compiled fits: each fit from its objective's CUDA
+   graph against eagerly (`graphed_against_eager`: the same x, lnL and
+   evaluations bit for bit, one host sync per graphed evaluation, its
+   syncs by source line printed): 17a codon M0 under clock 1 and clock 2
+   (a local clock on a clade of half the tips) on phase 4's 32 x 4096
+   alignment, clean (B3/B4) and gapped (B1/B2); 17b FromCodon and REVaa_0
+   + G4 on 20 simulated taxa x 2000 amino acids (a cut of phase 8a's
+   alignment, for time); 17c REV + G5 under clock 1, UNREST, HKY85 + AdG,
+   nparK 4 and nhomo 1 on 20 x 5000 simulated sites (a cut of phase
+   7's, for time).  17d mcmctree's exact likelihood on a dated tree of 60
+   species x 8 loci x 5000 sites: `lnL_all` and each `lnL_locus` from
+   their value-only graphs against op by op at three proposals, bit for
+   bit, ms per call both ways, one host sync per graphed call.  17e the
+   failure paths: an expm past its S_MAX and a singular solve, in a graph
+   and op by op, raise `DeviceStatusError`; a capture that fails raises
+   (a subprocess).
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -5669,15 +5685,17 @@ def reset_e2():
     cq.LAUNCHES["quantile"] = 0
 
 
-def graphed_against_eager(torch, tag, fit, build, card):
+def graphed_against_eager(torch, tag, fit, build, card, phase="16b",
+                          e2=True):
     """One fit from its objective's CUDA graph and one eagerly (`fit(kind)`
     builds the objective with `capturable` as `kind` says and fits it):
     the same x, lnL and evaluations bit for bit, one host sync per graphed
     evaluation (beside those of building the objective, `build()`, counted
     apart, and at most 8 more: the capture's copy of x, the result's
-    read-back), no host second in the quantile code;
-    returns (graphed result, ms per evaluation graphed and eager, E2's
-    launches in the graphed fit)."""
+    read-back), no host second in the quantile code, E2 launched where
+    `e2`; returns (graphed result, ms per evaluation graphed and eager,
+    E2's launches in the graphed fit).  Phase 17 prints the graphed fit's
+    syncs by source line."""
     from paml_tpu_torch.core import cuda_quantile as cq
     from paml_tpu_torch.core import dgamma
 
@@ -5698,7 +5716,7 @@ def graphed_against_eager(torch, tag, fit, build, card):
         got["graph"], got["eager"])
     n = rg.fit.n_eval
     same = np.array_equal(rg.x, re_.x) and rg.lnL == re_.lnL
-    print(f"16b {tag} [{card}]: lnL {rg.lnL:.6f}, graphed = eager bit for "
+    print(f"{phase} {tag} [{card}]: lnL {rg.lnL:.6f}, graphed = eager bit for "
           f"bit {same}, evaluations {n} / {re_.fit.n_eval}; ms per "
           f"evaluation {1e3 * wg / n:.3f} graphed / "
           f"{1e3 * we / re_.fit.n_eval:.3f} dispatched; host syncs per "
@@ -5707,13 +5725,17 @@ def graphed_against_eager(torch, tag, fit, build, card):
           f"{setup} apart); host seconds "
           f"in the quantile code {hg} / {he}; E2 launches {lg} / {le}; counts "
           f"{cg} / {ce}", flush=True)
-    if not same or n != re_.fit.n_eval or cg["captures"] != 1 or \
-            cg["graphed_evals"] != n or cg["eager_evals"] or \
-            ce["captures"] or ce["eager_evals"] != n or \
-            sg - setup > n + 8 or hg or he or not lg:
-        print(f"  syncs by line, graphed: {dict(lines)}", flush=True)
-        raise AssertionError(f"16b {tag}: the graphed fit is not the eager "
-                             "fit, not graphed, or not on E2")
+    bad = not same or n != re_.fit.n_eval or cg["captures"] != 1 or \
+        cg["graphed_evals"] != n or cg["eager_evals"] or \
+        ce["captures"] or ce["eager_evals"] != n or \
+        sg - setup > n + 8 or hg or he or (e2 and not lg)
+    if bad or phase != "16b":
+        top = sorted(lines.items(), key=lambda kv: -kv[1])[:4]
+        print(f"  {phase} syncs by line, graphed fit: "
+              + ", ".join(f"{f}:{ln} {c}" for (f, ln), c in top), flush=True)
+    if bad:
+        raise AssertionError(f"{phase} {tag}: the graphed fit is not the "
+                             "eager fit, not graphed, or not on E2")
     return rg, 1e3 * wg / n, 1e3 * we / re_.fit.n_eval, lg
 
 
@@ -5912,6 +5934,328 @@ def phase_quantile(torch, report, card, bench):
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# --- phase 17: the rest of the compiled fits -----------------------------------
+
+def with_flag(module, name, kind):
+    """module.name (an objective's maker) wrapped so that the objectives it
+    makes declare `capturable` as `kind` says ("graph" or "eager"); the
+    wrapper's undo."""
+    make = getattr(module, name)
+
+    def made(*a, **kw):
+        out = make(*a, **kw)
+        out[0].capturable = kind == "graph"
+        return out
+    setattr(module, name, made)
+    return lambda: setattr(module, name, make)
+
+
+def labelled_clade(topo):
+    """topo with #1 on the branches of the clade of about half the tips
+    below the root (a local clock's second rate class)."""
+    desc = topo.tip_descendants()
+    v = min((n for n in range(topo.ns, topo.nnode) if n != topo.root),
+            key=lambda n: abs(len(desc[n]) - topo.ns // 2))
+    labels = topo.labels.copy()
+    stack = [v]
+    while stack:
+        n = stack.pop()
+        labels[n] = 1
+        stack += [int(c) for c in topo.children[n] if c >= 0]
+    return dataclasses.replace(topo, labels=labels)
+
+
+def codon_clock_fits(torch, bench, report, card):
+    """17a: codon M0 fits under clock 1 and clock 2 (a local clock on a
+    clade of half the tips) on phase 4's 32 x 4096 alignment, clean (B3/B4)
+    and gapped (B1/B2), each from its CUDA graph against eagerly; clock 2
+    starts from clock 1's optimum with its class rate at 1 (from the
+    objective's own start it takes some 1,700-1,900 evaluations, a third
+    of the phase's time)."""
+    from paml_tpu_torch.apps import codeml
+
+    clean, gapped, topo, _ = bench
+    for (route, pair), data in zip(GRAPH_ROUTES, (clean, gapped)):
+        reset_all_launches()
+        start = None
+        for clock, tp in ((1, topo), (2, labelled_clade(topo))):
+            spec = codeml.CodemlSpec(clock=clock, codonf="F3x4")
+
+            def build(data=data, tp=tp, spec=spec, start=start):
+                obj = codeml.make_codon_objective(data, tp, spec,
+                                                  device="cuda")
+                if start is None:
+                    return obj
+                lo, hi = np.array(obj[4]).T
+                return obj[:3] + (np.clip(start, lo, hi),) + obj[4:]
+
+            def fit(kind, data=data, tp=tp, spec=spec, build=build):
+                obj = build()
+                obj[0].capturable = kind == "graph"
+                return codeml.fit_packed(data, tp, spec, device="cuda",
+                                         objective=obj)
+            res, _, _, _ = graphed_against_eager(
+                torch, f"codon clock {clock} M0, {route}, {data.ns} x "
+                f"{data.ls} codons" + (", from clock 1's optimum"
+                                       if start is not None else ""),
+                fit, build, card, phase="17a", e2=False)
+            # clock 1's x: the time parameters, then kappa and omega
+            start = np.concatenate([res.x[:-2], [1.0], res.x[-2:]])
+        record_launches(report, f"launches_graph_clock_{route}",
+                        pair + ("eigh",))
+
+
+def aa_graph_fits(torch, rng, report, card):
+    """17b: FromCodon and REVaa_0 + G4 fits on 20 simulated taxa x 2000
+    amino acids (a cut of phase 8a's 100 x 50,000 alignment, for time),
+    B3/B4 at 20 states, each from its CUDA graph against eagerly."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+
+    names, rows, nwk = simulate_aa(torch, rng, 20, 2000, "cuda")
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.AA_SEQ))
+    topo = from_treenode(treeio.parse_newick(nwk), data.names)
+    e2 = 0
+    reset_all_launches()
+    for tag, kw in (("FromCodon", dict(aa_model="FromCodon")),
+                    ("REVaa_0 + G4", dict(aa_model="REVaa_0",
+                                          fix_alpha=False, alpha=0.5,
+                                          ncatG=4))):
+        spec = codeml.CodemlSpec(seqtype=2, **kw)
+
+        def fit(kind, spec=spec):
+            undo = with_flag(codeml, "make_aa_objective", kind)
+            try:
+                return codeml.fit_packed(data, topo, spec, device="cuda")
+            finally:
+                undo()
+        e2 += graphed_against_eager(
+            torch, f"aa {tag}, {data.ns} x {data.ls} amino acids (cut)", fit,
+            lambda spec=spec: codeml.make_aa_objective(data, topo, spec,
+                                                       device="cuda"),
+            card, phase="17b", e2="G4" in tag)[3]
+    record_launches(report, "launches_graph_aa_fits",
+                    ("big_fwd", "big_bwd", "eigh"))
+    report["quantile"]["launches_graph_aa_fits"] = e2
+
+
+# (tag, spec, whether the fit runs E2)
+NUC17 = (("REV + G5, clock 1", dict(model="REV", ncatG=5, fix_alpha=False,
+                                    alpha=0.5, clock=1), True),
+         ("UNREST", dict(model="UNREST"), False),
+         ("HKY85 + AdG", dict(model="HKY85", ncatG=4, fix_alpha=False,
+                              alpha=0.5, fix_rho=False, rho=0.4), True),
+         ("HKY85 nparK 4", dict(model="HKY85", ncatG=3, nparK=4), False),
+         ("HKY85 nhomo 1", dict(model="HKY85", nhomo=1), False))
+
+
+def nuc_graph_fits(torch, rng, report, card):
+    """17c: REV + G5 under clock 1, UNREST, AdG, nparK 4 and nhomo 1 on
+    20 simulated taxa x 5000 sites (a cut of phase 7's 100 x 100,000,
+    for time; phase 16's nucleotide shape) on the level route, each
+    `optim.maximize` from the objective's x0 alone (`fit_packed`'s extra
+    starts of nparK 4, seven in all, left out for time) from its CUDA
+    graph against eagerly."""
+    import types
+
+    from paml_tpu_torch.apps import baseml
+    from paml_tpu_torch.core import optim
+    from paml_tpu_torch.core.topology import from_treenode
+    from paml_tpu_torch.io import seqio, treeio
+
+    names, rows, nwk, _, _ = simulate_nuc(torch, rng, 20, 5000, "cuda")
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.BASE_SEQ))
+    topo = from_treenode(treeio.parse_newick(nwk), data.names)
+    e2 = 0
+    for tag, kw, with_e2 in NUC17:
+        spec = baseml.BasemlSpec(**kw)
+        maker = getattr(baseml, "make_nhomo_objective" if spec.nhomo
+                        else "make_objective")
+
+        def build(spec=spec, maker=maker):
+            return maker(data, topo, spec, device="cuda")
+
+        def fit(kind, build=build):
+            neg, _, x0, bounds = build()
+            neg.capturable = kind == "graph"
+            r = optim.maximize(neg, x0, bounds, device="cuda")
+            return types.SimpleNamespace(x=r.x, lnL=r.lnL, fit=r)
+        e2 += graphed_against_eager(
+            torch, f"nucleotide {tag}, {data.ns} x {data.ls} sites (cut), "
+            "one start", fit, build, card, phase="17c", e2=with_e2)[3]
+    report["quantile"]["launches_graph_nuc_fits"] = e2
+
+
+def mcmctree_graphs(torch, rng, card):
+    """17d: mcmctree's exact likelihood on a dated tree of 60 species x 8
+    loci x 5000 sites (phase 10b's shape, HKY85 + G5): `lnL_all` from its
+    CUDA graph against the same loci op by op at three proposals, bit for
+    bit, and each `lnL_locus` from its own graph; ms per call both ways,
+    the host syncs of graphed calls by source line, optim.GRAPHS."""
+    from paml_tpu_torch.apps import mcmctree
+    from paml_tpu_torch.core import optim
+    from paml_tpu_torch.io import seqio, treeio
+
+    names = [f"s{i}" for i in range(BV_TAXA)]
+    joined = dated_tree(rng, names)
+    rows, _, _ = simulate_dated(torch, rng, names, joined,
+                                rng.uniform(0.3, 0.8, BV_LOCI),
+                                [BV_SITES] * BV_LOCI)
+    nwk = annotated_newick(names, joined, {joined[-1][2]: "B(0.9, 1.1)"})
+    st = mcmctree.build_species_tree(treeio.parse_newick(nwk), names)
+    loci = [seqio.pack(seqio.Alignment(names, r, seqio.BASE_SEQ),
+                       cleandata=False) for r in rows]
+    spec = mcmctree.McmcSpec(clock=2, usedata=1, alpha=0.5, ncatG=5)
+    mc = mcmctree.MCMCTree(st, loci, spec, device="cuda")
+    ex = mc._exact
+    g0 = dict(optim.GRAPHS)
+    same, prng = True, np.random.default_rng(SEED + 17)
+    for _ in range(3):
+        mc.kappa = prng.uniform(2, 6, mc.g)
+        mc.alpha_g = prng.uniform(0.3, 1.5, mc.g)
+        b = mc._branch_lengths_all()
+        # the graphs lnL_all and lnL_locus replay, on the same inputs
+        for rows in [None] + [[i] for i in range(mc.g)]:
+            sl = slice(None) if rows is None else slice(rows[0],
+                                                        rows[0] + 1)
+            args = (b[sl], mc.kappa[sl], mc.alpha_g[sl])
+            same &= np.array_equal(ex.lnl(*args, rows=rows),
+                                   ex.lnl(*args, rows=rows, graphed=False))
+        mc.lnL_all()
+        mc.lnL_locus(0)
+    counts = {k: v - g0[k] for k, v in optim.GRAPHS.items()}
+
+    def ms(fn, reps=20):
+        fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(ts))
+    b = mc._branch_lengths_all()
+    t = dict(all_graph=ms(mc.lnL_all),
+             all_eager=ms(lambda: ex.lnl(b, mc.kappa, mc.alpha_g,
+                                         graphed=False)),
+             locus_graph=ms(lambda: mc.lnL_locus(0)),
+             locus_eager=ms(lambda: ex.lnl(b[:1], mc.kappa[:1],
+                                           mc.alpha_g[:1], rows=[0],
+                                           graphed=False)))
+    _, lines = sync_census(torch, lambda: [mc.lnL_all() for _ in range(10)])
+    per = sum(lines.values()) / 10
+    top = sorted(lines.items(), key=lambda kv: -kv[1])[:3]
+    print(f"17d mcmctree exact likelihood, {BV_TAXA} species x {mc.g} loci x"
+          f" {BV_SITES} sites, HKY85 + G5 [{card}]: graphed = eager bit for "
+          f"bit {same} (lnL_all and each lnL_locus at 3 proposals); ms per "
+          f"lnL_all graphed {t['all_graph']:.3f}, dispatched "
+          f"{t['all_eager']:.3f}; per lnL_locus {t['locus_graph']:.3f} / "
+          f"{t['locus_eager']:.3f} (medians of 20); host syncs per graphed "
+          f"lnL_all {per:.2f} ("
+          + ", ".join(f"{f}:{ln} {c}" for (f, ln), c in top)
+          + f"); optim.GRAPHS {counts}", flush=True)
+    if not same or per != 1 or counts["captures"] != 1 + mc.g:
+        raise AssertionError("17d: mcmctree's graphed likelihood is not the "
+                             "eager one, or not one sync per call")
+    return t
+
+
+CAPTURE_FAILS17 = r"""
+import sys
+import numpy as np
+import torch
+from paml_tpu_torch.core import optim, pmat
+
+
+def neg(x):
+    Q = torch.stack([torch.stack([-x[0], x[0]]), torch.stack([x[1], -x[1]])])
+    P = pmat.pmat_expm(Q, x.new_full((3,), 0.5))
+    w = pmat.solve_small(Q + 2 * torch.eye(2, dtype=x.dtype, device=x.device),
+                         x.new_ones(2))
+    v = -torch.log(P[:, 0, 0]).sum() + (w * w).sum() + ((x - 1.0) ** 2).sum()
+    return v + 0.0 * float(v.detach())  # a host read: no graph holds it
+neg.capturable = True                  # declared capturable all the same
+try:
+    optim.maximize(neg, np.full(2, 0.5), [(0.1, 5.0)] * 2, device="cuda")
+except RuntimeError as e:
+    print(f"raised {type(e).__name__}: {str(e).splitlines()[0][:160]}; "
+          f"counts {optim.GRAPHS}")
+    sys.exit(0)
+print("no error: the fit went on without its graph")
+sys.exit(1)
+"""
+
+
+def failure_paths(torch, card):
+    """17e: the status words and a failed capture.  An expm past its S_MAX
+    and a singular solve, each inside a CUDA graph of a value + gradient,
+    raise `DeviceStatusError` at the evaluation's one read (and op by op
+    at once); a capture of an objective declared capturable that reads the
+    host raises (in a process of its own, as 15f)."""
+    import os
+
+    from paml_tpu_torch.core import graphs, pmat
+
+    x = torch.tensor([0.3, 0.7], dtype=torch.float64, device="cuda")
+
+    def expm_fn(y):
+        Q = torch.stack([torch.stack([-y[0], y[0]]),
+                         torch.stack([y[1], -y[1]])])
+        return pmat.pmat_expm(Q, y[:1] * 1e3, s_max=4).sum()
+
+    def solve_fn(y):
+        A = torch.stack([torch.stack([y[0], y[1]]),
+                         torch.stack([2 * y[0], y[1] + y[1]])])
+        return pmat.solve_small(A, y.new_ones(2), "singular test").sum()
+    raised = {}
+    for tag, fn, at in (("expm past S_MAX", expm_fn, [0.3, 0.7]),
+                        ("singular solve", solve_fn, [0.3, 0.7])):
+        got = []
+        for how in ("graph", "eager"):
+            try:
+                if how == "graph":
+                    gv = graphs.GraphedValueGrad(fn, x)
+                    gv(np.asarray(at))
+                    gv.close()
+                else:
+                    graphs.value_grad_eager(fn, np.asarray(at), "cuda")
+                got.append(f"{how}: no error")
+            except graphs.DeviceStatusError as e:
+                got.append(f"{how}: {type(e).__name__} ({e})")
+        raised[tag] = got
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", CAPTURE_FAILS17], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    print(f"17e failure paths [{card}]: "
+          + "; ".join(f"{k}: {', '.join(v)}" for k, v in raised.items())
+          + f"; a capture that fails (expm and solve beside a host read): "
+          f"exit {r.returncode}, {r.stdout.strip()}", flush=True)
+    if any("no error" in g for v in raised.values() for g in v) or \
+            r.returncode:
+        raise AssertionError(f"17e: a failure did not raise: {raised}\n"
+                             f"{r.stdout}{r.stderr[-2000:]}")
+
+
+def phase_more_graphs(torch, report, card, bench):
+    """Phase 17: the rest of the compiled fits (17a-17e); `bench` as phase
+    13's, `report` holding the kernel entries."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 170)
+    t = {}
+    for tag, fn, args in (
+            ("17a", codon_clock_fits, (torch, bench, report, card)),
+            ("17b", aa_graph_fits, (torch, rng, report, card)),
+            ("17c", nuc_graph_fits, (torch, rng, report, card)),
+            ("17d", mcmctree_graphs, (torch, rng, card)),
+            ("17e", failure_paths, (torch, card))):
+        t0 = time.perf_counter()
+        fn(*args)
+        t[tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 17: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6000,7 +6344,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 16. E2: the quantile code on the card, and the fits it lets graph
     phase_quantile(torch, report, smi[0], bench)
-    print(f"chip_smoke: the build and phases 3-16 in "
+    torch.cuda.empty_cache()
+    # 17. the rest of the compiled fits: clocks, FromCodon / REVaa, AdG,
+    # nparK 4, UNREST, nhomo, mcmctree's exact likelihood
+    phase_more_graphs(torch, report, smi[0], bench)
+    print(f"chip_smoke: the build and phases 3-17 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():

@@ -38,7 +38,8 @@ from ..core.dgamma import discrete_gamma, gammaincinv
 from ..core.hmm import autod_gamma, hmm_lnL
 from ..core.optim import FitResult, maximize, simplex_decode
 from ..core.pmat import pmat_rev_multi, pmat_rev_multi_twice
-from ..core.pmat import pmat_tn93, tn93_alphas
+from ..core.pmat import expm_squarings, pmat_tn93, solve_small
+from ..core.pmat import tn93_alphas
 from ..core.topology import Topology, from_treenode
 from ..io import seqio, treeio
 from ..models import nuc
@@ -114,6 +115,11 @@ def _nuc_tips(tip_partials: np.ndarray, device, dtype) -> torch.Tensor:
     if tips.ndim == 2:
         return torch.as_tensor(tips.astype(np.int32), device=device)
     return torch.as_tensor(tips, dtype=dtype, device=device)
+
+
+def _on(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """t on x's device (itself when it is there already: no copy)."""
+    return t if t.device == x.device else t.to(x.device)
 
 
 def _decode_rows(x: torch.Tensor) -> torch.Tensor:
@@ -202,7 +208,7 @@ def make_nhomo_objective(data: seqio.PackedData, topo: Topology,
                  else x.new_full((1, max(nr1, 1)), spec.kappa))
         k = nb + nrate
         pis = (_decode_rows(x[k:k + 3 * n_pi].reshape(n_pi, 3)) if n_pi
-               else obs_t.to(x.device)[None, :])
+               else _on(obs_t, x)[None, :])
         return t, rates, pis
 
     def branch_P(x, twice=False):
@@ -220,7 +226,7 @@ def make_nhomo_objective(data: seqio.PackedData, topo: Topology,
             Q = nuc.build_rev_Q(r_b, pi_b)
             pmat = pmat_rev_multi_twice if twice else pmat_rev_multi
             P = pmat(Q, pi_b, tfull)
-        pi_root = pis[root_set] if n_pi else obs_t.to(x.device)
+        pi_root = pis[root_set] if n_pi else _on(obs_t, x)
         return P[:, None], pi_root[None, :]
 
     def neg_lnl(x):
@@ -228,6 +234,9 @@ def make_nhomo_objective(data: seqio.PackedData, topo: Topology,
         return -pruning.lnL(P, tips, topo, piC, P.new_ones(1), fpatt)
 
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips, fpatt, topo
+    # an evaluation reads nothing on the host: the fits may replay it from
+    # a CUDA graph
+    neg_lnl.capturable = True
 
     t0 = np.clip(topo.blen0[branch_nodes], 0.0, BLEN_MAX)
     if not (t0 > 0).any():
@@ -268,6 +277,26 @@ def _gamma_quadrature():
     return np.clip(np.concatenate(us), 1e-12, 1 - 1e-12), np.concatenate(ws)
 
 
+def _expm_s_max(spec: BasemlSpec, t_max: float, nrgene: int) -> int:
+    """The squarings of UNREST / UNRESTu's expm (`pmat.expm`'s S_MAX) from
+    the fit's bounds: |Q t r|_1 is at most |Q|_1 (a normalized Q's, at
+    most 2 (n - 1) RATE_MAX over a mean rate of at least (n - 1)
+    RATE_MIN) times the longest branch t_max, the largest gene rate and
+    the largest class rate (K for discrete gamma, the continuous gamma's
+    last node at ALPHA_MIN, RATE_MAX for the free rates)."""
+    if nrgene:
+        t_max *= RGENE_MAX
+    if spec.nparK:
+        r_max = RATE_MAX
+    elif spec.continuous_gamma:
+        from scipy.special import gammaincinv as ginv
+        r_max = float(ginv(ALPHA_MIN, _gamma_quadrature()[0].max())
+                      / ALPHA_MIN)
+    else:
+        r_max = max(spec.ncatG, 1)
+    return expm_squarings(2.0 * RATE_MAX / RATE_MIN * t_max * r_max)
+
+
 def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
                    *, device, dtype=torch.float64):
     """(neg_lnl, unpack, x0, bounds) as in the JAX package; neg_lnl maps a
@@ -291,12 +320,13 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
         tip_ages = (treeio.parse_tip_dates(data.names,
                                            spec.tipdate_timeunit)[0]
                     if spec.tipdate else None)
-        clock_fn, n_time, _, _, cinfo = make_clock_times(topo, clock,
-                                                         tip_ages)
+        clock_fn, n_time, _, _, cinfo = make_clock_times(
+            topo, clock, tip_ages, device=device, dtype=dtype)
         absrate, agelow = cinfo["absrate"], cinfo["agelow"]
         free_int, root_fossil = cinfo["free_int"], cinfo["root_fossil"]
         labels = topo.labels
         n_rate_cls = int(labels.max()) if clock in (2, 3) else 0
+        lab = torch.as_tensor(labels.astype(np.int64), device=device)
     G = data.ngene if spec.Mgene != 1 else 1
     per_gene_rates = spec.Mgene >= 3 and G > 1
     per_gene_pi = spec.Mgene in (2, 4) and G > 1
@@ -330,7 +360,8 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
     fpatt_all = tensor(data.fpatt)
     fpatt_g = [fpatt_all[sl] for sl in gene_slices]
     fixed_kappa = tensor([spec.kappa])
-    step = spec.step_matrix
+    step = (None if spec.step_matrix is None else torch.as_tensor(
+        np.asarray(spec.step_matrix), dtype=torch.long, device=device))
     if spec.continuous_gamma:
         cg_u, cg_w = (tensor(v) for v in _gamma_quadrature())
     model = spec.model
@@ -340,6 +371,12 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
     bn = torch.as_tensor(branch_nodes, dtype=torch.long, device=device)
     site_pattern = torch.as_tensor(np.asarray(data.site_pattern),
                                    dtype=torch.long, device=device)
+    # the longest branch: BLEN_MAX, or a clock's root age bound times its
+    # rate and class multipliers
+    t_max = (max(50.0, agelow[topo.root] * 10)
+             * (99.0 if absrate else 1.0) * (99.0 if n_rate_cls else 1.0)
+             if clock else BLEN_MAX)
+    s_max = _expm_s_max(spec, t_max, nrgene)
 
     def branch_lengths(x):
         """(tfull [nnode]: the branch length above each node, the number
@@ -355,7 +392,7 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
             k += G * n_rate_cls
         rgene = torch.cat([x.new_ones(1), x[k:k + nrgene]])
         k += nrgene
-        rates = x[k:k + nrate] if nrate else fixed_kappa.to(x.device)
+        rates = x[k:k + nrate] if nrate else _on(fixed_kappa, x)
         k += nrate
         alpha = x[k:k + nalpha] if nalpha else x.new_full((1,), spec.alpha)
         return tfull, k_used, rgene, rates, alpha
@@ -388,7 +425,6 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
             # labelled branch classes (reference: GetBranchRate,
             # src/treesub.c:3705-3707); class 0 folds into rgene
             cls = x[k_used:k_used + G * n_rate_cls].reshape(G, n_rate_cls)
-            lab = torch.as_tensor(labels.astype(np.int64), device=x.device)
         p0 = patterns.start or 0
         p1 = data.npatt if patterns.stop is None else patterns.stop
         total = x.new_zeros(())
@@ -406,7 +442,7 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
                 tg = tfull * torch.cat([x.new_ones(1), cls[g]])[lab]
             ts = tg[:, None] * (r[None, :] * rgene[g])
             P, pi_root = nuc.pmats_for_model(model, rates_g, pi_g[g], ts,
-                                             step, twice)
+                                             step, twice, s_max)
             piC = pi_root.expand(r.shape[0], 4)
             total = total + pruning.lnL(P, tips_g[g][:, lo:hi], topo, piC,
                                         w, fpatt_g[g][lo:hi], lnf=lnf)
@@ -442,19 +478,18 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
                     # its stationary distribution (reference: PtoPi)
                     eye = torch.eye(K, dtype=x.dtype, device=x.device)
                     A = torch.cat([(M.T - eye)[:K - 1], x.new_ones((1, K))])
-                    bvec = x.new_zeros(K)
-                    bvec[K - 1] = 1.0
-                    w = torch.linalg.solve(A, bvec)
+                    bvec = torch.cat([x.new_zeros(K - 1), x.new_ones(1)])
+                    w = solve_small(A, bvec, "nparK 4 stationary weights")
             else:
                 w = x.new_full((K,), 1.0 / K)
             rlast = (1.0 - (w[:K - 1] * rfree).sum()) / w[K - 1]
             r = torch.cat([rfree, torch.clamp_min(rlast, 1e-6)[None]])
         else:
-            rho_v = x[-1] if est_rho else x.new_tensor(spec.rho)
+            rho_v = x[-1] if est_rho else x.new_full((), spec.rho)
             r, w, M = autod_gamma(alpha[0], rho_v, K)
         ts = tfull[:, None] * r[None, :]
         P, pi_root = nuc.pmats_for_model(model, rates, pi_g[0], ts, step,
-                                         twice)
+                                         twice, s_max)
         piC = pi_root.expand(K, 4)
         lnf_fn = pruning.class_site_lnf_twice if twice else \
             pruning.class_site_lnf
@@ -467,13 +502,10 @@ def make_objective(data: seqio.PackedData, topo: Topology, spec: BasemlSpec,
 
     neg_lnl.twice = lambda x, patterns=slice(None): neg_lnl(x, True, patterns)
     # an evaluation reads nothing on the host (the gamma rates from E2 on
-    # the card): the fits may replay it from a CUDA graph.  Not under a
-    # clock (the node ages on the host), with AdG (`hmm.binormal_cdf`
-    # copies its quadrature from the host), with nparK = 4
-    # (`torch.linalg.solve` checks its result on the host) or UNREST /
-    # UNRESTu (`matrix_exp` picks its degree on the host)
-    neg_lnl.capturable = (clock == 0 and not adg and nparK != 4
-                          and model not in ("UNREST", "UNRESTu"))
+    # the card, the clock's node ages from its device tables, nparK 4's
+    # and UNREST's solves and UNREST's expm as fixed tensor operations):
+    # the fits may replay it from a CUDA graph
+    neg_lnl.capturable = True
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips_all, fpatt_all, topo
     neg_lnl.n_states = 4
     neg_lnl.pattern_chunks = not (adg or nparK)

@@ -588,7 +588,7 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
             tip_ages = treeio.parse_tip_dates(data.names,
                                               spec.tipdate_timeunit)[0]
         clock_fn, n_time, xt0, tbounds, _ = make_clock_times(
-            topo, spec.clock, tip_ages)
+            topo, spec.clock, tip_ages, device=device, dtype=dtype)
     elif spec.fix_blength == 2:
         n_time = 0               # branch lengths fixed at the tree's values
     else:
@@ -778,10 +778,9 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips, fpatt, topo
     neg_lnl.pi_np, neg_lnl.pf3x4 = pi_np, pf3x4
     neg_lnl.n_classes = lambda x: classes_for(unpack(x)[3])[0].shape[1]
-    # an evaluation reads nothing on the host but under a clock (the node
-    # ages on the host): the fits may replay it from a CUDA graph
-    # (`optim.graphed`)
-    neg_lnl.capturable = spec.clock < 1
+    # an evaluation reads nothing on the host (the clock's node ages
+    # included): the fits may replay it from a CUDA graph (`optim.graphed`)
+    neg_lnl.capturable = True
 
     # x0 / bounds
     if spec.clock >= 1:
@@ -1086,21 +1085,26 @@ def make_aa_objective(data: seqio.PackedData, topo: Topology,
         pi_np = np.asarray(data.base_freqs, float)
         pi_np = pi_np / pi_np.sum()
         graph = codonmod.codon_graph(spec.icode)
+        # the index tables and constants on the device once
         if model == "FromCodon":
             nrate = 0 if spec.fix_kappa else 1
+            fixed_kappa = torch.as_tensor(spec.kappa, **f64)
+            tables = aamod.from_codon_tables(spec.omega, pi_np, graph,
+                                             device=device, dtype=dtype)
 
             def S_of(rates):
-                kap = rates[0] if nrate else torch.as_tensor(spec.kappa,
-                                                             **f64)
+                kap = rates[0] if nrate else fixed_kappa
                 return aamod.from_codon_S(kap, spec.omega, pi_np, graph,
-                                          device=device, dtype=dtype)
+                                          device=device, dtype=dtype,
+                                          tables=tables)
             Sjones = None
         else:
             g = graph if model == "REVaa_0" else None
             nrate = aamod.n_revaa_rates(model, graph)
+            tables = aamod.revaa_tables(g, device)
 
             def S_of(rates):
-                return aamod.revaa_S(rates, g)
+                return aamod.revaa_S(rates, g, tables)
             Sjones, _ = aamod.load_empirical(spec.aa_rate_file or "jones")
     else:
         S_static, pi_np = aamod.model_S_pi(model, spec.aa_rate_file,
@@ -1138,10 +1142,9 @@ def make_aa_objective(data: seqio.PackedData, topo: Topology,
 
     neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
     # an evaluation reads nothing on the host (the gamma rates from E2 on
-    # the card): the fits may replay it from a CUDA graph; FromCodon and
-    # REVaa copy their index tables from the host at every evaluation
-    # (`aamod.from_codon_S`, `aamod.revaa_S`)
-    neg_lnl.capturable = not parametric
+    # the card, FromCodon's and REVaa's tables made above): the fits may
+    # replay it from a CUDA graph
+    neg_lnl.capturable = True
     x0 = list(_blen_x0(topo))
     bounds = [(BLEN_MIN, BLEN_MAX)] * nb
     if parametric and model == "FromCodon" and nrate:
@@ -1198,8 +1201,8 @@ def make_fromcodon0_objective(data: seqio.PackedData, topo: Topology,
 
     def unpack(x):
         t = x[:nb]
-        kap = x[nb] if nkappa else x.new_tensor(spec.kappa)
-        om = x[nb + nkappa] if nomega else x.new_tensor(spec.omega)
+        kap = x[nb] if nkappa else x.new_full((), spec.kappa)
+        om = x[nb + nkappa] if nomega else x.new_full((), spec.omega)
         return t, kap, om
 
     def model_at(x):
@@ -1212,6 +1215,9 @@ def make_fromcodon0_objective(data: seqio.PackedData, topo: Topology,
         return pmat_rev(Q, pi, ts), pi.expand(1, graph.n), x.new_ones(1)
 
     neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
+    # an evaluation reads nothing on the host: the fits may replay it
+    # from a CUDA graph
+    neg_lnl.capturable = True
     x0 = list(_blen_x0(topo, 0.3)) + [spec.kappa] * nkappa \
         + [spec.omega] * nomega
     bounds = ([(BLEN_MIN, BLEN_MAX)] * nb
@@ -1405,8 +1411,8 @@ def make_aadist_objective(data: seqio.PackedData, topo: Topology,
     def unpack(x):
         t = x[:nb]
         k = nb
-        kappa = x[k:k + nkappa] if nkappa else x.new_tensor(
-            [spec.kappa] * (5 if spec.hkyREV else 1))
+        kappa = x[k:k + nkappa] if nkappa else x.new_full(
+            (5 if spec.hkyREV else 1,), spec.kappa)
         k += nkappa
         pom = x[k:k + n_pom].reshape(B, -1)
         return t, kappa, pom
@@ -1452,6 +1458,9 @@ def make_aadist_objective(data: seqio.PackedData, topo: Topology,
         return P, pi_use[None, :], x.new_ones(1)
 
     neg_lnl = _neg_lnl(model_at, tips, fpatt, topo)
+    # an evaluation reads nothing on the host: the fits may replay it
+    # from a CUDA graph
+    neg_lnl.capturable = True
     x0 = list(_blen_x0(topo))
     bounds = [(BLEN_MIN, BLEN_MAX)] * nb
     if nkappa:
@@ -1570,10 +1579,10 @@ def make_codon_mgene_objective(data: seqio.PackedData, topo: Topology,
                 kaps.append(x[k:k + nkappa1])
                 k += nkappa1
             else:
-                kaps.append(x.new_tensor(
-                    [spec.kappa] * (5 if spec.hkyREV else 1)))
+                kaps.append(x.new_full((5 if spec.hkyREV else 1,),
+                                       spec.kappa))
             if fixed_omega(gset):
-                oms.append(x.new_tensor(spec.omega))
+                oms.append(x.new_full((), spec.omega))
             else:
                 oms.append(x[k])
                 k += 1
@@ -1598,6 +1607,9 @@ def make_codon_mgene_objective(data: seqio.PackedData, topo: Topology,
         return -total
 
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips_g, fpatt_g, topo
+    # an evaluation reads nothing on the host: the fits may replay it
+    # from a CUDA graph
+    neg_lnl.capturable = True
     x0 = list(_blen_x0(topo)) + [1.0] * nrgene
     bounds = [(BLEN_MIN, BLEN_MAX)] * nb + [(0.01, 99.0)] * nrgene
     for gset in range(nsets):

@@ -35,7 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core import pruning
+from ..core import graphs, optim, pruning
 from ..core.topology import Topology, deroot, from_treenode
 from ..io import seqio, treeio
 from ..models import nuc
@@ -880,12 +880,21 @@ def rooted_to_unrooted_blens(st: SpeciesTree, b_by_node: dict,
 
 class ExactLoci:
     """usedata=1: the exact likelihood of sequence loci on the rooted
-    species tree, on the device, values only.  Every locus's P(t) comes
-    from one batched closed form (the TN93 family; a loop over loci for
-    the other models), and the pruning is `pruning.lnL_levels_batched`
-    over all loci, or one `pruning.lnL` per locus (`route`).  The patterns
-    are padded to the longest locus (all-ones tips, fpatt 0), as the JAX
-    package's vmap pads them (paml_tpu/apps/mcmctree.py:1245-1272)."""
+    species tree, on the device, values only.  Every locus's class rates
+    come from `dgamma.discrete_gamma` over the loci's alphas inside the
+    evaluation (E2 on the card), every locus's P(t) from one batched
+    closed form (the TN93 family; a loop over loci for the other models),
+    and the pruning is `pruning.lnL_levels_batched` over all loci, or one
+    `pruning.lnL` per locus (`route`).  The patterns are padded to the
+    longest locus (all-ones tips, fpatt 0), as the JAX package's vmap pads
+    them (paml_tpu/apps/mcmctree.py:1245-1272).
+
+    On the card an evaluation is replayed from a value-only CUDA graph
+    (`graphs.GraphedValue`), as the JAX package jits it per locus (:1217)
+    and over all loci (:1272): one graph for each set of loci and route
+    asked for (all loci for `lnL_all`, each locus for `lnL_locus`), its
+    inputs b [g, nnode], kappa [g] and alpha [g] in static buffers, a call
+    one copy in and one copy of lnL and the status word out."""
 
     def __init__(self, loci, topo: Topology, spec, *, device):
         self.topo, self.model, self.device = topo, spec.model, device
@@ -903,31 +912,8 @@ class ExactLoci:
         self.tips = torch.as_tensor(tips, device=device)
         self.fpatt = torch.as_tensor(fpatt, device=device)
         self.pis = torch.as_tensor(pis, device=device)
-        self._rw = {}          # (loci, alphas) -> (r, w) on the device
-
-    def _class_rates(self, rows, alpha: np.ndarray):
-        """(r [g, K], w [g, K]) of the loci `rows` on the device; the last
-        few alpha vectors are kept, as a proposal and its reversal revisit
-        them."""
-        from ..core.dgamma import discrete_gamma
-
-        key = (tuple(rows), np.asarray(alpha, np.float64).tobytes())
-        if key not in self._rw:
-            rs, ws = [], []
-            for a in np.asarray(alpha, np.float64):
-                if self.K > 1:
-                    r, w = discrete_gamma(torch.tensor(float(a),
-                                                       dtype=torch.float64),
-                                          self.K)
-                else:
-                    r = w = torch.ones(1, dtype=torch.float64)
-                rs.append(r)
-                ws.append(w)
-            if len(self._rw) >= 8:
-                self._rw.pop(next(iter(self._rw)))
-            self._rw[key] = (torch.stack(rs).to(self.device),
-                             torch.stack(ws).to(self.device))
-        return self._rw[key]
+        self._sel = {}         # rows -> their index tensor on the device
+        self._graphs = {}      # (rows, route) -> GraphedValue
 
     def _pmats(self, kappa: torch.Tensor, pis: torch.Tensor, ts):
         """P [G, nnode, K, 4, 4] and the root frequencies [G, 4]."""
@@ -940,37 +926,66 @@ class ExactLoci:
                           for g in range(ts.shape[0])))
         return torch.stack(Ps), torch.stack(roots)
 
-    def lnl(self, b: np.ndarray, kappa: np.ndarray, alpha: np.ndarray,
-            rows=None, route: str | None = None) -> np.ndarray:
-        """lnL [g] of the loci `rows` (all by default) at branch lengths b
-        [g, nnode] (the root's 0), kappa [g] and alpha [g]."""
-        rows = list(range(len(self.npatt))) if rows is None else list(rows)
-        dev = self.device
-        route = route or EXACT_ROUTE[torch.device(dev).type]
+    def _lnl(self, bt: torch.Tensor, kappa: torch.Tensor,
+             alpha: torch.Tensor, rows: tuple, route: str) -> torch.Tensor:
+        """lnL [g] of the loci `rows` from device tensors b [g, nnode],
+        kappa [g] and alpha [g]: no host read."""
+        from ..core.dgamma import discrete_gamma
+
+        if len(rows) == len(self.npatt):
+            sel = slice(None)
+        else:
+            if rows not in self._sel:
+                self._sel[rows] = torch.as_tensor(rows, device=self.device)
+            sel = self._sel[rows]
         with torch.inference_mode():
-            bk = torch.as_tensor(np.concatenate(
-                [np.asarray(b, np.float64).ravel(),
-                 np.asarray(kappa, np.float64)]), device=dev)
-            nb = len(rows) * self.topo.nnode
-            bt = bk[:nb].reshape(len(rows), self.topo.nnode)
-            r, w = self._class_rates(rows, alpha)
+            if self.K > 1:
+                r, w = discrete_gamma(alpha, self.K)           # [g, K]
+            else:
+                r = w = alpha.new_ones((len(rows), 1))
             ts = bt[:, :, None] * r[:, None, :]
-            sel = (slice(None) if len(rows) == len(self.npatt)
-                   else torch.as_tensor(rows, device=dev))
-            P, pi_root = self._pmats(bk[nb:], self.pis[sel], ts)
+            P, pi_root = self._pmats(kappa, self.pis[sel], ts)
             piC = pi_root[:, None, :].expand(len(rows), self.K, 4)
             if route == "batched":
-                out = pruning.lnL_levels_batched(P, self.tips[sel],
-                                                 self.topo, piC, w,
-                                                 self.fpatt[sel])
-            elif route == "loop":
-                out = torch.stack([pruning.lnL(
+                return pruning.lnL_levels_batched(P, self.tips[sel],
+                                                  self.topo, piC, w,
+                                                  self.fpatt[sel])
+            if route == "loop":
+                return torch.stack([pruning.lnL(
                     P[i], self.tips[g, :, :self.npatt[g]], self.topo,
                     piC[i], w[i], self.fpatt[g, :self.npatt[g]])
                     for i, g in enumerate(rows)])
-            else:
-                raise ValueError(f"exact route {route!r}")
-            return out.cpu().numpy()
+            raise ValueError(f"exact route {route!r}")
+
+    def lnl(self, b: np.ndarray, kappa: np.ndarray, alpha: np.ndarray,
+            rows=None, route: str | None = None,
+            graphed: bool | None = None) -> np.ndarray:
+        """lnL [g] of the loci `rows` (all by default) at branch lengths b
+        [g, nnode] (the root's 0), kappa [g] and alpha [g]; on the card
+        from the CUDA graph of these rows and route (captured at the first
+        call), or op by op with `graphed` False."""
+        rows = tuple(range(len(self.npatt)) if rows is None else rows)
+        dev = torch.device(self.device)
+        route = route or EXACT_ROUTE[dev.type]
+        args = [np.asarray(b, np.float64).reshape(len(rows), self.topo.nnode),
+                np.asarray(kappa, np.float64).reshape(-1),
+                np.asarray(alpha, np.float64).reshape(-1)]
+        if graphed is None:
+            graphed = dev.type == "cuda"
+        if graphed:
+            key = (rows, route)
+            if key not in self._graphs:
+                self._graphs[key] = graphs.GraphedValue(
+                    lambda bt, k, a: self._lnl(bt, k, a, rows, route),
+                    [torch.as_tensor(a, device=dev) for a in args])
+                optim.GRAPHS["captures"] += 1
+            optim.GRAPHS["graphed_evals"] += 1
+            return self._graphs[key](*args)
+        optim.GRAPHS["eager_evals"] += 1
+        t = [torch.as_tensor(a, device=dev) for a in args]
+        with graphs.status_sink() as sink:
+            out = self._lnl(*t, rows, route)
+        return graphs.fetch([out], sink, "exact likelihood")[0].numpy()
 
 
 def read_BV(path: str, ngene: int, transform: str = "arcsin",

@@ -637,11 +637,12 @@ def _grid(lo: float, K: int, like: torch.Tensor, step: float = 1.0):
 
 
 def discrete_gamma(alpha, K: int, beta=None, use_median: bool = False):
-    """K equal-probability gamma rate categories: (rates [K], freqs [K]),
-    computed in float64 and returned in alpha's floating dtype.
-    The mean method by default; the median method rescales the category
-    medians so that the overall mean is alpha / beta (reference:
-    src/tools.c:2600)."""
+    """K equal-probability gamma rate categories: (rates [..., K], freqs
+    [..., K]) for alpha of any shape [...] (a batch of shapes, one set of
+    categories each), computed in float64 and returned in alpha's
+    floating dtype.  The mean method by default; the median method
+    rescales the category medians so that the overall mean is alpha /
+    beta (reference: src/tools.c:2600)."""
     dt = _out_dtype(alpha)
     r, freqs = _discrete_gamma64(alpha, K, beta, use_median)
     return r.to(dt), freqs.to(dt)
@@ -656,19 +657,22 @@ def _discrete_gamma64(alpha, K, beta, use_median):
     beta = alpha if beta is None else torch.as_tensor(
         beta, dtype=torch.float64, device=alpha.device)
     mean = alpha / beta
-    freqs = torch.full((K,), 1.0 / K, dtype=torch.float64,
+    freqs = torch.full(alpha.shape + (K,), 1.0 / K, dtype=torch.float64,
                        device=alpha.device)
+    mean, alpha, beta = mean[..., None], alpha[..., None], beta[..., None]
     if K == 1:
-        return mean.reshape(1), freqs
+        return mean, freqs
     if use_median:
         r = gammaincinv(alpha, _grid(0.5, K, alpha) / K) / beta
-        return r * (mean * K / r.sum()), freqs
+        return r * (mean * K / r.sum(-1, keepdim=True)), freqs
     cuts = gammaincinv(alpha, _grid(1.0, K - 1, alpha) / K) / beta
     F = gammainc(alpha + 1.0, cuts * beta)
-    Fpad = torch.cat([F.new_zeros(1), F, F.new_ones(1)])
+    Fpad = torch.cat([F.new_zeros(F.shape[:-1] + (1,)), F,
+                      F.new_ones(F.shape[:-1] + (1,))], -1)
     # a tiny floor: at extreme alpha the low categories underflow to 0,
     # which puts t = 0 into P(t) and breaks second derivatives
-    return torch.clamp_min((Fpad[1:] - Fpad[:-1]) * mean * K, 1e-8), freqs
+    return torch.clamp_min((Fpad[..., 1:] - Fpad[..., :-1]) * mean * K,
+                           1e-8), freqs
 
 
 def discrete_beta(p, q, K: int, use_median: bool = True):

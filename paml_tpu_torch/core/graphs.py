@@ -208,3 +208,56 @@ class GraphedValueGrad:
 
     def close(self) -> None:
         self.graph = self.x = self.out = self.x_host = None
+
+
+class GraphedValue:
+    """A value-only function of fixed-shape float64 inputs replayed from
+    one CUDA graph (mcmctree's exact likelihood: no autograd).  The inputs
+    are views of one static device buffer and the output, with the
+    largest status word the evaluation reported, is written to another: a
+    call packs its numpy arrays into pinned memory, makes one copy in,
+    replays, and makes one copy back (the one host sync of a call).
+    Captured once from `like` (CUDA tensors of the inputs' shapes), after
+    one warm-up evaluation there.  On any other device it raises, and so
+    does a capture that fails.  `close()` releases the graph."""
+
+    def __init__(self, fn, like):
+        dev = like[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, got {dev}")
+        self.shapes = [tuple(t.shape) for t in like]
+        sizes = [t.numel() for t in like]
+        self.flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                               for t in like])
+        self.inputs = [v.reshape(shape) for v, shape in
+                       zip(torch.split(self.flat, sizes), self.shapes)]
+        self.host = torch.empty(self.flat.numel(), dtype=torch.float64,
+                                pin_memory=True)
+        self.out = None
+
+        def body():
+            with status_sink() as sink, torch.no_grad():
+                v = fn(*self.inputs).reshape(-1).to(torch.float64)
+                out = torch.cat([v, status_of(sink, v).reshape(1)])
+            if self.out is None:
+                self.out = torch.zeros_like(out)
+            self.out.copy_(out)
+        self.graph, _ = capture(body)
+
+    def __call__(self, *arrays) -> np.ndarray:
+        """The function's value at the inputs `arrays` (numpy, of the
+        captured shapes), as a float64 numpy array."""
+        k, h = 0, self.host.numpy()
+        for a, shape in zip(arrays, self.shapes):
+            n = int(np.prod(shape))
+            h[k:k + n] = np.asarray(a, np.float64).reshape(-1)
+            k += n
+        self.flat.copy_(self.host, non_blocking=True)
+        self.graph.replay()
+        out = self.out.cpu().numpy()
+        check_status(out[-1], "value (graph)")
+        return out[:-1]
+
+    def close(self) -> None:
+        self.graph = self.flat = self.inputs = self.out = self.host = None
+

@@ -16,6 +16,7 @@ times; the scales are constants to autograd, as they cancel in the value.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -26,13 +27,21 @@ from .dgamma import discrete_gamma
 _GL32 = np.polynomial.legendre.leggauss(32)
 
 
+@functools.lru_cache(maxsize=None)
+def _gl32(device: str):
+    """The 32-point Gauss-Legendre nodes and weights as float64 tensors on
+    `device`, made once per device: an evaluation copies nothing from the
+    host (a CUDA graph cannot record the copy)."""
+    return tuple(torch.as_tensor(v, dtype=torch.float64, device=device)
+                 for v in _GL32)
+
+
 def binormal_cdf(h, k, r):
     """P(X <= h, Y <= k) for standard bivariate normals of correlation r
     (Drezner & Wesolowsky 1990, single-integral form), by fixed 32-point
     Gauss-Legendre quadrature; broadcasts over h, k and r."""
     h, k, r = (torch.as_tensor(v, dtype=torch.float64) for v in (h, k, r))
-    x = torch.as_tensor(_GL32[0], dtype=torch.float64, device=r.device)
-    w = torch.as_tensor(_GL32[1], dtype=torch.float64, device=r.device)
+    x, w = _gl32(str(r.device))
     h, k, r = h[..., None], k[..., None], r[..., None]
     t = r * (x + 1.0) / 2.0
     one_m_t2 = torch.clamp_min(1.0 - t * t, 1e-12)
@@ -50,8 +59,10 @@ def autod_gamma(alpha, rho, K: int):
     in float64 and returned in rho's floating dtype."""
     dt = rho.dtype if isinstance(rho, torch.Tensor) and \
         rho.is_floating_point() else torch.float64
-    rho = torch.as_tensor(rho, dtype=torch.float64)
-    dev = rho.device
+    dev = next((v.device for v in (rho, alpha)
+                if isinstance(v, torch.Tensor)), torch.device("cpu"))
+    rho = (rho.to(torch.float64) if isinstance(rho, torch.Tensor)
+           else torch.full((), float(rho), dtype=torch.float64, device=dev))
     pts = torch.special.ndtri(
         torch.arange(1, K, dtype=torch.float64, device=dev) / K)
     edges = torch.cat([pts, pts.new_full((1,), 20.0)])

@@ -186,7 +186,8 @@ LS_MIN_BRACKET = 1e-5    # a bracket this narrow with a point of decrease
                          # ends the search there (optax's interval_threshold)
 CHECKS = {"reads": 0,    # reads of the stop flag (`_stop_read`)
           "trials": 0}   # line-search trials, one evaluation each
-# how every fit evaluated its objective (`maximize` and the device L-BFGS)
+# how every fit evaluated its objective (`maximize` and the device L-BFGS),
+# and mcmctree's exact likelihood (`ExactLoci.lnl`) its calls
 GRAPHS = {"graphed_evals": 0,    # evaluations replayed from a CUDA graph
           "eager_evals": 0,      # evaluations dispatched op by op
           "captures": 0}         # CUDA graphs captured (`graphs.capture`)

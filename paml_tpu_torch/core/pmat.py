@@ -36,10 +36,11 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import torch
 
-from . import cuda_eigh
+from . import cuda_eigh, graphs
 
 PI_FLOOR = 1e-100   # states with pi below this are dropped (reference:
                     # eigenQREV reduced computation, src/tools.c:5023)
@@ -427,13 +428,110 @@ def tn93_alphas(model: str, pi, kappa):
 
 
 # ---------------------------------------------------------------------------
-# non-reversible Q (UNREST, UNRESTu)
+# non-reversible Q (UNREST, UNRESTu): expm and a small dense solve
 # ---------------------------------------------------------------------------
+#
+# `torch.linalg.matrix_exp` picks its Pade degree and squarings on the host
+# and `torch.linalg.solve` checks its result there, so neither can be
+# recorded in a CUDA graph.  Both are written here as fixed sequences of
+# tensor operations whose failures go to a status word
+# (`graphs.report_status`): Gaussian elimination with partial pivoting in
+# n fixed steps, and scaling and squaring with the [13/13] Pade
+# approximant (Higham 2005, the degree `jax.scipy.linalg.expm` takes
+# behind paml_tpu/core/pmat.py:402-409 at these norms) whose squaring
+# count s comes from |Q t|_1 on the device, the squarings run S_MAX times
+# and kept where s asks for them (as `_square_masked`).
+
+SINGULAR, NOCONV = 3, 2     # status words: a zero pivot; s above S_MAX
+
+_PADE13 = (64764752532480000.0, 32382376266240000.0, 7771770303897600.0,
+           1187353796428800.0, 129060195264000.0, 10559470521600.0,
+           670442572800.0, 33522128640.0, 1323241920.0, 40840800.0,
+           960960.0, 16380.0, 182.0, 1.0)
+_THETA13 = 5.371920351148152    # the largest |A|_1 the approximant takes
+EXPM_S_MAX = 16                 # jax.scipy.linalg.expm's max_squarings
 
 
-def pmat_expm(Q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def solve_small(A: torch.Tensor, B: torch.Tensor,
+                what: str = "solve") -> torch.Tensor:
+    """X with A X = B for small A [..., n, n] and B [..., n] or [..., n, m],
+    by Gaussian elimination with partial pivoting in n fixed steps of
+    tensor operations, differentiable any number of times: no host read.
+    A zero or non-finite pivot (a singular system) reports SINGULAR
+    (`graphs.report_status`, under `what`); the result is then not
+    finite."""
+    vec = B.dim() == A.dim() - 1
+    if vec:
+        B = B[..., None]
+    batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])
+    A, B = A.expand(batch + A.shape[-2:]), B.expand(batch + B.shape[-2:])
+    n = A.shape[-1]
+    rows = torch.arange(n, device=A.device)
+    bad = torch.zeros(A.shape[:-2], dtype=torch.bool, device=A.device)
+    for k in range(n):
+        p = A[..., k:, k].abs().argmax(-1, keepdim=True) + k     # [..., 1]
+        perm = torch.where(rows == k, p, torch.where(rows == p, k, rows))
+        A = A.gather(-2, perm[..., None].expand(A.shape))
+        B = B.gather(-2, perm[..., None].expand(B.shape))
+        piv = A[..., k, k]
+        bad = bad | (piv == 0) | ~torch.isfinite(piv)
+        if k + 1 < n:
+            lk = A[..., k + 1:, k:k + 1] / piv[..., None, None]
+            A = torch.cat([A[..., :k + 1, :],
+                           A[..., k + 1:, :] - lk * A[..., k:k + 1, :]], -2)
+            B = torch.cat([B[..., :k + 1, :],
+                           B[..., k + 1:, :] - lk * B[..., k:k + 1, :]], -2)
+    graphs.report_status(torch.where(bad, SINGULAR, 0).to(torch.int32), what)
+    X = [None] * n
+    for i in reversed(range(n)):
+        r = B[..., i, :]
+        for j in range(i + 1, n):
+            r = r - A[..., i, j, None] * X[j]
+        X[i] = r / A[..., i, i, None]
+    X = torch.stack(X, -2)
+    return X[..., 0] if vec else X
+
+
+def expm_squarings(norm_max: float) -> int:
+    """S_MAX for matrices A with |A|_1 <= norm_max: the squarings the
+    scaling takes at that norm (at least 1)."""
+    return max(1, math.ceil(math.log2(max(norm_max, 1.0) / _THETA13)))
+
+
+def expm(A: torch.Tensor, s_max: int = EXPM_S_MAX) -> torch.Tensor:
+    """expm(A) of A [..., n, n] by scaling and squaring with the [13/13]
+    Pade approximant: s = max(0, ceil(log2(|A|_1 / theta13))) from each
+    matrix's own norm on the device, A / 2^s, then s_max squarings each
+    kept where s asks for it.  An s above s_max reports NOCONV
+    (`graphs.report_status`): the matrix is not squared enough.  No host
+    read; differentiable any number of times."""
+    shape = A.shape
+    A = A.reshape((-1,) + shape[-2:])
+    norm = A.detach().abs().sum(-2).amax(-1)
+    s = torch.clamp_min(torch.ceil(torch.log2(norm / _THETA13)), 0.0)
+    graphs.report_status(torch.where(s > s_max, NOCONV, 0).to(torch.int32),
+                         "expm: squarings past S_MAX")
+    A = A * torch.exp2(-s)[:, None, None]
+    b = _PADE13
+    eye = torch.eye(shape[-1], dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    A4 = A2 @ A2
+    A6 = A4 @ A2
+    U = A @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2)
+             + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye)
+    V = (A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2)
+         + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    R = solve_small(V - U, V + U, "expm: Pade denominator")
+    s = s[:, None, None]
+    for i in range(s_max):
+        R = torch.where(s > i, R @ R, R)
+    return R.reshape(shape)
+
+
+def pmat_expm(Q: torch.Tensor, t: torch.Tensor,
+              s_max: int = EXPM_S_MAX) -> torch.Tensor:
     """P(t) = expm(Q t) for a general (non-reversible) Q [n, n], batched
     over t of any shape -> [..., n, n] (reference: QUNREST + matexp,
-    src/treesub.c:2543, src/tools.c:4879).  One `torch.linalg.matrix_exp`
-    over the whole batch, differentiable any number of times."""
-    return torch.linalg.matrix_exp(Q * t[..., None, None])
+    src/treesub.c:2543, src/tools.c:4879), by `expm` with s_max masked
+    squarings; differentiable any number of times."""
+    return expm(Q * t[..., None, None], s_max)

@@ -106,37 +106,53 @@ def aa2codonf(faa: np.ndarray, graph) -> np.ndarray:
     return np.asarray(faa)[graph.aa] / nsyn[graph.aa]
 
 
+def from_codon_tables(omega, faa: np.ndarray, graph, *, device,
+                      dtype=torch.float64) -> dict:
+    """`from_codon_S`'s constants on `device`: the codon and amino-acid
+    frequencies, the pair tables and masks, omega.  Made once per
+    objective: an evaluation then copies nothing from the host (a CUDA
+    graph cannot record the copy)."""
+    f64 = dict(dtype=dtype, device=device)
+    aai = graph.aa[graph.pi_idx]
+    aaj = graph.aa[graph.pj_idx]
+
+    def idx(a):
+        return torch.as_tensor(a, device=device)
+    return dict(
+        fb61=torch.as_tensor(aa2codonf(faa, graph), **f64),
+        faa=torch.as_tensor(np.maximum(np.asarray(faa, float), 1e-300),
+                            **f64),
+        omega=torch.as_tensor(omega, **f64), one=torch.ones((), **f64),
+        zero=torch.zeros((), **f64), is_ts=idx(graph.is_ts),
+        is_syn=idx(graph.is_syn), pi_idx=idx(graph.pi_idx),
+        pj_idx=idx(graph.pj_idx), nonsyn=idx(aai != aaj), ai=idx(aai),
+        aj=idx(aaj))
+
+
 def from_codon_S(kappa, omega, faa: np.ndarray, graph, *, device=None,
-                 dtype=torch.float64) -> torch.Tensor:
+                 dtype=torch.float64, tables: dict | None = None
+                 ) -> torch.Tensor:
     """Aggregated amino-acid exchangeabilities from the codon chain
     (reference: eigenQaa FromCodon arm + Qcodon2aa, src/codeml.c:3419,
     3487): S[a, b] = sum over the single-difference codon pairs (i in a,
     j in b, a != b) of fb61_i fb61_j q_ij / (faa_a faa_b), q_ij the HKY
     kappa x omega exchangeability.  kappa may be a tensor that carries a
-    gradient; omega is fixed in the reference's model 6."""
+    gradient; omega is fixed in the reference's model 6.  `tables`: what
+    `from_codon_tables` made for these omega, faa and graph (made here
+    when None)."""
     if isinstance(kappa, torch.Tensor):
         device = kappa.device if device is None else device
-    f64 = dict(dtype=dtype, device=device)
-    fb61 = torch.as_tensor(aa2codonf(faa, graph), **f64)
-    faa_t = torch.as_tensor(np.maximum(np.asarray(faa, float), 1e-300),
-                            **f64)
-    k = torch.as_tensor(kappa, **f64).reshape(())
-    is_ts = torch.as_tensor(graph.is_ts, device=device)
-    is_syn = torch.as_tensor(graph.is_syn, device=device)
-    one = torch.ones((), **f64)
-    q = torch.where(is_ts, k, one)
-    q = q * torch.where(is_syn, one, torch.as_tensor(omega, **f64))
-    aai = graph.aa[graph.pi_idx]
-    aaj = graph.aa[graph.pj_idx]
-    pi_idx = torch.as_tensor(graph.pi_idx, device=device)
-    pj_idx = torch.as_tensor(graph.pj_idx, device=device)
-    nonsyn = torch.as_tensor(aai != aaj, device=device)
-    contrib = torch.where(nonsyn, fb61[pi_idx] * fb61[pj_idx] * q,
-                          torch.zeros((), **f64))
-    ai = torch.as_tensor(aai, device=device)
-    aj = torch.as_tensor(aaj, device=device)
-    contrib = contrib / (faa_t[ai] * faa_t[aj])
-    S = torch.zeros((20, 20), **f64)
+    T = tables or from_codon_tables(omega, faa, graph, device=device,
+                                    dtype=dtype)
+    k = torch.as_tensor(kappa, dtype=dtype, device=device).reshape(())
+    q = torch.where(T["is_ts"], k, T["one"])
+    q = q * torch.where(T["is_syn"], T["one"], T["omega"])
+    fb61, ai, aj = T["fb61"], T["ai"], T["aj"]
+    contrib = torch.where(T["nonsyn"],
+                          fb61[T["pi_idx"]] * fb61[T["pj_idx"]] * q,
+                          T["zero"])
+    contrib = contrib / (T["faa"][ai] * T["faa"][aj])
+    S = T["zero"].new_zeros((20, 20))
     S = S.index_put((ai, aj), contrib, accumulate=True)
     return S.index_put((aj, ai), contrib, accumulate=True)
 
@@ -171,24 +187,33 @@ def aa_1step(graph) -> np.ndarray:
     return (cnt[ii, jj] > 0).astype(int)
 
 
-def revaa_S(rates: torch.Tensor, graph=None) -> torch.Tensor:
-    """REVaa / REVaa_0 exchangeability matrix from the free rates (a 1-D
-    tensor).  REVaa (graph None): the rates fill all lower-triangle pairs
-    but the reference pair (19, 9), which is 1 (src/codeml.c:3431-3436).
-    REVaa_0 (graph given): they fill the AA1STEP pairs alone (less the
-    reference pair); the other pairs are 0 (src/codeml.c:3424-3429)."""
+def revaa_tables(graph, device) -> dict:
+    """`revaa_S`'s index tables on `device` (REVaa for graph None,
+    REVaa_0 for a codon graph), made once per objective."""
     ii, jj = aa_pairs_lower()
     ri, rj = IJ_AA_REF
     isref = (ii == ri) & (jj == rj)
     fill = ~isref if graph is None else (aa_1step(graph) > 0) & ~isref
-    dev = rates.device
-    vals = rates.new_zeros((190,)).index_put(
-        (torch.as_tensor(np.nonzero(fill)[0], device=dev),), rates)
-    vals = vals.index_put(
-        (torch.as_tensor(np.nonzero(isref)[0], device=dev),),
-        rates.new_ones(()))
-    i_t = torch.as_tensor(ii, device=dev)
-    j_t = torch.as_tensor(jj, device=dev)
+
+    def idx(a):
+        return torch.as_tensor(a, device=device)
+    return dict(fill=idx(np.nonzero(fill)[0]), isref=idx(np.nonzero(isref)[0]),
+                ii=idx(ii), jj=idx(jj))
+
+
+def revaa_S(rates: torch.Tensor, graph=None,
+            tables: dict | None = None) -> torch.Tensor:
+    """REVaa / REVaa_0 exchangeability matrix from the free rates (a 1-D
+    tensor).  REVaa (graph None): the rates fill all lower-triangle pairs
+    but the reference pair (19, 9), which is 1 (src/codeml.c:3431-3436).
+    REVaa_0 (graph given): they fill the AA1STEP pairs alone (less the
+    reference pair); the other pairs are 0 (src/codeml.c:3424-3429).
+    `tables`: what `revaa_tables` made for this graph on the rates'
+    device (made here when None)."""
+    T = tables or revaa_tables(graph, rates.device)
+    vals = rates.new_zeros((190,)).index_put((T["fill"],), rates)
+    vals = vals.index_put((T["isref"],), rates.new_ones(()))
+    i_t, j_t = T["ii"], T["jj"]
     S = rates.new_zeros((20, 20)).index_put((i_t, j_t), vals)
     return S.index_put((j_t, i_t), vals)
 

@@ -6,14 +6,16 @@ of the work it records, held where a card is not needed.
   pass as after every CHECK_EVERY (the graphed loop replays CHECK_EVERY
   passes between reads), and as the passes stepped one at a time by hand.
 - Every codon objective of tests/test_torch_codeml.py::SPECS (and the
-  quantile models M5-M13), and amino-acid and nucleotide objectives with
-  and without gamma rates, evaluate a value + gradient under a guard that
+  quantile models M5-M13, the clocks, TipDate and a fossil-calibrated
+  root), and amino-acid and nucleotide objectives with and without gamma
+  rates (FromCodon, REVaa, UNREST / UNRESTu, AdG, nparK, the clocks and
+  nhomo 1-5 among them), evaluate a value + gradient under a guard that
   makes the host reads (`item`, `__bool__`, `__float__`, `__int__`,
   `tolist`, `numpy`, `cpu`, `to` the CPU) and the copies from the host
   (`torch.as_tensor` / `torch.tensor` of anything but a tensor) raise,
   with `core/dgamma.py` on its card route with the plain versions
-  (`cuda_quantile.PLAIN`): the guard passes exactly for the objectives
-  marked `capturable` and trips for the others.
+  (`cuda_quantile.PLAIN`): every one of them is marked `capturable` and
+  the guard passes for each.
 - `GraphedValueGrad` on a CPU device raises; `maximize` and the device
   L-BFGS on the CPU make no capture and count their evaluations as eager
   (`optim.GRAPHS`); the status words.
@@ -134,11 +136,14 @@ def no_host_reads():
     """Tensor methods that read a tensor on the host raise HostRead inside
     the block (and `to` the CPU, the clock's way to the host), and so do
     `torch.as_tensor` and `torch.tensor` of anything but a tensor (a copy
-    from the host on the card) and the two linear-algebra calls that read
-    the host on the card (`torch.linalg.solve` checks its result there,
-    `matrix_exp` picks its degree there)."""
+    from the host on the card), an item assignment of a Python number
+    (`t[k] = 1.0` copies the number from the host on the card), and the
+    two linear-algebra calls that read the host on the card
+    (`torch.linalg.solve` checks its result there, `matrix_exp` picks its
+    degree there)."""
     saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
     saved["to"] = torch.Tensor.to
+    saved["__setitem__"] = torch.Tensor.__setitem__
     made = {name: getattr(torch, name) for name in ("as_tensor", "tensor")}
     linalg = {name: getattr(torch.linalg, name)
               for name in ("solve", "matrix_exp")}
@@ -155,6 +160,11 @@ def no_host_reads():
             raise HostRead("to the CPU")
         return saved["to"](self, *args, **kw)
 
+    def setitem(self, key, value):
+        if not isinstance(value, torch.Tensor):
+            raise HostRead(f"an item assignment of {type(value).__name__}")
+        return saved["__setitem__"](self, key, value)
+
     def copy(name):
         def f(data, *args, **kw):
             if not isinstance(data, torch.Tensor):
@@ -165,6 +175,7 @@ def no_host_reads():
         for name in HOST_READS:
             setattr(torch.Tensor, name, trip(name))
         torch.Tensor.to = to
+        torch.Tensor.__setitem__ = setitem
         for name in made:
             setattr(torch, name, copy(name))
         for name in linalg:
@@ -222,25 +233,51 @@ def test_capturable_objectives_read_nothing_on_the_host(name, ambiguous,
     data, topo = interop.packed_from(data_j), interop.topology_from(topo_j)
     neg, _, _, x0, _, _ = codeml.make_codon_objective(
         data, topo, codeml.CodemlSpec(**kw), device="cpu", n_chunks=n_chunks)
-    assert neg.capturable is not kw.get("clock", 0)
+    assert neg.capturable is True
     v, g, read = guarded_value_grad(neg, x0, monkeypatch)
     assert (read is None) == neg.capturable, read
     if read is None:
         assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
 
 
-def _port_data(name, seqtype, genes=False):
+@pytest.mark.parametrize("dated", ["tipdate", "fossil"])
+def test_dated_codon_objectives_read_nothing_on_the_host(dated, monkeypatch):
+    """The codon clock with TipDate, and with a fossil-calibrated root:
+    capturable, and no host read."""
+    data, topo = _port_data("clock56.codon", seqio.CODON_SEQ, dated)
+    kw = dict(clock=1, tipdate=dated == "tipdate", tipdate_timeunit=10.0)
+    neg, _, _, x0, _, _ = codeml.make_codon_objective(
+        data, topo, codeml.CodemlSpec(**kw), device="cpu")
+    assert neg.capturable is True
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
+    assert read is None, read
+    assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
+def _port_data(name, seqtype, variant=""):
+    """clock56's alignment and tree in the port's types: 'genes' split in
+    two genes, 'labelled' with #1 on the clade (A, B), 'tipdate' with
+    sampling years in the names, 'fossil' with the root at age 1.2."""
     from paml_tpu_torch.core.topology import from_treenode
     from paml_tpu_torch.io import treeio
     aln = seqio.read_alignment(os.path.join(DATA, name), seqtype)
-    if genes:
-        ls = len(aln.rows[0])
+    if variant == "genes":
+        ls = len(aln.rows[0]) // (3 if seqtype == seqio.CODON_SEQ else 1)
         aln = seqio.Alignment(aln.names, aln.rows, aln.seqtype, ngene=2,
                               site_gene=(np.arange(ls) >= ls // 2)
                               .astype(np.int64))
     data = seqio.pack(aln)
     topo = from_treenode(treeio.read_trees(
         os.path.join(DATA, "clock56.trees"), data.names)[0], data.names)
+    if variant == "labelled":
+        topo.labels[tc.CLADE] = 1
+    if variant == "tipdate":
+        topo.ages0[:] = np.nan
+        data.names = [f"{nm}_{1990 + 4 * i}" for i, nm in
+                      enumerate(data.names)]
+    if variant == "fossil":
+        topo.ages0[:] = np.nan
+        topo.ages0[topo.root] = 1.2
     return data, topo
 
 
@@ -254,10 +291,14 @@ AA_CENSUS = {
     "aa_G_free": (dict(aa_model="Empirical", fix_alpha=False, alpha=0.5,
                        ncatG=4), True),
     "aa_Poisson": (dict(aa_model="Poisson"), True),
-    # the index tables copied from the host (aamod.revaa_S, from_codon_S)
+    # the index tables made on the device once (aamod.revaa_tables,
+    # from_codon_tables)
     "aa_REVaa_0_G": (dict(aa_model="REVaa_0", fix_alpha=False, alpha=0.5,
-                          ncatG=4), False),
-    "aa_FromCodon": (dict(aa_model="FromCodon"), False),
+                          ncatG=4), True),
+    "aa_FromCodon": (dict(aa_model="FromCodon"), True),
+    "aa_FromCodon_fixed_kappa": (dict(aa_model="FromCodon", fix_kappa=True,
+                                      kappa=2.5), True),
+    "aa_REVaa": (dict(aa_model="REVaa"), True),
 }
 NUC_CENSUS = {
     "REV_G5": (dict(model="REV", ncatG=5, fix_alpha=False, alpha=0.5),
@@ -275,13 +316,32 @@ NUC_CENSUS = {
                      alpha=0.5), "", True),
     "HKY85_nparK1": (dict(model="HKY85", ncatG=3, nparK=1), "", True),
     "HKY85_nparK3": (dict(model="HKY85", ncatG=3, nparK=3), "", True),
-    # matrix_exp's degree, AdG's quadrature, nparK 4's solve and the
-    # clock's node ages read the host
-    "UNREST": (dict(model="UNREST"), "", False),
+    # the expm and the solves as fixed tensor operations, AdG's quadrature
+    # and the clock's tables on the device (each read the host before)
+    "UNREST": (dict(model="UNREST"), "", True),
+    "UNREST_G4": (dict(model="UNREST", ncatG=4, fix_alpha=False, alpha=0.5),
+                  "", True),
+    "UNRESTu": (dict(model="UNRESTu", step="[3 (TC CT) (AG) (GA TA)]"), "",
+                True),
     "HKY85_AdG": (dict(model="HKY85", ncatG=4, fix_alpha=False, alpha=0.5,
-                       fix_rho=False, rho=0.4), "", False),
-    "HKY85_nparK4": (dict(model="HKY85", ncatG=3, nparK=4), "", False),
-    "HKY85_clock1": (dict(model="HKY85", clock=1), "", False),
+                       fix_rho=False, rho=0.4), "", True),
+    "HKY85_AdG_fixed_rho": (dict(model="HKY85", ncatG=4, fix_alpha=False,
+                                 alpha=0.5, rho=0.4), "", True),
+    "HKY85_nparK4": (dict(model="HKY85", ncatG=3, nparK=4), "", True),
+    "HKY85_clock1": (dict(model="HKY85", clock=1), "", True),
+    "HKY85_clock2": (dict(model="HKY85", clock=2), "labelled", True),
+    "HKY85_clock3": (dict(model="HKY85", clock=3), "labelled", True),
+    "HKY85_G4_clock3_Mgene": (dict(model="HKY85", clock=3, ncatG=4, alpha=0.5,
+                                   fix_alpha=False, Mgene=4), "genes", True),
+    "REV_tipdate": (dict(model="REV", clock=1, tipdate=True,
+                         tipdate_timeunit=10.0), "tipdate", True),
+    "UNREST_fossil": (dict(model="UNREST", clock=1), "fossil", True),
+    "nhomo1_HKY85": (dict(model="HKY85", nhomo=1), "", True),
+    "nhomo1_REV": (dict(model="REV", nhomo=1), "", True),
+    "nhomo2_K80": (dict(model="K80", nhomo=2), "", True),
+    "nhomo3_HKY85": (dict(model="HKY85", nhomo=3), "", True),
+    "nhomo4_TN93": (dict(model="TN93", nhomo=4), "", True),
+    "nhomo5_HKY85": (dict(model="HKY85", nhomo=5), "labelled", True),
 }
 
 
@@ -298,14 +358,58 @@ def test_aa_objectives_census(name, monkeypatch):
         assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
 
 
+# codeml's other objectives: FromCodon0 (the codon chain on amino-acid
+# data), aaDist and codon Mgene
+MORE_CENSUS = {
+    "FromCodon0": ("fromcodon0", dict(seqtype=3, aa_model="FromCodon0")),
+    "FromCodon0_fixed": ("fromcodon0", dict(seqtype=3, aa_model="FromCodon0",
+                                            fix_kappa=True, fix_omega=True,
+                                            omega=0.4)),
+    "aaDist1": ("aadist", dict(aaDist=1)),
+    "aaDist-2_fixed_kappa": ("aadist", dict(aaDist=-2, fix_kappa=True)),
+    "aaDist12": ("aadist", dict(aaDist=12)),
+    "Mgene2_fixed_omega": ("mgene", dict(Mgene=2, fix_omega=True)),
+    "Mgene4": ("mgene", dict(Mgene=4)),
+}
+
+
+@pytest.mark.parametrize("name", list(MORE_CENSUS))
+def test_more_codon_objectives_census(name, monkeypatch):
+    kind, kw = MORE_CENSUS[name]
+    kw = dict(kw)
+    if kind == "fromcodon0":
+        data, topo = _port_data("clock56.codon", seqio.CODON2AA_SEQ)
+        neg, _, x0, _, _ = codeml.make_fromcodon0_objective(
+            data, topo, codeml.CodemlSpec(**kw), device="cpu")
+    elif kind == "aadist":
+        data, topo = _port_data("clock56.codon", seqio.CODON_SEQ)
+        neg, _, x0, _, _ = codeml.make_aadist_objective(
+            data, topo, codeml.CodemlSpec(**kw), device="cpu")
+    else:
+        data, topo = _port_data("clock56.codon", seqio.CODON_SEQ, "genes")
+        mgene = kw.pop("Mgene")
+        neg, _, x0, _, _ = codeml.make_codon_mgene_objective(
+            data, topo, codeml.CodemlSpec(**kw), mgene, device="cpu")
+    assert neg.capturable is True
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
+    assert read is None, read
+    assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
 @pytest.mark.parametrize("name", list(NUC_CENSUS))
 def test_nucleotide_objectives_census(name, monkeypatch):
+    from paml_tpu_torch.io import ctl
     kw, variant, expect = NUC_CENSUS[name]
-    data, topo = _port_data("clock56.nuc", seqio.BASE_SEQ,
-                            genes=variant == "genes")
-    neg, _, x0, _ = baseml.make_objective(data, topo,
-                                          baseml.BasemlSpec(**kw),
-                                          device="cpu")
+    kw = dict(kw)
+    step = kw.pop("step", None)
+    spec = baseml.BasemlSpec(**kw)
+    if step is not None:
+        spec.step_matrix, spec.n_user_rates = ctl.parse_step_matrix(
+            step, False)
+    data, topo = _port_data("clock56.nuc", seqio.BASE_SEQ, variant)
+    make = baseml.make_nhomo_objective if spec.nhomo else \
+        baseml.make_objective
+    neg, _, x0, _ = make(data, topo, spec, device="cpu")
     assert getattr(neg, "capturable", False) is expect
     v, g, read = guarded_value_grad(neg, x0, monkeypatch)
     assert (read is None) == expect, read
@@ -321,8 +425,11 @@ def test_guard_trips_on_each_host_read():
             f()
     with no_host_reads(), pytest.raises(HostRead):
         t.to("cpu", torch.float64)
+    with no_host_reads(), pytest.raises(HostRead):
+        t[1] = 1.0
     with no_host_reads():
         assert t.to(torch.float64).dtype == torch.float64
+        t[1] = t[0]
 
 
 def test_level_route_index_cache_keeps_flags_and_nodes_apart():
