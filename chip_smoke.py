@@ -308,6 +308,26 @@
    failure paths: an expm past its S_MAX and a singular solve, in a graph
    and op by op, raise `DeviceStatusError`; a capture that fails raises
    (a subprocess).
+18. The pairwise programs from one CUDA graph per program and x-length,
+   clock 5 / 6 from one per fit (`optim.GRAPHS` counts the captures,
+   `eager_evals` 0 on graphed runs; host syncs by source line, one per
+   graphed evaluation; value + gradient at the first fit's start from a
+   graph against op by op, bit for bit, with the capture's ms and its
+   pool).  18a: codeml -2 through `main(["codeml", ctl])` on phase 9a's
+   alignment at YN_TAXA x YN_CODONS (435 pairs) graphed; at phase 9's
+   PW_ML_TAXA x PW_CODONS graphed, dispatched and on the host CPU at
+   CPU_THREADS threads, every pair's fit (x, lnL, evaluations) graphed =
+   dispatched bit for bit and the CPU's lnL within 1e-9; the same with
+   `fix_kappa` (graphed, dispatched) and aaml -2 (`pairwise.pairwise_aa`,
+   translated); s per pair each way.  18b: codeml -3 at PW_BAYES_TAXA x
+   PW_CODONS three ways, and the sliding window on one pair of YN_CODONS
+   codons, graphed and dispatched.  18c: clock 5 on phase 10d's codon
+   loci, clean (B3/B4) and gapped (B1/B2), and nucleotide loci (HKY85;
+   HKY85 + G4 with alpha free, E2), each fit graphed against eagerly
+   (`graphed_against_eager`) and value + gradient at its start timed;
+   clock 6 on the nucleotide loci, its five fits graphed against
+   dispatched bit for bit (step 1's Hessians, which the card does not
+   repeat bit for bit, given to both runs alike).
 
 Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
@@ -315,6 +335,7 @@ CUDA device, or without the paml_tpu_torch package beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -3136,7 +3157,7 @@ def phase_pairwise(torch, rng, report, card):
         r["launches_phase9"] = launches
     print(f"phase 9: {launches} pruning launches; "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(yn00=yn, ml=ml, bayes=by)
+    return dict(yn00=yn, ml=ml, bayes=by, aln=aln)
 
 
 # ---------------------------------------------------------------------------
@@ -3752,7 +3773,7 @@ def clock56_phase(torch, rng, work, report, card):
               f"{res.ages[res.sp_topo.root]:.4f} (simulated 1.0)",
               flush=True)
         out[f"clock{clock}"] = dict(seconds=o["seconds"],
-                                    evals=res.fit.n_eval, lnL=res.lnL)
+                                    evals=res.fit.n_eval, lnL=res.lnL, dir=d)
     # codons: M0 (kappa 2, omega 0.3) on a dated tree, F3x4 frequencies
     cnames = [f"c{i}" for i in range(C56_CODON_TAXA)]
     cjoined = dated_tree(rng, cnames)
@@ -3825,7 +3846,7 @@ def clock56_phase(torch, rng, work, report, card):
               f"{rel:.1e}); kappa {np.round(res.kappa.ravel(), 3).tolist()} "
               f"(simulated 2), omega "
               f"{np.round(res.omega, 3).tolist()} (0.3)", flush=True)
-        out[f"codon_{tag}"] = dict(seconds=sec, evals=res.fit.n_eval)
+        out[f"codon_{tag}"] = dict(seconds=sec, evals=res.fit.n_eval, dir=d)
     return out
 
 
@@ -3847,10 +3868,11 @@ def phase_dating(torch, rng, report, card):
     host_programs(torch, work, card, exact, bv)
     t["10c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    clock56_phase(torch, rng, work, report, card)
+    c56 = clock56_phase(torch, rng, work, report, card)
     t["10d"] = time.perf_counter() - t0
     print(f"phase 10: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return c56
 
 # ---------------------------------------------------------------------------
 # phase 11: tree search and tree generation (ROADMAP A14)
@@ -5179,6 +5201,16 @@ def record_launches(report, key, keys):
     return launches
 
 
+def mismatch(a, b):
+    """() where the float arrays a and b are equal (`np.array_equal`),
+    else (the entries that differ, the first of them, the largest
+    difference)."""
+    d = np.flatnonzero(~(a == b))
+    if not len(d):
+        return ()
+    return (len(d), int(d[0]), float(np.max(np.abs(a[d] - b[d]))))
+
+
 GRAPH_ROUTES = (("clean", ("big_fwd", "big_bwd")),
                 ("gapped", ("pruning_fwd", "pruning_bwd")))
 
@@ -5209,8 +5241,14 @@ def graph_value_grads(torch, bench, report, card):
                 gv = graphs.GraphedValueGrad(neg, torch.as_tensor(x0).cuda())
                 torch.cuda.synchronize()
                 cap_ms = 1e3 * (time.perf_counter() - t0)
-                same = all(np.array_equal(gv(x), e)
-                           for x, e in zip(xs, eager))
+                got = [gv(x) for x in xs]
+                same = all(np.array_equal(g, e) for g, e in zip(got, eager))
+                if not same:
+                    # the same points once more both ways: which side moved
+                    moved = [mismatch(g, e) for g, e in zip(got, eager)]
+                    moved += [mismatch(graphs.value_grad_eager(neg, x, "cuda"),
+                                       e) for x, e in zip(xs, eager)]
+                    moved += [mismatch(gv(x), e) for x, e in zip(xs, eager)]
                 t0 = time.perf_counter()
                 for x in xs * 7:
                     gv(x)
@@ -5219,20 +5257,33 @@ def graph_value_grads(torch, bench, report, card):
                 for x in xs * 3:
                     graphs.value_grad_eager(neg, x, "cuda")
                 ms_e = 1e3 * (time.perf_counter() - t0) / 9
+                want = {k: 1 for k in pair}
+                want["eigh"] = int(dt == torch.float64)
                 kern = graphs.replay_kernels(gv.graph)
+                kern_ok = all(kern[k] == want.get(k, 0) for k in want) and \
+                    not any(kern[k] for k in ("pruning_fwd", "big_fwd")
+                            if k not in pair)
+                # a census that misses: a second replay's, which tells a
+                # graph without the kernel from a census that lost events
+                again = None if kern_ok else graphs.replay_kernels(gv.graph)
                 gv.close()
                 print(f"15b {name}, {route}, {str(dt)[6:]} [{card}]: lnL "
                       f"{-eager[0][0]:.6f}; graphed = eager bit for bit "
                       f"{same}; ms per evaluation graphed {ms_g:.3f}, eager "
                       f"{ms_e:.3f}; capture {cap_ms:.1f} ms; one replay "
                       f"{kern}", flush=True)
-                want = {k: 1 for k in pair}
-                want["eigh"] = int(dt == torch.float64)
-                if not same or any(kern[k] != want.get(k, 0) for k in want) \
-                        or any(kern[k] for k in ("pruning_fwd", "big_fwd")
-                               if k not in pair):
-                    raise AssertionError(f"15b {name} {route} {dt}: the graph "
-                                         "is not the eager evaluation")
+                if not same:
+                    raise AssertionError(
+                        f"15b {name} {route} {dt}: the graph is not the eager "
+                        "evaluation; against the first eager values at x0..x2 "
+                        "(each: entries that differ of "
+                        f"{len(eager[0])}, the first of them, the largest "
+                        "difference) the graph, then the eager evaluation "
+                        f"and the graph once more: {moved}")
+                if not kern_ok:
+                    raise AssertionError(
+                        f"15b {name} {route} {dt}: one replay ran the kernels "
+                        f"{kern}, a second {again}, want {want}")
         record_launches(report, f"launches_graph_vg_{route}",
                         pair + ("eigh",))
 
@@ -6256,6 +6307,501 @@ def phase_more_graphs(torch, report, card, bench):
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the pairwise programs' and clock 5 / 6's fits from CUDA graphs
+# ---------------------------------------------------------------------------
+
+PW_WINDOW = dict(wlen=100, offset=100)   # 18b: 10 windows over 1000 codons
+PW_EAGER_PAIRS = 30                      # 18a's dispatched runs: the first
+                                         # 30 pairs of each program
+
+
+@contextlib.contextmanager
+def dispatched():
+    """Every fit in the block evaluated op by op (`optim.graphed` answers
+    no): the eager run a graphed one is held to."""
+    from paml_tpu_torch.core import optim
+    saved = optim.graphed
+    optim.graphed = lambda neg_fn, device: False
+    try:
+        yield
+    finally:
+        optim.graphed = saved
+
+
+class _Enough(Exception):
+    """A program stopped after the fits it was asked for."""
+
+
+def run_fits(torch, module, fn, how, limit=None):
+    """fn("cuda") once, `how` "graph" as the port runs it or "eager" with
+    every fit dispatched; with `limit`, stopped after that many fits.
+    Returns a namespace: its result (None if stopped), wall s, the fits
+    (`module.maximize`'s results), `optim.GRAPHS`'s counts over the run
+    and the host syncs by source line."""
+    import types
+
+    from paml_tpu_torch.core import optim
+
+    before = dict(optim.GRAPHS)
+    fits, real = [], module.maximize
+
+    def maximize(*a, **kw):
+        fits.append(real(*a, **kw))
+        if len(fits) == limit:
+            raise _Enough
+        return fits[-1]
+
+    def run():
+        try:
+            return fn("cuda")
+        except _Enough:
+            return None
+    module.maximize = maximize
+    try:
+        with contextlib.ExitStack() as stack:
+            if how == "eager":
+                stack.enter_context(dispatched())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, lines = sync_census(torch, run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        module.maximize = real
+    return types.SimpleNamespace(
+        out=out, wall=wall, fits=fits, lines=lines,
+        evals=sum(f.n_eval for f in fits),
+        counts={k: v - before[k] for k, v in optim.GRAPHS.items()})
+
+
+def same_fits(a, b):
+    """b's fits (all of them, or the first ones where b was stopped) the
+    same bits as a's first ones: x, lnL and evaluations, fit by fit."""
+    return 0 < len(b.fits) <= len(a.fits) and all(
+        np.array_equal(u.x, v.x) and u.lnL == v.lnL and u.n_eval == v.n_eval
+        for u, v in zip(a.fits, b.fits))
+
+
+def graph_syncs(run):
+    """(host syncs in `GraphedValueGrad.__call__`, a graphed evaluation's
+    copy back, per evaluation; the run's other syncs by source line, the
+    largest first)."""
+    from paml_tpu_torch.core import graphs
+    span = _lines_of(graphs.GraphedValueGrad.__call__)
+    inside = {k for k in run.lines
+              if k[0].endswith("graphs.py") and k[1] in span}
+    rest = sorted(((f"{f}:{ln}", c) for (f, ln), c in run.lines.items()
+                   if (f, ln) not in inside), key=lambda kv: -kv[1])
+    return sum(run.lines[k] for k in inside) / max(run.evals, 1), rest
+
+
+def check_graphed(tag, g, e, captures):
+    """A graphed run against its eager twin: the same fits bit for bit,
+    every graphed evaluation from a graph, `captures` graphs in all, one
+    host sync per graphed evaluation at the copy back."""
+    per, _ = graph_syncs(g)
+    bad = (not same_fits(g, e) or g.counts["eager_evals"]
+           or g.counts["graphed_evals"] != g.evals
+           or g.counts["captures"] != captures or e.counts["captures"]
+           or e.counts["graphed_evals"] or per != 1.0)
+    if bad:
+        raise AssertionError(f"{tag}: graphed {g.counts} / eager "
+                             f"{e.counts}, same fits {same_fits(g, e)}, "
+                             f"syncs per evaluation {per}")
+
+
+def start_point(torch, module, run, n):
+    """The n-th objective that run() hands module.maximize (the earlier
+    fits run), at its start x0: value + gradient from a CUDA graph (its
+    capture timed, its pool measured as the memory reserved above what
+    was before) against op by op, bit for bit, and both timed (medians of
+    20).  Returns a dict."""
+    from paml_tpu_torch.core import graphs
+
+    got, real = [], module.maximize
+
+    def stub(neg, x0, bounds=None, **kw):
+        got.append((neg, np.asarray(x0, np.float64)))
+        if len(got) == n:
+            raise _Enough
+        return real(neg, x0, bounds, **kw)
+    module.maximize = stub
+    try:
+        run("cuda")
+        raise AssertionError(f"the program made fewer than {n} fits")
+    except _Enough:
+        pass
+    finally:
+        module.maximize = real
+    neg, x0 = got[-1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    gv = graphs.GraphedValueGrad(neg, torch.as_tensor(x0, device="cuda"))
+    torch.cuda.synchronize()
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    pool = (torch.cuda.memory_reserved() - held) / 2 ** 30
+    a, b = gv(x0), graphs.value_grad_eager(neg, x0, "cuda")
+
+    def ms(fn, reps=20):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(ts))
+    out = dict(same=bool(np.array_equal(a, b)), capture_ms=capture_ms,
+               pool_gib=pool, graph_ms=ms(lambda: gv(x0)),
+               eager_ms=ms(lambda: graphs.value_grad_eager(neg, x0, "cuda")))
+    gv.close()
+    if not out["same"]:
+        raise AssertionError(f"start point: graphed {a} against eager {b}")
+    return out
+
+
+def pair_program(torch, work, tag, names, rows, runmode, fix_kappa=0,
+                 limit=None, dispatch=True):
+    """codeml runmode -2 / -3 from a control file through the program, in
+    a directory of its own: graphed over every pair, and with `dispatch`
+    dispatched over every pair or, with `limit`, the first ones
+    (`run_fits`)."""
+    import os
+
+    from paml_tpu_torch import __main__ as cli
+    from paml_tpu_torch.apps import pairwise
+
+    d = os.path.join(work, tag)
+    os.makedirs(d)
+    with open(os.path.join(d, "seq.phy"), "w") as f:
+        f.write(phylip(names, rows))
+    with open(os.path.join(d, "codeml.ctl"), "w") as f:
+        f.write(PW_CTL.format(runmode=runmode).replace(
+            "fix_kappa = 0", f"fix_kappa = {fix_kappa}"))
+
+    def program(dev):
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            return cli.main(["codeml", "codeml.ctl"])
+        finally:
+            os.chdir(cwd)
+    runs = {"graph": run_fits(torch, pairwise, program, "graph")}
+    if dispatch:
+        runs["eager"] = run_fits(torch, pairwise, program, "eager", limit)
+    return runs
+
+
+def pair_line(tag, runs, per_fit, card, start, host=""):
+    """18a / 18b's printed line for one program; `per_fit` fits make a
+    pair (a window), `host` phase 9c's host-thread time of the same
+    program."""
+    from paml_tpu_torch.apps import pairwise
+
+    g = runs["graph"]
+    npair = len(g.fits) // per_fit
+    per, rest = graph_syncs(g)
+    ways = ", ".join(
+        f"{how} {r.wall / (len(r.fits) // per_fit):.4f} s per pair over "
+        f"{len(r.fits) // per_fit} ({1e3 * r.wall / r.evals:.3f} ms per "
+        f"evaluation)" for how, r in runs.items())
+    fill = set(_lines_of(pairwise._Slot.fill)) | set(
+        _lines_of(pairwise._CodonPair.load))
+    slot = sum(c for (f, ln), c in g.lines.items()
+               if f.endswith("pairwise.py") and ln in fill)
+    print(f"{tag} [{card}]: {npair} pairs, {g.evals} evaluations; {ways}"
+          f"{host}; graphed = eager bit for bit (every fit the eager run made"
+          f": x, lnL, evaluations; start point {start['same']}); "
+          f"optim.GRAPHS graphed {g.counts}; host syncs per evaluation "
+          f"{per:.3f} at the copy back, per pair "
+          f"{sum(c for _, c in rest) / npair:.2f} beside ({slot / npair:.2f}"
+          f" filling the slot; top "
+          + ", ".join(f"{k} {c}" for k, c in rest[:4]) + "); capture "
+          f"{start['capture_ms']:.1f} ms, pool {start['pool_gib']:.4f} GiB; "
+          f"value + gradient at the start {start['graph_ms']:.3f} ms graphed"
+          f" / {start['eager_ms']:.3f} dispatched", flush=True)
+
+
+def pair_graphs(torch, work, pw, report, card):
+    """18a: codeml -2 through the program on phase 9a's alignment at
+    YN_TAXA x YN_CODONS (every pair, graphed), then at 9c's PW_ML_TAXA x
+    PW_CODONS graphed and, over its first PW_EAGER_PAIRS pairs,
+    dispatched (the host thread's time is 9c's); the same with
+    `fix_kappa`, and aaml -2 (`pairwise.pairwise_aa` on the translated
+    alignment)."""
+    from paml_tpu_torch.apps import pairwise
+    from paml_tpu_torch.io import seqio
+
+    reset_all_launches()
+    aln = pw["aln"]
+    names = aln.names[:YN_TAXA]
+    rows = [r[:3 * YN_CODONS] for r in aln.rows[:YN_TAXA]]
+    full = pair_program(torch, work, "18a_full", names, rows, -2,
+                        dispatch=False)["graph"]
+    npair = len(full.fits)
+    per, rest = graph_syncs(full)
+    print(f"18a codeml -2, {YN_TAXA} taxa x {YN_CODONS} codons [{card}]: "
+          f"{npair} pairs graphed in {full.wall:.2f} s "
+          f"({full.wall / npair:.4f} s per pair, {full.evals} evaluations, "
+          f"{1e3 * full.wall / full.evals:.3f} ms each); optim.GRAPHS "
+          f"{full.counts}; host syncs per evaluation {per:.3f} at the copy "
+          f"back, per pair {sum(c for _, c in rest) / npair:.2f} beside",
+          flush=True)
+    if full.counts["captures"] != 1 or full.counts["eager_evals"] or \
+            per != 1.0 or npair != YN_TAXA * (YN_TAXA - 1) // 2:
+        raise AssertionError(f"18a: the full-width run {full.counts}")
+    names = aln.names[:PW_ML_TAXA]
+    rows = [r[:3 * PW_CODONS] for r in aln.rows[:PW_ML_TAXA]]
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ),
+                      cleandata=True)
+    ml = pw["ml"]
+    host = (f", host thread {ml['cpu_s'] / ml['pairs']:.4f} s per pair (9c,"
+            f" {CPU_THREADS} thread)")
+    for tag, fix_kappa in (("-2", 0), ("-2 fix_kappa", 1)):
+        runs = pair_program(torch, work, f"18a{tag.replace(' ', '_')}",
+                            names, rows, -2, fix_kappa, PW_EAGER_PAIRS)
+        check_graphed(f"18a codeml {tag}", runs["graph"], runs["eager"], 1)
+        start = start_point(torch, pairwise, lambda dev: pairwise.
+                            pairwise_codon(data, fix_kappa=bool(fix_kappa),
+                                           device=dev), 1)
+        pair_line(f"18a codeml {tag}, {PW_ML_TAXA} taxa x {PW_CODONS} "
+                  "codons", runs, 1, card, start, "" if fix_kappa else host)
+    aa = seqio.pack(seqio.Alignment(
+        names, seqio.translate_codon_rows(rows), seqio.AA_SEQ),
+        cleandata=True)
+
+    def aaml(dev):
+        return pairwise.pairwise_aa(aa, device=dev)
+    runs = {"graph": run_fits(torch, pairwise, aaml, "graph"),
+            "eager": run_fits(torch, pairwise, aaml, "eager",
+                              PW_EAGER_PAIRS)}
+    check_graphed("18a aaml -2", runs["graph"], runs["eager"], 1)
+    pair_line(f"18a aaml -2 (Empirical_F), {PW_ML_TAXA} taxa x {PW_CODONS} "
+              "amino acids", runs, 1, card,
+              start_point(torch, pairwise, aaml, 1))
+    record_launches(report, "launches_graph_pairwise", ("eigh",))
+
+
+def bayes_window_graphs(torch, work, pw, report, card):
+    """18b: codeml -3 through the program at 9c's PW_BAYES_TAXA x
+    PW_CODONS, graphed and dispatched (the host thread's time is 9c's);
+    the sliding window (`pairwise.sliding_window_codon`, PW_WINDOW) on
+    phase 9a's first pair x YN_CODONS, graphed and dispatched."""
+    from paml_tpu_torch.apps import pairwise
+    from paml_tpu_torch.io import seqio
+
+    reset_all_launches()
+    aln = pw["aln"]
+    names = aln.names[:PW_BAYES_TAXA]
+    rows = [r[:3 * PW_CODONS] for r in aln.rows[:PW_BAYES_TAXA]]
+    runs = pair_program(torch, work, "18b-3", names, rows, -3)
+    g = runs["graph"]
+    npair = PW_BAYES_TAXA * (PW_BAYES_TAXA - 1) // 2
+    # the ML fit's graph, and the MAP fit's where a pair takes it
+    check_graphed("18b codeml -3", g, runs["eager"],
+                  1 + (len(g.fits) > npair))
+    if len(runs["eager"].fits) != len(g.fits):
+        raise AssertionError("18b codeml -3: the eager run made other fits")
+    data = seqio.pack(seqio.Alignment(names, rows, seqio.CODON_SEQ),
+                      cleandata=True)
+    by = pw["bayes"]
+    print(f"18b codeml -3, {PW_BAYES_TAXA} taxa x {PW_CODONS} codons: "
+          f"{len(g.fits) - npair} MAP fits; s per pair graphed "
+          f"{g.wall / npair:.4f}, dispatched {runs['eager'].wall / npair:.4f}"
+          f", host thread {by['cpu_s'] / by['pairs']:.4f} (9c); each pair's"
+          f" curvature and grid eager, as in the JAX package", flush=True)
+    pair_line("  18b codeml -3 (a pair here is one fit)", runs, 1, card,
+              start_point(torch, pairwise, lambda dev: pairwise.
+                          bayes_pairwise_codon(data, device=dev), 1))
+    pair = seqio.pack(seqio.Alignment(
+        aln.names[:2], [r[:3 * YN_CODONS] for r in aln.rows[:2]],
+        seqio.CODON_SEQ), cleandata=True)
+
+    def window(dev):
+        return pairwise.sliding_window_codon(pair, device=dev, **PW_WINDOW)
+    runs = {how: run_fits(torch, pairwise, window, how)
+            for how in ("graph", "eager")}
+    check_graphed("18b sliding window", runs["graph"], runs["eager"], 2)
+    if len(runs["eager"].fits) != len(runs["graph"].fits):
+        raise AssertionError("18b sliding window: the eager run made other "
+                             "fits")
+    pair_line(f"18b sliding window, 1 pair x {YN_CODONS} codons, windows of "
+              f"{PW_WINDOW['wlen']} every {PW_WINDOW['offset']} (a pair here"
+              " is a window: two fits)", runs, 2, card,
+              start_point(torch, pairwise, window, 2))
+    record_launches(report, "launches_graph_bayes_window", ("eigh",))
+
+
+def hessian_replay():
+    """(a context maker, a one-element list): inside the first block made,
+    `codeml.hessian` runs and its results are kept in call order; inside
+    a later one each call (at the same x, bit for bit, or it raises) runs
+    too, but returns the first block's result, and the list keeps the
+    largest difference between the two.  The Hessian route's sums are not
+    bit-reproducible on the card, and clock 6's step 1 feeds its
+    curvatures to the later fits: this keeps a graphed and an eager run
+    comparable bit for bit."""
+    from paml_tpu_torch.apps import codeml
+
+    kept, drift, blocks = [], [0.0], [0]
+
+    @contextlib.contextmanager
+    def replay():
+        real, calls = codeml.hessian, [0]
+        first = blocks[0] == 0
+        blocks[0] += 1
+
+        def hessian(neg, x, *, device):
+            H = real(neg, x, device=device)
+            if first:
+                kept.append((np.array(x), H))
+                return H
+            x0, H0 = kept[calls[0]]
+            calls[0] += 1
+            if not np.array_equal(x0, x):
+                raise AssertionError("clock 6's step 1 reached its Hessian "
+                                     "at another x")
+            drift[0] = max(drift[0], float(np.abs(H - H0).max()))
+            return H0.copy()
+        codeml.hessian = hessian
+        try:
+            yield
+        finally:
+            codeml.hessian = real
+    return replay, drift
+
+
+def clock56_graphs(torch, dating, report, card):
+    """18c: clock 5 on 10d's codon loci, clean (B3/B4) and gapped (B1/B2),
+    and on its nucleotide loci, with HKY85 and with HKY85 + G4 (alpha
+    free, E2), each from its CUDA graph against eagerly
+    (`graphed_against_eager`), and value + gradient at each fit's start
+    timed both ways (a fit of fewer than 10 evaluations is said so); then
+    clock 6 on the nucleotide loci, every step graphed against every step
+    dispatched (one capture per fit; step 1's Hessians, eager and not
+    bit-reproducible on the card, replayed from the graphed run into the
+    eager one)."""
+    import os
+    import types
+
+    from paml_tpu_torch.apps import clock56
+    from paml_tpu_torch.core import cuda_quantile as cq
+    from paml_tpu_torch.io import seqio
+
+    def jobs():
+        for route, pair in GRAPH_ROUTES:
+            d = dating[f"codon_{route}"]["dir"]
+            yield (f"codon clock 5, {route}, {C56_CODON_LOCI} loci x "
+                   f"{C56_CODON_TAXA} species x {C56_CODONS} codons (F3x4)",
+                   d, seqio.CODON_SEQ, C56_CODON_LOCI,
+                   dict(codonf="F3x4"), pair + ("eigh",), route)
+        d = dating["clock5"]["dir"]
+        for tag, kw in (("HKY85", {}),
+                        ("HKY85 + G4", dict(ncatG=4, fix_alpha=False,
+                                            alpha=0.5))):
+            yield (f"nucleotide clock 5, {tag}, {C56_LOCI} loci x {C56_TAXA}"
+                   f" species x {C56_SITES} sites", d, seqio.BASE_SEQ,
+                   C56_LOCI, dict(model="HKY85", **kw), (), None)
+
+    for tag, d, seqtype, nloci, kw, keys, route in jobs():
+        hd = clock56.read_tree_seqs(os.path.join(d, "tree.nwk"),
+                                    os.path.join(d, "seq.txt"), nloci,
+                                    seqtype=seqtype)
+        spec = clock56.Clock56Spec(clock=5, seqtype=seqtype,
+                                   **{"ncatG": 1, **kw})
+        labels = [np.zeros(gt.topo.nnode, dtype=np.int64)
+                  for gt in hd.loci]
+
+        def build(hd=hd, spec=spec, labels=labels):
+            return clock56.make_step3_objective(hd, spec, labels,
+                                                [1] * len(hd.loci),
+                                                device="cuda")
+
+        def fit(kind, hd=hd, spec=spec):
+            undo = with_flag(clock56, "make_step3_objective", kind)
+            try:
+                r = clock56.fit_clock5(hd, spec, device="cuda")
+            finally:
+                undo()
+            return types.SimpleNamespace(x=r.fit.x, lnL=r.lnL, fit=r.fit)
+        reset_all_launches()
+        reset_e2()
+        e2 = spec.ncatG > 1
+        res = graphed_against_eager(torch, tag, fit, build, card,
+                                    phase="18c", e2=e2)[0]
+        if keys:
+            record_launches(report, f"launches_graph_clock5_{route}", keys)
+        if e2:
+            report["quantile"]["launches_graph_clock5"] = \
+                cq.LAUNCHES["quantile"]
+        start = start_point(torch, clock56, lambda dev, hd=hd, spec=spec:
+                            clock56.fit_clock5(hd, spec, device=dev), 1)
+        short = (f"the fit stops after {res.fit.n_eval} evaluations "
+                 "(ROADMAP C); " if res.fit.n_eval < 10 else "")
+        print(f"  18c {tag}: {short}value + gradient at the start "
+              f"{start['graph_ms']:.3f} ms graphed / "
+              f"{start['eager_ms']:.3f} dispatched (medians of 20), bit for "
+              f"bit {start['same']}; capture {start['capture_ms']:.1f} ms, "
+              f"pool {start['pool_gib']:.4f} GiB", flush=True)
+    # clock 6: step 1's per-locus fits and Hessians, the AHRS smoothing,
+    # step 3
+    d = dating["clock6"]["dir"]
+    hd = clock56.read_tree_seqs(os.path.join(d, "tree.nwk"),
+                                os.path.join(d, "seq.txt"), C56_LOCI)
+    spec = clock56.Clock56Spec(clock=6, model="HKY85", ncatG=1)
+    replay, drift = hessian_replay()
+
+    def clock6(dev):
+        with replay():
+            return clock56.fit_clock6(hd, spec, device=dev)
+    runs = {how: run_fits(torch, clock56, clock6, how)
+            for how in ("graph", "eager")}
+    g, e = runs["graph"], runs["eager"]
+    check_graphed("18c clock 6", g, e, C56_LOCI + 2)
+    rg, re_ = g.out, e.out
+    same = (rg.lnL == re_.lnL and np.array_equal(rg.ages, re_.ages)
+            and rg.step2["objective"] == re_.step2["objective"])
+    if not same:
+        raise AssertionError("18c clock 6: graphed and eager results differ")
+    per, rest = graph_syncs(g)
+    print(f"18c nucleotide clock 6, {C56_LOCI} loci x {C56_TAXA} species x "
+          f"{C56_SITES} sites, HKY85 [{card}]: lnL {rg.lnL:.6f}, graphed = "
+          f"eager bit for bit {same} ({len(g.fits)} fits: "
+          + ", ".join(str(f.n_eval) for f in g.fits) + " evaluations); "
+          f"s {g.wall:.2f} graphed / {e.wall:.2f} dispatched, ms per "
+          f"evaluation {1e3 * g.wall / g.evals:.3f} / "
+          f"{1e3 * e.wall / e.evals:.3f} (step 1's Hessians included); "
+          f"optim.GRAPHS {g.counts}; host syncs per evaluation {per:.3f} at "
+          f"the copy back; top others "
+          + ", ".join(f"{k} {c}" for k, c in rest[:4]) + "; step 1's "
+          f"Hessians (eager, outside the graphs) recomputed at the same x "
+          f"differ by up to {drift[0]:.3e}, so the eager run is given the "
+          f"graphed run's", flush=True)
+
+
+def phase_pair_graphs(torch, report, card, pw, dating):
+    """Phase 18: the pairwise programs' fits from one CUDA graph per
+    program and x-length (18a, 18b) and clock 5 / 6's from one per fit
+    (18c); `pw` phase 9's summary (9a's alignment, 9c's host-thread
+    times), `dating` phase 10d's runs (their directories)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pairgraphs_")
+    t = {}
+    for tag, fn, args in (
+            ("18a", pair_graphs, (torch, work, pw, report, card)),
+            ("18b", bayes_window_graphs, (torch, work, pw, report, card)),
+            ("18c", clock56_graphs, (torch, dating, report, card))):
+        t0 = time.perf_counter()
+        fn(*args)
+        t[tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 18: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6322,10 +6868,10 @@ def main() -> int:
     phase_aa(torch, rng, report, smi[0])
     torch.cuda.empty_cache()
     # 9. evolver, yn00, codeml's pairwise runmodes, pamp, chi2: no kernel
-    phase_pairwise(torch, rng, report, smi[0])
+    pw = phase_pairwise(torch, rng, report, smi[0])
     torch.cuda.empty_cache()
     # 10. mcmctree, in.BV, the MCMC utilities, clock 5 / 6 (B1-B4 on codons)
-    phase_dating(torch, rng, report, smi[0])
+    dating = phase_dating(torch, rng, report, smi[0])
     torch.cuda.empty_cache()
     # 11. tree search (B1-B4 for codons, the level route for nucleotides)
     phase_search(torch, rng, report, smi[0])
@@ -6348,7 +6894,11 @@ def main() -> int:
     # 17. the rest of the compiled fits: clocks, FromCodon / REVaa, AdG,
     # nparK 4, UNREST, nhomo, mcmctree's exact likelihood
     phase_more_graphs(torch, report, smi[0], bench)
-    print(f"chip_smoke: the build and phases 3-17 in "
+    torch.cuda.empty_cache()
+    # 18. the pairwise programs' fits, one CUDA graph per program, and
+    # clock 5 / 6's, one per fit
+    phase_pair_graphs(torch, report, smi[0], pw, dating)
+    print(f"chip_smoke: the build and phases 3-18 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
@@ -6360,8 +6910,9 @@ def main() -> int:
         # fits and device fits, `launches_f32_*`, and the float64 device
         # fit; phase 14's bench, a CUDA graph's launches counted once;
         # phase 15's graphed paths, `launches_graph_*`: their host launches,
-        # the warm-ups' and the captures' with the eager comparisons; E2's
-        # from phase 6's programs and phase 16's fits)
+        # the warm-ups' and the captures' with the eager comparisons, and
+        # so phases 17 and 18's; E2's from phase 6's programs and phase 16,
+        # 17 and 18's fits)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

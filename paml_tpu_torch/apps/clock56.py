@@ -16,7 +16,10 @@ approximate curvature).  Nucleotide loci take the level route
 (`pruning.class_site_lnf` below 16 states); codon loci take the
 hand-written kernels on the card (B3/B4 for clean state codes, B1/B2
 with gaps), through `codeml.make_codon_objective` in step 1 and
-`pmat_rev` + `pruning.lnL` in step 3.
+`pmat_rev` + `pruning.lnL` in step 3.  Every fit's objective (step 1's,
+the AHRS objective, step 3's) makes its tables on the device when it is
+built and declares itself `capturable`: on the card each fit replays
+one CUDA graph, as the JAX package's `jit` compiles it.
 
 clock = 5: global clock, one rate per locus.
 clock = 6: AHRS local clock —
@@ -122,13 +125,17 @@ def read_tree_seqs(treefile: str, seqfile: str, ngene: int,
 # node-age parametrization (proportion transform with fossil point fixes)
 # ---------------------------------------------------------------------------
 
-def make_ages_fn(sp_topo: Topology, fixed_ages: dict):
+def make_ages_fn(sp_topo: Topology, fixed_ages: dict, device=None,
+                 dtype=torch.float64):
     """Ages from unconstrained-in-(0,1) proportions: in preorder,
     age(n) = agelow(n) + (age(father) - agelow(n)) * x_n for free internal
     nodes, with fossil nodes fixed (reference: SetAge, src/treesub.c:3714;
     bounds from AdHocRateSmoothing, :9895).  agelow(n) is the largest
     fossil age in n's subtree.  Returns (ages_of(x)->[nnode], x0, bounds,
-    free_nodes); ages_of sets the free nodes one depth level at a time."""
+    free_nodes); ages_of sets the free nodes one depth level at a time,
+    from index and age tables made on `device` now, or on another device
+    at ages_of's first call there (an evaluation copies nothing from the
+    host, so a CUDA graph can hold it)."""
     nnode, root, ns = sp_topo.nnode, int(sp_topo.root), sp_topo.ns
     agelow = np.zeros(nnode)
     for n in sp_topo.postorder:
@@ -164,18 +171,31 @@ def make_ages_fn(sp_topo: Topology, fixed_ages: dict):
         if n >= ns:
             base[n] = a
 
+    made = {}      # (device, dtype) -> (base, root, the levels' tables)
+
+    def tables(xa):
+        key = (xa.device, xa.dtype)
+        if key not in made:
+            def i(a):
+                return torch.as_tensor(a, dtype=torch.int64,
+                                       device=xa.device)
+
+            def f(a):
+                return torch.as_tensor(a, dtype=xa.dtype, device=xa.device)
+            made[key] = (f(base), i([root]),
+                         [(i(nodes), i(pa), f(low), i(xi))
+                          for nodes, pa, low, xi in levels])
+        return made[key]
+
+    if device is not None:
+        tables(torch.empty(0, dtype=dtype, device=device))
+
     def ages_of(xa):
-        ages = torch.as_tensor(base, dtype=xa.dtype, device=xa.device)
+        ages, root_t, levels_t = tables(xa)
         if root_free:
-            ages = ages.index_put((torch.tensor([root], device=xa.device),),
-                                  xa[:1])
-        for nodes, pa, low, xi in levels:
-            low_t = torch.as_tensor(low, dtype=xa.dtype, device=xa.device)
-            vals = low_t + (ages[torch.as_tensor(pa, device=xa.device)]
-                            - low_t) * xa[torch.as_tensor(xi,
-                                                          device=xa.device)]
-            ages = ages.index_put((torch.as_tensor(nodes, device=xa.device),),
-                                  vals)
+            ages = ages.index_put((root_t,), xa[:1])
+        for nodes, pa, low, xi in levels_t:
+            ages = ages.index_put((nodes,), low + (ages[pa] - low) * xa[xi])
         return ages
 
     x0, bounds = [], []
@@ -247,7 +267,8 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
     route, `neg_lnl.twice(x)` the route that is differentiable twice
     (`codeml.hessian`, which takes every locus at once)."""
     device = torch.device(device)
-    ages_of, xa0, xab, _ = make_ages_fn(hd.sp_topo, hd.fixed_ages)
+    ages_of, xa0, xab, _ = make_ages_fn(hd.sp_topo, hd.fixed_ages, device,
+                                        dtype)
     nxa = len(xa0)
     G = len(hd.loci)
     is_codon = spec.seqtype == seqio.CODON_SEQ
@@ -278,6 +299,8 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
                 gt.data.pos_masks)
             pig = codonmod.codon_pi(spec.codonf, fcodon, f3x4, f1x4, graph)
             pf3x4 = codonmod.mg_pf3x4(spec.codonf, f3x4, f1x4)
+            if pf3x4 is not None:
+                pf3x4 = tensor(pf3x4)
             tips = codeml_app._codon_tips(gt.data.tip_partials, device,
                                           dtype)
             cuda_pruning.check_tips(tips, graph.n)
@@ -294,6 +317,9 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
             tensor(gt.data.fpatt),
             tensor(pig),
             pf3x4,
+            # the fixed kappa (or nucleotide rate) and omega of the gene
+            tensor([_per_gene_param(spec.kappa, g, G)]),
+            tensor(_per_gene_param(spec.omega, g, G)),
         ))
 
     def unpack(x):
@@ -331,23 +357,21 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
             pruning.class_site_lnf
         total = x.new_zeros(())
         for g, gt in enumerate(hd.loci):
-            ipop, ipop_pa, rlab, is_root, tips, fpatt, pig, pf3x4 = consts[g]
+            (ipop, ipop_pa, rlab, is_root, tips, fpatt, pig, pf3x4,
+             kfix, ofix) = consts[g]
             dt = ages[ipop_pa] - ages[ipop]          # [nnode]
             ts = torch.where(is_root, torch.zeros_like(dt), dt * r[rlab])
             rr, w = class_rates(g, al)
             if is_codon:
-                kg = (kap[g:g + 1] if nr1 else
-                      x.new_tensor([_per_gene_param(spec.kappa, g, G)]))
-                og = (om[g] if nw else
-                      x.new_tensor(_per_gene_param(spec.omega, g, G)))
+                kg = kap[g:g + 1] if nr1 else kfix
+                og = om[g] if nw else ofix
                 s = codonmod.mutation_part(Gt, kg, pf3x4)
                 Q = codonmod.build_Q(Gt, s, og, pig)
                 mr = codonmod.mean_rate(Gt, s, og, pig)
                 P = pmat_rev(Q, pig, ts[:, None] * rr[None, :] / mr, twice)
                 pi_root = pig
             else:
-                rates_g = (kap[g * nr1:(g + 1) * nr1] if nr1 else
-                           x.new_tensor([_per_gene_param(spec.kappa, g, G)]))
+                rates_g = kap[g * nr1:(g + 1) * nr1] if nr1 else kfix
                 P, pi_root = nuc.pmats_for_model(
                     spec.model, rates_g, pig, ts[:, None] * rr[None, :],
                     None, twice)
@@ -356,6 +380,8 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
                                         lnf=lnf)
         return -total
 
+    # the fit's route reads nothing on the host: a CUDA graph can hold it
+    neg_lnl.capturable = True
     neg_lnl.twice = lambda x, patterns=slice(None): neg_lnl(x, True)
     # what `codeml.hessian` reads: one pass over every locus's patterns
     neg_lnl.topo, neg_lnl.fpatt = hd.loci[0].topo, consts[0][5]
@@ -513,9 +539,10 @@ def make_ahrs_objective(hd: HeteroData, step1, nu_prior: float, *, device,
     node rates) + the GBM rate-change penalty + an exponential prior on
     each locus' nu.  Parameters: [ages | per-locus non-root node rates |
     per-locus nu].  Each locus's sums are one vector expression over its
-    branches."""
+    branches, from tables made once on the device (`capturable`)."""
     device = torch.device(device)
-    ages_of, xa0, xab, _ = make_ages_fn(hd.sp_topo, hd.fixed_ages)
+    ages_of, xa0, xab, _ = make_ages_fn(hd.sp_topo, hd.fixed_ages, device,
+                                        dtype)
     nxa = len(xa0)
     root_age_guess = max(list(hd.fixed_ages.values()) + [1.0])
     smallage = root_age_guess * SMALL_AGE_FRAC
@@ -536,6 +563,7 @@ def make_ahrs_objective(hd: HeteroData, step1, nu_prior: float, *, device,
         ls = np.array([j for j in nonroot if j not in sons])
         consts.append(dict(
             nn=topo.nnode, root=root, son0=sons[0], son1=sons[1],
+            root_t=tensor([root], torch.int64),
             ipop=tensor(gt.ipop, torch.int64),
             nonroot=tensor(nonroot, torch.int64),
             pa_nonroot=tensor(topo.parent[nonroot], torch.int64),
@@ -560,8 +588,7 @@ def make_ahrs_objective(hd: HeteroData, step1, nu_prior: float, *, device,
             t1 = a[root] - a[son1]
             r = x.new_zeros(c["nn"]).index_put((c["nonroot"],), rflat)
             r_root = (r[son0] * t1 + r[son1] * t0) / (t0 + t1)
-            r = r.index_put((torch.tensor([root], device=x.device),),
-                            r_root[None])
+            r = r.index_put((c["root_t"],), r_root[None])
             # lnLb: weighted LS over branches (root pair merged)
             j, pa = c["ls"], c["pa_ls"]
             be = (a[pa] - a[j]) * (r[pa] + r[j]) / 2
@@ -579,6 +606,8 @@ def make_ahrs_objective(hd: HeteroData, step1, nu_prior: float, *, device,
                              - torch.log(2 * torch.pi * t * nu) / 2).sum()
             total = total + nu / nu_prior + torch.log(nu)
         return total
+    # every table is made above, on the device: a CUDA graph can hold it
+    neg.capturable = True
 
     return neg, ages_of, (xa0, xab), nrates, offs
 

@@ -18,6 +18,11 @@ JAX package's pair order, from its starts and within its bounds; the
 objective (codon Q, the spectral P(t), the pair's log-likelihood) runs on
 the device the caller names, and so do the Bayesian grid (one
 `pmat_rev_multi` over the 32 omega values x 32 times) and its curvature.
+A program's pairs (or windows) share one slot of fixed buffers, filled
+between fits and padded to the largest pattern count with weight 0, and
+one objective per fit kind: on the card each objective replays one CUDA
+graph for the whole program (`optim.GraphCache`), as the JAX package's
+`jit` compiles it once per shape.
 The curvature is the exact Hessian of the JAX package, taken here by
 `torch.autograd.functional.hessian` through `pmat_rev(..., twice=True)`
 (`matrix_exp`): the spectral route's backward is differentiable once.
@@ -30,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.optim import maximize
+from ..core.optim import GraphCache, maximize
 from ..core.pmat import pmat_rev, pmat_rev_multi
 from ..io import seqio
 from ..models import aa as aamod
@@ -66,27 +71,117 @@ def _pair_patterns(data: seqio.PackedData, i: int, j: int):
         (uniq % data.nstates).astype(np.int64), w
 
 
-class _CodonPair:
-    """The codon model of one pair (or window) on a device: frequencies,
-    the Muse-Gaut divisors and the pair's collapsed patterns."""
+class _Slot:
+    """Fixed buffers on a device, filled from the host between fits: views
+    of one int64 and one float64 buffer (`ints` and `floats` name their
+    shapes), each filled by one copy, from pinned memory on the card, which
+    makes no host sync.  An objective that reads only such views reads the
+    same memory for every pair, so one CUDA graph of it serves them all."""
 
-    def __init__(self, data, i, j, codonf, G, graph, device, floor_fcodon):
+    def __init__(self, device, ints: dict, floats: dict):
+        self.device = torch.device(device)
+        pin = self.device.type == "cuda"
+        self._copied = None
+        self._host, self.views, self._bufs = {}, {}, []
+        for spec, dt in ((ints, torch.int64), (floats, torch.float64)):
+            sizes = [int(np.prod(shape)) for shape in spec.values()]
+            host = torch.zeros(sum(sizes), dtype=dt, pin_memory=pin)
+            dev = torch.zeros(sum(sizes), dtype=dt, device=self.device)
+            k = 0
+            for (name, shape), n in zip(spec.items(), sizes):
+                self._host[name] = host.numpy()[k:k + n]
+                self.views[name] = dev[k:k + n].view(shape)
+                k += n
+            self._bufs.append((host, dev))
+
+    def fill(self, **arrays) -> None:
+        """Each named view's leading entries from the array, the rest 0."""
+        if self._copied is not None:
+            self._copied.synchronize()     # the last fill's copies are done
+        for name, arr in arrays.items():
+            h, arr = self._host[name], np.asarray(arr).reshape(-1)
+            h[:arr.size] = arr
+            h[arr.size:] = 0
+        for host, dev in self._bufs:
+            dev.copy_(host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+
+def _max_patterns(data, pairs) -> int:
+    """The largest collapsed pattern count over the pairs (the slot's
+    length: `_pair_patterns` is host numpy, so it is known before any
+    fit)."""
+    return max(len(_pair_patterns(data, i, j)[2]) for i, j in pairs)
+
+
+class _CodonPair:
+    """The codon model of one pair (or window) on a device, in a slot of
+    fixed buffers: the frequencies, the Muse-Gaut divisors and the pair's
+    collapsed patterns, padded to `hmax` patterns (default: this pair's
+    count) with state 0 and weight 0, and the fixed kappa and 1.0 as 0-d
+    tensors.  `load` fills the slot with another pair between fits;
+    `loglik` reads only the slot, so one objective, and one CUDA graph of
+    it, serves every pair of a program, on the card and on the CPU
+    alike."""
+
+    def __init__(self, data, i, j, codonf, G, graph, device, floor_fcodon,
+                 hmax=None, kappa=2.0):
+        self.codonf, self.G, self.graph = codonf, G, graph
+        self.floor_fcodon = floor_fcodon
+        self.device = torch.device(device)
+        self.hmax = hmax or _max_patterns(data, [(i, j)])
+        floats = {"w": (self.hmax,), "pi": (G.n,)}
+        # the Muse-Gaut models' divisors (which models have them does not
+        # depend on the frequencies)
+        if codonmod.mg_pf3x4(codonf, np.ones((3, 4)), np.ones(4)) is not None:
+            floats["pf3x4"] = (3, 4)
+        self.slot = _Slot(self.device, {"a": (self.hmax,), "b": (self.hmax,)},
+                          floats)
+        v = self.slot.views
+        self.ia, self.ib, self.wp, self.pi = v["a"], v["b"], v["w"], v["pi"]
+        self.pf3x4 = v.get("pf3x4")
+        self.logpi = torch.zeros_like(self.pi)
+        self.kappa = self.f64(kappa)
+        self.one = self.f64(1.0)
+        self.load(data, i, j)
+
+    def load(self, data, i, j) -> None:
+        """Fill the slot with pair (i, j) of data (its own frequencies, as
+        the reference recomputes com.pi per pair: PairwiseCodon,
+        src/codeml.c:4448); the pair's patterns stay on the host as a, b,
+        w."""
         pm = data.pos_masks[[i, j]] if data.pos_masks is not None else None
         fcodon, f3x4, f1x4 = codonmod.count_codon_freqs(
-            data.tip_partials[[i, j]], data.fpatt, graph, pm)
-        pi_np = codonmod.codon_pi(codonf, fcodon, f3x4, f1x4, graph)
-        if floor_fcodon and codonf == "Fcodon":
+            data.tip_partials[[i, j]], data.fpatt, self.graph, pm)
+        pi_np = codonmod.codon_pi(self.codonf, fcodon, f3x4, f1x4,
+                                  self.graph)
+        if self.floor_fcodon and self.codonf == "Fcodon":
             pi_np = np.maximum(pi_np, 1e-15)
             pi_np /= pi_np.sum()
-        self.pf3x4 = codonmod.mg_pf3x4(codonf, f3x4, f1x4)
-        self.G = G
-        self.pi = torch.as_tensor(pi_np, dtype=torch.float64, device=device)
-        self.logpi = torch.log(torch.clamp_min(self.pi, 1e-300))
         self.a, self.b, self.w = _pair_patterns(data, i, j)
-        self.aj = torch.as_tensor(self.a, device=device)
-        self.bj = torch.as_tensor(self.b, device=device)
-        self.wj = torch.as_tensor(self.w, dtype=torch.float64, device=device)
-        self.device = device
+        if len(self.w) > self.hmax:
+            raise ValueError(f"pair ({i + 1}, {j + 1}): {len(self.w)} "
+                             f"patterns, the slot holds {self.hmax}")
+        arrays = dict(a=self.a, b=self.b, w=self.w, pi=pi_np)
+        if self.pf3x4 is not None:
+            arrays["pf3x4"] = codonmod.mg_pf3x4(self.codonf, f3x4, f1x4)
+        self.slot.fill(**arrays)
+        torch.log(torch.clamp_min(self.pi, 1e-300), out=self.logpi)
+
+    @property
+    def aj(self):
+        """The pair's own patterns (unpadded views of the slot)."""
+        return self.ia[:len(self.w)]
+
+    @property
+    def bj(self):
+        return self.ib[:len(self.w)]
+
+    @property
+    def wj(self):
+        return self.wp[:len(self.w)]
 
     def f64(self, v):
         return torch.as_tensor(v, dtype=torch.float64, device=self.device)
@@ -100,43 +195,50 @@ class _CodonPair:
         return Q / mr[..., None, None]
 
     def loglik(self, t, kap, om, twice=False):
+        """The pair's log-likelihood over the whole slot (the padding's
+        weight 0 adds nothing)."""
         P = pmat_rev(self.scaled_Q(kap, om), self.pi, t[None], twice)[0]
-        lp = (self.logpi[self.aj]
-              + torch.log(torch.clamp_min(P[self.aj, self.bj], 1e-300)))
-        return torch.sum(self.wj * lp)
+        lp = (self.logpi[self.ia]
+              + torch.log(torch.clamp_min(P[self.ia, self.ib], 1e-300)))
+        return torch.sum(self.wp * lp)
 
 
 def pairwise_codon(data: seqio.PackedData, codonf: str = "F3x4",
                    icode: int = 0, kappa0: float = 2.0, omega0: float = 0.4,
                    fix_kappa: bool = False, *, device="cuda") -> list[MLPair]:
+    """ML (t, kappa, omega) of every pair, in the JAX package's order: one
+    slot for the program, loaded pair by pair, and one objective, which on
+    the card replays one CUDA graph for every pair."""
     graph = codonmod.codon_graph(icode)
     G = codonmod.pair_tables(icode, device)
     ls = data.ls
+    pairs = [(i, j) for i in range(data.ns) for j in range(i)]
+    cp = _CodonPair(data, *pairs[0], codonf, G, graph, device, False,
+                    hmax=_max_patterns(data, pairs), kappa=kappa0)
 
+    def neg_lnl(x):
+        kap = cp.kappa if fix_kappa else x[1]
+        return -cp.loglik(x[0], kap, x[-1])
+    neg_lnl.capturable = True
+
+    x0 = np.array([0.5, omega0] if fix_kappa else [0.5, kappa0, omega0])
+    bounds = ([(4e-6, 50), (1e-4, 99)] if fix_kappa
+              else [(4e-6, 50), (1e-4, 999), (1e-4, 99)])
     out = []
-    for i in range(data.ns):
-        for j in range(i):
-            # pair-specific codon frequencies (reference: PairwiseCodon
-            # recomputes com.pi from the two sequences, src/codeml.c:4448)
-            cp = _CodonPair(data, i, j, codonf, G, graph, device, False)
-
-            def neg_lnl(x, cp=cp):
-                kap = cp.f64(kappa0) if fix_kappa else x[1]
-                return -cp.loglik(x[0], kap, x[-1])
-
-            x0 = ([0.5, omega0] if fix_kappa
-                  else [0.5, kappa0, omega0])
-            bounds = ([(4e-6, 50), (1e-4, 99)] if fix_kappa
-                      else [(4e-6, 50), (1e-4, 999), (1e-4, 99)])
-            res = maximize(neg_lnl, np.array(x0), bounds, device=device)
+    with GraphCache() as cache:
+        for i, j in pairs:
+            cp.load(data, i, j)
+            res = maximize(neg_lnl, x0, bounds, device=device, cache=cache)
             t = float(res.x[0])
             kap = kappa0 if fix_kappa else float(res.x[1])
             om = float(res.x[-1])
             # dS/dN decomposition: flux at omega=1 (reference eigenQcodon
-            # mode=2: rs0/ra0 site proportions; dS = t*rs/mr / (3 rs0))
+            # mode=2: rs0/ra0 site proportions; dS = t*rs/mr / (3 rs0)),
+            # read back once
             with torch.no_grad():
-                s = codonmod.mutation_part(G, cp.f64(kap), cp.pf3x4)
-                rs, ra = (float(v) for v in codonmod.flux(G, s, cp.pi))
+                s = codonmod.mutation_part(G, cp.kappa.new_full((), kap),
+                                           cp.pf3x4)
+                rs, ra = torch.stack(codonmod.flux(G, s, cp.pi)).tolist()
             mr = rs + om * ra
             p_s = rs / (rs + ra)
             S = p_s * 3 * ls
@@ -151,27 +253,31 @@ def pairwise_codon(data: seqio.PackedData, codonf: str = "F3x4",
 def pairwise_aa(data: seqio.PackedData, aa_model: str = "Empirical_F",
                 rate_file: str | None = None, *,
                 device="cuda") -> list[MLPair]:
+    """ML distance of every pair under one amino-acid Q: the pairs'
+    patterns in one slot, one objective (one CUDA graph on the card)."""
     S, pi_np = aamod.model_S_pi(aa_model, rate_file, data.base_freqs)
     pi = torch.as_tensor(pi_np, dtype=torch.float64, device=device)
     Q = aamod.build_aa_Q(torch.as_tensor(S, dtype=torch.float64,
                                          device=device), pi)
     logpi = torch.log(torch.clamp_min(pi, 1e-300))
+    pairs = [(i, j) for i in range(data.ns) for j in range(i)]
+    hmax = _max_patterns(data, pairs)
+    slot = _Slot(device, {"a": (hmax,), "b": (hmax,)}, {"w": (hmax,)})
+    aj, bj, wj = (slot.views[k] for k in "abw")
+
+    def neg_lnl(x):
+        P = pmat_rev(Q, pi, x[0][None])[0]
+        lp = logpi[aj] + torch.log(torch.clamp_min(P[aj, bj], 1e-300))
+        return -torch.sum(wj * lp)
+    neg_lnl.capturable = True
+
     out = []
-    for i in range(data.ns):
-        for j in range(i):
+    with GraphCache() as cache:
+        for i, j in pairs:
             a, b, w = _pair_patterns(data, i, j)
-            aj = torch.as_tensor(a, device=device)
-            bj = torch.as_tensor(b, device=device)
-            wj = torch.as_tensor(w, dtype=torch.float64, device=device)
-
-            def neg_lnl(x, aj=aj, bj=bj, wj=wj):
-                P = pmat_rev(Q, pi, x[0][None])[0]
-                lp = logpi[aj] + torch.log(torch.clamp_min(P[aj, bj],
-                                                           1e-300))
-                return -torch.sum(wj * lp)
-
+            slot.fill(a=a, b=b, w=w)
             res = maximize(neg_lnl, np.array([0.3]), [(4e-6, 50)],
-                           device=device)
+                           device=device, cache=cache)
             out.append(MLPair(i=i, j=j, t=float(res.x[0]), kappa=0.0,
                               omega=0.0, lnL=res.lnL))
     return out
@@ -302,28 +408,37 @@ def bayes_pairwise_codon(data: seqio.PackedData, codonf: str = "F3x4",
     def np_of(v):
         return v.detach().cpu().numpy()
 
+    # one slot and two objectives for the program: the ML fit of (t,
+    # kappa, omega), and the MAP fit of (t, omega) at the slot's kappa
+    pairs = [(i, j) for i in range(data.ns) for j in range(i)]
+    cp = _CodonPair(data, *pairs[0], codonf, G, graph, device, True,
+                    hmax=_max_patterns(data, pairs))
+    kapj = cp.kappa
+
+    def neg_lnl(x):
+        return -cp.loglik(x[0], x[1], x[2])
+    neg_lnl.capturable = True
+
+    def neg_logpost(x, twice=False):
+        return -(cp.loglik(x[0], kapj, x[1], twice) + logprior(x[0], x[1]))
+    neg_logpost.capturable = True
+
     out = []
-    for i in range(data.ns):
-        for j in range(i):
-            cp = _CodonPair(data, i, j, codonf, G, graph, device, True)
+    cache = GraphCache()      # the two objectives' graphs, closed at the end
+    try:
+        for i, j in pairs:
+            cp.load(data, i, j)
             a, b, w = cp.a, cp.b, cp.w
             identical = bool((a == b).all())
 
-            # --- ML fit (t, kappa, omega) -------------------------------
-            def neg_lnl(x, cp=cp):
-                return -cp.loglik(x[0], x[1], x[2])
-
+            # --- ML fit (t, kappa, omega) -----------------------------------
             res = maximize(neg_lnl, np.array([0.5, kappa0, omega0]),
                            [(4e-6, 50), (1e-4, 999), (1e-4, 99)],
-                           device=device)
+                           device=device, cache=cache)
             t_ml, kap, w_ml = (float(v) for v in res.x)
             if identical:
                 kap = 2.0           # reference: k fixed at 2 (codeml.c:4638)
-            kapj = cp.f64(kap)
-
-            def neg_logpost(x, cp=cp, kapj=kapj, twice=False):
-                return -(cp.loglik(x[0], kapj, x[1], twice)
-                         + logprior(x[0], x[1]))
+            kapj.fill_(kap)
 
             # NG86 proportions of synonymous/nonsynonymous differences for
             # the saturation gate (reference requires 0 < pS < 0.74 and
@@ -344,16 +459,17 @@ def bayes_pairwise_codon(data: seqio.PackedData, codonf: str = "F3x4",
             if moderate:
                 tc, wc = t_ml, w_ml
 
-                def curv(x, cp=cp, kapj=kapj):
+                def curv(x):
                     return -cp.loglik(x[0], kapj, x[1], twice=True)
             else:
                 x0 = np.array([min(t_ml, 1.0),
                                a_w / b_w if identical else min(w_ml, 0.5)])
                 rmap = maximize(neg_logpost, x0,
-                                [(1e-5, 100), (1e-5, 200)], device=device)
+                                [(1e-5, 100), (1e-5, 200)], device=device,
+                                cache=cache)
                 tc, wc = (float(v) for v in rmap.x)
 
-                def curv(x, neg_logpost=neg_logpost):
+                def curv(x):
                     return neg_logpost(x, twice=True)
             H = torch.autograd.functional.hessian(curv, cp.f64([tc, wc]))
             H = np_of(H).astype(np.float64)
@@ -373,7 +489,7 @@ def bayes_pairwise_codon(data: seqio.PackedData, codonf: str = "F3x4",
             m1, s1 = np.log(tc), np.sqrt(var_t) / tc
             m2, s2 = np.log(wc), np.sqrt(var_w) / wc
 
-            # --- the 2-D quadrature: one P(t) batch per grid ------------
+            # --- the 2-D quadrature: one P(t) batch per grid ----------------
             t_vals = _logistic_values(zq, m1, s1)            # [nt]
             w_vals = _logistic_values(zq, m2, s2)            # [nw]
 
@@ -445,6 +561,8 @@ def bayes_pairwise_codon(data: seqio.PackedData, codonf: str = "F3x4",
                 cov_tw=float(cov_tw), corr_tw=float(corr),
                 p_w_gt1=p_gt1, t_center=tc, w_center=wc,
                 kappa=kap, lnL=res.lnL))
+    finally:
+        cache.close()
     return out
 
 
@@ -488,37 +606,49 @@ def sliding_window_codon(data: seqio.PackedData, wlen: int, offset: int,
     sp = data.site_pattern
     ls = data.ls
 
-    results: list[WindowResult] = []
-    positive = False
+    subs = []
     for wstart in range(0, ls - wlen + 1, offset):
         fpatt_w = np.bincount(sp[wstart:wstart + wlen],
                               minlength=len(data.fpatt)).astype(np.float64)
         keep = fpatt_w > 0
-        sub = seqio.PackedData(
+        subs.append((wstart, seqio.PackedData(
             names=data.names, seqtype=data.seqtype, nstates=data.nstates,
             tip_partials=data.tip_partials[:, keep],
             fpatt=fpatt_w[keep], ls=wlen,
             pos_masks=(data.pos_masks[:, keep]
                        if data.pos_masks is not None else None),
-            icode=data.icode)
-        # window-local frequencies, as the reference recomputes com.pi;
-        # the pair (1, 0), as the JAX package orders it
-        cp = _CodonPair(sub, 1, 0, codonf, G, graph, device, False)
-        one = cp.f64(1.0)
+            icode=data.icode)))
+    if not subs:
+        return [], False
+    # window-local frequencies, as the reference recomputes com.pi; the
+    # pair (1, 0), as the JAX package orders it; one slot for every window
+    cp = _CodonPair(subs[0][1], 1, 0, codonf, G, graph, device, False,
+                    hmax=max(_max_patterns(sub, [(1, 0)])
+                             for _, sub in subs))
 
-        def neg_lnl(x, fixed_w=False, cp=cp):
-            om = one if fixed_w else x[2]
-            return -cp.loglik(x[0], x[1], om)
+    def neg_lnl0(x):                    # omega fixed at 1
+        return -cp.loglik(x[0], x[1], cp.one)
+    neg_lnl0.capturable = True
 
-        r0 = maximize(lambda x: neg_lnl(x, fixed_w=True),
-                      np.array([0.3, kappa0]),
-                      [(4e-6, 50), (1e-4, 999)], device=device)
-        r1 = maximize(neg_lnl, np.array([0.3, kappa0, 0.5]),
-                      [(4e-6, 50), (1e-4, 999), (1e-4, 99)], device=device)
-        om1 = float(r1.x[2])
-        sig = om1 > 1 and 2 * (r1.lnL - r0.lnL) > 2.71
-        positive = positive or sig
-        results.append(WindowResult(
-            start=wstart, length=wlen, lnL0=r0.lnL, lnL1=r1.lnL,
-            omega=om1, t=float(r1.x[0]), significant=sig))
+    def neg_lnl1(x):
+        return -cp.loglik(x[0], x[1], x[2])
+    neg_lnl1.capturable = True
+
+    results: list[WindowResult] = []
+    positive = False
+    with GraphCache() as cache:
+        for wstart, sub in subs:
+            cp.load(sub, 1, 0)
+            r0 = maximize(neg_lnl0, np.array([0.3, kappa0]),
+                          [(4e-6, 50), (1e-4, 999)], device=device,
+                          cache=cache)
+            r1 = maximize(neg_lnl1, np.array([0.3, kappa0, 0.5]),
+                          [(4e-6, 50), (1e-4, 999), (1e-4, 99)],
+                          device=device, cache=cache)
+            om1 = float(r1.x[2])
+            sig = om1 > 1 and 2 * (r1.lnL - r0.lnL) > 2.71
+            positive = positive or sig
+            results.append(WindowResult(
+                start=wstart, length=wlen, lnL0=r0.lnL, lnL1=r1.lnL,
+                omega=om1, t=float(r1.x[0]), significant=sig))
     return results, positive

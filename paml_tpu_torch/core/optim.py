@@ -55,31 +55,66 @@ _OPTS = {"maxiter": 2000, "ftol": 1e-14, "gtol": 1e-9, "maxcor": 30,
 _RESTARTS = 8
 
 
+class GraphCache:
+    """CUDA graphs of objectives' value + gradient that outlive a fit: one
+    `graphs.GraphedValueGrad` per (objective, length of x), captured at
+    its first evaluation by any fit handed the cache and replayed by every
+    later one (the pairwise programs' one graph per program: each pair's
+    data goes into fixed buffers that the objective reads).  The caller
+    closes the cache when its fits are done."""
+
+    def __init__(self):
+        self._graphs: dict = {}
+
+    def get(self, neg_fn, x: np.ndarray, device) -> graphs.GraphedValueGrad:
+        key = (neg_fn, len(x))
+        if key not in self._graphs:
+            self._graphs[key] = graphs.GraphedValueGrad(
+                neg_fn, torch.as_tensor(x, dtype=torch.float64).to(device))
+            GRAPHS["captures"] += 1
+        return self._graphs[key]
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def close(self) -> None:
+        for g in self._graphs.values():
+            g.close()
+        self._graphs.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def maximize(neg_fn: Callable, x0: np.ndarray,
              bounds: list[tuple[float, float]] | None = None, *, device,
-             multi_start: list[np.ndarray] | None = None) -> FitResult:
+             multi_start: list[np.ndarray] | None = None,
+             cache: GraphCache | None = None) -> FitResult:
     """Maximize a log-likelihood by minimizing `neg_fn` (a function of a
     float64 1-D tensor on `device` returning a scalar tensor; an objective
     built in float32 casts x itself).  On a CUDA device an objective that
     declares itself `capturable` is evaluated from one CUDA graph
     (`graphs.GraphedValueGrad`, captured at the first evaluation, used by
-    every start and restart, released on return): one copy of x in, one
-    replay, one copy of the value, the gradient and the status word out.
-    Any other objective, and any on the CPU, is evaluated op by op
-    (`graphs.value_grad_eager`); `GRAPHS` counts both kinds and the
-    captures."""
+    every start and restart): one copy of x in, one replay, one copy of
+    the value, the gradient and the status word out.  The graph is taken
+    from the caller's `cache`, which keeps it, or else made for this fit
+    and released on return.  Any other objective, and any on the CPU, is
+    evaluated op by op (`graphs.value_grad_eager`); `GRAPHS` counts both
+    kinds and the captures."""
     device = torch.device(device)
     n_eval = [0]
     vworst = [None]     # worst finite value seen (penalty anchor)
     rub = open(_RUB_PATH, "a") if _RUB_PATH else None
-    graph = [None]      # the objective's GraphedValueGrad, made at first use
+    held = GraphCache() if cache is None else cache
+    graph = [None]      # the objective's GraphedValueGrad, taken at first use
 
     def fun(x):
         if graphed(neg_fn, device):
             if graph[0] is None:
-                graph[0] = graphs.GraphedValueGrad(
-                    neg_fn, torch.as_tensor(x, dtype=torch.float64).to(device))
-                GRAPHS["captures"] += 1
+                graph[0] = held.get(neg_fn, x, device)
             out = graph[0](x)
             GRAPHS["graphed_evals"] += 1
         else:
@@ -113,8 +148,8 @@ def maximize(neg_fn: Callable, x0: np.ndarray,
     try:
         best = _minimize_starts(fun, starts, bounds)
     finally:
-        if graph[0] is not None:
-            graph[0].close()
+        if cache is None:
+            held.close()
         if rub is not None:
             rub.close()
     return FitResult(x=np.asarray(best.x), lnL=-float(best.fun),

@@ -12,7 +12,8 @@ of the work it records, held where a card is not needed.
   nhomo 1-5 among them), evaluate a value + gradient under a guard that
   makes the host reads (`item`, `__bool__`, `__float__`, `__int__`,
   `tolist`, `numpy`, `cpu`, `to` the CPU) and the copies from the host
-  (`torch.as_tensor` / `torch.tensor` of anything but a tensor) raise,
+  (`torch.as_tensor` / `torch.tensor` / `Tensor.new_tensor` of anything
+  but a tensor) raise,
   with `core/dgamma.py` on its card route with the plain versions
   (`cuda_quantile.PLAIN`): every one of them is marked `capturable` and
   the guard passes for each.
@@ -31,6 +32,7 @@ of the work it records, held where a card is not needed.
 """
 import contextlib
 import os
+import types
 
 import numpy as np
 import pytest
@@ -135,8 +137,9 @@ HOST_READS = ("item", "__bool__", "__float__", "__int__", "tolist", "numpy",
 def no_host_reads():
     """Tensor methods that read a tensor on the host raise HostRead inside
     the block (and `to` the CPU, the clock's way to the host), and so do
-    `torch.as_tensor` and `torch.tensor` of anything but a tensor (a copy
-    from the host on the card), an item assignment of a Python number
+    `torch.as_tensor`, `torch.tensor` and `Tensor.new_tensor` of anything
+    but a tensor (a copy from the host on the card), an item assignment
+    of a Python number
     (`t[k] = 1.0` copies the number from the host on the card), and the
     two linear-algebra calls that read the host on the card
     (`torch.linalg.solve` checks its result there, `matrix_exp` picks its
@@ -144,6 +147,7 @@ def no_host_reads():
     saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
     saved["to"] = torch.Tensor.to
     saved["__setitem__"] = torch.Tensor.__setitem__
+    saved["new_tensor"] = torch.Tensor.new_tensor
     made = {name: getattr(torch, name) for name in ("as_tensor", "tensor")}
     linalg = {name: getattr(torch.linalg, name)
               for name in ("solve", "matrix_exp")}
@@ -165,6 +169,11 @@ def no_host_reads():
             raise HostRead(f"an item assignment of {type(value).__name__}")
         return saved["__setitem__"](self, key, value)
 
+    def new_tensor(self, data, *args, **kw):
+        if not isinstance(data, torch.Tensor):
+            raise HostRead(f"new_tensor of {type(data).__name__}")
+        return saved["new_tensor"](self, data, *args, **kw)
+
     def copy(name):
         def f(data, *args, **kw):
             if not isinstance(data, torch.Tensor):
@@ -176,6 +185,7 @@ def no_host_reads():
             setattr(torch.Tensor, name, trip(name))
         torch.Tensor.to = to
         torch.Tensor.__setitem__ = setitem
+        torch.Tensor.new_tensor = new_tensor
         for name in made:
             setattr(torch, name, copy(name))
         for name in linalg:
@@ -417,6 +427,117 @@ def test_nucleotide_objectives_census(name, monkeypatch):
         assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
 
 
+# the pairwise programs' objectives (one per fit kind, reading the
+# program's one slot) and clock 5 / 6's step-3 and AHRS objectives, each
+# taken from its program as the program hands it to `maximize`
+
+
+class _Enough(Exception):
+    pass
+
+
+def program_objective(monkeypatch, module, run, n):
+    """The n-th objective and start that run() hands `module.maximize`
+    (earlier fits return their start; the program stops at the n-th)."""
+    got = []
+
+    def maximize(neg, x0, bounds=None, **kw):
+        got.append((neg, np.asarray(x0, np.float64)))
+        if len(got) == n:
+            raise _Enough
+        return types.SimpleNamespace(x=np.asarray(x0, np.float64), lnL=0.0)
+    monkeypatch.setattr(module, "maximize", maximize)
+    with pytest.raises(_Enough):
+        run()
+    return got[-1]
+
+
+def _codon_rows(ns, twin=False):
+    """clock56.codon's first taxa (with `twin`, its first taxon twice, so
+    that the first pair is identical), packed as the port's data."""
+    from paml_tpu_torch.io import seqio
+    aln = seqio.read_alignment(os.path.join(DATA, "clock56.codon"),
+                               seqio.CODON_SEQ)
+    idx = ([0] if twin else []) + list(range(ns))
+    return seqio.pack(seqio.Alignment([f"s{k}" for k in range(len(idx))],
+                                      [aln.rows[k] for k in idx],
+                                      seqio.CODON_SEQ), cleandata=True)
+
+
+def _aa_rows(ns):
+    from paml_tpu_torch.io import seqio
+    aln = seqio.read_alignment(os.path.join(DATA, "clock56.codon"),
+                               seqio.CODON_SEQ)
+    rows = seqio.translate_codon_rows(aln.rows[:ns])
+    return seqio.pack(seqio.Alignment(aln.names[:ns], rows, seqio.AA_SEQ),
+                      cleandata=True)
+
+
+def _pairwise_run(name):
+    """(the program, the call of its objective) of a census entry."""
+    from paml_tpu_torch.apps import pairwise
+    return {
+        "codeml-2": (lambda: pairwise.pairwise_codon(
+            _codon_rows(3), device="cpu"), 1),
+        "codeml-2_fix_kappa": (lambda: pairwise.pairwise_codon(
+            _codon_rows(3), codonf="F1x4MG", fix_kappa=True, device="cpu"),
+            1),
+        "aaml-2": (lambda: pairwise.pairwise_aa(_aa_rows(3), device="cpu"),
+                   1),
+        "codeml-3_ML": (lambda: pairwise.bayes_pairwise_codon(
+            _codon_rows(2, twin=True), device="cpu"), 1),
+        # the identical first pair takes the MAP fit
+        "codeml-3_MAP": (lambda: pairwise.bayes_pairwise_codon(
+            _codon_rows(2, twin=True), device="cpu"), 2),
+        "window_omega_1": (lambda: pairwise.sliding_window_codon(
+            _codon_rows(2), 100, 100, device="cpu"), 1),
+        "window": (lambda: pairwise.sliding_window_codon(
+            _codon_rows(2), 100, 100, device="cpu"), 2),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["codeml-2", "codeml-2_fix_kappa",
+                                  "aaml-2", "codeml-3_ML", "codeml-3_MAP",
+                                  "window_omega_1", "window"])
+def test_pairwise_objectives_census(name, monkeypatch):
+    from paml_tpu_torch.apps import pairwise
+    run, n = _pairwise_run(name)
+    neg, x0 = program_objective(monkeypatch, pairwise, run, n)
+    assert neg.capturable is True
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
+    assert read is None, read
+    assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
+CLOCK56_CENSUS = {
+    "clock5_HKY85_G4": (seqio.BASE_SEQ, 5, 1, dict(
+        model="HKY85", ncatG=4, fix_alpha=False, alpha=0.5)),
+    "clock5_codon": (seqio.CODON_SEQ, 5, 1, dict(codonf="F3x4")),
+    "clock5_codon_fixed": (seqio.CODON_SEQ, 5, 1, dict(
+        codonf="F1x4MG", fix_kappa=True, kappa=[2.5, 1.5], fix_omega=True,
+        omega=0.3)),
+    # clock 6: the two loci's no-clock fits, then the AHRS smoothing
+    "clock6_AHRS": (seqio.BASE_SEQ, 6, 3, dict(model="HKY85")),
+}
+
+
+@pytest.mark.parametrize("name", list(CLOCK56_CENSUS))
+def test_clock56_objectives_census(name, monkeypatch):
+    from paml_tpu_torch.apps import clock56
+    seqtype, clock, n, kw = CLOCK56_CENSUS[name]
+    nm = "clock56.codon" if seqtype == seqio.CODON_SEQ else "clock56.nuc"
+    hd = clock56.read_tree_seqs(os.path.join(DATA, "clock56.trees"),
+                                os.path.join(DATA, nm), 2, seqtype=seqtype)
+    spec = clock56.Clock56Spec(clock=clock, seqtype=seqtype, **kw)
+    fit = clock56.fit_clock5 if clock == 5 else clock56.fit_clock6
+    neg, x0 = program_objective(monkeypatch, clock56,
+                                lambda: fit(hd, spec, device="cpu"), n)
+    assert neg.capturable is True
+    v, g, read = guarded_value_grad(neg, x0, monkeypatch)
+    assert read is None, read
+    assert np.isfinite(float(v.detach())) and np.isfinite(g.numpy()).all()
+
+
 def test_guard_trips_on_each_host_read():
     t = torch.ones(2)
     for name in HOST_READS:
@@ -427,6 +548,8 @@ def test_guard_trips_on_each_host_read():
         t.to("cpu", torch.float64)
     with no_host_reads(), pytest.raises(HostRead):
         t[1] = 1.0
+    with no_host_reads(), pytest.raises(HostRead):
+        t.new_tensor([2.0])
     with no_host_reads():
         assert t.to(torch.float64).dtype == torch.float64
         t[1] = t[0]
