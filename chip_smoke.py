@@ -15,6 +15,10 @@
    multi-hot partials (one table row) and partials whose table passes 64
    rows (also with 5 adjoint blocks per class: multi-tile visits); each
    kernel timed with multi-hot tips at the bench shape, beside its bound.
+   At 20 states (the uneven tree) the pair runs its N = 32 instance, and
+   that against its N = 64 instance (the wrappers' `npad`) on the same
+   inputs: bit for bit where the adjoints' grids agree, each instance
+   timed beside the bounds at n = 20 and N = 32 (`check_instances`).
 3b. B3/B4 (the large-tree pair) against their plain versions (lnf, the
    residual S, dP, dpi, on the tree the kernels walk) and against the
    level path, in float32 and float64, at the bench shape with 3 classes
@@ -25,7 +29,7 @@
    codons), against their plain versions; B3+B4 on the state codes, B1+B2
    on the gapped tips and on the same state codes, and the plain version
    timed at each (the dispatch rule's evidence), each kernel beside its
-   bound.
+   bound; at 20 states B3/B4 and B1/B2 at N = 32 against N = 64 as in 3.
 4. The M0 path: a codon alignment simulated under M0 (kappa 2, omega 0.3;
    32 taxa x 4096 codons) is fitted with `codeml.fit_packed` on the card
    under M0 and M2a, B3/B4 carrying the fits (state-code tips); then the
@@ -67,10 +71,11 @@
    the incomplete beta's gradient through E2, the host route and a tensor
    loop.  Per model: evaluations, wall seconds, ms per evaluation, and the
    seconds in the Hessian and BEB.
-7. baseml: a 100-taxon x 100,000-site alignment simulated under REV + G5
-   (alpha 0.5, pi TCAG 0.2 / 0.3 / 0.3 / 0.2, fixed exchangeabilities) on
-   a random unbalanced unrooted tree with the port's own P(t), with 3b's
-   gap runs over about 5 % of the cells and Ns in 0.2 %, is written with
+7. baseml: the first 25,000 sites of a 100-taxon x 100,000-site alignment
+   simulated under REV + G5 (alpha 0.5, pi TCAG 0.2 / 0.3 / 0.3 / 0.2,
+   fixed exchangeabilities) on a random unbalanced unrooted tree with the
+   port's own P(t), with 3b's gap runs over about 5 % of the cells and Ns
+   in 0.2 %, are written with
    a tree and a `baseml.ctl` (`model = 7`, `ncatG = 5`, `fix_alpha = 0`,
    `getSE = 1`, `RateAncestor = 1`, `cleandata = 0`) and
    `paml_tpu_torch.__main__.main(["baseml", ctl])` runs it on the card:
@@ -81,11 +86,11 @@
    equal the CPU's (states equal, probabilities to 1e-9) and `rst` hold
    it; the share of internal-node sites reconstructed as simulated is
    printed.  7b (ROADMAP B5's evidence): one value + gradient at the MLEs
-   through the level route and through B1/B2 at N = 64 (the wrappers
+   through the level route and through B1/B2 at N = 32 (the wrappers
    called directly, in chunks), held to each other to the f64 tolerance,
    timed with their peak memory, and the level route repeated bit for bit.
    7c: HKY85 + AdG (K = 5, rho free), one value + gradient over the
-   100,000 sites on the card against CPU tensors, timed.  7d: basemlg on 8
+   25,000 sites on the card against CPU tensors, timed.  7d: basemlg on 8
    taxa x 2000 sites from the same simulator, and an Mgene = 4 TN93 + G4
    fit with two genes (option G), each lnL against the CPU objective.
 8. The rest of codeml (amino acids, aaDist, Mgene).  8a: 50,000 amino
@@ -95,16 +100,21 @@
    `model = 3`, `fix_alpha = 0`) twice from the simulated branch lengths
    (bit for bit, alpha within 10 % of 0.5), then once from the topology
    alone (shown: the JAX package's start stops at a local optimum).  B1/B2
-   carry the gapped fits; each lnL in `mlc` against the plain version on
-   the card (1e-9).  8b (B5 for 20 states): at the MLEs, on the gapped
-   alignment (B1/B2) and its clean copy (B3/B4), one value + gradient
-   through the level route and through the kernels at N = 64, held to
-   each other, timed (medians of 5) with their peak memory; then each of
-   B1-B4 alone at that shape against its plain version, timed beside its
-   bounds at n = 20 and N = 64.  8c: phase 6's simulator at 32 x 4096
+   carry the gapped fits, their N = 32 instances alone (no launch of an
+   N = 64 instance); each lnL in `mlc` against the plain version on the
+   card (1e-9); the program's seconds beside N = 64's.  8b (B5 for 20
+   states): at the MLEs, on the gapped alignment (B1/B2) and its clean
+   copy (B3/B4), one value + gradient through the level route and through
+   the kernels at N = 32 and at N = 64, held to each other (the instances
+   bit for bit where their grids agree), timed (medians of 5) with their
+   peak memory; then each of B1-B4 alone at that shape against its plain
+   version in float64 and float32 and against its N = 64 instance, timed
+   at N = 32 (both dtypes) and N = 64 beside its bounds at n = 20, N = 32
+   and N = 64.  8c: phase 6's simulator at 32 x 4096
    codons, one program run each for `seqtype = 3` with JTT, FromCodon0,
    aaDist = 7 (OmegaAA.dat written here, two classes), aaDist = 1 and
-   Mgene = 4 over two genes, each lnL against the plain version.
+   Mgene = 4 over two genes, each lnL against the plain version, and each
+   program's launches of the instance its state count takes alone.
    Phases 3 and 3b also hold B1-B4 at 20 states (the uneven tree, from a
    generator of its own, so that the later phases' data stay as they
    were).
@@ -117,9 +127,10 @@
    on taxon 1's codons against pi, the site classes against p and the
    parent -> child transitions of ancestral.txt against P(t) on three
    branches; replicate 1 refitted by M2a on the card (branch lengths
-   fixed at the simulated ones) within stated bounds of the truth; then `evolver 5` at phase 7's 100 taxa x 100,000 sites
-   under REV + G5 (alpha 0.5), twice (the same bytes), a tip's bases
-   against pi; sampling and writing seconds and peak GiB of each.  9b:
+   fixed at the simulated ones) within stated bounds of the truth; then
+   `evolver 5` at phase 7's 100 taxa x 25,000 sites under REV + G5
+   (alpha 0.5), twice (the same bytes), a tip's bases against pi;
+   sampling and writing seconds and peak GiB of each.  9b:
    `yn00` (weighting = 1) on the first 30 taxa of 9a's replicate 1 (435
    pairs) on the card and with `--device cpu` (one CPU thread: PyTorch's
    default count oversubscribes that machine's cores): yn, 2YN.* and 2NG.* the
@@ -299,15 +310,16 @@
    (a local clock on a clade of half the tips) on phase 4's 32 x 4096
    alignment, clean (B3/B4) and gapped (B1/B2); 17b FromCodon and REVaa_0
    + G4 on 20 simulated taxa x 2000 amino acids (a cut of phase 8a's
-   alignment, for time); 17c REV + G5 under clock 1, UNREST, HKY85 + AdG,
-   nparK 4 and nhomo 1 on 20 x 5000 simulated sites (a cut of phase
-   7's, for time).  17d mcmctree's exact likelihood on a dated tree of 60
-   species x 8 loci x 5000 sites: `lnL_all` and each `lnL_locus` from
-   their value-only graphs against op by op at three proposals, bit for
-   bit, ms per call both ways, one host sync per graphed call.  17e the
-   failure paths: an expm past its S_MAX and a singular solve, in a graph
-   and op by op, raise `DeviceStatusError`; a capture that fails raises
-   (a subprocess).
+   alignment, for time), on the N = 32 instances alone (their host
+   launches, and one replay's kernels counted by name); 17c REV + G5
+   under clock 1, UNREST, HKY85 + AdG, nparK 4 and nhomo 1 on 20 x 5000
+   simulated sites (a cut of phase 7's, for time).  17d mcmctree's exact
+   likelihood on a dated tree of 60 species x 8 loci x 5000 sites:
+   `lnL_all` and each `lnL_locus` from their value-only graphs against op
+   by op at three proposals, bit for bit, ms per call both ways, one host
+   sync per graphed call.  17e the failure paths: an expm past its S_MAX
+   and a singular solve, in a graph and op by op, raise
+   `DeviceStatusError`; a capture that fails raises (a subprocess).
 18. The pairwise programs from one CUDA graph per program and x-length,
    clock 5 / 6 from one per fit (`optim.GRAPHS` counts the captures,
    `eager_evals` 0 on graphed runs; host syncs by source line, one per
@@ -329,7 +341,9 @@
    dispatched bit for bit (step 1's Hessians, which the card does not
    repeat bit for bit, given to both runs alike).
 
-Prints a kernels JSON line and, last, {"ok": true, "device": {...}}.  Any
+Prints a kernels JSON line (B1-B4's rows with their launches by instance,
+`instance_launches`, and their N = 32 times at aaml's shape) and, last,
+{"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
 CUDA device, or without the paml_tpu_torch package beside it.
 """
@@ -540,6 +554,49 @@ def record(report, name, dn, ms, plain_ms, bnd):
     report[name][f"bound_ms_{dn}"], report[name][f"bound_by_{dn}"] = bnd
 
 
+class Counts(dict):
+    """A snapshot of `cuda_pruning.LAUNCHES` (the walk's kernels), with
+    `instances`, the same moment's `INSTANCE_LAUNCHES`."""
+
+    def plus(self, **more):
+        out = Counts(self, **more)
+        out.instances = self.instances
+        return out
+
+
+def launch_counts() -> Counts:
+    from paml_tpu_torch.core import cuda_pruning
+    out = Counts(cuda_pruning.LAUNCHES)
+    out.instances = dict(cuda_pruning.INSTANCE_LAUNCHES)
+    return out
+
+
+def put_launches(report, name, key, count, counts=None, split=None):
+    """report[name][key] = count, kernel `name`'s launches on one main path
+    (its counts set to 0 just before it).  The walk's kernels also add the
+    path's launches by instance to their row's `instance_launches`: from
+    `split` ({N: launches}), the snapshot `counts` (`launch_counts`), or
+    else `INSTANCE_LAUNCHES` as it stands; where these do not add up to
+    count, the launches go to "unsplit"."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+    report[name][key] = count
+    if name not in cp.KERNELS or not count:
+        return
+    inst = cp.INSTANCE_LAUNCHES if counts is None else counts.instances
+    if split is None:
+        split = {m: inst[f"{name}_n{m}"] for m in cp.INSTANCES}
+    by = report[name].setdefault(
+        "instance_launches",
+        dict.fromkeys([f"n{m}" for m in cp.INSTANCES] + ["unsplit"], 0))
+    if sum(split.values()) == count:
+        for m, v in split.items():
+            by[f"n{m}"] += v
+    else:
+        by["unsplit"] += count
+        print(f"  {key}: {name}'s {count} launches not split by instance "
+              f"({split})", flush=True)
+
+
 def n_amb_of(tips):
     from paml_tpu_torch.core import cuda_pruning
     t = cuda_pruning.kernel_tips(tips)
@@ -569,6 +626,85 @@ def check_fused(torch, P, tips, topo, pi, gbar, tol, tag):
     e_b = max(max_err(dP, dP_r, tol["grad"], f"B2 dP {tag}"),
               max_err(dpi, dpi_r, tol["grad"], f"B2 dpi {tag}"))
     return e_f, e_b, S
+
+
+def adjoint_grid(torch, topo, C, H, esize, npad):
+    """The adjoint's blocks along the tiles (G) at N = npad, as the
+    wrappers size them (`cuda_pruning.big_bwd_grid`)."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+    props = torch.cuda.get_device_properties(0)
+    tb = cp.big_tree(topo)
+    return cp.big_bwd_grid(tb.nnode, C, cp.big_tiles(H), esize,
+                           props.multi_processor_count, props.total_memory,
+                           cp.big_plan(tb).work_per_block(npad), npad)
+
+
+def instances_agree(torch, tag, outs, grids, dn,
+                    what=("lnf", "S", "dP", "dpi")):
+    """outs {N: tensors named by `what`} of one pair's two instances on the
+    same inputs: bit for bit where the adjoints' grids agree (padding adds
+    exact zeros, the products take their k-steps in the same order, and
+    the root's sum over the states groups its rows as N = 64 does), else
+    within 1e-12 relative in float64 (the kernels' tolerances in float32),
+    the reason printed.  Returns the verdict as words."""
+    a, b = outs[32], outs[64]
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    if grids[32] == grids[64]:
+        if not same:
+            diff = [float((x.double() - y.double()).abs().max())
+                    for x, y in zip(a, b)]
+            raise AssertionError(f"{tag}: the N = 32 and N = 64 instances "
+                                 f"differ with the same adjoint grid (G "
+                                 f"{grids[32]}): max |diff| of "
+                                 f"{', '.join(what)} {diff}")
+        return f"bit for bit (G {grids[32]} both)"
+    tol = dict(val=1e-12, grad=1e-12) if dn == "float64" else TOL[dn]
+    for w, x, y in zip(what, a, b):
+        max_err(x, y, tol["grad" if w.startswith("d") else "val"],
+                f"{tag}: N = 32 against N = 64, {w}")
+    return (f"{'bit for bit' if same else 'within ' + str(tol['val'])}: "
+            f"the adjoints' grids differ (G {grids[32]} against "
+            f"{grids[64]}), so their dP slabs are summed in another order")
+
+
+def check_instances(torch, names, P, tips, topo, pi, gbar, tag, card):
+    """The pair `names` (B1/B2 or B3/B4) on 20-state inputs: the default
+    call launches the N = 32 instance; it against the N = 64 instance
+    (`npad=64`) on the same inputs (`instances_agree`); each instance
+    timed beside the bounds at n and at N = 32."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+
+    fused = names[0] == "pruning_fwd"
+    fwd, bwd = (cp.pruning_fwd, cp.pruning_bwd) if fused else \
+        (cp.pruning_big_fwd, cp.pruning_big_bwd)
+    n, C, H = P.shape[-1], P.shape[1], gbar.shape[1]
+    before = dict(cp.INSTANCE_LAUNCHES)
+    fwd(P, tips, topo, pi, want_S=False)
+    got = {k: v - before[k] for k, v in cp.INSTANCE_LAUNCHES.items() if
+           v != before[k]}
+    if got != {f"{names[0]}_n{cp.padded_states(n)}": 1} or \
+            cp.padded_states(n) != 32:
+        raise AssertionError(f"{tag}: {n} states launched {got}, not the "
+                             "N = 32 instance")
+    outs, grids, ms = {}, {}, {}
+    for m in cp.INSTANCES:
+        lnf, S = fwd(P, tips, topo, pi, npad=m)
+        outs[m] = (lnf, S) + bwd(P, tips, topo, pi, gbar, S, npad=m)
+        grids[m] = adjoint_grid(torch, topo, C, H, P.element_size(), m)
+        ms[m] = (cuda_ms(lambda: fwd(P, tips, topo, pi, npad=m)),
+                 cuda_ms(lambda: bwd(P, tips, topo, pi, gbar, S, npad=m)))
+    torch.cuda.synchronize()
+    dn = str(P.dtype).split(".")[1]
+    how = instances_agree(torch, tag, outs, grids, dn)
+    n_amb = getattr(cp.kernel_tips(tips), "n_amb", 0)
+    b = {m: [bound(k, topo, C, H, m, P.element_size(), n_amb)[0]
+             for k in names] for m in (n, 32)}
+    print(f"  {'B1/B2' if fused else 'B3/B4'} N = 32 against N = 64 "
+          f"[{tag}, {card}]: {how}; ms {ms[32][0]:.3f} + {ms[32][1]:.3f} at "
+          f"N = 32, {ms[64][0]:.3f} + {ms[64][1]:.3f} at N = 64; bounds at "
+          f"n = {n} {b[n][0]:.5f} + {b[n][1]:.5f}, at N = 32 {b[32][0]:.5f}"
+          f" + {b[32][1]:.5f} ms", flush=True)
+    del outs
 
 
 def phase_kernels(torch, rng, report, card):
@@ -603,6 +739,9 @@ def phase_kernels(torch, rng, report, card):
                 for name, e in (("pruning_fwd", e_f), ("pruning_bwd", e_b)):
                     key = f"max_abs_err_{dn}"
                     report[name][key] = max(report[name].get(key, 0.0), e)
+                if cfg is UNEVEN20:
+                    check_instances(torch, ("pruning_fwd", "pruning_bwd"), P,
+                                    tips, topo, pi, gbar, tag, card)
                 if enc == "wide" and cfg is BENCH and dtype == torch.float64:
                     if A <= 64:
                         raise AssertionError(f"{tag}: the wide tips' table "
@@ -710,10 +849,11 @@ def phase_big_kernels(torch, rng, report, card):
                       max_err(dP, dP_l, tol["grad"], f"B4 dP/level {tag}"),
                       max_err(dpi, dpi_l, tol["grad"], f"B4 dpi/level {tag}"))
             del dP_l, dpi_l, dP, dpi
+            npad = cuda_pruning.padded_states(n)
             G = cuda_pruning.big_bwd_grid(
                 tb.nnode, cfg["C"], ntiles, P.element_size(),
                 props.multi_processor_count, props.total_memory,
-                bp.work_per_block)
+                bp.work_per_block(npad), npad)
             print(f"B3/B4 vs plain [{tag}]: lnf/S max|diff| {e_f:.3e}, "
                   f"dP/dpi max|diff| {e_b:.3e}; vs level path {e_l:.3e}; "
                   f"blocks B1/B3 {ntiles * cfg['C']}, B2/B4 G = {G} x C = "
@@ -733,6 +873,11 @@ def phase_big_kernels(torch, rng, report, card):
             for name, e in (("pruning_fwd", g_f), ("pruning_bwd", g_b)):
                 key = f"max_abs_err_{dn}"
                 report[name][key] = max(report[name].get(key, 0.0), e)
+            if cfg is UNEVEN20:
+                check_instances(torch, ("big_fwd", "big_bwd"), P, tips, topo,
+                                pi, gbar, tag, card)
+                check_instances(torch, ("pruning_fwd", "pruning_bwd"), P,
+                                gap, topo, pi, gbar, gtag, card)
             reps = dict(reps=3, warmup=1) if cfg is CHUNK else {}
             # B1/B2 on the clean state codes too (A = 0): the dispatch
             # sends them to B3/B4, and this says whether that pays
@@ -933,7 +1078,7 @@ def phase_slice(torch, rng, report, card):
                   f"{1e3 * (wall - setup) / res.fit.n_eval:.2f} without the "
                   f"objective's set-up of {setup:.2f} s ({res.fit.message})",
                   flush=True)
-        launches = dict(cuda_pruning.LAUNCHES)
+        launches = launch_counts()
         plain_cuda = pruning.PLAIN_CALLS["cuda"]
         print(f"M0 path, {route}: kernel launches {launches}, plain-version "
               f"calls on CUDA {plain_cuda}", flush=True)
@@ -943,7 +1088,8 @@ def phase_slice(torch, rng, report, card):
                                      f"{count} times; only {pair} should "
                                      "carry it")
             if count:
-                report[name][f"launches_m0_{route}"] = count
+                put_launches(report, name, f"launches_m0_{route}", count,
+                             launches)
         if plain_cuda:
             raise AssertionError(f"plain pruning ran {plain_cuda} times on "
                                  f"CUDA inside the M0 path ({route})")
@@ -1193,7 +1339,7 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
     res = codeml.fit_packed(data, topo, spec, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_pruning.LAUNCHES)
+    launches = launch_counts()
     plain_cuda = pruning.PLAIN_CALLS["cuda"]
     print(f"fit branch-site A, fix_blength 2 [{card}]: lnL {res.lnL:.6f}, "
           f"x {np.round(res.x, 4)} (truth {np.round(x_true, 4)}), omegas "
@@ -1209,7 +1355,8 @@ def branch_site_fit(torch, data, topo, spec, x_true, report, card):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the "
                                  "branch-site fit")
-        report[name]["launches_branch_site"] = launches[name]
+        put_launches(report, name, "launches_branch_site", launches[name],
+                     launches)
     if plain_cuda or launches["pruning_fwd"] or launches["pruning_bwd"]:
         raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
                              "inside the branch-site fit, or B1/B2 did")
@@ -1350,7 +1497,7 @@ def branch_site_gapped(torch, rng, data, topo, spec, report, card):
     res = codeml.fit_packed(gapped, topo, spec, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_pruning.LAUNCHES)
+    launches = launch_counts()
     plain_cuda = pruning.PLAIN_CALLS["cuda"]
     print(f"fit branch-site A, gapped, fix_blength 2 [{card}]: lnL "
           f"{res.lnL:.6f}, x {np.round(res.x, 4)}, {res.fit.n_eval} evals, "
@@ -1363,7 +1510,8 @@ def branch_site_gapped(torch, rng, data, topo, spec, report, card):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the gapped "
                                  "branch-site fit")
-        report[name]["launches_branch_site_gapped"] = launches[name]
+        put_launches(report, name, "launches_branch_site_gapped",
+                     launches[name], launches)
     if plain_cuda or launches["big_fwd"] or launches["big_bwd"]:
         raise AssertionError(f"plain pruning ran {plain_cuda} times on CUDA "
                              "inside the gapped branch-site fit, or B3/B4 did")
@@ -1549,7 +1697,7 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
         wall = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    launches = dict(cuda_pruning.LAUNCHES)
+    launches = launch_counts()
     e2 = cuda_quantile.LAUNCHES["quantile"]
     plain, twice = pruning.PLAIN_CALLS["cuda"], pruning.TWICE_CALLS["cuda"]
     for name in ("mlc", "rst", "rst1", "lnf", "rub"):
@@ -1586,7 +1734,7 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
                              f"{plain} times on CUDA outside the Hessians")
     if not twice:
         raise AssertionError(f"program, {tag}: getSE = 1 made no Hessian")
-    return out, dict(launches, quantile=e2), lnls
+    return out, launches.plus(quantile=e2), lnls
 
 
 def check_graphed_runs(runs, checks0, tag, card):
@@ -1817,7 +1965,8 @@ def phase_program(torch, rng, report, card):
                                      f"{count} times; B3/B4 and E2 should "
                                      "carry it")
             if count:
-                report[name]["launches_program_clean"] = count
+                put_launches(report, name, "launches_program_clean", count,
+                             launches)
         check_program(torch, out, lnls, "clean")
         lnl = {r["NSsites"]: r["res"].lnL for r in out["runs"]}
         lrt = {"M1a-M2a": 2 * (lnl[2] - lnl[1]), "M7-M8": 2 * (lnl[8] - lnl[7])}
@@ -1839,7 +1988,8 @@ def phase_program(torch, rng, report, card):
                                      f"{count} times; B1/B2 and E2 should "
                                      "carry it")
             if count:
-                report[name]["launches_program_gapped"] = count
+                put_launches(report, name, "launches_program_gapped", count,
+                             launches)
         check_program(torch, out, lnls, "gapped")
         check_beb(torch, out, cls, report, card)
         gapped = out["data"]
@@ -1855,7 +2005,8 @@ def phase_program(torch, rng, report, card):
                 raise AssertionError(f"program, branch-site: {name} launched "
                                      f"{count} times; B3/B4 should carry it")
             if count:
-                report[name]["launches_program_branch_site"] = count
+                put_launches(report, name, "launches_program_branch_site",
+                             count, launches)
         check_program(torch, out, lnls, "branch-site")
         check_beb_branch_site(torch, out, gapped, report, card)
 
@@ -1866,7 +2017,10 @@ def phase_program(torch, rng, report, card):
 # (A,G) = 1; frequencies of T, C, A, G
 NUC_TRUTH = dict(alpha=0.5, pi=(0.2, 0.3, 0.3, 0.2),
                  rev=(2.5, 0.4, 0.6, 0.5, 0.7))
-NUC_TAXA, NUC_SITES = 100, 100_000
+# phase 7 simulates NUC_SIM_SITES sites and runs the program on the first
+# NUC_SITES, for the script's time limit: the generator's draws, and so
+# the later phases' data, are those of the whole simulation
+NUC_TAXA, NUC_SITES, NUC_SIM_SITES = 100, 25_000, 100_000
 
 
 def random_unrooted_tree(rng, names, blen=(0.01, 0.1)):
@@ -1997,7 +2151,7 @@ def read_counts():
     """The kernel launches and the calls of the level route, the plain
     version and the Hessian route on the card since `reset_counts`."""
     from paml_tpu_torch.core import cuda_pruning, pruning
-    return dict(launches=dict(cuda_pruning.LAUNCHES),
+    return dict(launches=launch_counts(),
                 level=pruning.LEVEL_CALLS["cuda"],
                 plain=pruning.PLAIN_CALLS["cuda"],
                 twice=pruning.TWICE_CALLS["cuda"])
@@ -2092,7 +2246,7 @@ def baseml_value_grad(torch, neg, x, device, reps=1):
 
 
 def phase_baseml_program(torch, rng, card):
-    """7a: the program on the 100-taxon x 100,000-site REV + G5 alignment
+    """7a: the program on the 100-taxon x 25,000-site REV + G5 alignment
     with gaps and Ns."""
     import os
     import tempfile
@@ -2101,8 +2255,9 @@ def phase_baseml_program(torch, rng, card):
 
     t0 = time.perf_counter()
     names, rows, nwk, st, topo_sim = simulate_nuc(torch, rng, NUC_TAXA,
-                                                  NUC_SITES, "cuda")
+                                                  NUC_SIM_SITES, "cuda")
     rows = gapped_nuc_rows(rng, rows)
+    rows, st = [r[:NUC_SITES] for r in rows], st[:, :NUC_SITES]
     gap_share = sum(r.count("-") for r in rows) / (NUC_TAXA * NUC_SITES)
     print(f"simulated REV + G5 alignment (alpha {NUC_TRUTH['alpha']}, pi "
           f"{NUC_TRUTH['pi']}): {NUC_TAXA} taxa x {NUC_SITES} sites, "
@@ -2182,20 +2337,23 @@ def phase_baseml_program(torch, rng, card):
 
 
 def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
-                            card, key="b5"):
+                            card, key="b5", instances=(None,)):
     """ROADMAP B5's evidence: one value + gradient in P and pi through the
     level route (`pruning.class_site_lnf_levels`), and through the kernel
-    pair that the tips take at N = 64 (B1/B2 for coded tips with a table,
-    B3/B4 for state codes; the wrappers called directly, the patterns in
-    chunks so that S and the walk's workspace fit), held to each other; ms
-    and peak GiB of each; the level route repeated bit for bit.  Records
-    the times and the pair's bounds at the real n and at N = 64 under
-    `key` in the pair's report rows, and returns them."""
+    pair that the tips take (B1/B2 for coded tips with a table, B3/B4 for
+    state codes; the wrappers called directly, the patterns in chunks so
+    that S and the walk's workspace fit) at each of `instances` (None: the
+    instance n takes, `padded_states`; 64 forces N = 64), held to the
+    level route and the instances to each other (`instances_agree`); ms
+    (medians of 5) and peak GiB of each; the level route repeated bit for
+    bit.  Records the times and the pair's bounds at the real n and at each
+    N under `key` in the pair's report rows, and returns them."""
     from paml_tpu_torch.core import cuda_pruning as cp
     from paml_tpu_torch.core import pruning
     from paml_tpu_torch.core.tipcodes import TipCodes
 
     H, C, n = fpatt.shape[0], P.shape[1], P.shape[-1]
+    npads = [cp.padded_states(n) if m is None else m for m in instances]
 
     def level():
         P_ = P.detach().requires_grad_(True)
@@ -2212,29 +2370,30 @@ def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
     fwd, bwd = (cp.pruning_fwd, cp.pruning_bwd) if fused else \
         (cp.pruning_big_fwd, cp.pruning_big_bwd)
     bp = cp.big_plan(cp.big_tree(topo))
-    per_pattern = (bp.n_srows * C * n + C * bp.nslots * cp.N) * 8
+    per_pattern = (bp.n_srows * C * n + C * bp.nslots * max(npads)) * 8
     n_chunks = max(1, -(-per_pattern * H // (8 << 30)))
     w_chunk = -(-H // n_chunks)
 
     chunks = (codes.split(w_chunk) if fused else
               [c.contiguous() for c in codes.split(w_chunk, dim=1)])
 
-    def kernels():
+    def kernels(m):
         total, dP, dpi = 0.0, torch.zeros_like(P), torch.zeros_like(piC)
         for h0, tc in zip(range(0, H, w_chunk), chunks):
             sl = slice(h0, min(h0 + w_chunk, H))
-            lnf, S = fwd(P, tc, topo, piC)
+            lnf, S = fwd(P, tc, topo, piC, npad=m)
             z = lnf + torch.log(w)[:, None]
             site = torch.logsumexp(z, 0)
             total = total + (fpatt[sl] * site).sum()
             gbar = fpatt[sl][None, :] * torch.softmax(z, 0)
-            a, b = bwd(P, tc, topo, piC, gbar, S)
+            a, b = bwd(P, tc, topo, piC, gbar, S, npad=m)
             dP, dpi = dP + a, dpi + b
             del S
         return total, dP, dpi
 
     out = {}
-    for name, fn in (("level", level), ("kernels", kernels)):
+    for name, fn in [("level", level)] + [
+            (f"N{m}", lambda m=m: kernels(m)) for m in npads]:
         fn()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2243,38 +2402,61 @@ def level_kernel_value_grad(torch, P, tips, topo, piC, w, fpatt, report,
         ms = cuda_ms_median(fn, reps=5, warmup=1)
         out[name] = dict(ms=ms, gib=(torch.cuda.max_memory_allocated()
                                      - base) / 2 ** 30, res=fn())
-    (v1, dP1, dpi1), (v2, dP2, dpi2) = out["level"]["res"], \
-        out["kernels"]["res"]
     tol = TOL["float64"]
-    rel = abs(float(v1) - float(v2)) / abs(float(v1))
-    gerr = max(float((dP1 - dP2).abs().max() / dP1.abs().max()),
-               float((dpi1 - dpi2).abs().max() / dpi1.abs().max()))
+    v1, dP1, dpi1 = out["level"]["res"]
+    errs = {}
+    for m in npads:
+        v2, dP2, dpi2 = out[f"N{m}"]["res"]
+        errs[m] = (abs(float(v1) - float(v2)) / abs(float(v1)),
+                   max(float((dP1 - dP2).abs().max() / dP1.abs().max()),
+                       float((dpi1 - dpi2).abs().max() / dpi1.abs().max())))
     again = out["level"]["res"], level()
     same = all(torch.equal(a, b) for a, b in zip(*again))
     n_amb = getattr(codes, "n_amb", 0)
     bnd = {m: [bound(k, topo, C, H, m, 8, n_amb) for k in names]
-           for m in (n, cp.N)}
+           for m in [n] + npads}
     pair = "B1/B2" if fused else "B3/B4"
+    how = ""
+    if len(npads) == 2:
+        grids = {m: tuple(adjoint_grid(torch, topo, C, h, 8, m)
+                          for h in (w_chunk, H - w_chunk * (n_chunks - 1)))
+                 for m in npads}
+        res = {m: out[f"N{m}"]["res"] for m in npads}
+        how = "; N = 32 against N = 64 " + instances_agree(
+            torch, f"{key} value + gradient",
+            {m: (r[0].reshape(1),) + r[1:] for m, r in res.items()}, grids,
+            "float64", what=("lnL", "dP", "dpi"))
     print(f"  {key}, value + gradient at the MLEs [{card}], {C} classes x "
           f"{H} patterns x {n} states: level route {out['level']['ms']:.2f}"
-          f" ms, peak {out['level']['gib']:.2f} GiB; {pair} at N = {cp.N} "
-          f"in {n_chunks} chunk(s) {out['kernels']['ms']:.2f} ms, peak "
-          f"{out['kernels']['gib']:.2f} GiB (bounds at n = {n}: "
-          f"{bnd[n][0][0]:.3f} + {bnd[n][1][0]:.3f} ms; at N = {cp.N}: "
-          f"{bnd[cp.N][0][0]:.3f} + {bnd[cp.N][1][0]:.3f} ms); lnL rel "
-          f"{rel:.2e}, gradient {gerr:.2e} of the largest; the level route "
-          f"repeated bit for bit: {same}", flush=True)
-    if rel > tol["val"] or gerr > tol["grad"] or not same:
+          f" ms, peak {out['level']['gib']:.2f} GiB; "
+          + "; ".join(f"{pair} at N = {m} in {n_chunks} chunk(s) "
+                      f"{out[f'N{m}']['ms']:.2f} ms, peak "
+                      f"{out[f'N{m}']['gib']:.2f} GiB (bounds "
+                      f"{bnd[m][0][0]:.3f} + {bnd[m][1][0]:.3f} ms; lnL rel "
+                      f"{errs[m][0]:.2e}, "
+                      f"gradient {errs[m][1]:.2e} of the largest)"
+                      for m in npads)
+          + f"; bounds at n = {n}: {bnd[n][0][0]:.3f} + {bnd[n][1][0]:.3f} "
+          f"ms; the level route repeated bit for bit: {same}{how}",
+          flush=True)
+    if any(r > tol["val"] or g > tol["grad"] for r, g in errs.values()) \
+            or not same:
         raise AssertionError(f"{key}: the level route and {pair} disagree, "
                              "or the level route does not repeat")
     for k, name in enumerate(names):
-        report[name][f"{key}_kernel_pair_ms_float64"] = out["kernels"]["ms"]
+        report[name][f"{key}_kernel_pair_ms_float64"] = \
+            out[f"N{npads[0]}"]["ms"]
         report[name][f"{key}_level_route_ms_float64"] = out["level"]["ms"]
         report[name][f"{key}_bound_ms_float64"] = bnd[n][k][0]
-        report[name][f"{key}_bound_ms_N64_float64"] = bnd[cp.N][k][0]
-    return dict(level_ms=out["level"]["ms"], kernel_ms=out["kernels"]["ms"],
+        for m in npads:
+            report[name][f"{key}_kernel_pair_N{m}_ms_float64"] = \
+                out[f"N{m}"]["ms"]
+            report[name][f"{key}_bound_ms_N{m}_float64"] = bnd[m][k][0]
+    m = npads[0]
+    return dict(level_ms=out["level"]["ms"], kernel_ms=out[f"N{m}"]["ms"],
                 level_gib=out["level"]["gib"],
-                kernel_gib=out["kernels"]["gib"], rel=rel, gerr=gerr)
+                kernel_gib=out[f"N{m}"]["gib"], rel=errs[m][0],
+                gerr=errs[m][1])
 
 
 def phase_baseml(torch, rng, report, card):
@@ -2293,7 +2475,7 @@ def phase_baseml(torch, rng, report, card):
                             w, neg.fpatt, report, card)
     del P, piC, neg
     torch.cuda.empty_cache()
-    # 7c: HKY85 + AdG, the rate HMM over the 100,000 sites
+    # 7c: HKY85 + AdG, the rate HMM over the 25,000 sites
     spec_adg = baseml.BasemlSpec(model="HKY85", ncatG=5, fix_alpha=False,
                                  fix_rho=False)
     neg, _, x0, _ = baseml.make_objective(data, res.topo, spec_adg,
@@ -2475,8 +2657,11 @@ def plain_lnl(torch, neg, x):
 def run_a9_program(torch, ctl, tag, card, report=None):
     """The program on ctl, its launches recorded under launches_{tag} in
     `report` (when given); its lnL in mlc held against the plain version
-    on the card at the fitted x (1e-9 relative).  Returns (summary, wall,
-    counts, lnL in mlc)."""
+    on the card at the fitted x (1e-9 relative); every launch of the
+    instance its state count takes (N = 32 for amino acids, N = 64 for
+    codons).  Returns (summary, wall, counts, lnL in mlc)."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+
     out, wall, counts, lnls = run_ctl_program(torch, ctl, "codeml", "mlc")
     run = out["runs"][0]
     res = run["res"]
@@ -2490,17 +2675,30 @@ def run_a9_program(torch, ctl, tag, card, report=None):
           f"({1e3 * run['fit_seconds'] / res.fit.n_eval:.2f} ms each; "
           f"{res.fit.message}); "
           f"peak {counts['peak_gib']:.2f} GiB; launches "
-          f"{counts['launches']}, level-route calls {counts['level']}, "
+          f"{counts['launches']}, by instance "
+          f"{ {k: v for k, v in counts['launches'].instances.items() if v} }"
+          f", level-route calls {counts['level']}, "
           f"plain calls {counts['plain']}; lnL in mlc {lnls[0]:.6f}, plain "
           f"version {lnl_p:.6f} (rel {rel:.2e})", flush=True)
     if counts["plain"]:
         raise AssertionError(f"{tag}: the plain version ran on the card")
+    # amino acids, or codons translated (seqtype 3 but FromCodon0, a codon
+    # model): 20 states; codons: 61
+    aa = res.spec.seqtype == 2 or (res.spec.seqtype == 3 and
+                                   res.spec.aa_model != "FromCodon0")
+    npad = cp.padded_states(20 if aa else 61)
+    other = {k: v for k, v in counts["launches"].instances.items()
+             if v and not k.endswith(f"_n{npad}")}
+    if other:
+        raise AssertionError(f"{tag}: launches {other} outside the N = "
+                             f"{npad} instances")
     if rel > 1e-9:
         raise AssertionError(f"{tag}: the lnL in mlc disagrees with the "
                              "plain version")
     for name, count in counts["launches"].items():
         if count and report is not None:
-            report[name][f"launches_{tag}"] = count
+            put_launches(report, name, f"launches_{tag}", count,
+                         counts["launches"])
     return out, wall, counts, lnls
 
 
@@ -2508,14 +2706,16 @@ def check_aa_kernels(torch, P, tips, topo, piC, w, fpatt, report, card,
                      tag):
     """B1/B2 (coded tips with a table) or B3/B4 (state codes), launched
     alone at the shape of the amino-acid fit with the fit's own cotangent,
-    against their plain versions (f64: 1e-10 on values, 1e-8 on
-    gradients); each kernel timed beside its plain version and its bounds
-    at n = 20 and at N = 64."""
+    at N = 32 (their instance for 20 states) against their plain versions
+    (f64: 1e-10 on values, 1e-8 on gradients; f32, on the same inputs cast:
+    2e-6, 3e-5) and against the N = 64 instance (`instances_agree`); each
+    kernel timed (medians of 5) at N = 32 in float64 and float32 and at
+    N = 64 in float64, beside its plain version and its bounds at n = 20,
+    N = 32 and N = 64."""
     from paml_tpu_torch.core import cuda_pruning as cp
     from paml_tpu_torch.core import pruning
     from paml_tpu_torch.core.tipcodes import TipCodes
 
-    tol = TOL["float64"]
     C, n, H = P.shape[1], P.shape[-1], fpatt.shape[0]
     codes = cp.kernel_tips(tips)
     fused = isinstance(codes, TipCodes)
@@ -2524,51 +2724,99 @@ def check_aa_kernels(torch, P, tips, topo, piC, w, fpatt, report, card,
             + torch.log(w)[:, None]
         gbar = (fpatt[None, :] * torch.softmax(z, 0)).contiguous()
     del z
-    if fused:
-        names = ("pruning_fwd", "pruning_bwd")
-        e_f, e_b, S = check_fused(torch, P, codes, topo, piC, gbar, tol, tag)
-        fwd, bwd = cp.pruning_fwd, cp.pruning_bwd
-    else:
-        names = ("big_fwd", "big_bwd")
-        fwd, bwd = cp.pruning_big_fwd, cp.pruning_big_bwd
-        lnf, S = fwd(P, codes, topo, piC)
-        dP, dpi = bwd(P, codes, topo, piC, gbar, S)
-        tb = cp.big_tree(topo)
-        Pb = cp.with_identity(P, tb)
-        lnf_r, S_r = pruning.class_site_lnf_big_plain(Pb, codes, tb, piC)
-        e_f = max(max_err(lnf, lnf_r, tol["val"], f"B3 lnf {tag}"),
-                  max_err(S, S_r, tol["val"], f"B3 S {tag}"))
-        del S_r, lnf_r, Pb
-        dP_r, dpi_r = pruning.class_site_lnf_bwd_plain(P, codes, topo, piC,
-                                                       gbar)
-        e_b = max(max_err(dP, dP_r, tol["grad"], f"B4 dP {tag}"),
-                  max_err(dpi, dpi_r, tol["grad"], f"B4 dpi {tag}"))
-        del dP_r, dpi_r, dP, dpi
-    torch.cuda.empty_cache()
-    t = {names[0]: cuda_ms_median(lambda: fwd(P, codes, topo, piC)),
-         names[1]: cuda_ms_median(lambda: bwd(P, codes, topo, piC, gbar, S))}
-    with torch.no_grad():
-        plain_f = cuda_ms_median(lambda: pruning.class_site_lnf_plain(
-            P, codes, topo, piC))
-    plain_b = cuda_ms_median(lambda: pruning.class_site_lnf_bwd_plain(
-        P, codes, topo, piC, gbar))
+    names = ("pruning_fwd", "pruning_bwd") if fused else ("big_fwd",
+                                                          "big_bwd")
+    fwd, bwd = (cp.pruning_fwd, cp.pruning_bwd) if fused else \
+        (cp.pruning_big_fwd, cp.pruning_big_bwd)
+    errs, t = {}, {}
+    for dt in (torch.float64, torch.float32):
+        dn = str(dt).split(".")[1]
+        tol = TOL[dn]
+        Pd, pid, gd = P.to(dt), piC.to(dt), gbar.to(dt)
+        cd = TipCodes(codes.codes, codes.amb.to(dt)) if fused else codes
+        if fused:
+            e_f, e_b, S = check_fused(torch, Pd, cd, topo, pid, gd, tol,
+                                      f"{tag} {dn}")
+        else:
+            lnf, S = fwd(Pd, cd, topo, pid)
+            dP, dpi = bwd(Pd, cd, topo, pid, gd, S)
+            tb = cp.big_tree(topo)
+            Pb = cp.with_identity(Pd, tb)
+            lnf_r, S_r = pruning.class_site_lnf_big_plain(Pb, cd, tb, pid)
+            e_f = max(max_err(lnf, lnf_r, tol["val"], f"B3 lnf {tag} {dn}"),
+                      max_err(S, S_r, tol["val"], f"B3 S {tag} {dn}"))
+            del S_r, lnf_r, Pb
+            dP_r, dpi_r = pruning.class_site_lnf_bwd_plain(Pd, cd, topo, pid,
+                                                           gd)
+            e_b = max(max_err(dP, dP_r, tol["grad"], f"B4 dP {tag} {dn}"),
+                      max_err(dpi, dpi_r, tol["grad"], f"B4 dpi {tag} {dn}"))
+            del dP_r, dpi_r, dP, dpi
+        errs[dn] = (e_f, e_b)
+        torch.cuda.empty_cache()
+        t[dn, 32] = (
+            cuda_ms_median(lambda: fwd(Pd, cd, topo, pid)),
+            cuda_ms_median(lambda: bwd(Pd, cd, topo, pid, gd, S)))
+        if dt == torch.float64:
+            with torch.no_grad():
+                plain_f = cuda_ms_median(lambda: pruning.class_site_lnf_plain(
+                    P, codes, topo, piC))
+            plain_b = cuda_ms_median(lambda: pruning.class_site_lnf_bwd_plain(
+                P, codes, topo, piC, gbar))
+            # the N = 64 instance on the same inputs
+            outs, grids = {}, {}
+            for m in cp.INSTANCES:
+                lnf, Sm = fwd(P, codes, topo, piC, npad=m)
+                outs[m] = (lnf, Sm) + bwd(P, codes, topo, piC, gbar, Sm,
+                                          npad=m)
+                grids[m] = adjoint_grid(torch, topo, C, H, 8, m)
+            how = instances_agree(torch, tag, outs, grids, dn)
+            del outs, lnf, Sm
+            torch.cuda.empty_cache()
+            S64 = fwd(P, codes, topo, piC, npad=64)[1]
+            t[dn, 64] = (
+                cuda_ms_median(lambda: fwd(P, codes, topo, piC, npad=64)),
+                cuda_ms_median(lambda: bwd(P, codes, topo, piC, gbar, S64,
+                                           npad=64)))
+            del S64
+        del S, Pd, pid, gd, cd
+        torch.cuda.empty_cache()
     n_amb = getattr(codes, "n_amb", 0)
-    for name, e, pl in ((names[0], e_f, plain_f), (names[1], e_b, plain_b)):
+    print(f"  {'B1/B2' if fused else 'B3/B4'} N = 32 against N = 64 [{tag}, "
+          f"{card}]: {how}", flush=True)
+    for k, name in enumerate(names):
+        e, pl = errs["float64"][k], (plain_f, plain_b)[k]
         report[name]["max_abs_err_float64"] = max(
             report[name].get("max_abs_err_float64", 0.0), e)
-        b20 = bound(name, topo, C, H, n, 8, n_amb)
-        b64 = bound(name, topo, C, H, cp.N, 8, n_amb)
-        report[name][f"ms_{tag}_float64"] = t[name]
-        report[name][f"plain_ms_{tag}_float64"] = pl
-        report[name][f"bound_ms_{tag}_n20_float64"] = b20[0]
-        report[name][f"bound_ms_{tag}_N64_float64"] = b64[0]
+        report[name]["max_abs_err_float32"] = max(
+            report[name].get("max_abs_err_float32", 0.0), errs["float32"][k])
+        b = {m: bound(name, topo, C, H, m, 8, n_amb) for m in (n, 32, 64)}
+        b32 = bound(name, topo, C, H, n, 4, n_amb)
+        ms32, ms64, ms32f = (t["float64", 32][k], t["float64", 64][k],
+                             t["float32", 32][k])
+        row = report[name]
+        row[f"ms_{tag}_float64"] = row[f"ms_n32_{tag}_float64"] = ms32
+        row[f"ms_n64_{tag}_float64"] = ms64
+        row[f"ms_n32_{tag}_float32"] = ms32f
+        row[f"plain_ms_{tag}_float64"] = pl
+        row[f"bound_ms_{tag}_n20_float64"] = b[n][0]
+        row[f"bound_ms_{tag}_N32_float64"] = b[32][0]
+        row[f"bound_ms_{tag}_N64_float64"] = b[64][0]
+        row[f"bound_ms_{tag}_n20_float32"] = b32[0]
+        # the kernel's own route at aaml's shape: B1/B2 on the gapped
+        # alignment, B3/B4 on its clean copy
+        row["ms_n32_float64"], row["ms_n32_float32"] = ms32, ms32f
+        row["ms_n64_float64"] = ms64
+        row["bound_ms_n20_float64"] = b[n][0]
         print(f"  {name} [{tag}, {C} classes x {H} patterns x {n} states, "
-              f"A {n_amb}, {card}]: {t[name]:.3f} ms (plain {pl:.3f} ms); "
-              f"max|diff| against the plain version {e:.3e}; bound at n = "
-              f"{n} {b20[0]:.4f} ms ({b20[1]}, {100 * b20[0] / t[name]:.2f}"
-              f" % of it), at N = {cp.N} {b64[0]:.4f} ms ({b64[1]}, "
-              f"{100 * b64[0] / t[name]:.2f} %)", flush=True)
-    del S
+              f"A {n_amb}, {card}]: {ms32:.3f} ms at N = 32 (float32 "
+              f"{ms32f:.3f}), {ms64:.3f} at N = 64 ({ms64 / ms32:.2f} x); "
+              f"plain {pl:.3f} ms; max|diff| against the plain version "
+              f"{e:.3e} (float32 {errs['float32'][k]:.3e}); bound at n = {n} "
+              f"{b[n][0]:.4f} ms ({b[n][1]}, {100 * b[n][0] / ms32:.2f} % of"
+              f" it at N = 32, {100 * b[n][0] / ms64:.2f} % at N = 64), at "
+              f"N = 32 {b[32][0]:.4f} ms ({100 * b[32][0] / ms32:.2f} %), at "
+              f"N = 64 {b[64][0]:.4f} ms ({100 * b[64][0] / ms64:.2f} %)",
+              flush=True)
     torch.cuda.empty_cache()
 
 
@@ -2593,7 +2841,7 @@ def phase_aa(torch, rng, report, card):
           f"{100 * gap_share:.2f} % gap cells "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     work = tempfile.mkdtemp(prefix="aaml_")
-    fits = []
+    fits, walls = [], []
     for rep in range(2):
         # the fit starts from the simulated branch lengths
         ctl = write_codeml_problem(work, f"lg_{rep}", names, rows, nwk,
@@ -2603,6 +2851,12 @@ def phase_aa(torch, rng, report, card):
         out, wall, counts, lnls = run_a9_program(
             torch, ctl, f"aa_{rep}", card, None if rep else report)
         fits.append(out["runs"][0]["res"])
+        walls.append(wall)
+        inst = counts["launches"].instances
+        if not inst["pruning_fwd_n32"] or any(
+                v for k, v in inst.items() if k.endswith("_n64")):
+            raise AssertionError(f"aaml: the N = 32 instances must carry "
+                                 f"the program alone: {inst}")
     res, data = fits[0], out["data"]
     # from the topology alone (every branch 0.1, the JAX package's start)
     # the fit stops at a local optimum (ROADMAP C): shown, not checked
@@ -2620,7 +2874,9 @@ def phase_aa(torch, rng, report, card):
     same = fits[0].lnL == fits[1].lnL and np.array_equal(fits[0].x,
                                                          fits[1].x)
     print(f"  aaml, LG + F + G4: alpha {alpha:.4f} (simulated "
-          f"{AA_TRUTH['alpha']}); the fit repeated bit for bit: {same}",
+          f"{AA_TRUTH['alpha']}); the fit repeated bit for bit: {same}; "
+          f"the program {walls[0]:.2f} and {walls[1]:.2f} s wall on the N = "
+          f"32 instances (at N = 64: 11.07 s, PERF.md section 5)",
           flush=True)
     if not same:
         raise AssertionError("aaml: the fit does not repeat bit for bit")
@@ -2646,7 +2902,8 @@ def phase_aa(torch, rng, report, card):
             P, piC, w = neg.model_at(torch.as_tensor(res.x, device="cuda"))
         piC = piC.contiguous()
         level_kernel_value_grad(torch, P, neg.tips, res.topo, piC, w,
-                                neg.fpatt, report, card, key=f"b5_{tag}")
+                                neg.fpatt, report, card, key=f"b5_{tag}",
+                                instances=(None, 64))
         torch.cuda.empty_cache()
         check_aa_kernels(torch, P, neg.tips, res.topo, piC, w, neg.fpatt,
                          report, card, tag)
@@ -3833,7 +4090,8 @@ def clock56_phase(torch, rng, work, report, card):
                                f"{counts['launches']}, plain calls "
                                f"{counts['plain']}")
         for name, count in counts["launches"].items():
-            report[name][f"launches_clock5_codon_{tag}"] = count
+            put_launches(report, name, f"launches_clock5_codon_{tag}", count,
+                         counts["launches"])
         v, rel = c56_check(torch, res, hd, dataclasses.replace(spec), "cuda",
                            f"codon clock 5 {tag}", card, plain=True)
         print(f"  10d codon clock 5, {tag} [{card}]: {C56_CODON_LOCI} loci "
@@ -4054,7 +4312,7 @@ def codon_routes(tag, counts, pair, report, key):
                                  f"plain calls {counts['plain']}: only "
                                  f"{pair} should carry it")
         if n:
-            report[name][key] = n
+            put_launches(report, name, key, n, counts["launches"])
 
 
 def star_value_grad(torch, rng, card):
@@ -4315,7 +4573,7 @@ def mesh_fit(torch, data, topo, mesh, report, card):
         t0 = time.perf_counter()
         a = codeml.fit_packed(data, topo, spec, device="cuda")
         t2 = time.perf_counter() - t0
-        la = dict(cuda_pruning.LAUNCHES)
+        la = launch_counts()
         b = codeml.fit_packed(data, topo, spec, device="cuda")
     finally:
         pruning.set_pattern_mesh(None)
@@ -4327,7 +4585,7 @@ def mesh_fit(torch, data, topo, mesh, report, card):
                              f"{one.lnL!r} unsharded")
     for name, n in la.items():
         if n:
-            report[name]["launches_mesh_fit"] = n
+            put_launches(report, name, "launches_mesh_fit", n, la)
     print(f"12a M0 fit [{card}]: lnL {a.lnL:.6f} sharded ({a.fit.n_eval} "
           f"evals, {t2:.2f} s, bit for bit twice), {one.lnL:.6f} unsharded "
           f"({one.fit.n_eval} evals, {t1:.2f} s); launches {la}", flush=True)
@@ -4594,6 +4852,7 @@ def f32_value_grads(torch, bench, report, card):
                               ("gapped", gapped,
                                ("pruning_fwd", "pruning_bwd"))):
         launches = {k: 0 for k in cuda_pruning.LAUNCHES}
+        inst = dict.fromkeys(cuda_pruning.INSTANCE_LAUNCHES, 0)
         for name in ("M0", "M2a"):
             spec = codeml.CodemlSpec(NSsites=2 if name == "M2a" else 0,
                                      codonf="F3x4")
@@ -4617,10 +4876,12 @@ def f32_value_grads(torch, bench, report, card):
                 ms[dt] = 1e3 * float(np.median(walls[1:]))
                 if dt == torch.float32:
                     # the float32 runs' own launches, before float64's
-                    own = dict(cuda_pruning.LAUNCHES)
+                    own = launch_counts()
                     plain = pruning.PLAIN_CALLS["cuda"]
             for k, v in own.items():
                 launches[k] += v
+            for k, v in own.instances.items():
+                inst[k] += v
             if plain or not all(own[k] for k in pair):
                 raise AssertionError(f"13b {name} {route}: {pair} must carry "
                                      "the float32 value + gradient alone")
@@ -4644,7 +4905,10 @@ def f32_value_grads(torch, bench, report, card):
                                      "gradient off the plain version or "
                                      "float64")
         for name in pair:
-            report[name][f"launches_f32_vg_{route}"] = launches[name]
+            put_launches(report, name, f"launches_f32_vg_{route}",
+                         launches[name],
+                         split={m: inst[f"{name}_n{m}"]
+                                for m in cuda_pruning.INSTANCES})
         if any(launches[k] for k in launches if k not in pair):
             raise AssertionError(f"13b {route}: launches {launches}")
 
@@ -4670,7 +4934,7 @@ def f32_fits(torch, bench, report, card):
                                 dtype=torch.float32)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(cuda_pruning.LAUNCHES)
+        launches = launch_counts()
         print(f"13c fit_packed float32 M0, {route} [{card}]: lnL "
               f"{res.lnL:.6f} (float64 {ref.lnL:.6f}, {ref.fit.n_eval} "
               f"evals), {res.fit.n_eval} evals, {wall:.2f} s wall, "
@@ -4685,7 +4949,8 @@ def f32_fits(torch, bench, report, card):
                 raise AssertionError(f"13c {route}: {name} launched {count}"
                                      f" times; only {pair} should carry it")
             if count:
-                report[name][f"launches_f32_fit_{route}"] = count
+                put_launches(report, name, f"launches_f32_fit_{route}", count,
+                             launches)
 
 
 def sync_census(torch, fn):
@@ -4762,7 +5027,7 @@ def f32_device_fits(torch, bench, report, card):
         t0 = time.perf_counter()
         x, lnl, it = fit()
         wall = time.perf_counter() - t0
-        launches, n_eval = dict(cuda_pruning.LAUNCHES), calls[0]
+        launches, n_eval = launch_counts(), calls[0]
         n_reads, trials = optim.CHECKS["reads"], optim.CHECKS["trials"]
         print(f"13d maximize_device_bounded {str(dt)[6:]} M0 [{card}]: lnL "
               f"{lnl:.6f} (scipy float64 {ref.lnL:.6f}, {ref.fit.n_eval} "
@@ -4779,7 +5044,7 @@ def f32_device_fits(torch, bench, report, card):
             if not launches[name]:
                 raise AssertionError(f"13d {dt}: {name} did not carry the "
                                      "device fit")
-            report[name][key] = launches[name]
+            put_launches(report, name, key, launches[name], launches)
         (_, _, it2), counts = sync_census(torch, fit)
         own = {k: v for k, v in counts.items()
                if k[0].endswith("core/optim.py") and k[1] in loop
@@ -4830,12 +5095,13 @@ def f32_big(torch, big, report, card):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out[dt] = (v, g)
         if dt == torch.float32:
-            launches = dict(cuda_pruning.LAUNCHES)
+            launches = launch_counts()
             if pruning.PLAIN_CALLS["cuda"] or launches["pruning_fwd"] or \
                     not launches["big_fwd"] or not launches["big_bwd"]:
                 raise AssertionError(f"13e: B3/B4 must carry it: {launches}")
             for name in ("big_fwd", "big_bwd"):
-                report[name]["launches_f32_big"] = launches[name]
+                put_launches(report, name, "launches_f32_big", launches[name],
+                             launches)
         print(f"13e model A, {data.ns} taxa x {data.npatt} patterns, "
               f"{BIG_CHUNKS} chunks, {str(dt)[6:]} [{card}]: lnL {-v:.6f}, "
               f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms, peak "
@@ -4894,6 +5160,8 @@ def phase_bench(torch, report, card):
     (`launches_bench`: host launches, a graph's once)."""
     import os
 
+    from paml_tpu_torch.core import cuda_pruning
+
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "paml_tpu_torch.bench"],
@@ -4947,7 +5215,10 @@ def phase_bench(torch, report, card):
             not abs(fit["lnL_gap_vs_f64_optimum"]) <= BENCH_CHECK["fit_lnl"]:
         raise AssertionError(f"14: the bench's device fit is off: {fit}")
     for name in ("big_fwd", "big_bwd"):
-        report[name]["launches_bench"] = detail["launches_total"][name]
+        total = detail["launches_total"]
+        put_launches(report, name, "launches_bench", total[name],
+                     split={m: total[f"{name}_n{m}"]
+                            for m in cuda_pruning.INSTANCES})
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -5197,7 +5468,7 @@ def record_launches(report, key, keys):
     for name in keys:
         if not launches[name]:
             raise AssertionError(f"{key}: {name} did not launch: {launches}")
-        report[name][key] = launches[name]
+        put_launches(report, name, key, launches[name])
     return launches
 
 
@@ -6061,6 +6332,7 @@ def aa_graph_fits(torch, rng, report, card):
     amino acids (a cut of phase 8a's 100 x 50,000 alignment, for time),
     B3/B4 at 20 states, each from its CUDA graph against eagerly."""
     from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning, graphs
     from paml_tpu_torch.core.topology import from_treenode
     from paml_tpu_torch.io import seqio, treeio
 
@@ -6086,9 +6358,26 @@ def aa_graph_fits(torch, rng, report, card):
             lambda spec=spec: codeml.make_aa_objective(data, topo, spec,
                                                        device="cuda"),
             card, phase="17b", e2="G4" in tag)[3]
+    inst = {k: v for k, v in cuda_pruning.INSTANCE_LAUNCHES.items() if v}
     record_launches(report, "launches_graph_aa_fits",
                     ("big_fwd", "big_bwd", "eigh"))
     report["quantile"]["launches_graph_aa_fits"] = e2
+    # the census of one replay of the REVaa_0 + G4 value + gradient: the
+    # kernels by instance (their names carry N)
+    neg, _, x0, _, _ = codeml.make_aa_objective(data, topo, spec,
+                                                device="cuda")
+    gv = graphs.GraphedValueGrad(neg, torch.as_tensor(x0).cuda())
+    kern = graphs.replay_kernels(gv.graph)
+    gv.close()
+    print(f"17b census [{card}]: the fits' host launches by instance "
+          f"{inst}; one replay of REVaa_0 + G4's value + gradient "
+          f"{ {k: v for k, v in kern.items() if v} }", flush=True)
+    want = {"big_fwd_n32": 1, "big_bwd_n32": 1, "big_fwd_n64": 0,
+            "big_bwd_n64": 0, "pruning_fwd": 0, "pruning_bwd": 0}
+    if any(kern[k] != v for k, v in want.items()) or \
+            set(inst) != {"big_fwd_n32", "big_bwd_n32"}:
+        raise AssertionError(f"17b: the amino-acid fits' kernels are not "
+                             f"the N = 32 instances: {inst}, {kern}")
 
 
 # (tag, spec, whether the fit runs E2)
@@ -6103,7 +6392,7 @@ NUC17 = (("REV + G5, clock 1", dict(model="REV", ncatG=5, fix_alpha=False,
 
 def nuc_graph_fits(torch, rng, report, card):
     """17c: REV + G5 under clock 1, UNREST, AdG, nparK 4 and nhomo 1 on
-    20 simulated taxa x 5000 sites (a cut of phase 7's 100 x 100,000,
+    20 simulated taxa x 5000 sites (a cut of phase 7's 100 x 25,000,
     for time; phase 16's nucleotide shape) on the level route, each
     `optim.maximize` from the objective's x0 alone (`fit_packed`'s extra
     starts of nparK 4, seven in all, left out for time) from its CUDA
@@ -6312,8 +6601,9 @@ def phase_more_graphs(torch, report, card, bench):
 # ---------------------------------------------------------------------------
 
 PW_WINDOW = dict(wlen=100, offset=100)   # 18b: 10 windows over 1000 codons
-PW_EAGER_PAIRS = 30                      # 18a's dispatched runs: the first
-                                         # 30 pairs of each program
+PW_EAGER_PAIRS = 15                      # 18a's dispatched runs: the first
+                                         # 15 pairs of each program (for
+                                         # the script's time)
 
 
 @contextlib.contextmanager

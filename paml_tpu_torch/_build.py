@@ -59,8 +59,10 @@ _SIGNATURES = {
         "paml_polygamma": [_P, _I, _P, _P, _P],
     },
 }
-# dtype suffixes of each source's entries (default: both)
+# suffixes of each source's entries: the dtype, and for the pruning walk
+# the padded state count of the instance (`cuda_pruning.padded_states`)
 _SUFFIXES = {"eigh": ("f64",), "quantile": ("f64",)}
+_WALK_SUFFIXES = tuple(f"{d}_n{n}" for d in ("f32", "f64") for n in (32, 64))
 
 _lib = None
 build_log = ""          # nvcc's output (ptxas register/spill report)
@@ -121,14 +123,15 @@ def build() -> list[Path]:
 
 def lib() -> types.SimpleNamespace:
     """Every entry point of the kernel libraries (built at the first call),
-    as attributes `<entry>_<f32|f64>`."""
+    as attributes `<entry>_<f32|f64>`, the walk's `<entry>_<f32|f64>_n<N>`
+    (N = 32, 64)."""
     global _lib
     if _lib is None:
         fns = {}
         for src, path in zip(_sources(), build()):
             handle = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES[src.stem].items():
-                for suffix in _SUFFIXES.get(src.stem, ("f32", "f64")):
+                for suffix in _SUFFIXES.get(src.stem, _WALK_SUFFIXES):
                     fn = getattr(handle, f"{name}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

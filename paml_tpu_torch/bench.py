@@ -72,7 +72,8 @@ import numpy as np
 import torch
 
 from .core import cuda_pruning
-from .core.cuda_pruning import LAUNCHES, bound_ms, kernel_work
+from .core.cuda_pruning import (INSTANCE_LAUNCHES, LAUNCHES, bound_ms,
+                                kernel_work)
 from .core.graphs import capture, replay_kernels
 
 # the H100 SXM's FP32 rate outside the tensor cores (the float32 kernels'
@@ -214,16 +215,23 @@ def model_at_body(neg, x, n_iter=N_FUSED):
     return body, out
 
 
+def _counts() -> dict:
+    """The wrappers' launch counts, by kernel and by instance
+    (`big_fwd_n64`, ...)."""
+    return {**LAUNCHES, **INSTANCE_LAUNCHES}
+
+
 def launches_of(fn, *args, **kw):
-    """(fn(*args, **kw), the kernel launches it made, by wrapper)."""
-    before = dict(LAUNCHES)
+    """(fn(*args, **kw), the kernel launches it made, by wrapper and by
+    instance)."""
+    before = _counts()
     out = fn(*args, **kw)
-    return out, {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    return out, {k: v - before[k] for k, v in _counts().items()}
 
 
 # launches made only to check a result (the graph's step 0 against an
 # eager step, the fit's card against the CPU), kept out of the path's
-CHECK_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+CHECK_LAUNCHES = dict.fromkeys(_counts(), 0)
 
 
 def checked(fn, *args):
@@ -515,8 +523,8 @@ def main() -> int:
     updates_per_sec = evals_per_sec * NPATT * nbranch * K_CLASSES
     detail["bench_s"] = time.perf_counter() - t0
     # the path's host launches (a graph's counted once), checks left out
-    detail["launches_total"] = {k: LAUNCHES[k] - CHECK_LAUNCHES[k]
-                                for k in LAUNCHES}
+    detail["launches_total"] = {k: v - CHECK_LAUNCHES[k]
+                                for k, v in _counts().items()}
     detail["launches_of_checks"] = dict(CHECK_LAUNCHES)
     _require_big_pair(detail["launches_total"], "the bench")
     with open(DETAIL_FILE, "w") as f:

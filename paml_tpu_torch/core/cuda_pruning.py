@@ -9,22 +9,29 @@ B1/B2 take coded tips with an ambiguity table (`tipcodes.TipCodes`), so
 that an alignment with gaps runs the same walk.  The host side of the
 Pallas kernels carries over: the DFS-postorder schedule with slot liveness
 (`Plan`, from `_Plan`), the schedules with their residual rows (`BigPlan`,
-from `_sched_arrays`), and padding of the states to N = 64.  The schedules
-are int32 tables on the device instead of code unrolled per topology, so
-one binary serves every tree.
+from `_sched_arrays`), and padding of the states to the padded state count
+N, which each kernel takes as a template parameter as the TPU kernels take
+it from their shapes: an instance at N = 32 (amino acids) and one at N =
+64 (codons), chosen from n by `padded_states`.  The schedules are int32
+tables on the device instead of code unrolled per topology, so one binary
+serves every tree.
 
 `pruning_fwd`, `pruning_bwd`, `pruning_big_fwd` and `pruning_big_bwd` check
 the codes, device, dtype, shape and contiguity, allocate the outputs and
 the workspace with `torch.empty`, launch on the current stream and raise
 if the launch failed; each adds one to its count in `LAUNCHES` where it
-launches.  B1/B2's wrappers also take dense [ns, H, n] partials, coded
-once per tensor (`kernel_tips`).  `ClassSiteLnfKernel` ties a pair
-together as a `torch.autograd.Function`, which leaves the codes to its
-caller (the codeml objective checks its tips once); `use_big_kernels`
-chooses between the two pairs.  The kernels walk binary trees: the
-wrappers run `big_tree(topo)`, whose added nodes take an identity P, and
-return dP of topo's own nodes.  There is no fallback: a tensor the kernels
-do not take raises.
+launches, and one to its instance's in `INSTANCE_LAUNCHES`
+(`pruning_fwd_n32`, `pruning_fwd_n64`, ...).  Their keyword `npad` forces
+an instance (64 at 20 states, to hold the two instances against each
+other); nothing else chooses N but n.  B1/B2's wrappers also take dense
+[ns, H, n] partials, coded once per tensor (`kernel_tips`).
+`ClassSiteLnfKernel` ties a pair together as a `torch.autograd.Function`,
+which leaves the codes to its caller (the codeml objective checks its tips
+once); `use_big_kernels` chooses between the two pairs.  The kernels walk
+binary trees: the wrappers run `big_tree(topo)`, whose added nodes take an
+identity P, and return dP of topo's own nodes.  There is no fallback: a
+tensor the kernels do not take raises, and an instance that fails to
+launch raises.
 """
 from __future__ import annotations
 
@@ -35,10 +42,12 @@ from .pmat import differentiable_once
 from .tipcodes import TipCodes, encode
 from .topology import Topology
 
-N = 64                   # padded states (csrc/pruning_common.cuh: N)
+# the padded state counts N of the walk's instances (csrc/pruning_common.cuh:
+# Pad<N>)
+INSTANCES = (32, 64)
 
 BIG_HT = 32              # patterns per tile (BHT)
-BIG_LDN, BIG_LDH = N + 4, BIG_HT + 4   # the shared row strides
+BIG_LDH = BIG_HT + 4     # the shared row stride of an [N x BHT] operand
 BIG_KMAX = 2             # children per node the walk takes (KMAX)
 BIG_RED = 2 * 8 * BIG_HT  # the column-reduction scratch (RED)
 BIG_TMAX = 16            # tiles per visit of an adjoint block
@@ -50,12 +59,45 @@ SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-LAUNCHES = {"pruning_fwd": 0, "pruning_bwd": 0, "big_fwd": 0, "big_bwd": 0}
+KERNELS = ("pruning_fwd", "pruning_bwd", "big_fwd", "big_bwd")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the same launches by instance: `<kernel>_n<N>`
+INSTANCE_LAUNCHES = {f"{k}_n{m}": 0 for k in KERNELS for m in INSTANCES}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, INSTANCE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def padded_states(n: int) -> int:
+    """The padded state count N of the kernel instance that takes n states:
+    32 for up to 32 states (amino acids), 64 for 33 to 64 (codons).  The
+    TPU kernels pad to max(round_up(n, 8), 16) (`maybe_pallas_lnf`,
+    paml_tpu/core/pallas_pruning.py:692), 24 for 20 states; the card's
+    FP64 products tile rows by 16 and the walk's 8 warps split 32 or 64 of
+    them, so 24 rounds up to 32.  (Below 16 states `pruning.class_site_lnf`
+    takes the level route; a wrapper called directly takes N = 32.)"""
+    if not 1 <= n <= INSTANCES[-1]:
+        raise ValueError(f"CUDA pruning kernels take 1 to {INSTANCES[-1]} "
+                         f"states, got {n}")
+    return next(m for m in INSTANCES if n <= m)
+
+
+def _npad(n: int, npad: int | None) -> int:
+    """padded_states(n), or the instance a caller forces (at least n)."""
+    if npad is None:
+        return padded_states(n)
+    if npad not in INSTANCES or npad < n:
+        raise ValueError(f"no kernel instance at N = {npad} takes {n} "
+                         f"states (instances: {INSTANCES})")
+    return npad
+
+
+def ldn(npad: int) -> int:
+    """The shared row stride of an [N x N] operand (LDN = N + 4)."""
+    return npad + 4
 
 
 # ---------------------------------------------------------------------------
@@ -188,10 +230,13 @@ class BigPlan:
         self.all_full = all(len(p.kids_of[v]) == kmax
                             for v in p.order if v >= ns)
         self.nslots, self.root = p.nslots, root
-        # the adjoint's workspace per block: nslots + 1 adjoint slots for
-        # each of the (at most BIG_TMAX) tiles of a visit
-        self.work_per_block = (p.nslots + 1) * BIG_TMAX * N * BIG_HT
         self._dev: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def work_per_block(self, npad: int) -> int:
+        """The adjoint's workspace per block at N = npad: nslots + 1
+        adjoint slots [N x BHT] for each of the (at most BIG_TMAX) tiles of
+        a visit."""
+        return (self.nslots + 1) * BIG_TMAX * npad * BIG_HT
 
     def device_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         device = torch.device(device)
@@ -328,31 +373,30 @@ def check_tips(tips, n: int) -> None:
         check_state_codes(tips, n)
 
 
-def padded_P(P: torch.Tensor, nnode: int) -> torch.Tensor:
-    """P [nnode_P, C, n, n] as the kernels take it: N states (zeros outside
-    n), and an identity P for each node from nnode_P to nnode (the nodes
-    `big_tree` added); P itself when it is that already.  Views and fills
-    only, no index tensor from the host: no host sync, so an evaluation can
-    be captured in a CUDA graph."""
+def padded_P(P: torch.Tensor, nnode: int, npad: int) -> torch.Tensor:
+    """P [nnode_P, C, n, n] as the kernel instance at N = npad takes it:
+    npad states (zeros outside n), and an identity P for each node from
+    nnode_P to nnode (the nodes `big_tree` added); P itself when it is that
+    already.  Views and fills only, no index tensor from the host: no host
+    sync, so an evaluation can be captured in a CUDA graph."""
     n = P.shape[-1]
-    if n == N and P.is_contiguous() and P.shape[0] == nnode:
+    if n == npad and P.is_contiguous() and P.shape[0] == nnode:
         return P
-    out = P.new_zeros((nnode, P.shape[1], N, N))
+    out = P.new_zeros((nnode, P.shape[1], npad, npad))
     out[:P.shape[0], :, :n, :n] = P
     out[P.shape[0]:, :, :n, :n].diagonal(dim1=-2, dim2=-1).fill_(1.0)
     return out
 
 
 class _Inputs:
-    """Kernel-ready inputs: P padded to N states and extended to the tree
-    the kernels walk (`big_tree(topo)`, identity P on the added nodes), pi
-    padded, the codes, and for TipCodes the ambiguity table padded to N
-    states (amb None, A 0 for state codes)."""
+    """Kernel-ready inputs for the instance at N = `padded_states(n)` (or
+    `npad`, where a caller forces one): P padded to N states and extended
+    to the tree the kernels walk (`big_tree(topo)`, identity P on the added
+    nodes), pi padded, the codes, and for TipCodes the ambiguity table
+    padded to N states (amb None, A 0 for state codes).  Built on any
+    device; the launches take CUDA tensors alone (`_require_cuda`)."""
 
-    def __init__(self, P, tips, topo: Topology, pi):
-        if not P.is_cuda:
-            raise ValueError(f"CUDA pruning kernels take CUDA tensors, got "
-                             f"P on {P.device}")
+    def __init__(self, P, tips, topo: Topology, pi, npad: int | None = None):
         if P.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"CUDA pruning kernels take float32 or float64, "
                             f"got {P.dtype}")
@@ -366,9 +410,7 @@ class _Inputs:
         if C == 0 or codes.dim() != 2 or codes.shape[1] == 0:
             raise ValueError("CUDA pruning kernels need C > 0 classes, H > 0 "
                              "patterns and tips [ns, H] (codes)")
-        if n > N:
-            raise ValueError(f"CUDA pruning kernels take n <= {N} states, "
-                             f"got {n}")
+        self.N = N = _npad(n, npad)
         if pi.device != P.device or pi.dtype != P.dtype or \
                 tuple(pi.shape) != (C, n):
             raise ValueError(f"pi must be [{C}, {n}] {P.dtype} on "
@@ -393,7 +435,7 @@ class _Inputs:
             self.amb = P.new_zeros((self.A, N))
             self.amb[:, :n] = amb
         run = big_tree(topo)
-        self.P = padded_P(P, run.nnode)
+        self.P = padded_P(P, run.nnode, N)
         self.pi = pi.new_zeros((C, N))
         self.pi[:, :n] = pi
         self.topo = run
@@ -415,24 +457,25 @@ class _Inputs:
         LA = -(-self.A // BIG_HT) * BIG_HT
         check_tip_table(self.ns, self.C, self.A, self.P.element_size(),
                         torch.cuda.get_device_properties(
-                            self.P.device).total_memory)
-        TA = self.P.new_empty((self.ns * self.C * N * LA,))
+                            self.P.device).total_memory, self.N)
+        TA = self.P.new_empty((self.ns * self.C * self.N * LA,))
         return self.amb.data_ptr(), self.A, TA, LA
 
 
-def tip_table_bytes(ns: int, C: int, n_amb: int, esize: int) -> int:
-    """Bytes of B1/B2's tip table TA [ns, C, N, LA], LA = n_amb rounded up
-    to whole tiles."""
-    return ns * C * N * (-(-n_amb // BIG_HT) * BIG_HT) * esize
+def tip_table_bytes(ns: int, C: int, n_amb: int, esize: int,
+                    npad: int) -> int:
+    """Bytes of B1/B2's tip table TA [ns, C, N, LA] at N = npad, LA = n_amb
+    rounded up to whole tiles."""
+    return ns * C * npad * (-(-n_amb // BIG_HT) * BIG_HT) * esize
 
 
 def check_tip_table(ns: int, C: int, n_amb: int, esize: int,
-                    mem_bytes: int) -> None:
+                    mem_bytes: int, npad: int) -> None:
     """Refuse a tip table of more than 1/BIG_WORK_SHARE of the card's
     memory: it grows with the number of distinct non-one-hot tip vectors,
     a few hundred for gapped codon data but up to ns x H for soft
     partials."""
-    need = tip_table_bytes(ns, C, n_amb, esize)
+    need = tip_table_bytes(ns, C, n_amb, esize, npad)
     if need > mem_bytes // BIG_WORK_SHARE:
         raise ValueError(
             f"the tip table of {n_amb} ambiguity vectors ({ns} tips x {C} "
@@ -442,8 +485,9 @@ def check_tip_table(ns: int, C: int, n_amb: int, esize: int,
             "vectors; use the plain version (tensors on the CPU) for these")
 
 
-def _suffix(dtype) -> str:
-    return "f32" if dtype == torch.float32 else "f64"
+def _suffix(dtype, npad: int) -> str:
+    """The entry point's suffix: dtype and instance (`f64_n32`, ...)."""
+    return f"{'f32' if dtype == torch.float32 else 'f64'}_n{npad}"
 
 
 def _stream(device) -> int:
@@ -460,20 +504,21 @@ def use_big_kernels(state_tips: bool) -> bool:
     return state_tips
 
 
-def big_fwd_smem(esize: int) -> int:
-    """Dynamic shared memory of a forward block (B1, B3): P_v [N][LDN];
-    s_v and the kept contribution [N][LDH]; the column-reduction
+def big_fwd_smem(esize: int, npad: int) -> int:
+    """Dynamic shared memory of a forward block (B1, B3) at N = npad: P_v
+    [N][LDN]; s_v and the kept contribution [N][LDH]; the column-reduction
     scratch."""
-    return (N * BIG_LDN + 2 * N * BIG_LDH + BIG_RED) * esize
+    return (npad * ldn(npad) + 2 * npad * BIG_LDH + BIG_RED) * esize
 
 
-def big_bwd_smem(esize: int, kmax: int) -> int:
+def big_bwd_smem(esize: int, kmax: int, npad: int) -> int:
     """Dynamic shared memory of an adjoint block (B2, B4;
-    pruning_tree.cuh's carve): per child of the tree's kmax P_k or its tip
-    dP_k [N][LDN] and c_k [N][LDH]; s_k and G_k for BIG_KMAX children and
-    A_v [N][LDH]; the column-reduction scratch; dpi [N]."""
-    return (kmax * N * BIG_LDN + (kmax + 2 * BIG_KMAX + 1) * N * BIG_LDH
-            + BIG_RED + N) * esize
+    pruning_tree.cuh's carve) at N = npad: per child of the tree's kmax P_k
+    or its tip dP_k [N][LDN] and c_k [N][LDH]; s_k and G_k for BIG_KMAX
+    children and A_v [N][LDH]; the column-reduction scratch; dpi [N]."""
+    return (kmax * npad * ldn(npad)
+            + (kmax + 2 * BIG_KMAX + 1) * npad * BIG_LDH
+            + BIG_RED + npad) * esize
 
 
 def big_tiles(H: int) -> int:
@@ -498,7 +543,8 @@ def kernel_work(name: str, topo: Topology, C: int, H: int, n: int,
     its TPU counterpart writes it (unless the launch is one without a
     residual, `want_S` false: BEB's forward), and not among B1's: the TPU
     kernel B1 replaces computes lnf alone, S being only this design's
-    hand-off to B2.  B1/B2's coded tips
+    hand-off to B2.  The bound is taken at the real n; called with n = N
+    it gives the work of the padded instance.  B1/B2's coded tips
     with n_amb ambiguity vectors: each tip's table P amb^T needs 2 n^2 A
     per class in the forward, and folding G_k's ambiguous columns into dP_k
     as much again in the adjoint; the codes are 4 bytes a cell."""
@@ -526,14 +572,14 @@ def bound_ms(flop: float, nbytes: float) -> float:
 
 
 def big_bwd_grid(nnode: int, C: int, ntiles: int, esize: int, sms: int,
-                 mem_bytes: int, work_per_block: int) -> int:
+                 mem_bytes: int, work_per_block: int, npad: int) -> int:
     """Blocks along the tile axis of the adjoint (B2, B4): enough for G x C
     >= the card's SM count, at most one per tile, and fewer when the dP
-    slabs (nnode x C x 64 x 64 values per g) and workspace would pass
-    1/BIG_WORK_SHARE of the card's memory.  The card's size, not its free
-    memory at the call, sets the cap: the grid fixes the slab sum order,
-    and so the bits of dP."""
-    per_g = (nnode * C * N * N + C * N + C * work_per_block) * esize
+    slabs (nnode x C x N x N values per g, N = npad) and workspace would
+    pass 1/BIG_WORK_SHARE of the card's memory.  The card's size, not its
+    free memory at the call, sets the cap: the grid fixes the slab sum
+    order, and so the bits of dP."""
+    per_g = (nnode * C * npad * npad + C * npad + C * work_per_block) * esize
     cap = mem_bytes // BIG_WORK_SHARE // per_g
     return max(1, min(ntiles, -(-sms // C), cap))
 
@@ -543,20 +589,33 @@ def big_bwd_grid(nnode: int, C: int, ntiles: int, esize: int, sms: int,
 # ---------------------------------------------------------------------------
 
 
+def _count(key: str, npad: int) -> None:
+    LAUNCHES[key] += 1
+    INSTANCE_LAUNCHES[f"{key}_n{npad}"] += 1
+
+
+def _require_cuda(x: _Inputs) -> None:
+    if not x.P.is_cuda:
+        raise ValueError(f"CUDA pruning kernels take CUDA tensors, got "
+                         f"P on {x.P.device}")
+
+
 def _launch_fwd(x: _Inputs, want_S: bool):
     from .. import _build
 
+    _require_cuda(x)
     bp = big_plan(x.topo)
     fs, _ = bp.device_tables(x.P.device)
     lnf = x.P.new_empty((x.C, x.H))
     S = x.P.new_empty((bp.n_srows, x.C, x.n, x.H)) if want_S else None
     ntiles = big_tiles(x.H)
-    work = x.P.new_empty((ntiles * x.C * bp.nslots * N * BIG_HT,))
+    work = x.P.new_empty((ntiles * x.C * bp.nslots * x.N * BIG_HT,))
     head = (fs.data_ptr(), fs.shape[0], bp.kmax, x.P.data_ptr(),
             x.states.data_ptr())
     tail = (ntiles, x.C, x.H, x.ns, x.n, bp.nslots)
-    smem, stream = big_fwd_smem(x.P.element_size()), _stream(x.P.device)
-    lib, sfx = _build.lib(), _suffix(x.P.dtype)
+    smem = big_fwd_smem(x.P.element_size(), x.N)
+    stream = _stream(x.P.device)
+    lib, sfx = _build.lib(), _suffix(x.P.dtype, x.N)
     key = "pruning_fwd" if x.fused else "big_fwd"
     with torch.cuda.device(x.P.device):
         if x.fused:
@@ -568,14 +627,15 @@ def _launch_fwd(x: _Inputs, want_S: bool):
             err = getattr(lib, f"paml_big_fwd_{sfx}")(
                 *head, x.pi.data_ptr(), lnf.data_ptr(), _ptr(S),
                 work.data_ptr(), *tail, smem, stream)
-    LAUNCHES[key] += 1
-    _build.check(err, f"{key} launch")
+    _count(key, x.N)
+    _build.check(err, f"{key}_n{x.N} launch")
     return lnf, S
 
 
 def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
     from .. import _build
 
+    _require_cuda(x)
     bp = big_plan(x.topo)
     if gbar.device != x.P.device or tuple(gbar.shape) != (x.C, x.H):
         raise ValueError(f"gbar must be [{x.C}, {x.H}] on {x.P.device}, got "
@@ -592,11 +652,11 @@ def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
     ntiles = big_tiles(x.H)
     G = big_bwd_grid(x.nnode, x.C, ntiles, x.P.element_size(),
                      props.multi_processor_count, props.total_memory,
-                     bp.work_per_block)
+                     bp.work_per_block(x.N), x.N)
     tv = visit_tiles(ntiles, G)
-    work = x.P.new_empty((G * x.C * (bp.nslots + 1) * tv * N * BIG_HT,))
-    dP_slab = x.P.new_empty((G * x.nnode * x.C * N * N,))
-    dpi_slab = x.P.new_empty((G * x.C * N,))
+    work = x.P.new_empty((G * x.C * (bp.nslots + 1) * tv * x.N * BIG_HT,))
+    dP_slab = x.P.new_empty((G * x.nnode * x.C * x.N * x.N,))
+    dpi_slab = x.P.new_empty((G * x.C * x.N,))
     dP = x.P.new_empty((x.nnode, x.C, x.n, x.n))
     dpi = x.P.new_empty((x.C, x.n))
     head = (bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
@@ -605,9 +665,9 @@ def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
              dpi_slab.data_ptr(), work.data_ptr())
     tail = (G, ntiles, tv, x.C, x.H, x.ns, x.n, x.nnode, x.nnode_in,
             bp.nslots, bp.root)
-    smem = big_bwd_smem(x.P.element_size(), bp.kmax)
+    smem = big_bwd_smem(x.P.element_size(), bp.kmax, x.N)
     stream = _stream(x.P.device)
-    lib, sfx = _build.lib(), _suffix(x.P.dtype)
+    lib, sfx = _build.lib(), _suffix(x.P.dtype, x.N)
     key = "pruning_bwd" if x.fused else "big_bwd"
     with torch.cuda.device(x.P.device):
         if x.fused:
@@ -619,53 +679,59 @@ def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
             err = getattr(lib, f"paml_big_bwd_{sfx}")(
                 *head, x.pi.data_ptr(), *slabs, dP.data_ptr(),
                 dpi.data_ptr(), *tail, smem, stream)
-    LAUNCHES[key] += 1
-    _build.check(err, f"{key} launch")
+    _count(key, x.N)
+    _build.check(err, f"{key}_n{x.N} launch")
     return dP[:x.nnode_in], dpi
 
 
-def _fused_inputs(P, tips, topo, pi) -> _Inputs:
+def _fused_inputs(P, tips, topo, pi, npad) -> _Inputs:
     """B1/B2's inputs: state codes, TipCodes or dense partials, any of them
     as coded tips with a table (empty for state codes)."""
     tips = kernel_tips(tips)
     check_tips(tips, P.shape[-1])
     if not isinstance(tips, TipCodes):
         tips = TipCodes(tips, P.new_zeros((0, P.shape[-1])))
-    return _Inputs(P, tips, topo, pi)
+    return _Inputs(P, tips, topo, pi, npad)
 
 
-def _big_inputs(P, tips, topo, pi) -> _Inputs:
+def _big_inputs(P, tips, topo, pi, npad) -> _Inputs:
     if isinstance(tips, TipCodes) or tips.dim() != 2:
         raise ValueError("the large-tree kernels take state-code tips "
                          "[ns, H] only")
     check_state_codes(tips, P.shape[-1])
-    return _Inputs(P, tips, topo, pi)
+    return _Inputs(P, tips, topo, pi, npad)
 
 
-def pruning_fwd(P, tips, topo: Topology, pi, want_S: bool = True):
+def pruning_fwd(P, tips, topo: Topology, pi, want_S: bool = True, *,
+                npad: int | None = None):
     """Fused forward kernel (B1): (lnf [C, H], S [n_srows, C, n, H] or
     None), S the scaled partials of the non-cherry internal nodes of
     `big_tree(topo)` (no autograd).  tips: int32 state codes [ns, H],
-    TipCodes, or dense partials [ns, H, n]."""
-    return _launch_fwd(_fused_inputs(P, tips, topo, pi), want_S)
+    TipCodes, or dense partials [ns, H, n].  `npad` forces the instance
+    (32 or 64, at least n; default `padded_states(n)`)."""
+    return _launch_fwd(_fused_inputs(P, tips, topo, pi, npad), want_S)
 
 
-def pruning_bwd(P, tips, topo: Topology, pi, gbar, S):
+def pruning_bwd(P, tips, topo: Topology, pi, gbar, S, *,
+                npad: int | None = None):
     """Fused adjoint kernel (B2): (dP [nnode, C, n, n], dpi [C, n]) for
-    the cotangent gbar [C, H] of lnf, from the forward's residual S."""
-    return _launch_bwd(_fused_inputs(P, tips, topo, pi), gbar, S)
+    the cotangent gbar [C, H] of lnf, from the forward's residual S (of
+    either instance: S holds the n real states)."""
+    return _launch_bwd(_fused_inputs(P, tips, topo, pi, npad), gbar, S)
 
 
-def pruning_big_fwd(P, tips, topo: Topology, pi, want_S: bool = True):
+def pruning_big_fwd(P, tips, topo: Topology, pi, want_S: bool = True, *,
+                    npad: int | None = None):
     """Large-tree forward kernel (B3) on state-code tips: (lnf [C, H], S or
     None) as `pruning_fwd`."""
-    return _launch_fwd(_big_inputs(P, tips, topo, pi), want_S)
+    return _launch_fwd(_big_inputs(P, tips, topo, pi, npad), want_S)
 
 
-def pruning_big_bwd(P, tips, topo: Topology, pi, gbar, S):
+def pruning_big_bwd(P, tips, topo: Topology, pi, gbar, S, *,
+                    npad: int | None = None):
     """Large-tree adjoint kernel (B4) on state-code tips, as
     `pruning_bwd`."""
-    return _launch_bwd(_big_inputs(P, tips, topo, pi), gbar, S)
+    return _launch_bwd(_big_inputs(P, tips, topo, pi, npad), gbar, S)
 
 
 class ClassSiteLnfKernel(torch.autograd.Function):

@@ -130,20 +130,32 @@ def capture(body: Callable[[], None],
 def replay_kernels(graph) -> dict:
     """The hand-written kernels one replay of graph runs, counted by name
     under `torch.profiler` (no wrapper sees a replay): B1/B2 and B3/B4 by
-    their tip coding (the walk's template argument), the eigensolver, and
-    every device operation ("all")."""
+    their tip coding (the walk's template argument AMB), and each by its
+    instance (`<kernel>_n32`, `<kernel>_n64`: the template argument N), the
+    eigensolver, and every device operation ("all")."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         graph.replay()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    return kernel_census(
+        [e.name for e in prof.events() if e.device_type.name == "CUDA"])
+
+
+def kernel_census(names: list[str]) -> dict:
+    """`replay_kernels`' counts from the device operations' names, as the
+    profiler gives them demangled (`big_fwd_kernel<double, true, 32>`)."""
+    from .cuda_pruning import INSTANCES
+
     out = {"all": len(names)}
-    for key, walk, amb in (("pruning_fwd", "::big_fwd_kernel<", ", true>"),
-                           ("pruning_bwd", "::big_bwd_kernel<", ", true>"),
-                           ("big_fwd", "::big_fwd_kernel<", ", false>"),
-                           ("big_bwd", "::big_bwd_kernel<", ", false>")):
-        out[key] = sum(walk in s and amb in s for s in names)
+    for key, walk, amb in (("pruning_fwd", "::big_fwd_kernel<", ", true, "),
+                           ("pruning_bwd", "::big_bwd_kernel<", ", true, "),
+                           ("big_fwd", "::big_fwd_kernel<", ", false, "),
+                           ("big_bwd", "::big_bwd_kernel<", ", false, ")):
+        mine = [s for s in names if walk in s and amb in s]
+        out[key] = len(mine)
+        for m in INSTANCES:
+            out[f"{key}_n{m}"] = sum(f"{amb}{m}>" in s for s in mine)
     out["eigh"] = sum("jacobi_eigh_kernel" in s for s in names)
     out["quantile"] = sum(k in s for s in names for k in (
         "inc_kernel<", "inc_inv_kernel<", "mix_kernel"))

@@ -297,8 +297,9 @@ def class_site_lnf_levels(P, tips, topo: Topology, pi):
     counted in `LEVEL_CALLS` (apart from `PLAIN_CALLS`).  The JAX package
     keeps the same work off its kernels: `maybe_pallas_lnf` returns None
     below 16 states (paml_tpu/core/pallas_pruning.py:687, "einsum path is
-    already fine"), while the port's kernels pad every state count to N =
-    64 (`cuda_pruning.N`): 256 times the products that 4 states need."""
+    already fine"), while the port's kernels pad every state count to at
+    least N = 32 (`cuda_pruning.padded_states`): 64 times the products
+    that 4 states need."""
     if P.is_cuda:
         LEVEL_CALLS["cuda"] += 1
     return _ClassSiteLnfLvl.apply(P, tips, topo, pi)

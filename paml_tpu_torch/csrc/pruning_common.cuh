@@ -3,22 +3,33 @@
 //
 // Layout (the JAX package's): P [nnode, C, N, N], row j = parent state,
 // c[j, h] = sum_i P[j, i] s[i, h]; partials are [N, pattern]; states are
-// padded to N = 64 by the wrapper (zero rows and columns), patterns are
-// masked at the ragged edge by the kernels.
+// padded by the wrapper (zero rows and columns) to the padded state count
+// N, a template parameter of every kernel, as the TPU kernels' N is a
+// parameter of their shapes (paml_tpu/core/pallas_pruning.py:502): N = 32
+// for 16 to 32 states (amino acids), N = 64 for 33 to 64 (codons); the
+// wrapper chooses the instance (cuda_pruning.padded_states).  Patterns
+// are masked at the ragged edge by the kernels.
 //
 // The products stage their operands in shared memory: the three forms the
 // walk needs on a tile of BHT = 32 patterns (prod_ps, prod_pts, prod_gst),
-// P s and P^T G ([64 x 64] x [64 x 32]) and G s^T ([64 x 32] x [32 x 64],
+// P s and P^T G ([N x N] x [N x 32]) and G s^T ([N x 32] x [32 x N],
 // added into registers).  In float64 each warp issues Hopper's FP64
 // tensor-core product (mma.sync m16n8k8 .f64: 67 TFLOP/s on the H100 SXM's
-// data sheet, twice its FP64 FMA rate); the operand strides LDN = 68 and
-// LDH = 36 (both 4 mod 16 doubles) make the 8-byte fragment loads free of
-// bank conflicts.  In float32 the same threads compute the same result
+// data sheet, twice its FP64 FMA rate); the operand strides LDN = N + 4
+// and LDH = 36 (both 4 mod 16 doubles) make the 8-byte fragment loads free
+// of bank conflicts.  In float32 the same threads compute the same result
 // elements with FMA (TF32 would break the f32 tolerances).  The forward and
 // the adjoint call the same routine, so the adjoint's recomputed
 // contributions, and the scale factors taken from them, are bit for bit
 // the forward's.  What bounds the kernels is the tree walk around the
 // products (pruning_tree.cuh).
+//
+// Padding adds exact zeros to every product and sum, and the products take
+// their k-steps in the same order at both N, so N = 32 and N = 64 give the
+// same products.  The one sum over the states outside them, the root's
+// (col_reduce), takes 8 rows a thread at both (pruning_tree.cuh: ROOT_RW),
+// so the two instances give the same bits where the adjoint's grid (the
+// order of its dP slabs' sum) is the same.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,11 +40,29 @@
 
 namespace {
 
-constexpr int N = 64;        // padded states
-constexpr int NT = 256;      // threads per block
+constexpr int NT = 256;      // threads per block (8 warps)
 constexpr int BHT = 32;      // patterns per tile
-constexpr int LDN = N + 4;   // shared row stride of a [64 x 64] operand
-constexpr int LDH = BHT + 4; // shared row stride of a [64 x BHT] operand
+constexpr int LDH = BHT + 4; // shared row stride of a [N x BHT] operand
+
+// What follows from the padded state count N (32 or 64).  A product's
+// result is cut into RG groups of 16 rows; the 8 warps take CG = 8 / RG
+// column groups of each, QH tiles of 8 columns of a [N x BHT] result and
+// QN of a [N x N] one (EH and EN accumulator values a thread).  The
+// elementwise phases give each thread RW = N / 8 rows of its pattern.
+template <int N>
+struct Pad {
+  static_assert(N == 32 || N == 64, "the walk takes N = 32 or N = 64");
+  static constexpr int LDN = N + 4;       // row stride of an [N x N] operand
+  static constexpr int TLD = N + 1;       // row stride of a tip's dP_k
+  static constexpr int RG = N / 16;
+  static constexpr int RGS = N / 32;      // log2 RG
+  static constexpr int CG = 8 / RG;
+  static constexpr int QH = BHT / 8 / CG;
+  static constexpr int QN = N / 8 / CG;
+  static constexpr int EH = 4 * QH;
+  static constexpr int EN = 4 * QN;
+  static constexpr int RW = N / 8;
+};
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -78,13 +107,14 @@ __device__ __forceinline__ T guard(T x) {
 }
 
 // ---------------------------------------------------------------------------
-// Products.  Warp w owns rows 16 (w & 3) + [0, 16) of the result;
-// lane (gq = lane / 4, tq = lane % 4) holds, in each 16 x 8 tile, rows
-// gq and gq + 8 and columns 2 tq and 2 tq + 1 (the m16n8k8 accumulator
-// layout, used for float32 too).  acc8 (a [64 x BHT] result): tiles at
-// columns 16 (w >> 2) + 8 q, q < 2; acc16 (a [64 x 64] result): columns
-// 32 (w >> 2) + 8 q, q < 4.  Element e of the accumulator is tile q =
-// e / 4, register r = e % 4.
+// Products.  Warp w owns rows 16 (w % RG) + [0, 16) of the result and its
+// column group w / RG; lane (gq = lane / 4, tq = lane % 4) holds, in each
+// 16 x 8 tile, rows gq and gq + 8 and columns 2 tq and 2 tq + 1 (the
+// m16n8k8 accumulator layout, used for float32 too).  NQ tiles a warp: a
+// [N x BHT] result's at columns 8 (QH (w / RG) + q), a [N x N] result's at
+// 8 (QN (w / RG) + q).  At N = 64 (RG 4) that is 2 tiles of [64 x BHT] and
+// 4 of [64 x 64] a warp; at N = 32 (RG 2) one of each.  Element e of the
+// accumulator is tile q = e / 4, register r = e % 4.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void dmma(double d[4], const double a[4],
@@ -95,25 +125,27 @@ __device__ __forceinline__ void dmma(double d[4], const double a[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// (row, column) of accumulator element e; NQ = 2 (acc8) or 4 (acc16)
-template <int NQ>
+// (row, column) of accumulator element e; NQ = Pad<N>::QH or Pad<N>::QN
+template <int N, int NQ>
 __device__ __forceinline__ void acc_rc(int e, int& row, int& col) {
+  constexpr int RG = Pad<N>::RG, RGS = Pad<N>::RGS;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = e >> 2, r = e & 3;
-  row = 16 * (w & 3) + (lane >> 2) + 8 * (r >> 1);
-  col = 8 * (NQ * (w >> 2) + q) + 2 * (lane & 3) + (r & 1);
+  row = 16 * (w & (RG - 1)) + (lane >> 2) + 8 * (r >> 1);
+  col = 8 * (NQ * (w >> RGS) + q) + 2 * (lane & 3) + (r & 1);
 }
 
-// acc (NQ tiles of 16 x 8) += opA [64 x KD] . opB [KD x 8 NQ (this warp's
+// acc (NQ tiles of 16 x 8) += opA [N x KD] . opB [KD x 8 NQ (this warp's
 // columns)], with opA(m, k) = A[m * sam + k * sak] and opB(k, n) =
 // B[k * sbk + n * sbn] in shared memory, k ascending (a fixed order)
-template <typename T, int NQ, int KD>
+template <typename T, int N, int NQ, int KD>
 __device__ __forceinline__ void prod_acc(const T* A, int sam, int sak,
                                          const T* B, int sbk, int sbn,
                                          T* acc) {
+  constexpr int RG = Pad<N>::RG, RGS = Pad<N>::RGS;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int r0 = 16 * (w & 3) + gq, n0 = 8 * NQ * (w >> 2);
+  const int r0 = 16 * (w & (RG - 1)) + gq, n0 = 8 * NQ * (w >> RGS);
   if constexpr (std::is_same<T, double>::value) {
 #pragma unroll
     for (int k0 = 0; k0 < KD; k0 += 8) {
@@ -146,33 +178,32 @@ __device__ __forceinline__ void prod_acc(const T* A, int sam, int sak,
   }
 }
 
-// acc8 = P s: P [N][LDN], s [N][LDH]
-template <typename T>
-__device__ __forceinline__ void prod_ps(const T* Ps, const T* Ss, T acc[8]) {
+// acc (EH values) = P s: P [N][LDN], s [N][LDH]
+template <typename T, int N>
+__device__ __forceinline__ void prod_ps(const T* Ps, const T* Ss, T* acc) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = T(0);
-  prod_acc<T, 2, N>(Ps, LDN, 1, Ss, LDH, 1, acc);
+  for (int e = 0; e < Pad<N>::EH; ++e) acc[e] = T(0);
+  prod_acc<T, N, Pad<N>::QH, N>(Ps, Pad<N>::LDN, 1, Ss, LDH, 1, acc);
 }
 
-// acc8 = P^T G: P [N][LDN], G [N][LDH]
-template <typename T>
-__device__ __forceinline__ void prod_pts(const T* Ps, const T* Gs,
-                                         T acc[8]) {
+// acc (EH values) = P^T G: P [N][LDN], G [N][LDH]
+template <typename T, int N>
+__device__ __forceinline__ void prod_pts(const T* Ps, const T* Gs, T* acc) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = T(0);
-  prod_acc<T, 2, N>(Ps, 1, LDN, Gs, LDH, 1, acc);
+  for (int e = 0; e < Pad<N>::EH; ++e) acc[e] = T(0);
+  prod_acc<T, N, Pad<N>::QH, N>(Ps, 1, Pad<N>::LDN, Gs, LDH, 1, acc);
 }
 
-// acc16 += G s^T: G [N][LDH], s [N][LDH] (a sum over the tile's patterns)
-template <typename T>
-__device__ __forceinline__ void prod_gst(const T* Gs, const T* Ss,
-                                         T acc[16]) {
-  prod_acc<T, 4, BHT>(Gs, LDH, 1, Ss, 1, LDH, acc);
+// acc (EN values) += G s^T: G [N][LDH], s [N][LDH] (a sum over the tile's
+// patterns)
+template <typename T, int N>
+__device__ __forceinline__ void prod_gst(const T* Gs, const T* Ss, T* acc) {
+  prod_acc<T, N, Pad<N>::QN, BHT>(Gs, LDH, 1, Ss, 1, LDH, acc);
 }
 
 // dP[k, c, i, j] = sum_g slab[g, k, c, i, j] (root row 0), dpi likewise,
 // sliced from N back to n, with nan_to_num
-template <typename T>
+template <typename T, int N>
 __global__ void reduce_kernel(const T* __restrict__ dP_slab,
                               const T* __restrict__ dpi_slab,
                               T* __restrict__ dP, T* __restrict__ dpi, int G,
@@ -205,13 +236,13 @@ __global__ void reduce_kernel(const T* __restrict__ dP_slab,
   }
 }
 
-template <typename T>
+template <typename T, int N>
 int launch_reduce(const T* dP_slab, const T* dpi_slab, T* dP, T* dpi, int G,
                   int nnode, int C, int n, int root, cudaStream_t stream) {
   const size_t total = (size_t)nnode * C * n * n + (size_t)C * n;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
                                                       : 4096);
-  reduce_kernel<T><<<blocks, 256, 0, stream>>>(dP_slab, dpi_slab, dP, dpi,
+  reduce_kernel<T, N><<<blocks, 256, 0, stream>>>(dP_slab, dpi_slab, dP, dpi,
                                                G, nnode, C, n, root);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 // The tree walk of both pruning pairs on Hopper: the forward pass with a
 // residual of scaled partials, and the adjoint that reads the residual
 // instead of recomputing the forward; templated on float and double and on
-// the tip encoding.  Instantiated by pruning_big.cu (B3/B4: AMB = false,
+// the tip encoding and on the padded state count N (pruning_common.cuh:
+// 32 or 64).  Instantiated by pruning_big.cu (B3/B4: AMB = false,
 // state-code tips) and pruning.cu (B1/B2: AMB = true, coded tips with an
-// ambiguity table).  With AMB = false every `if constexpr (AMB)` branch is
-// gone: B3/B4's code is the state-code walk alone.
+// ambiguity table), each at N = 32 and N = 64.  With AMB = false every
+// `if constexpr (AMB)` branch is gone: B3/B4's code is the state-code walk
+// alone.
 //
 // Schedules (host: cuda_pruning.BigPlan, the port of _sched_arrays,
 // paml_tpu/core/pallas_pruning_big.py:59):
@@ -31,11 +33,11 @@
 //   class); the adjoint's block (g, c) takes a contiguous range of tiles and
 //   walks the tree once per visit of up to TV of them (TV from the wrapper).
 // * Elementwise phases (the children's product, rescale, the adjoint G_k)
-//   give thread (w = warp, lane) rows 8 w .. 8 w + 7 of pattern `lane`: a
-//   warp's gathers P[j, state[h]] and its loads and stores of partials touch
-//   one row at a time, a few cache lines; a column max or sum over the
-//   states is 8 values in registers and one pass through shared memory
-//   (col_reduce).
+//   give thread (w = warp, lane) rows RW w .. RW w + RW - 1 of pattern
+//   `lane` (RW = N / 8: 8 rows at N = 64, 4 at N = 32): a warp's gathers
+//   P[j, state[h]] and its loads and stores of partials touch one row at a
+//   time, a few cache lines; a column max or sum over the states is RW
+//   values in registers and one pass through shared memory (col_reduce).
 // * Products on the FP64 tensor cores in float64, FMA in float32, through
 //   pruning_common.cuh's prod_* (the same routine in forward and adjoint).
 // * The forward gathers a tip child's contribution where its parent needs
@@ -51,9 +53,10 @@
 //   children's dP_k are summed over the visit's tiles before one store to
 //   the block's slab: internal children's in the product's
 //   registers, tip children's in shared memory by a scatter, dP_k[j,
-//   state[h]] += G_k[j, h] (warp w owns the states = w mod 4 of 32 rows and
-//   takes, in order, the patterns whose state it owns, so the sum order is
-//   fixed and the warp does not diverge); a tip's one-hot product is gone.
+//   state[h]] += G_k[j, h] (warp w owns the states = w mod SG of 32 rows,
+//   SG = 256 / N warps to each 32 rows, and takes, in order, the patterns
+//   whose state it owns, so the sum order is fixed and the warp does not
+//   diverge); a tip's one-hot product is gone.
 // * The slabs (dP [G, nnode, C, N, N], dpi [G, C, N]) are summed by
 //   reduce_kernel (root row zeroed, nan_to_num), as the JAX wrapper does
 //   outside its kernel (pallas_pruning_big.py:614-617).  Slabs rather than
@@ -88,7 +91,9 @@
 // costs more than it saves (G 16: 21 ms; PERF.md).  The tip table adds
 // 2 n^2 A per tip and class, and an ambiguous cell 2 n^2 to its tip's dP:
 // for gapped codon data (A of a few dozen, 5 % of the cells) a few per
-// cent of the walk's products.
+// cent of the walk's products.  At N = 32 (20 states) each product and
+// each P are a quarter of N = 64's, each partial half, and a block's shared
+// memory 2.3-2.4 times smaller.
 #pragma once
 
 #include "pruning_common.cuh"
@@ -96,20 +101,25 @@
 namespace {
 
 constexpr int KMAX = 2;      // children per node (cuda_pruning.big_tree)
-constexpr int TLD = N + 1;   // row stride of a tip's dP_k in shared memory
 constexpr int RED = 2 * 8 * BHT;   // values of col_reduce's scratch
+// rows a thread in the sum over the root's states, at every N: the column
+// sums group the rows by thread, so N = 32's instance takes N = 64's
+// grouping there (its other elementwise phases hold no sum over states),
+// and both instances give the same bits where the adjoint's grid is the
+// same
+constexpr int ROOT_RW = 8;
 
 // [N][LDN] <- P_v [N][N] by asynchronous 16-byte copies (cp.async), which
 // overlap whatever the block does until cp_async_wait
-template <typename T>
+template <typename T, int N>
 __device__ __forceinline__ void load_Pn_async(T* Ps, const T* Pv) {
   constexpr int V = 16 / sizeof(T);          // values per copy
   constexpr int PER = N * N / V / NT;        // copies per thread
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
     const int e = (threadIdx.x + q * NT) * V;
-    const unsigned dst = static_cast<unsigned>(
-        __cvta_generic_to_shared(Ps + (e / N) * LDN + e % N));
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+        Ps + (e / N) * Pad<N>::LDN + e % N));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                  "l"(Pv + e));
   }
@@ -134,8 +144,8 @@ __device__ __forceinline__ void cp_async_val(T* dst, const T* src, bool ok) {
                  "l"(src), "r"(bytes));
 }
 
-// The max (MAX) or sum over the 64 rows of pattern column `lane`, from
-// each thread's value over its 8 rows, through red [2][8][BHT]: the halves
+// The max (MAX) or sum over the N rows of pattern column `lane`, from
+// each thread's value over its RW rows, through red [2][8][BHT]: the halves
 // alternate, so a half is written again only after the barrier of the
 // call between, and one barrier a call does.  Every thread gets the result;
 // a sum runs in row order.
@@ -157,7 +167,7 @@ __device__ __forceinline__ T col_reduce(T x, T* red, int& half) {
 
 // where a coded tip's contribution column lies (AMB): a state's in P_v
 // (row stride N), an ambiguity's in the tip table TA (row stride LA)
-template <typename T>
+template <typename T, int N>
 __device__ __forceinline__ void coded_src(const T*& src, int& rs, const T* P,
                                           const T* TA, int v, int c, int C,
                                           int code, int n, int LA) {
@@ -170,13 +180,14 @@ __device__ __forceinline__ void coded_src(const T*& src, int& rs, const T* P,
   }
 }
 
-template <typename T, bool AMB>
+template <typename T, bool AMB, int N>
 __global__ void __launch_bounds__(NT) big_fwd_kernel(
     const int* __restrict__ fs, int nsteps, int kmax,
     const T* __restrict__ P, const int* __restrict__ states,
     const T* __restrict__ pi, T* __restrict__ lnf, T* __restrict__ S,
     T* __restrict__ work, int C, int H, int ns, int n, int nslots,
     const T* __restrict__ TA, int LA) {
+  constexpr int LDN = Pad<N>::LDN, RW = Pad<N>::RW, EH = Pad<N>::EH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ps = reinterpret_cast<T*>(smem_raw);   // [N][LDN]
   T* Ss = Ps + N * LDN;                      // [N][LDH]
@@ -194,7 +205,7 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
     const int srow = r[2], keep = r[3 + 2 * kmax], kept = r[4 + 2 * kmax];
     const bool root = i == nsteps - 1;
     __syncthreads();   // the children's slots are written; Ps, Ss are free
-    if (!root) load_Pn_async(Ps, P + ((size_t)r[0] * C + c) * N * N);
+    if (!root) load_Pn_async<T, N>(Ps, P + ((size_t)r[0] * C + c) * N * N);
     // the children's contributions (a gather for a tip, its slot or the
     // kept c for an internal node), their product rescaled by its column
     // max; each child's source and row stride first, then every load
@@ -209,7 +220,7 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
       if (kid >= 0 && kid < ns) {
         const int st = hg < H ? states[(size_t)kid * H + hg] : 0;
         if constexpr (AMB) {
-          coded_src(src[k], rs[k], P, TA, kid, c, C, st, n, LA);
+          coded_src<T, N>(src[k], rs[k], P, TA, kid, c, C, st, n, LA);
         } else {
           src[k] = P + ((size_t)kid * C + c) * N * N + st;
           rs[k] = N;
@@ -222,15 +233,15 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
         rs[k] = BHT;
       }
     }
-    T y[KMAX][8];
+    T y[KMAX][RW];
 #pragma unroll
     for (int k = 0; k < KMAX; ++k)
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        y[k][q] = has[k] ? src[k][(8 * w + q) * rs[k]] : T(1);
-    T x[8], m = T(0);
+      for (int q = 0; q < RW; ++q)
+        y[k][q] = has[k] ? src[k][(RW * w + q) * rs[k]] : T(1);
+    T x[RW], m = T(0);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < RW; ++q) {
       T p = y[0][q];
 #pragma unroll
       for (int k = 1; k < KMAX; ++k)
@@ -247,14 +258,27 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
                                         : nullptr;
     T F = T(0);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int j = 8 * w + q;
+    for (int q = 0; q < RW; ++q) {
+      const int j = RW * w + q;
       x[q] = x[q] * rms;
       Ss[j * LDH + lane] = x[q];
       if (Sv != nullptr && j < n && hg < H) Sv[(size_t)j * H + hg] = x[q];
       F += pi[(size_t)c * N + j] * x[q];
     }
     if (root) {
+      if constexpr (RW != ROOT_RW) {
+        // the sum over the states as N = 64's instance takes it
+        // (ROOT_RW), from s_root in Ss
+        __syncthreads();
+        F = T(0);
+        if (w < N / ROOT_RW) {
+#pragma unroll
+          for (int q = 0; q < ROOT_RW; ++q) {
+            const int j = ROOT_RW * w + q;
+            F += pi[(size_t)c * N + j] * Ss[j * LDH + lane];
+          }
+        }
+      }
       F = col_reduce<T, false>(F, red, half);
       if (w == 0 && hg < H)
         lnf[(size_t)c * H + hg] =
@@ -263,15 +287,15 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
     }
     cp_async_wait();
     __syncthreads();
-    T acc[8];
-    prod_ps(Ps, Ss, acc);
+    T acc[EH];
+    prod_ps<T, N>(Ps, Ss, acc);
     // c_v into shared memory when the next row is v's parent, else its slot
     T* out = keep ? Cs : wb + (size_t)r[1] * NH;
     const int ld = keep ? LDH : BHT;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < EH; ++e) {
       int row, col;
-      acc_rc<2>(e, row, col);
+      acc_rc<N, Pad<N>::QH>(e, row, col);
       out[row * ld + col] = acc[e];
     }
   }
@@ -279,13 +303,13 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
 
 // a residual row of S into Sb [N][LDH] by asynchronous copies (zero past
 // n and H; the caller waits)
-template <typename T>
+template <typename T, int N>
 __device__ __forceinline__ void load_S_async(T* Sb, const T* S, int srow,
                                              int c, int C, int n, int H,
                                              int h0) {
   const T* src = S + ((size_t)srow * C + c) * n * H;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
+  for (int q = 0; q < N * BHT / NT; ++q) {
     const int e = threadIdx.x + q * NT, j = e / BHT, h = e % BHT;
     const bool ok = j < n && h0 + h < H;
     cp_async_val(Sb + j * LDH + h, ok ? src + (size_t)j * H + h0 + h : src,
@@ -311,28 +335,29 @@ __device__ __forceinline__ void child_codes(int st[KMAX], const int* kr,
 // this thread's rows of a tip's contribution P_k[j, st] (kr a tip), or of
 // a cherry's scaled partial rebuilt from its grandchildren's gathers as the
 // forward built it (kr a cherry), into dst [N][LDH]
-template <typename T, bool AMB>
+template <typename T, bool AMB, int N>
 __device__ __forceinline__ void gather_child(T* dst, const int* kr,
                                              const int st[KMAX], int ns,
                                              const T* P, int c, int C,
                                              T* red, int& half, const T* TA,
                                              int n, int LA) {
+  constexpr int RW = Pad<N>::RW;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T y[KMAX][8];
+  T y[KMAX][RW];
   if constexpr (AMB) {
     const T* src[KMAX];
     int rs[KMAX];
 #pragma unroll
     for (int a = 0; a < KMAX; ++a) {
       const int v = st[a] < 0 ? 0 : (kr[0] < ns ? kr[0] : kr[3 + a]);
-      coded_src(src[a], rs[a], P, TA, v, c, C, st[a] < 0 ? 0 : st[a], n,
-                LA);
+      coded_src<T, N>(src[a], rs[a], P, TA, v, c, C, st[a] < 0 ? 0 : st[a],
+                      n, LA);
     }
 #pragma unroll
     for (int a = 0; a < KMAX; ++a)
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        y[a][q] = st[a] >= 0 ? src[a][(8 * w + q) * rs[a]] : T(1);
+      for (int q = 0; q < RW; ++q)
+        y[a][q] = st[a] >= 0 ? src[a][(RW * w + q) * rs[a]] : T(1);
   } else {
     const T* src[KMAX];
 #pragma unroll
@@ -343,17 +368,17 @@ __device__ __forceinline__ void gather_child(T* dst, const int* kr,
 #pragma unroll
     for (int a = 0; a < KMAX; ++a)
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        y[a][q] = st[a] >= 0 ? src[a][(8 * w + q) * N] : T(1);
+      for (int q = 0; q < RW; ++q)
+        y[a][q] = st[a] >= 0 ? src[a][(RW * w + q) * N] : T(1);
   }
   if (kr[0] < ns) {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = y[0][q];
+    for (int q = 0; q < RW; ++q) dst[(RW * w + q) * LDH + lane] = y[0][q];
     return;
   }
-  T x[8], m = T(0);
+  T x[RW], m = T(0);
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
+  for (int q = 0; q < RW; ++q) {
     x[q] = y[0][q];
 #pragma unroll
     for (int a = 1; a < KMAX; ++a)
@@ -363,10 +388,10 @@ __device__ __forceinline__ void gather_child(T* dst, const int* kr,
   m = col_reduce<T, true>(m, red, half);
   const T rms = T(1) / (m > T(0) ? m : T(1));
 #pragma unroll
-  for (int q = 0; q < 8; ++q) dst[(8 * w + q) * LDH + lane] = x[q] * rms;
+  for (int q = 0; q < RW; ++q) dst[(RW * w + q) * LDH + lane] = x[q] * rms;
 }
 
-template <typename T, bool AMB>
+template <typename T, bool AMB, int N>
 __global__ void __launch_bounds__(NT) big_bwd_kernel(
     const int* __restrict__ bs, int nint, int kmax,
     const T* __restrict__ P, const int* __restrict__ states,
@@ -375,6 +400,11 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
     T* __restrict__ dpi_slab, T* __restrict__ work, int C, int H, int ns,
     int n, int nnode, int vclip, int nslots, int ntiles, int TV,
     const T* __restrict__ amb, const T* __restrict__ TA, int LA) {
+  constexpr int LDN = Pad<N>::LDN, TLD = Pad<N>::TLD, RW = Pad<N>::RW;
+  constexpr int EH = Pad<N>::EH, EN = Pad<N>::EN;
+  constexpr int QH = Pad<N>::QH, QN = Pad<N>::QN;
+  // SG = 256 / N warps share each 32 rows of a tip's dP_k; SGS = log2 SG
+  constexpr int SG = 256 / N, SGS = N == 64 ? 2 : 3;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [kmax][N][LDN]: P_k, or a tip's dP_k ([N][TLD] in the same room)
   T* kb = reinterpret_cast<T*>(smem_raw);
@@ -403,25 +433,31 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
       const int hg = (t0 + t) * BHT + lane;
       const T* Sr = S + ((size_t)bs[2] * C + c) * n * H;
       T* Ar = abuf + ((size_t)bs[1] * TV + t) * NH;
-      T x[8], F = T(0);
+      // ROOT_RW rows a thread at every N (warps past N / ROOT_RW idle at
+      // N = 32): the sum over the states as N = 64's instance takes it
+      const bool on = RW == ROOT_RW || w < N / ROOT_RW;
+      T x[ROOT_RW], F = T(0);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int j = 8 * w + q;
-        x[q] = (j < n && hg < H) ? Sr[(size_t)j * H + hg] : T(0);
-        F += pic[j] * x[q];
+      for (int q = 0; q < ROOT_RW; ++q) {
+        const int j = ROOT_RW * w + q;
+        x[q] = (on && j < n && hg < H) ? Sr[(size_t)j * H + hg] : T(0);
+        if (on) F += pic[j] * x[q];
       }
       F = col_reduce<T, false>(F, red, half);
       F = F > Num<T>::tiny() ? F : Num<T>::tiny();
       const T gf = hg < H ? gbar[(size_t)c * H + hg] / F : T(0);
+      if (on) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int j = 8 * w + q;
-        Ar[j * BHT + lane] = gf * pic[j];
-        // dpi[j] += sum over the tile's patterns (the warp's lanes)
-        T s = gf * x[q];
+        for (int q = 0; q < ROOT_RW; ++q) {
+          const int j = ROOT_RW * w + q;
+          Ar[j * BHT + lane] = gf * pic[j];
+          // dpi[j] += sum over the tile's patterns (the warp's lanes)
+          T s = gf * x[q];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (lane == 0) dpa[j] += s;
+          for (int o = 16; o > 0; o >>= 1)
+            s += __shfl_xor_sync(0xffffffffu, s, o);
+          if (lane == 0) dpa[j] += s;
+        }
       }
     }
     for (int i = 0; i < nint; ++i) {
@@ -435,16 +471,16 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
         if (kid < ns) {
           for (int e = tid; e < N * TLD; e += NT) kk[e] = T(0);
         } else {
-          load_Pn_async(kk, P + ((size_t)kid * C + c) * N * N);
+          load_Pn_async<T, N>(kk, P + ((size_t)kid * C + c) * N * N);
         }
       }
       // internal children's dP_k; with AMB also a tip child's ambiguous
       // cells (its resolved cells go to the scatter in kb)
-      T acc[KMAX][16];
+      T acc[KMAX][EN];
 #pragma unroll
       for (int k = 0; k < KMAX; ++k)
 #pragma unroll
-        for (int e = 0; e < 16; ++e) acc[k][e] = T(0);
+        for (int e = 0; e < EN; ++e) acc[k][e] = T(0);
       for (int t = 0; t < nt; ++t) {
         const int ht = (t0 + t) * BHT;
         __syncthreads();   // kb's zeros are written; cb, sb, Gb, Ab are free
@@ -455,7 +491,7 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
         {
           const T* Av = abuf + ((size_t)r[1] * TV + t) * NH;
 #pragma unroll
-          for (int q = 0; q < 8; ++q) {
+          for (int q = 0; q < N * BHT / NT; ++q) {
             const int e = tid + q * NT;
             cp_async_val(Ab + (e / BHT) * LDH + e % BHT, Av + e, true);
           }
@@ -470,7 +506,7 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
           if (inner) {
             if (first < 0) first = k;
             if (kr[1] >= 0)
-              load_S_async(sb + k * N * LDH, S, kr[1], c, C, n, H, ht);
+              load_S_async<T, N>(sb + k * N * LDH, S, kr[1], c, C, n, H, ht);
           }
           if (k < K && (!inner || kr[1] < 0))
             child_codes(st[k], kr, kmax, ns, states, H, ht + lane);
@@ -479,8 +515,8 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
         for (int k = 0; k < KMAX; ++k) {
           const int* kr = r + 3 + stride * k;
           if (k >= K || (kr[0] >= ns && kr[1] >= 0)) continue;
-          gather_child<T, AMB>((kr[0] < ns ? cb : sb) + k * N * LDH, kr,
-                               st[k], ns, P, c, C, red, half, TA, n, LA);
+          gather_child<T, AMB, N>((kr[0] < ns ? cb : sb) + k * N * LDH, kr,
+                                  st[k], ns, P, c, C, red, half, TA, n, LA);
         }
         for (int k = first; first >= 0 && k < K; ++k) {
           const int* kr = r + 3 + stride * k;
@@ -490,12 +526,12 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
             cp_async_wait();   // the node's P_k, the s_k
             __syncthreads();
           }
-          T a8[8];
-          prod_ps(kb + k * N * LDN, sb + k * N * LDH, a8);
+          T a8[EH];
+          prod_ps<T, N>(kb + k * N * LDN, sb + k * N * LDH, a8);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
+          for (int e = 0; e < EH; ++e) {
             int row, col;
-            acc_rc<2>(e, row, col);
+            acc_rc<N, QH>(e, row, col);
             ck[row * LDH + col] = a8[e];
           }
         }
@@ -504,8 +540,8 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
         // 2) the node's scale factor, from the product of the c_k
         T m = T(0);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int e = (8 * w + q) * LDH + lane;
+        for (int q = 0; q < RW; ++q) {
+          const int e = (RW * w + q) * LDH + lane;
           T p = cb[e];
           for (int k = 1; k < K; ++k) p *= cb[k * N * LDH + e];
           m = (q == 0 || p > m) ? p : m;
@@ -528,8 +564,8 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
               T* G1 = Gb + k1 * N * LDH;
               const bool own = (r + 3 + stride * k1)[0] < vclip;
 #pragma unroll
-              for (int q = 0; q < 8; ++q) {
-                const int e = (8 * w + q) * LDH + lane;
+              for (int q = 0; q < RW; ++q) {
+                const int e = (RW * w + q) * LDH + lane;
                 T loo = T(1);
                 for (int k2 = 0; k2 < K; ++k2)
                   if (k2 != k1) loo *= cb[k2 * N * LDH + e];
@@ -543,17 +579,19 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
           T* kk = kb + k * N * LDN;
           if (kid < ns) {
             // dP_k[j, state[h]] += G_k[j, h], h in order; warp w takes
-            // the states = w mod 4 of rows 32 (w / 4) + lane, and walks only
-            // the patterns whose state it owns (a ballot over the tile)
-            // (with AMB only the resolved cells, st < n)
-            const int j = 32 * (w >> 2) + lane;
+            // the states = w mod SG of rows 32 (w / SG) + lane, and walks
+            // only the patterns whose state it owns (a ballot over the
+            // tile) (with AMB only the resolved cells, st < n)
+            const int j = 32 * (w >> SGS) + lane;
             unsigned own;
             if constexpr (AMB)
-              own = __ballot_sync(0xffffffffu, lane < hn && st[k][0] < n &&
-                                                   (st[k][0] & 3) == (w & 3));
+              own = __ballot_sync(0xffffffffu,
+                                  lane < hn && st[k][0] < n &&
+                                      (st[k][0] & (SG - 1)) == (w & (SG - 1)));
             else
-              own = __ballot_sync(
-                  0xffffffffu, lane < hn && (st[k][0] & 3) == (w & 3));
+              own = __ballot_sync(0xffffffffu,
+                                  lane < hn && (st[k][0] & (SG - 1)) ==
+                                                   (w & (SG - 1)));
             while (own != 0u) {
               const int h = __ffs(own) - 1;
               own &= own - 1u;
@@ -572,23 +610,23 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
                     amb + (size_t)(__shfl_sync(0xffffffffu, st[k][0], h) - n)
                               * N;
 #pragma unroll
-                for (int e = 0; e < 16; ++e) {
+                for (int e = 0; e < EN; ++e) {
                   int row, col;
-                  acc_rc<4>(e, row, col);
+                  acc_rc<N, QN>(e, row, col);
                   acc[k][e] = Num<T>::fma(Gk[row * LDH + h], ar[col],
                                           acc[k][e]);
                 }
               }
             }
           } else {
-            prod_gst(Gk, sb + k * N * LDH, acc[k]);
-            T a8[8];
-            prod_pts(kk, Gk, a8);
+            prod_gst<T, N>(Gk, sb + k * N * LDH, acc[k]);
+            T a8[EH];
+            prod_pts<T, N>(kk, Gk, a8);
             T* Ak = abuf + ((size_t)kr[2] * TV + t) * NH;
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
+            for (int e = 0; e < EH; ++e) {
               int row, col;
-              acc_rc<2>(e, row, col);
+              acc_rc<N, QH>(e, row, col);
               Ak[row * BHT + col] = a8[e];
             }
           }
@@ -603,9 +641,9 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
           if (k >= K || r[3 + stride * k] >= ns) continue;
           T* kk = kb + k * N * LDN;
 #pragma unroll
-          for (int e = 0; e < 16; ++e) {
+          for (int e = 0; e < EN; ++e) {
             int row, col;
-            acc_rc<4>(e, row, col);
+            acc_rc<N, QN>(e, row, col);
             kk[row * TLD + col] += acc[k][e];
           }
         }
@@ -625,9 +663,9 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
           }
         } else {
 #pragma unroll
-          for (int e = 0; e < 16; ++e) {
+          for (int e = 0; e < EN; ++e) {
             int row, col;
-            acc_rc<4>(e, row, col);
+            acc_rc<N, QN>(e, row, col);
             T* p = d + row * N + col;
             *p = add ? *p + acc[k][e] : acc[k][e];
           }

@@ -130,17 +130,17 @@ def test_fused_body_step0_is_an_eager_step():
 def test_padded_P_equals_the_index_construction(dtype, extra, n):
     rng = np.random.default_rng(n + extra)
     P = torch.as_tensor(rng.random((7, 3, n, n)), dtype=dtype)
-    nnode, N = 7 + extra, cuda_pruning.N
+    nnode, N = 7 + extra, cuda_pruning.padded_states(n)
     old = P.new_zeros((nnode, 3, N, N))
     old[:7, :, :n, :n] = P
     old[7:, :, range(n), range(n)] = 1.0
-    new = cuda_pruning.padded_P(P, nnode)
+    new = cuda_pruning.padded_P(P, nnode, N)
     assert new.dtype == dtype and torch.equal(new, old)
 
 
 def test_padded_P_keeps_a_kernel_ready_P():
     P = torch.rand(5, 2, 64, 64, dtype=torch.float64)
-    assert cuda_pruning.padded_P(P, 5) is P
+    assert cuda_pruning.padded_P(P, 5, 64) is P
 
 
 def test_bench_refuses_without_a_card(monkeypatch, capsys, tmp_path):

@@ -165,12 +165,13 @@ def test_adjoint_grid_fills_the_card(shape):
     ntiles = cuda_pruning.big_tiles(H)
     for esize in (4, 8):
         G = cuda_pruning.big_bwd_grid(topo.nnode, C, ntiles, esize, 132,
-                                      80 << 30, bp.work_per_block)
+                                      80 << 30, bp.work_per_block(64), 64)
         assert G * C >= min(132, ntiles * C) and G <= ntiles
         tv = cuda_pruning.visit_tiles(ntiles, G)
         assert tv * G >= ntiles and tv <= cuda_pruning.BIG_TMAX
     # slabs and workspace stay within an eighth of the card
-    per_g = (topo.nnode * C * 64 * 64 + C * 64 + C * bp.work_per_block) * 8
+    per_g = (topo.nnode * C * 64 * 64 + C * 64 + C * bp.work_per_block(64)) \
+        * 8
     assert G * per_g <= (80 << 30) // cuda_pruning.BIG_WORK_SHARE
 
 

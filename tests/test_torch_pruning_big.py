@@ -128,7 +128,7 @@ def test_dispatch_picks_big_kernels_for_large_trees():
     ntiles = cuda_pruning.big_tiles(1024)
     assert cuda_pruning.big_bwd_grid(
         big.nnode, 4, ntiles, 8, 132, 80 << 30,
-        cuda_pruning.big_plan(big).work_per_block) == ntiles == 32
+        cuda_pruning.big_plan(big).work_per_block(64), 64) == ntiles == 32
     assert cuda_pruning.use_big_kernels(True)
     # multi-hot tips stay on B1/B2 (B3/B4 take state codes only)
     assert not cuda_pruning.use_big_kernels(False)
@@ -217,16 +217,16 @@ def test_big_adjoint_grid_fills_the_card():
     # H100: 132 SMs, 80 GB; f64 slabs of the 1024-taxon tree are 268 MB
     # per g, so G x C reaches the SM count, capped by the tile count
     big = _balanced_topo(1024)
-    wpb = cuda_pruning.big_plan(big).work_per_block
+    wpb = cuda_pruning.big_plan(big).work_per_block(64)
     assert wpb == (11 + 1) * cuda_pruning.BIG_TMAX * 64 * 32
     ntiles = cuda_pruning.big_tiles(10240)
     assert cuda_pruning.big_bwd_grid(big.nnode, 4, ntiles, 8, 132, 80 << 30,
-                                     wpb) == 33
+                                     wpb, 64) == 33
     assert cuda_pruning.big_bwd_grid(big.nnode, 4, 16, 8, 132, 80 << 30,
-                                     wpb) == 16
+                                     wpb, 64) == 16
     # a small card caps G by memory
     assert cuda_pruning.big_bwd_grid(big.nnode, 4, ntiles, 8, 132, 8 << 30,
-                                     wpb) == 3
+                                     wpb, 64) == 3
     # each block walks its tiles in visits of at most BIG_TMAX
     assert cuda_pruning.visit_tiles(ntiles, 33) == 10
     assert cuda_pruning.visit_tiles(ntiles, 3) == cuda_pruning.BIG_TMAX
@@ -239,8 +239,9 @@ def test_big_grids_fill_the_card_at_a_chunk(esize):
     big = _balanced_topo(1024)
     ntiles = cuda_pruning.big_tiles(1024)
     assert ntiles * 4 >= 128
+    wpb = cuda_pruning.big_plan(big).work_per_block(64)
     G = cuda_pruning.big_bwd_grid(big.nnode, 4, ntiles, esize, 132, 80 << 30,
-                                  cuda_pruning.big_plan(big).work_per_block)
+                                  wpb, 64)
     assert G * 4 >= 128
     assert cuda_pruning.visit_tiles(ntiles, G) == 1
 
@@ -256,8 +257,8 @@ def test_big_shared_memory_fits_a_block(esize, kmax):
     topo = from_treenode(treeio.parse_newick(f"({kids});"), names)
     walked = cuda_pruning.big_plan(cuda_pruning.big_tree(topo)).kmax
     assert walked == cuda_pruning.BIG_KMAX == 2
-    fwd = cuda_pruning.big_fwd_smem(esize)
-    bwd = cuda_pruning.big_bwd_smem(esize, walked)
+    fwd = cuda_pruning.big_fwd_smem(esize, 64)
+    bwd = cuda_pruning.big_bwd_smem(esize, walked, 64)
     assert 0 < fwd <= cuda_pruning.SMEM_MAX == 232448
     assert 0 < bwd <= cuda_pruning.SMEM_MAX
     # B4 holds, per child, P_k (or a tip's dP_k), c_k, s_k and G_k

@@ -234,9 +234,9 @@ def test_fused_shared_memory_fits_a_block(esize):
     # B1 and B2 launch with the forward's and the adjoint's carve of the
     # binary walk; the tip table kernel holds P_v [N][LDN] and a tile of
     # amb^T [N][LDH]
-    fwd = cuda_pruning.big_fwd_smem(esize)
-    bwd = cuda_pruning.big_bwd_smem(esize, cuda_pruning.BIG_KMAX)
-    table = (64 * cuda_pruning.BIG_LDN + 64 * cuda_pruning.BIG_LDH) * esize
+    fwd = cuda_pruning.big_fwd_smem(esize, 64)
+    bwd = cuda_pruning.big_bwd_smem(esize, cuda_pruning.BIG_KMAX, 64)
+    table = (64 * cuda_pruning.ldn(64) + 64 * cuda_pruning.BIG_LDH) * esize
     for smem in (fwd, bwd, table):
         assert 0 < smem <= cuda_pruning.SMEM_MAX == 232448
     # B2 holds per child P_k (or a tip's dP_k), c_k, s_k and G_k
@@ -310,10 +310,10 @@ def test_tip_table_must_fit_the_card(ns, C, A, esize, fits):
     # B1/B2's table TA [ns, C, 64, LA] may take at most 1/8 of an 80 GB
     # card; a larger one raises before anything is allocated
     mem = 80 * 2 ** 30
-    need = cuda_pruning.tip_table_bytes(ns, C, A, esize)
+    need = cuda_pruning.tip_table_bytes(ns, C, A, esize, 64)
     assert need == ns * C * 64 * (-(-A // 32) * 32) * esize
     if fits:
-        cuda_pruning.check_tip_table(ns, C, A, esize, mem)
+        cuda_pruning.check_tip_table(ns, C, A, esize, mem, 64)
     else:
         with pytest.raises(ValueError, match="tip table"):
-            cuda_pruning.check_tip_table(ns, C, A, esize, mem)
+            cuda_pruning.check_tip_table(ns, C, A, esize, mem, 64)

@@ -201,7 +201,8 @@ def grid(torch, rng, out, card):
                 cp.big_bwd_grid = full
             walk = device_ms(prof, "big_bwd_kernel") / 3
             red = device_ms(prof, "reduce_kernel") / 3
-            slab = G * topo.nnode * C * cp.N * cp.N * P.element_size()
+            npad = cp.padded_states(P.shape[-1])
+            slab = G * topo.nnode * C * npad * npad * P.element_size()
             out.append({"probe": "grid", "shape": tag, "card": card,
                         "G": G, "blocks": G * C,
                         "visit_tiles": cp.visit_tiles(
