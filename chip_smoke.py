@@ -58,8 +58,9 @@
    `paml_tpu_torch.__main__.main(["codeml", ctl])` runs it in this
    process on the card; then the same alignment with 3b's gaps and Ns,
    `NSsites = 0 8`.  B3/B4 must carry the clean fits and B1/B2 the gapped
-   ones, with no plain call during a fit (the Hessians' calls of the plain
-   level pass are counted apart); each lnL in `mlc` must match the plain
+   ones, with no plain call during a fit, and the Hessians behind the SEs
+   must launch H1 / H2 and call the plain level pass on CUDA no time
+   (`pruning.TWICE_CALLS` 0); each lnL in `mlc` must match the plain
    version's at the fitted x; both likelihood-ratio tests (M1a-M2a, M7-M8)
    must be significant; every fit replays its evaluations from a CUDA
    graph, E2 carrying M7 / M8's quantiles (no host second in the quantile
@@ -338,11 +339,21 @@
    HKY85 + G4 with alpha free, E2), each fit graphed against eagerly
    (`graphed_against_eager`) and value + gradient at its start timed;
    clock 6 on the nucleotide loci, its five fits graphed against
-   dispatched bit for bit (step 1's Hessians, which the card does not
-   repeat bit for bit, given to both runs alike).
+   dispatched bit for bit, step 1's Hessians recomputed in each run
+   (`codeml.hessian` runs under PyTorch's deterministic algorithms).
+19. The Hessian's kernels, H1 and H2 (`csrc/pruning_tangent.cuh`), at
+   phase 4's shape (32 taxa x 4096 codons, M2a's 3 classes at its fitted
+   x, float64), clean (the B3/B4 walk) and gapped (B1/B2's coded tips):
+   each against its plain version on the card on 4 random directions
+   (lnfd and Sd 1e-10, dPd and dpid 1e-8), timed at 4 and at 16 directions
+   (medians of 5) beside its bound (`cuda_pruning.tan_work`), the plain
+   versions timed too; then M2a's Hessian by the kernels against the plain
+   route on the card (1e-8 of its largest entry), and by the kernels
+   twice, bit for bit, with no plain level pass.
 
 Prints a kernels JSON line (B1-B4's rows with their launches by instance,
-`instance_launches`, and their N = 32 times at aaml's shape) and, last,
+`instance_launches`, and their N = 32 times at aaml's shape; H1 / H2's
+rows with phase 6's launches and phase 19's times) and, last,
 {"ok": true, "device": {...}}.  Any
 failed phase raises, so the script exits non-zero; so it does with no
 CUDA device, or without the paml_tpu_torch package beside it.
@@ -1732,8 +1743,12 @@ def run_program(torch, workdir, tag, names, rows, nwk, nssites, card,
     if plain:
         raise AssertionError(f"program, {tag}: the plain pruning version ran "
                              f"{plain} times on CUDA outside the Hessians")
-    if not twice:
-        raise AssertionError(f"program, {tag}: getSE = 1 made no Hessian")
+    if twice:
+        raise AssertionError(f"program, {tag}: the Hessians called the plain "
+                             f"level pass {twice} times on CUDA")
+    if not (launches["tan_fwd"] and launches["tan_bwd"]):
+        raise AssertionError(f"program, {tag}: getSE = 1 launched no H1 / H2 "
+                             f"({launches})")
     return out, launches.plus(quantile=e2), lnls
 
 
@@ -1959,11 +1974,13 @@ def phase_program(torch, rng, report, card):
         out, launches, lnls = run_program(torch, work, "clean", names, rows,
                                           nwk, "0 1 2 7 8", card)
         for name, count in launches.items():
-            # E2 carries M7 / M8's quantiles, B3/B4 the pruning
-            if (count > 0) != (name.startswith("big") or name == "quantile"):
+            # E2 carries M7 / M8's quantiles, B3/B4 the pruning, H1 / H2
+            # the Hessians
+            if (count > 0) != (name.startswith(("big", "tan"))
+                               or name == "quantile"):
                 raise AssertionError(f"program, clean: {name} launched "
-                                     f"{count} times; B3/B4 and E2 should "
-                                     "carry it")
+                                     f"{count} times; B3/B4, H1/H2 and E2 "
+                                     "should carry it")
             if count:
                 put_launches(report, name, "launches_program_clean", count,
                              launches)
@@ -1982,11 +1999,11 @@ def phase_program(torch, rng, report, card):
                                           gapped_rows(rng, rows), nwk, "0 8",
                                           card)
         for name, count in launches.items():
-            if (count > 0) != (name.startswith("pruning")
+            if (count > 0) != (name.startswith(("pruning", "tan"))
                                or name == "quantile"):
                 raise AssertionError(f"program, gapped: {name} launched "
-                                     f"{count} times; B1/B2 and E2 should "
-                                     "carry it")
+                                     f"{count} times; B1/B2, H1/H2 and E2 "
+                                     "should carry it")
             if count:
                 put_launches(report, name, "launches_program_gapped", count,
                              launches)
@@ -2001,9 +2018,10 @@ def phase_program(torch, rng, report, card):
             torch, work, "branch-site", names, rows,
             nwk.replace("(t0, t1)", "(t0, t1) #1"), "2", card, model=2)
         for name, count in launches.items():
-            if (count > 0) != name.startswith("big"):
+            if (count > 0) != name.startswith(("big", "tan")):
                 raise AssertionError(f"program, branch-site: {name} launched "
-                                     f"{count} times; B3/B4 should carry it")
+                                     f"{count} times; B3/B4 and H1/H2 should "
+                                     "carry it")
             if count:
                 put_launches(report, name, "launches_program_branch_site",
                              count, launches)
@@ -6923,45 +6941,6 @@ def bayes_window_graphs(torch, work, pw, report, card):
     record_launches(report, "launches_graph_bayes_window", ("eigh",))
 
 
-def hessian_replay():
-    """(a context maker, a one-element list): inside the first block made,
-    `codeml.hessian` runs and its results are kept in call order; inside
-    a later one each call (at the same x, bit for bit, or it raises) runs
-    too, but returns the first block's result, and the list keeps the
-    largest difference between the two.  The Hessian route's sums are not
-    bit-reproducible on the card, and clock 6's step 1 feeds its
-    curvatures to the later fits: this keeps a graphed and an eager run
-    comparable bit for bit."""
-    from paml_tpu_torch.apps import codeml
-
-    kept, drift, blocks = [], [0.0], [0]
-
-    @contextlib.contextmanager
-    def replay():
-        real, calls = codeml.hessian, [0]
-        first = blocks[0] == 0
-        blocks[0] += 1
-
-        def hessian(neg, x, *, device):
-            H = real(neg, x, device=device)
-            if first:
-                kept.append((np.array(x), H))
-                return H
-            x0, H0 = kept[calls[0]]
-            calls[0] += 1
-            if not np.array_equal(x0, x):
-                raise AssertionError("clock 6's step 1 reached its Hessian "
-                                     "at another x")
-            drift[0] = max(drift[0], float(np.abs(H - H0).max()))
-            return H0.copy()
-        codeml.hessian = hessian
-        try:
-            yield
-        finally:
-            codeml.hessian = real
-    return replay, drift
-
-
 def clock56_graphs(torch, dating, report, card):
     """18c: clock 5 on 10d's codon loci, clean (B3/B4) and gapped (B1/B2),
     and on its nucleotide loci, with HKY85 and with HKY85 + G4 (alpha
@@ -7040,11 +7019,9 @@ def clock56_graphs(torch, dating, report, card):
     hd = clock56.read_tree_seqs(os.path.join(d, "tree.nwk"),
                                 os.path.join(d, "seq.txt"), C56_LOCI)
     spec = clock56.Clock56Spec(clock=6, model="HKY85", ncatG=1)
-    replay, drift = hessian_replay()
 
     def clock6(dev):
-        with replay():
-            return clock56.fit_clock6(hd, spec, device=dev)
+        return clock56.fit_clock6(hd, spec, device=dev)
     runs = {how: run_fits(torch, clock56, clock6, how)
             for how in ("graph", "eager")}
     g, e = runs["graph"], runs["eager"]
@@ -7065,9 +7042,8 @@ def clock56_graphs(torch, dating, report, card):
           f"optim.GRAPHS {g.counts}; host syncs per evaluation {per:.3f} at "
           f"the copy back; top others "
           + ", ".join(f"{k} {c}" for k, c in rest[:4]) + "; step 1's "
-          f"Hessians (eager, outside the graphs) recomputed at the same x "
-          f"differ by up to {drift[0]:.3e}, so the eager run is given the "
-          f"graphed run's", flush=True)
+          f"Hessians (eager, outside the graphs, PyTorch's deterministic "
+          f"algorithms) recomputed in each run", flush=True)
 
 
 def phase_pair_graphs(torch, report, card, pw, dating):
@@ -7090,6 +7066,163 @@ def phase_pair_graphs(torch, report, card, pw, dating):
         torch.cuda.empty_cache()
     print("phase 18: " + ", ".join(f"{k} {v:.1f} s" for k, v in t.items())
           + f"; {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def tangent_checks(torch, route, P, tips, topo, pi, gz, g, D, card):
+    """H1 and H2 (`cuda_pruning.ClassSiteLnfKernelTwice.tan_fwd` /
+    `tan_bwd`) on the card against their plain versions on the same
+    inputs, D random directions (Pdot, pidot) and gdot from the generator
+    g, gbar = gz: max |diff| of each, and the directions for the
+    timings."""
+    from paml_tpu_torch.core import cuda_pruning as cp, pruning
+
+    nnode, C, n = P.shape[0], P.shape[1], P.shape[-1]
+    f64 = dict(dtype=torch.float64, device="cuda")
+    Pd = torch.tensor(g.normal(0.0, 0.1, (D, nnode, C, n, n)), **f64)
+    pid = torch.tensor(g.normal(0.0, 0.01, (D, C, n)), **f64)
+    gd = torch.tensor(g.normal(0.0, 1.0, (D,) + tuple(gz.shape)), **f64) \
+        * gz.abs().max()
+    r = cp.ClassSiteLnfKernelTwice(P, tips, topo, pi)
+    lnfd = r.tan_fwd(Pd, pid)
+    Sd = r.Sd
+    dPd, dpid = r.tan_bwd(gz, gd)
+    torch.cuda.synchronize()
+    lnfd_r, Sd_r = pruning.class_site_lnf_tan_plain(P, tips, topo, pi, Pd,
+                                                    pid)
+    tol = TOL["float64"]
+    e1 = max(max_err(lnfd, lnfd_r, tol["val"], f"19 H1 lnfd {route}"),
+             max_err(Sd, Sd_r, tol["val"], f"19 H1 Sd {route}"))
+    del lnfd_r, Sd_r
+    dPd_r, dpid_r = pruning.class_site_lnf_bwd_tan_plain(P, tips, topo, pi,
+                                                         gz, Pd, pid, gd)
+    e2 = max(max_err(dPd, dPd_r, tol["grad"], f"19 H2 dPd {route}"),
+             max_err(dpid, dpid_r, tol["grad"], f"19 H2 dpid {route}"))
+    del dPd_r, dpid_r
+    return e1, e2, (Pd, pid, gd), r.S, Sd
+
+
+def phase_hessian(torch, report, card, bench):
+    """19. The Hessian's kernels: H1 and H2 (csrc/pruning_tangent.cuh) at
+    the bench shape (32 taxa x 4096 codons, M2a's 3 classes at its fitted
+    x, float64), on state codes (the B3/B4 walk) and on the gapped data
+    (B1/B2's coded tips): each against its plain version (4 directions,
+    1e-10 and 1e-8), timed at 4 and at `codeml.HESSIAN_ROWS` directions
+    (medians of 5) beside its bound; then M2a's Hessian by the kernels
+    against the plain route (`codeml._hessian_twice`) on the card, and
+    twice, bit for bit."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning as cp, pruning
+
+    t_phase = time.perf_counter()
+    clean, gapped, topo, fitted = bench
+    spec = codeml.CodemlSpec(NSsites=2, codonf="F3x4")
+    g = np.random.default_rng(SEED + 19)
+    for route, data in (("clean", clean), ("gapped", gapped)):
+        neg = codeml.make_codon_objective(data, topo, spec,
+                                          device="cuda")[0]
+        x = fitted[route]["M2a"].x
+        xt = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+        with torch.no_grad():
+            P, piC, w = neg.model_at(xt)
+        P, pi = P.contiguous(), piC.contiguous()
+        route_k = cp.ClassSiteLnfKernelTwice(P, neg.tips, topo, pi)
+        gz = codeml._mixture(route_k.lnf, w, neg.fpatt)[2].detach()
+        del route_k
+        tips = cp.kernel_tips(neg.tips)
+        fused = isinstance(tips, cp.TipCodes)
+        n_amb = n_amb_of(tips)
+        C, n, H = P.shape[1], P.shape[-1], gz.shape[1]
+        e1, e2, (Pd, pid, gd), S, Sd = tangent_checks(
+            torch, route, P, tips, topo, pi, gz, g, 4, card)
+        fwd, bwd = (cp.pruning_tan_fwd, cp.pruning_tan_bwd) if fused else \
+            (cp.pruning_big_tan_fwd, cp.pruning_big_tan_bwd)
+        rows = {}
+        for D in (4, codeml.HESSIAN_ROWS):
+            Pd_, pid_, gd_ = (t[:D] if D <= 4 else
+                              t[torch.arange(D, device="cuda") % 4]
+                              for t in (Pd, pid, gd))
+            Sd_ = fwd(P, tips, topo, pi, Pd_, pid_, S)[1]
+            ms_f = cuda_ms_median(lambda: fwd(P, tips, topo, pi, Pd_, pid_,
+                                              S))
+            ms_b = cuda_ms_median(lambda: bwd(P, tips, topo, pi, gz, Pd_,
+                                              pid_, gd_, S, Sd_))
+            props = torch.cuda.get_device_properties(0)
+            tb = cp.big_tree(topo)
+            G = cp.tan_bwd_grid(tb.nnode, C, D, cp.big_tiles(H), 8,
+                                props.multi_processor_count,
+                                props.total_memory,
+                                cp.full_plan(tb).nslots, cp.padded_states(n))
+            b_f = cp.tan_work("tan_fwd", tb, C, H, n, 8, D, n_amb)
+            b_b = cp.tan_work("tan_bwd", tb, C, H, n, 8, D, n_amb, G)
+            rows[D] = dict(ms=(ms_f, ms_b), G=G, bound=tuple(
+                (cp.bound_ms(*b), "operations" if b[0] / cp.PEAK_FLOPS
+                 >= b[1] / cp.PEAK_BYTES else "bytes") for b in (b_f, b_b)))
+            del Sd_
+        plain_ms = (
+            cuda_ms_median(lambda: pruning.class_site_lnf_tan_plain(
+                P, tips, topo, pi, Pd, pid), reps=3),
+            cuda_ms_median(lambda: pruning.class_site_lnf_bwd_tan_plain(
+                P, tips, topo, pi, gz, Pd, pid, gd), reps=3))
+        for i, name in enumerate(("tan_fwd", "tan_bwd")):
+            rk = report[name]
+            sfx = "" if route == "clean" else "_gapped"
+            rk[f"max_abs_err_float64{sfx}"] = (e1, e2)[i]
+            record(report, name, f"float64{sfx}", rows[4]["ms"][i],
+                   plain_ms[i], rows[4]["bound"][i])
+            rk[f"ms_float64_d{codeml.HESSIAN_ROWS}{sfx}"] = \
+                rows[codeml.HESSIAN_ROWS]["ms"][i]
+            rk[f"bound_ms_float64_d{codeml.HESSIAN_ROWS}{sfx}"] = \
+                rows[codeml.HESSIAN_ROWS]["bound"][i][0]
+        print(f"19 {route} ({'B1/B2' if fused else 'B3/B4'} walk; {topo.ns} "
+              f"taxa x {H} patterns x {C} classes x {n} states, "
+              f"{n_amb} ambiguity rows) [{card}]: H1 max |diff| {e1:.3e}, "
+              f"H2 {e2:.3e} against the plain versions (4 directions); "
+              + "; ".join(
+                  f"{D} directions: H1 {r['ms'][0]:.3f} ms (bound "
+                  f"{r['bound'][0][0]:.3f}, {r['bound'][0][1]}, share "
+                  f"{r['bound'][0][0] / r['ms'][0]:.3f}), H2 "
+                  f"{r['ms'][1]:.3f} ms (G {r['G']}, bound "
+                  f"{r['bound'][1][0]:.3f}, {r['bound'][1][1]}, share "
+                  f"{r['bound'][1][0] / r['ms'][1]:.3f})"
+                  for D, r in rows.items())
+              + f"; plain versions at 4 directions {plain_ms[0]:.1f} / "
+              f"{plain_ms[1]:.1f} ms (medians of 3)", flush=True)
+        del Pd, pid, gd, S, Sd
+        torch.cuda.empty_cache()
+        # the Hessian of M2a at its MLE: the kernels against the plain
+        # route, and the kernels twice
+        reset_counts()
+        t0 = time.perf_counter()
+        Hk = codeml.hessian(neg, x, device="cuda")
+        tk = time.perf_counter() - t0
+        counts = read_counts()
+        if counts["twice"] or counts["plain"] or not (
+                counts["launches"]["tan_fwd"] and
+                counts["launches"]["tan_bwd"]):
+            raise AssertionError(f"19 {route}: the Hessian's route launched "
+                                 f"{counts['launches']}, plain level passes "
+                                 f"{counts['twice']}, plain calls "
+                                 f"{counts['plain']}")
+        Hk2 = codeml.hessian(neg, x, device="cuda")
+        t0 = time.perf_counter()
+        Ht = codeml._hessian_twice(neg, torch.tensor(
+            x, dtype=torch.float64, device="cuda",
+            requires_grad=True)).cpu().numpy()
+        tt = time.perf_counter() - t0
+        rel = float(np.abs(Hk - Ht).max() / np.abs(Ht).max())
+        same = bool(np.array_equal(Hk, Hk2))
+        print(f"19 {route}: M2a's Hessian ({len(x)} parameters) by the "
+              f"kernels {tk:.2f} s (launches {counts['launches']}), by the "
+              f"plain route {tt:.2f} s; max |diff| / max |H| {rel:.3e} "
+              f"(limit 1e-8); the kernels twice bit for bit {same}",
+              flush=True)
+        if not rel <= 1e-8 or not same or not np.isfinite(Hk).all():
+            raise AssertionError(f"19 {route}: the Hessian by the kernels "
+                                 f"differs from the plain route by {rel:.3e}"
+                                 f" of its largest entry, or does not "
+                                 f"repeat (bit for bit {same})")
+        report["tan_fwd"][f"hessian_seconds_{route}"] = (tk, tt)
+    print(f"19: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -7140,6 +7273,13 @@ def main() -> int:
     report["quantile"] = {"name": "quantile", "route": "cuda",
                           "source": "paml_tpu_torch/csrc/quantile.cu",
                           "replaces": "paml_tpu/core/dgamma.py:16"}
+    # H1 / H2, the tangents of the walk that carry the Hessians (getSE):
+    # jax.hessian differentiates the level pass's custom_vjp rules, forward
+    # (its tangent H1) and adjoint (H2); not TPU kernels
+    for name, line in (("tan_fwd", 205), ("tan_bwd", 215)):
+        report[name] = {"name": name, "route": "cuda",
+                        "source": "paml_tpu_torch/csrc/pruning_tangent.cuh",
+                        "replaces": f"paml_tpu/core/pruning.py:{line}"}
     phase_kernels(torch, rng, report, smi[0])
     # 3b. the large-tree kernels against their plain versions
     phase_big_kernels(torch, rng, report, smi[0])
@@ -7188,7 +7328,11 @@ def main() -> int:
     # 18. the pairwise programs' fits, one CUDA graph per program, and
     # clock 5 / 6's, one per fit
     phase_pair_graphs(torch, report, smi[0], pw, dating)
-    print(f"chip_smoke: the build and phases 3-18 in "
+    torch.cuda.empty_cache()
+    # 19. the Hessian's kernels H1 / H2 against their plain versions, timed,
+    # and M2a's Hessian by them against the plain route
+    phase_hessian(torch, report, smi[0], bench)
+    print(f"chip_smoke: the build and phases 3-19 in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = []
     for r in report.values():
@@ -7202,7 +7346,7 @@ def main() -> int:
         # phase 15's graphed paths, `launches_graph_*`: their host launches,
         # the warm-ups' and the captures' with the eager comparisons, and
         # so phases 17 and 18's; E2's from phase 6's programs and phase 16,
-        # 17 and 18's fits)
+        # 17 and 18's fits; H1 / H2's from phase 6's programs' Hessians)
         r["launches"] = sum(v for k, v in r.items()
                             if k.startswith("launches_"))
         r["max_abs_err"] = r["max_abs_err_float64"]

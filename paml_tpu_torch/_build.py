@@ -32,6 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the tangent kernels H1 / H2 (csrc/pruning_tangent.cuh), both encodings
+_TAN_FWD = [_P, _I, _I] + [_P] * 9 + [_I] * 8 + [_P]
+_TAN_BWD = [_P, _I, _I] + [_P] * 15 + [_I] * 12 + [_P]
 # argtypes of each entry point (per dtype suffix f32 / f64), by source
 _SIGNATURES = {
     "pruning": {
@@ -40,6 +43,8 @@ _SIGNATURES = {
         "paml_pruning_bwd": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P],
+        "paml_pruning_tan_fwd": _TAN_FWD,
+        "paml_pruning_tan_bwd": _TAN_BWD,
     },
     "pruning_big": {
         "paml_big_fwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -47,6 +52,8 @@ _SIGNATURES = {
         "paml_big_bwd": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],
+        "paml_big_tan_fwd": _TAN_FWD,
+        "paml_big_tan_bwd": _TAN_BWD,
     },
     "eigh": {
         "paml_eigh": [_P, _P, _P, _P, _I, _I, _P],
@@ -63,6 +70,10 @@ _SIGNATURES = {
 # the padded state count of the instance (`cuda_pruning.padded_states`)
 _SUFFIXES = {"eigh": ("f64",), "quantile": ("f64",)}
 _WALK_SUFFIXES = tuple(f"{d}_n{n}" for d in ("f32", "f64") for n in (32, 64))
+# entries of a source whose suffixes differ from its own: the tangents are
+# float64 alone (the Hessian's dtype)
+_ENTRY_SUFFIXES = {f"paml_{pre}tan_{k}": ("f64_n32", "f64_n64")
+                   for pre in ("pruning_", "big_") for k in ("fwd", "bwd")}
 
 _lib = None
 build_log = ""          # nvcc's output (ptxas register/spill report)
@@ -124,14 +135,15 @@ def build() -> list[Path]:
 def lib() -> types.SimpleNamespace:
     """Every entry point of the kernel libraries (built at the first call),
     as attributes `<entry>_<f32|f64>`, the walk's `<entry>_<f32|f64>_n<N>`
-    (N = 32, 64)."""
+    (N = 32, 64; its tangents' float64 alone)."""
     global _lib
     if _lib is None:
         fns = {}
         for src, path in zip(_sources(), build()):
             handle = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES[src.stem].items():
-                for suffix in _SUFFIXES.get(src.stem, _WALK_SUFFIXES):
+                for suffix in _ENTRY_SUFFIXES.get(
+                        name, _SUFFIXES.get(src.stem, _WALK_SUFFIXES)):
                     fn = getattr(handle, f"{name}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

@@ -264,8 +264,10 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
     treesub.c:9491; codon loci use the same routine's per-gene
     data.kappa/data.omega with the M0 codon model).  Returns (neg_lnl,
     unpack, (x0 of the ages, their bounds), dims); neg_lnl(x) is the fit's
-    route, `neg_lnl.twice(x)` the route that is differentiable twice
-    (`codeml.hessian`, which takes every locus at once)."""
+    route, `neg_lnl.twice(x)` the route that is differentiable twice and
+    `neg_lnl.terms(x)` its loci's pruning inputs (`codeml.hessian`, which
+    takes every locus at once: codon loci on the card through the
+    kernels)."""
     device = torch.device(device)
     ages_of, xa0, xab, _ = make_ages_fn(hd.sp_topo, hd.fixed_ages, device,
                                         dtype)
@@ -350,12 +352,13 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
             return discrete_gamma(al[g], K, use_median=spec.use_median)
         return fixed_rw[g]
 
-    def neg_lnl(x, twice=False):
+    def loci_terms(x, twice=False):
+        """Each locus's (P, root frequencies per class, class weights, tips,
+        topology, fpatt) at x; with `twice` P(t) by the route that is
+        differentiable twice."""
         x = x.to(dtype)
         ages, r, kap, om, al = unpack(x)
-        lnf = pruning.class_site_lnf_twice if twice else \
-            pruning.class_site_lnf
-        total = x.new_zeros(())
+        terms = []
         for g, gt in enumerate(hd.loci):
             (ipop, ipop_pa, rlab, is_root, tips, fpatt, pig, pf3x4,
              kfix, ofix) = consts[g]
@@ -376,13 +379,23 @@ def make_step3_objective(hd: HeteroData, spec: Clock56Spec,
                     spec.model, rates_g, pig, ts[:, None] * rr[None, :],
                     None, twice)
             piC = pi_root.expand(rr.shape[0], pi_root.shape[-1])
-            total = total + pruning.lnL(P, tips, gt.topo, piC, w, fpatt,
+            terms.append((P, piC, w, tips, gt.topo, fpatt))
+        return terms
+
+    def neg_lnl(x, twice=False):
+        lnf = pruning.class_site_lnf_twice if twice else \
+            pruning.class_site_lnf
+        total = x.new_zeros((), dtype=dtype)
+        for P, piC, w, tips, topo, fpatt in loci_terms(x, twice):
+            total = total + pruning.lnL(P, tips, topo, piC, w, fpatt,
                                         lnf=lnf)
         return -total
 
     # the fit's route reads nothing on the host: a CUDA graph can hold it
     neg_lnl.capturable = True
     neg_lnl.twice = lambda x, patterns=slice(None): neg_lnl(x, True)
+    # the Hessian's kernel route (`codeml.hessian`), codon loci on the card
+    neg_lnl.terms = lambda x: loci_terms(x, True)
     # what `codeml.hessian` reads: one pass over every locus's patterns
     neg_lnl.topo, neg_lnl.fpatt = hd.loci[0].topo, consts[0][5]
     neg_lnl.n_states = graph.n if is_codon else 4

@@ -33,13 +33,16 @@ float32 instances of the kernels).
 An objective has two routes.  `neg_lnl(x)` is the fit's: P(t) from the
 eigendecomposition with its hand-written backward, pruning through
 `pruning.class_site_lnf` (the CUDA kernels on the card), differentiable
-once.  `neg_lnl.twice(x)` is the Hessian's: P(t) from
-`pmat.pmat_rev_multi_twice` and the level pass under plain autograd
-(`pruning.class_site_lnf_twice`), differentiable twice; on the card its
-calls are counted apart (`pruning.TWICE_CALLS`).
+once.  The Hessian's (`hessian`) takes P(t) from
+`pmat.pmat_rev_multi_twice`, differentiable twice: on the card, at 16
+states or more, through the kernels and their tangents
+(`neg_lnl.terms(x)`, `_hessian_kernels`); elsewhere by `neg_lnl.twice(x)`,
+the level pass under plain autograd (`pruning.class_site_lnf_twice`, whose
+calls on the card are counted apart, `pruning.TWICE_CALLS`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import time
@@ -543,7 +546,9 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     (`pruning.lnL_chunked`), so memory holds one chunk's buffers.
 
     neg_lnl carries `model_at(x)`, `twice(x)` (the same value by the route
-    that is differentiable twice), `site_loglik(x)` [H] and
+    that is differentiable twice), `terms(x)` (the Hessian's kernel route:
+    [(P, pi, class weights, tips, topo, fpatt)], P(t) differentiable
+    twice), `site_loglik(x)` [H] and
     `class_posterior(x)` [K, H], its data (`tips`, `fpatt`, `topo`) and the
     data's frequencies (`pi_np`, `pf3x4`)."""
     check_slice(spec)
@@ -754,9 +759,8 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
         """-lnL of the patterns in `patterns`, by the route that is
         differentiable twice."""
         P, piC, freqs = model_at(x, twice=True)
-        tp = (tipcodes.TipCodes(tips.codes[:, patterns], tips.amb)
-              if isinstance(tips, tipcodes.TipCodes) else tips[:, patterns])
-        return -pruning.lnL(P, tp, topo, piC, freqs, fpatt[patterns],
+        return -pruning.lnL(P, _pattern_slice(tips, patterns), topo, piC,
+                            freqs, fpatt[patterns],
                             lnf=pruning.class_site_lnf_twice)
 
     def site_loglik_fn(x):
@@ -773,6 +777,10 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
 
     neg_lnl.model_at = model_at
     neg_lnl.twice = neg_lnl_twice
+    # the Hessian's kernel route (`hessian`): the mixture's one term, its
+    # P(t) by the route that is differentiable twice
+    neg_lnl.terms = lambda x: [(*model_at(x, twice=True), tips, topo,
+                                fpatt)]
     neg_lnl.site_loglik = site_loglik_fn
     neg_lnl.class_posterior = class_posterior_fn
     neg_lnl.tips, neg_lnl.fpatt, neg_lnl.topo = tips, fpatt, topo
@@ -836,33 +844,89 @@ def make_codon_objective(data: seqio.PackedData, topo: Topology,
     return neg_lnl, unpack, classes_for, np.array(x0), bounds, pi_np
 
 
-# the Hessian route's memory: the scaled partials of one pattern chunk
-# (nnode x classes x states x patterns) are held some twenty times over by
-# the graph of the gradient, and once more per Hessian row of a block, so a
-# chunk's partials times (20 + rows of a block) stay within this many bytes
-# (on the card 32 GiB of an H100's 80: fewer chunks, each pass longer)
+def _pattern_slice(tips, patterns: slice):
+    """The tips of the patterns in `patterns` (contiguous int32 codes, or
+    TipCodes sharing the table)."""
+    if isinstance(tips, tipcodes.TipCodes):
+        return tipcodes.TipCodes(tips.codes[:, patterns].contiguous(),
+                                 tips.amb)
+    return tips[:, patterns].contiguous()
+
+
+# The Hessian's memory.  Plain route (`neg_lnl.twice`): the scaled partials
+# of one pattern chunk (nnode x classes x states x patterns) are held some
+# twenty times over by the graph of the gradient, and once more per Hessian
+# row of a block.  Kernel route (`_hessian_kernels`): the forward's residual
+# S (an internal node's partials), H1's Sd (S once per row of a block) and
+# the mixture's small tensors; H2's dP slabs and adjoint slots do not grow
+# with the patterns.  A chunk's partials times (20 + rows of a block),
+# resp. (2 + rows of a block), stay within this many bytes (on the card 32
+# GiB of an H100's 80: fewer chunks, each pass longer).
 HESSIAN_BYTES = {"cpu": 1 << 31, "cuda": 1 << 35}
 HESSIAN_ROWS = 16       # Hessian rows per backward pass
 
 
 def hessian(neg_lnl, x, *, device) -> np.ndarray:
-    """The Hessian of -lnL at x [np, np] by double backward through
-    `neg_lnl.twice`: the gradient with its graph, then the rows in blocks
-    of HESSIAN_ROWS, each block one batched backward pass; summed over
-    pattern chunks sized to HESSIAN_BYTES by the objective's states
-    (`n_states`, 64 by default), unless its `pattern_chunks` is false (a
-    rate HMM over the sites takes them all at once)."""
+    """The Hessian of -lnL at x [np, np].  Objectives with `terms` whose
+    pruning passes take the kernels (`pruning.uses_twice_kernels`: CUDA,
+    16 states or more) go through `_hessian_kernels`; the others by
+    double backward through `neg_lnl.twice`: the gradient with its graph,
+    then the rows in blocks of HESSIAN_ROWS, each block one batched
+    backward pass; summed over pattern chunks sized to HESSIAN_BYTES by
+    the objective's states (`n_states`, 64 by default), unless its
+    `pattern_chunks` is false (a rate HMM over the sites takes them all at
+    once)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     xt = torch.tensor(np.asarray(x, dtype=np.float64), device=device,
                       requires_grad=True)
-    H, n_par = neg_lnl.fpatt.shape[0], len(x)
+    with _deterministic():
+        terms = neg_lnl.terms(xt) if hasattr(neg_lnl, "terms") else None
+        if terms and all(pruning.uses_twice_kernels(t[0]) for t in terms):
+            hess = _hessian_kernels(terms, xt)
+        else:
+            del terms
+            hess = _hessian_twice(neg_lnl, xt)
+    out = hess.cpu().numpy()
+    SECONDS["hessian"] += time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms while a Hessian's autograd runs,
+    so that the SEs repeat bit for bit: on the card the backward of an
+    index (the level pass's `P[nodes]`, the branch types' `P_all[nodes,
+    types]`, clock 5 / 6's ages and rates), of a gather and of a scatter
+    would otherwise add with atomics, in an order that changes from run to
+    run (`tools/torch_hessian_repeat_probe.py`).  An operation without a
+    deterministic implementation would warn, not stop the program (none
+    does on the Hessians' paths).  Uninitialized memory is left as it is
+    (the mode would fill every `torch.empty` first: a quarter of a
+    Hessian's CPU time).  The previous settings are restored on the way
+    out."""
+    det = torch.utils.deterministic
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+
+
+def _hessian_twice(neg_lnl, xt):
+    """`hessian` by double backward through `neg_lnl.twice`."""
+    H, n_par = neg_lnl.fpatt.shape[0], xt.numel()
     per_pattern = (neg_lnl.topo.nnode * neg_lnl.n_classes(xt.detach())
                    * getattr(neg_lnl, "n_states", 64) * 8
                    * (20 + HESSIAN_ROWS))
-    step = (max(64, HESSIAN_BYTES[device.type] // per_pattern)
+    step = (max(64, HESSIAN_BYTES[xt.device.type] // per_pattern)
             if getattr(neg_lnl, "pattern_chunks", True) else H)
-    eye = torch.eye(n_par, dtype=torch.float64, device=device)
+    eye = torch.eye(n_par, dtype=torch.float64, device=xt.device)
     hess = torch.zeros_like(eye)
     for h0 in range(0, H, step):
         v = neg_lnl.twice(xt, slice(h0, min(h0 + step, H)))
@@ -873,9 +937,102 @@ def hessian(neg_lnl, x, *, device) -> np.ndarray:
                                            retain_graph=True,
                                            is_grads_batched=True)
             hess[rows] += block
-    out = hess.cpu().numpy()
-    SECONDS["hessian"] += time.perf_counter() - t0
-    return out
+    return hess
+
+
+def _mixture(lnf, w, fpatt):
+    """-lnL of one chunk from its pruning pass, as `pruning.lnL` mixes it:
+    (z, w, gz, gw), z and w leaves standing for lnf [C, H] and the class
+    weights [C], gz and gw the gradient with its graph."""
+    z = lnf.detach().requires_grad_()
+    w = w.detach().requires_grad_()
+    v = -torch.sum(fpatt * torch.logsumexp(z + torch.log(w)[:, None], dim=0))
+    gz, gw = torch.autograd.grad(v, (z, w), create_graph=True)
+    return z, w, gz, gw
+
+
+def _grads(outputs, inputs, grad_outputs, **kw):
+    """autograd.grad over the outputs that carry a graph, zeros (batched
+    like the grad_outputs) for inputs that none reaches."""
+    pairs = [(o, g) for o, g in zip(outputs, grad_outputs)
+             if o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in pairs], inputs,
+                              [g for _, g in pairs], allow_unused=True,
+                              **kw)
+    lead = grad_outputs[0].shape[:1] if kw.get("is_grads_batched") else ()
+    return [torch.zeros(lead + i.shape, dtype=i.dtype, device=i.device)
+            if g is None else g for g, i in zip(got, inputs)]
+
+
+def _hessian_kernels(terms, xt):
+    """`hessian` through the pruning kernels.  -lnL = sum over terms of
+    phi(K(P, pi), w), with M(x) = (P, pi, w) per term from the model
+    (autograd, differentiable twice), K the pruning pass
+    (`cuda_pruning.ClassSiteLnfKernelTwice`) and phi the mixture over the
+    classes and the patterns (`_mixture`).  With c = dF/dM (B2/B4's dP, dpi
+    and phi's dw, over every pattern chunk):
+
+      H E = d^2<c, M(x)>/dx^2 E + J_M^T (d^2F/dM^2 J_M E)
+
+    for a block E of HESSIAN_ROWS unit rows: J_M E comes from q = d<c,
+    M>/dx (its derivative in c), and d^2F/dM^2 J_M E per chunk from H1
+    (lnf's tangent), the mixture's second derivatives (autograd: the
+    tangent of phi's gradient gz, gw) and H2 (the adjoint's tangent, gz's
+    included).  The model's and the mixture's parts are batched backward
+    passes (`is_grads_batched`) with no kernel in them; the kernels take
+    the block's directions as a batch.  The pattern chunks are sized to
+    HESSIAN_BYTES by S and Sd."""
+    n_par = xt.numel()
+    eye = torch.eye(n_par, dtype=torch.float64, device=xt.device)
+    hess = torch.zeros_like(eye)
+    M, c = [], []
+    chunks = []
+    for P, piC, w, tips, topo, fpatt in terms:
+        args = [t.detach().double().contiguous() for t in (P, piC, w)]
+        C, n = P.shape[1], P.shape[-1]
+        H = fpatt.shape[0]
+        per_pattern = topo.nnode * C * n * 8 * (2 + HESSIAN_ROWS)
+        step = max(64, HESSIAN_BYTES[xt.device.type] // per_pattern)
+        parts = [(_pattern_slice(tips, slice(h0, h0 + step)),
+                  fpatt[h0:h0 + step].double())
+                 for h0 in range(0, H, step)]
+        cP, cpi, cw = (torch.zeros_like(a) for a in args)
+        for tp, fp in parts:
+            route = cuda_pruning.ClassSiteLnfKernelTwice(args[0], tp, topo,
+                                                         args[1])
+            _, _, gz, gw = _mixture(route.lnf, args[2], fp)
+            dP, dpi = route.adjoint(gz.detach())
+            cP += dP
+            cpi += dpi
+            cw += gw.detach()
+        M += [P, piC, w]
+        c += [cP, cpi, cw]
+        chunks.append((args, topo, parts))
+    c = [t.requires_grad_() for t in c]
+    (q,) = torch.autograd.grad(
+        sum((m.double() * ci).sum() for m, ci in zip(M, c)
+            if m.requires_grad), xt, create_graph=True)
+    for r0 in range(0, n_par, HESSIAN_ROWS):
+        E = eye[r0:r0 + HESSIAN_ROWS]
+        Md = _grads([q], c, [E], retain_graph=True, is_grads_batched=True)
+        b = [torch.zeros_like(t) for t in Md]
+        for k, (args, topo, parts) in enumerate(chunks):
+            Pd, pid, wd = Md[3 * k:3 * k + 3]
+            for tp, fp in parts:
+                route = cuda_pruning.ClassSiteLnfKernelTwice(
+                    args[0], tp, topo, args[1])
+                z, wl, gz, gw = _mixture(route.lnf, args[2], fp)
+                zd = route.tan_fwd(Pd, pid)
+                gzd, gwd = _grads([gz, gw], [z, wl], [zd, wd],
+                                  is_grads_batched=True)
+                dPd, dpid = route.tan_bwd(gz.detach(), gzd)
+                b[3 * k] += dPd
+                b[3 * k + 1] += dpid
+                b[3 * k + 2] += gwd
+        (hess[r0:r0 + HESSIAN_ROWS],) = _grads(
+            [q] + M, [xt], [E] + [bi.to(m.dtype) for bi, m in zip(b, M)],
+            retain_graph=True, is_grads_batched=True)
+    return hess
 
 
 def standard_errors(neg_lnl, x, *, device) -> np.ndarray:

@@ -32,6 +32,13 @@ binary trees: the wrappers run `big_tree(topo)`, whose added nodes take an
 identity P, and return dP of topo's own nodes.  There is no fallback: a
 tensor the kernels do not take raises, and an instance that fails to
 launch raises.
+
+The walk's tangents (`csrc/pruning_tangent.cuh`, float64): H1
+(`pruning_tan_fwd`, `pruning_big_tan_fwd`) and H2 (`pruning_tan_bwd`,
+`pruning_big_tan_bwd`) along a batch of D directions of (P, pi), counted
+as `tan_fwd` / `tan_bwd`; `ClassSiteLnfKernelTwice` strings the forward,
+the adjoint and the two tangents together for `codeml.hessian`, on the
+residual of `full_plan`.
 """
 from __future__ import annotations
 
@@ -59,7 +66,9 @@ SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-KERNELS = ("pruning_fwd", "pruning_bwd", "big_fwd", "big_bwd")
+# the walk's pairs, then its tangents H1 / H2 (both tip encodings)
+KERNELS = ("pruning_fwd", "pruning_bwd", "big_fwd", "big_bwd", "tan_fwd",
+           "tan_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the same launches by instance: `<kernel>_n<N>`
 INSTANCE_LAUNCHES = {f"{k}_n{m}": 0 for k in KERNELS for m in INSTANCES}
@@ -161,6 +170,7 @@ class BigPlan:
     A cherry (a non-root internal node whose children are all tips) gets no
     residual row: the adjoint rebuilds its scaled partial from the
     grandchild tips.  The other internal nodes get rows 0..n_srows-1.
+    With `cherries` false no node counts as a cherry (`full_plan`).
 
       fs row (DFS postorder, root last):
         [v, out_slot, srow | -1, kid_slot x Kmax (-1 pad)]
@@ -175,12 +185,13 @@ class BigPlan:
                             grandkid_tip x Kmax) x Kmax]
     """
 
-    def __init__(self, topo: Topology):
+    def __init__(self, topo: Topology, cherries: bool = True):
         p = plan(topo)
         ns, root = topo.ns, p.root
         kmax = max((len(k) for k in p.kids_of.values() if k), default=2)
-        cherry = {v for v in p.order if v >= ns and v != root
-                  and all(k < ns for k in p.kids_of[v])}
+        cherry = set() if not cherries else {
+            v for v in p.order if v >= ns and v != root
+            and all(k < ns for k in p.kids_of[v])}
         srow: dict[int, int] = {}
         for v in p.order:
             if v >= ns and v not in cherry:
@@ -253,6 +264,19 @@ def big_plan(topo: Topology) -> BigPlan:
     if p is None:
         p = BigPlan(topo)
         topo._cuda_big_plan = p
+    return p
+
+
+def full_plan(topo: Topology) -> BigPlan:
+    """The schedules of the Hessian's route (`ClassSiteLnfKernelTwice`): a
+    plan without cherries, so that every internal node, the root
+    included, has a row in the forward's residual S (DFS postorder) and
+    the tangent kernels read every scaled partial from S and its tangent
+    from Sd in the same rows."""
+    p = getattr(topo, "_cuda_full_plan", None)
+    if p is None:
+        p = BigPlan(topo, cherries=False)
+        topo._cuda_full_plan = p
     return p
 
 
@@ -565,6 +589,33 @@ def kernel_work(name: str, topo: Topology, C: int, H: int, n: int,
             2 * (P_b + pi_b) + tips_b + lnf_b + S_b)
 
 
+def tan_work(name: str, topo: Topology, C: int, H: int, n: int, esize: int,
+             D: int, n_amb: int = 0, G: int = 1) -> tuple[float, float]:
+    """(operations, bytes) of the tangent kernels for D directions, as
+    `kernel_work` counts (the n real states; a tip's contribution a
+    gather, its dP a scatter).  H1 (`tan_fwd`): the forward's products
+    twice per direction (cd = Pd s + P sd), the tip table's tangent Pd
+    amb^T; it reads P, Pd, pi, pid, the tips and S (the residual of every
+    internal node, `full_plan`) and writes Sd and lnfd.  H2 (`tan_bwd`):
+    per direction the three products of the adjoint with two terms each
+    (cd, dPd = Gd s^T + G sd^T, Ad = Pd^T G + P^T Gd), and c and A once;
+    it reads also gbar, gd and Sd, writes dPd and dpid, and writes and
+    reads its G dP slabs [G, D, nnode, C, n, n] once each."""
+    nint = topo.nnode - topo.ns - 1
+    prod = 2.0 * n * n * H * C
+    table = 2.0 * n * n * n_amb * C * topo.ns
+    P_b = topo.nnode * C * n * n * esize
+    tips_b = topo.ns * H * 4 + n_amb * n * esize
+    S_b = full_plan(topo).n_srows * C * n * H * esize
+    pi_b, lnf_b = C * n * esize, C * H * esize
+    ins = (1 + D) * (P_b + pi_b) + tips_b + S_b
+    if name == "tan_fwd":
+        return D * (2 * nint * prod + table), ins + D * (S_b + lnf_b)
+    return ((6 * D + 2) * nint * prod + (1 + D) * table,
+            ins + D * (S_b + P_b + pi_b) + (1 + D) * lnf_b
+            + 2 * G * D * P_b)
+
+
 def bound_ms(flop: float, nbytes: float) -> float:
     """The least time the card could take: the larger of the operations
     over the peak rate and the bytes over the memory rate."""
@@ -584,6 +635,19 @@ def big_bwd_grid(nnode: int, C: int, ntiles: int, esize: int, sms: int,
     return max(1, min(ntiles, -(-sms // C), cap))
 
 
+def tan_bwd_grid(nnode: int, C: int, D: int, ntiles: int, esize: int,
+                 sms: int, mem_bytes: int, nslots: int, npad: int) -> int:
+    """Blocks along the tile axis of H2 (G): enough for G x C x D >= the
+    card's SM count, at most one per tile, and fewer when its dPd slabs
+    (D x nnode x C x N x N values per g) and adjoint slots would pass
+    1/BIG_WORK_SHARE of the card's memory; fixed by the card, not by its
+    free memory, so that the slabs' sum order, and so the bits, repeat."""
+    per_g = (D * nnode * C * npad * npad + D * C * npad
+             + 2 * D * C * (nslots + 1) * npad * BIG_HT) * esize
+    cap = mem_bytes // BIG_WORK_SHARE // per_g
+    return max(1, min(ntiles, -(-sms // (C * D)), cap))
+
+
 # ---------------------------------------------------------------------------
 # launches
 # ---------------------------------------------------------------------------
@@ -600,11 +664,11 @@ def _require_cuda(x: _Inputs) -> None:
                          f"P on {x.P.device}")
 
 
-def _launch_fwd(x: _Inputs, want_S: bool):
+def _launch_fwd(x: _Inputs, want_S: bool, bp: BigPlan | None = None):
     from .. import _build
 
     _require_cuda(x)
-    bp = big_plan(x.topo)
+    bp = bp or big_plan(x.topo)
     fs, _ = bp.device_tables(x.P.device)
     lnf = x.P.new_empty((x.C, x.H))
     S = x.P.new_empty((bp.n_srows, x.C, x.n, x.H)) if want_S else None
@@ -632,21 +696,35 @@ def _launch_fwd(x: _Inputs, want_S: bool):
     return lnf, S
 
 
-def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor):
-    from .. import _build
-
-    _require_cuda(x)
-    bp = big_plan(x.topo)
-    if gbar.device != x.P.device or tuple(gbar.shape) != (x.C, x.H):
-        raise ValueError(f"gbar must be [{x.C}, {x.H}] on {x.P.device}, got "
-                         f"{tuple(gbar.shape)} on {gbar.device}")
+def _check_S(x: _Inputs, S, bp: BigPlan, D: int | None = None,
+             what: str = "S") -> None:
+    """S (or Sd, [D, ...]) as the forward (or H1) wrote it for plan bp."""
     want = (bp.n_srows, x.C, x.n, x.H)
+    if D is not None:
+        want = (D,) + want
     if S is None or S.device != x.P.device or S.dtype != x.P.dtype or \
             tuple(S.shape) != want or not S.is_contiguous():
         got = None if S is None else (S.dtype, tuple(S.shape), S.device)
-        raise ValueError(f"S must be a contiguous {x.P.dtype} {want} on "
+        raise ValueError(f"{what} must be a contiguous {x.P.dtype} {want} on "
                          f"{x.P.device}, got {got}")
-    gbar = gbar.to(x.P.dtype).contiguous()
+
+
+def _check_cotangent(x: _Inputs, g, lead: tuple = (), what: str = "gbar"):
+    """A cotangent of lnf [*lead, C, H] on P's device, in P's dtype."""
+    if g.device != x.P.device or tuple(g.shape) != lead + (x.C, x.H):
+        raise ValueError(f"{what} must be {list(lead + (x.C, x.H))} on "
+                         f"{x.P.device}, got {tuple(g.shape)} on {g.device}")
+    return g.to(x.P.dtype).contiguous()
+
+
+def _launch_bwd(x: _Inputs, gbar: torch.Tensor, S: torch.Tensor,
+                bp: BigPlan | None = None):
+    from .. import _build
+
+    _require_cuda(x)
+    bp = bp or big_plan(x.topo)
+    gbar = _check_cotangent(x, gbar)
+    _check_S(x, S, bp)
     _, bs = bp.device_tables(x.P.device)
     props = torch.cuda.get_device_properties(x.P.device)
     ntiles = big_tiles(x.H)
@@ -759,3 +837,197 @@ class ClassSiteLnfKernel(torch.autograd.Function):
         tips = codes if amb is None else TipCodes(codes, amb)
         dP, dpi = _launch_bwd(_Inputs(P, tips, ctx.topo, pi), gbar, S)
         return dP, None, None, None, dpi
+
+
+# ---------------------------------------------------------------------------
+# the tangents (H1, H2) and the Hessian's route
+# ---------------------------------------------------------------------------
+
+
+def _tan_dirs(x: _Inputs, Pdot: torch.Tensor, pidot: torch.Tensor):
+    """Directions (Pdot [D, nnode, C, n, n], pidot [D, C, n]) as the
+    tangent kernels take them: padded to N states like P, the nodes that
+    `big_tree` added given Pdot = 0 (their identity P is a constant)."""
+    D = Pdot.shape[0] if Pdot.dim() == 5 else 0
+    if D == 0 or tuple(Pdot.shape[1:]) != (x.nnode_in, x.C, x.n, x.n) or \
+            tuple(pidot.shape) != (D, x.C, x.n):
+        raise ValueError(f"directions must be Pdot [D, {x.nnode_in}, {x.C}, "
+                         f"{x.n}, {x.n}] and pidot [D, {x.C}, {x.n}], got "
+                         f"{tuple(Pdot.shape)} and {tuple(pidot.shape)}")
+    for t in (Pdot, pidot):
+        if t.device != x.P.device or t.dtype != x.P.dtype:
+            raise ValueError(f"directions must be {x.P.dtype} on "
+                             f"{x.P.device}, got {t.dtype} on {t.device}")
+    Pp = Pdot.new_zeros((D, x.nnode, x.C, x.N, x.N))
+    Pp[:, :x.nnode_in, :, :x.n, :x.n] = Pdot
+    pp = pidot.new_zeros((D, x.C, x.N))
+    pp[..., :x.n] = pidot
+    return Pp, pp
+
+
+def _tan_entry(x: _Inputs, which: str):
+    from .. import _build
+
+    _require_cuda(x)
+    if x.P.dtype != torch.float64:
+        raise TypeError(f"the tangent kernels take float64, got {x.P.dtype}")
+    pre = "pruning_" if x.fused else "big_"
+    return getattr(_build.lib(), f"paml_{pre}tan_{which}_f64_n{x.N}")
+
+
+def _launch_tan_fwd(x: _Inputs, Pdot, pidot, S):
+    from .. import _build
+
+    fn = _tan_entry(x, "fwd")
+    bp = full_plan(x.topo)
+    _check_S(x, S, bp)
+    Pp, pp = _tan_dirs(x, Pdot, pidot)
+    D = Pp.shape[0]
+    _, bs = bp.device_tables(x.P.device)
+    lnfd = x.P.new_empty((D, x.C, x.H))
+    Sd = x.P.new_empty((D, bp.n_srows, x.C, x.n, x.H))
+    with torch.cuda.device(x.P.device):
+        err = fn(bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
+                 Pp.data_ptr(), x.states.data_ptr(), _ptr(x.amb),
+                 x.pi.data_ptr(), pp.data_ptr(), S.data_ptr(), Sd.data_ptr(),
+                 lnfd.data_ptr(), D, big_tiles(x.H), x.C, x.H, x.ns, x.n,
+                 x.nnode, bp.n_srows, _stream(x.P.device))
+    _count("tan_fwd", x.N)
+    _build.check(err, f"tan_fwd_n{x.N} launch")
+    return lnfd, Sd
+
+
+def _launch_tan_bwd(x: _Inputs, Pdot, pidot, gbar, gdot, S, Sd):
+    from .. import _build
+
+    fn = _tan_entry(x, "bwd")
+    bp = full_plan(x.topo)
+    Pp, pp = _tan_dirs(x, Pdot, pidot)
+    D = Pp.shape[0]
+    _check_S(x, S, bp)
+    _check_S(x, Sd, bp, D, "Sd")
+    gbar = _check_cotangent(x, gbar)
+    gdot = _check_cotangent(x, gdot, (D,), "gdot")
+    _, bs = bp.device_tables(x.P.device)
+    props = torch.cuda.get_device_properties(x.P.device)
+    ntiles = big_tiles(x.H)
+    G = tan_bwd_grid(x.nnode, x.C, D, ntiles, x.P.element_size(),
+                     props.multi_processor_count, props.total_memory,
+                     bp.nslots, x.N)
+    dP_slab = x.P.new_zeros((G * D * x.nnode * x.C * x.N * x.N,))
+    dpi_slab = x.P.new_empty((G * D * x.C * x.N,))
+    work = x.P.new_empty((D * G * x.C * 2 * (bp.nslots + 1) * x.N * BIG_HT,))
+    dPd = x.P.new_empty((D, x.nnode_in, x.C, x.n, x.n))
+    dpid = x.P.new_empty((D, x.C, x.n))
+    with torch.cuda.device(x.P.device):
+        err = fn(bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
+                 Pp.data_ptr(), x.states.data_ptr(), _ptr(x.amb),
+                 x.pi.data_ptr(), pp.data_ptr(), gbar.data_ptr(),
+                 gdot.data_ptr(), S.data_ptr(), Sd.data_ptr(),
+                 dP_slab.data_ptr(), dpi_slab.data_ptr(), work.data_ptr(),
+                 dPd.data_ptr(), dpid.data_ptr(), D, G, ntiles, x.C, x.H,
+                 x.ns, x.n, x.nnode, x.nnode_in, x.nnode_in, bp.nslots,
+                 bp.n_srows, _stream(x.P.device))
+    _count("tan_bwd", x.N)
+    _build.check(err, f"tan_bwd_n{x.N} launch")
+    return dPd, dpid
+
+
+def pruning_tan_fwd(P, tips, topo: Topology, pi, Pdot, pidot, S, *,
+                    npad: int | None = None):
+    """H1 on coded tips (B1/B2's walk): (lnfd [D, C, H], Sd [D, nrows, C,
+    n, H]), the tangents of lnf and of the residual S along the D
+    directions (Pdot [D, nnode, C, n, n], pidot [D, C, n]); S as
+    `ClassSiteLnfKernelTwice`'s forward writes it (`full_plan`)."""
+    return _launch_tan_fwd(_fused_inputs(P, tips, topo, pi, npad), Pdot,
+                           pidot, S)
+
+
+def pruning_tan_bwd(P, tips, topo: Topology, pi, gbar, Pdot, pidot, gdot, S,
+                    Sd, *, npad: int | None = None):
+    """H2 on coded tips: (dPd [D, nnode, C, n, n], dpid [D, C, n]), the
+    tangent of the adjoint (gbar, P, pi) -> (dP, dpi) along (gdot [D, C,
+    H], Pdot, pidot), from S and H1's Sd."""
+    return _launch_tan_bwd(_fused_inputs(P, tips, topo, pi, npad), Pdot,
+                           pidot, gbar, gdot, S, Sd)
+
+
+def pruning_big_tan_fwd(P, tips, topo: Topology, pi, Pdot, pidot, S, *,
+                        npad: int | None = None):
+    """H1 on state-code tips (B3/B4's walk), as `pruning_tan_fwd`."""
+    return _launch_tan_fwd(_big_inputs(P, tips, topo, pi, npad), Pdot,
+                           pidot, S)
+
+
+def pruning_big_tan_bwd(P, tips, topo: Topology, pi, gbar, Pdot, pidot,
+                        gdot, S, Sd, *, npad: int | None = None):
+    """H2 on state-code tips, as `pruning_tan_bwd`."""
+    return _launch_tan_bwd(_big_inputs(P, tips, topo, pi, npad), Pdot,
+                           pidot, gbar, gdot, S, Sd)
+
+
+class ClassSiteLnfKernelTwice:
+    """The pruning pass of a Hessian on one pattern chunk, differentiable
+    twice through the kernels: the forward (lnf [C, H], with the residual
+    of `full_plan`), its adjoint for a cotangent gbar (B2/B4:
+    `adjoint`), and its second order along a batch of D directions: H1
+    (`tan_fwd`: lnfd [D, C, H]) and then H2 (`tan_bwd`: (dPd, dpid) for
+    the cotangent's own tangent gdot [D, C, H]), which `codeml.hessian`
+    chains with autograd's derivatives of the model and of the mixture.
+
+    Not a `torch.autograd.Function`: PyTorch's batched double backward
+    (`is_grads_batched`) vmaps the engine over every backward, which
+    cannot carry a ctypes launch, so the caller hands the batch of
+    directions to `tan_fwd` / `tan_bwd` itself.  P and pi are float64
+    and carry no graph.  CUDA tensors launch the kernels (B1/B2/H1/H2 on
+    TipCodes with ambiguity, B3/B4/H1/H2 on state codes); CPU tensors run
+    the plain versions (`pruning.class_site_lnf_plain`, `_bwd_plain`,
+    `_tan_plain`, `_bwd_tan_plain`)."""
+
+    def __init__(self, P, tips, topo: Topology, pi):
+        from . import pruning
+
+        self.P, self.tips, self.topo, self.pi = P, tips, topo, pi
+        self.S = self.Sd = self.dirs = None
+        if P.is_cuda:
+            self.x = _Inputs(P, kernel_tips(tips), topo, pi)
+            self.lnf, self.S = _launch_fwd(self.x, True,
+                                           full_plan(self.x.topo))
+        else:
+            with torch.no_grad():
+                self.lnf = pruning.class_site_lnf_plain(P, tips, topo, pi)
+
+    def adjoint(self, gbar):
+        """(dP [nnode, C, n, n], dpi [C, n]) for the cotangent gbar."""
+        from . import pruning
+
+        if self.P.is_cuda:
+            return _launch_bwd(self.x, gbar, self.S, full_plan(self.x.topo))
+        return pruning.class_site_lnf_bwd_plain(self.P, self.tips, self.topo,
+                                                self.pi, gbar)
+
+    def tan_fwd(self, Pdot, pidot):
+        """H1: lnfd [D, C, H] along (Pdot [D, nnode, C, n, n], pidot [D, C,
+        n]); the directions and Sd are kept for `tan_bwd`."""
+        from . import pruning
+
+        self.dirs = (Pdot, pidot)
+        if self.P.is_cuda:
+            lnfd, self.Sd = _launch_tan_fwd(self.x, Pdot, pidot, self.S)
+        else:
+            lnfd, self.Sd = pruning.class_site_lnf_tan_plain(
+                self.P, self.tips, self.topo, self.pi, Pdot, pidot)
+        return lnfd
+
+    def tan_bwd(self, gbar, gdot):
+        """H2 along `tan_fwd`'s directions and gdot [D, C, H]: (dPd [D,
+        nnode, C, n, n], dpid [D, C, n]); frees Sd."""
+        from . import pruning
+
+        (Pdot, pidot), Sd = self.dirs, self.Sd
+        self.dirs = self.Sd = None
+        if self.P.is_cuda:
+            return _launch_tan_bwd(self.x, Pdot, pidot, gbar, gdot, self.S,
+                                   Sd)
+        return pruning.class_site_lnf_bwd_tan_plain(
+            self.P, self.tips, self.topo, self.pi, gbar, Pdot, pidot, gdot)

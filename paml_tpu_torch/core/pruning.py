@@ -23,8 +23,12 @@ residual S included).
 Each call with a CUDA tensor adds one to `PLAIN_CALLS["cuda"]`, so a run
 can show that its main path never took them there.  These paths are
 differentiable once (`pmat.differentiable_once`); `class_site_lnf_twice` is
-the level pass under plain autograd, for Hessians, with a count of its own
-(`TWICE_CALLS`).
+the level pass under plain autograd, for Hessians on the CPU and on the
+level route, with a count of its own (`TWICE_CALLS`).  A Hessian over CUDA
+tensors of 16 states or more takes the kernels instead
+(`uses_twice_kernels`, `cuda_pruning.ClassSiteLnfKernelTwice`), whose
+tangents H1 and H2 have plain versions here: `class_site_lnf_tan_plain`
+and `class_site_lnf_bwd_tan_plain`.
 
 Under `set_pattern_mesh` the pattern axis of `class_site_lnf` is cut over
 the devices and ranks of a `parallel.sharding.Mesh`, each slice taking
@@ -58,7 +62,7 @@ _GRAD_CAP = 1e12       # adjoint clip at absurd line-search trial points
 _BIG = 1e30            # nan_to_num bound on dP and dpi
 
 PLAIN_CALLS = {"cuda": 0}
-TWICE_CALLS = {"cuda": 0}     # the Hessian route's calls, counted apart
+TWICE_CALLS = {"cuda": 0}     # the plain Hessian route's, counted apart
 LEVEL_CALLS = {"cuda": 0}     # the 4-state route's calls on the card
 
 # below this many states a CUDA tensor takes the level path on the card
@@ -320,13 +324,77 @@ def class_site_lnf_plain(P, tips, topo: Topology, pi):
 def class_site_lnf_twice(P, tips, topo: Topology, pi):
     """The level pass under plain autograd: lnf [C, H], differentiable any
     number of times in P and pi (the analytic adjoints and the kernels are
-    differentiable once).  The Hessian of `codeml.standard_errors` is its
-    one caller; on the card it is the one place where the plain version
-    runs inside a program, so its calls have their own count."""
+    differentiable once).  The Hessians of `codeml.hessian` call it on
+    the CPU and, below LEVEL_MAX_STATES states, on the card, where it is
+    the level route's Hessian (nucleotides); at more states on the card
+    the Hessian takes the kernels (`uses_twice_kernels`).  Its calls on
+    the card have their own count."""
     if P.is_cuda:
         TWICE_CALLS["cuda"] += 1
     s, m, _ = _forward_levels(P, _tipsT_of(tips, P.dtype), topo)
     return _lnf_from(m, _root_F(s[topo.root], pi))
+
+
+def uses_twice_kernels(P) -> bool:
+    """Whether a Hessian over P takes the kernels' route
+    (`cuda_pruning.ClassSiteLnfKernelTwice`: B1-B4, H1 and H2) rather than
+    `class_site_lnf_twice`: CUDA tensors of LEVEL_MAX_STATES states or
+    more, as `class_site_lnf` sends them to the kernels."""
+    return P.is_cuda and P.shape[-1] >= LEVEL_MAX_STATES
+
+
+def _lnf_fwd_plain(P, tipsT, topo: Topology, pi, rows):
+    """(lnf, the scaled partials of `rows` stacked) by the level sweep."""
+    s, m, _ = _forward_levels(P, tipsT, topo)
+    F = _root_F(s[topo.root], pi)
+    return _lnf_from(m, F), torch.stack([s[v] for v in rows])
+
+
+def _adjoint_plain(P, tipsT, topo: Topology, pi, gbar):
+    """(dP, dpi) by the level sweep and its analytic adjoint."""
+    s, m, c = _forward_levels(P, tipsT, topo)
+    F = _root_F(s[topo.root], pi)
+    return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
+
+
+def _jvps(fn, primals, tangents):
+    """torch.func.jvp of fn at primals along each direction (the leading
+    axis of every tangent), vmapped: the outputs with a leading axis."""
+    return torch.func.vmap(
+        lambda *t: torch.func.jvp(fn, primals, t)[1])(*tangents)
+
+
+def class_site_lnf_tan_plain(P, tips, topo: Topology, pi, Pdot, pidot):
+    """The plain version of H1 (`cuda_pruning.ClassSiteLnfKernelTwice.
+    tan_fwd`): (lnfd [D, C, H], Sd [D, nrows, C, n, H]), the tangents of
+    lnf and of the scaled partials along the D directions (Pdot [D, nnode,
+    C, n, n], pidot [D, C, n]), the scale factors held constant as in the
+    forward; Sd on the tree the kernels walk (`cuda_pruning.big_tree`,
+    whose added nodes have a constant identity P) in `full_plan`'s rows."""
+    _count_plain(P)
+    run = cuda_pruning.big_tree(topo)
+    rows = cuda_pruning.full_plan(run).srow_nodes
+    tipsT = _tipsT_of(tips, P.dtype)
+
+    def fwd(P_, pi_):
+        return _lnf_fwd_plain(cuda_pruning.with_identity(P_, run), tipsT,
+                              run, pi_, rows)
+    return _jvps(fwd, (P, pi), (Pdot, pidot))
+
+
+def class_site_lnf_bwd_tan_plain(P, tips, topo: Topology, pi, gbar, Pdot,
+                                 pidot, gdot):
+    """The plain version of H2 (`cuda_pruning.ClassSiteLnfKernelTwice.
+    tan_bwd`): (dPd [D, nnode, C, n, n], dpid [D, C, n]), the tangents of
+    the analytic adjoint (gbar, P, pi) -> (dP, dpi) along (gdot [D, C, H],
+    Pdot, pidot), forward recomputed; the clips' and guards' derivatives
+    are autograd's (0 where they act)."""
+    _count_plain(P)
+    tipsT = _tipsT_of(tips, P.dtype)
+
+    def bwd(P_, pi_, g_):
+        return _adjoint_plain(P_, tipsT, topo, pi_, g_)
+    return _jvps(bwd, (P, pi, gbar), (Pdot, pidot, gdot))
 
 
 def class_site_lnf_bwd_plain(P, tips, topo: Topology, pi, gbar):
@@ -334,10 +402,7 @@ def class_site_lnf_bwd_plain(P, tips, topo: Topology, pi, gbar):
     for the cotangent gbar [C, H] of lnf (forward recomputed)."""
     _count_plain(P)
     with torch.no_grad():
-        tipsT = _tipsT_of(tips, P.dtype)
-        s, m, c = _forward_levels(P, tipsT, topo)
-        F = _root_F(s[topo.root], pi)
-        return _lnf_lvl_bwd(topo, P, tipsT, s, m, c, F, pi, gbar)
+        return _adjoint_plain(P, _tipsT_of(tips, P.dtype), topo, pi, gbar)
 
 
 def class_site_lnf_big_plain(P, tips, topo: Topology, pi):
@@ -346,10 +411,8 @@ def class_site_lnf_big_plain(P, tips, topo: Topology, pi):
     internal nodes in residual-row order, every internal node rescaled."""
     _count_plain(P)
     with torch.no_grad():
-        s, m, _ = _forward_levels(P, _tipsT_of(tips, P.dtype), topo)
-        F = _root_F(s[topo.root], pi)
-        S = torch.stack([s[v] for v in cuda_pruning.big_plan(topo).srow_nodes])
-        return _lnf_from(m, F), S
+        return _lnf_fwd_plain(P, _tipsT_of(tips, P.dtype), topo, pi,
+                              cuda_pruning.big_plan(topo).srow_nodes)
 
 
 def class_site_lnf_big_bwd_plain(P, tips, topo: Topology, pi, gbar, S):

@@ -40,7 +40,7 @@
 // cent for gapped codon data.  What the walk leaves of the bound is B3/B4's
 // (pruning_tree.cuh, PERF.md).
 
-#include "pruning_tree.cuh"
+#include "pruning_tangent.cuh"
 
 namespace {
 
@@ -159,3 +159,6 @@ PAML_PRUNING_ENTRIES(float, f32, 32)
 PAML_PRUNING_ENTRIES(float, f32, 64)
 PAML_PRUNING_ENTRIES(double, f64, 32)
 PAML_PRUNING_ENTRIES(double, f64, 64)
+// H1 / H2 on coded tips (pruning_tangent.cuh), float64: the Hessian's
+PAML_TANGENT_ENTRIES(pruning_, true, double, f64, 32)
+PAML_TANGENT_ENTRIES(pruning_, true, double, f64, 64)

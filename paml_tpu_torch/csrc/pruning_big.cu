@@ -14,7 +14,7 @@
 // State-code tips only, as in the JAX kernel; the coded tips with an
 // ambiguity table go to pruning.cu (B1/B2), the same walk with AMB = true.
 
-#include "pruning_tree.cuh"
+#include "pruning_tangent.cuh"
 
 namespace {
 
@@ -83,3 +83,6 @@ PAML_BIG_ENTRIES(float, f32, 32)
 PAML_BIG_ENTRIES(float, f32, 64)
 PAML_BIG_ENTRIES(double, f64, 32)
 PAML_BIG_ENTRIES(double, f64, 64)
+// H1 / H2 on state codes (pruning_tangent.cuh), float64: the Hessian's
+PAML_TANGENT_ENTRIES(big_, false, double, f64, 32)
+PAML_TANGENT_ENTRIES(big_, false, double, f64, 64)
