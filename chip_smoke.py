@@ -346,10 +346,12 @@
    x, float64), clean (the B3/B4 walk) and gapped (B1/B2's coded tips):
    each against its plain version on the card on 4 random directions
    (lnfd and Sd 1e-10, dPd and dpid 1e-8), timed at 4 and at 16 directions
-   (medians of 5) beside its bound (`cuda_pruning.tan_work`), the plain
-   versions timed too; then M2a's Hessian by the kernels against the plain
-   route on the card (1e-8 of its largest entry), and by the kernels
-   twice, bit for bit, with no plain level pass.
+   (medians of 5) beside its bound (`cuda_pruning.tan_work`), with each
+   grid's blocks, blocks per SM and waves (`cuda_pruning.tan_grid`), the
+   plain versions timed too; then M2a's Hessian by the kernels against the
+   plain route on the card (1e-8 of its largest entry), and by the kernels
+   twice, bit for bit, with no plain level pass, and bit for bit against
+   the first Hessian of a fresh process (`FIRST_HESSIAN`).
 
 Prints a kernels JSON line (B1-B4's rows with their launches by instance,
 `instance_launches`, and their N = 32 times at aaml's shape; H1 / H2's
@@ -7072,8 +7074,9 @@ def tangent_checks(torch, route, P, tips, topo, pi, gz, g, D, card):
     """H1 and H2 (`cuda_pruning.ClassSiteLnfKernelTwice.tan_fwd` /
     `tan_bwd`) on the card against their plain versions on the same
     inputs, D random directions (Pdot, pidot) and gdot from the generator
-    g, gbar = gz: max |diff| of each, and the directions for the
-    timings."""
+    g, gbar = gz: max |diff| of each, the directions for the timings, S,
+    Sd, the gapped tip tables' max |diff| and each kernel's max |diff|
+    over its largest plain value."""
     from paml_tpu_torch.core import cuda_pruning as cp, pruning
 
     nnode, C, n = P.shape[0], P.shape[1], P.shape[-1]
@@ -7084,21 +7087,139 @@ def tangent_checks(torch, route, P, tips, topo, pi, gz, g, D, card):
         * gz.abs().max()
     r = cp.ClassSiteLnfKernelTwice(P, tips, topo, pi)
     lnfd = r.tan_fwd(Pd, pid)
-    Sd = r.Sd
+    Sd, TA = r.Sd, r.TA
     dPd, dpid = r.tan_bwd(gz, gd)
     torch.cuda.synchronize()
+    tol = TOL["float64"]
+    # the tip tables H1 built (tip_table_kernel over the directions; coded
+    # tips with ambiguity alone)
+    e_ta = None if TA is None else max_err(
+        TA, cp.tip_tables_plain(r.x.P, cp._tan_dirs(r.x, Pd, pid)[0],
+                                r.x.amb, r.x.ns),
+        tol["val"], f"19 H1 tip tables {route}")
+    del TA
     lnfd_r, Sd_r = pruning.class_site_lnf_tan_plain(P, tips, topo, pi, Pd,
                                                     pid)
-    tol = TOL["float64"]
-    e1 = max(max_err(lnfd, lnfd_r, tol["val"], f"19 H1 lnfd {route}"),
-             max_err(Sd, Sd_r, tol["val"], f"19 H1 Sd {route}"))
+    errs = [(max_err(got, ref, tol[k], f"19 {what} {route}"),
+             float(ref.abs().max()))
+            for got, ref, k, what in ((lnfd, lnfd_r, "val", "H1 lnfd"),
+                                      (Sd, Sd_r, "val", "H1 Sd"))]
     del lnfd_r, Sd_r
     dPd_r, dpid_r = pruning.class_site_lnf_bwd_tan_plain(P, tips, topo, pi,
                                                          gz, Pd, pid, gd)
-    e2 = max(max_err(dPd, dPd_r, tol["grad"], f"19 H2 dPd {route}"),
-             max_err(dpid, dpid_r, tol["grad"], f"19 H2 dpid {route}"))
+    errs += [(max_err(got, ref, tol["grad"], f"19 {what} {route}"),
+              float(ref.abs().max()))
+             for got, ref, what in ((dPd, dPd_r, "H2 dPd"),
+                                    (dpid, dpid_r, "H2 dpid"))]
     del dPd_r, dpid_r
-    return e1, e2, (Pd, pid, gd), r.S, Sd
+    # max |diff| of H1 and H2, and each over the largest |plain value|
+    e1, e2 = max(e for e, _ in errs[:2]), max(e for e, _ in errs[2:])
+    r1 = max(e / m for e, m in errs[:2])
+    r2 = max(e / m for e, m in errs[2:])
+    return e1, e2, (Pd, pid, gd), r.S, Sd, e_ta, (r1, r2)
+
+
+def tan_grids(torch, topo, C, H, n, D):
+    """The tangents' grids on this card at these shapes: (G, Z) of H1 and
+    (G, Z, TV) of H2 (`cuda_pruning.tan_grid`, `tan_bwd_grid`), and the
+    card's SM count and N."""
+    from paml_tpu_torch.core import cuda_pruning as cp
+
+    props = torch.cuda.get_device_properties(0)
+    sms, npad = props.multi_processor_count, cp.padded_states(n)
+    tb = cp.big_tree(topo)
+    ntiles = cp.big_tiles(H)
+    return (cp.tan_grid(ntiles, C, D, sms, npad),
+            cp.tan_bwd_grid(tb.nnode, C, D, ntiles, 8, sms,
+                            props.total_memory, cp.full_plan(tb).nslots,
+                            npad), sms, npad)
+
+
+def tangent_shapes(torch, route, data, topo, neg, P, pi, gz, g, card):
+    """H1 and H2 against their plain versions (`tangent_checks`) where the
+    grid differs from M2a's at the bench shape: M8's 11 classes there
+    (12 tile ranges of 10-11 tiles, so an H2 block visits its range twice
+    and adds its second visit to its slabs), and a chunk of 86 patterns
+    (3 tiles, the last one partial) at `codeml.HESSIAN_ROWS` directions,
+    where the directions split into groups of unequal size."""
+    from paml_tpu_torch.apps import codeml
+    from paml_tpu_torch.core import cuda_pruning as cp
+
+    spec = codeml.CodemlSpec(NSsites=8, ncatG=10, codonf="F3x4")
+    neg8, _, _, x8, _, _ = codeml.make_codon_objective(data, topo, spec,
+                                                       device="cuda")
+    with torch.no_grad():
+        P8, pi8, w8 = neg8.model_at(torch.as_tensor(
+            np.asarray(x8, float), dtype=torch.float64, device="cuda"))
+    P8, pi8 = P8.contiguous(), pi8.contiguous()
+    gz8 = codeml._mixture(cp.ClassSiteLnfKernelTwice(
+        P8, neg8.tips, topo, pi8).lnf, w8, neg8.fpatt)[2].detach()
+    hc = 86
+    cases = (("M8", P8, cp.kernel_tips(neg8.tips), pi8, gz8, 4),
+             (f"M2a, {hc} patterns",
+              P, codeml._pattern_slice(cp.kernel_tips(neg.tips),
+                                       slice(0, hc)),
+              pi, gz[:, :hc].contiguous(), codeml.HESSIAN_ROWS))
+    for tag, P_, tips, pi_, gz_, D in cases:
+        C, n, H = P_.shape[1], P_.shape[-1], gz_.shape[1]
+        (G1, Z1), (G, Z, TV), sms, npad = tan_grids(torch, topo, C, H, n, D)
+        ntiles = cp.big_tiles(H)
+        span = -(-ntiles // G)
+        e1, e2, _, _, _, e_ta, (r1, r2) = tangent_checks(
+            torch, f"{route} {tag}", P_, tips, topo, pi_, gz_, g, D, card)
+        print(f"19 {route} {tag} ({C} classes x {H} patterns = {ntiles} "
+              f"tiles, {D} directions) [{card}]: H1 grid {G1} x {C} x {Z1}"
+              f", H2 grid G {G} x {C} x Z {Z}, visits of TV {TV} tiles, "
+              f"{-(-span // TV)} visits a block; H1 max |diff| {e1:.3e} "
+              f"({r1:.3e} of its largest value), H2 {e2:.3e} ({r2:.3e})"
+              + ("" if e_ta is None else f", tip tables {e_ta:.3e}")
+              + " against the plain versions", flush=True)
+        reach = -(-span // TV) >= 2 if tag == "M8" else min(Z1, Z) >= 2
+        if not reach:
+            raise AssertionError(f"19 {route} {tag}: the grid ({G} x {C} x "
+                                 f"{Z}, TV {TV}) does not reach the path "
+                                 f"it is here to check")
+        torch.cuda.empty_cache()
+
+
+# M2a's Hessian (codeml.hessian on the card) as the first of a fresh process:
+# argv[1] a pickle of (packed data, topology, x), argv[2] the .npy to write
+FIRST_HESSIAN = r'''
+import pickle, sys
+import numpy as np
+from paml_tpu_torch import _build
+from paml_tpu_torch.apps import codeml
+with open(sys.argv[1], "rb") as f:
+    data, topo, x = pickle.load(f)
+_build.lib()
+neg = codeml.make_codon_objective(
+    data, topo, codeml.CodemlSpec(NSsites=2, codonf="F3x4"),
+    device="cuda")[0]
+np.save(sys.argv[2], codeml.hessian(neg, x, device="cuda"))
+'''
+
+
+def first_hessian(data, topo, x) -> np.ndarray:
+    """M2a's Hessian at x as a fresh process's first (`FIRST_HESSIAN`), on
+    copies of the data and the topology without their cached device
+    tables."""
+    import os
+    import pickle
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl, npy = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "H.npy")
+        with open(pkl, "wb") as f:
+            pickle.dump((dataclasses.replace(data), dataclasses.replace(topo),
+                         np.asarray(x, float)), f)
+        r = subprocess.run([sys.executable, "-c", FIRST_HESSIAN, pkl, npy],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode:
+            raise AssertionError(f"19: the fresh process's Hessian exited "
+                                 f"{r.returncode}:\n{r.stderr[-3000:]}")
+        return np.load(npy)
 
 
 def phase_hessian(torch, report, card, bench):
@@ -7107,9 +7228,13 @@ def phase_hessian(torch, report, card, bench):
     x, float64), on state codes (the B3/B4 walk) and on the gapped data
     (B1/B2's coded tips): each against its plain version (4 directions,
     1e-10 and 1e-8), timed at 4 and at `codeml.HESSIAN_ROWS` directions
-    (medians of 5) beside its bound; then M2a's Hessian by the kernels
-    against the plain route (`codeml._hessian_twice`) on the card, and
-    twice, bit for bit."""
+    (medians of 5) beside its bound, with each grid's blocks, blocks per
+    SM and waves; the gapped data's tip tables against their plain
+    version; H1 and H2 against the plain versions where the grid takes
+    other paths (`tangent_shapes`: M8's H2 blocks visit their tiles twice,
+    a small chunk splits the directions); then M2a's Hessian by the kernels against the plain route
+    (`codeml._hessian_twice`) on the card, twice, bit for bit, and bit for
+    bit against a fresh process's first (`first_hessian`)."""
     from paml_tpu_torch.apps import codeml
     from paml_tpu_torch.core import cuda_pruning as cp, pruning
 
@@ -7132,7 +7257,7 @@ def phase_hessian(torch, report, card, bench):
         fused = isinstance(tips, cp.TipCodes)
         n_amb = n_amb_of(tips)
         C, n, H = P.shape[1], P.shape[-1], gz.shape[1]
-        e1, e2, (Pd, pid, gd), S, Sd = tangent_checks(
+        e1, e2, (Pd, pid, gd), S, Sd, e_ta, _ = tangent_checks(
             torch, route, P, tips, topo, pi, gz, g, 4, card)
         fwd, bwd = (cp.pruning_tan_fwd, cp.pruning_tan_bwd) if fused else \
             (cp.pruning_big_tan_fwd, cp.pruning_big_tan_bwd)
@@ -7146,15 +7271,18 @@ def phase_hessian(torch, report, card, bench):
                                               S))
             ms_b = cuda_ms_median(lambda: bwd(P, tips, topo, pi, gz, Pd_,
                                               pid_, gd_, S, Sd_))
-            props = torch.cuda.get_device_properties(0)
+            grid_f, (G, Z, TV), sms, npad = tan_grids(torch, topo, C, H, n,
+                                                      D)
             tb = cp.big_tree(topo)
-            G = cp.tan_bwd_grid(tb.nnode, C, D, cp.big_tiles(H), 8,
-                                props.multi_processor_count,
-                                props.total_memory,
-                                cp.full_plan(tb).nslots, cp.padded_states(n))
             b_f = cp.tan_work("tan_fwd", tb, C, H, n, 8, D, n_amb)
             b_b = cp.tan_work("tan_bwd", tb, C, H, n, 8, D, n_amb, G)
-            rows[D] = dict(ms=(ms_f, ms_b), G=G, bound=tuple(
+            grids = [f"{g_ * C * z_} blocks ({g_} tile ranges x {C} classes "
+                     f"x {z_} direction groups{tv}), "
+                     f"{cp.tan_blocks_per_sm(npad)} a SM, "
+                     f"{cp.tan_waves(g_, C, z_, sms, npad):.3f} waves"
+                     for g_, z_, tv in ((*grid_f, ""),
+                                        (G, Z, f", visits of {TV} tiles"))]
+            rows[D] = dict(ms=(ms_f, ms_b), G=G, grids=grids, bound=tuple(
                 (cp.bound_ms(*b), "operations" if b[0] / cp.PEAK_FLOPS
                  >= b[1] / cp.PEAK_BYTES else "bytes") for b in (b_f, b_b)))
             del Sd_
@@ -7176,19 +7304,22 @@ def phase_hessian(torch, report, card, bench):
         print(f"19 {route} ({'B1/B2' if fused else 'B3/B4'} walk; {topo.ns} "
               f"taxa x {H} patterns x {C} classes x {n} states, "
               f"{n_amb} ambiguity rows) [{card}]: H1 max |diff| {e1:.3e}, "
-              f"H2 {e2:.3e} against the plain versions (4 directions); "
+              f"H2 {e2:.3e}"
+              + ("" if e_ta is None else f", tip tables {e_ta:.3e}")
+              + " against the plain versions (4 directions); "
               + "; ".join(
                   f"{D} directions: H1 {r['ms'][0]:.3f} ms (bound "
                   f"{r['bound'][0][0]:.3f}, {r['bound'][0][1]}, share "
-                  f"{r['bound'][0][0] / r['ms'][0]:.3f}), H2 "
-                  f"{r['ms'][1]:.3f} ms (G {r['G']}, bound "
+                  f"{r['bound'][0][0] / r['ms'][0]:.3f}; {r['grids'][0]}), "
+                  f"H2 {r['ms'][1]:.3f} ms (G {r['G']}, bound "
                   f"{r['bound'][1][0]:.3f}, {r['bound'][1][1]}, share "
-                  f"{r['bound'][1][0] / r['ms'][1]:.3f})"
+                  f"{r['bound'][1][0] / r['ms'][1]:.3f}; {r['grids'][1]})"
                   for D, r in rows.items())
               + f"; plain versions at 4 directions {plain_ms[0]:.1f} / "
               f"{plain_ms[1]:.1f} ms (medians of 3)", flush=True)
         del Pd, pid, gd, S, Sd
         torch.cuda.empty_cache()
+        tangent_shapes(torch, route, data, topo, neg, P, pi, gz, g, card)
         # the Hessian of M2a at its MLE: the kernels against the plain
         # route, and the kernels twice
         reset_counts()
@@ -7211,16 +7342,24 @@ def phase_hessian(torch, report, card, bench):
         tt = time.perf_counter() - t0
         rel = float(np.abs(Hk - Ht).max() / np.abs(Ht).max())
         same = bool(np.array_equal(Hk, Hk2))
+        t0 = time.perf_counter()
+        H0 = first_hessian(data, topo, x)
+        t0 = time.perf_counter() - t0
+        first = bool(np.array_equal(H0, Hk))
         print(f"19 {route}: M2a's Hessian ({len(x)} parameters) by the "
               f"kernels {tk:.2f} s (launches {counts['launches']}), by the "
               f"plain route {tt:.2f} s; max |diff| / max |H| {rel:.3e} "
-              f"(limit 1e-8); the kernels twice bit for bit {same}",
+              f"(limit 1e-8); the kernels twice bit for bit {same}; a fresh "
+              f"process's first Hessian ({t0:.1f} s with its start) bit for "
+              f"bit {first} (max |diff| {np.abs(H0 - Hk).max():.3e})",
               flush=True)
-        if not rel <= 1e-8 or not same or not np.isfinite(Hk).all():
+        if not rel <= 1e-8 or not same or not first or \
+                not np.isfinite(Hk).all():
             raise AssertionError(f"19 {route}: the Hessian by the kernels "
                                  f"differs from the plain route by {rel:.3e}"
                                  f" of its largest entry, or does not "
-                                 f"repeat (bit for bit {same})")
+                                 f"repeat (bit for bit {same}; a fresh "
+                                 f"process's first {first})")
         report["tan_fwd"][f"hessian_seconds_{route}"] = (tk, tt)
     print(f"19: {time.perf_counter() - t_phase:.1f} s", flush=True)
 

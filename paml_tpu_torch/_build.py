@@ -33,8 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # the tangent kernels H1 / H2 (csrc/pruning_tangent.cuh), both encodings
-_TAN_FWD = [_P, _I, _I] + [_P] * 9 + [_I] * 8 + [_P]
-_TAN_BWD = [_P, _I, _I] + [_P] * 15 + [_I] * 12 + [_P]
+_TAN_FWD = [_P, _I, _I] + [_P] * 4 + [_I, _P, _I] + [_P] * 5 + [_I] * 10 \
+    + [_P]
+_TAN_BWD = [_P, _I, _I] + [_P] * 4 + [_I, _P, _I] + [_P] * 11 + [_I] * 15 \
+    + [_P]
 # argtypes of each entry point (per dtype suffix f32 / f64), by source
 _SIGNATURES = {
     "pruning": {

@@ -903,8 +903,15 @@ def _deterministic():
     deterministic implementation would warn, not stop the program (none
     does on the Hessians' paths).  Uninitialized memory is left as it is
     (the mode would fill every `torch.empty` first: a quarter of a
-    Hessian's CPU time).  The previous settings are restored on the way
-    out."""
+    Hessian's CPU time).  Every backward pass runs on this thread: the
+    autograd engine adds the gradients that meet at a node in the order of
+    their nodes' sequence numbers, which each thread counts for itself; a
+    double backward on the card made its nodes on the engine's device
+    thread and the model's forward made its own here, and as the two
+    counts drifted apart from one Hessian to the next the order of such a
+    sum flipped and the Hessian's last bits with it (a process's third
+    Hessian one ulp from its first two).  The previous settings are
+    restored on the way out."""
     det = torch.utils.deterministic
     was = (torch.are_deterministic_algorithms_enabled(),
            torch.is_deterministic_algorithms_warn_only_enabled(),
@@ -912,7 +919,8 @@ def _deterministic():
     torch.use_deterministic_algorithms(True, warn_only=True)
     det.fill_uninitialized_memory = False
     try:
-        yield
+        with torch.autograd.set_multithreading_enabled(False):
+            yield
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
         det.fill_uninitialized_memory = was[2]

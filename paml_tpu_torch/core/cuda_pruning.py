@@ -60,6 +60,8 @@ BIG_RED = 2 * 8 * BIG_HT  # the column-reduction scratch (RED)
 BIG_TMAX = 16            # tiles per visit of an adjoint block
 BIG_WORK_SHARE = 8       # the adjoint's slabs take at most 1/8 of the card
 SMEM_MAX = 232448        # dynamic shared memory a block may use (H100)
+SMEM_SM = 233472         # shared memory of an SM (H100), 1 KB a block kept
+TAN_TMAX = 8             # tiles per visit of an H2 block (the tangents)
 
 # H100 SXM data sheet: FP64 on the tensor cores and FP32 outside them, both
 # 67 TFLOP/s; HBM3 3.35 TB/s
@@ -635,17 +637,83 @@ def big_bwd_grid(nnode: int, C: int, ntiles: int, esize: int, sms: int,
     return max(1, min(ntiles, -(-sms // C), cap))
 
 
+def tan_smem(npad: int, esize: int = 8) -> int:
+    """Dynamic shared memory of an H1 or H2 block at N = npad
+    (pruning_tangent.cuh: tan_smem): each child's P_k and one child's Pd_k
+    [N][LDN]; each child's s_k and X_k, one child's sd_k and one more tile
+    (H1 a tip's second buffer, H2 G_k) [N][LDH]; the column-reduction
+    scratch."""
+    return ((BIG_KMAX + 1) * npad * ldn(npad)
+            + (2 * BIG_KMAX + 2) * npad * BIG_LDH + BIG_RED) * esize
+
+
+def tan_blocks_per_sm(npad: int) -> int:
+    """Blocks per SM the tangents' design counts on at N = npad (their
+    launch bounds, pruning_tangent.cuh: TanOcc): as many float64 blocks as
+    the SM's shared memory holds, 1 KB a block kept by the card."""
+    return SMEM_SM // (tan_smem(npad) + 1024)
+
+
+def tan_grid(ntiles: int, C: int, D: int, sms: int, npad: int,
+             cap: int | None = None) -> tuple[int, int]:
+    """(G, Z): the tangent kernels' grid, G tile ranges x C classes x Z
+    direction groups, in one whole wave of the card's sms x
+    tan_blocks_per_sm(npad) block slots.  As many tile ranges as the
+    slots hold with every direction in a block (at most one a tile, at
+    most `cap`); the directions split into groups only where tiles x
+    classes leave slots empty (small chunks), so that the direction-
+    independent part is done once per tile wherever the tiles fill the
+    card.  From the card's SM count (and, by `cap`, its size) alone: the
+    slabs' sum order, and so the bits, repeat."""
+    slots = sms * tan_blocks_per_sm(npad)
+    G = max(1, min(ntiles, slots // C, cap or ntiles))
+    Z = max(1, min(D, slots // (G * C)))
+    return G, Z
+
+
+def tan_waves(G: int, C: int, Z: int, sms: int, npad: int) -> float:
+    """Waves of a tangent grid: its blocks over the card's block slots."""
+    return G * C * Z / (sms * tan_blocks_per_sm(npad))
+
+
+def tan_work_per_block(D: int, Z: int, nslots: int, TV: int,
+                       npad: int) -> int:
+    """H2's workspace per block (pruning_tangent.cuh): the adjoint slots A
+    and, for each of its ceil(D / Z) directions, Ad [nslots + 1][TV][N][BHT];
+    the node's direction-independent part [TV][3][N][BHT] and [TV][BHT]."""
+    dz = -(-D // Z)
+    return ((1 + dz) * (nslots + 1) * TV * npad * BIG_HT
+            + TV * (3 * npad + 1) * BIG_HT)
+
+
 def tan_bwd_grid(nnode: int, C: int, D: int, ntiles: int, esize: int,
-                 sms: int, mem_bytes: int, nslots: int, npad: int) -> int:
-    """Blocks along the tile axis of H2 (G): enough for G x C x D >= the
-    card's SM count, at most one per tile, and fewer when its dPd slabs
-    (D x nnode x C x N x N values per g) and adjoint slots would pass
-    1/BIG_WORK_SHARE of the card's memory; fixed by the card, not by its
+                 sms: int, mem_bytes: int, nslots: int,
+                 npad: int) -> tuple[int, int, int]:
+    """(G, Z, TV) of H2: `tan_grid`, G capped where its dPd slabs (D x
+    nnode x C x N x N values per g) and workspace would pass
+    1/BIG_WORK_SHARE of the card's memory; TV the tiles per visit, a
+    block's whole range up to TAN_TMAX.  Fixed by the card, not by its
     free memory, so that the slabs' sum order, and so the bits, repeat."""
     per_g = (D * nnode * C * npad * npad + D * C * npad
-             + 2 * D * C * (nslots + 1) * npad * BIG_HT) * esize
-    cap = mem_bytes // BIG_WORK_SHARE // per_g
-    return max(1, min(ntiles, -(-sms // (C * D)), cap))
+             + C * tan_work_per_block(D, 1, nslots, TAN_TMAX, npad)) * esize
+    cap = max(1, mem_bytes // BIG_WORK_SHARE // per_g)
+    G, Z = tan_grid(ntiles, C, D, sms, npad, cap)
+    return G, Z, min(TAN_TMAX, -(-ntiles // G))
+
+
+def tip_tables_plain(P: torch.Tensor, Pdot: torch.Tensor,
+                     amb: torch.Tensor, ns: int) -> torch.Tensor:
+    """The plain version of the tangents' tip tables (tip_table_kernel over
+    the directions): [1 + D, ns, C, N, LA], TA = P amb^T of each tip and
+    class, then TAd = Pdot amb^T for each direction; P [nnode, C, N, N] and
+    Pdot [D, nnode, C, N, N] padded to N, amb [A, N], LA = A rounded up to
+    whole tiles (zeros past A)."""
+    A, N = amb.shape
+    LA = -(-A // BIG_HT) * BIG_HT
+    Ps = torch.cat([P[None, :ns], Pdot[:, :ns]])
+    out = Ps.new_zeros(Ps.shape[:-1] + (LA,))
+    out[..., :A] = Ps @ amb.T
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -875,7 +943,22 @@ def _tan_entry(x: _Inputs, which: str):
     return getattr(_build.lib(), f"paml_{pre}tan_{which}_f64_n{x.N}")
 
 
+def _tan_tables(x: _Inputs, D: int):
+    """(amb, A, TA workspace for 1 + D tables, LA) of the tangents' entries;
+    null and 0 for state codes."""
+    if x.A == 0:
+        return None, 0, None, 0
+    LA = -(-x.A // BIG_HT) * BIG_HT
+    check_tip_table(x.ns, x.C, x.A, x.P.element_size() * (1 + D),
+                    torch.cuda.get_device_properties(x.P.device).total_memory,
+                    x.N)
+    return x.amb.data_ptr(), x.A, \
+        x.P.new_empty(((1 + D) * x.ns * x.C * x.N * LA,)), LA
+
+
 def _launch_tan_fwd(x: _Inputs, Pdot, pidot, S):
+    """(lnfd, Sd, the tip tables [1 + D, ns, C, N, LA] it built: TA, then
+    TAd for each direction; None on state codes)."""
     from .. import _build
 
     fn = _tan_entry(x, "fwd")
@@ -884,17 +967,22 @@ def _launch_tan_fwd(x: _Inputs, Pdot, pidot, S):
     Pp, pp = _tan_dirs(x, Pdot, pidot)
     D = Pp.shape[0]
     _, bs = bp.device_tables(x.P.device)
+    ntiles = big_tiles(x.H)
+    G, Z = tan_grid(ntiles, x.C, D, torch.cuda.get_device_properties(
+        x.P.device).multi_processor_count, x.N)
+    amb, A, TA, LA = _tan_tables(x, D)
     lnfd = x.P.new_empty((D, x.C, x.H))
     Sd = x.P.new_empty((D, bp.n_srows, x.C, x.n, x.H))
     with torch.cuda.device(x.P.device):
         err = fn(bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
-                 Pp.data_ptr(), x.states.data_ptr(), _ptr(x.amb),
+                 Pp.data_ptr(), x.states.data_ptr(), amb, A, _ptr(TA), LA,
                  x.pi.data_ptr(), pp.data_ptr(), S.data_ptr(), Sd.data_ptr(),
-                 lnfd.data_ptr(), D, big_tiles(x.H), x.C, x.H, x.ns, x.n,
+                 lnfd.data_ptr(), D, G, Z, ntiles, x.C, x.H, x.ns, x.n,
                  x.nnode, bp.n_srows, _stream(x.P.device))
     _count("tan_fwd", x.N)
     _build.check(err, f"tan_fwd_n{x.N} launch")
-    return lnfd, Sd
+    return lnfd, Sd, None if TA is None else TA.view(1 + D, x.ns, x.C, x.N,
+                                                      LA)
 
 
 def _launch_tan_bwd(x: _Inputs, Pdot, pidot, gbar, gdot, S, Sd):
@@ -911,23 +999,25 @@ def _launch_tan_bwd(x: _Inputs, Pdot, pidot, gbar, gdot, S, Sd):
     _, bs = bp.device_tables(x.P.device)
     props = torch.cuda.get_device_properties(x.P.device)
     ntiles = big_tiles(x.H)
-    G = tan_bwd_grid(x.nnode, x.C, D, ntiles, x.P.element_size(),
-                     props.multi_processor_count, props.total_memory,
-                     bp.nslots, x.N)
-    dP_slab = x.P.new_zeros((G * D * x.nnode * x.C * x.N * x.N,))
+    G, Z, TV = tan_bwd_grid(x.nnode, x.C, D, ntiles, x.P.element_size(),
+                            props.multi_processor_count, props.total_memory,
+                            bp.nslots, x.N)
+    amb, A, TA, LA = _tan_tables(x, D)
+    dP_slab = x.P.new_empty((G * D * x.nnode * x.C * x.N * x.N,))
     dpi_slab = x.P.new_empty((G * D * x.C * x.N,))
-    work = x.P.new_empty((D * G * x.C * 2 * (bp.nslots + 1) * x.N * BIG_HT,))
+    work = x.P.new_empty((Z * G * x.C * tan_work_per_block(
+        D, Z, bp.nslots, TV, x.N),))
     dPd = x.P.new_empty((D, x.nnode_in, x.C, x.n, x.n))
     dpid = x.P.new_empty((D, x.C, x.n))
     with torch.cuda.device(x.P.device):
         err = fn(bs.data_ptr(), bs.shape[0], bp.kmax, x.P.data_ptr(),
-                 Pp.data_ptr(), x.states.data_ptr(), _ptr(x.amb),
+                 Pp.data_ptr(), x.states.data_ptr(), amb, A, _ptr(TA), LA,
                  x.pi.data_ptr(), pp.data_ptr(), gbar.data_ptr(),
                  gdot.data_ptr(), S.data_ptr(), Sd.data_ptr(),
                  dP_slab.data_ptr(), dpi_slab.data_ptr(), work.data_ptr(),
-                 dPd.data_ptr(), dpid.data_ptr(), D, G, ntiles, x.C, x.H,
-                 x.ns, x.n, x.nnode, x.nnode_in, x.nnode_in, bp.nslots,
-                 bp.n_srows, _stream(x.P.device))
+                 dPd.data_ptr(), dpid.data_ptr(), D, G, Z, ntiles, TV, x.C,
+                 x.H, x.ns, x.n, x.nnode, x.nnode_in, x.nnode_in, bp.nslots,
+                 bp.n_srows, bp.root, _stream(x.P.device))
     _count("tan_bwd", x.N)
     _build.check(err, f"tan_bwd_n{x.N} launch")
     return dPd, dpid
@@ -940,7 +1030,7 @@ def pruning_tan_fwd(P, tips, topo: Topology, pi, Pdot, pidot, S, *,
     directions (Pdot [D, nnode, C, n, n], pidot [D, C, n]); S as
     `ClassSiteLnfKernelTwice`'s forward writes it (`full_plan`)."""
     return _launch_tan_fwd(_fused_inputs(P, tips, topo, pi, npad), Pdot,
-                           pidot, S)
+                           pidot, S)[:2]
 
 
 def pruning_tan_bwd(P, tips, topo: Topology, pi, gbar, Pdot, pidot, gdot, S,
@@ -956,7 +1046,7 @@ def pruning_big_tan_fwd(P, tips, topo: Topology, pi, Pdot, pidot, S, *,
                         npad: int | None = None):
     """H1 on state-code tips (B3/B4's walk), as `pruning_tan_fwd`."""
     return _launch_tan_fwd(_big_inputs(P, tips, topo, pi, npad), Pdot,
-                           pidot, S)
+                           pidot, S)[:2]
 
 
 def pruning_big_tan_bwd(P, tips, topo: Topology, pi, gbar, Pdot, pidot,
@@ -988,7 +1078,7 @@ class ClassSiteLnfKernelTwice:
         from . import pruning
 
         self.P, self.tips, self.topo, self.pi = P, tips, topo, pi
-        self.S = self.Sd = self.dirs = None
+        self.S = self.Sd = self.dirs = self.TA = None
         if P.is_cuda:
             self.x = _Inputs(P, kernel_tips(tips), topo, pi)
             self.lnf, self.S = _launch_fwd(self.x, True,
@@ -1008,12 +1098,14 @@ class ClassSiteLnfKernelTwice:
 
     def tan_fwd(self, Pdot, pidot):
         """H1: lnfd [D, C, H] along (Pdot [D, nnode, C, n, n], pidot [D, C,
-        n]); the directions and Sd are kept for `tan_bwd`."""
+        n]); the directions and Sd are kept for `tan_bwd`, and on the card
+        the tip tables H1 built (`TA`, None on state codes) until then."""
         from . import pruning
 
         self.dirs = (Pdot, pidot)
         if self.P.is_cuda:
-            lnfd, self.Sd = _launch_tan_fwd(self.x, Pdot, pidot, self.S)
+            lnfd, self.Sd, self.TA = _launch_tan_fwd(self.x, Pdot, pidot,
+                                                     self.S)
         else:
             lnfd, self.Sd = pruning.class_site_lnf_tan_plain(
                 self.P, self.tips, self.topo, self.pi, Pdot, pidot)
@@ -1025,7 +1117,7 @@ class ClassSiteLnfKernelTwice:
         from . import pruning
 
         (Pdot, pidot), Sd = self.dirs, self.Sd
-        self.dirs = self.Sd = None
+        self.dirs = self.Sd = self.TA = None
         if self.P.is_cuda:
             return _launch_tan_bwd(self.x, Pdot, pidot, gbar, gdot, self.S,
                                    Sd)

@@ -24,10 +24,11 @@
 //   on the FP64 tensor cores in float64 and FMA in float32, dP slabs summed
 //   in a fixed order.  The walk takes binary trees: the wrapper walks
 //   cuda_pruning.big_tree.
-// * tip_table_kernel computes TA[v, c] = P_v amb^T [N x LA] for every tip v
-//   and class c, once per launch: a tip's contribution at an ambiguous cell
-//   is then a gather from TA, as a resolved cell's is from P_v.  Its cost
-//   does not depend on the patterns: 2 n^2 A per tip and class.
+// * tip_table_kernel (pruning_tree.cuh) computes TA[v, c] = P_v amb^T [N x
+//   LA] for every tip v and class c, once per launch: a tip's contribution
+//   at an ambiguous cell is then a gather from TA, as a resolved cell's is
+//   from P_v.  Its cost does not depend on the patterns: 2 n^2 A per tip and
+//   class.
 // * The adjoint's tip dP: a resolved cell is B4's ordered scatter; an
 //   ambiguous cell a rank-one update G_k[:, h] amb[a]^T of the registers of
 //   the product layout, in pattern order, added to the scatter's sum once
@@ -44,58 +45,14 @@
 
 namespace {
 
-// TA[v, c, j, a0 + a] = sum_i P[v, c, j, i] amb[a0 + a, i] for tip v, class
-// c and a block of BHT table rows (zero past A); amb is [A][N], TA [ns, C,
-// N, LA]
-template <typename T, int N>
-__global__ void __launch_bounds__(NT) tip_table_kernel(
-    const T* __restrict__ P, const T* __restrict__ amb, T* __restrict__ TA,
-    int C, int A, int LA) {
-  constexpr int LDN = Pad<N>::LDN, EH = Pad<N>::EH;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ps = reinterpret_cast<T*>(smem_raw);   // [N][LDN]
-  T* As = Ps + N * LDN;                      // [N][LDH]: amb^T
-  const int v = blockIdx.x, c = blockIdx.y, a0 = blockIdx.z * BHT;
-  const T* Pv = P + ((size_t)v * C + c) * N * N;
-  for (int e = threadIdx.x; e < N * N; e += NT)
-    Ps[(e / N) * LDN + e % N] = Pv[e];
-  for (int e = threadIdx.x; e < N * BHT; e += NT) {
-    const int i = e % N, a = e / N;
-    As[i * LDH + a] = a0 + a < A ? amb[(size_t)(a0 + a) * N + i] : T(0);
-  }
-  __syncthreads();
-  T acc[EH];
-  prod_ps<T, N>(Ps, As, acc);
-  T* out = TA + ((size_t)v * C + c) * N * LA + a0;
-#pragma unroll
-  for (int e = 0; e < EH; ++e) {
-    int row, col;
-    acc_rc<N, Pad<N>::QH>(e, row, col);
-    out[(size_t)row * LA + col] = acc[e];
-  }
-}
-
-template <typename T, int N>
-int launch_tip_table(const T* P, const T* amb, T* TA, int ns, int C, int A,
-                     int LA, cudaStream_t stream) {
-  if (A == 0) return (int)cudaSuccess;
-  const int smem = (int)((N * Pad<N>::LDN + N * LDH) * sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      tip_table_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  tip_table_kernel<T, N><<<dim3(ns, C, LA / BHT), NT, smem, stream>>>(
-      P, amb, TA, C, A, LA);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int N>
 int launch_fwd(const int* fs, int nsteps, int kmax, const T* P,
                const int* codes, const T* amb, int A, const T* pi, T* lnf,
                T* S, T* work, T* TA, int ntiles, int C, int H, int ns, int n,
                int nslots, int LA, int smem, cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
-  int err = launch_tip_table<T, N>(P, amb, TA, ns, C, A, LA, stream);
+  int err = launch_tip_table<T, N>(P, 0, amb, TA, 0, 1, ns, C, A, LA,
+                                   stream);
   if (err != (int)cudaSuccess) return err;
   cudaError_t e = cudaFuncSetAttribute(
       big_fwd_kernel<T, true, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -115,7 +72,8 @@ int launch_bwd(const int* bs, int nint, int kmax, const T* P,
                int ns, int n, int nnode, int vclip, int nslots, int root,
                int LA, int smem, cudaStream_t stream) {
   if (kmax > KMAX) return (int)cudaErrorInvalidValue;
-  int err = launch_tip_table<T, N>(P, amb, TA, ns, C, A, LA, stream);
+  int err = launch_tip_table<T, N>(P, 0, amb, TA, 0, 1, ns, C, A, LA,
+                                   stream);
   if (err != (int)cudaSuccess) return err;
   cudaError_t e = cudaFuncSetAttribute(
       big_bwd_kernel<T, true, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,

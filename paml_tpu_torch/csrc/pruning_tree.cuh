@@ -109,10 +109,15 @@ constexpr int RED = 2 * 8 * BHT;   // values of col_reduce's scratch
 // same
 constexpr int ROOT_RW = 8;
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 // [N][LDN] <- P_v [N][N] by asynchronous 16-byte copies (cp.async), which
-// overlap whatever the block does until cp_async_wait
+// overlap whatever the block does until cp_async_wait; copy_P leaves them
+// uncommitted (the tangents commit a step's copies as one group)
 template <typename T, int N>
-__device__ __forceinline__ void load_Pn_async(T* Ps, const T* Pv) {
+__device__ __forceinline__ void copy_P(T* Ps, const T* Pv) {
   constexpr int V = 16 / sizeof(T);          // values per copy
   constexpr int PER = N * N / V / NT;        // copies per thread
 #pragma unroll
@@ -123,7 +128,11 @@ __device__ __forceinline__ void load_Pn_async(T* Ps, const T* Pv) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                  "l"(Pv + e));
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <typename T, int N>
+__device__ __forceinline__ void load_Pn_async(T* Ps, const T* Pv) {
+  copy_P<T, N>(Ps, Pv);
+  cp_async_commit();
 }
 
 __device__ __forceinline__ void cp_async_wait() {
@@ -302,11 +311,10 @@ __global__ void __launch_bounds__(NT) big_fwd_kernel(
 }
 
 // a residual row of S into Sb [N][LDH] by asynchronous copies (zero past
-// n and H; the caller waits)
+// n and H; the caller waits); copy_S leaves them uncommitted
 template <typename T, int N>
-__device__ __forceinline__ void load_S_async(T* Sb, const T* S, int srow,
-                                             int c, int C, int n, int H,
-                                             int h0) {
+__device__ __forceinline__ void copy_S(T* Sb, const T* S, int srow, int c,
+                                       int C, int n, int H, int h0) {
   const T* src = S + ((size_t)srow * C + c) * n * H;
 #pragma unroll
   for (int q = 0; q < N * BHT / NT; ++q) {
@@ -315,7 +323,13 @@ __device__ __forceinline__ void load_S_async(T* Sb, const T* S, int srow,
     cp_async_val(Sb + j * LDH + h, ok ? src + (size_t)j * H + h0 + h : src,
                  ok);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <typename T, int N>
+__device__ __forceinline__ void load_S_async(T* Sb, const T* S, int srow,
+                                             int c, int C, int n, int H,
+                                             int h0) {
+  copy_S<T, N>(Sb, S, srow, c, C, n, H, h0);
+  cp_async_commit();
 }
 
 // the state codes that child kr needs at pattern hg: a tip's own (st[0]),
@@ -675,6 +689,55 @@ __global__ void __launch_bounds__(NT) big_bwd_kernel(
   }
   __syncthreads();
   if (tid < N) dpi_slab[(size_t)(g * C + c) * N + tid] = dpa[tid];
+}
+
+// TA[b, v, c, j, a0 + a] = sum_i P[b, v, c, j, i] amb[a0 + a, i] for tip v,
+// class c, a block of BHT table rows (zero past A) and table b of a batch
+// (P and TA b strides apart: B1/B2 build one table, from P, the tangents
+// one more per direction, from Pd); amb is [A][N], TA [nb][ns, C, N, LA]
+template <typename T, int N>
+__global__ void __launch_bounds__(NT) tip_table_kernel(
+    const T* __restrict__ P, size_t pstride, const T* __restrict__ amb,
+    T* __restrict__ TA, size_t tstride, int C, int A, int LA) {
+  constexpr int LDN = Pad<N>::LDN, EH = Pad<N>::EH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ps = reinterpret_cast<T*>(smem_raw);   // [N][LDN]
+  T* As = Ps + N * LDN;                      // [N][LDH]: amb^T
+  const int nz = LA / BHT, b = blockIdx.z / nz;
+  const int v = blockIdx.x, c = blockIdx.y, a0 = (blockIdx.z % nz) * BHT;
+  const T* Pv = P + b * pstride + ((size_t)v * C + c) * N * N;
+  for (int e = threadIdx.x; e < N * N; e += NT)
+    Ps[(e / N) * LDN + e % N] = Pv[e];
+  for (int e = threadIdx.x; e < N * BHT; e += NT) {
+    const int i = e % N, a = e / N;
+    As[i * LDH + a] = a0 + a < A ? amb[(size_t)(a0 + a) * N + i] : T(0);
+  }
+  __syncthreads();
+  T acc[EH];
+  prod_ps<T, N>(Ps, As, acc);
+  T* out = TA + b * tstride + ((size_t)v * C + c) * N * LA + a0;
+#pragma unroll
+  for (int e = 0; e < EH; ++e) {
+    int row, col;
+    acc_rc<N, Pad<N>::QH>(e, row, col);
+    out[(size_t)row * LA + col] = acc[e];
+  }
+}
+
+// nb tip tables from nb P's pstride apart into TA, tstride apart
+template <typename T, int N>
+int launch_tip_table(const T* P, size_t pstride, const T* amb, T* TA,
+                     size_t tstride, int nb, int ns, int C, int A, int LA,
+                     cudaStream_t stream) {
+  if (A == 0) return (int)cudaSuccess;
+  const int smem = (int)((N * Pad<N>::LDN + N * LDH) * sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      tip_table_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  tip_table_kernel<T, N><<<dim3(ns, C, nb * (LA / BHT)), NT, smem, stream>>>(
+      P, pstride, amb, TA, tstride, C, A, LA);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

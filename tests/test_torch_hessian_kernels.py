@@ -7,8 +7,10 @@ state codes and coded tips with gaps), and `codeml.hessian` through
 versions, as on CPU tensors) against `jax.hessian` and against the plain
 route (`class_site_lnf_twice`) on tests/data/clock56.codon: M2a and M8,
 clean and gapped (on the gapped data also rows in blocks of 2 and 16,
-pattern chunks of 64 and of all).  Branch lengths stay fixed (fix_blength =
-2) in the Hessian cases, which leaves 5 parameters: every row costs a
+pattern chunks of 64 and of all), and clock 5's joint objective over the
+two codon loci of tests/data/clock56.codon (`make_step3_objective`, one
+`terms` entry per locus).  Branch lengths stay fixed (fix_blength = 2) in
+the codeml Hessian cases, which leaves 5 parameters: every row costs a
 batched second derivative of P(t) through `matrix_exp`, most of the
 route's CPU time.  A trifurcating root: the nodes `cuda_pruning.big_tree`
 adds take Pdot = 0 and get no dPd."""
@@ -19,14 +21,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from paml_tpu.apps import clock56 as jax_clock56
 from paml_tpu.apps import codeml as jax_codeml
 from paml_tpu.core import pruning as jax_pruning
 from paml_tpu.core.topology import from_treenode as jax_from_treenode
 from paml_tpu.io import treeio as jax_treeio
 from paml_tpu_torch import interop
-from paml_tpu_torch.apps import codeml
+from paml_tpu_torch.apps import clock56, codeml
 from paml_tpu_torch.core import cuda_pruning, pruning
 from paml_tpu_torch.core.tipcodes import TipCodes
+from test_torch_clock56 import hetero, random_x
 from test_torch_codeml import _clock56, _random_x
 
 torch.set_num_threads(1)
@@ -169,3 +173,42 @@ def test_hessian_through_the_kernel_route(name, kw, gapped, monkeypatch):
     H2 = codeml.hessian(neg, x, device="cpu")
     assert len(calls) - n_calls > n_calls
     _close(H2, H, 1e-12)
+
+
+def test_clock5_joint_hessian_through_the_kernel_route(monkeypatch):
+    # clock 5's step-3 objective over two codon loci (two rate groups a
+    # locus, kappa and omega a locus): `neg_lnl.terms` gives one entry per
+    # locus, each its own tree and chunk, and the kernel route sums their
+    # tangents into one Hessian
+    hj, ht = hetero(1)
+    labels = [np.arange(gt.topo.nnode) % 2 for gt in hj.loci]
+    for lab, gt in zip(labels, hj.loci):
+        lab[gt.topo.root] = 0
+    spec = dict(clock=5, seqtype=1, codonf="F3x4", ncatG=1)
+    neg_j, _, (xa0, xab), dims = jax_clock56.make_step3_objective(
+        hj, jax_clock56.Clock56Spec(**spec), labels, [2, 2])
+    neg, _, _, _ = clock56.make_step3_objective(
+        ht, clock56.Clock56Spec(**spec), labels, [2, 2], device="cpu")
+    nxa, ntot_r, nr1, nw, G, _ = dims
+    rng = np.random.default_rng(1)
+    n = nxa + ntot_r + nr1 * G + nw * G
+    x = np.concatenate([random_x(xa0, xab, rng),
+                        rng.uniform(0.05, 0.3, n - nxa)])
+    x[nxa + ntot_r:] = rng.uniform(0.3, 3.0, n - nxa - ntot_r)
+    assert len(neg.terms(torch.tensor(x))) == G == 2
+    Ht = codeml.hessian(neg, x, device="cpu")          # the plain route
+    calls = []
+    real = cuda_pruning.ClassSiteLnfKernelTwice
+
+    def route(*a):
+        calls.append(a[2])
+        return real(*a)
+    monkeypatch.setattr(pruning, "uses_twice_kernels", lambda P: True)
+    monkeypatch.setattr(cuda_pruning, "ClassSiteLnfKernelTwice", route)
+    H = codeml.hessian(neg, x, device="cpu")
+    assert {id(t) for t in calls} == {id(gt.topo) for gt in ht.loci}
+    assert np.isfinite(H).all()
+    _close(H, Ht, 1e-12)
+    Hj = np.asarray(jax.jit(jax.hessian(neg_j))(jnp.asarray(x)))
+    np.testing.assert_allclose(H, Hj, rtol=1e-6,
+                               atol=1e-8 * np.abs(Hj).max())

@@ -7,15 +7,19 @@ simulated as chip_smoke.py's phase 7 simulates, fitted as HKY85 and HKY85
 + G5: the level route's Hessian, `_hessian_twice`) and chip_smoke.py's
 32 x 4096 M0 codon alignment (M2a, clean and gapped: the kernels'
 route), and takes each Hessian ROUNDS times (default 3) at a fixed x,
-with `codeml.hessian`'s deterministic algorithms and without them
-(`codeml._deterministic` replaced by a null context).  Prints, per case,
-the largest difference between rounds and whether they are bit for bit
-the same, then the operations that PyTorch's deterministic mode reports
+with `codeml.hessian`'s deterministic algorithms, with them but the
+autograd engine's multithreaded backward (the passes on the card run on
+its device thread: the earlier setting, whose Hessians from the third on
+are one ulp from the first two), and without either (`codeml._deterministic`
+replaced by a null context).  Prints, per case and mode, the time of a
+Hessian (the first, a process's warm-up, included), the largest
+difference between rounds and whether they are bit for bit the same,
+then the operations that PyTorch's deterministic mode reports
 as having no deterministic implementation (its warn-only alerts) in one
 more Hessian of each case.  With OUT.npz, the first round of each case
-under the deterministic algorithms (this process's first Hessian of the
-case) is saved there; with PREV.npz too, each is compared with PREV's,
-another process's, bit for bit.  Needs one CUDA card."""
+under the deterministic algorithms is saved there; with PREV.npz too,
+each is compared with PREV's, another process's, bit for bit.  Needs one
+CUDA card."""
 import contextlib
 import os
 import sys
@@ -46,20 +50,30 @@ def main() -> int:
     names, rows, _, _, topo = cs.simulate_nuc(torch, rng, 30, 3000, "cuda")
     nuc = seqio.pack(seqio.Alignment(names, rows, seqio.BASE_SEQ))
     clean, ctopo, gapped = cs.simulate_m0(torch, rng, ns=32, ncod=4096)
+    # the codons first: the process's first Hessians, the multithreaded
+    # backward first among the modes
     cases = []
-    for tag, spec in (("HKY85", baseml.BasemlSpec(model="HKY85")),
-                      ("HKY85 + G5", baseml.BasemlSpec(
-                          model="HKY85", ncatG=5, alpha=0.5))):
-        neg, _, x0, _ = baseml.make_objective(nuc, topo, spec, device="cuda")
-        cases.append((f"nucleotides {tag}", neg, np.asarray(x0, float)))
     for tag, data in (("clean", clean), ("gapped", gapped)):
         neg, _, _, x0, _, _ = codeml.make_codon_objective(
             data, ctopo, codeml.CodemlSpec(NSsites=2, codonf="F3x4"),
             device="cuda")
         cases.append((f"codons M2a {tag}", neg, np.asarray(x0, float)))
+    for tag, spec in (("HKY85", baseml.BasemlSpec(model="HKY85")),
+                      ("HKY85 + G5", baseml.BasemlSpec(
+                          model="HKY85", ncatG=5, alpha=0.5))):
+        neg, _, x0, _ = baseml.make_objective(nuc, topo, spec, device="cuda")
+        cases.append((f"nucleotides {tag}", neg, np.asarray(x0, float)))
     card = torch.cuda.get_device_name(0)
+    det = codeml._deterministic
+
+    @contextlib.contextmanager
+    def multithreaded():
+        with det(), torch.autograd.set_multithreading_enabled(True):
+            yield
     for name, neg, x in cases:
-        for how, ctx in (("deterministic", codeml._deterministic),
+        for how, ctx in (("deterministic, multithreaded backward",
+                          multithreaded),
+                         ("deterministic", det),
                          ("default", contextlib.nullcontext)):
             real, codeml._deterministic = codeml._deterministic, ctx
             try:
